@@ -1,0 +1,13 @@
+"""deepchem_tpu_torch: the PyTorch and CUDA port of ``deepchem_tpu``.
+
+Plain tensor code is PyTorch; the JAX package's Pallas kernels are CUDA
+kernels written for Hopper (``csrc/``), built at first use
+(``kernels/build.py``).  Entry points run on the current CUDA device unless
+the caller passes ``device='cpu'``.
+"""
+
+from deepchem_tpu_torch.data import NumpyDataset
+from deepchem_tpu_torch.feat import PagtnMolGraphFeaturizer
+from deepchem_tpu_torch.models import PagtnModel
+
+__all__ = ['NumpyDataset', 'PagtnMolGraphFeaturizer', 'PagtnModel']

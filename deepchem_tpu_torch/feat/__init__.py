@@ -1,0 +1,8 @@
+from deepchem_tpu_torch.feat.base import MolecularFeaturizer
+from deepchem_tpu_torch.feat.graph_data import (BatchGraphData, GraphData,
+                                                bucket_caps, pad_graph_batch)
+from deepchem_tpu_torch.feat.molecule_featurizers import \
+    PagtnMolGraphFeaturizer
+
+__all__ = ['MolecularFeaturizer', 'GraphData', 'BatchGraphData',
+           'pad_graph_batch', 'bucket_caps', 'PagtnMolGraphFeaturizer']

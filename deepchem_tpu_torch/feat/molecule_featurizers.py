@@ -1,0 +1,84 @@
+"""Molecule featurizers."""
+
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+
+from deepchem_tpu_torch.chem import Molecule
+from deepchem_tpu_torch.feat import feature_utils as fu
+from deepchem_tpu_torch.feat.base import MolecularFeaturizer
+from deepchem_tpu_torch.feat.graph_data import GraphData
+
+
+class PagtnMolGraphFeaturizer(MolecularFeaturizer):
+    """PAGTN graph featurizer: 49-dim atom one-hots and 38-dim
+    shortest-path pair features on the complete graph, self-pairs
+    included (n^2 edges for n atoms).
+
+    Pair features: for each of the first ``max_length`` bonds on the BFS
+    shortest path, bond type (4) + conjugated + in ring; then same-ring;
+    then a one-hot of the path length (``max_length + 1`` means longer or
+    disconnected).
+    """
+
+    def __init__(self, max_length: int = 5):
+        self.max_length = max_length
+        self.SYMBOLS = ['B', 'C', 'N', 'O', 'S', 'F', 'Si', 'P', 'Cl', 'Br',
+                        'Mg', 'Na', 'Ca', 'Fe', 'As', 'Al', 'I', 'Li', 'K',
+                        'Unknown']
+
+    def _featurize(self, mol: Molecule) -> GraphData:
+        n = mol.num_atoms
+        atom_feats = []
+        for a in mol.atoms:
+            f = (fu.one_hot_encode(a.symbol, self.SYMBOLS[:-1], True)
+                 + fu.one_hot_encode(a.degree, list(range(11)), False)
+                 + fu.one_hot_encode(a.formal_charge,
+                                     [-2, -1, 0, 1, 2], True)
+                 + fu.one_hot_encode(a.total_hs, [0, 1, 2, 3, 4], True)
+                 + fu.get_atom_hybridization_one_hot(a, include_unknown_set=True)
+                 + [float(a.is_aromatic), a.mass * 0.01])
+            atom_feats.append(f)
+        atom_feats = np.asarray(atom_feats, dtype=np.float32)
+        rings = mol.rings()
+        src, dst, efeats = [], [], []
+        for i in range(n):
+            prev = {i: (-1, None)}
+            dq = deque([i])
+            while dq:
+                u = dq.popleft()
+                for b in mol.atom_bonds(u):
+                    v = b.other(u)
+                    if v not in prev:
+                        prev[v] = (u, b)
+                        dq.append(v)
+            for j in range(n):
+                src.append(i)
+                dst.append(j)
+                pathvec = []
+                path_bonds = []
+                u = j
+                ok = j in prev
+                while ok and u != i:
+                    pu, b = prev[u]
+                    path_bonds.append(b)
+                    u = pu
+                plen = len(path_bonds)
+                for k in range(self.max_length):
+                    if k < plen:
+                        b = path_bonds[-1 - k]
+                        pathvec += fu.get_bond_type_one_hot(b) + [
+                            float(b.is_conjugated), float(b.in_ring)]
+                    else:
+                        pathvec += [0.0] * 6
+                same_ring = any(i in r and j in r for r in rings)
+                dist_onehot = fu.one_hot_encode(
+                    min(plen, self.max_length + 1) if ok else
+                    self.max_length + 1,
+                    list(range(self.max_length + 2)), False)
+                efeats.append(pathvec + [float(same_ring)] + dist_onehot)
+        ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
+        return GraphData(atom_feats, ei,
+                         np.asarray(efeats, dtype=np.float32))

@@ -1,0 +1,94 @@
+"""Build the package's CUDA sources into shared libraries and load them.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
+its own by ``nvcc`` into ``build/kernels/<name>-<hash>.so`` beside the
+package, where ``<hash>`` covers the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  The library is loaded
+with ``ctypes``; the wrapper of each kernel declares its entry's
+``argtypes``.  Beside each library, ``<name>-<hash>.log`` keeps nvcc's
+output, with ptxas's register and spill report.  Nothing is compiled when
+this module is imported.
+
+    python -m deepchem_tpu_torch.kernels.build     # build every kernel
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / 'csrc'
+BUILD_DIR = PACKAGE_DIR.parent / 'build' / 'kernels'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v']
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def kernel_names() -> List[str]:
+    return sorted(p.stem for p in CSRC_DIR.glob('*.cu'))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    candidates = [os.path.join(CUDA_HOME, 'bin', 'nvcc')] if CUDA_HOME \
+        else []
+    candidates.append(shutil.which('nvcc') or '')
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError('nvcc not found: the CUDA toolkit is needed to '
+                       'build the kernels')
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f'{name}.cu'
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        h.update(header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
+
+
+def _compile(name: str, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+           str(CSRC_DIR / f'{name}.cu')]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f'nvcc failed for {name} '
+                           f'(exit {proc.returncode}):\n{proc.stdout}')
+    out.with_suffix('.log').write_text(proc.stdout)
+    os.replace(tmp, out)       # atomic: a reader never sees half a file
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, compiled on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        out = library_path(name)
+        if not out.exists():
+            _compile(name, out)
+        lib = ctypes.CDLL(str(out))
+        _loaded[name] = lib
+    return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from building ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix('.log').read_text()
+
+
+if __name__ == '__main__':
+    for kname in kernel_names():
+        load(kname)
+        print(f'{kname}:\n{build_log(kname)}')

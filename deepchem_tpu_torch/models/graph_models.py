@@ -1,0 +1,224 @@
+"""Graph models on the padded COO batch layout: the PAGTN slice.
+
+Counterparts of ``deepchem_tpu/models/graph_models.py``'s ``GraphModel``
+batching (single device), ``_heads``, ``PagtnLayer``, ``_PagtnModule`` and
+``PagtnModel``.  A batch of ``GraphData`` becomes fixed-shape padded
+arrays with masks (``feat/graph_data.py``), bucketed by node and edge
+quanta.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepchem_tpu_torch.data import NumpyDataset, pad_batch
+from deepchem_tpu_torch.feat.graph_data import BatchGraphData, bucket_caps
+from deepchem_tpu_torch.models.torch_model import TorchModel
+from deepchem_tpu_torch.ops import (csr_row_ptr, graph_pool,
+                                    segment_softmax_sorted, segment_sum)
+
+
+def dense(in_features: int, out_features: int,
+          generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """``nn.Linear`` initialised as flax's ``Dense``: the weight from a
+    normal truncated at two standard deviations with variance 1/fan_in
+    (``lecun_normal``), the bias zero."""
+    layer = nn.Linear(in_features, out_features)
+    # std of the truncated normal is 0.8796 of its parent's; flax rescales
+    std = (1.0 / in_features) ** 0.5 / .87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        layer.bias.zero_()
+    return layer
+
+
+class GraphModel(TorchModel):
+    """Pads ragged graph batches into bucketed static shapes for the
+    module.
+
+    Batches carry edge features and arrive sorted by edge destination, as
+    the CSR segment softmax needs; every other COO op is edge-order
+    invariant, so the sort changes nothing else.  The JAX ``GraphModel``
+    makes both a per-model switch (``uses_edge_features``,
+    ``sorts_edges_by_dst``); they come back with the first ported model
+    that needs the other value.
+    """
+
+    #: quanta for node/edge caps: padding waste vs number of shapes
+    node_quantum = 512
+    edge_quantum = 1024
+
+    def _pack_one(self, graphs: List, node_cap: int, edge_cap: int,
+                  num_graphs: int) -> List[np.ndarray]:
+        batch = BatchGraphData(graphs)
+        d = batch.pad(node_cap, edge_cap, num_graphs=num_graphs)
+        if 'edge_features' not in d:
+            raise ValueError('this model needs a featurizer that emits edge '
+                             'features')
+        perm = np.argsort(d['edge_index'][1], kind='stable')
+        return [d['node_features'], d['edge_index'][0, perm],
+                d['edge_index'][1, perm], d['graph_index'], d['node_mask'],
+                d['edge_mask'][perm], d['edge_features'][perm]]
+
+    def _graph_inputs(self, X_b: np.ndarray) -> List[np.ndarray]:
+        graphs = list(X_b)
+        batch = BatchGraphData(graphs)
+        node_cap, edge_cap = bucket_caps(batch.num_nodes + 1,
+                                         batch.num_edges,
+                                         self.node_quantum,
+                                         self.edge_quantum)
+        return self._pack_one(graphs, node_cap, edge_cap, self.batch_size)
+
+    def default_generator(self, dataset: NumpyDataset):
+        """Padded graph batches in dataset order.  A short last batch keeps
+        ``batch_size`` graph slots; its labels and weights are padded and
+        the ghost graphs' outputs are trimmed by ``predict``."""
+        for (X_b, y_b, w_b, _) in dataset.iterbatches(
+                batch_size=self.batch_size, deterministic=True):
+            n = len(X_b)
+            if n < self.batch_size:
+                _, y_b, w_b, _ = pad_batch(self.batch_size, np.zeros(n),
+                                           y_b, w_b, None)
+            yield (self._graph_inputs(X_b), [y_b], [w_b])
+
+
+def _heads(x_graph: torch.Tensor, head: nn.Linear, n_tasks: int,
+           n_classes: int, mode: str):
+    """Task heads shared by graph models: classification gives the class
+    probabilities and the logits ``[B, n_tasks, n_classes]``, regression
+    the values ``[B, n_tasks]``."""
+    out = head(x_graph)
+    if mode == 'classification':
+        logits = out.reshape(-1, n_tasks, n_classes)
+        return torch.softmax(logits, dim=-1), logits
+    return out
+
+
+class PagtnLayer(nn.Module):
+    """One Path-Augmented Graph Transformer layer (Chen et al. 2019,
+    arXiv:1905.12712) on COO segment ops.
+
+    Linear additive attention over incoming edges: each edge (u->v) scores
+    LeakyReLU(W_a [h_u ; e_uv]) per head, normalised with a segment softmax
+    over the destination node; messages are attention-weighted projections
+    of the same concatenation.  Edges must arrive sorted by destination.
+    """
+
+    def __init__(self, node_features: int, edge_features: int,
+                 hidden_features: int, n_heads: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden_features = hidden_features
+        self.n_heads = n_heads
+        pair = node_features + edge_features
+        width = n_heads * hidden_features
+        self.attn_hidden = dense(pair, width, generator)
+        self.attn = dense(width, n_heads, generator)
+        self.msg = dense(pair, width, generator)
+        self.out = dense(width, node_features, generator)
+
+    def forward(self, h, ef, esrc, edst, emask, row_ptr=None):
+        H, Fh = self.n_heads, self.hidden_features
+        pair = torch.cat([h[esrc], ef], dim=-1)
+        logits = self.attn(F.leaky_relu(self.attn_hidden(pair), 0.2))
+        alpha = segment_softmax_sorted(logits, edst, h.shape[0], mask=emask,
+                                       row_ptr=row_ptr)       # [E, H]
+        msg = self.msg(pair).reshape(-1, H, Fh)
+        weighted = msg * alpha[..., None] * emask[:, None, None]
+        agg = segment_sum(weighted.reshape(-1, H * Fh), edst, h.shape[0])
+        return F.gelu(self.out(agg), approximate='tanh')
+
+
+class _PagtnModule(nn.Module):
+    """The PAGTN network: embedding, ``num_layers`` PAGTN layers with a
+    residual to the embedding, a projection of ``[h ; node features]``,
+    sum pooling over each graph and the task heads."""
+
+    def __init__(self, n_tasks: int, n_classes: int, mode: str,
+                 num_graphs: int, node_features: int, edge_features: int,
+                 hidden_features: int = 32, output_node_features: int = 256,
+                 num_layers: int = 5, num_heads: int = 1,
+                 dropout: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_tasks, self.n_classes, self.mode = n_tasks, n_classes, mode
+        self.num_graphs = num_graphs
+        self.node_features, self.edge_features = node_features, edge_features
+        width = hidden_features * num_heads
+        self.embed = dense(node_features, width, generator)
+        self.layers = nn.ModuleList(
+            PagtnLayer(width, edge_features, hidden_features, num_heads,
+                       generator) for _ in range(num_layers))
+        self.dropout = nn.Dropout(dropout)
+        self.readout = dense(width + node_features, output_node_features,
+                             generator)
+        n_out = n_tasks * n_classes if mode == 'classification' else n_tasks
+        self.head = dense(output_node_features, n_out, generator)
+
+    def forward(self, nf, esrc, edst, gidx, nmask, emask, ef):
+        esrc, gidx = esrc.long(), gidx.long()
+        h0 = self.embed(nf)
+        h = F.leaky_relu(h0, 0.2)
+        row_ptr = csr_row_ptr(edst, nf.shape[0])     # shared by the layers
+        for layer in self.layers:
+            m = layer(h, ef, esrc, edst, emask, row_ptr)
+            # residual to the layer-0 embedding each round
+            h = self.dropout(F.leaky_relu(h0 + m, 0.2))
+        x = F.relu(self.readout(torch.cat([h, nf], dim=-1)))
+        g = graph_pool(x, gidx, self.num_graphs, nmask)
+        return _heads(g, self.head, self.n_tasks, self.n_classes, self.mode)
+
+
+class PagtnModel(GraphModel):
+    """Path-Augmented Graph Transformer Network for prediction, fed by
+    :class:`PagtnMolGraphFeaturizer` (atom one-hots plus shortest-path pair
+    features on the complete graph).
+
+    The module is built at construction from ``number_atom_features`` and
+    ``number_bond_features`` (the featurizer's 49 and 38 by default), with
+    parameters drawn from a ``torch.Generator`` seeded with ``seed``; load
+    trained flax parameters with :func:`params_from_flax`.
+    """
+
+    # complete-graph edges grow as n^2; a larger quantum keeps the number
+    # of padded shapes small
+    edge_quantum = 2048
+
+    def __init__(self, n_tasks: int, number_atom_features: int = 49,
+                 number_bond_features: int = 38, mode: str = 'regression',
+                 n_classes: int = 2, output_node_features: int = 256,
+                 hidden_features: int = 32, num_layers: int = 5,
+                 num_heads: int = 1, dropout: float = 0.1,
+                 batch_size: int = 16,
+                 device=None, seed: int = 0):
+        self.n_tasks = n_tasks
+        self.mode = mode
+        self.n_classes = n_classes
+        module = _PagtnModule(
+            n_tasks=n_tasks, n_classes=n_classes, mode=mode,
+            num_graphs=batch_size, node_features=number_atom_features,
+            edge_features=number_bond_features,
+            hidden_features=hidden_features,
+            output_node_features=output_node_features,
+            num_layers=num_layers, num_heads=num_heads, dropout=dropout,
+            generator=torch.Generator().manual_seed(seed))
+        output_types = (['prediction', 'loss'] if mode == 'classification'
+                        else ['prediction'])
+        super().__init__(module, output_types=output_types,
+                         batch_size=batch_size, device=device)
+
+    def build(self, sample_inputs: Sequence[torch.Tensor]) -> None:
+        nf, ef = sample_inputs[0], sample_inputs[-1]
+        want = (self.module.node_features, self.module.edge_features)
+        if (nf.shape[-1], ef.shape[-1]) != want:
+            raise ValueError(
+                f'batch has {nf.shape[-1]} atom and {ef.shape[-1]} pair '
+                f'features; the model was built for {want[0]} and '
+                f'{want[1]}')
+        super().build(sample_inputs)
