@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py
 
-Phases, one line each:
+Phases:
   1. device  -- the card's name and power limit; TF32 off for matmuls and
                 convolutions, so the card computes in full float32.
-  2. build   -- compiles every kernel under deepchem_tpu_torch/csrc/ and
-                prints ptxas's report.
-  3. kernel  -- each kernel against its plain PyTorch version on the card,
-                on the inputs the main path hands it, a wide case and edge
-                cases: max abs error, kernel, plain and library times,
-                bytes bound.
-  4. main    -- PagtnModel(n_tasks=12, mode='classification') at its
+  2. build   -- compiles every kernel under deepchem_tpu_torch/csrc/, one
+                nvcc for each source, all at once, and prints ptxas's
+                report.
+  3. kernel  -- each kernel against its plain PyTorch version on the card:
+                P1 csr_segment_softmax and P3 csr_segment_sum on the inputs
+                the model hands them, P2 fused_gather_segment_sum at the
+                shapes of scripts/bench_pallas_csr.py, plus wide and edge
+                cases.  Per case: max abs error, a bit-identical repeat,
+                kernel, plain and library times (host-clock ms a call),
+                the kernel's device µs a launch (profiler), bound.  Then
+                P1's backward against autograd through its plain version,
+                and P2's own path: one call per bench shape, its launches
+                counted.
+  4. serve   -- PagtnModel(n_tasks=12, mode='classification') at its
                 default widths, seeded random weights, answers requests of
                 1, 16 and 31 molecules with predict_on_batch; the outputs
                 are checked and held against the same model on the CPU, and
-                the kernel launch counts are read.
-  5. kernels -- one JSON line with each kernel's numbers.
+                P1's and P3's launches are read.
+  5. train   -- the same model with dropout 0.1 fits the 48 molecules with
+                seeded 0/1 labels for 4 epochs (12 steps of 16); losses,
+                step-1 gradients and launches are checked.  A dropout-free
+                copy is held against the CPU, and a fixed batch must
+                overfit.
+  6. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -25,6 +37,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -67,8 +80,15 @@ SMILES = [
     'Cc1ccc(cc1)-c1cc(nn1-c1ccc(cc1)S(N)(=O)=O)C(F)(F)F',
 ]
 REQUESTS = (1, 16, 31)          # molecules per predict_on_batch request
-KERNEL_ATOL = 1e-6              # same f32 inputs, another summation order
+# scripts/bench_pallas_csr.py:76-78, (nodes, edges, features)
+P2_BENCH_SHAPES = [(2048, 4096, 64), (2048, 4096, 256),
+                   (8192, 16384, 256), (8192, 16384, 512),
+                   (16384, 32768, 512)]
+KERNEL_ATOL = 1e-6              # P1: same f32 inputs, another summation order
+SUM_RTOL = 1e-5                 # P3, P2: atol 1e-5 * max(1, max |out|)
 CPU_ATOL = 1e-4                 # whole model, f32, another summation order
+GRAD_ATOL = 1e-5                # step-1 gradients, card against the CPU
+TRAIN_RTOL = 1e-4               # 12-step loss trajectory, card against CPU
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM published peaks
 F32_OPS_PER_S = 67e12
 
@@ -96,6 +116,47 @@ def time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, kernel: str, calls: int = 20) -> float:
+    """Device µs per launch of the kernel whose name holds ``kernel``, from
+    ``torch.profiler`` over ``calls`` calls of ``fn``; each call must
+    launch it once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key \
+                and evt.device_type == torch.autograd.DeviceType.CUDA:
+            total += evt.self_device_time_total
+            count += evt.count
+    check(count == calls, f'{kernel}: {count} launches profiled, not '
+          f'{calls}')
+    return total / count
+
+
+def bound(nbytes: int, ops: int):
+    """The least time for the work, ms, and what sets it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def max_err(a, b) -> float:
+    return (a - b).abs().max().item() if a.numel() else 0.0
+
+
+def sum_tol(ref) -> float:
+    return SUM_RTOL * max(1.0, ref.abs().max().item() if ref.numel()
+                          else 0.0)
+
+
 def library_softmax(logits, row_ptr):
     """The segment softmax as one PyTorch library call, for comparison
     only: ``torch.sparse.softmax`` over a sparse ``[N, E, H]`` tensor whose
@@ -113,16 +174,34 @@ def library_softmax(logits, row_ptr):
     return torch.sparse.softmax(coo, dim=1).values()
 
 
+def library_segment_sum(msgs, row_ptr):
+    """P3's function as one library call, for comparison only."""
+    import torch
+    return torch.segment_reduce(msgs, 'sum', offsets=row_ptr.long(), axis=0)
+
+
+def library_neighbor_sum(h, src, row_ptr):
+    """P2's function as one library call, for comparison only: a CSR
+    adjacency times ``h``; the CSR tensor is built inside the timed call."""
+    import torch
+    E = src.shape[0]
+    adj = torch.sparse_csr_tensor(
+        row_ptr, src, torch.ones(E, dtype=h.dtype, device=h.device),
+        (row_ptr.shape[0] - 1, h.shape[0]), check_invariants=False)
+    return torch.sparse.mm(adj, h)
+
+
 def softmax_case(name, logits, row_ptr):
-    """Kernel and library call against the plain version on the card, with
-    times and bound."""
+    """P1 kernel and library call against the plain version on the card,
+    with times and bound."""
     import torch
     from deepchem_tpu_torch.ops.csr_segment import (
         csr_segment_softmax, csr_segment_softmax_reference)
     y = csr_segment_softmax(logits, row_ptr)
+    again = csr_segment_softmax(logits, row_ptr)
     torch.cuda.synchronize()
     y_ref = csr_segment_softmax_reference(logits, row_ptr)
-    err = (y - y_ref).abs().max().item() if y.numel() else 0.0
+    err = max_err(y, y_ref)
     # the library gives NaN where a segment's head has no finite logit;
     # the kernel, like the TPU's, gives 0 there
     y_lib = library_softmax(logits, row_ptr)
@@ -134,43 +213,181 @@ def softmax_case(name, logits, row_ptr):
     N = row_ptr.shape[0] - 1
     # each input read once, the output written once; ~8 operations an
     # element (max, subtract, exp, add; subtract, exp, divide, rescale)
-    nbytes = 2 * E * H * 4 + (N + 1) * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 8 * E * H / F32_OPS_PER_S * 1e3
-    res = {'case': name, 'E': E, 'H': H, 'N': N, 'max_abs_err': err,
+    bound_ms, bound_by = bound(2 * E * H * 4 + (N + 1) * 4, 8 * E * H)
+    res = {'kernel': 'csr_segment_softmax', 'case': name, 'E': E, 'H': H,
+           'N': N, 'max_abs_err': err,
+           'repeat_identical': torch.equal(y, again),
            'ms': time_ms(lambda: csr_segment_softmax(logits, row_ptr)),
+           'device_us': device_us(
+               lambda: csr_segment_softmax(logits, row_ptr),
+               'csr_segment_softmax_kernel'),
            'plain_ms': time_ms(
                lambda: csr_segment_softmax_reference(logits, row_ptr)),
            'library_err': lib_err,
            'library_ms': time_ms(lambda: library_softmax(logits, row_ptr)),
-           'bound_ms': max(bytes_ms, ops_ms),
-           'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations'}
+           'bound_ms': bound_ms, 'bound_by': bound_by}
     print(f'phase 3 kernel {json.dumps(res)}', flush=True)
     check(err <= KERNEL_ATOL, f'{name}: kernel error {err} > {KERNEL_ATOL}')
     check(lib_err <= KERNEL_ATOL,
           f'{name}: library error {lib_err} > {KERNEL_ATOL}')
+    check(res['repeat_identical'], f'{name}: a repeat differs')
     return res
 
 
-def main_path_softmax_inputs(model, molecules):
-    """The ``(logits, row_ptr)`` that PAGTN's first layer hands the kernel
-    in one ``predict_on_batch`` of ``molecules``, recorded where
-    ``segment_softmax_sorted`` calls the kernel's wrapper."""
-    from deepchem_tpu_torch.ops import segment
-    kernel, seen = segment.csr_segment_softmax, []
+def softmax_grad_case(name, logits, row_ptr, seed=0):
+    """P1's Function (kernel forward, P3 in the backward) against autograd
+    through the plain version, both on the card."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch.ops.csr_segment import (
+        csr_segment_softmax, csr_segment_softmax_reference)
+    w = torch.from_numpy(np.random.RandomState(seed).randn(
+        *logits.shape).astype(np.float32)).to(logits.device)
+    grads = []
+    for fn in (csr_segment_softmax, csr_segment_softmax_reference):
+        x = logits.detach().clone().requires_grad_()
+        (fn(x, row_ptr) * w).sum().backward()
+        grads.append(x.grad)
+    err, tol = max_err(*grads), sum_tol(grads[1])
+    res = {'kernel': 'csr_segment_softmax backward', 'case': name,
+           'max_abs_err': err, 'finite': bool(torch.isfinite(grads[0]).all())}
+    print(f'phase 3 kernel {json.dumps(res)}', flush=True)
+    check(res['finite'], f'{name}: finite gradient')
+    check(err <= tol, f'{name}: backward error {err} > {tol}')
+    return res
 
-    def record(logits, row_ptr):
-        seen.append((logits.clone(), row_ptr.clone()))
-        return kernel(logits, row_ptr)
 
-    segment.csr_segment_softmax = record
+def sum_case(name, msgs, row_ptr):
+    """P3 kernel and library call against the plain version on the card."""
+    import torch
+    from deepchem_tpu_torch.ops.csr_segment import (
+        csr_segment_sum, csr_segment_sum_reference)
+    out = csr_segment_sum(msgs, row_ptr)
+    again = csr_segment_sum(msgs, row_ptr)
+    torch.cuda.synchronize()
+    ref = csr_segment_sum_reference(msgs, row_ptr)
+    err, tol = max_err(out, ref), sum_tol(ref)
+    used = int(row_ptr[-1])                   # edges past row_ptr[N] unread
+    lib_in = msgs[:used]
+    lib_err = max_err(library_segment_sum(lib_in, row_ptr), ref)
+    E, F = msgs.shape
+    N = row_ptr.shape[0] - 1
+    bound_ms, bound_by = bound(4 * (used * F + N * F + N + 1), used * F)
+    res = {'kernel': 'csr_segment_sum', 'case': name, 'E': E, 'F': F,
+           'N': N, 'max_abs_err': err, 'tol': tol,
+           'repeat_identical': torch.equal(out, again),
+           'ms': time_ms(lambda: csr_segment_sum(msgs, row_ptr)),
+           'device_us': device_us(lambda: csr_segment_sum(msgs, row_ptr),
+                                  'csr_segment_sum_kernel'),
+           'plain_ms': time_ms(
+               lambda: csr_segment_sum_reference(msgs, row_ptr)),
+           'library_err': lib_err,
+           'library_ms': time_ms(
+               lambda: library_segment_sum(lib_in, row_ptr)),
+           'bound_ms': bound_ms, 'bound_by': bound_by}
+    print(f'phase 3 kernel {json.dumps(res)}', flush=True)
+    check(err <= tol, f'{name}: kernel error {err} > {tol}')
+    check(lib_err <= tol, f'{name}: library error {lib_err} > {tol}')
+    check(res['repeat_identical'], f'{name}: a repeat differs')
+    return res
+
+
+def gather_case(name, h, src, row_ptr):
+    """P2 kernel and library call against the plain version on the card."""
+    import torch
+    from deepchem_tpu_torch.ops.csr_segment import (
+        csr_neighbor_sum_reference, fused_gather_segment_sum)
+    out = fused_gather_segment_sum(h, src, row_ptr)
+    again = fused_gather_segment_sum(h, src, row_ptr)
+    torch.cuda.synchronize()
+    ref = csr_neighbor_sum_reference(h, src, row_ptr)
+    err, tol = max_err(out, ref), sum_tol(ref)
+    lib_err = max_err(library_neighbor_sum(h, src, row_ptr), ref)
+    Nh, F = h.shape
+    N = row_ptr.shape[0] - 1
+    used = int(row_ptr[-1])
+    rows = src[:used].unique().numel()        # rows of h the sums read
+    rest = 4 * (used + N * F + N + 1)         # src, out, row_ptr
+    bound_ms, bound_by = bound(4 * rows * F + rest, used * F)
+    res = {'kernel': 'fused_gather_segment_sum', 'case': name,
+           'N_h': Nh, 'E': src.shape[0], 'F': F, 'N': N,
+           'max_abs_err': err, 'tol': tol,
+           'repeat_identical': torch.equal(out, again),
+           'ms': time_ms(lambda: fused_gather_segment_sum(h, src, row_ptr)),
+           'device_us': device_us(
+               lambda: fused_gather_segment_sum(h, src, row_ptr),
+               'fused_gather_segment_sum_kernel'),
+           'plain_ms': time_ms(
+               lambda: csr_neighbor_sum_reference(h, src, row_ptr)),
+           'library_err': lib_err,
+           'library_ms': time_ms(
+               lambda: library_neighbor_sum(h, src, row_ptr)),
+           'bound_ms': bound_ms, 'bound_by': bound_by,
+           # each edge reading its row of h again, with no reuse
+           'bound_no_reuse_ms': bound(4 * used * F + rest, used * F)[0]}
+    print(f'phase 3 kernel {json.dumps(res)}', flush=True)
+    check(err <= tol, f'{name}: kernel error {err} > {tol}')
+    check(lib_err <= tol, f'{name}: library error {lib_err} > {tol}')
+    check(res['repeat_identical'], f'{name}: a repeat differs')
+    return res
+
+
+def recorded(module, attr, run):
+    """Run ``run()`` with ``module.attr`` wrapped to record copies of its
+    arguments; return them."""
+    fn, seen = getattr(module, attr), []
+
+    def record(*args):
+        seen.append(tuple(a.detach().clone() for a in args))
+        return fn(*args)
+
+    # a wrapper counts its launches through its module's name for it, so
+    # the stand-in shares the wrapper's attributes (``launches``)
+    record.__dict__ = fn.__dict__
+    setattr(module, attr, record)
     try:
-        model.predict_on_batch(molecules)
+        run()
     finally:
-        segment.csr_segment_softmax = kernel
-    check(len(seen) == len(model.module.layers),
-          f'{len(seen)} softmax calls for {len(model.module.layers)} layers')
-    return seen[0]
+        setattr(module, attr, fn)
+    return seen
+
+
+def bench_graph(rng, n_nodes, n_edges, feat, dev):
+    """scripts/bench_pallas_csr.py's graph: random src and dst, sorted by
+    dst; h uniform in [0, 1)."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch.ops import edges_to_csr
+    src = rng.randint(0, n_nodes, n_edges).astype(np.int32)
+    dst = rng.randint(0, n_nodes, n_edges).astype(np.int32)
+    perm, row_ptr = edges_to_csr(dst, n_nodes)
+    h = rng.rand(n_nodes, feat).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (h, src[perm], row_ptr)]
+
+
+def launch_counts():
+    from deepchem_tpu_torch.ops import (csr_segment_softmax, csr_segment_sum,
+                                        fused_gather_segment_sum)
+    return {'csr_segment_softmax': csr_segment_softmax.launches,
+            'csr_segment_sum': csr_segment_sum.launches,
+            'fused_gather_segment_sum': fused_gather_segment_sum.launches}
+
+
+def reset_launch_counts():
+    from deepchem_tpu_torch.ops import (csr_segment_softmax, csr_segment_sum,
+                                        fused_gather_segment_sum)
+    for fn in (csr_segment_softmax, csr_segment_sum,
+               fused_gather_segment_sum):
+        fn.launches = 0
+
+
+def step1_grads(store):
+    """A fit callback that keeps a copy of every gradient after step 1."""
+    def grab(model, step):
+        if step == 1:
+            store.update({n: p.grad.detach().cpu().clone()
+                          for n, p in model.module.named_parameters()})
+    return grab
 
 
 def main() -> int:
@@ -184,6 +401,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     import numpy as np
+    warnings.filterwarnings('ignore', message='Sparse CSR tensor support')
 
     # -- 1. device --------------------------------------------------------
     smi = subprocess.run(
@@ -201,18 +419,23 @@ def main() -> int:
     # -- 2. build ---------------------------------------------------------
     from deepchem_tpu_torch.kernels import build
     t0 = time.perf_counter()
+    build.build_all()
     for kname in build.kernel_names():
         build.load(kname)
     print(f'phase 2 build: {len(build.kernel_names())} kernel(s) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
+    check(len(build.kernel_names()) == 3, 'three kernels to build')
     for kname in build.kernel_names():
         ptxas = [ln.strip() for ln in build.build_log(kname).splitlines()
                  if 'registers' in ln or 'spill' in ln]
         print(f'phase 2 build {kname}: {" | ".join(ptxas)}', flush=True)
 
     # -- featurize the main path's molecules (host work) -------------------
-    from deepchem_tpu_torch import PagtnModel, PagtnMolGraphFeaturizer
-    from deepchem_tpu_torch.ops import NEG, csr_segment_softmax
+    from deepchem_tpu_torch import (NumpyDataset, PagtnModel,
+                                    PagtnMolGraphFeaturizer)
+    from deepchem_tpu_torch.models import graph_models
+    from deepchem_tpu_torch.ops import (NEG, csr_segment, csr_segment_softmax,
+                                        fused_gather_segment_sum, segment)
     t0 = time.perf_counter()
     X = PagtnMolGraphFeaturizer().featurize(SMILES)
     sizes = [g.num_nodes for g in X if hasattr(g, 'num_nodes')]
@@ -220,17 +443,37 @@ def main() -> int:
     check(min(sizes) >= 5 and max(sizes) <= 40, 'molecules of 5-40 atoms')
     print(f'featurized {len(X)} molecules of {min(sizes)}-{max(sizes)} '
           f'heavy atoms in {time.perf_counter() - t0:.2f} s', flush=True)
+    labels = np.random.RandomState(0).randint(0, 2, (len(X), 12)).astype(
+        np.float32)
+    weights = np.ones_like(labels)
     model = PagtnModel(n_tasks=12, mode='classification', device=dev,
                        seed=0)
+    n_layers = len(model.module.layers)
 
-    # -- 3. kernel against its plain version ------------------------------
-    cases = [softmax_case('pagtn_batch16_layer0',
-                          *main_path_softmax_inputs(model, X[1:17]))]
+    # -- 3. kernels against their plain versions --------------------------
+    # the inputs the model hands the wrappers in one batch of 16
+    batch16 = X[1:17]
+    softmax_in = recorded(segment, 'csr_segment_softmax',
+                          lambda: model.predict_on_batch(batch16))
+    agg_in = recorded(graph_models, 'csr_segment_sum',
+                      lambda: model.predict_on_batch(batch16))
+    probe = PagtnModel(n_tasks=12, mode='classification', device=dev,
+                       seed=0)
+    backward_in = recorded(csr_segment, 'csr_segment_sum',
+                           lambda: probe.fit_on_batch(
+                               batch16, labels[1:17], weights[1:17]))
+    del probe
+    for what, seen in (('softmax', softmax_in), ('aggregation', agg_in),
+                       ('softmax backward sum', backward_in)):
+        check(len(seen) == n_layers,
+              f'{len(seen)} {what} calls for {n_layers} layers')
+
+    softmax_cases = [softmax_case('pagtn_batch16_layer0', *softmax_in[0])]
     rng = np.random.RandomState(0)
     E, H, N = 16384, 8, 2048
     dst = np.sort(rng.randint(0, N, E))
     row_ptr = np.searchsorted(dst, np.arange(N + 1)).astype(np.int32)
-    cases.append(softmax_case(
+    softmax_cases.append(softmax_case(
         'wide_E16384_H8',
         torch.from_numpy(rng.randn(E, H).astype(np.float32)).to(dev),
         torch.from_numpy(row_ptr).to(dev)))
@@ -241,21 +484,77 @@ def main() -> int:
     rp = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     edge_logits[rp[4]:rp[5]] = NEG
     edge_logits[rp[2]:rp[3], 2] = -np.inf
-    edge = softmax_case('edge_segments',
-                        torch.from_numpy(edge_logits).to(dev),
-                        torch.from_numpy(rp).to(dev))
-    cases.append(edge)
-    y = csr_segment_softmax(torch.from_numpy(edge_logits).to(dev),
-                            torch.from_numpy(rp).to(dev)).cpu().numpy()
+    edge_l, edge_rp = (torch.from_numpy(edge_logits).to(dev),
+                       torch.from_numpy(rp).to(dev))
+    softmax_cases.append(softmax_case('edge_segments', edge_l, edge_rp))
+    y = csr_segment_softmax(edge_l, edge_rp).cpu().numpy()
     check(np.allclose(y[rp[4]:rp[5]], 1 / 7, atol=KERNEL_ATOL),
           'an all-NEG segment gives 1/count')
     check(np.all(y[rp[2]:rp[3], 2] == 0), 'an all -inf head gives 0')
     check(np.allclose(y[rp[1]], 1.0), 'a one-edge segment gives 1')
+    backward_cases = [
+        softmax_grad_case('pagtn_batch16_layer0', *softmax_in[0]),
+        softmax_grad_case('edge_segments', edge_l, edge_rp)]
 
-    # -- 4. main path -----------------------------------------------------
+    sum_cases = [sum_case('pagtn_batch16_aggregation', *agg_in[0]),
+                 sum_case('pagtn_batch16_softmax_backward',
+                          *backward_in[0])]
+    check(tuple(agg_in[0][0].shape) == (6144, 32)
+          and tuple(backward_in[0][0].shape) == (6144, 1),
+          'P3 shapes on the path: [6144, 32] and [6144, 1]')
+    E, F, N = 32768, 512, 8192
+    wide_rp = np.searchsorted(np.sort(rng.randint(0, N, E)),
+                              np.arange(N + 1)).astype(np.int32)
+    sum_cases.append(sum_case(
+        'wide_E32768_F512',
+        torch.from_numpy(rng.randn(E, F).astype(np.float32)).to(dev),
+        torch.from_numpy(wide_rp).to(dev)))
+    # the segments of the softmax edge case, 5 more edges past row_ptr[N]
+    E_edge = int(rp[-1]) + 5
+    for F in (37, 3):
+        sum_cases.append(sum_case(
+            f'edge_segments_F{F}',
+            torch.from_numpy(rng.randn(E_edge, F).astype(np.float32)).to(dev),
+            edge_rp))
+    flat = torch.from_numpy(rng.randn(E_edge * 8 + 1).astype(np.float32))
+    sum_cases.append(sum_case('edge_segments_F8_unaligned',
+                              flat.to(dev)[1:].view(E_edge, 8), edge_rp))
+
+    gather_cases = [gather_case(f'bench_N{n}_E{e}_F{f}',
+                                *bench_graph(rng, n, e, f, dev))
+                    for n, e, f in P2_BENCH_SHAPES]
+    # tests/test_pallas_ops.py test_empty_segments: edges into 3 and 7 only
+    h = torch.ones(16, 8, device=dev)
+    src = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)
+    empty_rp = torch.tensor([0, 0, 0, 0, 2, 2, 2, 2] + [3] * 9,
+                            dtype=torch.int32, device=dev)
+    gather_cases.append(gather_case('empty_segments', h, src, empty_rp))
+    out = fused_gather_segment_sum(h, src, empty_rp).cpu().numpy()
+    check(np.allclose(out[3], 2.0) and np.allclose(out[7], 1.0)
+          and np.all(out[[0, 1, 2, 4, 5, 6] + list(range(8, 16))] == 0),
+          'P2 sums two rows into node 3, one into 7, zeros elsewhere')
+
+    # P2's path: its entry point once at each bench shape
+    p2_inputs = [bench_graph(rng, n, e, f, dev)
+                 for n, e, f in P2_BENCH_SHAPES]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        p2_outs = [fused_gather_segment_sum(*a) for a in p2_inputs]
+    torch.cuda.synchronize()
+    p2_path = launch_counts()
+    print(f'phase 3 p2 path: {len(p2_outs)} calls at the bench shapes, '
+          f'launches {p2_path}', flush=True)
+    check(p2_path['fused_gather_segment_sum'] == len(P2_BENCH_SHAPES),
+          'P2 launched once per bench shape')
+    for (h, _, rp_), o in zip(p2_inputs, p2_outs):
+        check(tuple(o.shape) == (rp_.shape[0] - 1, h.shape[1])
+              and bool(torch.isfinite(o).all()), 'P2 outputs finite')
+
+    # -- 4. serve ---------------------------------------------------------
     model.predict_on_batch(X[1:17])             # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
-    csr_segment_softmax.launches = 0
+    reset_launch_counts()
     outs, request_ms, n_batches, start = [], [], 0, 0
     for n in REQUESTS:
         t0 = time.perf_counter()
@@ -263,14 +562,15 @@ def main() -> int:
         request_ms.append((time.perf_counter() - t0) * 1e3)
         n_batches += -(-n // model.batch_size)
         start += n
-    launches = csr_segment_softmax.launches
-    n_layers = len(model.module.layers)
-    print(f'phase 4 main: requests {list(REQUESTS)} molecules, '
+    serve = launch_counts()
+    print(f'phase 4 serve: requests {list(REQUESTS)} molecules, '
           f'{n_batches} batches, ms per request '
-          f'{[round(t, 3) for t in request_ms]}, csr_segment_softmax '
-          f'launches {launches}', flush=True)
-    check(launches == n_layers * n_batches,
-          f'{launches} launches != {n_layers} layers x {n_batches} batches')
+          f'{[round(t, 3) for t in request_ms]}, launches {serve}',
+          flush=True)
+    for k in ('csr_segment_softmax', 'csr_segment_sum'):
+        check(serve[k] == n_layers * n_batches,
+              f'{k}: {serve[k]} launches != {n_layers} layers x '
+              f'{n_batches} batches')
     cpu_model = PagtnModel(n_tasks=12, mode='classification', device='cpu')
     cpu_model.module.load_state_dict(
         {k: v.cpu() for k, v in model.module.state_dict().items()})
@@ -282,22 +582,124 @@ def main() -> int:
         ref = cpu_model.predict_on_batch(X[start:start + n])
         worst = max(worst, float(np.abs(out - ref).max()))
         start += n
-    print(f'phase 4 main: outputs [n, 12, 2], finite, rows sum to 1; max '
+    print(f'phase 4 serve: outputs [n, 12, 2], finite, rows sum to 1; max '
           f'abs diff against the CPU run {worst:.3g}', flush=True)
     check(worst <= CPU_ATOL, f'card vs CPU {worst} > {CPU_ATOL}')
 
-    # -- 5. kernels line --------------------------------------------------
-    main_case = cases[0]
-    print(json.dumps({'kernels': [{
-        'name': 'csr_segment_softmax', 'route': 'cuda',
-        'source': 'deepchem_tpu_torch/csrc/csr_segment_softmax.cu',
-        'replaces': 'deepchem_tpu/ops/pallas_segment.py:156',
-        'launches': launches,
-        'max_abs_err': max(c['max_abs_err'] for c in cases),
-        'ms': main_case['ms'], 'plain_ms': main_case['plain_ms'],
-        'bound_ms': main_case['bound_ms'],
-        'bound_by': main_case['bound_by'],
-        'library_ms': main_case['library_ms']}]}), flush=True)
+    # -- 5. train ---------------------------------------------------------
+    dataset = NumpyDataset(X, labels, weights)
+    trainer = PagtnModel(n_tasks=12, mode='classification', device=dev,
+                         seed=0, log_frequency=1)
+    grads1, losses, marks = {}, [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(dataset, nb_epoch=4, all_losses=losses,
+                callbacks=[step1_grads(grads1),
+                           lambda m, step: marks.append(time.perf_counter())])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train = launch_counts()
+    steps = trainer.get_global_step()
+    step_ms = np.diff([t0] + marks) * 1e3
+    print(f'phase 5 train: {steps} steps of {trainer.batch_size} molecules, '
+          f'{train_s * 1e3 / steps:.3f} ms a step; host ms per step '
+          f'{[round(float(t), 3) for t in step_ms]}; loss per step '
+          f'{[round(v, 5) for v in losses]}; launches {train}', flush=True)
+    check(steps == 12 and len(losses) == 12, '12 steps, 12 losses')
+    check(bool(np.all(np.isfinite(losses))), 'finite losses')
+    # a constant added to every logit of a segment leaves its softmax as
+    # it is, so attn.bias has an exact gradient of 0: only rounding moves it
+    shift = [n for n in grads1 if n.endswith('attn.bias')]
+    zero = [n for n, g in grads1.items()
+            if n not in shift and not g.abs().max() > 0]
+    check(len(grads1) == len(list(trainer.module.parameters())) and not zero,
+          f'every parameter gets a non-zero gradient on step 1; zero: {zero}')
+    print(f'phase 5 train: step 1 gave {len(grads1)} non-zero gradients; '
+          f'attn.bias, 0 by shift invariance, max |grad| '
+          f'{max(grads1[n].abs().max().item() for n in shift):.3g}',
+          flush=True)
+    check(train['csr_segment_softmax'] == n_layers * steps,
+          f'P1 launches {train["csr_segment_softmax"]} != {n_layers} a step')
+    check(train['csr_segment_sum'] == 2 * n_layers * steps,
+          f'P3 launches {train["csr_segment_sum"]} != {2 * n_layers} a step')
+
+    # a dropout-free copy on the card and on the CPU, from the same weights
+    copies, copy_losses, copy_grads = [], [], []
+    for device in (dev, 'cpu'):
+        m = PagtnModel(n_tasks=12, mode='classification', device=device,
+                       seed=0, dropout=0.0, log_frequency=1)
+        m.module.load_state_dict({k: v.to(device) for k, v in
+                                  model.module.state_dict().items()})
+        copy_losses.append([])
+        copy_grads.append({})
+        m.fit(dataset, nb_epoch=4, checkpoint_interval=0,
+              all_losses=copy_losses[-1],
+              callbacks=step1_grads(copy_grads[-1]))
+        copies.append(m)
+    grad_err = max((copy_grads[0][n] - g).abs().max().item()
+                   for n, g in copy_grads[1].items())
+    loss_rel = float(np.max(np.abs(np.subtract(*copy_losses))
+                            / np.abs(copy_losses[1])))
+    print(f'phase 5 train: dropout 0, card against CPU: step-1 gradients '
+          f'max abs diff {grad_err:.3g}, 12-step losses max rel diff '
+          f'{loss_rel:.3g}', flush=True)
+    check(grad_err <= GRAD_ATOL, f'step-1 gradients {grad_err} > '
+          f'{GRAD_ATOL}')
+    check(loss_rel <= TRAIN_RTOL, f'loss trajectory {loss_rel} > '
+          f'{TRAIN_RTOL}')
+
+    # one fixed batch of 16 at the JAX overfit test's rate
+    overfit = PagtnModel(n_tasks=12, mode='classification', device=dev,
+                         seed=0, learning_rate=0.003, log_frequency=1)
+    fixed = []
+    overfit.fit(NumpyDataset(X[:16], labels[:16], weights[:16]),
+                nb_epoch=50, checkpoint_interval=0, all_losses=fixed)
+    below = next((i + 1 for i, v in enumerate(fixed) if v < 0.9 * fixed[0]),
+                 None)
+    print(f'phase 5 train: one fixed batch, lr 0.003: loss {fixed[0]:.5f} '
+          f'at step 1, {min(fixed):.5f} at best, below 0.9 of the first '
+          f'at step {below}', flush=True)
+    check(below is not None, 'the loss falls below 0.9 of its first value '
+          'within 50 steps')
+
+    # -- 6. kernels line --------------------------------------------------
+    def entry(kname, cases, main_case, path_launches, **extra):
+        return {'name': kname, 'route': 'cuda',
+                'source': f'deepchem_tpu_torch/csrc/{kname}.cu',
+                'launches': sum(path_launches.values()),
+                'launches_by_path': path_launches,
+                'max_abs_err': max(c['max_abs_err'] for c in cases),
+                'ms': main_case['ms'], 'device_us': main_case['device_us'],
+                'plain_ms': main_case['plain_ms'],
+                'bound_ms': main_case['bound_ms'],
+                'bound_by': main_case['bound_by'],
+                'library_ms': main_case['library_ms'], **extra}
+
+    p1 = entry('csr_segment_softmax', softmax_cases, softmax_cases[0],
+               {'serve': serve['csr_segment_softmax'],
+                'train': train['csr_segment_softmax']},
+               replaces='deepchem_tpu/ops/pallas_segment.py:156',
+               backward={'route': 'torch.autograd.Function: dx = y * (dy - '
+                                  't[seg]), t from csr_segment_sum (cuda)',
+                         'max_abs_err': max(c['max_abs_err']
+                                            for c in backward_cases)})
+    p3 = entry('csr_segment_sum', sum_cases, sum_cases[0],
+               {'serve': serve['csr_segment_sum'],
+                'train': train['csr_segment_sum']},
+               replaces='deepchem_tpu/ops/pallas_segment.py:45')
+    # P2 has no model path: its row is its widest bench shape
+    p2 = entry('fused_gather_segment_sum', gather_cases,
+               gather_cases[len(P2_BENCH_SHAPES) - 1],
+               {'p2_bench_shapes': p2_path['fused_gather_segment_sum']},
+               replaces='deepchem_tpu/ops/pallas_segment.py:94')
+    print(json.dumps({'kernels': [
+        {k: e[k] for k in ('name', 'route', 'source', 'replaces', 'launches',
+                           'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                           'bound_by', 'library_ms')}
+        | {k: v for k, v in e.items() if k in ('device_us', 'launches_by_path',
+                                                'backward')}
+        for e in (p1, p3, p2)]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,8 @@ output, with ptxas's register and spill report.  Nothing is compiled when
 this module is imported.
 
     python -m deepchem_tpu_torch.kernels.build     # build every kernel
+
+:func:`build_all` starts one ``nvcc`` for each source at once.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
@@ -56,29 +58,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
 
 
-def _compile(name: str, out: Path) -> None:
+def _start(name: str, out: Path) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
     cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
            str(CSRC_DIR / f'{name}.cu')]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, out: Path, proc: subprocess.Popen) -> None:
+    log, _ = proc.communicate()
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f'nvcc failed for {name} '
-                           f'(exit {proc.returncode}):\n{proc.stdout}')
-    out.with_suffix('.log').write_text(proc.stdout)
+                           f'(exit {proc.returncode}):\n{log}')
+    out.with_suffix('.log').write_text(log)
     os.replace(tmp, out)       # atomic: a reader never sees half a file
+
+
+def build_all(names: Optional[List[str]] = None) -> None:
+    """Compile every missing library of ``names`` (default: all), one
+    ``nvcc`` per source, all started together."""
+    todo = [(n, library_path(n)) for n in (names or kernel_names())]
+    procs = [(n, out, _start(n, out)) for n, out in todo
+             if not out.exists()]
+    for n, out, proc in procs:
+        _finish(n, out, proc)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, compiled on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        out = library_path(name)
-        if not out.exists():
-            _compile(name, out)
-        lib = ctypes.CDLL(str(out))
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
 
@@ -89,6 +104,6 @@ def build_log(name: str) -> str:
 
 
 if __name__ == '__main__':
+    build_all()
     for kname in kernel_names():
-        load(kname)
         print(f'{kname}:\n{build_log(kname)}')

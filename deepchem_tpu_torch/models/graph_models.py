@@ -1,10 +1,10 @@
 """Graph models on the padded COO batch layout: the PAGTN slice.
 
 Counterparts of ``deepchem_tpu/models/graph_models.py``'s ``GraphModel``
-batching (single device), ``_heads``, ``PagtnLayer``, ``_PagtnModule`` and
-``PagtnModel``.  A batch of ``GraphData`` becomes fixed-shape padded
-arrays with masks (``feat/graph_data.py``), bucketed by node and edge
-quanta.
+batching (single device), ``_heads``, ``_gnn_loss_outputs``,
+``PagtnLayer``, ``_PagtnModule`` and ``PagtnModel``.  A batch of
+``GraphData`` becomes fixed-shape padded arrays with masks
+(``feat/graph_data.py``), bucketed by node and edge quanta.
 """
 
 from __future__ import annotations
@@ -18,9 +18,12 @@ from torch import nn
 
 from deepchem_tpu_torch.data import NumpyDataset, pad_batch
 from deepchem_tpu_torch.feat.graph_data import BatchGraphData, bucket_caps
+from deepchem_tpu_torch.metrics import to_one_hot
+from deepchem_tpu_torch.models.losses import L2Loss, SoftmaxCrossEntropy
+from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.models.torch_model import TorchModel
-from deepchem_tpu_torch.ops import (csr_row_ptr, graph_pool,
-                                    segment_softmax_sorted, segment_sum)
+from deepchem_tpu_torch.ops import (csr_row_ptr, csr_segment_sum, graph_pool,
+                                    segment_softmax_sorted)
 
 
 def dense(in_features: int, out_features: int,
@@ -75,17 +78,26 @@ class GraphModel(TorchModel):
                                          self.edge_quantum)
         return self._pack_one(graphs, node_cap, edge_cap, self.batch_size)
 
-    def default_generator(self, dataset: NumpyDataset):
-        """Padded graph batches in dataset order.  A short last batch keeps
-        ``batch_size`` graph slots; its labels and weights are padded and
-        the ghost graphs' outputs are trimmed by ``predict``."""
-        for (X_b, y_b, w_b, _) in dataset.iterbatches(
-                batch_size=self.batch_size, deterministic=True):
-            n = len(X_b)
-            if n < self.batch_size:
-                _, y_b, w_b, _ = pad_batch(self.batch_size, np.zeros(n),
-                                           y_b, w_b, None)
-            yield (self._graph_inputs(X_b), [y_b], [w_b])
+    def default_generator(self, dataset: NumpyDataset, epochs: int = 1,
+                          mode: str = 'fit', deterministic: bool = True,
+                          pad_batches: bool = True):
+        """Padded graph batches.  A short last batch keeps ``batch_size``
+        graph slots whatever ``pad_batches`` says: its labels are padded,
+        its ghost graphs get weight 0, and ``predict`` trims their outputs.
+        In ``mode='fit'`` a classifier's labels become one-hot
+        ``[B, n_tasks, n_classes]``."""
+        for _ in range(epochs):
+            for (X_b, y_b, w_b, _) in dataset.iterbatches(
+                    batch_size=self.batch_size,
+                    deterministic=deterministic):
+                n = len(X_b)
+                if n < self.batch_size:
+                    _, y_b, w_b, _ = pad_batch(self.batch_size, np.zeros(n),
+                                               y_b, w_b, None)
+                if self.mode == 'classification' and mode == 'fit':
+                    y_b = np.stack([to_one_hot(y_b[:, t], self.n_classes)
+                                    for t in range(self.n_tasks)], axis=1)
+                yield (self._graph_inputs(X_b), [y_b], [w_b])
 
 
 def _heads(x_graph: torch.Tensor, head: nn.Linear, n_tasks: int,
@@ -100,6 +112,14 @@ def _heads(x_graph: torch.Tensor, head: nn.Linear, n_tasks: int,
     return out
 
 
+def _gnn_loss_outputs(mode: str):
+    """The loss and output types of a graph model: softmax cross entropy
+    on the logits for a classifier, squared error for a regressor."""
+    if mode == 'classification':
+        return SoftmaxCrossEntropy(), ['prediction', 'loss']
+    return L2Loss(), ['prediction']
+
+
 class PagtnLayer(nn.Module):
     """One Path-Augmented Graph Transformer layer (Chen et al. 2019,
     arXiv:1905.12712) on COO segment ops.
@@ -107,7 +127,8 @@ class PagtnLayer(nn.Module):
     Linear additive attention over incoming edges: each edge (u->v) scores
     LeakyReLU(W_a [h_u ; e_uv]) per head, normalised with a segment softmax
     over the destination node; messages are attention-weighted projections
-    of the same concatenation.  Edges must arrive sorted by destination.
+    of the same concatenation, summed per destination with
+    :func:`csr_segment_sum`.  Edges must arrive sorted by destination.
     """
 
     def __init__(self, node_features: int, edge_features: int,
@@ -125,27 +146,35 @@ class PagtnLayer(nn.Module):
 
     def forward(self, h, ef, esrc, edst, emask, row_ptr=None):
         H, Fh = self.n_heads, self.hidden_features
+        if row_ptr is None:
+            row_ptr = csr_row_ptr(edst, h.shape[0])
         pair = torch.cat([h[esrc], ef], dim=-1)
         logits = self.attn(F.leaky_relu(self.attn_hidden(pair), 0.2))
         alpha = segment_softmax_sorted(logits, edst, h.shape[0], mask=emask,
                                        row_ptr=row_ptr)       # [E, H]
         msg = self.msg(pair).reshape(-1, H, Fh)
         weighted = msg * alpha[..., None] * emask[:, None, None]
-        agg = segment_sum(weighted.reshape(-1, H * Fh), edst, h.shape[0])
+        agg = csr_segment_sum(weighted.reshape(-1, H * Fh), row_ptr)
         return F.gelu(self.out(agg), approximate='tanh')
 
 
 class _PagtnModule(nn.Module):
     """The PAGTN network: embedding, ``num_layers`` PAGTN layers with a
     residual to the embedding, a projection of ``[h ; node features]``,
-    sum pooling over each graph and the task heads."""
+    sum pooling over each graph and the task heads.
+
+    In ``train()`` mode dropout follows each layer.  Its masks come from a
+    ``torch.Generator`` on the input's device seeded with
+    ``dropout_seed``, not from the global RNG, so a run is reproducible.
+    """
 
     def __init__(self, n_tasks: int, n_classes: int, mode: str,
                  num_graphs: int, node_features: int, edge_features: int,
                  hidden_features: int = 32, output_node_features: int = 256,
                  num_layers: int = 5, num_heads: int = 1,
                  dropout: float = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_seed: int = 0):
         super().__init__()
         self.n_tasks, self.n_classes, self.mode = n_tasks, n_classes, mode
         self.num_graphs = num_graphs
@@ -155,7 +184,9 @@ class _PagtnModule(nn.Module):
         self.layers = nn.ModuleList(
             PagtnLayer(width, edge_features, hidden_features, num_heads,
                        generator) for _ in range(num_layers))
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
+        self.dropout_seed = dropout_seed
+        self._dropout_generator: Optional[torch.Generator] = None
         self.readout = dense(width + node_features, output_node_features,
                              generator)
         n_out = n_tasks * n_classes if mode == 'classification' else n_tasks
@@ -169,10 +200,23 @@ class _PagtnModule(nn.Module):
         for layer in self.layers:
             m = layer(h, ef, esrc, edst, emask, row_ptr)
             # residual to the layer-0 embedding each round
-            h = self.dropout(F.leaky_relu(h0 + m, 0.2))
+            h = self._dropout(F.leaky_relu(h0 + m, 0.2))
         x = F.relu(self.readout(torch.cat([h, nf], dim=-1)))
         g = graph_pool(x, gidx, self.num_graphs, nmask)
         return _heads(g, self.head, self.n_tasks, self.n_classes, self.mode)
+
+    def _dropout(self, h: torch.Tensor) -> torch.Tensor:
+        """Zero each entry with probability ``dropout`` and scale the rest
+        by ``1 / (1 - dropout)``, as flax's ``nn.Dropout``."""
+        if not self.training or self.dropout == 0:
+            return h
+        gen = self._dropout_generator
+        if gen is None or gen.device != h.device:
+            gen = torch.Generator(h.device).manual_seed(self.dropout_seed)
+            self._dropout_generator = gen
+        keep = torch.empty_like(h).bernoulli_(1 - self.dropout,
+                                              generator=gen)
+        return h * keep / (1 - self.dropout)
 
 
 class PagtnModel(GraphModel):
@@ -183,7 +227,10 @@ class PagtnModel(GraphModel):
     The module is built at construction from ``number_atom_features`` and
     ``number_bond_features`` (the featurizer's 49 and 38 by default), with
     parameters drawn from a ``torch.Generator`` seeded with ``seed``; load
-    trained flax parameters with :func:`params_from_flax`.
+    trained flax parameters with :func:`params_from_flax`.  ``seed`` also
+    seeds the dropout masks.  A classifier trains on softmax cross entropy,
+    a regressor on squared error, with :class:`Adam` at ``learning_rate``
+    unless ``optimizer`` is given.
     """
 
     # complete-graph edges grow as n^2; a larger quantum keeps the number
@@ -195,7 +242,9 @@ class PagtnModel(GraphModel):
                  n_classes: int = 2, output_node_features: int = 256,
                  hidden_features: int = 32, num_layers: int = 5,
                  num_heads: int = 1, dropout: float = 0.1,
-                 batch_size: int = 16,
+                 batch_size: int = 16, learning_rate: float = 0.001,
+                 optimizer: Optional[Optimizer] = None,
+                 model_dir: Optional[str] = None, log_frequency: int = 100,
                  device=None, seed: int = 0):
         self.n_tasks = n_tasks
         self.mode = mode
@@ -207,11 +256,12 @@ class PagtnModel(GraphModel):
             hidden_features=hidden_features,
             output_node_features=output_node_features,
             num_layers=num_layers, num_heads=num_heads, dropout=dropout,
-            generator=torch.Generator().manual_seed(seed))
-        output_types = (['prediction', 'loss'] if mode == 'classification'
-                        else ['prediction'])
-        super().__init__(module, output_types=output_types,
-                         batch_size=batch_size, device=device)
+            generator=torch.Generator().manual_seed(seed), dropout_seed=seed)
+        loss, output_types = _gnn_loss_outputs(mode)
+        super().__init__(module, loss, output_types=output_types,
+                         batch_size=batch_size, model_dir=model_dir,
+                         learning_rate=learning_rate, optimizer=optimizer,
+                         log_frequency=log_frequency, device=device)
 
     def build(self, sample_inputs: Sequence[torch.Tensor]) -> None:
         nf, ef = sample_inputs[0], sample_inputs[-1]

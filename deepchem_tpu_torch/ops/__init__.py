@@ -1,10 +1,13 @@
 from deepchem_tpu_torch.ops.csr_segment import (
-    csr_row_ptr, csr_segment_softmax, csr_segment_softmax_reference,
-    edges_to_csr)
+    csr_neighbor_sum_reference, csr_row_ptr, csr_segment_softmax,
+    csr_segment_softmax_reference, csr_segment_sum,
+    csr_segment_sum_reference, edges_to_csr, fused_gather_segment_sum)
 from deepchem_tpu_torch.ops.segment import (NEG, graph_pool, segment_softmax,
                                             segment_softmax_sorted,
                                             segment_sum)
 
-__all__ = ['NEG', 'csr_row_ptr', 'csr_segment_softmax',
-           'csr_segment_softmax_reference', 'edges_to_csr', 'graph_pool', 'segment_softmax',
+__all__ = ['NEG', 'csr_neighbor_sum_reference', 'csr_row_ptr',
+           'csr_segment_softmax', 'csr_segment_softmax_reference',
+           'csr_segment_sum', 'csr_segment_sum_reference', 'edges_to_csr',
+           'fused_gather_segment_sum', 'graph_pool', 'segment_softmax',
            'segment_softmax_sorted', 'segment_sum']

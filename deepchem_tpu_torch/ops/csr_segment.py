@@ -1,12 +1,18 @@
-"""Segment softmax over CSR edge ranges: the Hopper kernel and its plain
-version.
+"""Reductions over CSR edge ranges: the Hopper kernels and their plain
+versions.
 
-Counterpart of ``deepchem_tpu/ops/pallas_segment.py``'s
-``csr_segment_softmax`` (P1).  Edges are sorted by destination and
-``row_ptr`` (``[N+1]`` int32, ``row_ptr[N] == E``) delimits each node's
-range.  The kernel is ``csrc/csr_segment_softmax.cu``; on a CPU tensor the
-wrapper computes the same function with plain torch ops, on a CUDA tensor
-it launches the kernel or raises.
+Counterparts of ``deepchem_tpu/ops/pallas_segment.py``'s
+``csr_segment_softmax`` (P1), ``csr_segment_sum`` (P3) and
+``fused_gather_segment_sum`` (P2).  Edges are sorted by destination and
+``row_ptr`` (``[N+1]`` int32, ``row_ptr[0] == 0``) delimits each node's
+range.  The kernels are ``csrc/<name>.cu``.  On CPU tensors each wrapper
+computes its function with plain torch ops; on CUDA tensors it launches
+the kernel or raises, and counts the launch in ``<wrapper>.launches``.
+
+P1 and P3 are ``torch.autograd.Function``s on both devices, with the JAX
+package's backwards: P1's is the softmax VJP ``dx = y * (dy - t[seg])``
+with ``t = csr_segment_sum(y * dy)``, so on the card it launches P3; P3's
+is the gather ``dmsgs = dy[seg]``.  P2 is forward only, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from deepchem_tpu_torch.kernels import build
 
@@ -46,6 +54,22 @@ def csr_row_ptr(segment_ids_sorted: torch.Tensor,
                               bounds).to(torch.int32)
 
 
+def _edge_segments(row_ptr: torch.Tensor,
+                   num_edges: int) -> torch.Tensor:
+    """The segment of each of ``num_edges`` edges, int64; ``N`` for an
+    edge past ``row_ptr[N]``."""
+    return torch.searchsorted(row_ptr[1:].long(),
+                              torch.arange(num_edges, device=row_ptr.device),
+                              right=True)
+
+
+def _take_rows(t: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """``t[seg]``, with a zero row for ``seg == len(t)``."""
+    return F.pad(t, (0, 0, 0, 1)).index_select(0, seg)
+
+
+# ---------------------------------------------------------------- P1
+
 def csr_segment_softmax_reference(logits: torch.Tensor,
                                   row_ptr: torch.Tensor) -> torch.Tensor:
     """Plain torch version: per-segment max, shifted exp, segment sum.  A
@@ -53,9 +77,7 @@ def csr_segment_softmax_reference(logits: torch.Tensor,
     least 1e-16, as in the kernel."""
     E, H = logits.shape
     N = row_ptr.shape[0] - 1
-    seg = torch.searchsorted(row_ptr[1:].long(),
-                             torch.arange(E, device=logits.device),
-                             right=True)             # segment of each edge
+    seg = _edge_segments(row_ptr, E)
     idx = seg[:, None].expand(E, H)
     seg_max = torch.full((N, H), -torch.inf, dtype=logits.dtype,
                          device=logits.device)
@@ -67,45 +89,58 @@ def csr_segment_softmax_reference(logits: torch.Tensor,
     return ex / torch.clamp_min(denom[seg], 1e-16)
 
 
-def _check(logits: torch.Tensor, row_ptr: torch.Tensor) -> None:
-    if logits.device.type != 'cuda' or row_ptr.device != logits.device:
-        raise ValueError(f'logits and row_ptr must lie on one CUDA device, '
-                         f'got {logits.device} and {row_ptr.device}')
-    if logits.dtype != torch.float32 or row_ptr.dtype != torch.int32:
-        raise TypeError(f'need float32 logits and int32 row_ptr, got '
-                        f'{logits.dtype} and {row_ptr.dtype}')
-    if logits.ndim != 2 or row_ptr.ndim != 1 or row_ptr.shape[0] < 1:
-        raise ValueError(f'need logits [E, H] and row_ptr [N+1], got '
-                         f'{tuple(logits.shape)} and '
-                         f'{tuple(row_ptr.shape)}')
-    if not (logits.is_contiguous() and row_ptr.is_contiguous()):
-        raise ValueError('logits and row_ptr must be contiguous')
-    if max(logits.shape[0] * logits.shape[1], row_ptr.shape[0]) >= 2**31:
-        raise ValueError('sizes must fit in int32')
+def _check(what: str, floats: Tuple[torch.Tensor, ...],
+           ints: Tuple[torch.Tensor, ...]) -> None:
+    """What every kernel takes: float32 ``[rows, F]`` data and int32 1-D
+    indices, contiguous, on one CUDA device, with sizes that fit int32."""
+    dev = floats[0].device
+    if dev.type != 'cuda' or any(t.device != dev for t in floats + ints):
+        raise ValueError(f'{what}: every tensor must lie on one CUDA '
+                         f'device, got '
+                         f'{[str(t.device) for t in floats + ints]}')
+    if any(t.dtype != torch.float32 for t in floats) \
+            or any(t.dtype != torch.int32 for t in ints):
+        raise TypeError(f'{what}: need float32 data and int32 indices, got '
+                        f'{[t.dtype for t in floats + ints]}')
+    if any(t.ndim != 2 for t in floats) or any(t.ndim != 1 for t in ints) \
+            or ints[-1].shape[0] < 1:
+        raise ValueError(f'{what}: need 2-D data, 1-D indices and row_ptr '
+                         f'[N+1], got '
+                         f'{[tuple(t.shape) for t in floats + ints]}')
+    if not all(t.is_contiguous() for t in floats + ints):
+        raise ValueError(f'{what}: every tensor must be contiguous')
+    if any(t.numel() >= 2**31 for t in floats + ints):
+        raise ValueError(f'{what}: sizes must fit in int32')
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f'{what} launch failed: cudaError {err}')
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = build.load('csr_segment_softmax').csr_segment_softmax_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+def _entry(name: str):
+    """The C entry ``<name>_f32`` of ``csrc/<name>.cu``: pointers and the
+    stream as ``c_void_p``, sizes as ``c_int``."""
+    fn = getattr(build.load(name), f'{name}_f32')
+    n_ptrs, n_ints = {'csr_segment_softmax': (3, 3),
+                      'csr_segment_sum': (3, 3),
+                      'fused_gather_segment_sum': (4, 4)}[name]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def csr_segment_softmax(logits: torch.Tensor,
-                        row_ptr: torch.Tensor) -> torch.Tensor:
-    """Per-segment softmax of CSR-sorted ``logits`` ``[E, H]`` float32
-    over ``row_ptr`` ``[N+1]`` int32 with ``row_ptr[N] == E``.  Returns
-    ``[E, H]`` weights that sum to 1 within each non-empty segment.
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
-    CPU tensors take :func:`csr_segment_softmax_reference`; CUDA tensors
-    launch the kernel, which is counted in ``csr_segment_softmax.launches``.
-    """
+
+def _softmax_forward(logits: torch.Tensor,
+                     row_ptr: torch.Tensor) -> torch.Tensor:
     if logits.device.type == 'cpu' and row_ptr.device.type == 'cpu':
         return csr_segment_softmax_reference(logits, row_ptr)
-    _check(logits, row_ptr)
+    _check('csr_segment_softmax', (logits,), (row_ptr,))
     out = torch.empty_like(logits)
     E, H = logits.shape
     N = row_ptr.shape[0] - 1
@@ -114,14 +149,157 @@ def csr_segment_softmax(logits: torch.Tensor,
     if N == 0:
         raise ValueError('row_ptr has no segment for the edges')
     with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry()(logits.data_ptr(), row_ptr.data_ptr(),
-                       out.data_ptr(), N, E, H, stream)
-    if err != 0:
-        raise RuntimeError(f'csr_segment_softmax launch failed: '
-                           f'cudaError {err}')
+        err = _entry('csr_segment_softmax')(
+            logits.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), N, E, H,
+            _stream(logits))
+    _raise_on(err, 'csr_segment_softmax')
     csr_segment_softmax.launches += 1
     return out
 
 
+class _CsrSegmentSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, row_ptr):
+        y = _softmax_forward(logits, row_ptr)
+        ctx.save_for_backward(y, row_ptr)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        y, row_ptr = ctx.saved_tensors
+        t = csr_segment_sum((y * dy).contiguous(), row_ptr)
+        seg = _edge_segments(row_ptr, y.shape[0])
+        return y * (dy - _take_rows(t, seg)), None
+
+
+def csr_segment_softmax(logits: torch.Tensor,
+                        row_ptr: torch.Tensor) -> torch.Tensor:
+    """Per-segment softmax of CSR-sorted ``logits`` ``[E, H]`` float32
+    over ``row_ptr`` ``[N+1]`` int32 with ``row_ptr[N] == E``.  Returns
+    ``[E, H]`` weights that sum to 1 within each non-empty segment, with a
+    gradient for ``logits`` on both devices.
+
+    CPU tensors take :func:`csr_segment_softmax_reference`; CUDA tensors
+    launch the kernel, counted in ``csr_segment_softmax.launches``.  The
+    backward runs :func:`csr_segment_sum` (P3) on ``y * dy``.
+    """
+    return _CsrSegmentSoftmax.apply(logits, row_ptr)
+
+
 csr_segment_softmax.launches = 0
+
+
+# ---------------------------------------------------------------- P3
+
+def csr_segment_sum_reference(msgs: torch.Tensor,
+                              row_ptr: torch.Tensor) -> torch.Tensor:
+    """Plain torch version: ``index_add_`` of each edge into its segment;
+    edges past ``row_ptr[N]`` are dropped."""
+    N = row_ptr.shape[0] - 1
+    seg = _edge_segments(row_ptr, msgs.shape[0])
+    out = msgs.new_zeros((N + 1,) + tuple(msgs.shape[1:]))
+    return out.index_add_(0, seg, msgs)[:N]
+
+
+def _segment_sum_forward(msgs: torch.Tensor,
+                         row_ptr: torch.Tensor) -> torch.Tensor:
+    if msgs.device.type == 'cpu' and row_ptr.device.type == 'cpu':
+        return csr_segment_sum_reference(msgs, row_ptr)
+    _check('csr_segment_sum', (msgs,), (row_ptr,))
+    E, Fm = msgs.shape
+    N = row_ptr.shape[0] - 1
+    out = msgs.new_empty((N, Fm))
+    if N * Fm == 0:
+        return out
+    if N * Fm >= 2**31:
+        raise ValueError('csr_segment_sum: sizes must fit in int32')
+    with torch.cuda.device(msgs.device):
+        err = _entry('csr_segment_sum')(
+            msgs.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), N, E, Fm,
+            _stream(msgs))
+    _raise_on(err, 'csr_segment_sum')
+    csr_segment_sum.launches += 1
+    return out
+
+
+class _CsrSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msgs, row_ptr):
+        ctx.save_for_backward(row_ptr)
+        ctx.num_edges = msgs.shape[0]
+        return _segment_sum_forward(msgs, row_ptr)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        row_ptr, = ctx.saved_tensors
+        seg = _edge_segments(row_ptr, ctx.num_edges)
+        return _take_rows(dy, seg), None
+
+
+def csr_segment_sum(msgs: torch.Tensor, row_ptr: torch.Tensor
+                    ) -> torch.Tensor:
+    """``out[i] = sum(msgs[row_ptr[i]:row_ptr[i+1]])`` for CSR-sorted
+    ``msgs`` ``[E, F]`` float32 over ``row_ptr`` ``[N+1]`` int32; returns
+    ``[N, F]``, with 0 for an empty segment.  Edges past ``row_ptr[N]`` are
+    ignored.  Differentiable in ``msgs``: the backward gathers ``dy`` by
+    each edge's segment.
+
+    CPU tensors take :func:`csr_segment_sum_reference`; CUDA tensors
+    launch the kernel, counted in ``csr_segment_sum.launches``.  The sum of
+    a segment is taken in the same order on every run.
+    """
+    return _CsrSegmentSum.apply(msgs, row_ptr)
+
+
+csr_segment_sum.launches = 0
+
+
+# ---------------------------------------------------------------- P2
+
+def csr_neighbor_sum_reference(h: torch.Tensor, src_sorted: torch.Tensor,
+                               row_ptr: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of :func:`fused_gather_segment_sum`: gather the
+    messages ``h[src_sorted]``, then :func:`csr_segment_sum_reference`."""
+    return csr_segment_sum_reference(h.index_select(0, src_sorted.long()),
+                                     row_ptr)
+
+
+def fused_gather_segment_sum(h: torch.Tensor, src_sorted: torch.Tensor,
+                             row_ptr: torch.Tensor) -> torch.Tensor:
+    """``out[i] = sum(h[src_sorted[e]] for e in row_ptr[i]:row_ptr[i+1])``
+    for ``h`` ``[N_h, F]`` float32, ``src_sorted`` ``[E]`` int32 in CSR
+    order and ``row_ptr`` ``[N+1]`` int32; returns ``[N, F]`` without
+    materialising the messages.  Forward only, as in JAX: it raises when
+    ``h`` needs a gradient.
+
+    CPU tensors take :func:`csr_neighbor_sum_reference`; CUDA tensors
+    launch the kernel, counted in ``fused_gather_segment_sum.launches``.
+    """
+    if torch.is_grad_enabled() and h.requires_grad:
+        raise RuntimeError('fused_gather_segment_sum has no backward; call '
+                           'it under torch.no_grad() or on a detached h')
+    if all(t.device.type == 'cpu' for t in (h, src_sorted, row_ptr)):
+        return csr_neighbor_sum_reference(h, src_sorted, row_ptr)
+    _check('fused_gather_segment_sum', (h,), (src_sorted, row_ptr))
+    Nh, Fh = h.shape
+    E = src_sorted.shape[0]
+    N = row_ptr.shape[0] - 1
+    out = h.new_empty((N, Fh))
+    if N * Fh == 0:
+        return out
+    if N * Fh >= 2**31:
+        raise ValueError('fused_gather_segment_sum: sizes must fit in int32')
+    if Nh == 0 and E > 0:
+        raise ValueError('fused_gather_segment_sum: edges but no rows in h')
+    with torch.cuda.device(h.device):
+        err = _entry('fused_gather_segment_sum')(
+            h.data_ptr(), src_sorted.data_ptr(), row_ptr.data_ptr(),
+            out.data_ptr(), N, Nh, E, Fh, _stream(h))
+    _raise_on(err, 'fused_gather_segment_sum')
+    fused_gather_segment_sum.launches += 1
+    return out
+
+
+fused_gather_segment_sum.launches = 0

@@ -1,24 +1,31 @@
 #!/usr/bin/env python3
-"""Where a PagtnModel request's time goes on one CUDA card.
+"""Where a PagtnModel request's, or training step's, time goes on one CUDA
+card.
 
-    python3 scripts/profile_torch_pagtn.py [--batch 16] [--requests 20]
+    python3 scripts/profile_torch_pagtn.py [--mode serve|train]
+                                           [--batch 16] [--requests 20]
 
 Builds the model of ``chip_smoke.py`` (PagtnModel(n_tasks=12,
 mode='classification'), default widths, seeded weights, ``batch_size``
-set to ``--batch``) and answers
-``--requests`` requests of ``--batch`` molecules drawn with replacement
-from its 48, already featurized:
+set to ``--batch``) and runs ``--requests`` batches of ``--batch``
+molecules drawn with replacement from its 48, already featurized:
 
-- host clock, per request: packing the padded batch (numpy), copying it
-  to the card, the forward pass (ended by a synchronise) and copying the
-  outputs back;
-- ``torch.profiler`` over the same requests: device time by kernel, and
-  the device's busy share of the window (sum of kernel self times over
-  the window's wall time; overlapping kernels would count twice, and on
-  one stream there are none).
+- ``serve``: answers each batch as a request.  Host clock, per request:
+  packing the padded batch (numpy), copying it to the card, the forward
+  pass (ended by a synchronise) and copying the outputs back.
+- ``train``: one training step per batch, with seeded 0/1 labels, as
+  ``TorchModel._train_step`` runs it.  Host clock, per step: packing (with
+  the one-hot labels), copying to the card, forward and loss, backward,
+  and the Adam update, each ended by a synchronise.
+- both: ``torch.profiler`` over the same batches without the extra
+  synchronises: device time by kernel, and the device's busy share of the
+  window (sum of kernel self times over the window's wall time;
+  overlapping kernels would count twice, and on one stream there are
+  none).
 
-Prints one JSON line and writes it to ``chiprun_out/profile_pagtn.json``.
-Needs a CUDA device; there is no CPU fallback.
+Prints one JSON line and writes it to
+``chiprun_out/profile_pagtn_<mode>.json``.  Needs a CUDA device; there is
+no CPU fallback.
 """
 
 import argparse
@@ -33,6 +40,7 @@ sys.path.insert(0, str(REPO))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--mode', choices=('serve', 'train'), default='serve')
     ap.add_argument('--batch', type=int, default=16)
     ap.add_argument('--requests', type=int, default=20)
     args = ap.parse_args()
@@ -44,54 +52,91 @@ def main() -> int:
         print('profile_torch_pagtn: no CUDA device', file=sys.stderr)
         return 1
     from chip_smoke import SMILES
-    from deepchem_tpu_torch import PagtnModel, PagtnMolGraphFeaturizer
-    from deepchem_tpu_torch.ops import csr_segment_softmax
+    from deepchem_tpu_torch import (NumpyDataset, PagtnModel,
+                                    PagtnMolGraphFeaturizer)
+    from deepchem_tpu_torch.ops import csr_segment_softmax, csr_segment_sum
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     X = PagtnMolGraphFeaturizer().featurize(SMILES)
+    labels = np.random.RandomState(0).randint(0, 2, (len(X), 12)).astype(
+        np.float32)
     model = PagtnModel(n_tasks=12, mode='classification',
                        batch_size=args.batch, seed=0)
     rng = np.random.RandomState(0)
-    batches = [X[rng.randint(0, len(X), args.batch)]
-               for _ in range(args.requests)]
+    picks = [rng.randint(0, len(X), args.batch)
+             for _ in range(args.requests)]
+    phases = (('pack', 'to_device', 'forward', 'to_host')
+              if args.mode == 'serve' else
+              ('pack', 'to_device', 'forward', 'backward', 'optimizer'))
 
-    def request(X_b, clock=None):
-        t0 = time.perf_counter()
-        arrays = model._graph_inputs(X_b)
-        t1 = time.perf_counter()
+    def request(idx, clock=None):
+        t = [time.perf_counter()]
+        arrays = model._graph_inputs(X[idx])
+        t.append(time.perf_counter())
         inputs, _, _ = model._prepare_batch((arrays, [], []))
-        t2 = time.perf_counter()
+        t.append(time.perf_counter())
         outs = model._forward(inputs)
         torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        probs = outs[0].cpu().numpy()
-        t4 = time.perf_counter()
-        if clock is not None:
-            for key, dt in zip(('pack', 'to_device', 'forward', 'to_host'),
-                               (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-                clock[key] += dt * 1e3 / args.requests
-        return probs
+        t.append(time.perf_counter())
+        outs[0].cpu().numpy()
+        t.append(time.perf_counter())
+        return t
 
-    for X_b in batches[:3]:                      # warm-up
-        request(X_b)
-    clock = dict.fromkeys(('pack', 'to_device', 'forward', 'to_host'), 0.0)
-    for X_b in batches:
-        request(X_b, clock)
+    def train_step(idx, clock=None):
+        """``TorchModel._train_step``, split at synchronises when timed."""
+        sync = torch.cuda.synchronize if clock is not None else (
+            lambda: None)
+        t = [time.perf_counter()]
+        batch = next(model.default_generator(
+            NumpyDataset(X[idx], labels[idx], np.ones_like(labels[idx]))))
+        t.append(time.perf_counter())
+        inputs, y, w = model._prepare_batch(batch)
+        sync()
+        t.append(time.perf_counter())
+        if clock is None:
+            model._train_step(inputs, y, w)
+            return t
+        model.module.train()
+        opt = model._torch_optimizer
+        opt.zero_grad(set_to_none=True)
+        loss = model._compute_loss(list(model.module(*inputs)), y, w)
+        sync()
+        t.append(time.perf_counter())
+        loss.backward()
+        sync()
+        t.append(time.perf_counter())
+        opt.step()
+        sync()
+        t.append(time.perf_counter())
+        return t
+
+    run = request if args.mode == 'serve' else train_step
+    for idx in picks[:3]:                        # warm-up
+        run(idx, {})
+    clock = dict.fromkeys(phases, 0.0)
+    for idx in picks:
+        t = run(idx, clock)
+        for key, a, b in zip(phases, t, t[1:]):
+            clock[key] += (b - a) * 1e3 / args.requests
     clock['total'] = sum(clock.values())
 
-    csr_segment_softmax.launches = 0
+    csr_segment_softmax.launches = csr_segment_sum.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for X_b in batches:
-            request(X_b)
+        for idx in picks:
+            run(idx)
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
     for evt in prof.key_averages():
         dev_us = getattr(evt, 'self_device_time_total', 0.0)
-        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation (Adam's ``Optimizer.step``) spans kernels that
+        # are counted on their own
+        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(evt, 'is_user_annotation', False):
             kernels.append({'name': evt.key[:80], 'calls': evt.count,
                             'device_us_per_request':
                                 dev_us / args.requests})
@@ -99,7 +144,7 @@ def main() -> int:
     busy_ms = sum(k['device_us_per_request'] for k in kernels) \
         * args.requests / 1e3
     result = {
-        'device': torch.cuda.get_device_name(0),
+        'device': torch.cuda.get_device_name(0), 'mode': args.mode,
         'batch': args.batch, 'requests': args.requests,
         'host_ms_per_request': clock,
         'profiled_wall_ms_per_request': wall_ms / args.requests,
@@ -108,12 +153,13 @@ def main() -> int:
         'kernel_launches_per_request': sum(k['calls'] for k in kernels)
         / args.requests,
         'csr_segment_softmax_launches': csr_segment_softmax.launches,
-        'top_kernels': kernels[:15],
+        'csr_segment_sum_launches': csr_segment_sum.launches,
+        'top_kernels': kernels[:25],
     }
     line = json.dumps(result)
     out = REPO / 'chiprun_out'
     out.mkdir(exist_ok=True)
-    (out / 'profile_pagtn.json').write_text(line + '\n')
+    (out / f'profile_pagtn_{args.mode}.json').write_text(line + '\n')
     print(line)
     if not kernels:
         print('profile_torch_pagtn: the profiler recorded no device time',

@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py`` on the CPU, at full size, before a chip run.
+
+    python3 scripts/rehearse_chip_smoke.py
+
+A machine without a card cannot build or launch the CUDA kernels, so this
+runs every phase of ``chip_smoke.py`` with:
+
+- the device set to the CPU, and ``torch.cuda``'s events, synchronise,
+  device name and count replaced by host-clock stand-ins;
+- the build skipped and ``nvidia-smi`` answered with a placeholder;
+- each kernel wrapper's plain path counted as one launch, so the launch
+  checks run as they would on the card;
+- every timing taken over 1 call instead of 200, and no device time.
+
+It finds wrong paths, shapes, counts and control flow.  Its times are the
+CPU's and mean nothing for the card; its errors are 0 because both sides
+of each comparison are the plain version.  Exits with chip_smoke's code.
+"""
+
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+
+class _HostEvent:
+    def __init__(self, **_):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def main() -> int:
+    import torch
+    torch.cuda.is_available = lambda: True
+    torch.cuda.get_device_name = lambda i=0: 'cpu rehearsal'
+    torch.cuda.device_count = lambda: 1
+    torch.cuda.synchronize = lambda *a: None
+    torch.cuda.Event = _HostEvent
+    subprocess.run = lambda *a, **k: types.SimpleNamespace(
+        stdout='cpu rehearsal, no power limit\n')
+
+    from deepchem_tpu_torch.kernels import build
+    build.build_all = lambda names=None: None
+    build.load = lambda name: None
+    build.build_log = lambda name: 'not built: cpu rehearsal'
+
+    import deepchem_tpu_torch.ops as ops
+    from deepchem_tpu_torch.ops import csr_segment
+    softmax_fwd = csr_segment._softmax_forward
+    sum_fwd = csr_segment._segment_sum_forward
+    gather = csr_segment.fused_gather_segment_sum
+
+    def counted_softmax(logits, row_ptr):
+        csr_segment.csr_segment_softmax.launches += 1
+        return softmax_fwd(logits, row_ptr)
+
+    def counted_sum(msgs, row_ptr):
+        csr_segment.csr_segment_sum.launches += 1
+        return sum_fwd(msgs, row_ptr)
+
+    def counted_gather(h, src, row_ptr):
+        counted_gather.launches += 1
+        return gather(h, src, row_ptr)
+
+    counted_gather.launches = 0
+    csr_segment._softmax_forward = counted_softmax
+    csr_segment._segment_sum_forward = counted_sum
+    csr_segment.fused_gather_segment_sum = counted_gather
+    ops.fused_gather_segment_sum = counted_gather
+
+    source = (REPO / 'chip_smoke.py').read_text().replace(
+        "torch.device('cuda', 0)", "torch.device('cpu')")
+    smoke = types.ModuleType('chip_smoke')
+    smoke.__file__ = str(REPO / 'chip_smoke.py')
+    exec(compile(source, smoke.__file__, 'exec'), smoke.__dict__)
+    timed = smoke.time_ms
+    smoke.time_ms = lambda fn, iters=200: timed(fn, iters=1)
+    smoke.device_us = lambda fn, kernel, calls=20: None   # no device here
+    return smoke.main()
+
+
+if __name__ == '__main__':
+    sys.exit(main())

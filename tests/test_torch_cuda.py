@@ -1,6 +1,8 @@
 """Tests of the port that need a CUDA device: each CUDA kernel against its
-plain PyTorch version on the card.  They skip where there is no GPU.  This
-file imports no JAX, so it runs where JAX is not installed:
+plain PyTorch version on the card, P1's backward against autograd through
+its plain version, and one PAGTN training step against the CPU.  They
+skip where there is no GPU.  This file imports no JAX, so it runs where
+JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -10,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from deepchem_tpu_torch import PagtnModel, PagtnMolGraphFeaturizer
 from deepchem_tpu_torch.ops.csr_segment import (
-    csr_segment_softmax, csr_segment_softmax_reference, edges_to_csr)
+    csr_neighbor_sum_reference, csr_segment_softmax,
+    csr_segment_softmax_reference, csr_segment_sum,
+    csr_segment_sum_reference, edges_to_csr, fused_gather_segment_sum)
 
 # same f32 inputs, summed in another order
 ATOL = 1e-6
@@ -53,3 +58,100 @@ def test_csr_segment_softmax_rejects_what_the_kernel_does_not_take(cuda):
         csr_segment_softmax(logits.T, row_ptr)
     with pytest.raises(ValueError):
         csr_segment_softmax(logits, row_ptr.cpu())
+
+
+def _close(out, ref):
+    """Sums in another order: within 1e-5 of the largest magnitude."""
+    ref = ref.cpu().numpy()
+    np.testing.assert_allclose(out.cpu().numpy(), ref,
+                               atol=1e-5 * max(1.0, float(np.abs(ref).max(
+                                   initial=0.0))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N,E,F', [(512, 6144, 32), (512, 6144, 1),
+                                   (64, 300, 37), (64, 300, 3),
+                                   (2048, 16384, 512), (7, 0, 4)])
+def test_csr_segment_sum_kernel_matches_plain_version(cuda, N, E, F):
+    rng = np.random.RandomState(N + E + F)
+    perm, row_ptr = edges_to_csr(rng.randint(0, N - 2, E), N)  # empty tail
+    msgs = torch.from_numpy(rng.randn(E, F).astype(np.float32)).to(cuda)
+    row_ptr = torch.from_numpy(row_ptr).to(cuda)
+    before = csr_segment_sum.launches
+    out = csr_segment_sum(msgs, row_ptr)
+    again = csr_segment_sum(msgs, row_ptr)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches == before + 2
+    assert torch.equal(out, again)            # no atomics: bit for bit
+    _close(out, csr_segment_sum_reference(msgs, row_ptr))
+
+
+@pytest.mark.cuda
+def test_csr_segment_sum_unaligned_rows_and_a_short_row_ptr(cuda):
+    """A view 4 bytes off 16-byte alignment takes the scalar path; edges
+    past row_ptr[N] are ignored."""
+    rng = np.random.RandomState(3)
+    flat = torch.from_numpy(rng.randn(200 * 8 + 1).astype(np.float32))
+    msgs = flat.to(cuda)[1:].view(200, 8)
+    row_ptr = torch.tensor([0, 50, 50, 51, 180], dtype=torch.int32,
+                           device=cuda)
+    _close(csr_segment_sum(msgs, row_ptr),
+           csr_segment_sum_reference(msgs, row_ptr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N,E,F', [(2048, 4096, 64), (8192, 16384, 256),
+                                   (64, 300, 37), (64, 200, 5)])
+def test_fused_gather_segment_sum_kernel_matches_plain_version(cuda, N, E,
+                                                               F):
+    rng = np.random.RandomState(N + E + F)
+    perm, row_ptr = edges_to_csr(rng.randint(0, N, E), N)
+    h = torch.from_numpy(rng.rand(N, F).astype(np.float32)).to(cuda)
+    src = torch.from_numpy(rng.randint(0, N, E).astype(np.int32)[perm])
+    src, row_ptr = src.to(cuda), torch.from_numpy(row_ptr).to(cuda)
+    before = fused_gather_segment_sum.launches
+    out = fused_gather_segment_sum(h, src, row_ptr)
+    torch.cuda.synchronize()
+    assert fused_gather_segment_sum.launches == before + 1
+    assert torch.equal(out, fused_gather_segment_sum(h, src, row_ptr))
+    _close(out, csr_neighbor_sum_reference(h, src, row_ptr))
+
+
+@pytest.mark.cuda
+def test_softmax_backward_matches_plain_autograd(cuda):
+    """The Function's gradient (kernel forward, P3 in the backward)
+    against autograd through the plain version, on the card."""
+    rng = np.random.RandomState(5)
+    perm, row_ptr = edges_to_csr(rng.randint(0, 500, 6144), 512)
+    logits = torch.from_numpy(rng.randn(6144, 1).astype(np.float32)[perm])
+    w = torch.from_numpy(rng.randn(6144, 1).astype(np.float32)).to(cuda)
+    row_ptr = torch.from_numpy(row_ptr).to(cuda)
+    grads = []
+    before = csr_segment_sum.launches
+    for fn in (csr_segment_softmax, csr_segment_softmax_reference):
+        x = logits.to(cuda).requires_grad_()
+        (fn(x, row_ptr) * w).sum().backward()
+        grads.append(x.grad)
+    assert csr_segment_sum.launches == before + 1
+    _close(*grads)
+
+
+@pytest.mark.cuda
+def test_training_step_gradients_match_the_cpu(cuda):
+    """One step of a small dropout-free PAGTN on the card and on the CPU
+    from the same seed: losses and every parameter's gradient agree."""
+    X = PagtnMolGraphFeaturizer().featurize(
+        ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1'])
+    y = np.random.RandomState(0).randint(0, 2, (4, 3)).astype(np.float32)
+    kw = dict(n_tasks=3, mode='classification', batch_size=4, num_layers=2,
+              dropout=0.0, seed=1)
+    models = [PagtnModel(device=d, **kw) for d in (cuda, 'cpu')]
+    losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for name, p in models[0].module.named_parameters():
+        # attn.bias: the softmax is shift invariant, its exact gradient is 0
+        assert name.endswith('attn.bias') or p.grad.abs().max() > 0, name
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   cpu[name].grad.numpy(), atol=1e-5,
+                                   err_msg=name)
