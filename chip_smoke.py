@@ -29,10 +29,34 @@ Phases:
                 step-1 gradients and launches are checked.  A dropout-free
                 copy is held against the CPU, and a fixed batch must
                 overfit.
-  6. kernels -- one JSON line with each kernel's numbers.
+  6. flash   -- P4's three kernels (flash_attention_fwd, _dkv, _dq) against
+                the plain flash attention on the card: at the encoder's
+                shape [32, 12, 128, 64] in bfloat16 and float32, at
+                scripts/attn_crossover.py's shapes (H 12, D 64, 65 536
+                tokens, S 128 to 4096) in bfloat16, and at S 200, D 32.
+                Per case and kernel: max abs error, a bit-identical
+                repeat, kernel, plain and library (SDPA) times, device µs
+                a launch, bound.  Then P4's own path: forward and backward
+                once per crossover shape, its launches counted.
+  7. encoder -- BertEncoderMLM at the ChemBERTa-77M-class width (vocab 600,
+                hidden 768, 12 layers, 12 heads, intermediate 3072),
+                seeded random weights, float32, answers requests of 1, 16
+                and 31 SMILES tokenized by SmilesTokenizer.from_corpus and
+                padded to 128 with an attention mask (the einsum route);
+                logits held against a CPU run of the same weights.
+  8. encoder through P4 -- the module's attention swapped for the flash
+                route (as scripts/mfu_ablation.py swaps it in JAX), no
+                mask: a forward and one training step held against the
+                einsum route on the card, 10 AdamW steps at lr 1e-4,
+                batch 16, bfloat16 compute, with 12 launches of each P4
+                kernel a step, and a fixed batch that must overfit.
+  9. encoder gradients -- the einsum route in float32, card against CPU:
+                every parameter's step-1 gradient.
+ 10. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -91,6 +115,22 @@ GRAD_ATOL = 1e-5                # step-1 gradients, card against the CPU
 TRAIN_RTOL = 1e-4               # 12-step loss trajectory, card against CPU
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM published peaks
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12         # dense, tensor cores
+# scripts/bench_chemberta_mfu.py:44-70: the ChemBERTa-77M-class encoder
+ENCODER = dict(vocab_size=600, hidden=768, layers=12, heads=12,
+               intermediate=3072, max_positions=130)
+SEQ = 128                       # tokens a sequence, padded
+ENCODER_BATCH = 16              # training batch
+ENCODER_LR = 1e-4               # the benches' optax.adamw rate
+FLASH_MAIN = (32, 12, 128, 64)  # the encoder's attention, [B, H, S, D]
+# scripts/attn_crossover.py:27-35: H = 12, D = 64, 65 536 tokens a call
+CROSSOVER_TOKENS = 65536
+CROSSOVER_S = (128, 256, 512, 1024, 2048, 4096)
+PLAIN_ROWS_FROM_S = 2048        # from here the plain version takes 2 rows
+# P4 against the plain version in float32 from the same inputs, scaled by
+# max(1, |ref|): forward, then gradients; bfloat16 rounds p, ds and outputs
+FLASH_TOL = {'float32': (1e-5, 1e-4), 'bfloat16': (2e-2, 5e-2)}
+ROUTE_TOL = {'float32': 1e-4, 'bfloat16': 2e-2}   # flash against einsum
 
 
 def check(ok: bool, what: str) -> None:
@@ -116,34 +156,40 @@ def time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, kernel: str, calls: int = 20) -> float:
+def device_us(fn, kernel: str, calls: int = 20, tries: int = 3) -> float:
     """Device µs per launch of the kernel whose name holds ``kernel``, from
     ``torch.profiler`` over ``calls`` calls of ``fn``; each call must
-    launch it once."""
+    launch it once.  The profiler has been seen to drop some kernel
+    records of a run (torch 2.11, CUDA 12.8): a run that recorded fewer
+    than ``calls`` launches is profiled again, up to ``tries`` runs, and
+    the last run's mean is taken over the launches it recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key \
-                and evt.device_type == torch.autograd.DeviceType.CUDA:
-            total += evt.self_device_time_total
-            count += evt.count
-    check(count == calls, f'{kernel}: {count} launches profiled, not '
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for evt in prof.key_averages():
+            if kernel in evt.key \
+                    and evt.device_type == torch.autograd.DeviceType.CUDA:
+                total += evt.self_device_time_total
+                count += evt.count
+        if count == calls:
+            break
+    check(0 < count <= calls, f'{kernel}: {count} launches profiled, not '
           f'{calls}')
     return total / count
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S):
     """The least time for the work, ms, and what sets it."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
                                    else 'operations')
 
@@ -332,6 +378,161 @@ def gather_case(name, h, src, row_ptr):
     return res
 
 
+def library_attention(q, k, v, scale):
+    """P4's forward as one library call, for comparison only: SDPA with
+    its flash backend in bfloat16 and its memory-efficient backend in
+    float32 (the flash backend takes no float32)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    backend = SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16 \
+        else SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+
+def flash_case(name, shape, dtype, dev, iters=200, seed=0):
+    """P4's forward, dK/dV and dQ kernels against the plain versions on the
+    card, with times and bounds: one result for each kernel.  The plain
+    versions run on the first 2 batch rows from S = PLAIN_ROWS_FROM_S on
+    (a [16, 12, 4096, 4096] float32 score array is 12.9 GB)."""
+    import torch
+    from deepchem_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
+        flash_attention_forward, flash_attention_reference)
+    B, H, S, D = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(4))
+    scale = D ** -0.5
+
+    def run():
+        o, m, l = flash_attention_forward(q, k, v, scale)
+        di = (o.float() * do.float()).sum(-1)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, di, scale)
+        return (o, dk, dv, flash_attention_bwd_dq(q, k, v, do, m, l, di,
+                                                  scale)), (m, l, di)
+    (o, dk, dv, dq), (m, l, di) = run()
+    again, _ = run()
+    torch.cuda.synchronize()
+    rows = 2 if S >= PLAIN_ROWS_FROM_S else B
+    ref_in = [t[:rows].float().requires_grad_() for t in (q, k, v)]
+    ref_o = flash_attention_reference(*ref_in, scale)
+    ref_o.backward(do[:rows].float())
+    kind = str(dtype).split('.')[-1]
+    fwd_tol, grad_tol = FLASH_TOL[kind]
+
+    def error(pairs, rtol):
+        err = max(max_err(a[:rows].float(), r) for a, r in pairs)
+        return err, rtol * max(1.0, max(r.abs().max().item()
+                                        for _, r in pairs))
+    errs = {'fwd': error([(o, ref_o.detach())], fwd_tol),
+            'dkv': error([(dk, ref_in[1].grad), (dv, ref_in[2].grad)],
+                         grad_tol),
+            'dq': error([(dq, ref_in[0].grad)], grad_tol)}
+    same = {'fwd': torch.equal(o, again[0]),
+            'dkv': torch.equal(dk, again[1]) and torch.equal(dv, again[2]),
+            'dq': torch.equal(dq, again[3])}
+    del ref_in, ref_o
+    # the library call: SDPA's forward, and its backward alone
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_o = library_attention(lq, lk, lv, scale)
+    lib_err = max_err(lib_o[:rows].detach().float(),
+                      flash_attention_reference(
+                          *(t[:rows] for t in (q, k, v)), scale).float())
+    lib_fwd_ms = time_ms(lambda: library_attention(q, k, v, scale), iters)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_o, (lq, lk, lv), do, retain_graph=True), iters)
+    del lib_o
+    small = [t[:rows] for t in (q, k, v, do, m, l, di)]
+    fns = {'fwd': (lambda: flash_attention_forward(q, k, v, scale),
+                   lambda: flash_attention_reference(*small[:3], scale)),
+           'dkv': (lambda: flash_attention_bwd_dkv(q, k, v, do, m, l, di,
+                                                   scale),
+                   lambda: flash_attention_bwd_dkv_reference(*small, scale)),
+           'dq': (lambda: flash_attention_bwd_dq(q, k, v, do, m, l, di,
+                                                 scale),
+                  lambda: flash_attention_bwd_dq_reference(*small, scale))}
+    # bytes: each input read once, each output written once; operations:
+    # the products of S x S by D each kernel has to do (4, 8 and 6 flops a
+    # score: q k^T and p v; s and dp again, dV and dK; s, dp and dQ)
+    esize, bhsd, bhs = q.element_size(), B * H * S * D, B * H * S
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    work = {'fwd': (4 * bhsd * esize + 2 * bhs * 4, 4 * bhs * S * D),
+            'dkv': (6 * bhsd * esize + 3 * bhs * 4, 8 * bhs * S * D),
+            'dq': (5 * bhsd * esize + 3 * bhs * 4, 6 * bhs * S * D)}
+    results = {}
+    for part, (fn, plain) in fns.items():
+        bound_ms, bound_by = bound(*work[part], rate)
+        res = {'kernel': f'flash_attention_{part}', 'case': name,
+               'shape': list(shape), 'dtype': kind,
+               'max_abs_err': errs[part][0], 'tol': errs[part][1],
+               'repeat_identical': same[part],
+               'ms': time_ms(fn, iters),
+               'device_us': device_us(fn, f'flash_{part}_'),
+               'plain_ms': time_ms(plain, iters), 'plain_rows': rows,
+               'library_ms': lib_fwd_ms if part == 'fwd' else lib_bwd_ms,
+               'bound_ms': bound_ms, 'bound_by': bound_by}
+        if part == 'fwd':
+            res['library_err'] = lib_err
+        else:
+            res['library'] = 'SDPA backward: dQ, dK and dV in one call'
+        print(f'phase 6 kernel {json.dumps(res)}', flush=True)
+        check(res['max_abs_err'] <= res['tol'],
+              f'{name} {part}: error {res["max_abs_err"]} > {res["tol"]}')
+        check(same[part], f'{name} {part}: a repeat differs')
+        results[part] = res
+    return results
+
+
+@contextlib.contextmanager
+def flash_routed():
+    """The encoder's attention through P4: the module-level
+    ``flash_or_xla_attention`` swapped for one that passes
+    ``use_flash=True``, as scripts/mfu_ablation.py swaps attention in the
+    JAX package."""
+    from deepchem_tpu_torch.models import bert_encoder
+    einsum = bert_encoder.flash_or_xla_attention
+
+    def flash(q, k, v, mask, use_flash=None):
+        return einsum(q, k, v, mask, use_flash=True)
+    bert_encoder.flash_or_xla_attention = flash
+    try:
+        yield
+    finally:
+        bert_encoder.flash_or_xla_attention = einsum
+
+
+def mlm_batch(tok, smiles, seed):
+    """Token ids padded to SEQ, the attention mask, and an MLM input with
+    15 % of the real tokens replaced by [MASK]; the labels are the ids."""
+    import numpy as np
+    import torch
+    ids = torch.tensor([tok.encode(s, max_length=SEQ) for s in smiles])
+    mask = (ids != tok.pad_token_id).float()
+    pick = torch.from_numpy(np.random.RandomState(seed).rand(*ids.shape)
+                            < 0.15) & (mask > 0)
+    return ids, mask, torch.where(pick, tok.mask_token_id, ids)
+
+
+def encoder_step(model, inputs, labels, label_mask, mask=None):
+    """Forward, MLM loss on the real tokens, backward: the logits, the loss
+    and a copy of every parameter's gradient."""
+    from deepchem_tpu_torch.models import mlm_loss
+    model.zero_grad(set_to_none=True)
+    logits = model(inputs, mask)
+    loss = mlm_loss(logits, labels, label_mask)
+    loss.backward()
+    return logits.detach(), loss.detach(), {
+        n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def scaled_err(a, b) -> float:
+    """max |a - b| / max(1, max |b|)."""
+    return max_err(a.float(), b.float()) / max(1.0, b.abs().max().item())
+
+
 def recorded(module, attr, run):
     """Run ``run()`` with ``module.attr`` wrapped to record copies of its
     arguments; return them."""
@@ -365,19 +566,26 @@ def bench_graph(rng, n_nodes, n_edges, feat, dev):
     return [torch.from_numpy(a).to(dev) for a in (h, src[perm], row_ptr)]
 
 
-def launch_counts():
+def _counted():
     from deepchem_tpu_torch.ops import (csr_segment_softmax, csr_segment_sum,
+                                        flash_attention,
+                                        flash_attention_bwd_dkv,
+                                        flash_attention_bwd_dq,
                                         fused_gather_segment_sum)
-    return {'csr_segment_softmax': csr_segment_softmax.launches,
-            'csr_segment_sum': csr_segment_sum.launches,
-            'fused_gather_segment_sum': fused_gather_segment_sum.launches}
+    return {'csr_segment_softmax': csr_segment_softmax,
+            'csr_segment_sum': csr_segment_sum,
+            'fused_gather_segment_sum': fused_gather_segment_sum,
+            'flash_attention_fwd': flash_attention,
+            'flash_attention_dkv': flash_attention_bwd_dkv,
+            'flash_attention_dq': flash_attention_bwd_dq}
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in _counted().items()}
 
 
 def reset_launch_counts():
-    from deepchem_tpu_torch.ops import (csr_segment_softmax, csr_segment_sum,
-                                        fused_gather_segment_sum)
-    for fn in (csr_segment_softmax, csr_segment_sum,
-               fused_gather_segment_sum):
+    for fn in _counted().values():
         fn.launches = 0
 
 
@@ -424,7 +632,7 @@ def main() -> int:
         build.load(kname)
     print(f'phase 2 build: {len(build.kernel_names())} kernel(s) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    check(len(build.kernel_names()) == 3, 'three kernels to build')
+    check(len(build.kernel_names()) == 4, 'four kernel sources to build')
     for kname in build.kernel_names():
         ptxas = [ln.strip() for ln in build.build_log(kname).splitlines()
                  if 'registers' in ln or 'spill' in ln]
@@ -435,6 +643,7 @@ def main() -> int:
                                     PagtnMolGraphFeaturizer)
     from deepchem_tpu_torch.models import graph_models
     from deepchem_tpu_torch.ops import (NEG, csr_segment, csr_segment_softmax,
+                                        flash_attention,
                                         fused_gather_segment_sum, segment)
     t0 = time.perf_counter()
     X = PagtnMolGraphFeaturizer().featurize(SMILES)
@@ -663,10 +872,208 @@ def main() -> int:
     check(below is not None, 'the loss falls below 0.9 of its first value '
           'within 50 steps')
 
-    # -- 6. kernels line --------------------------------------------------
-    def entry(kname, cases, main_case, path_launches, **extra):
+    # -- 6. P4 flash attention against its plain versions ----------------
+    flash_cases = [flash_case(f'encoder_{kind}', FLASH_MAIN, dt, dev)
+                   for kind, dt in (('bf16', torch.bfloat16),
+                                    ('f32', torch.float32))]
+    for dt in (torch.bfloat16, torch.float32):
+        flash_cases.append(flash_case(
+            f'unaligned_S200_D32_{str(dt)[6:]}', (3, 4, 200, 32), dt, dev))
+    crossover = [(CROSSOVER_TOKENS // S, 12, S, 64) for S in CROSSOVER_S]
+    for shape in crossover:
+        flash_cases.append(flash_case(
+            f'crossover_S{shape[2]}', shape, torch.bfloat16, dev,
+            iters=200 if shape[2] <= 1024 else 50))
+    # P4's own path: forward and backward once per crossover shape
+    gen = torch.Generator(dev).manual_seed(1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for shape in crossover:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(torch.bfloat16).requires_grad_(i < 3)
+                       for i in range(4))
+        out = flash_attention(q, k, v, shape[3] ** -0.5)
+        out.backward(do)
+        check(all(bool(torch.isfinite(t).all()) for t in
+                  (out, q.grad, k.grad, v.grad)), 'P4 outputs finite')
+    torch.cuda.synchronize()
+    p4_path = launch_counts()
+    del q, k, v, do, out
+    print(f'phase 6 p4 path: forward and backward at {len(crossover)} '
+          f'crossover shapes, launches {p4_path}', flush=True)
+    for kname in ('flash_attention_fwd', 'flash_attention_dkv',
+                  'flash_attention_dq'):
+        check(p4_path[kname] == len(crossover),
+              f'{kname} launched once per crossover shape')
+
+    # -- 7. encoder serving, einsum route ---------------------------------
+    from deepchem_tpu_torch import BertEncoderMLM, SmilesTokenizer
+    from deepchem_tpu_torch.models import AdamW, mlm_loss
+    tok = SmilesTokenizer.from_corpus(SMILES)
+    longest = max(len(tok.tokenize(s)) for s in SMILES) + 2
+    check(tok.vocab_size <= ENCODER['vocab_size'] and longest <= SEQ,
+          f'{tok.vocab_size} tokens, sequences of up to {longest}')
+    ids, mask, mlm_in = mlm_batch(tok, SMILES, seed=0)
+    n_enc_layers = ENCODER['layers']
+    server = BertEncoderMLM(**ENCODER, device=dev, seed=0).eval()
+    with torch.no_grad():
+        server(ids[:16].to(dev), mask[:16].to(dev))    # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    served, request_ms, start = [], [], 0
+    for n in REQUESTS:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            served.append(server(ids[start:start + n].to(dev),
+                                 mask[start:start + n].to(dev)).cpu())
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        start += n
+    enc_serve = launch_counts()
+    cpu_server = BertEncoderMLM(**ENCODER, device='cpu').eval()
+    cpu_server.load_state_dict({k: v.cpu() for k, v in
+                                server.state_dict().items()})
+    worst, start = 0.0, 0
+    for n, out in zip(REQUESTS, served):
+        check(tuple(out.shape) == (n, SEQ, ENCODER['vocab_size'])
+              and bool(torch.isfinite(out).all()),
+              f'finite logits [{n}, {SEQ}, {ENCODER["vocab_size"]}]')
+        with torch.no_grad():
+            ref = cpu_server(ids[start:start + n], mask[start:start + n])
+        worst = max(worst, scaled_err(out, ref))
+        start += n
+    del cpu_server
+    print(f'phase 7 encoder serve: {tok.vocab_size} tokens in the '
+          f'vocabulary, requests {list(REQUESTS)} SMILES padded to {SEQ}, '
+          f'ms per request {[round(t, 3) for t in request_ms]}, logits '
+          f'finite; max abs diff against the CPU run / max(1, |ref|) '
+          f'{worst:.3g}; launches {enc_serve}', flush=True)
+    check(worst <= CPU_ATOL, f'encoder card vs CPU {worst} > {CPU_ATOL}')
+    check(enc_serve['flash_attention_fwd'] == 0,
+          'the default (einsum) route launches no P4 kernel')
+
+    # -- 8. the encoder through P4 ---------------------------------------
+    req = slice(REQUESTS[0] + REQUESTS[1], sum(REQUESTS))  # the 31 request
+    with torch.no_grad():
+        einsum_logits = server(ids[req].to(dev))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with flash_routed():
+            flash_logits = server(ids[req].to(dev))
+        torch.cuda.synchronize()
+        serve_flash = launch_counts()
+    del server
+    serve_err = scaled_err(flash_logits, einsum_logits)
+    print(f'phase 8 serve_flash: a request of {req.stop - req.start} SMILES, '
+          f'no mask, float32: flash against einsum {serve_err:.3g}; '
+          f'launches {serve_flash}', flush=True)
+    check(serve_err <= ROUTE_TOL['float32'],
+          f'flash route vs einsum {serve_err} > {ROUTE_TOL["float32"]}')
+    check(serve_flash['flash_attention_fwd'] == n_enc_layers
+          and serve_flash['flash_attention_dkv'] == 0,
+          f'{n_enc_layers} P4 forward launches and no backward')
+
+    b16 = slice(0, ENCODER_BATCH)
+    batch = [t[b16].to(dev) for t in (mlm_in, ids, mask)]
+    for kind, dt in (('float32', torch.float32),
+                     ('bfloat16', torch.bfloat16)):
+        model = BertEncoderMLM(**ENCODER, dtype=dt, device=dev,
+                               seed=1).train()
+        logits_e, loss_e, grads_e = encoder_step(model, *batch)
+        with flash_routed():
+            logits_f, loss_f, grads_f = encoder_step(model, *batch)
+        logit_err = scaled_err(logits_f, logits_e)
+        grad_err = max(scaled_err(grads_f[n], g) for n, g in grads_e.items())
+        print(f'phase 8 step: {kind}, flash against einsum: logits '
+              f'{logit_err:.3g}, step-1 gradients {grad_err:.3g} (of '
+              f'max(1, |g|)); loss {loss_f.item():.5f} against '
+              f'{loss_e.item():.5f}', flush=True)
+        check(logit_err <= ROUTE_TOL[kind] and grad_err <= ROUTE_TOL[kind],
+              f'{kind} flash route vs einsum: {logit_err}, {grad_err}')
+        del model, grads_e, grads_f
+
+    # 10 AdamW steps at batch 16, bfloat16 compute, through P4
+    trainer = BertEncoderMLM(**ENCODER, dtype=torch.bfloat16, device=dev,
+                             seed=2).train()
+    opt = AdamW(learning_rate=ENCODER_LR)._create_torch_optimizer(
+        trainer.parameters())
+    batches = [[t[i:i + ENCODER_BATCH].to(dev) for t in (mlm_in, ids, mask)]
+               for i in range(0, len(SMILES), ENCODER_BATCH)]
+    enc_losses, per_step = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with flash_routed():
+        for i in range(10):
+            inputs, labels, label_mask = batches[i % len(batches)]
+            opt.zero_grad(set_to_none=True)
+            loss = mlm_loss(trainer(inputs), labels, label_mask)
+            loss.backward()
+            opt.step()
+            enc_losses.append(loss.detach())
+            per_step.append(launch_counts())
+    torch.cuda.synchronize()
+    enc_step_ms = (time.perf_counter() - t0) * 1e3 / 10
+    train_flash = launch_counts()
+    enc_losses = [v.item() for v in enc_losses]
+    print(f'phase 8 train_flash: 10 AdamW steps of {ENCODER_BATCH} at lr '
+          f'{ENCODER_LR}, bfloat16, {enc_step_ms:.3f} ms a step; loss per '
+          f'step {[round(v, 5) for v in enc_losses]}; launches '
+          f'{train_flash}', flush=True)
+    check(all(np.isfinite(enc_losses)), 'finite losses')
+    for i, counts in enumerate(per_step):
+        for kname in ('flash_attention_fwd', 'flash_attention_dkv',
+                      'flash_attention_dq'):
+            check(counts[kname] == n_enc_layers * (i + 1),
+                  f'{kname}: {n_enc_layers} launches a step')
+    del trainer, opt
+
+    overfit = BertEncoderMLM(**ENCODER, dtype=torch.bfloat16, device=dev,
+                             seed=3).train()
+    opt = AdamW(learning_rate=ENCODER_LR)._create_torch_optimizer(
+        overfit.parameters())
+    fixed, below = [], None
+    with flash_routed():
+        for step in range(1, 51):
+            opt.zero_grad(set_to_none=True)
+            loss = mlm_loss(overfit(batches[0][0]), *batches[0][1:])
+            loss.backward()
+            opt.step()
+            fixed.append(loss.item())
+            if fixed[-1] < 0.9 * fixed[0]:
+                below = step
+                break
+    del overfit, opt
+    print(f'phase 8 overfit: one fixed batch, lr {ENCODER_LR}: loss '
+          f'{fixed[0]:.5f} at step 1, {fixed[-1]:.5f} at step '
+          f'{len(fixed)}, below 0.9 of the first at step {below}',
+          flush=True)
+    check(below is not None, 'the loss falls below 0.9 of its first value '
+          'within 50 steps')
+
+    # -- 9. encoder gradients, card against CPU (einsum route, f32) -------
+    small = [t[:4] for t in (mlm_in, ids, mask)]
+    models = [BertEncoderMLM(**ENCODER, device=d, seed=4).train()
+              for d in (dev, 'cpu')]
+    steps = [encoder_step(m, *[t.to(m.head_bias.device) for t in small],
+                          mask=small[2].to(m.head_bias.device))
+             for m in models]
+    grad_err = max(scaled_err(steps[0][2][n].cpu(), g)
+                   for n, g in steps[1][2].items())
+    zero = [n for n, g in steps[0][2].items() if not g.abs().max() > 0]
+    print(f'phase 9 encoder gradients: batch 4 with a mask, float32, card '
+          f'against CPU: loss {steps[0][1].item():.6f} against '
+          f'{steps[1][1].item():.6f}, step-1 gradients max abs diff / '
+          f'max(1, |g|) {grad_err:.3g} over {len(steps[1][2])} parameters',
+          flush=True)
+    check(not zero, f'every parameter gets a gradient; zero: {zero}')
+    check(grad_err <= CPU_ATOL, f'encoder gradients {grad_err} > '
+          f'{CPU_ATOL}')
+    del models, steps
+
+    # -- 10. kernels line -------------------------------------------------
+    def entry(kname, cases, main_case, path_launches, source=None, **extra):
         return {'name': kname, 'route': 'cuda',
-                'source': f'deepchem_tpu_torch/csrc/{kname}.cu',
+                'source': source or f'deepchem_tpu_torch/csrc/{kname}.cu',
                 'launches': sum(path_launches.values()),
                 'launches_by_path': path_launches,
                 'max_abs_err': max(c['max_abs_err'] for c in cases),
@@ -675,7 +1082,6 @@ def main() -> int:
                 'bound_ms': main_case['bound_ms'],
                 'bound_by': main_case['bound_by'],
                 'library_ms': main_case['library_ms'], **extra}
-
     p1 = entry('csr_segment_softmax', softmax_cases, softmax_cases[0],
                {'serve': serve['csr_segment_softmax'],
                 'train': train['csr_segment_softmax']},
@@ -693,13 +1099,26 @@ def main() -> int:
                gather_cases[len(P2_BENCH_SHAPES) - 1],
                {'p2_bench_shapes': p2_path['fused_gather_segment_sum']},
                replaces='deepchem_tpu/ops/pallas_segment.py:94')
+    # P4: the stock kernels, reached through bert_encoder.py:62; main case
+    # the encoder's attention in bfloat16
+    stock = {'fwd': 758, 'dkv': 1121, 'dq': 1456}
+    p4 = tuple(entry(
+        f'flash_attention_{part}', [c[part] for c in flash_cases],
+        flash_cases[0][part],
+        {path: counts[f'flash_attention_{part}'] for path, counts in
+         (('serve_flash', serve_flash), ('train_flash', train_flash),
+          ('crossover', p4_path))},
+        source='deepchem_tpu_torch/csrc/flash_attention.cu',
+        replaces=f'jax/experimental/pallas/ops/tpu/flash_attention.py:'
+                 f'{line} via deepchem_tpu/models/bert_encoder.py:62')
+        for part, line in stock.items())
     print(json.dumps({'kernels': [
         {k: e[k] for k in ('name', 'route', 'source', 'replaces', 'launches',
                            'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                            'bound_by', 'library_ms')}
         | {k: v for k, v in e.items() if k in ('device_us', 'launches_by_path',
                                                 'backward')}
-        for e in (p1, p3, p2)]}), flush=True)
+        for e in (p1, p3, p2) + p4]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,8 @@ the caller passes ``device='cpu'``.
 """
 
 from deepchem_tpu_torch.data import NumpyDataset
-from deepchem_tpu_torch.feat import PagtnMolGraphFeaturizer
-from deepchem_tpu_torch.models import PagtnModel
+from deepchem_tpu_torch.feat import PagtnMolGraphFeaturizer, SmilesTokenizer
+from deepchem_tpu_torch.models import BertEncoderMLM, PagtnModel
 
-__all__ = ['NumpyDataset', 'PagtnMolGraphFeaturizer', 'PagtnModel']
+__all__ = ['BertEncoderMLM', 'NumpyDataset', 'PagtnMolGraphFeaturizer',
+           'PagtnModel', 'SmilesTokenizer']

@@ -1,6 +1,7 @@
 """Load flax parameters, flattened to ``{'params/<scope>/<name>': array}``
-(the JAX package's ``jax_model._flatten_params``), into the port's PAGTN
-module."""
+(the JAX package's ``jax_model._flatten_params``), into the port's
+modules: the PAGTN module (:func:`params_from_flax`) and the encoder
+(:func:`encoder_params_from_flax`)."""
 
 from __future__ import annotations
 
@@ -30,14 +31,55 @@ def _torch_name(key: str) -> str:
     return '.'.join(scopes + [leaf])
 
 
+def _tensor(key: str, value) -> torch.Tensor:
+    """float32 tensor of ``value``; a Dense kernel ``[in, out]`` becomes
+    the ``nn.Linear`` weight ``[out, in]``."""
+    t = torch.from_numpy(np.array(value, dtype=np.float32))
+    return t.T if key.endswith('/kernel') else t
+
+
 def params_from_flax(flat: Dict[str, np.ndarray], module: nn.Module) -> None:
     """Copy ``flat`` into ``module`` in place.  Each Dense kernel ``[in,
     out]`` becomes the ``nn.Linear`` weight ``[out, in]``.  Raises on a
     missing or extra key and on a shape that differs."""
-    state = {}
-    for key, value in flat.items():
-        t = torch.from_numpy(np.array(value, dtype=np.float32))
-        state[_torch_name(key)] = t.T if key.endswith('/kernel') else t
+    _load({_torch_name(key): _tensor(key, value)
+           for key, value in flat.items()}, module)
+
+
+# flax leaf -> torch leaf in the encoder: Dense kernel (transposed), Embed
+# table, LayerNorm scale, and every bias
+_ENCODER_LEAVES = {'kernel': 'weight', 'embedding': 'weight',
+                   'scale': 'weight', 'bias': 'bias'}
+_ENCODER_LAYER = re.compile(r'layer_(\d+)$')
+
+
+def _encoder_name(key: str) -> str:
+    parts = key.split('/')
+    if parts == ['params', 'head_bias']:
+        return 'head_bias'
+    if len(parts) < 3 or parts[0] != 'params' \
+            or parts[-1] not in _ENCODER_LEAVES:
+        raise KeyError(f'not a BertEncoderMLM parameter: {key!r}')
+    scopes = []
+    for scope in parts[1:-1]:
+        m = _ENCODER_LAYER.match(scope)
+        scopes.append(f'layers.{m.group(1)}' if m else scope)
+    return '.'.join(scopes + [_ENCODER_LEAVES[parts[-1]]])
+
+
+def encoder_params_from_flax(flat: Dict[str, np.ndarray],
+                             module: nn.Module) -> None:
+    """Copy the flattened parameters of the JAX package's
+    ``BertEncoderMLM`` into the port's, in place: ``layer_<i>`` becomes
+    ``layers.<i>``, Dense kernels are transposed, ``nn.Embed``'s
+    ``embedding`` and ``nn.LayerNorm``'s ``scale`` become ``weight``, and
+    the top-level ``head_bias`` stays.  Raises on a missing or extra key
+    and on a shape that differs."""
+    _load({_encoder_name(key): _tensor(key, value)
+           for key, value in flat.items()}, module)
+
+
+def _load(state: Dict[str, torch.Tensor], module: nn.Module) -> None:
     own = module.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))

@@ -2,6 +2,11 @@ from deepchem_tpu_torch.ops.csr_segment import (
     csr_neighbor_sum_reference, csr_row_ptr, csr_segment_softmax,
     csr_segment_softmax_reference, csr_segment_sum,
     csr_segment_sum_reference, edges_to_csr, fused_gather_segment_sum)
+from deepchem_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference, flash_attention_forward,
+    flash_attention_reference)
 from deepchem_tpu_torch.ops.segment import (NEG, graph_pool, segment_softmax,
                                             segment_softmax_sorted,
                                             segment_sum)
@@ -9,5 +14,9 @@ from deepchem_tpu_torch.ops.segment import (NEG, graph_pool, segment_softmax,
 __all__ = ['NEG', 'csr_neighbor_sum_reference', 'csr_row_ptr',
            'csr_segment_softmax', 'csr_segment_softmax_reference',
            'csr_segment_sum', 'csr_segment_sum_reference', 'edges_to_csr',
-           'fused_gather_segment_sum', 'graph_pool', 'segment_softmax',
+           'flash_attention', 'flash_attention_bwd_dkv',
+           'flash_attention_bwd_dkv_reference', 'flash_attention_bwd_dq',
+           'flash_attention_bwd_dq_reference', 'flash_attention_forward',
+           'flash_attention_reference', 'fused_gather_segment_sum',
+           'graph_pool', 'segment_softmax',
            'segment_softmax_sorted', 'segment_sum']

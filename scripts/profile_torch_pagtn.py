@@ -38,6 +38,33 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 
+def device_breakdown(run, n: int):
+    """``torch.profiler`` over ``run()``, which runs ``n`` requests or steps
+    and does not synchronise: the window's wall ms, and the device time of
+    each kernel by name (``device_us_per_request`` is over ``n``), largest
+    first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, 'self_device_time_total', 0.0)
+        # a user annotation (Adam's ``Optimizer.step``) spans kernels that
+        # are counted on their own
+        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(evt, 'is_user_annotation', False):
+            kernels.append({'name': evt.key[:80], 'calls': evt.count,
+                            'device_us_per_request': dev_us / n})
+    kernels.sort(key=lambda k: -k['device_us_per_request'])
+    return wall_ms, kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--mode', choices=('serve', 'train'), default='serve')
@@ -47,7 +74,6 @@ def main() -> int:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print('profile_torch_pagtn: no CUDA device', file=sys.stderr)
         return 1
@@ -122,25 +148,8 @@ def main() -> int:
     clock['total'] = sum(clock.values())
 
     csr_segment_softmax.launches = csr_segment_sum.launches = 0
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for idx in picks:
-            run(idx)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, 'self_device_time_total', 0.0)
-        # a user annotation (Adam's ``Optimizer.step``) spans kernels that
-        # are counted on their own
-        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
-                and not getattr(evt, 'is_user_annotation', False):
-            kernels.append({'name': evt.key[:80], 'calls': evt.count,
-                            'device_us_per_request':
-                                dev_us / args.requests})
-    kernels.sort(key=lambda k: -k['device_us_per_request'])
+    wall_ms, kernels = device_breakdown(lambda: [run(i) for i in picks],
+                                        args.requests)
     busy_ms = sum(k['device_us_per_request'] for k in kernels) \
         * args.requests / 1e3
     result = {

@@ -11,13 +11,18 @@ runs every phase of ``chip_smoke.py`` with:
 - the build skipped and ``nvidia-smi`` answered with a placeholder;
 - each kernel wrapper's plain path counted as one launch, so the launch
   checks run as they would on the card;
-- every timing taken over 1 call instead of 200, and no device time.
+- every timing taken over 1 call instead of 200, and no device time;
+- P4 and the encoder cut to a size the CPU can hold (attention [2, 2,
+  128, 64], crossover shapes of 2048 tokens up to S = 512, an encoder of
+  hidden 64 and 2 layers trained at lr 1e-2), and SDPA without a chosen
+  backend.
 
 It finds wrong paths, shapes, counts and control flow.  Its times are the
 CPU's and mean nothing for the card; its errors are 0 because both sides
 of each comparison are the plain version.  Exits with chip_smoke's code.
 """
 
+import importlib
 import subprocess
 import sys
 import time
@@ -76,6 +81,26 @@ def main() -> int:
         return gather(h, src, row_ptr)
 
     counted_gather.launches = 0
+    flash = importlib.import_module('deepchem_tpu_torch.ops.flash_attention')
+    flash_fwd = flash.flash_attention_forward
+    flash_dkv, flash_dq = flash.flash_attention_bwd_dkv, \
+        flash.flash_attention_bwd_dq
+
+    def counted_flash_fwd(*args):
+        flash.flash_attention.launches += 1
+        return flash_fwd(*args)
+
+    def counted_flash_dkv(*args):
+        flash_dkv.launches += 1
+        return flash_dkv(*args)
+
+    def counted_flash_dq(*args):
+        flash_dq.launches += 1
+        return flash_dq(*args)
+
+    flash.flash_attention_forward = counted_flash_fwd
+    flash.flash_attention_bwd_dkv = counted_flash_dkv
+    flash.flash_attention_bwd_dq = counted_flash_dq
     csr_segment._softmax_forward = counted_softmax
     csr_segment._segment_sum_forward = counted_sum
     csr_segment.fused_gather_segment_sum = counted_gather
@@ -89,6 +114,15 @@ def main() -> int:
     timed = smoke.time_ms
     smoke.time_ms = lambda fn, iters=200: timed(fn, iters=1)
     smoke.device_us = lambda fn, kernel, calls=20: None   # no device here
+    smoke.library_attention = lambda q, k, v, scale: \
+        torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                         scale=scale)
+    smoke.FLASH_MAIN = (2, 2, 128, 64)
+    smoke.CROSSOVER_TOKENS, smoke.CROSSOVER_S = 2048, (128, 256, 512)
+    smoke.PLAIN_ROWS_FROM_S = 512
+    smoke.ENCODER = dict(smoke.ENCODER, hidden=64, layers=2, heads=2,
+                         intermediate=128)
+    smoke.ENCODER_LR = 1e-2
     return smoke.main()
 
 

@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA device: each CUDA kernel against its
 plain PyTorch version on the card, P1's backward against autograd through
-its plain version, and one PAGTN training step against the CPU.  They
-skip where there is no GPU.  This file imports no JAX, so it runs where
-JAX is not installed:
+its plain version, one PAGTN training step against the CPU, P4's forward
+and backward kernels against the plain flash attention, and the encoder's
+logits against the CPU.  They skip where there is no GPU.  This file
+imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -12,11 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from deepchem_tpu_torch import PagtnModel, PagtnMolGraphFeaturizer
+from deepchem_tpu_torch import (BertEncoderMLM, PagtnModel,
+                                PagtnMolGraphFeaturizer)
 from deepchem_tpu_torch.ops.csr_segment import (
     csr_neighbor_sum_reference, csr_segment_softmax,
     csr_segment_softmax_reference, csr_segment_sum,
     csr_segment_sum_reference, edges_to_csr, fused_gather_segment_sum)
+from deepchem_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_reference)
 
 # same f32 inputs, summed in another order
 ATOL = 1e-6
@@ -155,3 +160,73 @@ def test_training_step_gradients_match_the_cpu(cuda):
         np.testing.assert_allclose(p.grad.cpu().numpy(),
                                    cpu[name].grad.numpy(), atol=1e-5,
                                    err_msg=name)
+
+
+# P4, against the plain version in float32 from the same inputs: the
+# forward within 1e-5 (float32) and 2e-2 (bfloat16: p and the output
+# rounded), the gradients within 1e-4 and 5e-2, scaled by max(1, |ref|)
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,H,S,D', [(2, 12, 128, 64), (1, 3, 200, 32)])
+def test_flash_attention_kernels_match_plain_version(cuda, dtype, B, H, S,
+                                                     D):
+    rng = np.random.RandomState(S + D)
+    q, k, v, w = (torch.from_numpy(rng.randn(B, H, S, D).astype(np.float32))
+                  .to(cuda, dtype) for _ in range(4))
+    counts = [fn.launches for fn in (flash_attention,
+                                     flash_attention_bwd_dkv,
+                                     flash_attention_bwd_dq)]
+    outs = []
+    for fn, cast in ((flash_attention, dtype),
+                     (flash_attention_reference, torch.float32)):
+        ts = [t.detach().clone().to(cast).requires_grad_() for t in (q, k, v)]
+        out = fn(*ts, D ** -0.5)
+        (out.float() * w.float()).sum().backward()
+        outs.append([out.detach()] + [t.grad for t in ts])
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (flash_attention, flash_attention_bwd_dkv,
+                                   flash_attention_bwd_dq)] \
+        == [c + 1 for c in counts]
+    for i, (a, ref) in enumerate(zip(*outs)):
+        tol = FLASH_TOL[dtype][i > 0] * max(1.0, ref.abs().max().item())
+        assert a.dtype == dtype
+        assert (a.float() - ref).abs().max().item() <= tol, i
+    again = flash_attention(q, k, v, D ** -0.5)
+    assert torch.equal(again, outs[0][0])     # no atomics: bit for bit
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 2, 16, 64, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q.bfloat16(), 0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                        q[..., :48].contiguous(), 0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q,
+                        0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q.cpu(), 0.125)
+
+
+@pytest.mark.cuda
+def test_encoder_logits_match_the_cpu(cuda):
+    """A small float32 encoder from one seed on the card and on the CPU,
+    with a padding mask: logits within 1e-4 (sums in another order)."""
+    kw = dict(vocab_size=40, hidden=64, layers=2, heads=2, intermediate=128,
+              max_positions=34, seed=3)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(4, 40, (4, 32)))
+    mask = torch.ones(4, 32)
+    mask[1, 20:] = 0
+    out = []
+    for device in (cuda, 'cpu'):
+        model = BertEncoderMLM(device=device, **kw).eval()
+        with torch.no_grad():
+            out.append(model(ids.to(device), mask.to(device)).cpu())
+    np.testing.assert_allclose(out[0].numpy(), out[1].numpy(), atol=1e-4)
