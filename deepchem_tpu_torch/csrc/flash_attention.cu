@@ -21,36 +21,87 @@
 //
 // Bound on this card.  A call does 4*S*S*D flops per (batch, head) in the
 // forward, 8 in dK/dV (it recomputes s and dp) and 6 in dQ, and moves
-// 4..7 arrays of S*D.  At the encoder's shape (S = 128, D = 64) that is 32
-// flops per byte: memory bound in bf16 (295 flops a byte balance the
-// tensor cores against HBM) and near balance in f32 on the FMA units.
-// From S of about 1k up, bf16 is bound by the tensor cores.
+// 4..7 arrays of S*D.  At the encoder's shape ([32, 12, 128, 64], bf16)
+// that is 32 flops per byte: bound by bytes (295 flops a byte balance the
+// tensor cores against HBM), 11.4 us for dK/dV and 9.6 us for dQ.  From S
+// of about 1k up, bf16 is bound by the tensor cores: at [16, 12, 4096, 64]
+// 1.67 ms for dK/dV and 1.25 ms for dQ.  f32 is near balance on the FMA
+// units.
 //
-// Design.  A block owns 64 rows of one (batch, head): q rows in the
-// forward and dQ kernels, k rows in dK/dV, so every output row has one
-// writer, no atomics are used and a repeat is bit-identical.  It walks the
-// other side in tiles of 64 rows through shared memory, carrying the sums
-// in registers.  No S x S array is stored.
-//   bf16: 4 warps, each owning 16 rows.  Products are mma.sync m16n8k16
-//         (bf16 in, f32 accumulate).  The block's own rows are held as A
-//         fragments; the score accumulator is turned into the next
-//         product's A fragment in registers (after rounding to bf16), so
-//         p and ds never touch shared memory.  Shared tiles are padded by
-//         8 elements a row, which keeps every fragment load free of bank
-//         conflicts.  The dK/dV kernel computes s^T = k q^T directly, so
-//         it needs no transpose.
+// Design.  Every output row has one writer: a block owns rows of one
+// (batch, head) (q rows in the forward and dQ kernels, k rows in dK/dV)
+// and walks the other side in tiles of 64 rows, carrying its sums in
+// registers.  No atomics are used, so a repeat is bit-identical, and no
+// S x S array is stored.
+//   bf16 forward: 4 warps of 16 rows, mma.sync m16n8k16 (bf16 in, f32
+//         accumulate).  The score accumulator becomes the next product's
+//         A fragment in registers, rounded to bf16, so p never touches
+//         shared memory; shared rows are padded by 8 elements, which keeps
+//         the fragment loads free of bank conflicts.
+//   bf16 backward (dK/dV and dQ), for Hopper: warp-specialised blocks of
+//         two consumer warpgroups (64 own rows each, 128 a block) and one
+//         producer warp.  The producer loads the block's own rows once by
+//         TMA, then streams the other side's 64-row tiles (dK/dV: q and dO;
+//         dQ: k and v) through a ring of 4 shared-memory slots guarded by
+//         mbarriers (full: the slot's TMA bytes have landed and each of
+//         the producer's 32 lanes has arrived after storing its part of
+//         the slot's statistics; empty: every consumer thread is done with
+//         it).  Consumers run wgmma m64nNk16, bf16 in, f32 accumulate:
+//           dK/dV  s^T = k q^T and dp^T = v dO^T (both operands K-major in
+//                  shared memory, issued as one group); p^T = 2^(s^T scale
+//                  log2 e - m log2 e) / l, 0 past seq; ds^T = p^T (dp^T -
+//                  di) scale; p^T and ds^T rounded to bf16 in registers
+//                  (the accumulator's fragment is the next A operand); then
+//                  dV += p^T dO and dK += ds^T q as one group (A from
+//                  registers, dO and q MN-major: trans-b).  The
+//                  accumulator's columns are queries, so each thread reads
+//                  m, 1/l and di of its 16 columns from the copy the
+//                  producer writes beside the slot, loaded a tile ahead.
+//           dQ     s = q k^T and dp = dO v^T; ds in registers (m, 1/l and
+//                  di of the thread's two rows held in registers); dQ +=
+//                  ds k (k MN-major).
+//         dK, dV and dQ stay in registers until the epilogue.  Tensor maps
+//         are 3-D ([B*H, S, D], box [1, 64, D]), so a box past S is filled
+//         with zeros rather than the next head's rows; the p = 0 mask past
+//         S stays, since a zero row with m = 0 and 1/l = 1 gives p = 1.
+//         Tiles are swizzled by the width of a row (128 B for D = 64, 64 B
+//         for D = 32): a wgmma reads the same q or dO tile K-major (start
+//         +32 B a k-step, 8-row atoms 16D bytes apart) and MN-major (start
+//         +16 rows a k-step, the same 16D-byte stride between 8-row
+//         groups along the reduction).
+//         What the card showed (H100; PERF.md section 6 has the times of
+//         each choice undone): ds and both bf16 fragments are made before
+//         dV's and dK's products are issued, since otherwise dK/dV needs
+//         more than the 168 registers a thread its launch allows and
+//         ptxas serialises every wgmma (info C7512); the producer issues
+//         a slot's copies before it stores the statistics, and loads them
+//         a tile ahead, after its arrival, or their latency paces the
+//         ring; p takes one FMA and ex2.approx, not expf.
+//         Tiles by shape: one configuration for every S and D, two
+//         consumer warpgroups a block and 4 slots.  One warpgroup a block
+//         (two blocks an SM) wins only dK/dV at the encoder's shape and
+//         small S with few heads, and loses from S = 512 up; 2 slots lose
+//         a little from S = 512 up.  No setmaxnreg: the consumers fit
+//         their 168 registers without spilling.
+//         SASS (cuobjdump, scripts/sass_counts.py): dK/dV holds 16 HGMMA
+//         (12 at D = 32), dQ 12 (8), each with TMA loads (UTMALDG) and no
+//         HMMA.
 //   f32:  no tensor cores (TF32 would not keep f32's digits).  D/32
 //         threads share a row, each holding 32 of its columns in
 //         registers; a dot product is summed across them with one shuffle.
 //         Tiles of the other side are read from shared memory by
 //         broadcast.
-// Both take D = 32 and D = 64; the entries return cudaErrorInvalidValue
-// for any other D.  wgmma and TMA are left to a later change.
+// All take D = 32 and D = 64; the entries return cudaErrorInvalidValue for
+// any other D.  The bf16 backward returns the error of a tensor map it
+// cannot make or a launch the runtime refuses; no other kernel stands in.
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -327,153 +378,575 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(128)
-    flash_dkv_mma_kernel(const bf16_t* __restrict__ q,
-                         const bf16_t* __restrict__ k,
-                         const bf16_t* __restrict__ v,
-                         const bf16_t* __restrict__ dout,
-                         const float* __restrict__ m,
-                         const float* __restrict__ l,
-                         const float* __restrict__ di,
-                         bf16_t* __restrict__ dk, bf16_t* __restrict__ dv,
-                         int seq, float scale) {
-  __shared__ __align__(16) Tile16<D> sq;
-  __shared__ __align__(16) Tile16<D> sdo;
-  __shared__ float sm[kTile], slinv[kTile], sdi[kTile];
-  const size_t base = (size_t)blockIdx.x * seq * D;
-  const size_t srow = (size_t)blockIdx.x * seq;
-  const int k0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
+// ----------------------------- bf16 backward: wgmma, TMA, an mbarrier ring
 
-  // the block's own k and v rows, as A fragments
-  load_tile<bf16_t, D, kPad16>(sq, k + base, k0, seq);
-  load_tile<bf16_t, D, kPad16>(sdo, v + base, k0, seq);
-  __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    frag_a<D>(ka[kc], sq, r0, kc * 16, g, t);
-    frag_a<D>(va[kc], sdo, r0, kc * 16, g, t);
-  }
+constexpr int kBox = 64;  // rows of a TMA box: one wgmma M (or N) tile
 
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
-  for (int q0 = 0; q0 < seq; q0 += kTile) {
-    __syncthreads();
-    load_tile<bf16_t, D, kPad16>(sq, q + base, q0, seq);
-    load_tile<bf16_t, D, kPad16>(sdo, dout + base, q0, seq);
-    load_stats(sm, slinv, sdi, m + srow, l + srow, di + srow, q0, seq);
-    __syncthreads();
-    // p^T: this warp's 16 keys against the tile's 64 queries
-    float pt[kTile / 8][4];
-    mma_rows_n<D>(pt, ka, sq, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t + (e & 1);
-        pt[nt][e] = q0 + qi < seq
-                        ? expf(pt[nt][e] * scale - sm[qi]) * slinv[qi]
-                        : 0.f;
-      }
-    }
-    // dV += p^T dO
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a(pa, pt, kc);
-      mma_rows_k<D, D>(dv_acc, pa, sdo, kc * 16, g, t);
-    }
-    // dp^T = v dO^T, then ds^T = (dp^T - di) * p^T * scale
-    float dst[kTile / 8][4];
-    mma_rows_n<D>(dst, va, sdo, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t + (e & 1);
-        dst[nt][e] = (dst[nt][e] - sdi[qi]) * pt[nt][e] * scale;
-      }
-    }
-    // dK += ds^T q
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t da[4];
-      acc_to_a(da, dst, kc);
-      mma_rows_k<D, D>(dk_acc, da, sq, kc * 16, g, t);
-    }
-  }
-  store_rows_bf16<D>(dk + base, dk_acc, k0 + r0, seq, g, t, 1.f, 1.f);
-  store_rows_bf16<D>(dv + base, dv_acc, k0 + r0, seq, g, t, 1.f, 1.f);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Raise the bytes the current phase waits for, without an arrival.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of `parity` has completed.  A wait longer than 2^32
+// cycles (about 2 s) traps, so a fault in the ring ends the launch with an
+// error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) break;
+    if (clock64() - start > (1ll << 32)) __trap();
+  }
+  __syncwarp();  // the .aligned wgmma instructions want the warp whole
+}
+
+// Box `row` of a [bh, seq, D] tensor map (rows row..row+63 of slice bh)
+// into shared memory, completing on `bar`; rows past seq arrive as zeros.
+__device__ __forceinline__ void tma_load_rows(void* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row,
+                                              int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "r"(row), "r"(bh)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor
+// Format"): start address, leading and stride byte offsets in 16-byte
+// units, and the swizzle.  Every tile is a TMA box of 64 rows of D bf16
+// (2D bytes a row) written with a 2D-byte swizzle, 128 B for D = 64 and
+// 64 B for D = 32, so an atom of 8 rows is 16D bytes.
 template <int D>
-__global__ void __launch_bounds__(128)
-    flash_dq_mma_kernel(const bf16_t* __restrict__ q,
-                        const bf16_t* __restrict__ k,
-                        const bf16_t* __restrict__ v,
-                        const bf16_t* __restrict__ dout,
-                        const float* __restrict__ m,
-                        const float* __restrict__ l,
-                        const float* __restrict__ di,
-                        bf16_t* __restrict__ dq, int seq, float scale) {
-  __shared__ __align__(16) Tile16<D> sk;
-  __shared__ __align__(16) Tile16<D> sv;
-  const size_t base = (size_t)blockIdx.x * seq * D;
-  const size_t srow = (size_t)blockIdx.x * seq;
-  const int q0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  constexpr uint64_t kLayout = D == 64 ? 1 : 2;  // 128-byte or 64-byte swizzle
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (kLayout << 62);
+}
 
-  // the block's own q and dO rows, as A fragments
-  load_tile<bf16_t, D, kPad16>(sk, q + base, q0, seq);
-  load_tile<bf16_t, D, kPad16>(sv, dout + base, q0, seq);
+// The tile as a K-major operand (the reduction runs along its rows):
+// k-step `ks` starts 16 columns, 32 bytes, into each row; 8-row atoms are
+// 16D bytes apart; the leading offset is unused under a swizzle.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_major(const bf16_t* tile, int ks) {
+  return gmma_desc<D>(smem_u32(tile) + 32 * ks, 16, 16 * D);
+}
+
+// The tile as an MN-major operand (the reduction runs down its rows; the
+// `trans-b` form): k-step `ks` starts 16 rows down; 8-row groups along the
+// reduction are 16D bytes apart (stride offset); the N = D columns are one
+// swizzle atom wide, so the leading offset (the next atom along N) is
+// never taken.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn_major(const bf16_t* tile, int ks) {
+  return gmma_desc<D>(smem_u32(tile) + 32 * D * ks, kBox * 2 * D, 16 * D);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers at this point of the program, so that the compiler reads
+// no accumulator before wgmma_wait_all.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22, far
+// below the bf16 rounding of p and ds that follows).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p^T of a dK/dV tile in place: exp(s^T scale - m) / l as 2^(s^T scale2 -
+// m2) * (1 / l), with scale2 = scale log2(e) and m2 = m log2(e); columns
+// (queries) from `valid` on are 0 when Masked.
+template <bool Masked>
+__device__ __forceinline__ void probs_t(float (&pt)[32], const float* m2,
+                                        const float* linv, float scale2,
+                                        int t, int valid) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = 8 * j + 2 * t + (e & 1);
+      const float p =
+          exp2_approx(fmaf(pt[4 * j + e], scale2, -m2[qi])) * linv[qi];
+      pt[4 * j + e] = !Masked || qi < valid ? p : 0.f;
+    }
+  }
+}
+
+// ds of a dQ tile in place, from s and dp: (dp - di) p scale with p as in
+// probs_t over the thread's two rows; columns (keys) from `valid` on
+// give 0 when Masked.
+template <bool Masked>
+__device__ __forceinline__ void grad_scores(float (&ds)[32],
+                                            const float (&sc)[32],
+                                            const float (&m2)[2],
+                                            const float (&linv)[2],
+                                            const float (&di)[2],
+                                            float scale2, float scale, int t,
+                                            int valid) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t + (e & 1), i = e >> 1;
+      float p = exp2_approx(fmaf(sc[4 * j + e], scale2, -m2[i])) * linv[i];
+      if (Masked && col >= valid) p = 0.f;
+      ds[4 * j + e] = (ds[4 * j + e] - di[i]) * p * scale;
+    }
+  }
+}
+
+// d (64 x 64, f32) = A B (+ d if accumulate): A 64 x 16 and B 16 x 64,
+// both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A B: A 64 x 16 in registers (the mma.m16n8k16 A
+// fragment, per warp), B 16 x 64 MN-major in shared memory (trans-b).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32, f32) += A B: A 64 x 16 in registers (the mma.m16n8k16 A
+// fragment, per warp), B 16 x 32 MN-major in shared memory (trans-b).
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The A fragment of columns 16kc..16kc+15 of a 64 x 64 wgmma accumulator,
+// rounded to bf16: per warp the same quad layout as acc_to_a.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&c)[32], int kc) {
+  a[0] = pack_bf16(c[8 * kc + 0], c[8 * kc + 1]);
+  a[1] = pack_bf16(c[8 * kc + 2], c[8 * kc + 3]);
+  a[2] = pack_bf16(c[8 * kc + 4], c[8 * kc + 5]);
+  a[3] = pack_bf16(c[8 * kc + 6], c[8 * kc + 7]);
+}
+
+// Store a warp's 16 x D rows of a wgmma accumulator as bf16 rows row0 + g
+// and row0 + g + 8 of `out` ([seq, D]); rows past seq are skipped.
+template <int D>
+__device__ __forceinline__ void store_acc_bf16(bf16_t* out,
+                                               const float (&acc)[D / 2],
+                                               int row0, int seq, int g,
+                                               int t) {
+  const int ra = row0 + g, rb = row0 + g + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (ra < seq) {
+      *reinterpret_cast<uint32_t*>(out + (size_t)ra * D + col) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    }
+    if (rb < seq) {
+      *reinterpret_cast<uint32_t*>(out + (size_t)rb * D + col) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+constexpr int kConsumers = 2;                  // warpgroups, 64 own rows each
+constexpr int kOwnRows = kConsumers * kBox;    // rows a block owns
+constexpr int kStages = 4;                     // slots of the ring
+constexpr int kBwdThreads = kConsumers * 128 + 32;  // and one producer warp
+
+// Shared memory of the backward kernels.  `own`: the block's 128 rows
+// (dK/dV: k and v; dQ: q and dO).  `ring`: kStages tiles of 64 rows of
+// the other side (dK/dV: q and dO; dQ: k and v), with the statistics of a
+// q tile where the kernel needs them per column (dK/dV).  Every tile is a
+// multiple of 1024 bytes from a 1024-byte aligned start, as the swizzle
+// wants.
+template <int D, bool Stats>
+struct BwdSmem {
+  bf16_t own0[kOwnRows * D];
+  bf16_t own1[kOwnRows * D];
+  bf16_t ring0[kStages][kBox * D];
+  bf16_t ring1[kStages][kBox * D];
+  float stats[Stats ? kStages : 1][3][kBox];  // m log2(e), 1/l, di
+  uint64_t own_full, full[kStages], empty[kStages];
+};
+
+template <typename Smem>
+__device__ __forceinline__ Smem& bwd_smem() {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<Smem*>(smem_raw + pad);
+}
+
+// Barriers: own_full takes the TMA bytes of the block's own rows; full[s]
+// the slot's TMA bytes and the 32 producer lanes, each arriving after its
+// stores of the statistics; empty[s] every consumer thread.
+template <typename Smem>
+__device__ __forceinline__ void init_barriers(Smem& sm) {
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.own_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);
+      mbar_init(&sm.empty[s], kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qa[D / 16][4], doa[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    frag_a<D>(qa[kc], sk, r0, kc * 16, g, t);
-    frag_a<D>(doa[kc], sv, r0, kc * 16, g, t);
-  }
-  float rm[2], rlinv[2], rdi[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = q0 + r0 + g + 8 * i;
-    rm[i] = r < seq ? m[srow + r] : 0.f;
-    rlinv[i] = r < seq ? 1.f / l[srow + r] : 1.f;
-    rdi[i] = r < seq ? di[srow + r] : 0.f;
-  }
+}
 
-  float dq_acc[D / 8][4] = {};
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();
-    load_tile<bf16_t, D, kPad16>(sk, k + base, k0, seq);
-    load_tile<bf16_t, D, kPad16>(sv, v + base, k0, seq);
-    __syncthreads();
-    float p[kTile / 8][4], ds[kTile / 8][4];
-    mma_rows_n<D>(p, qa, sk, g, t);
-    mma_rows_n<D>(ds, doa, sv, g, t);  // dp = dO v^T
+// m, l and di of rows row0 + lane and row0 + lane + 32 of one (batch,
+// head), or 0, 1 and 0 past seq: six independent loads.
+__device__ __forceinline__ void fetch_stats(float (&st)[2][3],
+                                            const float* __restrict__ m,
+                                            const float* __restrict__ l,
+                                            const float* __restrict__ di,
+                                            int row0, int seq, int lane) {
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
+  for (int k = 0; k < 2; ++k) {
+    const int r = row0 + lane + 32 * k;
+    const bool ok = r < seq;
+    st[k][0] = ok ? m[r] : 0.f;
+    st[k][1] = ok ? l[r] : 1.f;
+    st[k][2] = ok ? di[r] : 0.f;
+  }
+}
+
+// The producer warp.  Lane 0 loads the block's own rows once (own_a into
+// own0, own_b into own1), then every 64-row tile of the other side
+// (ring_a, ring_b) through the ring.  With Stats, the 32 lanes write m
+// log2(e), 1/l and di of the tile's rows beside it, loaded a tile ahead
+// so that their latency is not on the ring's path.
+template <int D, bool Stats>
+__device__ __forceinline__ void produce(BwdSmem<D, Stats>& sm,
+                                        const CUtensorMap* own_a,
+                                        const CUtensorMap* own_b,
+                                        const CUtensorMap* ring_a,
+                                        const CUtensorMap* ring_b,
+                                        const float* m, const float* l,
+                                        const float* di, int own_row0,
+                                        int seq) {
+  constexpr uint32_t kTileBytes = kBox * D * sizeof(bf16_t);
+  const int lane = threadIdx.x & 31, bh = blockIdx.x;
+  if (lane == 0) {
+    mbar_arrive_expect_tx(&sm.own_full, 2 * kConsumers * kTileBytes);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const int i = e >> 1;
-        const float pe =
-            col < seq ? expf(p[nt][e] * scale - rm[i]) * rlinv[i] : 0.f;
-        ds[nt][e] = (ds[nt][e] - rdi[i]) * pe * scale;
+    for (int c = 0; c < kConsumers; ++c) {
+      tma_load_rows(sm.own0 + c * kBox * D, own_a, &sm.own_full,
+                    own_row0 + c * kBox, bh);
+      tma_load_rows(sm.own1 + c * kBox * D, own_b, &sm.own_full,
+                    own_row0 + c * kBox, bh);
+    }
+  }
+  const size_t srow = (size_t)bh * seq;
+  const int tiles = (seq + kBox - 1) / kBox;
+  float st[2][3];  // the statistics of the next tile
+  if (Stats) fetch_stats(st, m + srow, l + srow, di + srow, 0, seq, lane);
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kStages, row0 = it * kBox;
+    mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);  // slot released
+    if (lane == 0) {
+      mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+      tma_load_rows(sm.ring0[s], ring_a, &sm.full[s], row0, bh);
+      tma_load_rows(sm.ring1[s], ring_b, &sm.full[s], row0, bh);
+    }
+    if (Stats) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        sm.stats[s][0][lane + 32 * k] = st[k][0] * kLog2e;
+        sm.stats[s][1][lane + 32 * k] = 1.f / st[k][1];
+        sm.stats[s][2][lane + 32 * k] = st[k][2];
       }
     }
-    // dQ += ds k
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t da[4];
-      acc_to_a(da, ds, kc);
-      mma_rows_k<D, D>(dq_acc, da, sk, kc * 16, g, t);
+    // every lane releases its own stores of the statistics, then loads the
+    // next tile's
+    mbar_arrive(&sm.full[s]);
+    if (Stats && it + 1 < tiles) {
+      fetch_stats(st, m + srow, l + srow, di + srow, row0 + kBox, seq, lane);
     }
   }
-  store_rows_bf16<D>(dq + base, dq_acc, q0 + r0, seq, g, t, 1.f, 1.f);
+}
+
+// dK and dV.  Block (b*h, key tile of 128 rows): two consumer warpgroups
+// of 64 keys each, then the producer warp.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ m,
+                           const float* __restrict__ l,
+                           const float* __restrict__ di,
+                           bf16_t* __restrict__ dk, bf16_t* __restrict__ dv,
+                           int seq, float scale) {
+  auto& sm = bwd_smem<BwdSmem<D, true>>();
+  init_barriers(sm);
+  const int key0 = blockIdx.y * kOwnRows;
+  const float scale2 = scale * kLog2e;
+  if (threadIdx.x >= kConsumers * 128) {
+    produce<D, true>(sm, &tm_k, &tm_v, &tm_q, &tm_do, m, l, di, key0, seq);
+  } else {
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const bf16_t* own_k = sm.own0 + wg * kBox * D;
+    const bf16_t* own_v = sm.own1 + wg * kBox * D;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(&sm.own_full, 0);
+    const int tiles = (seq + kBox - 1) / kBox;
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kStages, q0 = it * kBox;
+      mbar_wait(&sm.full[s], (it / kStages) & 1);
+      const bf16_t* tq = sm.ring0[s];
+      const bf16_t* tdo = sm.ring1[s];
+      // s^T = k q^T and dp^T = v dO^T: the warpgroup's 64 keys against the
+      // tile's 64 queries, all operands K-major, issued together
+      float pt[32], dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_ss_n64(pt, desc_k_major<D>(own_k, ks), desc_k_major<D>(tq, ks),
+                     ks);
+      }
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_ss_n64(dpt, desc_k_major<D>(own_v, ks),
+                     desc_k_major<D>(tdo, ks), ks);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(pt);
+      fence_regs(dpt);
+      // p^T: the accumulator's columns are queries, whose statistics the
+      // producer put beside the tile
+      const float* st_di = sm.stats[s][2];
+      if (q0 + kBox <= seq) {
+        probs_t<false>(pt, sm.stats[s][0], sm.stats[s][1], scale2, t, kBox);
+      } else {
+        probs_t<true>(pt, sm.stats[s][0], sm.stats[s][1], scale2, t,
+                      seq - q0);
+      }
+      // ds^T = (dp^T - di) p^T scale; then p and ds rounded to bf16 in
+      // registers, so that only dK, dV and the bf16 fragments stay live
+      // while dV += p^T dO and dK += ds^T q run (dO and q read MN-major)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * t + (e & 1);
+          dpt[4 * j + e] =
+              (dpt[4 * j + e] - st_di[qi]) * pt[4 * j + e] * scale;
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        acc_to_a(pa[kc], pt, kc);
+        acc_to_a(da[kc], dpt, kc);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        wgmma_rs(dv_acc, pa[kc], desc_mn_major<D>(tdo, kc));
+        wgmma_rs(dk_acc, da[kc], desc_mn_major<D>(tq, kc));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      mbar_arrive(&sm.empty[s]);  // this thread is done with the slot
+    }
+    const size_t base = (size_t)blockIdx.x * seq * D;
+    const int row0 = key0 + wg * kBox + warp * 16;
+    store_acc_bf16<D>(dk + base, dk_acc, row0, seq, g, t);
+    store_acc_bf16<D>(dv + base, dv_acc, row0, seq, g, t);
+  }
+}
+
+// dQ.  Block (b*h, query tile of 128 rows): two consumer warpgroups of 64
+// queries each, then the producer warp.  `unused` keeps the dK/dV
+// kernel's signature.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const float* __restrict__ di,
+                          bf16_t* __restrict__ dq, bf16_t* __restrict__ unused,
+                          int seq, float scale) {
+  auto& sm = bwd_smem<BwdSmem<D, false>>();
+  init_barriers(sm);
+  const int qblk0 = blockIdx.y * kOwnRows;
+  const float scale2 = scale * kLog2e;
+  if (threadIdx.x >= kConsumers * 128) {
+    produce<D, false>(sm, &tm_q, &tm_do, &tm_k, &tm_v, m, l, di, qblk0, seq);
+  } else {
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const size_t srow = (size_t)blockIdx.x * seq;
+    const int row0 = qblk0 + wg * kBox + warp * 16;
+    float rm2[2], rlinv[2], rdi[2];  // rows row0 + g and row0 + g + 8
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + g + 8 * i;
+      rm2[i] = r < seq ? m[srow + r] * kLog2e : 0.f;
+      rlinv[i] = r < seq ? 1.f / l[srow + r] : 1.f;
+      rdi[i] = r < seq ? di[srow + r] : 0.f;
+    }
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    const bf16_t* own_q = sm.own0 + wg * kBox * D;
+    const bf16_t* own_do = sm.own1 + wg * kBox * D;
+    mbar_wait(&sm.own_full, 0);
+    const int tiles = (seq + kBox - 1) / kBox;
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kStages, k0 = it * kBox;
+      mbar_wait(&sm.full[s], (it / kStages) & 1);
+      const bf16_t* tk = sm.ring0[s];
+      const bf16_t* tv = sm.ring1[s];
+      // s = q k^T and dp = dO v^T, all operands K-major, issued together
+      float sc[32], ds[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_ss_n64(sc, desc_k_major<D>(own_q, ks), desc_k_major<D>(tk, ks),
+                     ks);
+      }
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_ss_n64(ds, desc_k_major<D>(own_do, ks), desc_k_major<D>(tv, ks),
+                     ks);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(ds);
+      if (k0 + kBox <= seq) {
+        grad_scores<false>(ds, sc, rm2, rlinv, rdi, scale2, scale, t, kBox);
+      } else {
+        grad_scores<true>(ds, sc, rm2, rlinv, rdi, scale2, scale, t,
+                          seq - k0);
+      }
+      // dQ += ds k: ds rounded to bf16 in registers, k read MN-major
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) acc_to_a(da[kc], ds, kc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        wgmma_rs(dq_acc, da[kc], desc_mn_major<D>(tk, kc));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq_acc);
+      mbar_arrive(&sm.empty[s]);
+    }
+    store_acc_bf16<D>(dq + (size_t)blockIdx.x * seq * D, dq_acc, row0, seq, g,
+                      t);
+  }
+  (void)unused;
 }
 
 // ------------------------------------------------------- f32: FMA units
@@ -685,6 +1158,105 @@ inline dim3 grid_of(int bh, int seq) {
   return dim3(bh, (seq + kRows - 1) / kRows);
 }
 
+// ------------------------------------------- bf16 backward: host side
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// links no libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// A [bh, seq, d] bf16 tensor as a TMA map of [1, 64, d] boxes, swizzled by
+// the width of a row (128 B for d = 64, 64 B for d = 32).  The map is 3-D,
+// so a box past seq is filled with zeros instead of the next slice's rows.
+int make_rows_map(CUtensorMap* map, const void* ptr, int bh, int seq,
+                  int d) {
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)d, (cuuint32_t)kBox, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D, bool Dkv>
+int launch_bwd(const CUtensorMap (&maps)[4], const float* m, const float* l,
+               const float* di, void* out0, void* out1, int bh, int seq,
+               float scale, cudaStream_t stream) {
+  constexpr int kSmem = (int)sizeof(BwdSmem<D, Dkv>) + 1024;
+  const auto kernel =
+      Dkv ? flash_dkv_wgmma_kernel<D> : flash_dq_wgmma_kernel<D>;
+  // the shared-memory limit is raised once a device (bit `dev` of `set`);
+  // two threads racing here both set it, which is harmless
+  static std::atomic<uint64_t> set{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(set.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set.fetch_or(bit, std::memory_order_relaxed);
+  }
+  const dim3 grid(bh, (seq + kOwnRows - 1) / kOwnRows);
+  kernel<<<grid, kBwdThreads, kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], m, l, di, (bf16_t*)out0,
+      (bf16_t*)out1, seq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 dK/dV (dkv) or dQ kernel: out0 = dk, out1 = dv, or out0 = dq.
+int flash_bwd_bf16(bool dkv, const void* q, const void* k, const void* v,
+                   const void* dout, const float* m, const float* l,
+                   const float* di, void* out0, void* out1, int bh, int seq,
+                   int d, float scale, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const void* src[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int err = make_rows_map(&maps[i], src[i], bh, seq, d);
+    if (err != 0) return err;
+  }
+  if (d == 64) {
+    return dkv ? launch_bwd<64, true>(maps, m, l, di, out0, out1, bh, seq,
+                                      scale, stream)
+               : launch_bwd<64, false>(maps, m, l, di, out0, out1, bh, seq,
+                                       scale, stream);
+  }
+  return dkv ? launch_bwd<32, true>(maps, m, l, di, out0, out1, bh, seq,
+                                    scale, stream)
+             : launch_bwd<32, false>(maps, m, l, di, out0, out1, bh, seq,
+                                     scale, stream);
+}
+
 }  // namespace
 
 // Each entry launches one kernel on `stream` for `bh` = B*H slices of
@@ -725,16 +1297,10 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
                                    int bh, int seq, int d, int bf16,
                                    float scale, cudaStream_t stream) {
   const dim3 grid = grid_of(bh, seq);
-  using B = const bf16_t*;
   using F = const float*;
-  if (bf16 && d == 64) {
-    flash_dkv_mma_kernel<64><<<grid, 128, 0, stream>>>(
-        (B)q, (B)k, (B)v, (B)dout, m, l, di, (bf16_t*)dk, (bf16_t*)dv, seq,
-        scale);
-  } else if (bf16 && d == 32) {
-    flash_dkv_mma_kernel<32><<<grid, 128, 0, stream>>>(
-        (B)q, (B)k, (B)v, (B)dout, m, l, di, (bf16_t*)dk, (bf16_t*)dv, seq,
-        scale);
+  if (bf16 && (d == 64 || d == 32)) {
+    return flash_bwd_bf16(true, q, k, v, dout, m, l, di, dk, dv, bh, seq, d,
+                          scale, stream);
   } else if (!bf16 && d == 64) {
     flash_dkv_fma_kernel<64><<<grid, 128, 0, stream>>>(
         (F)q, (F)k, (F)v, (F)dout, m, l, di, (float*)dk, (float*)dv, seq,
@@ -756,14 +1322,10 @@ extern "C" int flash_attention_dq(const void* q, const void* k,
                                   int seq, int d, int bf16, float scale,
                                   cudaStream_t stream) {
   const dim3 grid = grid_of(bh, seq);
-  using B = const bf16_t*;
   using F = const float*;
-  if (bf16 && d == 64) {
-    flash_dq_mma_kernel<64><<<grid, 128, 0, stream>>>(
-        (B)q, (B)k, (B)v, (B)dout, m, l, di, (bf16_t*)dq, seq, scale);
-  } else if (bf16 && d == 32) {
-    flash_dq_mma_kernel<32><<<grid, 128, 0, stream>>>(
-        (B)q, (B)k, (B)v, (B)dout, m, l, di, (bf16_t*)dq, seq, scale);
+  if (bf16 && (d == 64 || d == 32)) {
+    return flash_bwd_bf16(false, q, k, v, dout, m, l, di, dq, nullptr, bh,
+                          seq, d, scale, stream);
   } else if (!bf16 && d == 64) {
     flash_dq_fma_kernel<64><<<grid, 128, 0, stream>>>(
         (F)q, (F)k, (F)v, (F)dout, m, l, di, (float*)dq, seq, scale);

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Device and host time of P4's bf16 backward kernels, dK/dV and dQ: the
+source as it is, and optionally another version of it (a parent
+commit's), run in turns on one card.
+
+    python3 scripts/bench_flash_bwd.py [--parent FILE] [--calls 20]
+
+Each version of ``deepchem_tpu_torch/csrc/flash_attention.cu`` is compiled
+by nvcc with the package's flags into ``build/bench_flash_bwd/<name>.so``
+(both at once) and called through the same C entries as the package:
+``base`` is the source as it is, ``parent`` the file given to
+``--parent``.  With a parent they run parent, base, base, parent, and the
+two runs of each are averaged.
+
+Per run and shape it prints one JSON line with, for dK/dV and for dQ, the
+profiler's device µs a launch (``chip_smoke.device_us``) and the host µs
+a call of the C entry: the mean of 200 back-to-back calls on the host
+clock, with no synchronise between them (what a caller's thread
+spends to encode and launch).  It also prints the card's name and power
+limit, each version's ptxas registers and any wgmma serialisation ptxas
+reports, and a last JSON line with each version's means per shape.
+Shapes: the encoder's attention ``[32, 12, 128, 64]``,
+``scripts/attn_crossover.py``'s (H 12, D 64, 65 536 tokens, S 128 to
+4096) and ``[3, 4, 200, 32]``.
+"""
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+SOURCE = REPO / 'deepchem_tpu_torch' / 'csrc' / 'flash_attention.cu'
+OUT = REPO / 'build' / 'bench_flash_bwd'
+SHAPES = [(32, 12, 128, 64)] + [(65536 // s, 12, s, 64) for s in
+                                (128, 256, 512, 1024, 2048, 4096)] \
+    + [(3, 4, 200, 32)]
+PARTS = ('dkv', 'dq')
+HOST_CALLS = 200
+METRICS = ('device_us', 'host_us')
+
+
+def build(sources: dict) -> dict:
+    """Compile every source; {name: ptxas summary of its bf16 backward
+    kernels}."""
+    from deepchem_tpu_torch.kernels import build as kbuild
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, text in sources.items():
+        cu = OUT / f'{n}.cu'
+        cu.write_text(text)
+        procs[n] = subprocess.Popen(
+            [kbuild._nvcc(), *kbuild.NVCC_FLAGS, '-o', str(OUT / f'{n}.so'),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    report = {}
+    for n, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f'nvcc failed for {n}:\n{log[-4000:]}')
+        regs = re.findall(r"(flash_d\w+_kernelILi\d+)\S*' for 'sm_90a'"
+                          r"\n.*\n.*\n.*Used (\d+) registers", log)
+        report[n] = {
+            'registers': {k: int(r) for k, r in regs if 'fma' not in k
+                          and 'fwd' not in k},
+            'serialised': sorted(set(re.findall(
+                r'C7512\) .*?(flash_d\w+_kernelILi\d+)', log)))}
+    return report
+
+
+def host_us(fn, calls: int) -> float:
+    """Host µs a call over ``calls`` back-to-back calls of ``fn``, after a
+    warm-up and a synchronise; the launches are not waited for."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    stop = time.perf_counter()
+    torch.cuda.synchronize()
+    return (stop - start) / calls * 1e6
+
+
+def time_version(name: str, calls: int) -> dict:
+    """{shape: {part: {metric: µs}}} for the library of ``name``."""
+    import torch
+    from chip_smoke import device_us
+    from deepchem_tpu_torch.ops.flash_attention import flash_attention_forward
+    lib = ctypes.CDLL(str(OUT / f'{name}.so'))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dkv, dq = lib.flash_attention_dkv, lib.flash_attention_dq
+    dkv.argtypes = [P] * 9 + [I] * 4 + [F, P]
+    dq.argtypes = [P] * 8 + [I] * 4 + [F, P]
+    dkv.restype = dq.restype = ctypes.c_int
+    dev = torch.device('cuda', 0)
+    out = {}
+    for shape in SHAPES:
+        gen = torch.Generator(dev).manual_seed(0)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        B, H, S, D = shape
+        scale = D ** -0.5
+        o, m, l = flash_attention_forward(q, k, v, scale)
+        di = (o.float() * do.float()).sum(-1)
+        dk, dv, dqo = (torch.empty_like(t) for t in (k, v, q))
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [t.data_ptr() for t in (q, k, v, do, m, l, di)]
+
+        def run_dkv():
+            return dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), B * H, S, D, 1,
+                       scale, stream)
+
+        def run_dq():
+            return dq(*ptrs, dqo.data_ptr(), B * H, S, D, 1, scale, stream)
+        if run_dkv() or run_dq():
+            raise RuntimeError(f'{name}: a launch failed at {shape}')
+        torch.cuda.synchronize()
+        out['x'.join(map(str, shape))] = {
+            part: {'device_us': device_us(fn, f'flash_{part}_', calls),
+                   'host_us': host_us(fn, HOST_CALLS)}
+            for part, fn in (('dkv', run_dkv), ('dq', run_dq))}
+        del q, k, v, do, o, m, l, di, dk, dv, dqo
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--parent', type=Path)
+    ap.add_argument('--calls', type=int, default=20)
+    args = ap.parse_args()
+    sources = {'base': SOURCE.read_text()}
+    if args.parent:
+        sources['parent'] = args.parent.read_text()
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    for n, rep in build(sources).items():
+        print(json.dumps({'version': n, **rep}), flush=True)
+    order = ['parent', 'base', 'base', 'parent'] if args.parent else ['base']
+    runs = {n: [] for n in sources}
+    for n in order:
+        runs[n].append(time_version(n, args.calls))
+        print(json.dumps({'version': n, 'run': len(runs[n]),
+                          'us': runs[n][-1]}), flush=True)
+    print(json.dumps({'mean_us': {
+        n: {shape: {part: {x: sum(r[shape][part][x] for r in rs) / len(rs)
+                           for x in METRICS} for part in PARTS}
+            for shape in rs[0]}
+        for n, rs in runs.items()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
