@@ -23,26 +23,22 @@
 // forward, 8 in dK/dV (it recomputes s and dp) and 6 in dQ, and moves
 // 4..7 arrays of S*D.  At the encoder's shape ([32, 12, 128, 64], bf16)
 // that is 32 flops per byte: bound by bytes (295 flops a byte balance the
-// tensor cores against HBM), 11.4 us for dK/dV and 9.6 us for dQ.  From S
-// of about 1k up, bf16 is bound by the tensor cores: at [16, 12, 4096, 64]
-// 1.67 ms for dK/dV and 1.25 ms for dQ.  f32 is near balance on the FMA
-// units.
+// tensor cores against HBM), 7.6 us for the forward, 11.4 for dK/dV and 9.6
+// for dQ.  From S of about 1k up, bf16 is bound by the tensor cores: at
+// [16, 12, 4096, 64] 0.83 ms for the forward, 1.67 for dK/dV and 1.25 for
+// dQ.  f32 is near balance on the FMA units.
 //
 // Design.  Every output row has one writer: a block owns rows of one
 // (batch, head) (q rows in the forward and dQ kernels, k rows in dK/dV)
 // and walks the other side in tiles of 64 rows, carrying its sums in
 // registers.  No atomics are used, so a repeat is bit-identical, and no
 // S x S array is stored.
-//   bf16 forward: 4 warps of 16 rows, mma.sync m16n8k16 (bf16 in, f32
-//         accumulate).  The score accumulator becomes the next product's
-//         A fragment in registers, rounded to bf16, so p never touches
-//         shared memory; shared rows are padded by 8 elements, which keeps
-//         the fragment loads free of bank conflicts.
-//   bf16 backward (dK/dV and dQ), for Hopper: warp-specialised blocks of
+//   bf16, for Hopper (forward, dK/dV and dQ): warp-specialised blocks of
 //         two consumer warpgroups (64 own rows each, 128 a block) and one
 //         producer warp.  The producer loads the block's own rows once by
-//         TMA, then streams the other side's 64-row tiles (dK/dV: q and dO;
-//         dQ: k and v) through a ring of 4 shared-memory slots guarded by
+//         TMA, then streams the other side's 64-row tiles (forward and dQ:
+//         k and v; dK/dV: q and dO) through a ring of 4 shared-memory
+//         slots guarded by
 //         mbarriers (full: the slot's TMA bytes have landed and each of
 //         the producer's 32 lanes has arrived after storing its part of
 //         the slot's statistics; empty: every consumer thread is done with
@@ -60,10 +56,19 @@
 //           dQ     s = q k^T and dp = dO v^T; ds in registers (m, 1/l and
 //                  di of the thread's two rows held in registers); dQ +=
 //                  ds k (k MN-major).
-//         dK, dV and dQ stay in registers until the epilogue.  Tensor maps
+//           fwd    s = q k^T; the online softmax in registers, the row max
+//                  across the quad that holds a row; p = 2^(s scale log2 e
+//                  - m log2 e) by one FMA and ex2.approx, o rescaled by
+//                  alpha = 2^((m_old - m) log2 e); p rounded to bf16 as the
+//                  A operand of o += p v (v MN-major); o / l, m and l
+//                  written at the end.  Its blocks are numbered with the
+//                  query tile fastest, so the blocks of one head run
+//                  together and read its k and v from L2.
+//         dK, dV, dQ and o stay in registers until the epilogue.  Tensor maps
 //         are 3-D ([B*H, S, D], box [1, 64, D]), so a box past S is filled
-//         with zeros rather than the next head's rows; the p = 0 mask past
-//         S stays, since a zero row with m = 0 and 1/l = 1 gives p = 1.
+//         with zeros rather than the next head's rows; the masks past S
+//         stay, since a zero row gives a score of 0, not -inf (and, in the
+//         backward, with m = 0 and 1/l = 1, p = 1).
 //         Tiles are swizzled by the width of a row (128 B for D = 64, 64 B
 //         for D = 32): a wgmma reads the same q or dO tile K-major (start
 //         +32 B a k-step, 8-row atoms 16D bytes apart) and MN-major (start
@@ -83,16 +88,17 @@
 //         small S with few heads, and loses from S = 512 up; 2 slots lose
 //         a little from S = 512 up.  No setmaxnreg: the consumers fit
 //         their 168 registers without spilling.
-//         SASS (cuobjdump, scripts/sass_counts.py): dK/dV holds 16 HGMMA
-//         (12 at D = 32), dQ 12 (8), each with TMA loads (UTMALDG) and no
-//         HMMA.
+//         The forward keeps that configuration; PERF.md has its
+//         alternatives measured.  SASS (cuobjdump, scripts/sass_counts.py):
+//         dK/dV holds 16 HGMMA (12 at D = 32), dQ 12 (8), each with TMA
+//         loads (UTMALDG) and no HMMA; the forward's counts are in PERF.md.
 //   f32:  no tensor cores (TF32 would not keep f32's digits).  D/32
 //         threads share a row, each holding 32 of its columns in
 //         registers; a dot product is summed across them with one shuffle.
 //         Tiles of the other side are read from shared memory by
 //         broadcast.
 // All take D = 32 and D = 64; the entries return cudaErrorInvalidValue for
-// any other D.  The bf16 backward returns the error of a tensor map it
+// any other D.  The bf16 kernels return the error of a tensor map they
 // cannot make or a launch the runtime refuses; no other kernel stands in.
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
@@ -143,138 +149,16 @@ __device__ __forceinline__ void load_stats(float* sm, float* slinv, float* sdi,
   }
 }
 
-// ------------------------------------------------ bf16: mma.sync m16n8k16
-//
-// Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane = 4 * g + t.
-//   A 16x16 row-major: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)
-//                      a3 (g+8, 2t+8..)
-//   B 16x8:            b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
-//   C 16x8 f32:        c0, c1 (g, 2t..2t+1)  c2, c3 (g+8, 2t..2t+1)
-// The lower 16 bits of a register hold the element of lower index.
+// ------------------------------------------ bf16: wgmma, TMA, an mbarrier ring
 
-constexpr int kPad16 = 8;  // bf16 elements of padding a shared row
-using bf16_t = uint16_t;   // raw bf16 bits in shared and global memory
-
-template <int D>
-using Tile16 = bf16_t[kTile][D + kPad16];
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using bf16_t = uint16_t;  // raw bf16 bits in shared and global memory
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A fragment: rows r0..r0+15, columns k0..k0+15 of a row-major tile.
-template <int D>
-__device__ __forceinline__ void frag_a(uint32_t a[4], const Tile16<D>& s,
-                                       int r0, int k0, int g, int t) {
-  a[0] = ld32(&s[r0 + g][k0 + 2 * t]);
-  a[1] = ld32(&s[r0 + g + 8][k0 + 2 * t]);
-  a[2] = ld32(&s[r0 + g][k0 + 2 * t + 8]);
-  a[3] = ld32(&s[r0 + g + 8][k0 + 2 * t + 8]);
-}
-
-// B fragment whose n runs down the tile's rows: B[k][n] = s[n0 + n][k0 + k]
-// (the tile is the right operand transposed, as k in q k^T).
-template <int D>
-__device__ __forceinline__ void frag_b_rows_n(uint32_t b[2],
-                                              const Tile16<D>& s, int n0,
-                                              int k0, int g, int t) {
-  b[0] = ld32(&s[n0 + g][k0 + 2 * t]);
-  b[1] = ld32(&s[n0 + g][k0 + 2 * t + 8]);
-}
-
-// B fragment whose k runs down the tile's rows: B[k][n] = s[k0 + k][n0 + n]
-// (the tile is the right operand as stored, as v in p v).
-template <int D>
-__device__ __forceinline__ void frag_b_rows_k(uint32_t b[2],
-                                              const Tile16<D>& s, int k0,
-                                              int n0, int g, int t) {
-  const int n = n0 + g;
-  b[0] = (uint32_t)s[k0 + 2 * t][n] | ((uint32_t)s[k0 + 2 * t + 1][n] << 16);
-  b[1] = (uint32_t)s[k0 + 2 * t + 8][n] |
-         ((uint32_t)s[k0 + 2 * t + 9][n] << 16);
-}
-
-// The A fragment of columns 16kc..16kc+15 of a 16 x N f32 accumulator held
-// as N/8 C fragments, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], float c[][4],
-                                         int kc) {
-  a[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
-  a[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
-  a[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-  a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
-}
-
-// acc[0..N/8) += A (one 16 x 16 fragment) times rows k0..k0+15 of the
-// tile `s`, as stored: a 16 x N product.
-template <int D, int N>
-__device__ __forceinline__ void mma_rows_k(float acc[][4],
-                                           const uint32_t a[4],
-                                           const Tile16<D>& s, int k0,
-                                           int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < N / 8; ++nt) {
-    uint32_t b[2];
-    frag_b_rows_k<D>(b, s, k0, nt * 8, g, t);
-    mma_bf16(acc[nt], a, b);
-  }
-}
-
-// c[0..8) = A (16 x D, as D/16 fragments) times the transpose of the 64
-// rows of `s`: a 16 x 64 product.
-template <int D>
-__device__ __forceinline__ void mma_rows_n(float c[kTile / 8][4],
-                                           uint32_t a[D / 16][4],
-                                           const Tile16<D>& s, int g,
-                                           int t) {
-#pragma unroll
-  for (int nt = 0; nt < kTile / 8; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t b[2];
-      frag_b_rows_n<D>(b, s, nt * 8, kc * 16, g, t);
-      mma_bf16(c[nt], a[kc], b);
-    }
-  }
-}
-
-// Store a warp's 16 x D f32 accumulator as bf16 rows row0 + g, row0 + g + 8
-// of `out` ([seq, D]); rows past seq are skipped.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16_t* out,
-                                                float acc[][4],
-                                                int row0, int seq, int g,
-                                                int t, float scale_a,
-                                                float scale_b) {
-  const int ra = row0 + g, rb = row0 + g + 8;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int col = nt * 8 + 2 * t;
-    if (ra < seq) {
-      *reinterpret_cast<uint32_t*>(out + (size_t)ra * D + col) =
-          pack_bf16(acc[nt][0] * scale_a, acc[nt][1] * scale_a);
-    }
-    if (rb < seq) {
-      *reinterpret_cast<uint32_t*>(out + (size_t)rb * D + col) =
-          pack_bf16(acc[nt][2] * scale_b, acc[nt][3] * scale_b);
-    }
-  }
-}
-
+// Max and sum over the 4 lanes of a quad, which hold one accumulator row.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
   return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
@@ -285,100 +169,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFullMask, x, 2);
 }
 
-template <int D>
-__global__ void __launch_bounds__(128)
-    flash_fwd_mma_kernel(const bf16_t* __restrict__ q,
-                         const bf16_t* __restrict__ k,
-                         const bf16_t* __restrict__ v,
-                         bf16_t* __restrict__ o, float* __restrict__ m_out,
-                         float* __restrict__ l_out, int seq, float scale) {
-  __shared__ __align__(16) Tile16<D> sq;
-  __shared__ __align__(16) Tile16<D> sk;
-  __shared__ __align__(16) Tile16<D> sv;
-  const size_t base = (size_t)blockIdx.x * seq * D;
-  const int q0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
-
-  load_tile<bf16_t, D, kPad16>(sq, q + base, q0, seq);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) frag_a<D>(qa[kc], sq, r0, kc * 16, g, t);
-
-  float acc[D / 8][4] = {};
-  float row_m[2] = {-INFINITY, -INFINITY}, row_l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<bf16_t, D, kPad16>(sk, k + base, k0, seq);
-    load_tile<bf16_t, D, kPad16>(sv, v + base, k0, seq);
-    __syncthreads();
-    float s[kTile / 8][4];
-    mma_rows_n<D>(s, qa, sk, g, t);
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const float x = col < seq ? s[nt][e] * scale : -INFINITY;
-        s[nt][e] = x;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // each tile holds a key < seq, so the new max is finite
-      const float mn = fmaxf(row_m[i], quad_max(tile_max[i]));
-      alpha[i] = expf(row_m[i] - mn);
-      row_m[i] = mn;
-    }
-    float tile_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - row_m[e >> 1]);
-        s[nt][e] = p;
-        tile_sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      row_l[i] = row_l[i] * alpha[i] + quad_sum(tile_sum[i]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kc = 0; kc < kTile / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a(pa, s, kc);  // p rounded to bf16, as the stock kernel
-      mma_rows_k<D, D>(acc, pa, sv, kc * 16, g, t);
-    }
-  }
-  store_rows_bf16<D>(o + base, acc, q0 + r0, seq, g, t, 1.f / row_l[0],
-                     1.f / row_l[1]);
-  if (t == 0) {
-    const size_t srow = (size_t)blockIdx.x * seq;
-    const int ra = q0 + r0 + g, rb = ra + 8;
-    if (ra < seq) {
-      m_out[srow + ra] = row_m[0];
-      l_out[srow + ra] = row_l[0];
-    }
-    if (rb < seq) {
-      m_out[srow + rb] = row_m[1];
-      l_out[srow + rb] = row_l[1];
-    }
-  }
-}
-
-// ----------------------------- bf16 backward: wgmma, TMA, an mbarrier ring
 
 constexpr int kBox = 64;  // rows of a TMA box: one wgmma M (or N) tile
 
@@ -615,7 +405,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16],
 }
 
 // The A fragment of columns 16kc..16kc+15 of a 64 x 64 wgmma accumulator,
-// rounded to bf16: per warp the same quad layout as acc_to_a.
+// rounded to bf16.  Per warp the accumulator holds rows g and g + 8 of its
+// 16 (lane = 4 g + t), columns 8j + 2t and 8j + 2t + 1 in c[4j..4j+3]: the
+// mma.m16n8k16 C layout, which is also its A layout two columns at a time.
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
                                          const float (&c)[32], int kc) {
   a[0] = pack_bf16(c[8 * kc + 0], c[8 * kc + 1]);
@@ -649,7 +441,7 @@ __device__ __forceinline__ void store_acc_bf16(bf16_t* out,
 constexpr int kConsumers = 2;                  // warpgroups, 64 own rows each
 constexpr int kOwnRows = kConsumers * kBox;    // rows a block owns
 constexpr int kStages = 4;                     // slots of the ring
-constexpr int kBwdThreads = kConsumers * 128 + 32;  // and one producer warp
+constexpr int kRingThreads = kConsumers * 128 + 32;  // and one producer warp
 
 // Shared memory of the backward kernels.  `own`: the block's 128 rows
 // (dK/dV: k and v; dQ: q and dO).  `ring`: kStages tiles of 64 rows of
@@ -668,7 +460,7 @@ struct BwdSmem {
 };
 
 template <typename Smem>
-__device__ __forceinline__ Smem& bwd_smem() {
+__device__ __forceinline__ Smem& ring_smem() {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
   return *reinterpret_cast<Smem*>(smem_raw + pad);
@@ -676,7 +468,7 @@ __device__ __forceinline__ Smem& bwd_smem() {
 
 // Barriers: own_full takes the TMA bytes of the block's own rows; full[s]
 // the slot's TMA bytes and the 32 producer lanes, each arriving after its
-// stores of the statistics; empty[s] every consumer thread.
+// stores (of the statistics, in dK/dV); empty[s] every consumer thread.
 template <typename Smem>
 __device__ __forceinline__ void init_barriers(Smem& sm) {
   if (threadIdx.x == 0) {
@@ -766,7 +558,7 @@ __device__ __forceinline__ void produce(BwdSmem<D, Stats>& sm,
 // dK and dV.  Block (b*h, key tile of 128 rows): two consumer warpgroups
 // of 64 keys each, then the producer warp.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
     flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -776,7 +568,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                            const float* __restrict__ di,
                            bf16_t* __restrict__ dk, bf16_t* __restrict__ dv,
                            int seq, float scale) {
-  auto& sm = bwd_smem<BwdSmem<D, true>>();
+  auto& sm = ring_smem<BwdSmem<D, true>>();
   init_barriers(sm);
   const int key0 = blockIdx.y * kOwnRows;
   const float scale2 = scale * kLog2e;
@@ -865,7 +657,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // queries each, then the producer warp.  `unused` keeps the dK/dV
 // kernel's signature.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -875,7 +667,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                           const float* __restrict__ di,
                           bf16_t* __restrict__ dq, bf16_t* __restrict__ unused,
                           int seq, float scale) {
-  auto& sm = bwd_smem<BwdSmem<D, false>>();
+  auto& sm = ring_smem<BwdSmem<D, false>>();
   init_barriers(sm);
   const int qblk0 = blockIdx.y * kOwnRows;
   const float scale2 = scale * kLog2e;
@@ -947,6 +739,185 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                       t);
   }
   (void)unused;
+}
+
+// ------------------------------------------------------------ bf16 forward
+
+// Shared memory of the forward: the block's 128 query rows, and a ring of
+// kStages slots, each a 64-row k tile and its v tile.
+template <int D>
+struct FwdSmem {
+  bf16_t q[kOwnRows * D];
+  bf16_t k[kStages][kBox * D];
+  bf16_t v[kStages][kBox * D];
+  uint64_t own_full, full[kStages], empty[kStages];
+};
+
+// One key tile of the online softmax, for the thread's two rows.  In place,
+// the raw scores q.k become p = 2^(s scale log2(e) - m log2(e)), with m the
+// running row max of s scale in natural units (what the backward reads;
+// keys from `valid` on count as -inf when Masked); alpha = 2^((m_old - m)
+// log2(e)) rescales what was summed before, and lsum, the thread's share
+// of l, is rescaled and takes the tile's p.
+template <bool Masked>
+__device__ __forceinline__ void online_softmax(float (&sc)[32],
+                                               float (&mx)[2],
+                                               float (&lsum)[2],
+                                               float (&alpha)[2],
+                                               float scale, int t,
+                                               int valid) {
+  float tmax[2] = {mx[0], mx[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t + (e & 1);
+      const float x =
+          Masked && col >= valid ? -INFINITY : sc[4 * j + e] * scale;
+      sc[4 * j + e] = x;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+    }
+  }
+  float m2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // each tile holds a key < seq, so the new max is finite
+    const float mn = quad_max(tmax[i]);
+    alpha[i] = exp2_approx((mx[i] - mn) * kLog2e);  // 0 on the first tile
+    mx[i] = mn;
+    m2[i] = mn * kLog2e;
+  }
+  float tsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_approx(fmaf(sc[4 * j + e], kLog2e, -m2[e >> 1]));
+      sc[4 * j + e] = p;
+      tsum[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lsum[i] = fmaf(lsum[i], alpha[i], tsum[i]);
+}
+
+// The forward.  Block (query tile of 128 rows, b*h), flattened with the
+// query tile fastest, so that the blocks of one head run together and share
+// its k and v in L2: two consumer warpgroups of 64 queries each, then the
+// producer warp.
+template <int D>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           bf16_t* __restrict__ o, float* __restrict__ m_out,
+                           float* __restrict__ l_out, int seq, float scale) {
+  constexpr uint32_t kTileBytes = kBox * D * sizeof(bf16_t);
+  auto& sm = ring_smem<FwdSmem<D>>();
+  init_barriers(sm);
+  const int q_tiles = (seq + kOwnRows - 1) / kOwnRows;
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * kOwnRows;
+  const int tiles = (seq + kBox - 1) / kBox;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= kConsumers * 128) {
+    // the producer: q once, then every k and v tile through the ring; lane
+    // 0 issues the copies, and all 32 lanes arrive on full[s]
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.own_full, kConsumers * kTileBytes);
+#pragma unroll
+      for (int c = 0; c < kConsumers; ++c) {
+        tma_load_rows(sm.q + c * kBox * D, &tm_q, &sm.own_full,
+                      q0 + c * kBox, bh);
+      }
+    }
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kStages;
+      mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);  // slot released
+      if (lane == 0) {
+        mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+        tma_load_rows(sm.k[s], &tm_k, &sm.full[s], it * kBox, bh);
+        tma_load_rows(sm.v[s], &tm_v, &sm.full[s], it * kBox, bh);
+      }
+      mbar_arrive(&sm.full[s]);
+    }
+    return;
+  }
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16_t* own_q = sm.q + wg * kBox * D;
+  float o_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+  mbar_wait(&sm.own_full, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kStages, k0 = it * kBox;
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    // s = q k^T: the warpgroup's 64 queries against the tile's 64 keys,
+    // both operands K-major
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_ss_n64(sc, desc_k_major<D>(own_q, ks),
+                   desc_k_major<D>(sm.k[s], ks), ks);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    float alpha[2];
+    if (k0 + kBox <= seq) {
+      online_softmax<false>(sc, mx, lsum, alpha, scale, t, kBox);
+    } else {
+      online_softmax<true>(sc, mx, lsum, alpha, scale, t, seq - k0);
+    }
+    // o = o alpha + p v: p rounded to bf16 in registers, as the stock
+    // kernel rounds it, and v read MN-major
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) acc_to_a(pa[kc], sc, kc);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o_acc[4 * j] *= alpha[0];
+      o_acc[4 * j + 1] *= alpha[0];
+      o_acc[4 * j + 2] *= alpha[1];
+      o_acc[4 * j + 3] *= alpha[1];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs(o_acc, pa[kc], desc_mn_major<D>(sm.v[s], kc));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_acc);
+    mbar_arrive(&sm.empty[s]);  // this thread is done with the slot
+  }
+  // o = acc / l, and the statistics m and l of rows row0 + g, row0 + g + 8
+  float l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = quad_sum(lsum[i]);
+  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o_acc[4 * j] *= inv0;
+    o_acc[4 * j + 1] *= inv0;
+    o_acc[4 * j + 2] *= inv1;
+    o_acc[4 * j + 3] *= inv1;
+  }
+  const int row0 = q0 + wg * kBox + warp * 16;
+  store_acc_bf16<D>(o + (size_t)bh * seq * D, o_acc, row0, seq, g, t);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + g + 8 * i;
+      if (r < seq) {
+        m_out[(size_t)bh * seq + r] = mx[i];
+        l_out[(size_t)bh * seq + r] = l[i];
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------- f32: FMA units
@@ -1207,6 +1178,35 @@ int make_rows_map(CUtensorMap* map, const void* ptr, int bh, int seq,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A map of each of the N [bh, seq, d] tensors at `src`.
+template <int N>
+int make_maps(CUtensorMap (&maps)[N], const void* const (&src)[N], int bh,
+              int seq, int d) {
+  for (int i = 0; i < N; ++i) {
+    const int err = make_rows_map(&maps[i], src[i], bh, seq, d);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` once a device
+// (bit `dev` of `set`, one `set` a kernel); two threads racing here both
+// set it, which is harmless.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(set.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    set.fetch_or(bit, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
 template <int D, bool Dkv>
 int launch_bwd(const CUtensorMap (&maps)[4], const float* m, const float* l,
                const float* di, void* out0, void* out1, int bh, int seq,
@@ -1214,21 +1214,11 @@ int launch_bwd(const CUtensorMap (&maps)[4], const float* m, const float* l,
   constexpr int kSmem = (int)sizeof(BwdSmem<D, Dkv>) + 1024;
   const auto kernel =
       Dkv ? flash_dkv_wgmma_kernel<D> : flash_dq_wgmma_kernel<D>;
-  // the shared-memory limit is raised once a device (bit `dev` of `set`);
-  // two threads racing here both set it, which is harmless
   static std::atomic<uint64_t> set{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem(kernel, kSmem, set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(set.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    set.fetch_or(bit, std::memory_order_relaxed);
-  }
   const dim3 grid(bh, (seq + kOwnRows - 1) / kOwnRows);
-  kernel<<<grid, kBwdThreads, kSmem, stream>>>(
+  kernel<<<grid, kRingThreads, kSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], m, l, di, (bf16_t*)out0,
       (bf16_t*)out1, seq, scale);
   return static_cast<int>(cudaGetLastError());
@@ -1240,11 +1230,8 @@ int flash_bwd_bf16(bool dkv, const void* q, const void* k, const void* v,
                    const float* di, void* out0, void* out1, int bh, int seq,
                    int d, float scale, cudaStream_t stream) {
   CUtensorMap maps[4];
-  const void* src[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const int err = make_rows_map(&maps[i], src[i], bh, seq, d);
-    if (err != 0) return err;
-  }
+  const int err = make_maps(maps, {q, k, v, dout}, bh, seq, d);
+  if (err != 0) return err;
   if (d == 64) {
     return dkv ? launch_bwd<64, true>(maps, m, l, di, out0, out1, bh, seq,
                                       scale, stream)
@@ -1255,6 +1242,34 @@ int flash_bwd_bf16(bool dkv, const void* q, const void* k, const void* v,
                                     scale, stream)
              : launch_bwd<32, false>(maps, m, l, di, out0, out1, bh, seq,
                                      scale, stream);
+}
+
+// The bf16 forward from tensor maps of q, k and v.
+template <int D>
+int launch_fwd(const CUtensorMap (&maps)[3], void* o, float* m, float* l,
+               int bh, int seq, float scale, cudaStream_t stream) {
+  constexpr int kSmem = (int)sizeof(FwdSmem<D>) + 1024;
+  const auto kernel = flash_fwd_wgmma_kernel<D>;
+  static std::atomic<uint64_t> set{0};
+  const cudaError_t err = allow_smem(kernel, kSmem, set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (long long)bh * ((seq + kOwnRows - 1) / kOwnRows);
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<(unsigned)blocks, kRingThreads, kSmem, stream>>>(
+      maps[0], maps[1], maps[2], (bf16_t*)o, m, l, seq, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forward: the backward's two consumer warpgroups a block and 4
+// slots, at every S and D (PERF.md has the alternatives' times).
+int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                   float* m, float* l, int bh, int seq, int d, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const int err = make_maps(maps, {q, k, v}, bh, seq, d);
+  if (err != 0) return err;
+  return d == 64 ? launch_fwd<64>(maps, o, m, l, bh, seq, scale, stream)
+                 : launch_fwd<32>(maps, o, m, l, bh, seq, scale, stream);
 }
 
 }  // namespace
@@ -1270,14 +1285,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int bf16, float scale,
                                    cudaStream_t stream) {
   const dim3 grid = grid_of(bh, seq);
-  using B = const bf16_t*;
   using F = const float*;
-  if (bf16 && d == 64) {
-    flash_fwd_mma_kernel<64><<<grid, 128, 0, stream>>>(
-        (B)q, (B)k, (B)v, (bf16_t*)o, m, l, seq, scale);
-  } else if (bf16 && d == 32) {
-    flash_fwd_mma_kernel<32><<<grid, 128, 0, stream>>>(
-        (B)q, (B)k, (B)v, (bf16_t*)o, m, l, seq, scale);
+  if (bf16 && (d == 64 || d == 32)) {
+    return flash_fwd_bf16(q, k, v, o, m, l, bh, seq, d, scale, stream);
   } else if (!bf16 && d == 64) {
     flash_fwd_fma_kernel<64><<<grid, 128, 0, stream>>>(
         (F)q, (F)k, (F)v, (float*)o, m, l, seq, scale);

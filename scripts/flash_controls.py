@@ -1,15 +1,33 @@
 #!/usr/bin/env python3
-"""What P4's bf16 gradient limit must tell apart: the relative error of
-sound gradients and of gradients with one fault put in.
+"""What P4's bf16 limits on o and on the gradients must tell apart: the
+relative error of sound results and of results with one fault put in.
 
-    python3 scripts/flash_grad_controls.py [--cpu]
+    python3 scripts/flash_controls.py [--cpu]
 
 For each bfloat16 case of ``chip_smoke.py``'s phase 6 (the same inputs,
-made from the same seed on the same device), every gradient ``g`` of q,
-k and v is held against the float32 reference as ``chip_smoke.py`` makes
-it (autograd through the plain forward), and the error is read as
-``max|g - ref| / max|ref|``, per tensor, the measure that
-``FLASH_GRAD_RTOL`` bounds.  Readings:
+made from the same seed on the same device), the forward's o and every
+gradient ``g`` of q, k and v are held against the float32 reference as
+``chip_smoke.py`` makes it (the plain forward, and autograd through it),
+and the error is read as ``max|x - ref| / max|ref|``, per tensor, the
+measure that ``FLASH_FWD_RTOL`` and ``FLASH_GRAD_RTOL`` bound.
+
+Readings of o:
+
+- ``port``: the port's forward (the kernel on the card; on the CPU the
+  plain version);
+- ``plain``: p = exp(s - m) rounded to bf16, o = p v / l in float32,
+  rounded to bf16, as the kernel rounds them;
+- ``p_3bit``: p rounded to 3 mantissa bits (fp8 e4m3's precision,
+  without its range) in place of bf16's 7;
+- ``pv_tile_lost``: the last 64-key tile adds to l but not to o, what a
+  missed product ``o += p v`` gives;
+- ``v_rows_shifted``: the first 64-key tile's v rows taken 8 rows on
+  (the tile's rows rolled), what a v descriptor started one 8-row group
+  off gives;
+- ``alpha_half``: the online softmax by 64-key tiles, with the upper half
+  of o's columns never rescaled by alpha.
+
+Readings of the gradients:
 
 - ``port``: the port's backward (the kernels on the card; on the CPU the
   plain versions);
@@ -27,10 +45,11 @@ it (autograd through the plain forward), and the error is read as
   for dK and dV, keys for dQ) adds nothing.
 
 Prints the card's name and power limit, one JSON line per case and a
-last line with the largest sound reading (``port``, ``plain``) and the
-least reading of each control.  The plain versions run on the first 2
-batch rows from S = 2048 on, as in ``chip_smoke.py``; ``--cpu`` runs the
-cases up to S = 256 on the CPU, on their first 2 batch rows.
+last line with, for o and for the gradients, the largest sound reading
+(``port``, ``plain``) and the least reading of each control.  The plain
+versions run on the first 2 batch rows from S = 2048 on, as in
+``chip_smoke.py``; ``--cpu`` runs the cases up to S = 256 on the CPU, on
+their first 2 batch rows.
 """
 
 import argparse
@@ -80,8 +99,48 @@ def formulas(q, k, v, do, m, l, di, scale, fault=None):
     return [t.to(torch.bfloat16) for t in (dq, dk, dv)]
 
 
+def forward_formulas(q, k, v, scale, fault=None):
+    """o in bf16 from the plain version's formulas, p rounded to bf16 (or
+    as ``fault`` says)."""
+    import torch
+    from deepchem_tpu_torch.ops.flash_attention import _scores
+    S = q.shape[2]
+    last = (S - 1) // 64 * 64
+    s = _scores(q, k, scale)
+    vf = v.float()
+    if fault == 'alpha_half':
+        half = v.shape[-1] // 2
+        acc = torch.zeros(q.shape, device=q.device)
+        mx = torch.full(s.shape[:-1] + (1,), -float('inf'), device=q.device)
+        lsum = torch.zeros_like(mx)
+        for k0 in range(0, S, 64):
+            st = s[..., k0:k0 + 64]
+            mn = torch.maximum(mx, st.amax(-1, keepdim=True))
+            alpha = torch.exp(mx - mn)
+            p = torch.exp(st - mn).to(torch.bfloat16).float()
+            lsum = lsum * alpha + torch.exp(st - mn).sum(-1, keepdim=True)
+            acc[..., :half] *= alpha
+            acc += p @ vf[..., k0:k0 + 64, :]
+            mx = mn
+        return (acc / lsum).to(torch.bfloat16)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True)
+    p = round_mantissa(e, 3) if fault == 'p_3bit' \
+        else e.to(torch.bfloat16).float()
+    if fault == 'pv_tile_lost':
+        p[..., last:] = 0
+    if fault == 'v_rows_shifted':
+        vf = vf.clone()
+        vf[..., :64, :] = vf[..., :64, :].roll(-8, dims=-2)
+    return (p @ vf / l).to(torch.bfloat16)
+
+
+FWD_FAULTS = ('p_3bit', 'pv_tile_lost', 'v_rows_shifted', 'alpha_half')
+
+
 def case(name, shape, dev, rows):
-    """{reading: [rel dq, rel dk, rel dv]} for one case."""
+    """({reading: rel o}, {reading: [rel dq, rel dk, rel dv]}) for one
+    case."""
     import torch
     from deepchem_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
@@ -96,8 +155,18 @@ def case(name, shape, dev, rows):
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, di, scale)
     dq = flash_attention_bwd_dq(q, k, v, do, m, l, di, scale)
     ref_in = [t.float().requires_grad_() for t in (q, k, v)]
-    flash_attention_reference(*ref_in, scale).backward(do.float())
+    ref_o = flash_attention_reference(*ref_in, scale)
+    ref_o.backward(do.float())
+    ref_o = ref_o.detach()
     refs = [t.grad for t in ref_in]
+
+    def rel_o(out):
+        return ((out.float() - ref_o).abs().max()
+                / ref_o.abs().max()).item()
+    fwd = {'port': rel_o(o)}
+    for fault in (None,) + FWD_FAULTS:
+        fwd[fault or 'plain'] = rel_o(forward_formulas(q, k, v, scale,
+                                                       fault))
 
     def rel(grads):
         return [((g.float() - r).abs().max() / r.abs().max()).item()
@@ -107,7 +176,7 @@ def case(name, shape, dev, rows):
                   'last_tile_lost'):
         out[fault or 'plain'] = rel(formulas(q, k, v, do, m, l, di, scale,
                                              fault))
-    return out
+    return fwd, out
 
 
 def main() -> int:
@@ -130,22 +199,25 @@ def main() -> int:
                              text=True, check=True).stdout.strip(),
               flush=True)
     else:
-        print('flash_grad_controls: no CUDA device (--cpu runs the CPU)',
+        print('flash_controls: no CUDA device (--cpu runs the CPU)',
               file=sys.stderr)
         return 1
-    summary = {}
+    summary = {'o': {}, 'grad': {}}
     for name, shape in cases:
         rows = 2 if args.cpu or shape[2] >= 2048 else shape[0]
-        res = case(name, shape, dev, rows)
+        fwd, grad = case(name, shape, dev, rows)
         print(json.dumps({'case': name, 'shape': list(shape), 'rows': rows,
-                          'device': str(dev), 'rel_dq_dk_dv': res}),
-              flush=True)
-        for reading, vals in res.items():
-            pick = max if reading in ('port', 'plain') else min
-            summary[reading] = pick([summary.get(reading, vals[0])] + vals)
-    print(json.dumps({'sound_max': max(summary.pop('port'),
-                                       summary.pop('plain')),
-                      'control_min': summary}))
+                          'device': str(dev), 'rel_o': fwd,
+                          'rel_dq_dk_dv': grad}), flush=True)
+        for what, res in (('o', {k: [x] for k, x in fwd.items()}),
+                          ('grad', grad)):
+            for reading, vals in res.items():
+                pick = max if reading in ('port', 'plain') else min
+                summary[what][reading] = pick(
+                    [summary[what].get(reading, vals[0])] + vals)
+    print(json.dumps({what: {'sound_max': max(s.pop('port'), s.pop('plain')),
+                             'control_min': s}
+                      for what, s in summary.items()}))
     return 0
 
 

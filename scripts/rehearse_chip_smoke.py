@@ -114,7 +114,8 @@ def main() -> int:
     timed = smoke.time_ms
     smoke.time_ms = lambda fn, iters=200: timed(fn, iters=1)
     # no device here: no device times
-    smoke.device_us = lambda fn, kernel, calls=20: float('nan')
+    smoke.device_us = lambda fn, kernel, bound_us=0.0, calls=20: \
+        float('nan')
     smoke.device_us_all = lambda fn, calls=20: (float('nan'), 0.0)
     smoke.library_attention = lambda q, k, v, scale: \
         torch.nn.functional.scaled_dot_product_attention(q, k, v,

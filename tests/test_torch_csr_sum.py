@@ -84,6 +84,33 @@ def test_fused_gather_segment_sum_matches_jax(n_nodes, n_edges, f, seed):
         out, csr_neighbor_sum_reference(*_t(h, src[perm], row_ptr)).numpy())
 
 
+# kSplitEdges in csrc/csr_segment_sum.cu: on the card a longer segment is
+# split across the kernel's block of 8 warps
+SPLIT_EDGES = 128
+
+
+@pytest.mark.parametrize('long_len,f', [(SPLIT_EDGES - 1, 32),
+                                        (SPLIT_EDGES, 32),
+                                        (SPLIT_EDGES + 1, 32),
+                                        (2 * SPLIT_EDGES + 5, 1),
+                                        (1536, 32)])
+def test_csr_segment_sum_long_segments_match_jax(long_len, f):
+    """Segments around the kernel's split threshold, and a ghost-like
+    segment of 1.5k edges (PAGTN's padding points every padded edge at the
+    last node): the plain version against the JAX Pallas kernel in
+    interpret mode.  Two long segments share the last block of 8 nodes,
+    beside short and empty ones."""
+    rng = np.random.RandomState(long_len + f)
+    lengths = list(rng.randint(0, 6, 13)) + [long_len, 0, long_len + 3]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    msgs = rng.randn(int(row_ptr[-1]), f).astype(np.float32)
+    out = csr_segment_sum(*_t(msgs, row_ptr)).numpy()
+    ref = jax_csr_segment_sum(jnp.asarray(msgs), jnp.asarray(row_ptr),
+                              len(lengths), block_nodes=8, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=ATOL)
+    np.testing.assert_array_equal(out[14], 0.0)
+
+
 def test_empty_segments():
     """Nodes with no incoming edges give zeros (tests/test_pallas_ops.py
     test_empty_segments), in both sums."""

@@ -1,9 +1,11 @@
 """Tests of the port that need a CUDA device: each CUDA kernel against its
-plain PyTorch version on the card, P1's backward against autograd through
-its plain version, one PAGTN training step against the CPU, P4's forward
-and backward kernels against the plain flash attention, and the encoder's
-logits against the CPU.  They skip where there is no GPU.  This file
-imports no JAX, so it runs where JAX is not installed:
+plain PyTorch version on the card (P3 also on segments long enough to be
+split across a block), P1's backward against autograd through its plain
+version, one PAGTN training step against the CPU, P4's forward (with its
+statistics m and l) and backward kernels against the plain flash
+attention, and the encoder's logits against the CPU.  They skip where
+there is no GPU.  This file imports no JAX, so it runs where JAX is not
+installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -20,7 +22,8 @@ from deepchem_tpu_torch.ops.csr_segment import (
     csr_segment_softmax_reference, csr_segment_sum,
     csr_segment_sum_reference, edges_to_csr, fused_gather_segment_sum)
 from deepchem_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    _forward_reference, flash_attention, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_forward,
     flash_attention_reference)
 
 # same f32 inputs, summed in another order
@@ -89,6 +92,35 @@ def test_csr_segment_sum_kernel_matches_plain_version(cuda, N, E, F):
     assert csr_segment_sum.launches == before + 2
     assert torch.equal(out, again)            # no atomics: bit for bit
     _close(out, csr_segment_sum_reference(msgs, row_ptr))
+
+
+# kSplitEdges in csrc/csr_segment_sum.cu: longer segments are split across
+# the kernel's block of 8 warps
+SPLIT_EDGES = 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('F', [32, 1, 37, 512])
+def test_csr_segment_sum_long_segments_match_plain_version(cuda, F):
+    """Segments around the split threshold, several long ones in one block,
+    a ghost-like segment of 1.5k edges and one of 40k, each sum bit for
+    bit the same on a repeat."""
+    lengths = [0, 3, SPLIT_EDGES - 1, SPLIT_EDGES, SPLIT_EDGES + 1, 5,
+               SPLIT_EDGES + 7, 2 * SPLIT_EDGES, 1, 0, 8 * SPLIT_EDGES + 3,
+               1536, 2, 40000]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    rng = np.random.RandomState(F)
+    msgs = torch.from_numpy(rng.randn(int(row_ptr[-1]), F).astype(
+        np.float32)).to(cuda)
+    row_ptr = torch.from_numpy(row_ptr).to(cuda)
+    before = csr_segment_sum.launches
+    out = csr_segment_sum(msgs, row_ptr)
+    again = csr_segment_sum(msgs, row_ptr)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches == before + 2
+    assert torch.equal(out, again)            # no atomics: bit for bit
+    _close(out, csr_segment_sum_reference(msgs, row_ptr))
+    assert torch.all(out[[0, 9]] == 0)
 
 
 @pytest.mark.cuda
@@ -165,10 +197,11 @@ def test_training_step_gradients_match_the_cpu(cuda):
 # P4, against the plain version in float32 from the same inputs: the
 # forward within 1e-5 (float32) and 2e-2 (bfloat16: p and the output
 # rounded), the gradients within 1e-4 and 5e-2, scaled by max(1, |ref|);
-# each bfloat16 gradient also within 1e-2 of its own max |ref|, which sound
-# kernels meet and a kernel with one fault does not
-# (scripts/flash_grad_controls.py)
+# the bfloat16 o and each bfloat16 gradient also within 7e-3 and 1e-2 of
+# their own max |ref|, which sound kernels meet and a kernel with one fault
+# does not (scripts/flash_controls.py)
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 5e-2)}
+FLASH_FWD_RTOL = 7e-3
 FLASH_GRAD_RTOL = 1e-2
 
 
@@ -208,12 +241,51 @@ def test_flash_attention_kernels_match_plain_version(cuda, dtype, B, H, S,
         assert a.dtype == dtype
         err = (a.float() - ref).abs().max().item()
         assert err <= tol, i
-        if i > 0 and dtype == torch.bfloat16:
-            assert err <= FLASH_GRAD_RTOL * ref.abs().max().item(), i
+        if dtype == torch.bfloat16:
+            rtol = FLASH_GRAD_RTOL if i > 0 else FLASH_FWD_RTOL
+            assert err <= rtol * ref.abs().max().item(), i
     # no atomics: the output and every gradient repeat bit for bit
     again = _flash_run(flash_attention, q, k, v, w, dtype)
     for i, (a, b) in enumerate(zip(outs[0], again)):
         assert torch.equal(a, b), i
+
+
+# m and l of the forward against the plain version's, per row
+STAT_RTOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('D', [32, 64])
+@pytest.mark.parametrize('S', [1, 63, 64, 65, 129, 200])
+def test_flash_forward_kernel_matches_plain_version(cuda, dtype, D, S):
+    """The forward alone at S under, on and past a 64-key tile and a
+    128-query block: o within FLASH_TOL (and, in bfloat16, FLASH_FWD_RTOL
+    of its own max |ref|), m and l within 1e-5 of max(1, |ref|) row by
+    row, one launch, a bit-identical repeat."""
+    rng = np.random.RandomState(7 * S + D)
+    q, k, v = (torch.from_numpy(rng.randn(2, 3, S, D).astype(np.float32))
+               .to(cuda, dtype) for _ in range(3))
+    scale = D ** -0.5
+    before = flash_attention.launches
+    o, m, l = flash_attention_forward(q, k, v, scale)
+    again = flash_attention_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    # in float32 from the same inputs, as the other P4 checks
+    ref_o, ref_m, ref_l = _forward_reference(q.float(), k.float(),
+                                             v.float(), scale)
+    tol = FLASH_TOL[dtype][0] * max(1.0, ref_o.abs().max().item())
+    assert o.dtype == dtype
+    err = (o.float() - ref_o).abs().max().item()
+    assert err <= tol
+    if dtype == torch.bfloat16:
+        assert err <= FLASH_FWD_RTOL * ref_o.abs().max().item()
+    for a, ref in ((m, ref_m), (l, ref_l)):
+        assert bool(((a - ref).abs()
+                     <= STAT_RTOL * ref.abs().clamp_min(1.0)).all())
+    for a, b in zip((o, m, l), again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -5,9 +5,11 @@ calls the stock Pallas TPU flash attention, in interpret mode
 (``pltpu.force_tpu_interpret_mode``), forward and custom VJP; the port's
 side runs its plain versions, as every wrapper does on CPU tensors.
 Inputs are ``[2, 128, 2, 16]`` (``[B, S, H, D]``) from a numpy seed: the
-stock kernel needs S to be a multiple of 128.  Tolerances: float32 atol
-1e-5 (the same arithmetic summed in another order); bfloat16 atol 2e-2
-(one rounding of p, ds and the outputs to bfloat16, at other places).
+stock kernel needs S to be a multiple of 128.  The forward's statistics m
+and l are held against the stock kernel's residuals at S 256.
+Tolerances: float32 atol 1e-5 (the same arithmetic summed in another
+order); bfloat16 atol 2e-2 (one rounding of p, ds and the outputs to
+bfloat16, at other places).
 """
 
 import importlib
@@ -19,6 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as stock_flash
 
 from deepchem_tpu.models.bert_encoder import \
     flash_or_xla_attention as jax_attention
@@ -68,6 +71,32 @@ def test_flash_route_matches_the_stock_kernel(name):
     ours = _port(arrays, tdt, mask=None, use_flash=True)
     for what, a, b in zip(('out', 'dq', 'dk', 'dv'), ours, ref):
         np.testing.assert_allclose(a, b, atol=atol, err_msg=what)
+
+
+@pytest.mark.parametrize('name', sorted(TYPES))
+def test_forward_statistics_match_the_stock_residuals(name):
+    """The plain forward's ``(o, m, l)``, which the forward kernel must
+    keep, against the stock kernel's output and residuals
+    (``_flash_attention_impl(..., save_residuals=True)``, interpret mode)
+    over two 128-key blocks, so the stock kernel rescales once: ``m`` the
+    row max of ``s * sm_scale`` and ``l`` the sum of ``exp(s * sm_scale -
+    m)``, each within the type's tolerance of max(1, |ref|)."""
+    jdt, tdt, atol = TYPES[name]
+    q, k, v = (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+               for a in _inputs(1, 256, 2, 32, seed=5, n=3))
+    scale = 32 ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        ref = stock_flash._flash_attention_impl(
+            *(jnp.asarray(a, jdt) for a in (q, k, v)), None, None, True,
+            False, scale, 1, 128, 128, 128, False)
+    ref_o, ref_l, ref_m = (np.asarray(r.astype(jnp.float32)) for r in ref)
+    o, m, l = flash_attention_forward(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), scale)
+    assert o.dtype == tdt and m.dtype == l.dtype == torch.float32
+    for what, a, b in (('o', o, ref_o), ('m', m, ref_m), ('l', l, ref_l)):
+        np.testing.assert_allclose(a.float().numpy(), b,
+                                   atol=atol * max(1.0, np.abs(b).max()),
+                                   err_msg=what)
 
 
 @pytest.mark.parametrize('masked', [False, True])
