@@ -5,7 +5,9 @@
 
 Phases:
   1. device  -- the card's name and power limit; TF32 off for matmuls and
-                convolutions, so the card computes in full float32.
+                convolutions, so the card computes in full float32 (P4's
+                float32 forward keeps f32's digits by three tf32 passes
+                of its own, whatever these flags say).
   2. build   -- compiles every kernel under deepchem_tpu_torch/csrc/, one
                 nvcc for each source, all at once, and prints ptxas's
                 report; ptxas must have serialised no wgmma (info C7512).
@@ -13,7 +15,8 @@ Phases:
                 P1 csr_segment_softmax and P3 csr_segment_sum on the inputs
                 the model hands them, P2 fused_gather_segment_sum at the
                 shapes of scripts/bench_pallas_csr.py, plus wide and edge
-                cases and, for P3, a segment of 40 000 edges.  Per case:
+                cases and, for P1 and P3, segments long enough to be split
+                across a block (up to 40 000 edges).  Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
                 µs a launch and the library call's device µs (profiler),
@@ -34,10 +37,13 @@ Phases:
                 the plain flash attention on the card: at the encoder's
                 shape [32, 12, 128, 64] in bfloat16 and float32, at
                 scripts/attn_crossover.py's shapes (H 12, D 64, 65 536
-                tokens, S 128 to 4096) in bfloat16, and at S 200, D 32.
+                tokens, S 128 to 4096) in bfloat16, and at S 200, D 32;
+                the float32 forward alone at S 512 and 4096.
                 Per case and kernel: max abs error (and the forward's m
                 and l row by row; in bfloat16 also against the output's
-                own max |ref|), a bit-identical repeat, kernel, plain
+                own max |ref|; in float32 the forward's o and the plain
+                version's, recorded against the plain version in
+                float64), a bit-identical repeat, kernel, plain
                 and library (SDPA) times, device µs a launch, bound; the
                 device µs of whole calls of SDPA's forward, SDPA's
                 backward and the port's backward (di, dK/dV and dQ).  Then
@@ -119,8 +125,10 @@ CPU_ATOL = 1e-4                 # whole model, f32, another summation order
 GRAD_ATOL = 1e-5                # step-1 gradients, card against the CPU
 TRAIN_RTOL = 1e-4               # 12-step loss trajectory, card against CPU
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM published peaks
-F32_OPS_PER_S = 67e12
+F32_OPS_PER_S = 67e12           # FMA units
 BF16_OPS_PER_S = 989e12         # dense, tensor cores
+TF32_OPS_PER_S = 494.7e12       # dense, tensor cores
+TF32_PASSES = 3                 # P4's f32 forward: 3xTF32 on the tensor cores
 # scripts/bench_chemberta_mfu.py:44-70: the ChemBERTa-77M-class encoder
 ENCODER = dict(vocab_size=600, hidden=768, layers=12, heads=12,
                intermediate=3072, max_positions=130)
@@ -131,6 +139,7 @@ FLASH_MAIN = (32, 12, 128, 64)  # the encoder's attention, [B, H, S, D]
 # scripts/attn_crossover.py:27-35: H = 12, D = 64, 65 536 tokens a call
 CROSSOVER_TOKENS = 65536
 CROSSOVER_S = (128, 256, 512, 1024, 2048, 4096)
+F32_CROSSOVER_S = (512, 4096)   # the f32 forward alone at these
 PLAIN_ROWS_FROM_S = 2048        # from here the plain version takes 2 rows
 # P4 against the plain version in float32 from the same inputs, scaled by
 # max(1, |ref|): forward, then gradients; bfloat16 rounds p, ds and outputs
@@ -463,11 +472,12 @@ def library_attention(q, k, v, scale):
         return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
 
-def flash_case(name, shape, dtype, dev, iters=200, seed=0):
-    """P4's forward, dK/dV and dQ kernels against the plain versions on the
-    card, with times and bounds: one result for each kernel.  The plain
-    versions run on the first 2 batch rows from S = PLAIN_ROWS_FROM_S on
-    (a [16, 12, 4096, 4096] float32 score array is 12.9 GB)."""
+def flash_case(name, shape, dtype, dev, iters=200, seed=0, backward=True):
+    """P4's forward, dK/dV and dQ kernels (the forward alone without
+    ``backward``) against the plain versions on the card, with times and
+    bounds: one result for each kernel.  The plain versions run on the
+    first 2 batch rows from S = PLAIN_ROWS_FROM_S on (a [16, 12, 4096,
+    4096] float32 score array is 12.9 GB)."""
     import torch
     from deepchem_tpu_torch.ops.flash_attention import (
         _forward_reference, flash_attention, flash_attention_bwd_dkv,
@@ -482,17 +492,21 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0):
 
     def run():
         o, m, l = flash_attention_forward(q, k, v, scale)
+        if not backward:
+            return (o,), (m, l)
         di = (o.float() * do.float()).sum(-1)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, di, scale)
         return (o, dk, dv, flash_attention_bwd_dq(q, k, v, do, m, l, di,
                                                   scale)), (m, l, di)
-    (o, dk, dv, dq), (m, l, di) = run()
+    outs, stats = run()
     again, again_st = run()
     torch.cuda.synchronize()
+    o, (m, l) = outs[0], stats[:2]
     rows = 2 if S >= PLAIN_ROWS_FROM_S else B
-    ref_in = [t[:rows].float().requires_grad_() for t in (q, k, v)]
+    ref_in = [t[:rows].float().requires_grad_(backward) for t in (q, k, v)]
     ref_o = flash_attention_reference(*ref_in, scale)
-    ref_o.backward(do[:rows].float())
+    if backward:
+        ref_o.backward(do[:rows].float())
     kind = str(dtype).split('.')[-1]
     fwd_tol, grad_tol = FLASH_TOL[kind]
 
@@ -504,64 +518,91 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0):
     def rel_error(pairs):
         return max(max_err(a[:rows].float(), r) / r.abs().max().item()
                    for a, r in pairs)
-    errs = {'fwd': error([(o, ref_o.detach())], fwd_tol),
-            'dkv': error([(dk, ref_in[1].grad), (dv, ref_in[2].grad)],
-                         grad_tol),
-            'dq': error([(dq, ref_in[0].grad)], grad_tol)}
-    rel = {'fwd': rel_error([(o, ref_o.detach())]),
-           'dkv': rel_error([(dk, ref_in[1].grad), (dv, ref_in[2].grad)]),
-           'dq': rel_error([(dq, ref_in[0].grad)])}
+    pairs = {'fwd': [(o, ref_o.detach())]}
+    if backward:
+        dk, dv, dq = outs[1:]
+        pairs['dkv'] = [(dk, ref_in[1].grad), (dv, ref_in[2].grad)]
+        pairs['dq'] = [(dq, ref_in[0].grad)]
+    errs = {part: error(p, grad_tol if part != 'fwd' else fwd_tol)
+            for part, p in pairs.items()}
+    rel = {part: rel_error(p) for part, p in pairs.items()}
     # the forward's statistics, which the backward reads, row by row
     _, ref_m, ref_l = _forward_reference(*(t[:rows] for t in (q, k, v)),
                                          scale)
     stat_err = max(((a[:rows] - r).abs() / r.abs().clamp_min(1.0)).max()
                    .item() for a, r in ((m, ref_m), (l, ref_l)))
     del ref_m, ref_l
+    exact = {}
+    if dtype == torch.float32:
+        # o against the plain version in float64, beside the float32 plain
+        # version's own error: where the two float32 results part, which is
+        # nearer the exact one (recorded, not checked)
+        q64, k64, v64 = (t[:rows].double() for t in (q, k, v))
+        ref64 = torch.softmax(q64 @ k64.transpose(-1, -2) * scale,
+                              dim=-1) @ v64
+        del q64, k64, v64
+        scale64 = max(1.0, ref64.abs().max().item())
+        exact = {'err_f64': max_err(o[:rows].double(), ref64) / scale64,
+                 'plain_err_f64': max_err(ref_o.detach().double(), ref64)
+                 / scale64}
+        del ref64
     same = {'fwd': torch.equal(o, again[0]) and torch.equal(m, again_st[0])
-            and torch.equal(l, again_st[1]),
-            'dkv': torch.equal(dk, again[1]) and torch.equal(dv, again[2]),
-            'dq': torch.equal(dq, again[3])}
-    del ref_in, ref_o
+            and torch.equal(l, again_st[1])}
+    if backward:
+        same['dkv'] = torch.equal(dk, again[1]) and torch.equal(dv, again[2])
+        same['dq'] = torch.equal(dq, again[3])
+    del ref_in, ref_o, pairs, again
     # the library call: SDPA's forward, and its backward alone
-    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lq, lk, lv = (t.detach().requires_grad_(backward) for t in (q, k, v))
     lib_o = library_attention(lq, lk, lv, scale)
     lib_err = max_err(lib_o[:rows].detach().float(),
                       flash_attention_reference(
                           *(t[:rows] for t in (q, k, v)), scale).float())
     lib_fwd_ms = time_ms(lambda: library_attention(q, k, v, scale), iters)
-    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        lib_o, (lq, lk, lv), do, retain_graph=True)
-    lib_bwd_ms = time_ms(lib_bwd, iters)
     # device time of whole calls: SDPA's forward, SDPA's backward (dQ, dK
     # and dV), and the port's backward through its autograd Function (di,
     # then the dK/dV and dQ kernels)
     lib_fwd_dev = device_us_all(lambda: library_attention(q, k, v, scale))
-    lib_bwd_dev = device_us_all(lib_bwd)
-    pq, pk, pv = (t.detach().requires_grad_() for t in (q, k, v))
-    port_o = flash_attention(pq, pk, pv, scale)
-    port_bwd_dev = device_us_all(lambda: torch.autograd.grad(
-        port_o, (pq, pk, pv), do, retain_graph=True))
-    del lib_o, port_o
-    small = [t[:rows] for t in (q, k, v, do, m, l, di)]
+    if backward:
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            lib_o, (lq, lk, lv), do, retain_graph=True)
+        lib_bwd_ms = time_ms(lib_bwd, iters)
+        lib_bwd_dev = device_us_all(lib_bwd)
+        pq, pk, pv = (t.detach().requires_grad_() for t in (q, k, v))
+        port_o = flash_attention(pq, pk, pv, scale)
+        port_bwd_dev = device_us_all(lambda: torch.autograd.grad(
+            port_o, (pq, pk, pv), do, retain_graph=True))
+        del port_o
+    del lib_o
+    small = [t[:rows] for t in (q, k, v, do, m, l) + stats[2:]]
     fns = {'fwd': (lambda: flash_attention_forward(q, k, v, scale),
-                   lambda: flash_attention_reference(*small[:3], scale)),
-           'dkv': (lambda: flash_attention_bwd_dkv(q, k, v, do, m, l, di,
-                                                   scale),
-                   lambda: flash_attention_bwd_dkv_reference(*small, scale)),
-           'dq': (lambda: flash_attention_bwd_dq(q, k, v, do, m, l, di,
-                                                 scale),
-                  lambda: flash_attention_bwd_dq_reference(*small, scale))}
+                   lambda: flash_attention_reference(*small[:3], scale))}
+    if backward:
+        di = stats[2]
+        fns['dkv'] = (lambda: flash_attention_bwd_dkv(q, k, v, do, m, l, di,
+                                                      scale),
+                      lambda: flash_attention_bwd_dkv_reference(*small,
+                                                                scale))
+        fns['dq'] = (lambda: flash_attention_bwd_dq(q, k, v, do, m, l, di,
+                                                    scale),
+                     lambda: flash_attention_bwd_dq_reference(*small, scale))
     # bytes: each input read once, each output written once; operations:
     # the products of S x S by D each kernel has to do (4, 8 and 6 flops a
-    # score: q k^T and p v; s and dp again, dV and dK; s, dp and dQ)
+    # score: q k^T and p v; s and dp again, dV and dK; s, dp and dQ), at
+    # the rate of the unit that runs them: bf16 on the tensor cores; the
+    # f32 forward in three tf32 passes on the tensor cores, the f32
+    # backward on the FMA units
     esize, bhsd, bhs = q.element_size(), B * H * S * D, B * H * S
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-    work = {'fwd': (4 * bhsd * esize + 2 * bhs * 4, 4 * bhs * S * D),
-            'dkv': (6 * bhsd * esize + 3 * bhs * 4, 8 * bhs * S * D),
-            'dq': (5 * bhsd * esize + 3 * bhs * 4, 6 * bhs * S * D)}
+    bf16 = dtype == torch.bfloat16
+    work = {'fwd': (4 * bhsd * esize + 2 * bhs * 4, 4 * bhs * S * D,
+                    BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S / TF32_PASSES),
+            'dkv': (6 * bhsd * esize + 3 * bhs * 4, 8 * bhs * S * D,
+                    BF16_OPS_PER_S if bf16 else F32_OPS_PER_S),
+            'dq': (5 * bhsd * esize + 3 * bhs * 4, 6 * bhs * S * D,
+                   BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)}
     results = {}
     for part, (fn, plain) in fns.items():
-        bound_ms, bound_by = bound(*work[part], rate)
+        bound_ms, bound_by = bound(*work[part])
         res = {'kernel': f'flash_attention_{part}', 'case': name,
                'shape': list(shape), 'dtype': kind,
                'max_abs_err': errs[part][0], 'tol': errs[part][1],
@@ -572,7 +613,7 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0):
                'library_ms': lib_fwd_ms if part == 'fwd' else lib_bwd_ms,
                'bound_ms': bound_ms, 'bound_by': bound_by}
         res['bound_share'] = bound_ms * 1e3 / res['device_us']
-        if dtype == torch.bfloat16:
+        if bf16:
             res['rel_err'] = rel[part]
             res['rel_tol'] = FLASH_FWD_RTOL if part == 'fwd' \
                 else FLASH_GRAD_RTOL
@@ -581,6 +622,7 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0):
         if part == 'fwd':
             res['library_err'] = lib_err
             res['stat_err'], res['stat_tol'] = stat_err, STAT_RTOL
+            res.update(exact)
         else:
             res['library'] = 'SDPA backward: dQ, dK and dV in one call'
             res['backward_device_us'], res['backward_kernels'] = port_bwd_dev
@@ -811,6 +853,16 @@ def main() -> int:
     edge_l, edge_rp = (torch.from_numpy(edge_logits).to(dev),
                        torch.from_numpy(rp).to(dev))
     softmax_cases.append(softmax_case('edge_segments', edge_l, edge_rp))
+    # a ghost-sized segment of 1536 edges after 300 short ones, and one of
+    # 40 000 edges among 511 short ones: the kernel splits both across a
+    # block
+    for short, long_len in ((300, 1536), (511, 40000)):
+        lengths = list(rng.randint(0, 34, short)) + [long_len]
+        long_rp = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+        softmax_cases.append(softmax_case(
+            f'long_segment_{long_len}_H1',
+            torch.from_numpy(rng.randn(int(long_rp[-1]), 1).astype(
+                np.float32)).to(dev), torch.from_numpy(long_rp).to(dev)))
     y = csr_segment_softmax(edge_l, edge_rp).cpu().numpy()
     check(np.allclose(y[rp[4]:rp[5]], 1 / 7, atol=KERNEL_ATOL),
           'an all-NEG segment gives 1/count')
@@ -1009,6 +1061,12 @@ def main() -> int:
         flash_cases.append(flash_case(
             f'crossover_S{shape[2]}', shape, torch.bfloat16, dev,
             iters=200 if shape[2] <= 1024 else 50))
+    # the f32 forward (3xTF32 on the tensor cores) where it meets SDPA's
+    for S in F32_CROSSOVER_S:
+        flash_cases.append(flash_case(
+            f'crossover_S{S}_f32', (CROSSOVER_TOKENS // S, 12, S, 64),
+            torch.float32, dev, iters=200 if S <= 1024 else 50,
+            backward=False))
     # P4's own path: forward and backward once per crossover shape
     gen = torch.Generator(dev).manual_seed(1)
     torch.cuda.synchronize()
@@ -1230,15 +1288,20 @@ def main() -> int:
     # P4: the stock kernels, reached through bert_encoder.py:62; main case
     # the encoder's attention in bfloat16
     stock = {'fwd': 758, 'dkv': 1121, 'dq': 1456}
+    f32_main = flash_cases[1]            # the encoder's attention in float32
     p4 = tuple(entry(
-        f'flash_attention_{part}', [c[part] for c in flash_cases],
+        f'flash_attention_{part}',
+        [c[part] for c in flash_cases if part in c],
         flash_cases[0][part],
         {path: counts[f'flash_attention_{part}'] for path, counts in
          (('serve_flash', serve_flash), ('train_flash', train_flash),
           ('crossover', p4_path))},
         source='deepchem_tpu_torch/csrc/flash_attention.cu',
         replaces=f'jax/experimental/pallas/ops/tpu/flash_attention.py:'
-                 f'{line} via deepchem_tpu/models/bert_encoder.py:62')
+                 f'{line} via deepchem_tpu/models/bert_encoder.py:62',
+        float32={k: f32_main[part][k] for k in (
+            'device_us', 'bound_ms', 'bound_by', 'library_device_us',
+            'max_abs_err')})
         for part, line in stock.items())
     print(json.dumps({'kernels': [
         {k: e[k] for k in ('name', 'route', 'source', 'replaces', 'launches',
@@ -1246,7 +1309,7 @@ def main() -> int:
                            'bound_by', 'library_ms')}
         | {k: v for k, v in e.items() if k in (
             'device_us', 'launches_by_path', 'backward', 'library_device_us',
-            'backward_device_us')}
+            'backward_device_us', 'float32')}
         for e in (p1, p3, p2) + p4]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -12,18 +12,32 @@
 // predict batch (16 molecules of ~18 heavy atoms, complete graphs, padded to
 // E = 6144 by the 2048-edge quantum, H = 1) moves ~74 KB, ~22 ns at
 // 3.35 TB/s, so at that shape neither bandwidth nor flops set the time.
-// Latency does: padded edges all belong to the last (ghost) node, so one
-// warp walks ~1.5k edges, 32 at a time, twice.  Splitting long segments
-// across a block is left to a later change.
+// Latency does: padded edges all belong to the last (ghost) node, whose
+// segment holds ~1.5k edges.  One warp walking it 32 edges a step, a
+// dependent load and expf each, took ~16 us (PERF.md); so a long segment is
+// split across the block, and every pass keeps several loads in flight.
 //
-// Design.  One warp per destination node; its lanes stride over the node's
-// edge range, so neighbouring lanes read neighbouring rows.  Each lane keeps
-// an online-softmax pair (running max m, sum s rescaled to m); the warp
-// merges the pairs with butterfly shuffles, so every lane ends with the same
-// (m, s) and no shared memory or atomics are used: the result is
-// deterministic.  A second pass writes exp(x - m) / max(s, 1e-16).  Nodes own
-// disjoint output rows, so an empty segment writes nothing.  A segment whose
-// logits are all equal (e.g. all masked to NEG) yields 1/count.
+// Design.  A block of 8 warps owns 8 consecutive nodes.  A warp folds a
+// range of edges into an online-softmax pair per lane (running max m, sum s
+// rescaled to m), kUnroll edges a lane at a time: their loads are issued
+// together, and the chunk's max is taken before its exponentials, so those
+// are independent too.  A range of at most 32 edges (a real node's, in
+// PAGTN) takes one edge a lane and no unrolled step, whose predicated-off
+// work doubled the time of many short segments with H = 8 (PERF.md).  The
+// warp merges its lanes' pairs with butterfly shuffles, so every lane ends
+// with the same (m, s); a second pass writes exp(x - m) / max(s, 1e-16).
+//   A segment of at most kSplitEdges edges is its own warp's work.  A
+// longer one (the ghost node's) is split across the whole block, once every
+// warp is done with its own node: warp w folds the w-th of 8 contiguous,
+// equal parts, the 8 pairs are merged in warp order through shared memory
+// (every warp merges them alike), and each warp writes its part.  Every
+// warp reads the block's 9 row_ptr entries itself (one load, then
+// shuffles), so a block without a long segment takes no barrier.  (P3 in
+// csr_segment_sum.cu splits the same way.)  No atomics are used, and every
+// sum is taken in a fixed order, so a repeat is bit-identical.  Nodes own
+// disjoint output rows, so an empty segment writes nothing.  A segment
+// whose logits are all equal (e.g. all masked to NEG) yields 1/count.
+// Heads are walked one after another (H = 1 in PAGTN).
 //
 // Inputs: logits [E, H] float32 row-major, row_ptr [N+1] int32 non-decreasing
 // with row_ptr[N] == E.  Ranges are clamped to [0, E] so a bad row_ptr can
@@ -37,6 +51,12 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
+// Edges a lane loads at once, in each pass.
+constexpr int kUnroll = 8;
+// Longest segment one warp takes alone; longer ones are split across the
+// block (as in P3).  The ghost segment's ~1.5k edges then take each warp
+// one step of kUnroll edges a lane, in each pass.
+constexpr int kSplitEdges = 128;
 
 // Merge the online-softmax pair (m2, s2) into (m, s).
 __device__ __forceinline__ void merge_pair(float& m, float& s, float m2,
@@ -50,40 +70,135 @@ __device__ __forceinline__ void merge_pair(float& m, float& s, float m2,
   m = mn;
 }
 
+// The online-softmax pair of head h over edges [start, end), merged across
+// the warp: every lane returns the same (m, s).  All 32 lanes must call it.
+__device__ __forceinline__ void warp_pair(const float* __restrict__ logits,
+                                          int64_t stride, int h, int start,
+                                          int end, float& m, float& s) {
+  const int lane = threadIdx.x & 31;
+  m = -INFINITY;
+  s = 0.f;
+  if (end - start <= 32) {  // warp-uniform: at most one edge a lane
+    const int e = start + lane;
+    if (e < end) {
+      m = logits[e * stride + h];
+      s = m == -INFINITY ? 0.f : 1.f;
+    }
+  }
+  for (int base = start; end - start > 32 && base < end;
+       base += 32 * kUnroll) {
+    float x[kUnroll];
+    float cmax = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = base + lane + 32 * u;
+      x[u] = e < end ? logits[e * stride + h] : -INFINITY;
+      cmax = fmaxf(cmax, x[u]);
+    }
+    const float mn = fmaxf(m, cmax);
+    if (mn == -INFINITY) continue;  // nothing finite yet: s stays 0
+    float add = 0.f;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) add += expf(x[u] - mn);
+    s = s * expf(m - mn) + add;
+    m = mn;
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float m2 = __shfl_xor_sync(kFullMask, m, offset);
+    const float s2 = __shfl_xor_sync(kFullMask, s, offset);
+    merge_pair(m, s, m2, s2);
+  }
+}
+
+// out = exp(x - m) / denom over edges [start, end) of head h.
+__device__ __forceinline__ void warp_write(const float* __restrict__ logits,
+                                           float* __restrict__ out,
+                                           int64_t stride, int h, int start,
+                                           int end, float m, float denom) {
+  const int lane = threadIdx.x & 31;
+  if (end - start <= 32) {  // warp-uniform: at most one edge a lane
+    const int e = start + lane;
+    if (e < end) {
+      out[e * stride + h] = expf(logits[e * stride + h] - m) / denom;
+    }
+    return;
+  }
+  for (int base = start; base < end; base += 32 * kUnroll) {
+    float x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = base + lane + 32 * u;
+      x[u] = e < end ? logits[e * stride + h] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = base + lane + 32 * u;
+      if (e < end) out[e * stride + h] = expf(x[u] - m) / denom;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 csr_segment_softmax_kernel(const float* __restrict__ logits,
                            const int* __restrict__ row_ptr,
                            float* __restrict__ out, int num_nodes,
                            int num_edges, int num_heads) {
-  const int lane = threadIdx.x & 31;
-  const int node = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (node >= num_nodes) return;  // whole warp leaves together
-  const int start = min(max(row_ptr[node], 0), num_edges);
-  const int end = min(max(row_ptr[node + 1], start), num_edges);
+  __shared__ float part_m[kWarpsPerBlock], part_s[kWarpsPerBlock];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int node0 = blockIdx.x * kWarpsPerBlock;
+  const int nodes = min(kWarpsPerBlock, num_nodes - node0);
   const int64_t stride = num_heads;
-
-  for (int h = 0; h < num_heads; ++h) {
-    float m = -INFINITY;
-    float s = 0.f;
-    for (int e = start + lane; e < end; e += 32) {
-      const float x = logits[e * stride + h];
-      if (x > m) {
-        s = s * expf(m - x) + 1.f;
-        m = x;
-      } else if (m != -INFINITY) {
-        s += expf(x - m);
-      }
-    }
+  // Every warp reads the block's bounds, clamped to [0, E]: lane j holds
+  // the start of node0 + j.  So each warp knows which of the block's nodes
+  // are long without shared memory, and a block with none never waits at a
+  // barrier.
+  int bound = 0;
+  if (lane <= nodes) bound = min(max(row_ptr[node0 + lane], 0), num_edges);
+  unsigned long_nodes = 0;  // bit w: node0 + w is split across the block
+  int start = 0, end = 0;
 #pragma unroll
-    for (int offset = 16; offset > 0; offset >>= 1) {
-      const float m2 = __shfl_xor_sync(kFullMask, m, offset);
-      const float s2 = __shfl_xor_sync(kFullMask, s, offset);
-      merge_pair(m, s, m2, s2);
+  for (int w = 0; w < kWarpsPerBlock; ++w) {
+    const int s = __shfl_sync(kFullMask, bound, w);
+    const int e = max(__shfl_sync(kFullMask, bound, w + 1), s);
+    if (w < nodes && e - s > kSplitEdges) long_nodes |= 1u << w;
+    if (w == warp) {
+      start = s;
+      end = e;
     }
-    if (!isfinite(m)) m = 0.f;
-    const float denom = fmaxf(s, 1e-16f);
-    for (int e = start + lane; e < end; e += 32) {
-      out[e * stride + h] = expf(logits[e * stride + h] - m) / denom;
+  }
+  if (warp < nodes && !(long_nodes >> warp & 1)) {  // uniform in the warp
+    for (int h = 0; h < num_heads; ++h) {
+      float m, s;
+      warp_pair(logits, stride, h, start, end, m, s);
+      if (!isfinite(m)) m = 0.f;
+      warp_write(logits, out, stride, h, start, end, m, fmaxf(s, 1e-16f));
+    }
+  }
+  while (long_nodes != 0) {  // uniform across the block
+    const int w = __ffs(long_nodes) - 1;
+    long_nodes &= long_nodes - 1;
+    const int s0 = __shfl_sync(kFullMask, bound, w);
+    const int len = max(__shfl_sync(kFullMask, bound, w + 1), s0) - s0;
+    const int ps = s0 + (int)((int64_t)len * warp / kWarpsPerBlock);
+    const int pe = s0 + (int)((int64_t)len * (warp + 1) / kWarpsPerBlock);
+    for (int h = 0; h < num_heads; ++h) {
+      float m, s;
+      warp_pair(logits, stride, h, ps, pe, m, s);
+      __syncthreads();  // every warp is done reading the previous pairs
+      if (lane == 0) {
+        part_m[warp] = m;
+        part_s[warp] = s;
+      }
+      __syncthreads();
+      m = part_m[0];
+      s = part_s[0];
+#pragma unroll
+      for (int k = 1; k < kWarpsPerBlock; ++k) {
+        merge_pair(m, s, part_m[k], part_s[k]);
+      }
+      if (!isfinite(m)) m = 0.f;
+      warp_write(logits, out, stride, h, ps, pe, m, fmaxf(s, 1e-16f));
     }
   }
 }

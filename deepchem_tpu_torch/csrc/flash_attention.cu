@@ -10,8 +10,8 @@
 // caller in the repository passes them).  With s = q.k * scale:
 //   forward  o = sum_j p_j v_j / l,  p_j = exp(s_j - m),  m = max_j s_j,
 //            l = sum_j p_j (f32); p is rounded to the input type before
-//            the product with v, as the stock kernel does; m and l are
-//            saved in f32 for the backward.
+//            the product with v, as the stock kernel does (in f32, not at
+//            all); m and l are saved in f32 for the backward.
 //   backward p = exp(s - m) * (1 / l), dp = dO.v, ds = (dp - di) * p *
 //            scale with di = sum(o * dO) per row (f32, from the caller);
 //            dV = p^T dO, dK = ds^T q, dQ = ds k, with p and ds rounded to
@@ -26,7 +26,10 @@
 // tensor cores against HBM), 7.6 us for the forward, 11.4 for dK/dV and 9.6
 // for dQ.  From S of about 1k up, bf16 is bound by the tensor cores: at
 // [16, 12, 4096, 64] 0.83 ms for the forward, 1.67 for dK/dV and 1.25 for
-// dQ.  f32 is near balance on the FMA units.
+// dQ.  In f32 the forward runs on the tensor cores in three tf32 passes
+// (below): at the encoder's shape 50.7 MB take 15.1 us at 3.35 TB/s and
+// the products 9.8 us at 494.7 TF/s, so bytes bound it.  The f32 backward
+// is near balance on the FMA units.
 //
 // Design.  Every output row has one writer: a block owns rows of one
 // (batch, head) (q rows in the forward and dQ kernels, k rows in dK/dV)
@@ -92,13 +95,20 @@
 //         alternatives measured.  SASS (cuobjdump, scripts/sass_counts.py):
 //         dK/dV holds 16 HGMMA (12 at D = 32), dQ 12 (8), each with TMA
 //         loads (UTMALDG) and no HMMA; the forward's counts are in PERF.md.
-//   f32:  no tensor cores (TF32 would not keep f32's digits).  D/32
-//         threads share a row, each holding 32 of its columns in
-//         registers; a dot product is summed across them with one shuffle.
-//         Tiles of the other side are read from shared memory by
-//         broadcast.
+//   f32 forward (flash_fwd_tf32x3_kernel): the bf16 forward's blocks,
+//         TMA ring and online softmax, with both products on the tensor
+//         cores in three tf32 passes (3xTF32: each operand split into a
+//         big and a small tf32, only small x small dropped), which keeps
+//         f32's digits: s = q k^T by wgmma from q's and k's big and small
+//         planes in shared memory, o += p v by mma.sync m16n8k8, since
+//         wgmma takes tf32 operands only K-major and v is stored [keys,
+//         D].  p is not rounded: it is split like any operand.
+//   f32 backward: the FMA units.  D/32 threads share a row, each holding
+//         32 of its columns in registers; a dot product is summed across
+//         them with one shuffle.  Tiles of the other side are read from
+//         shared memory by broadcast.
 // All take D = 32 and D = 64; the entries return cudaErrorInvalidValue for
-// any other D.  The bf16 kernels return the error of a tensor map they
+// any other D.  The ring kernels return the error of a tensor map they
 // cannot make or a launch the runtime refuses; no other kernel stands in.
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
@@ -108,6 +118,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -224,16 +235,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   __syncwarp();  // the .aligned wgmma instructions want the warp whole
 }
 
-// Box `row` of a [bh, seq, D] tensor map (rows row..row+63 of slice bh)
-// into shared memory, completing on `bar`; rows past seq arrive as zeros.
+// Box `row` of a [bh, seq, D] tensor map (rows row..row+63 of slice bh,
+// from column `col` on) into shared memory, completing on `bar`; rows past
+// seq arrive as zeros.
 __device__ __forceinline__ void tma_load_rows(void* dst,
                                               const CUtensorMap* map,
-                                              uint64_t* bar, int row,
-                                              int bh) {
+                                              uint64_t* bar, int row, int bh,
+                                              int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
       "r"(row), "r"(bh)
       : "memory");
 }
@@ -471,10 +483,11 @@ __device__ __forceinline__ Smem& ring_smem() {
 // stores (of the statistics, in dK/dV); empty[s] every consumer thread.
 template <typename Smem>
 __device__ __forceinline__ void init_barriers(Smem& sm) {
+  constexpr int kSlots = sizeof(sm.full) / sizeof(sm.full[0]);
   if (threadIdx.x == 0) {
     mbar_init(&sm.own_full, 1);
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSlots; ++s) {
       mbar_init(&sm.full[s], 32);
       mbar_init(&sm.empty[s], kConsumers * 128);
     }
@@ -920,6 +933,320 @@ __global__ void __launch_bounds__(kRingThreads, 1)
   }
 }
 
+// ----------------------------------- f32 forward: 3xTF32, tensor cores
+//
+// Each f32 operand x is split into two tf32 values, big = tf32(x) and small
+// = tf32(x - big), and a product a b is summed as a_small b_big + a_big
+// b_small + a_big b_big in an f32 accumulator: three tf32 passes (3xTF32)
+// on the tensor cores.  Only terms of about 2^-22 of a b are dropped
+// (a_small b_small, small's own rounding), so the result keeps f32's digits
+// (one tf32 pass keeps about 11 bits).  torch's allow_tf32 flags do not
+// reach this kernel; its precision is fixed here.
+//   k and v are TMA boxes of 64 rows by 32 floats (one 128-byte line a
+// row), written with the 128-byte swizzle: float4 chunk c of row r lands at
+// chunk c ^ (r mod 8).  The fragment loads below are 16-byte loads that
+// touch 32 distinct banks in each quarter warp.
+
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; f32 bits with the low 13 zero), in two integer operations of
+// full rate: half a tf32 ulp added to the magnitude, the low bits cleared.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, two tf32 values: big rounded to nearest, small (exact
+// in f32 as x - big) truncated to tf32, one AND, which moves the product
+// by at most 2^-22 of it, as the dropped small x small does.  (Rounding
+// small as well kept the same accuracy and cost 4-6 % of the kernel's
+// time on the H100; PERF.md.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+// d += a b: A 16 x 8 (row), B 8 x 8 (col), tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four f32 values (an A fragment's a0..a3) split into big and small tf32.
+__device__ __forceinline__ void split_a(const float (&x)[4],
+                                        uint32_t (&big)[4],
+                                        uint32_t (&small)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], big[i], small[i]);
+}
+
+// d += a b in three tf32 passes, the small terms first: b0 and b1 are the
+// thread's two B elements, split here.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], float b0,
+                                           float b1) {
+  uint32_t b0b, b0s, b1b, b1s;
+  split_tf32(b0, b0b, b0s);
+  split_tf32(b1, b1b, b1s);
+  mma_tf32(d, as, b0b, b1b);
+  mma_tf32(d, ab, b0s, b1s);
+  mma_tf32(d, ab, b0b, b1b);
+}
+
+constexpr int kBoxCols = 32;  // floats a row of an f32 box: 128 bytes
+
+// Float4 chunk c (floats 4c..4c+3) of row r of a swizzled 64 x 32 box.
+__device__ __forceinline__ float4 box_chunk(const float* box, int r, int c) {
+  return *reinterpret_cast<const float4*>(box + r * kBoxCols +
+                                          ((c ^ (r & 7)) << 2));
+}
+
+// Shared memory of the f32 forward: the block's 128 query rows and a ring
+// of kStages slots, each a 64-row k tile and its v tile; every tile is D/32
+// boxes of 64 x 32 floats (8 KB, 1024-byte aligned, as the swizzle wants).
+constexpr int kF32Stages = 3;  // with q's and k's small planes, 4 slots
+                               // would pass the 227 KB a block may hold
+template <int D>
+struct F32FwdSmem {
+  float q[kConsumers][D / kBoxCols][kBox * kBoxCols];   // q's big part
+  float qs[kConsumers][D / kBoxCols][kBox * kBoxCols];  // q's small part
+  float k[kF32Stages][D / kBoxCols][kBox * kBoxCols];   // k's big part
+  float ks[kF32Stages][D / kBoxCols][kBox * kBoxCols];  // k's small part
+  float v[kF32Stages][D / kBoxCols][kBox * kBoxCols];
+  uint64_t own_full, full[kF32Stages], empty[kF32Stages];
+};
+
+// Split n float4s at `x` in place into big (tf32, rounded), with small,
+// x - big truncated to tf32, into `small`: this thread's share of the
+// kConsumers * 128 consumer threads.
+__device__ __forceinline__ void split_planes(float4* x, float4* small,
+                                             int n) {
+  for (int i = threadIdx.x; i < n; i += kConsumers * 128) {
+    const float v[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+    uint32_t b[4], l[4];
+    split_a(v, b, l);
+    x[i] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                       __uint_as_float(b[2]), __uint_as_float(b[3]));
+    small[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                           __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+  // the stores reach wgmma's reads (the async proxy), then every consumer
+  // has split its share
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
+}
+
+// The tf32 tile (a 64 x 32 box of k, 128-byte swizzle) as a K-major wgmma
+// operand at k-step kk of its 4 (8 floats, 32 bytes, each): 8-row atoms
+// 1024 bytes apart; the leading offset is unused under the swizzle.
+__device__ __forceinline__ uint64_t desc_tf32(const float* box, int kk) {
+  return gmma_desc<64>(smem_u32(box) + 32 * kk, 16, 1024);
+}
+
+// d (64 x 64, f32) (+)= A B, tf32: A 64 x 8 and B 8 x 64, both K-major in
+// shared memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The f32 forward.  Blocks, ring (3 slots) and online softmax as in the
+// bf16 forward (flash_fwd_wgmma_kernel): two consumer warpgroups of 64
+// query rows, 16 a warp.  Fragment layout (lane = 4 g + t): the
+// accumulator of a 16 x 8 product holds rows g and g + 8, columns 2t and
+// 2t + 1; the A fragment rows g and g + 8 at reduction slots t and t + 4;
+// the B fragment column g at slots t and t + 4.
+//   s = q k^T   wgmma m64n64k8, tf32, both operands K-major in shared
+//               memory: q (once) and each k tile split once a block, each
+//               consumer thread its share, big written back in place and
+//               small into a plane beside it.  The accumulator is laid out
+//               as the bf16 forward's, and the same online_softmax runs on
+//               it.
+//   o += p v    mma.sync m16n8k8, since wgmma takes tf32 only K-major and v
+//               is [keys, D].  The reduction order is free: the k-step j
+//               (keys 8j..8j+7) maps slot t to key 8j + 2t and slot t + 4
+//               to 8j + 2t + 1, so p's A fragment is the accumulator's four
+//               values of n-block j, reordered, with no shuffle; B column g
+//               of the n-block (hf, c) is output column 32 hf + 4g + c, so
+//               lane g reads chunk g of the two key rows as float4s and
+//               splits them.  The thread's o then holds columns 32 hf + 8t
+//               .. + 7 of its two rows, stored as float4s.  Each tile's p v
+//               sums in a fresh accumulator and is added to o by an FMA
+//               with the rescale: summed over every tile in the tensor
+//               cores' accumulator, o drifted to 7.5e-6 of max(1, |o|) at S
+//               = 4096, f32's plain matmul 0.4e-6 (H100, PERF.md).
+// p is split after the online softmax, unnormalised, and o is divided by l
+// at the end.  What the card showed (H100; PERF.md has the times): s on
+// mma.sync too, with k split by every warp, took 8 % longer at the
+// encoder's shape and 20 % at S = 4096; persistent blocks walking the
+// (b*h, query tile) items gained 12 % up to S = 128 and lost 2-4 % from
+// S = 2048, so blocks stay one an item.
+template <int D>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            float* __restrict__ o, float* __restrict__ m_out,
+                            float* __restrict__ l_out, int seq, float scale) {
+  constexpr int kHalves = D / kBoxCols;
+  constexpr uint32_t kBoxBytes = kBox * kBoxCols * sizeof(float);
+  auto& sm = ring_smem<F32FwdSmem<D>>();
+  init_barriers(sm);
+  const int q_tiles = (seq + kOwnRows - 1) / kOwnRows;
+  const int bh = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x % q_tiles) * kOwnRows;
+  const int tiles = (seq + kBox - 1) / kBox;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= kConsumers * 128) {
+    // the producer: q once, then every k and v tile through the ring; lane
+    // 0 issues the copies, and all 32 lanes arrive on full[s]
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.own_full, kConsumers * kHalves * kBoxBytes);
+#pragma unroll
+      for (int c = 0; c < kConsumers; ++c) {
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf) {
+          tma_load_rows(sm.q[c][hf], &tm_q, &sm.own_full, q0 + c * kBox, bh,
+                        hf * kBoxCols);
+        }
+      }
+    }
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kF32Stages;
+      mbar_wait(&sm.empty[s], ((it / kF32Stages) & 1) ^ 1);  // released
+      if (lane == 0) {
+        mbar_expect_tx(&sm.full[s], 2 * kHalves * kBoxBytes);
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf) {
+          tma_load_rows(sm.k[s][hf], &tm_k, &sm.full[s], it * kBox, bh,
+                        hf * kBoxCols);
+          tma_load_rows(sm.v[s][hf], &tm_v, &sm.full[s], it * kBox, bh,
+                        hf * kBoxCols);
+        }
+      }
+      mbar_arrive(&sm.full[s]);
+    }
+    return;
+  }
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int g = lane >> 2, t = lane & 3;
+  // q split once a block, big in place and small beside it, for wgmma to
+  // read from shared memory
+  constexpr int kTileVecs = kHalves * kBox * kBoxCols / 4;  // float4s a tile
+  mbar_wait(&sm.own_full, 0);
+  split_planes(reinterpret_cast<float4*>(&sm.q[0][0][0]),
+               reinterpret_cast<float4*>(&sm.qs[0][0][0]),
+               kConsumers * kTileVecs);
+  float o_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kF32Stages, k0 = it * kBox;
+    mbar_wait(&sm.full[s], (it / kF32Stages) & 1);
+    // the tile's k split once a block, as q
+    split_planes(reinterpret_cast<float4*>(&sm.k[s][0][0]),
+                 reinterpret_cast<float4*>(&sm.ks[s][0][0]), kTileVecs);
+    // s = q k^T: the warpgroup's 64 queries against the tile's 64 keys,
+    // three wgmma passes a k-step, small terms first
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      const uint64_t qb = desc_tf32(sm.q[wg][ks / 4], ks % 4);
+      const uint64_t ql = desc_tf32(sm.qs[wg][ks / 4], ks % 4);
+      const uint64_t kb = desc_tf32(sm.k[s][ks / 4], ks % 4);
+      const uint64_t kl = desc_tf32(sm.ks[s][ks / 4], ks % 4);
+      wgmma_tf32(sc, ql, kb, ks);
+      wgmma_tf32(sc, qb, kl, 1);
+      wgmma_tf32(sc, qb, kb, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    float alpha[2];
+    if (k0 + kBox <= seq) {
+      online_softmax<false>(sc, mx, lsum, alpha, scale, t, kBox);
+    } else {
+      online_softmax<true>(sc, mx, lsum, alpha, scale, t, seq - k0);
+    }
+    float o_t[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_t[i] = 0.f;
+    // o += p v, p unnormalised in f32, split like any operand
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t pb[4], ps[4];
+      const float pa[4] = {sc[4 * j], sc[4 * j + 2], sc[4 * j + 1],
+                           sc[4 * j + 3]};
+      split_a(pa, pb, ps);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) {
+        const float4 ve = box_chunk(sm.v[s][hf], 8 * j + 2 * t, g);
+        const float4 vo = box_chunk(sm.v[s][hf], 8 * j + 2 * t + 1, g);
+        float* acc = o_t + 16 * hf;
+        mma_3xtf32(acc, pb, ps, ve.x, vo.x);
+        mma_3xtf32(acc + 4, pb, ps, ve.y, vo.y);
+        mma_3xtf32(acc + 8, pb, ps, ve.z, vo.z);
+        mma_3xtf32(acc + 12, pb, ps, ve.w, vo.w);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o_acc[4 * j] = fmaf(o_acc[4 * j], alpha[0], o_t[4 * j]);
+      o_acc[4 * j + 1] = fmaf(o_acc[4 * j + 1], alpha[0], o_t[4 * j + 1]);
+      o_acc[4 * j + 2] = fmaf(o_acc[4 * j + 2], alpha[1], o_t[4 * j + 2]);
+      o_acc[4 * j + 3] = fmaf(o_acc[4 * j + 3], alpha[1], o_t[4 * j + 3]);
+    }
+    mbar_arrive(&sm.empty[s]);  // this thread is done with the slot
+  }
+  // o = acc / l, and the statistics m and l of rows row0 + g, row0 + g + 8
+  float l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = quad_sum(lsum[i]);
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  const int row0 = q0 + wg * kBox + warp * 16;
+  float* ob = o + (size_t)bh * seq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    if (r >= seq) continue;
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+      const float* acc = o_acc + 16 * hf + 2 * i;  // n-blocks 4hf..4hf+3
+      float* dst = ob + (size_t)r * D + hf * kBoxCols + 8 * t;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[0] * inv[i], acc[4] * inv[i], acc[8] * inv[i],
+                      acc[12] * inv[i]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(acc[1] * inv[i], acc[5] * inv[i], acc[9] * inv[i],
+                      acc[13] * inv[i]);
+    }
+    if (t == 0) {
+      m_out[(size_t)bh * seq + r] = mx[i];
+      l_out[(size_t)bh * seq + r] = l[i];
+    }
+  }
+}
+
 // ------------------------------------------------------- f32: FMA units
 //
 // D/32 threads share a row (consecutive threads), each holding 32 of its
@@ -973,66 +1300,6 @@ __device__ __forceinline__ void store32(float* dst, const float* r,
   for (int e = 0; e < 32; e += 4) {
     *reinterpret_cast<float4*>(dst + e) = make_float4(
         r[e] * scale, r[e + 1] * scale, r[e + 2] * scale, r[e + 3] * scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows * D / 32)
-    flash_fwd_fma_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ m_out, float* __restrict__ l_out,
-                         int seq, float scale) {
-  constexpr int kChunk = 16;  // keys between two rescales of acc
-  __shared__ __align__(16) Tile32<D> sk;
-  __shared__ __align__(16) Tile32<D> sv;
-  const size_t base = (size_t)blockIdx.x * seq * D;
-  const int row = blockIdx.y * kRows + threadIdx.x / (D / 32);
-  const int c0 = (threadIdx.x % (D / 32)) * 32;
-  const bool live = row < seq;
-
-  float qr[32], acc[32];
-  load32(qr, q + base + (size_t)row * D + c0, live);
-#pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-  float row_m = -INFINITY, row_l = 0.f;
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();
-    load_tile<float, D, 0>(sk, k + base, k0, seq);
-    load_tile<float, D, 0>(sv, v + base, k0, seq);
-    __syncthreads();
-    const int n = min(kTile, seq - k0);
-    for (int j0 = 0; j0 < n; j0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float x = row_dot<D>(qr, &sk[j0 + jj][c0]) * scale;
-        s[jj] = j0 + jj < n ? x : -INFINITY;
-        cmax = fmaxf(cmax, s[jj]);
-      }
-      const float mn = fmaxf(row_m, cmax);  // finite: key j0 < n is live
-      const float alpha = expf(row_m - mn);
-      row_m = mn;
-      float csum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        s[jj] = expf(s[jj] - row_m);
-        csum += s[jj];
-      }
-      row_l = row_l * alpha + csum;
-#pragma unroll
-      for (int e = 0; e < 32; ++e) acc[e] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) axpy32(acc, s[jj], &sv[j0 + jj][c0]);
-    }
-  }
-  if (live) {
-    store32(o + base + (size_t)row * D + c0, acc, 1.f / row_l);
-    if (c0 == 0) {
-      m_out[(size_t)blockIdx.x * seq + row] = row_m;
-      l_out[(size_t)blockIdx.x * seq + row] = row_l;
-    }
   }
 }
 
@@ -1159,21 +1426,28 @@ EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// A [bh, seq, d] bf16 tensor as a TMA map of [1, 64, d] boxes, swizzled by
-// the width of a row (128 B for d = 64, 64 B for d = 32).  The map is 3-D,
-// so a box past seq is filled with zeros instead of the next slice's rows.
-int make_rows_map(CUtensorMap* map, const void* ptr, int bh, int seq,
-                  int d) {
+// A [bh, seq, d] tensor as a TMA map of [1, 64, w] boxes: bf16 rows whole
+// (w = d) and swizzled by their width (128 B for d = 64, 64 B for d = 32),
+// or f32 rows in boxes of w = 32 floats, one 128-byte swizzle line.  The map
+// is 3-D, so a box past seq is filled with zeros instead of the next
+// slice's rows.
+int make_rows_map(CUtensorMap* map, const void* ptr, int bh, int seq, int d,
+                  bool f32) {
   const EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t esize = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)seq * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)d, (cuuint32_t)kBox, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * esize,
+                                 (cuuint64_t)seq * d * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(f32 ? kBoxCols : d),
+                             (cuuint32_t)kBox, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      f32 || d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1181,9 +1455,9 @@ int make_rows_map(CUtensorMap* map, const void* ptr, int bh, int seq,
 // A map of each of the N [bh, seq, d] tensors at `src`.
 template <int N>
 int make_maps(CUtensorMap (&maps)[N], const void* const (&src)[N], int bh,
-              int seq, int d) {
+              int seq, int d, bool f32 = false) {
   for (int i = 0; i < N; ++i) {
-    const int err = make_rows_map(&maps[i], src[i], bh, seq, d);
+    const int err = make_rows_map(&maps[i], src[i], bh, seq, d, f32);
     if (err != 0) return err;
   }
   return 0;
@@ -1244,32 +1518,46 @@ int flash_bwd_bf16(bool dkv, const void* q, const void* k, const void* v,
                                      scale, stream);
 }
 
-// The bf16 forward from tensor maps of q, k and v.
-template <int D>
+// The forward from tensor maps of q, k and v: the bf16 kernel (F32 false)
+// or the f32 one.
+template <int D, bool F32>
 int launch_fwd(const CUtensorMap (&maps)[3], void* o, float* m, float* l,
                int bh, int seq, float scale, cudaStream_t stream) {
-  constexpr int kSmem = (int)sizeof(FwdSmem<D>) + 1024;
-  const auto kernel = flash_fwd_wgmma_kernel<D>;
+  using Smem = std::conditional_t<F32, F32FwdSmem<D>, FwdSmem<D>>;
+  using Out = std::conditional_t<F32, float, bf16_t>;
+  constexpr int kSmem = (int)sizeof(Smem) + 1024;
+  const auto kernel = [] {
+    if constexpr (F32) {
+      return flash_fwd_tf32x3_kernel<D>;
+    } else {
+      return flash_fwd_wgmma_kernel<D>;
+    }
+  }();
   static std::atomic<uint64_t> set{0};
   const cudaError_t err = allow_smem(kernel, kSmem, set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = (long long)bh * ((seq + kOwnRows - 1) / kOwnRows);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<(unsigned)blocks, kRingThreads, kSmem, stream>>>(
-      maps[0], maps[1], maps[2], (bf16_t*)o, m, l, seq, scale);
+      maps[0], maps[1], maps[2], static_cast<Out*>(o), m, l, seq, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 forward: the backward's two consumer warpgroups a block and 4
-// slots, at every S and D (PERF.md has the alternatives' times).
-int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                   float* m, float* l, int bh, int seq, int d, float scale,
-                   cudaStream_t stream) {
+// The forward, bf16 or f32: two consumer warpgroups a block and 4 slots, at
+// every S and D (PERF.md has the bf16 alternatives' times).
+int flash_fwd(const void* q, const void* k, const void* v, void* o, float* m,
+              float* l, int bh, int seq, int d, bool bf16, float scale,
+              cudaStream_t stream) {
   CUtensorMap maps[3];
-  const int err = make_maps(maps, {q, k, v}, bh, seq, d);
+  const int err = make_maps(maps, {q, k, v}, bh, seq, d, !bf16);
   if (err != 0) return err;
-  return d == 64 ? launch_fwd<64>(maps, o, m, l, bh, seq, scale, stream)
-                 : launch_fwd<32>(maps, o, m, l, bh, seq, scale, stream);
+  if (bf16) {
+    return d == 64
+               ? launch_fwd<64, false>(maps, o, m, l, bh, seq, scale, stream)
+               : launch_fwd<32, false>(maps, o, m, l, bh, seq, scale, stream);
+  }
+  return d == 64 ? launch_fwd<64, true>(maps, o, m, l, bh, seq, scale, stream)
+                 : launch_fwd<32, true>(maps, o, m, l, bh, seq, scale, stream);
 }
 
 }  // namespace
@@ -1284,20 +1572,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    float* l, int bh, int seq, int d,
                                    int bf16, float scale,
                                    cudaStream_t stream) {
-  const dim3 grid = grid_of(bh, seq);
-  using F = const float*;
-  if (bf16 && (d == 64 || d == 32)) {
-    return flash_fwd_bf16(q, k, v, o, m, l, bh, seq, d, scale, stream);
-  } else if (!bf16 && d == 64) {
-    flash_fwd_fma_kernel<64><<<grid, 128, 0, stream>>>(
-        (F)q, (F)k, (F)v, (float*)o, m, l, seq, scale);
-  } else if (!bf16 && d == 32) {
-    flash_fwd_fma_kernel<32><<<grid, 64, 0, stream>>>(
-        (F)q, (F)k, (F)v, (float*)o, m, l, seq, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d != 64 && d != 32) return static_cast<int>(cudaErrorInvalidValue);
+  return flash_fwd(q, k, v, o, m, l, bh, seq, d, bf16 != 0, scale, stream);
 }
 
 extern "C" int flash_attention_dkv(const void* q, const void* k,

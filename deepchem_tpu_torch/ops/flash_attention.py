@@ -16,7 +16,9 @@ its kernel or raises, and counts the launch: the forward in
 ``flash_attention_bwd_dkv.launches`` and ``flash_attention_bwd_dq.launches``.
 The kernels take float32 or bfloat16 with ``D`` of 32 or 64, and any
 ``S``: the stock kernel's need for ``S`` to be a multiple of 128 is a TPU
-block limit, not carried.
+block limit, not carried.  The float32 forward multiplies on the tensor
+cores in three tf32 passes, which keep float32's digits; torch's TF32
+flags do not reach it.
 """
 
 from __future__ import annotations

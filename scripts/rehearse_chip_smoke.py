@@ -13,7 +13,8 @@ runs every phase of ``chip_smoke.py`` with:
   checks run as they would on the card;
 - every timing taken over 1 call instead of 200, and no device time;
 - P4 and the encoder cut to a size the CPU can hold (attention [2, 2,
-  128, 64], crossover shapes of 2048 tokens up to S = 512, an encoder of
+  128, 64], crossover shapes of 2048 tokens up to S = 512, the float32
+  forward's at S = 512 only, an encoder of
   hidden 64 and 2 layers trained at lr 1e-2), and SDPA without a chosen
   backend.
 
@@ -122,6 +123,7 @@ def main() -> int:
                                                          scale=scale)
     smoke.FLASH_MAIN = (2, 2, 128, 64)
     smoke.CROSSOVER_TOKENS, smoke.CROSSOVER_S = 2048, (128, 256, 512)
+    smoke.F32_CROSSOVER_S = (512,)
     smoke.PLAIN_ROWS_FROM_S = 512
     smoke.ENCODER = dict(smoke.ENCODER, hidden=64, layers=2, heads=2,
                          intermediate=128)

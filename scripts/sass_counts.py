@@ -8,8 +8,10 @@ Builds ``deepchem_tpu_torch/csrc/<name>.cu`` where needed
 (``deepchem_tpu_torch/kernels/build.py``), disassembles the library with
 ``cuobjdump -sass`` (the CUDA toolkit's, or the copy in triton's package)
 and prints one JSON line a kernel: its demangled name and how many
-``HGMMA`` (wgmma), ``HMMA`` (mma.sync), ``UTMALDG`` (TMA load) and
-``SYNCS`` (mbarrier) instructions it holds.  Needs the toolkit, not a card.
+``HGMMA`` (wgmma), ``HMMA`` (mma.sync; ``HMMA_TF32`` those of them that
+take tf32 operands), ``UTMALDG`` (TMA load), ``SYNCS`` (mbarrier) and
+``FFMA`` (f32 fused multiply-add on the FMA units) instructions it holds.
+Needs the toolkit, not a card.
 """
 
 import json
@@ -23,8 +25,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-OPCODES = ('HGMMA', 'HMMA', 'UTMALDG', 'SYNCS')
-_OPCODE = re.compile(r'\b(' + '|'.join(OPCODES) + r')\b')
+OPCODES = ('HGMMA', 'HMMA', 'HMMA_TF32', 'UTMALDG', 'SYNCS', 'FFMA')
+_OPCODE = re.compile(r'\b(HGMMA|HMMA|UTMALDG|SYNCS|FFMA)\b')
+_TF32 = re.compile(r'\bHMMA\.\w+\.F32\.TF32\b')
 
 
 def _tool(name: str) -> str:
@@ -67,6 +70,7 @@ def counts(name: str):
             per[current] = Counter()
         elif current:
             per[current].update(_OPCODE.findall(line))
+            per[current]['HMMA_TF32'] += len(_TF32.findall(line))
     return dict(zip(_demangle(per), per.values()))
 
 

@@ -155,6 +155,55 @@ def test_row_ptr_built_once_gives_the_same_softmax():
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+# kSplitEdges in csrc/csr_segment_softmax.cu: the kernel splits a longer
+# segment across its block of 8 warps
+SPLIT_EDGES = 128
+_SHORT = list(np.random.RandomState(9).randint(0, 34, 200))
+# name: (segment lengths, H, edit of the longest segment's logits)
+LONG_CASES = {
+    'ghost_1536_H1': (_SHORT + [1536], 1, None),
+    'ghost_1536_H4': (_SHORT[:40] + [1536] + _SHORT[40:80], 4, None),
+    'segment_5000_H1': ([3, 5000, 0, 7], 1, None),
+    'split_edges_pm1_H1': ([SPLIT_EDGES - 1, SPLIT_EDGES, SPLIT_EDGES + 1,
+                            2, 0], 1, None),
+    'split_edges_pm1_H4': ([SPLIT_EDGES + 1, 5, SPLIT_EDGES,
+                            SPLIT_EDGES - 1], 4, None),
+    'all_neg_1500_H1': ([5, 1500, 9], 1, 'neg'),
+    'head_neg_inf_1500_H4': ([11, 1500, 0], 4, 'inf'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(LONG_CASES))
+def test_long_segments_match_jax(name):
+    """Segments the kernel splits across its block (and ones at the split
+    length), through the port's plain version, against the JAX kernel in
+    interpret mode and its oracle: a ghost-like segment of 1536 edges
+    among short ones, 5000 edges, the split length +-1, H 1 and 4, an
+    all-NEG segment (1/count) and one whose last head is all -inf (0)."""
+    lengths, H, edit = LONG_CASES[name]
+    rp = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    logits = np.random.RandomState(len(lengths) + H).randn(
+        int(rp[-1]), H).astype(np.float32) * 5
+    longest = int(np.argmax(lengths))
+    part = slice(rp[longest], rp[longest + 1])
+    if edit == 'neg':
+        logits[part] = NEG
+    elif edit == 'inf':
+        logits[part, -1] = -np.inf
+    y = _port(logits, rp)
+    np.testing.assert_allclose(y, _jax_kernel(logits, rp), atol=ATOL)
+    np.testing.assert_allclose(
+        y, np.asarray(jax_csr_reference(jnp.asarray(logits), jnp.asarray(rp),
+                                        len(lengths))), atol=ATOL)
+    if edit == 'neg':
+        np.testing.assert_allclose(y[part], 1 / lengths[longest], atol=ATOL)
+    elif edit == 'inf':
+        np.testing.assert_array_equal(y[part, -1], 0.0)
+        np.testing.assert_allclose(y[part, :-1].sum(0), 1.0, atol=1e-5)
+    else:
+        np.testing.assert_allclose(y[part].sum(0), 1.0, atol=1e-5)
+
+
 def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
     logits, rp = _csr_case(seed=8)
     before = csr_segment_softmax.launches

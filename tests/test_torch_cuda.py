@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA device: each CUDA kernel against its
-plain PyTorch version on the card (P3 also on segments long enough to be
-split across a block), P1's backward against autograd through its plain
+plain PyTorch version on the card (P1 and P3 also on segments long enough
+to be split across a block), P1's backward against autograd through its plain
 version, one PAGTN training step against the CPU, P4's forward (with its
 statistics m and l) and backward kernels against the plain flash
 attention, and the encoder's logits against the CPU.  They skip where
@@ -17,6 +17,7 @@ import torch
 
 from deepchem_tpu_torch import (BertEncoderMLM, PagtnModel,
                                 PagtnMolGraphFeaturizer)
+from deepchem_tpu_torch.ops import NEG
 from deepchem_tpu_torch.ops.csr_segment import (
     csr_neighbor_sum_reference, csr_segment_softmax,
     csr_segment_softmax_reference, csr_segment_sum,
@@ -52,6 +53,76 @@ def test_csr_segment_softmax_kernel_matches_plain_version(cuda, N, E, H):
     np.testing.assert_allclose(
         y.cpu().numpy(),
         csr_segment_softmax_reference(logits, row_ptr).numpy(), atol=ATOL)
+
+
+# kSplitEdges in csrc/csr_segment_softmax.cu and csrc/csr_segment_sum.cu:
+# longer segments are split across the kernel's block of 8 warps
+SPLIT_EDGES = 128
+
+
+def _long_softmax_case(name):
+    """``(lengths, H, fill)`` of a P1 case with long segments; ``fill``
+    edits the logits of the case's longest segment."""
+    def all_neg(x):
+        x[:] = NEG
+
+    def head_neg_inf(x):
+        x[:, -1] = -np.inf
+    short = list(np.random.RandomState(0).randint(0, 34, 300))
+    return {'ghost_1536_H1': (short + [1536], 1, None),
+            'ghost_1536_H4': (short + [1536], 4, None),
+            'segment_5000_H1': ([3, 5000, 0, 7], 1, None),
+            'split_edges_pm1_H1': ([SPLIT_EDGES - 1, SPLIT_EDGES,
+                                    SPLIT_EDGES + 1, 2, SPLIT_EDGES + 1,
+                                    0], 1, None),
+            'split_edges_pm1_H4': ([SPLIT_EDGES + 1, SPLIT_EDGES, 0,
+                                    SPLIT_EDGES - 1], 4, None),
+            'all_neg_2000_H2': ([5, 2000, 9], 2, all_neg),
+            'head_neg_inf_2000_H4': ([11, 2000, 0], 4, head_neg_inf),
+            'segment_40000_H1': ([7] * 511 + [40000], 1, None)}[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['ghost_1536_H1', 'ghost_1536_H4',
+                                  'segment_5000_H1', 'split_edges_pm1_H1',
+                                  'split_edges_pm1_H4', 'all_neg_2000_H2',
+                                  'head_neg_inf_2000_H4', 'segment_40000_H1'])
+def test_csr_segment_softmax_long_segments_match_plain_version(cuda, name):
+    """Segments around the split threshold, a ghost-like segment of 1.5k
+    edges among short ones, 5k and 40k edges, a long all-NEG segment
+    (1/count) and a long one with a head all -inf (0): within 1e-6 of the
+    plain version and bit for bit the same on a repeat.  The plain version
+    runs in float64 here: in float32 it sums a segment's exponentials in
+    one accumulator, and where one logit dominates a long segment its sum
+    drops the small terms, 2e-6 to 5e-5 off on these cases, while the
+    kernel sums by lanes and warps first."""
+    lengths, H, fill = _long_softmax_case(name)
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    logits = np.random.RandomState(len(lengths) + H).randn(
+        int(row_ptr[-1]), H).astype(np.float32) * 5
+    if fill is not None:
+        longest = int(np.argmax(lengths))
+        fill(logits[row_ptr[longest]:row_ptr[longest + 1]])
+    logits, row_ptr = (torch.from_numpy(a).to(cuda) for a in (logits,
+                                                               row_ptr))
+    before = csr_segment_softmax.launches
+    y = csr_segment_softmax(logits, row_ptr)
+    again = csr_segment_softmax(logits, row_ptr)
+    torch.cuda.synchronize()
+    assert csr_segment_softmax.launches == before + 2
+    assert torch.equal(y, again)              # no atomics: bit for bit
+    np.testing.assert_allclose(
+        y.cpu().numpy(),
+        csr_segment_softmax_reference(logits.double(), row_ptr).cpu().numpy(),
+        atol=ATOL)
+    if fill is not None:
+        longest = int(np.argmax(lengths))
+        part = y[row_ptr[longest]:row_ptr[longest + 1]].cpu().numpy()
+        if name.startswith('all_neg'):
+            np.testing.assert_allclose(part, 1 / lengths[longest],
+                                       atol=ATOL)
+        else:
+            assert np.all(part[:, -1] == 0)
 
 
 @pytest.mark.cuda
@@ -92,11 +163,6 @@ def test_csr_segment_sum_kernel_matches_plain_version(cuda, N, E, F):
     assert csr_segment_sum.launches == before + 2
     assert torch.equal(out, again)            # no atomics: bit for bit
     _close(out, csr_segment_sum_reference(msgs, row_ptr))
-
-
-# kSplitEdges in csrc/csr_segment_sum.cu: longer segments are split across
-# the kernel's block of 8 warps
-SPLIT_EDGES = 128
 
 
 @pytest.mark.cuda
@@ -281,6 +347,34 @@ def test_flash_forward_kernel_matches_plain_version(cuda, dtype, D, S):
     assert err <= tol
     if dtype == torch.bfloat16:
         assert err <= FLASH_FWD_RTOL * ref_o.abs().max().item()
+    for a, ref in ((m, ref_m), (l, ref_l)):
+        assert bool(((a - ref).abs()
+                     <= STAT_RTOL * ref.abs().clamp_min(1.0)).all())
+    for a, b in zip((o, m, l), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [32, 64])
+@pytest.mark.parametrize('S', [65, 128, 200, 512])
+def test_flash_f32_forward_on_the_tensor_cores_matches_plain_version(cuda, S,
+                                                                     D):
+    """The float32 forward, 3xTF32 on the tensor cores: o within
+    FLASH_TOL's 1e-5 of max(1, |ref|) and m and l within STAT_RTOL of
+    max(1, |ref|) row by row, against the plain version in float32 (no
+    TF32: that keeps about 11 bits), bit-identical on a repeat."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.RandomState(3 * S + D)
+    q, k, v = (torch.from_numpy(rng.randn(4, 3, S, D).astype(np.float32))
+               .to(cuda) for _ in range(3))
+    scale = D ** -0.5
+    o, m, l = flash_attention_forward(q, k, v, scale)
+    again = flash_attention_forward(q, k, v, scale)
+    ref_o, ref_m, ref_l = _forward_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    tol = FLASH_TOL[torch.float32][0] * max(1.0, ref_o.abs().max().item())
+    assert (o - ref_o).abs().max().item() <= tol
     for a, ref in ((m, ref_m), (l, ref_l)):
         assert bool(((a - ref).abs()
                      <= STAT_RTOL * ref.abs().clamp_min(1.0)).all())

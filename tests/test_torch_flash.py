@@ -9,9 +9,13 @@ stock kernel needs S to be a multiple of 128.  The forward's statistics m
 and l are held against the stock kernel's residuals at S 256.
 Tolerances: float32 atol 1e-5 (the same arithmetic summed in another
 order); bfloat16 atol 2e-2 (one rounding of p, ds and the outputs to
-bfloat16, at other places).
+bfloat16, at other places).  The float32 forward kernel runs its products
+in three tf32 passes on the tensor cores (3xTF32); a torch emulation of
+that arithmetic is held against the stock kernel here, at the float32
+limit, beside one tf32 pass, which misses it.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -165,6 +169,84 @@ def test_backward_equals_autograd_through_the_plain_forward():
     np.testing.assert_allclose(m.numpy(), s.amax(-1).numpy(), atol=1e-6)
     np.testing.assert_allclose(
         l.numpy(), torch.exp(s - m[..., None]).sum(-1).numpy(), rtol=1e-6)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, at 10 stored mantissa bits (the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """``x`` truncated to tf32: the low 13 bits cleared."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """``a @ b`` as the kernel's mma.sync computes it: one tf32 pass, or
+    three (3xTF32: ``a = a_big + a_small``, ``b`` likewise, big rounded to
+    tf32 and small, ``a - a_big``, truncated to it, ``a_small b_small``
+    dropped; the small terms first)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    a_small, b_small = _tf32_truncate(a - ab), _tf32_truncate(b - bb)
+    return a_small @ bb + ab @ b_small + ab @ bb
+
+
+def _tf32_forward(q, k, v, sm_scale, passes):
+    """The float32 forward kernel's arithmetic on ``[B, H, S, D]``: s = q
+    kᵀ, p = exp(s · sm_scale - m) unnormalised, o = (p v) / l, both
+    products in ``passes`` tf32 passes."""
+    s = _tf32_matmul(q, k.transpose(-1, -2), passes) * sm_scale
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return _tf32_matmul(p, v, passes) / p.sum(-1, keepdim=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _stock_f32(S):
+    """Inputs ``[1, 2, S, 64]`` (``[B, H, S, D]``) from a numpy seed and the
+    stock kernel's float32 output on them, in interpret mode."""
+    q, k, v = (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+               for a in _inputs(1, S, 2, 64, seed=6, n=3))
+    with pltpu.force_tpu_interpret_mode():
+        ref = stock_flash.flash_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), sm_scale=64 ** -0.5)
+    return q, k, v, np.asarray(ref)
+
+
+@pytest.mark.parametrize('S', [128, 256])
+def test_3xtf32_forward_keeps_the_float32_limit(S):
+    """The f32 forward kernel's arithmetic (three tf32 passes) against the
+    stock kernel in float32: within FLASH_TOL's 1e-5 of max(1, |ref|)."""
+    q, k, v, ref = _stock_f32(S)
+    o = _tf32_forward(*(torch.from_numpy(a) for a in (q, k, v)), 64 ** -0.5,
+                      passes=3).numpy()
+    tol = TYPES['float32'][2] * max(1.0, np.abs(ref).max())
+    assert np.abs(o - ref).max() <= tol
+
+
+@pytest.mark.parametrize('S', [128, 256])
+def test_one_tf32_pass_misses_the_float32_limit(S):
+    """The control: one tf32 pass, about 11 significant bits, misses the
+    same limit by far."""
+    q, k, v, ref = _stock_f32(S)
+    o = _tf32_forward(*(torch.from_numpy(a) for a in (q, k, v)), 64 ** -0.5,
+                      passes=1).numpy()
+    tol = TYPES['float32'][2] * max(1.0, np.abs(ref).max())
+    assert np.abs(o - ref).max() > 10 * tol
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """``_tf32`` and ``_tf32_truncate`` against exact cases around tf32's
+    ulp of 2^-10 at 1."""
+    x = torch.tensor([1 + 2**-11, 1 + 2**-11 + 2**-20, 1 + 3 * 2**-11,
+                      -(1 + 2**-11), 1 + 2**-12, 3.0], dtype=torch.float32)
+    want = [1 + 2**-10, 1 + 2**-10, 1 + 2 * 2**-10, -(1 + 2**-10), 1.0, 3.0]
+    assert _tf32(x).tolist() == want
+    assert _tf32_truncate(x).tolist() == [1.0, 1.0, 1 + 2**-10, -1.0, 1.0,
+                                          3.0]
 
 
 def test_cpu_wrappers_launch_nothing():
