@@ -38,10 +38,10 @@ Phases:
                 shape [32, 12, 128, 64] in bfloat16 and float32, at
                 scripts/attn_crossover.py's shapes (H 12, D 64, 65 536
                 tokens, S 128 to 4096) in bfloat16, and at S 200, D 32;
-                the float32 forward alone at S 512 and 4096.
+                in float32 also at S 512 and 4096.
                 Per case and kernel: max abs error (and the forward's m
                 and l row by row; in bfloat16 also against the output's
-                own max |ref|; in float32 the forward's o and the plain
+                own max |ref|; in float32 o, dK, dV and dQ and the plain
                 version's, recorded against the plain version in
                 float64), a bit-identical repeat, kernel, plain
                 and library (SDPA) times, device µs a launch, bound; the
@@ -59,8 +59,9 @@ Phases:
                 route (as scripts/mfu_ablation.py swaps it in JAX), no
                 mask: a forward and one training step held against the
                 einsum route on the card, 10 AdamW steps at lr 1e-4,
-                batch 16, bfloat16 compute, with 12 launches of each P4
-                kernel a step, and a fixed batch that must overfit.
+                batch 16, in bfloat16 and in float32, each with 12
+                launches of each P4 kernel a step, and a fixed batch that
+                must overfit.
   9. encoder gradients -- the einsum route in float32, card against CPU:
                 every parameter's step-1 gradient.
  10. kernels -- one JSON line with each kernel's numbers.
@@ -128,7 +129,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM published peaks
 F32_OPS_PER_S = 67e12           # FMA units
 BF16_OPS_PER_S = 989e12         # dense, tensor cores
 TF32_OPS_PER_S = 494.7e12       # dense, tensor cores
-TF32_PASSES = 3                 # P4's f32 forward: 3xTF32 on the tensor cores
+TF32_PASSES = 3                 # P4 in f32: 3xTF32 on the tensor cores
 # scripts/bench_chemberta_mfu.py:44-70: the ChemBERTa-77M-class encoder
 ENCODER = dict(vocab_size=600, hidden=768, layers=12, heads=12,
                intermediate=3072, max_positions=130)
@@ -139,7 +140,7 @@ FLASH_MAIN = (32, 12, 128, 64)  # the encoder's attention, [B, H, S, D]
 # scripts/attn_crossover.py:27-35: H = 12, D = 64, 65 536 tokens a call
 CROSSOVER_TOKENS = 65536
 CROSSOVER_S = (128, 256, 512, 1024, 2048, 4096)
-F32_CROSSOVER_S = (512, 4096)   # the f32 forward alone at these
+F32_CROSSOVER_S = (512, 4096)   # P4 in f32 at these too
 PLAIN_ROWS_FROM_S = 2048        # from here the plain version takes 2 rows
 # P4 against the plain version in float32 from the same inputs, scaled by
 # max(1, |ref|): forward, then gradients; bfloat16 rounds p, ds and outputs
@@ -472,12 +473,11 @@ def library_attention(q, k, v, scale):
         return F.scaled_dot_product_attention(q, k, v, scale=scale)
 
 
-def flash_case(name, shape, dtype, dev, iters=200, seed=0, backward=True):
-    """P4's forward, dK/dV and dQ kernels (the forward alone without
-    ``backward``) against the plain versions on the card, with times and
-    bounds: one result for each kernel.  The plain versions run on the
-    first 2 batch rows from S = PLAIN_ROWS_FROM_S on (a [16, 12, 4096,
-    4096] float32 score array is 12.9 GB)."""
+def flash_case(name, shape, dtype, dev, iters=200, seed=0):
+    """P4's forward, dK/dV and dQ kernels against the plain versions on the
+    card, with times and bounds: one result for each kernel.  The plain
+    versions run on the first 2 batch rows from S = PLAIN_ROWS_FROM_S on (a
+    [16, 12, 4096, 4096] float32 score array is 12.9 GB)."""
     import torch
     from deepchem_tpu_torch.ops.flash_attention import (
         _forward_reference, flash_attention, flash_attention_bwd_dkv,
@@ -492,8 +492,6 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0, backward=True):
 
     def run():
         o, m, l = flash_attention_forward(q, k, v, scale)
-        if not backward:
-            return (o,), (m, l)
         di = (o.float() * do.float()).sum(-1)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, di, scale)
         return (o, dk, dv, flash_attention_bwd_dq(q, k, v, do, m, l, di,
@@ -503,10 +501,9 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0, backward=True):
     torch.cuda.synchronize()
     o, (m, l) = outs[0], stats[:2]
     rows = 2 if S >= PLAIN_ROWS_FROM_S else B
-    ref_in = [t[:rows].float().requires_grad_(backward) for t in (q, k, v)]
+    ref_in = [t[:rows].float().requires_grad_() for t in (q, k, v)]
     ref_o = flash_attention_reference(*ref_in, scale)
-    if backward:
-        ref_o.backward(do[:rows].float())
+    ref_o.backward(do[:rows].float())
     kind = str(dtype).split('.')[-1]
     fwd_tol, grad_tol = FLASH_TOL[kind]
 
@@ -518,11 +515,10 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0, backward=True):
     def rel_error(pairs):
         return max(max_err(a[:rows].float(), r) / r.abs().max().item()
                    for a, r in pairs)
-    pairs = {'fwd': [(o, ref_o.detach())]}
-    if backward:
-        dk, dv, dq = outs[1:]
-        pairs['dkv'] = [(dk, ref_in[1].grad), (dv, ref_in[2].grad)]
-        pairs['dq'] = [(dq, ref_in[0].grad)]
+    dk, dv, dq = outs[1:]
+    pairs = {'fwd': [(o, ref_o.detach())],
+             'dkv': [(dk, ref_in[1].grad), (dv, ref_in[2].grad)],
+             'dq': [(dq, ref_in[0].grad)]}
     errs = {part: error(p, grad_tol if part != 'fwd' else fwd_tol)
             for part, p in pairs.items()}
     rel = {part: rel_error(p) for part, p in pairs.items()}
@@ -534,26 +530,33 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0, backward=True):
     del ref_m, ref_l
     exact = {}
     if dtype == torch.float32:
-        # o against the plain version in float64, beside the float32 plain
-        # version's own error: where the two float32 results part, which is
-        # nearer the exact one (recorded, not checked)
-        q64, k64, v64 = (t[:rows].double() for t in (q, k, v))
-        ref64 = torch.softmax(q64 @ k64.transpose(-1, -2) * scale,
-                              dim=-1) @ v64
-        del q64, k64, v64
-        scale64 = max(1.0, ref64.abs().max().item())
-        exact = {'err_f64': max_err(o[:rows].double(), ref64) / scale64,
-                 'plain_err_f64': max_err(ref_o.detach().double(), ref64)
-                 / scale64}
-        del ref64
+        # o and the gradients against the plain version in float64, beside
+        # the float32 plain version's own errors, each of max(1, |ref|):
+        # where the two float32 results part, which is nearer the exact
+        # one (recorded, not checked)
+        in64 = [t[:rows].double().requires_grad_() for t in (q, k, v)]
+        ref64 = torch.softmax(in64[0] @ in64[1].transpose(-1, -2) * scale,
+                              dim=-1) @ in64[2]
+        ref64.backward(do[:rows].double())
+        got = {'fwd': [(o, ref_o.detach(), ref64.detach())],
+               'dkv': [(dk, ref_in[1].grad, in64[1].grad),
+                       (dv, ref_in[2].grad, in64[2].grad)],
+               'dq': [(dq, ref_in[0].grad, in64[0].grad)]}
+
+        def err64(pairs):
+            return max(max_err(a.double(), r) / max(1.0, r.abs().max().item())
+                       for a, r in pairs)
+        exact = {part: {'err_f64': err64((a[:rows], r) for a, _, r in t),
+                        'plain_err_f64': err64((p, r) for _, p, r in t)}
+                 for part, t in got.items()}
+        del in64, ref64, got
     same = {'fwd': torch.equal(o, again[0]) and torch.equal(m, again_st[0])
-            and torch.equal(l, again_st[1])}
-    if backward:
-        same['dkv'] = torch.equal(dk, again[1]) and torch.equal(dv, again[2])
-        same['dq'] = torch.equal(dq, again[3])
+            and torch.equal(l, again_st[1]),
+            'dkv': torch.equal(dk, again[1]) and torch.equal(dv, again[2]),
+            'dq': torch.equal(dq, again[3])}
     del ref_in, ref_o, pairs, again
     # the library call: SDPA's forward, and its backward alone
-    lq, lk, lv = (t.detach().requires_grad_(backward) for t in (q, k, v))
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
     lib_o = library_attention(lq, lk, lv, scale)
     lib_err = max_err(lib_o[:rows].detach().float(),
                       flash_attention_reference(
@@ -563,43 +566,36 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0, backward=True):
     # and dV), and the port's backward through its autograd Function (di,
     # then the dK/dV and dQ kernels)
     lib_fwd_dev = device_us_all(lambda: library_attention(q, k, v, scale))
-    if backward:
-        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
-            lib_o, (lq, lk, lv), do, retain_graph=True)
-        lib_bwd_ms = time_ms(lib_bwd, iters)
-        lib_bwd_dev = device_us_all(lib_bwd)
-        pq, pk, pv = (t.detach().requires_grad_() for t in (q, k, v))
-        port_o = flash_attention(pq, pk, pv, scale)
-        port_bwd_dev = device_us_all(lambda: torch.autograd.grad(
-            port_o, (pq, pk, pv), do, retain_graph=True))
-        del port_o
-    del lib_o
-    small = [t[:rows] for t in (q, k, v, do, m, l) + stats[2:]]
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_o, (lq, lk, lv), do, retain_graph=True)
+    lib_bwd_ms = time_ms(lib_bwd, iters)
+    lib_bwd_dev = device_us_all(lib_bwd)
+    pq, pk, pv = (t.detach().requires_grad_() for t in (q, k, v))
+    port_o = flash_attention(pq, pk, pv, scale)
+    port_bwd_dev = device_us_all(lambda: torch.autograd.grad(
+        port_o, (pq, pk, pv), do, retain_graph=True))
+    del port_o, lib_o
+    di = stats[2]
+    small = [t[:rows] for t in (q, k, v, do, m, l, di)]
     fns = {'fwd': (lambda: flash_attention_forward(q, k, v, scale),
-                   lambda: flash_attention_reference(*small[:3], scale))}
-    if backward:
-        di = stats[2]
-        fns['dkv'] = (lambda: flash_attention_bwd_dkv(q, k, v, do, m, l, di,
-                                                      scale),
-                      lambda: flash_attention_bwd_dkv_reference(*small,
-                                                                scale))
-        fns['dq'] = (lambda: flash_attention_bwd_dq(q, k, v, do, m, l, di,
-                                                    scale),
-                     lambda: flash_attention_bwd_dq_reference(*small, scale))
+                   lambda: flash_attention_reference(*small[:3], scale)),
+           'dkv': (lambda: flash_attention_bwd_dkv(q, k, v, do, m, l, di,
+                                                   scale),
+                   lambda: flash_attention_bwd_dkv_reference(*small, scale)),
+           'dq': (lambda: flash_attention_bwd_dq(q, k, v, do, m, l, di,
+                                                 scale),
+                  lambda: flash_attention_bwd_dq_reference(*small, scale))}
     # bytes: each input read once, each output written once; operations:
     # the products of S x S by D each kernel has to do (4, 8 and 6 flops a
     # score: q k^T and p v; s and dp again, dV and dK; s, dp and dQ), at
-    # the rate of the unit that runs them: bf16 on the tensor cores; the
-    # f32 forward in three tf32 passes on the tensor cores, the f32
-    # backward on the FMA units
+    # the rate of the unit that runs them: the tensor cores, in bf16, or
+    # in f32 by three tf32 passes
     esize, bhsd, bhs = q.element_size(), B * H * S * D, B * H * S
     bf16 = dtype == torch.bfloat16
-    work = {'fwd': (4 * bhsd * esize + 2 * bhs * 4, 4 * bhs * S * D,
-                    BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S / TF32_PASSES),
-            'dkv': (6 * bhsd * esize + 3 * bhs * 4, 8 * bhs * S * D,
-                    BF16_OPS_PER_S if bf16 else F32_OPS_PER_S),
-            'dq': (5 * bhsd * esize + 3 * bhs * 4, 6 * bhs * S * D,
-                   BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)}
+    rate = BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S / TF32_PASSES
+    work = {'fwd': (4 * bhsd * esize + 2 * bhs * 4, 4 * bhs * S * D, rate),
+            'dkv': (6 * bhsd * esize + 3 * bhs * 4, 8 * bhs * S * D, rate),
+            'dq': (5 * bhsd * esize + 3 * bhs * 4, 6 * bhs * S * D, rate)}
     results = {}
     for part, (fn, plain) in fns.items():
         bound_ms, bound_by = bound(*work[part])
@@ -619,10 +615,10 @@ def flash_case(name, shape, dtype, dev, iters=200, seed=0, backward=True):
                 else FLASH_GRAD_RTOL
         lib_dev = lib_fwd_dev if part == 'fwd' else lib_bwd_dev
         res['library_device_us'], res['library_kernels'] = lib_dev
+        res.update(exact.get(part, {}))
         if part == 'fwd':
             res['library_err'] = lib_err
             res['stat_err'], res['stat_tol'] = stat_err, STAT_RTOL
-            res.update(exact)
         else:
             res['library'] = 'SDPA backward: dQ, dK and dV in one call'
             res['backward_device_us'], res['backward_kernels'] = port_bwd_dev
@@ -1061,12 +1057,11 @@ def main() -> int:
         flash_cases.append(flash_case(
             f'crossover_S{shape[2]}', shape, torch.bfloat16, dev,
             iters=200 if shape[2] <= 1024 else 50))
-    # the f32 forward (3xTF32 on the tensor cores) where it meets SDPA's
+    # P4 in f32 (3xTF32 on the tensor cores) where it meets SDPA's
     for S in F32_CROSSOVER_S:
         flash_cases.append(flash_case(
             f'crossover_S{S}_f32', (CROSSOVER_TOKENS // S, 12, S, 64),
-            torch.float32, dev, iters=200 if S <= 1024 else 50,
-            backward=False))
+            torch.float32, dev, iters=200 if S <= 1024 else 50))
     # P4's own path: forward and backward once per crossover shape
     gen = torch.Generator(dev).manual_seed(1)
     torch.cuda.synchronize()
@@ -1174,41 +1169,46 @@ def main() -> int:
               f'{kind} flash route vs einsum: {logit_err}, {grad_err}')
         del model, grads_e, grads_f
 
-    # 10 AdamW steps at batch 16, bfloat16 compute, through P4
-    trainer = BertEncoderMLM(**ENCODER, dtype=torch.bfloat16, device=dev,
-                             seed=2).train()
-    opt = AdamW(learning_rate=ENCODER_LR)._create_torch_optimizer(
-        trainer.parameters())
+    # 10 AdamW steps at batch 16 through P4, in bfloat16 and in float32
     batches = [[t[i:i + ENCODER_BATCH].to(dev) for t in (mlm_in, ids, mask)]
                for i in range(0, len(SMILES), ENCODER_BATCH)]
-    enc_losses, per_step = [], []
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    with flash_routed():
-        for i in range(10):
-            inputs, labels, label_mask = batches[i % len(batches)]
-            opt.zero_grad(set_to_none=True)
-            loss = mlm_loss(trainer(inputs), labels, label_mask)
-            loss.backward()
-            opt.step()
-            enc_losses.append(loss.detach())
-            per_step.append(launch_counts())
-    torch.cuda.synchronize()
-    enc_step_ms = (time.perf_counter() - t0) * 1e3 / 10
-    train_flash = launch_counts()
-    enc_losses = [v.item() for v in enc_losses]
-    print(f'phase 8 train_flash: 10 AdamW steps of {ENCODER_BATCH} at lr '
-          f'{ENCODER_LR}, bfloat16, {enc_step_ms:.3f} ms a step; loss per '
-          f'step {[round(v, 5) for v in enc_losses]}; launches '
-          f'{train_flash}', flush=True)
-    check(all(np.isfinite(enc_losses)), 'finite losses')
-    for i, counts in enumerate(per_step):
-        for kname in ('flash_attention_fwd', 'flash_attention_dkv',
-                      'flash_attention_dq'):
-            check(counts[kname] == n_enc_layers * (i + 1),
-                  f'{kname}: {n_enc_layers} launches a step')
-    del trainer, opt
+    train_paths = {}
+    for kind, dt in (('bfloat16', torch.bfloat16),
+                     ('float32', torch.float32)):
+        trainer = BertEncoderMLM(**ENCODER, dtype=dt, device=dev,
+                                 seed=2).train()
+        opt = AdamW(learning_rate=ENCODER_LR)._create_torch_optimizer(
+            trainer.parameters())
+        enc_losses, per_step = [], []
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with flash_routed():
+            for i in range(10):
+                inputs, labels, label_mask = batches[i % len(batches)]
+                opt.zero_grad(set_to_none=True)
+                loss = mlm_loss(trainer(inputs), labels, label_mask)
+                loss.backward()
+                opt.step()
+                enc_losses.append(loss.detach())
+                per_step.append(launch_counts())
+        torch.cuda.synchronize()
+        enc_step_ms = (time.perf_counter() - t0) * 1e3 / 10
+        train_paths[kind] = launch_counts()
+        enc_losses = [v.item() for v in enc_losses]
+        print(f'phase 8 train_flash: 10 AdamW steps of {ENCODER_BATCH} at '
+              f'lr {ENCODER_LR}, {kind}, {enc_step_ms:.3f} ms a step; loss '
+              f'per step {[round(v, 5) for v in enc_losses]}; launches '
+              f'{train_paths[kind]}', flush=True)
+        check(all(np.isfinite(enc_losses)), f'{kind}: finite losses')
+        for i, counts in enumerate(per_step):
+            for kname in ('flash_attention_fwd', 'flash_attention_dkv',
+                          'flash_attention_dq'):
+                check(counts[kname] == n_enc_layers * (i + 1),
+                      f'{kind} {kname}: {n_enc_layers} launches a step')
+        del trainer, opt
+    train_flash, train_flash_f32 = (train_paths['bfloat16'],
+                                    train_paths['float32'])
 
     overfit = BertEncoderMLM(**ENCODER, dtype=torch.bfloat16, device=dev,
                              seed=3).train()
@@ -1295,13 +1295,16 @@ def main() -> int:
         flash_cases[0][part],
         {path: counts[f'flash_attention_{part}'] for path, counts in
          (('serve_flash', serve_flash), ('train_flash', train_flash),
-          ('crossover', p4_path))},
+          ('train_flash_f32', train_flash_f32), ('crossover', p4_path))},
         source='deepchem_tpu_torch/csrc/flash_attention.cu',
         replaces=f'jax/experimental/pallas/ops/tpu/flash_attention.py:'
                  f'{line} via deepchem_tpu/models/bert_encoder.py:62',
-        float32={k: f32_main[part][k] for k in (
+        float32={**{k: f32_main[part][k] for k in (
             'device_us', 'bound_ms', 'bound_by', 'library_device_us',
-            'max_abs_err')})
+            'max_abs_err', 'err_f64')}, 'launches_by_path': {
+                path: counts[f'flash_attention_{part}'] for path, counts in
+                (('serve_flash', serve_flash),
+                 ('train_flash_f32', train_flash_f32))}})
         for part, line in stock.items())
     print(json.dumps({'kernels': [
         {k: e[k] for k in ('name', 'route', 'source', 'replaces', 'launches',

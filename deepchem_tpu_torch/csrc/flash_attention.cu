@@ -26,10 +26,11 @@
 // tensor cores against HBM), 7.6 us for the forward, 11.4 for dK/dV and 9.6
 // for dQ.  From S of about 1k up, bf16 is bound by the tensor cores: at
 // [16, 12, 4096, 64] 0.83 ms for the forward, 1.67 for dK/dV and 1.25 for
-// dQ.  In f32 the forward runs on the tensor cores in three tf32 passes
-// (below): at the encoder's shape 50.7 MB take 15.1 us at 3.35 TB/s and
-// the products 9.8 us at 494.7 TF/s, so bytes bound it.  The f32 backward
-// is near balance on the FMA units.
+// dQ.  In f32 every kernel runs on the tensor cores in three tf32 passes
+// (below), so its products count three times at 494.7 TF/s: at the
+// encoder's shape bytes bound them (the forward 50.7 MB, 15.1 us at 3.35
+// TB/s, against 9.8 us of products; dK/dV 22.7 us, dQ 19.0 us); from S =
+// 512 the products do (at S = 4096, dK/dV 10.0 ms, dQ 7.5 ms).
 //
 // Design.  Every output row has one writer: a block owns rows of one
 // (batch, head) (q rows in the forward and dQ kernels, k rows in dK/dV)
@@ -103,10 +104,14 @@
 //         planes in shared memory, o += p v by mma.sync m16n8k8, since
 //         wgmma takes tf32 operands only K-major and v is stored [keys,
 //         D].  p is not rounded: it is split like any operand.
-//   f32 backward: the FMA units.  D/32 threads share a row, each holding
-//         32 of its columns in registers; a dot product is summed across
-//         them with one shuffle.  Tiles of the other side are read from
-//         shared memory by broadcast.
+//   f32 backward (flash_dkv_tf32x3_kernel, flash_dq_tf32x3_kernel): the
+//         bf16 backward's producer and ring, with the f32 forward's
+//         arithmetic: s and dp by wgmma from big and small planes, the
+//         products with an MN-major operand (dV, dK, dQ) by mma.sync from
+//         the tile's planes, p and ds in f32 registers, split like any
+//         operand.  Blocks of one consumer warpgroup (64 own rows) and
+//         the producer warp, with 2 slots: shared memory binds (the
+//         reasons are at the kernels).
 // All take D = 32 and D = 64; the entries return cudaErrorInvalidValue for
 // any other D.  The ring kernels return the error of a tensor map they
 // cannot make or a launch the runtime refuses; no other kernel stands in.
@@ -122,43 +127,7 @@
 
 namespace {
 
-constexpr int kRows = 64;  // rows a block owns
-constexpr int kTile = 64;  // rows of the other side a step
 constexpr unsigned kFullMask = 0xffffffffu;
-
-// ---------------------------------------------------------------- loads
-
-// Rows [row0, row0 + 64) of a [seq, D] matrix into a shared tile with
-// `Pad` extra elements a row; rows past seq are zero.  16-byte vectors.
-template <typename T, int D, int Pad>
-__device__ __forceinline__ void load_tile(T (*dst)[D + Pad], const T* src,
-                                          int row0, int seq) {
-  constexpr int kVec = D * sizeof(T) / 16;  // 16-byte vectors a row
-  constexpr int kPerVec = 16 / sizeof(T);
-  for (int i = threadIdx.x; i < kTile * kVec; i += blockDim.x) {
-    const int r = i / kVec;
-    const int c = (i % kVec) * kPerVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(&dst[r][c]) = val;
-  }
-}
-
-// m, 1/l and di of rows [row0, row0 + 64) into shared memory; rows past
-// seq get 0, 1 and 0 (their p is masked to 0 by the caller).
-__device__ __forceinline__ void load_stats(float* sm, float* slinv, float* sdi,
-                                           const float* m, const float* l,
-                                           const float* di, int row0,
-                                           int seq) {
-  for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-    const bool ok = row0 + i < seq;
-    sm[i] = ok ? m[row0 + i] : 0.f;
-    slinv[i] = ok ? 1.f / l[row0 + i] : 1.f;
-    sdi[i] = ok ? di[row0 + i] : 0.f;
-  }
-}
 
 // ------------------------------------------ bf16: wgmma, TMA, an mbarrier ring
 
@@ -180,8 +149,8 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFullMask, x, 2);
 }
 
-
-constexpr int kBox = 64;  // rows of a TMA box: one wgmma M (or N) tile
+constexpr int kBox = 64;      // rows of a TMA box: one wgmma M (or N) tile
+constexpr int kBoxCols = 32;  // floats a row of an f32 box: 128 bytes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -455,20 +424,31 @@ constexpr int kOwnRows = kConsumers * kBox;    // rows a block owns
 constexpr int kStages = 4;                     // slots of the ring
 constexpr int kRingThreads = kConsumers * 128 + 32;  // and one producer warp
 
-// Shared memory of the backward kernels.  `own`: the block's 128 rows
-// (dK/dV: k and v; dQ: q and dO).  `ring`: kStages tiles of 64 rows of
-// the other side (dK/dV: q and dO; dQ: k and v), with the statistics of a
-// q tile where the kernel needs them per column (dK/dV).  Every tile is a
+// Shared memory of the bf16 backward kernels.  `own`: the block's 128
+// rows (dK/dV: k and v; dQ: q and dO).  `ring`: kStages tiles of 64 rows
+// of the other side (dK/dV: q and dO; dQ: k and v), with the statistics of
+// a q tile where the kernel needs them per column (dK/dV).  Every tile is a
 // multiple of 1024 bytes from a 1024-byte aligned start, as the swizzle
-// wants.
+// wants.  The constants and box accessors are what `produce` reads: a row
+// is one box wide.
 template <int D, bool Stats>
 struct BwdSmem {
+  static constexpr int kSlots = kStages, kOwnBoxes = kConsumers, kHalves = 1;
+  static constexpr bool kStats = Stats;
+  static constexpr uint32_t kBoxBytes = kBox * D * sizeof(bf16_t);
   bf16_t own0[kOwnRows * D];
   bf16_t own1[kOwnRows * D];
   bf16_t ring0[kStages][kBox * D];
   bf16_t ring1[kStages][kBox * D];
   float stats[Stats ? kStages : 1][3][kBox];  // m log2(e), 1/l, di
   uint64_t own_full, full[kStages], empty[kStages];
+  // box c of own tensor i (0: own0, 1: own1), and tensor i of slot s
+  __device__ bf16_t* own_box(int i, int c, int) {
+    return (i ? own1 : own0) + c * kBox * D;
+  }
+  __device__ bf16_t* ring_box(int i, int s, int) {
+    return i ? ring1[s] : ring0[s];
+  }
 };
 
 template <typename Smem>
@@ -480,16 +460,18 @@ __device__ __forceinline__ Smem& ring_smem() {
 
 // Barriers: own_full takes the TMA bytes of the block's own rows; full[s]
 // the slot's TMA bytes and the 32 producer lanes, each arriving after its
-// stores (of the statistics, in dK/dV); empty[s] every consumer thread.
+// stores (of the statistics, in dK/dV); empty[s] every one of the
+// `consumers` consumer threads.
 template <typename Smem>
-__device__ __forceinline__ void init_barriers(Smem& sm) {
+__device__ __forceinline__ void init_barriers(
+    Smem& sm, int consumers = kConsumers * 128) {
   constexpr int kSlots = sizeof(sm.full) / sizeof(sm.full[0]);
   if (threadIdx.x == 0) {
     mbar_init(&sm.own_full, 1);
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       mbar_init(&sm.full[s], 32);
-      mbar_init(&sm.empty[s], kConsumers * 128);
+      mbar_init(&sm.empty[s], consumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -513,45 +495,59 @@ __device__ __forceinline__ void fetch_stats(float (&st)[2][3],
   }
 }
 
-// The producer warp.  Lane 0 loads the block's own rows once (own_a into
-// own0, own_b into own1), then every 64-row tile of the other side
-// (ring_a, ring_b) through the ring.  With Stats, the 32 lanes write m
-// log2(e), 1/l and di of the tile's rows beside it, loaded a tile ahead
-// so that their latency is not on the ring's path.
-template <int D, bool Stats>
-__device__ __forceinline__ void produce(BwdSmem<D, Stats>& sm,
-                                        const CUtensorMap* own_a,
+// The producer warp of a backward block (slice bh).  Lane 0 loads the
+// block's own rows once (own_a into own tensor 0, own_b into 1: Smem::
+// kOwnBoxes boxes of 64 rows from own_row0), then every 64-row tile of the
+// other side (ring_a, ring_b) through the Smem::kSlots slots of the ring;
+// a row is Smem::kHalves boxes wide (kBoxCols floats each in f32, one box
+// in bf16).  With Smem::kStats, the 32 lanes write m log2(e), 1/l and di
+// of the tile's rows beside it, loaded a tile ahead so that their latency
+// is not on the ring's path.
+template <typename Smem>
+__device__ __forceinline__ void produce(Smem& sm, const CUtensorMap* own_a,
                                         const CUtensorMap* own_b,
                                         const CUtensorMap* ring_a,
                                         const CUtensorMap* ring_b,
                                         const float* m, const float* l,
-                                        const float* di, int own_row0,
-                                        int seq) {
-  constexpr uint32_t kTileBytes = kBox * D * sizeof(bf16_t);
-  const int lane = threadIdx.x & 31, bh = blockIdx.x;
+                                        const float* di, int bh,
+                                        int own_row0, int seq) {
+  constexpr int kSlots = Smem::kSlots, kHalves = Smem::kHalves;
+  constexpr uint32_t kBoxBytes = Smem::kBoxBytes;
+  const int lane = threadIdx.x & 31;
   if (lane == 0) {
-    mbar_arrive_expect_tx(&sm.own_full, 2 * kConsumers * kTileBytes);
+    mbar_arrive_expect_tx(&sm.own_full,
+                          2 * Smem::kOwnBoxes * kHalves * kBoxBytes);
 #pragma unroll
-    for (int c = 0; c < kConsumers; ++c) {
-      tma_load_rows(sm.own0 + c * kBox * D, own_a, &sm.own_full,
-                    own_row0 + c * kBox, bh);
-      tma_load_rows(sm.own1 + c * kBox * D, own_b, &sm.own_full,
-                    own_row0 + c * kBox, bh);
+    for (int c = 0; c < Smem::kOwnBoxes; ++c) {
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) {
+        tma_load_rows(sm.own_box(0, c, hf), own_a, &sm.own_full,
+                      own_row0 + c * kBox, bh, hf * kBoxCols);
+        tma_load_rows(sm.own_box(1, c, hf), own_b, &sm.own_full,
+                      own_row0 + c * kBox, bh, hf * kBoxCols);
+      }
     }
   }
   const size_t srow = (size_t)bh * seq;
   const int tiles = (seq + kBox - 1) / kBox;
   float st[2][3];  // the statistics of the next tile
-  if (Stats) fetch_stats(st, m + srow, l + srow, di + srow, 0, seq, lane);
+  if constexpr (Smem::kStats) {
+    fetch_stats(st, m + srow, l + srow, di + srow, 0, seq, lane);
+  }
   for (int it = 0; it < tiles; ++it) {
-    const int s = it % kStages, row0 = it * kBox;
-    mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);  // slot released
+    const int s = it % kSlots, row0 = it * kBox;
+    mbar_wait(&sm.empty[s], ((it / kSlots) & 1) ^ 1);  // slot released
     if (lane == 0) {
-      mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
-      tma_load_rows(sm.ring0[s], ring_a, &sm.full[s], row0, bh);
-      tma_load_rows(sm.ring1[s], ring_b, &sm.full[s], row0, bh);
+      mbar_expect_tx(&sm.full[s], 2 * kHalves * kBoxBytes);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) {
+        tma_load_rows(sm.ring_box(0, s, hf), ring_a, &sm.full[s], row0, bh,
+                      hf * kBoxCols);
+        tma_load_rows(sm.ring_box(1, s, hf), ring_b, &sm.full[s], row0, bh,
+                      hf * kBoxCols);
+      }
     }
-    if (Stats) {
+    if constexpr (Smem::kStats) {
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         sm.stats[s][0][lane + 32 * k] = st[k][0] * kLog2e;
@@ -562,8 +558,11 @@ __device__ __forceinline__ void produce(BwdSmem<D, Stats>& sm,
     // every lane releases its own stores of the statistics, then loads the
     // next tile's
     mbar_arrive(&sm.full[s]);
-    if (Stats && it + 1 < tiles) {
-      fetch_stats(st, m + srow, l + srow, di + srow, row0 + kBox, seq, lane);
+    if constexpr (Smem::kStats) {
+      if (it + 1 < tiles) {
+        fetch_stats(st, m + srow, l + srow, di + srow, row0 + kBox, seq,
+                    lane);
+      }
     }
   }
 }
@@ -586,7 +585,8 @@ __global__ void __launch_bounds__(kRingThreads, 1)
   const int key0 = blockIdx.y * kOwnRows;
   const float scale2 = scale * kLog2e;
   if (threadIdx.x >= kConsumers * 128) {
-    produce<D, true>(sm, &tm_k, &tm_v, &tm_q, &tm_do, m, l, di, key0, seq);
+    produce(sm, &tm_k, &tm_v, &tm_q, &tm_do, m, l, di, blockIdx.x, key0,
+            seq);
   } else {
     const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -685,7 +685,8 @@ __global__ void __launch_bounds__(kRingThreads, 1)
   const int qblk0 = blockIdx.y * kOwnRows;
   const float scale2 = scale * kLog2e;
   if (threadIdx.x >= kConsumers * 128) {
-    produce<D, false>(sm, &tm_q, &tm_do, &tm_k, &tm_v, m, l, di, qblk0, seq);
+    produce(sm, &tm_q, &tm_do, &tm_k, &tm_v, m, l, di, blockIdx.x, qblk0,
+            seq);
   } else {
     const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
     const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -982,20 +983,27 @@ __device__ __forceinline__ void split_a(const float (&x)[4],
   for (int i = 0; i < 4; ++i) split_tf32(x[i], big[i], small[i]);
 }
 
-// d += a b in three tf32 passes, the small terms first: b0 and b1 are the
-// thread's two B elements, split here.
+// d += a b in three tf32 passes, the small terms first, from the big and
+// small parts of A (ab, as) and of the thread's two B elements (b0b, b1b;
+// b0s, b1s).
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t b0b, uint32_t b1b,
+                                           uint32_t b0s, uint32_t b1s) {
+  mma_tf32(d, as, b0b, b1b);
+  mma_tf32(d, ab, b0s, b1s);
+  mma_tf32(d, ab, b0b, b1b);
+}
+
+// The same with B's two elements in f32, split here.
 __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ab)[4],
                                            const uint32_t (&as)[4], float b0,
                                            float b1) {
   uint32_t b0b, b0s, b1b, b1s;
   split_tf32(b0, b0b, b0s);
   split_tf32(b1, b1b, b1s);
-  mma_tf32(d, as, b0b, b1b);
-  mma_tf32(d, ab, b0s, b1s);
-  mma_tf32(d, ab, b0b, b1b);
+  mma_3xtf32(d, ab, as, b0b, b1b, b0s, b1s);
 }
-
-constexpr int kBoxCols = 32;  // floats a row of an f32 box: 128 bytes
 
 // Float4 chunk c (floats 4c..4c+3) of row r of a swizzled 64 x 32 box.
 __device__ __forceinline__ float4 box_chunk(const float* box, int r, int c) {
@@ -1020,10 +1028,11 @@ struct F32FwdSmem {
 
 // Split n float4s at `x` in place into big (tf32, rounded), with small,
 // x - big truncated to tf32, into `small`: this thread's share of the
-// kConsumers * 128 consumer threads.
+// Threads consumer threads (threads 0 .. Threads - 1 of the block).
+template <int Threads = kConsumers * 128>
 __device__ __forceinline__ void split_planes(float4* x, float4* small,
                                              int n) {
-  for (int i = threadIdx.x; i < n; i += kConsumers * 128) {
+  for (int i = threadIdx.x; i < n; i += Threads) {
     const float v[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
     uint32_t b[4], l[4];
     split_a(v, b, l);
@@ -1035,7 +1044,7 @@ __device__ __forceinline__ void split_planes(float4* x, float4* small,
   // the stores reach wgmma's reads (the async proxy), then every consumer
   // has split its share
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(Threads) : "memory");
 }
 
 // The tf32 tile (a 64 x 32 box of k, 128-byte swizzle) as a K-major wgmma
@@ -1247,156 +1256,326 @@ __global__ void __launch_bounds__(kRingThreads, 1)
   }
 }
 
-// ------------------------------------------------------- f32: FMA units
+// ---------------------------------- f32 backward: 3xTF32, tensor cores
 //
-// D/32 threads share a row (consecutive threads), each holding 32 of its
-// columns; row_dot sums a dot product across them.
+// The bf16 backward's blocks, producer and ring (produce) with the f32
+// forward's arithmetic: every product in three tf32 passes, from operands
+// split once a block into big planes (in place) and small planes in shared
+// memory.  Products whose operands are both K-major run on wgmma m64n64k8
+// (dK/dV: s^T = k q^T, dp^T = v dO^T; dQ: s = q k^T, dp = dO v^T); those
+// whose B is MN-major (dV += p^T dO, dK += ds^T q, dQ += ds k) on mma.sync
+// m16n8k8, with A the wgmma accumulator (p^T, ds^T or ds, in f32, not
+// rounded: split like any operand) and B read from the tile's planes, which
+// are already split.
+//   Shared memory binds the layout: the own rows' planes take 64 KB a
+// consumer warpgroup (64 rows) at D = 64 and one ring slot (two tiles,
+// each in two planes) 64 KB, against the 227 KB a block may hold: one
+// warpgroup and 2 slots, or two and 1 slot, 193 KB either way.  Both
+// kernels take one warpgroup and 2 slots, a block of 160 threads, whose
+// consumers may hold 255 registers: dK/dV keeps dK, dV, s^T, dp^T and a
+// tile's fresh accumulator live (238 registers at D = 64), dQ takes 183.
+// Two warpgroups (kOwnBoxes = 2, kSlots = 1) made dQ 11-21 % faster at the
+// encoder's and the crossover shapes, but a block of 288 threads caps a
+// thread at 168 registers and dQ spilled 12-28 bytes (H100, PERF.md).
+// Blocks are numbered with the own tile fastest, so a head's blocks run
+// together and share its streamed tiles in L2.
 
+// Shared memory of the f32 backward kernels: the block's own rows (dK/dV:
+// k and v; dQ: q and dO) and the ring's tiles (dK/dV: q and dO; dQ: k and
+// v), each 64 rows of D/32 boxes of 64 x 32 floats (128-byte swizzle),
+// with a small plane beside each; and, with Stats (dK/dV), m log2(e), 1/l
+// and di of each slot's queries.
+template <int D, bool Stats>
+struct F32BwdSmem {
+  static constexpr int kOwnBoxes = 1;  // consumer warpgroups
+  static constexpr int kSlots = 2;
+  static constexpr int kConsumerThreads = kOwnBoxes * 128;
+  static constexpr int kThreads = kConsumerThreads + 32;  // and the producer
+  static constexpr int kOwnRows = kOwnBoxes * kBox;
+  static constexpr int kHalves = D / kBoxCols;
+  static constexpr bool kStats = Stats;
+  static constexpr uint32_t kBoxBytes = kBox * kBoxCols * sizeof(float);
+  using Tile = float[kHalves][kBox * kBoxCols];  // 64 rows of D floats
+  Tile own[2][kOwnBoxes], own_s[2][kOwnBoxes];   // big (in place), small
+  Tile ring[kSlots][2], ring_s[kSlots][2];
+  float stats[Stats ? kSlots : 1][3][kBox];      // m log2(e), 1/l, di
+  uint64_t own_full, full[kSlots], empty[kSlots];
+  __device__ float* own_box(int i, int c, int hf) { return own[i][c][hf]; }
+  __device__ float* ring_box(int i, int s, int hf) { return ring[s][i][hf]; }
+};
+
+// d (+)= A B^T over k-step kk (8 columns) of two 64 x 32 boxes, A's (a, as)
+// and B's (b, bs) big and small planes, in three tf32 passes, the small
+// terms first; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[32], const float* a,
+                                             const float* as, const float* b,
+                                             const float* bs, int kk,
+                                             int accumulate) {
+  const uint64_t ab = desc_tf32(a, kk), bb = desc_tf32(b, kk);
+  wgmma_tf32(d, desc_tf32(as, kk), bb, accumulate);
+  wgmma_tf32(d, ab, desc_tf32(bs, kk), 1);
+  wgmma_tf32(d, ab, bb, 1);
+}
+
+// Store a warp's 16 x D rows of an f32 accumulator of mma.sync n-blocks
+// laid out as the f32 kernels keep it (n-block (hf, c) of the thread's
+// rows in acc[16 hf + 4 c ..]: columns 32 hf + 8 t + c and 32 hf + 8 t + 4
+// + c) as rows row0 + g + 8 i of `out` ([seq, D]); rows past seq are
+// skipped.  Two float4 stores a row and half.
 template <int D>
-using Tile32 = float[kTile][D];
-
-template <int D>
-__device__ __forceinline__ float row_dot(const float* a, const float* b) {
-  float s = 0.f;
+__device__ __forceinline__ void store_rows_f32(float* out,
+                                               const float (&acc)[D / 2],
+                                               int row0, int seq, int g,
+                                               int t) {
 #pragma unroll
-  for (int e = 0; e < 32; e += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(b + e);
-    s = fmaf(a[e], x.x, s);
-    s = fmaf(a[e + 1], x.y, s);
-    s = fmaf(a[e + 2], x.z, s);
-    s = fmaf(a[e + 3], x.w, s);
-  }
-  if (D == 64) s += __shfl_xor_sync(kFullMask, s, 1);
-  return s;
-}
-
-__device__ __forceinline__ void axpy32(float* y, float a, const float* x) {
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    if (r >= seq) continue;
 #pragma unroll
-  for (int e = 0; e < 32; e += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(x + e);
-    y[e] = fmaf(a, v.x, y[e]);
-    y[e + 1] = fmaf(a, v.y, y[e + 1]);
-    y[e + 2] = fmaf(a, v.z, y[e + 2]);
-    y[e + 3] = fmaf(a, v.w, y[e + 3]);
-  }
-}
-
-// 32 floats of a row into registers (zeros past seq), and back.
-__device__ __forceinline__ void load32(float* r, const float* src, bool ok) {
-#pragma unroll
-  for (int e = 0; e < 32; e += 4) {
-    const float4 v = ok ? *reinterpret_cast<const float4*>(src + e)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-    r[e] = v.x;
-    r[e + 1] = v.y;
-    r[e + 2] = v.z;
-    r[e + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void store32(float* dst, const float* r,
-                                        float scale) {
-#pragma unroll
-  for (int e = 0; e < 32; e += 4) {
-    *reinterpret_cast<float4*>(dst + e) = make_float4(
-        r[e] * scale, r[e + 1] * scale, r[e + 2] * scale, r[e + 3] * scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows * D / 32)
-    flash_dkv_fma_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ m,
-                         const float* __restrict__ l,
-                         const float* __restrict__ di,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int seq, float scale) {
-  __shared__ __align__(16) Tile32<D> sq;
-  __shared__ __align__(16) Tile32<D> sdo;
-  __shared__ float sm[kTile], slinv[kTile], sdi[kTile];
-  const size_t base = (size_t)blockIdx.x * seq * D;
-  const size_t srow = (size_t)blockIdx.x * seq;
-  const int row = blockIdx.y * kRows + threadIdx.x / (D / 32);
-  const int c0 = (threadIdx.x % (D / 32)) * 32;
-  const bool live = row < seq;
-
-  float kr[32], vr[32], dk_acc[32], dv_acc[32];
-  load32(kr, k + base + (size_t)row * D + c0, live);
-  load32(vr, v + base + (size_t)row * D + c0, live);
-#pragma unroll
-  for (int e = 0; e < 32; ++e) dk_acc[e] = dv_acc[e] = 0.f;
-  for (int q0 = 0; q0 < seq; q0 += kTile) {
-    __syncthreads();
-    load_tile<float, D, 0>(sq, q + base, q0, seq);
-    load_tile<float, D, 0>(sdo, dout + base, q0, seq);
-    load_stats(sm, slinv, sdi, m + srow, l + srow, di + srow, q0, seq);
-    __syncthreads();
-    const int n = min(kTile, seq - q0);
-    for (int i = 0; i < n; ++i) {
-      const float p =
-          expf(row_dot<D>(kr, &sq[i][c0]) * scale - sm[i]) * slinv[i];
-      axpy32(dv_acc, p, &sdo[i][c0]);
-      const float ds = (row_dot<D>(vr, &sdo[i][c0]) - sdi[i]) * p * scale;
-      axpy32(dk_acc, ds, &sq[i][c0]);
+    for (int hf = 0; hf < D / kBoxCols; ++hf) {
+      const float* a = acc + 16 * hf + 2 * i;
+      float* dst = out + (size_t)r * D + hf * kBoxCols + 8 * t;
+      *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[4], a[8], a[12]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(a[1], a[5], a[9], a[13]);
     }
   }
-  if (live) {
-    store32(dk + base + (size_t)row * D + c0, dk_acc, 1.f);
-    store32(dv + base + (size_t)row * D + c0, dv_acc, 1.f);
-  }
 }
 
+// out += A B for one 64-row tile of B, in three tf32 passes by mma.sync
+// m16n8k8: A the warp's 16 x 64 wgmma accumulator a (rows g and g + 8,
+// columns 8j + 2t and 8j + 2t + 1 in a[4j..4j+3]), B the tile's [64, D]
+// rows from their big and small planes (bb, bs: D/32 swizzled boxes).  The
+// reduction order is free, so k-step j (rows 8j..8j+7) maps slot t to row
+// 8j + 2t and slot t + 4 to 8j + 2t + 1: A's fragment is a's four values of
+// n-block j, reordered, with no shuffle.  B column g of the n-block (hf, c)
+// is output column 32 hf + 4 g + c, so lane g reads chunk g of the two rows
+// as float4s, free of bank conflicts, from each plane.  The tile's products
+// are summed in a fresh accumulator and then added to out (laid out as
+// store_rows_f32 reads it): summed over every tile in the tensor cores'
+// accumulator, the f32 forward's o drifted to 7.5e-6 of max(1, |o|) at S =
+// 4096 (H100, PERF.md).
 template <int D>
-__global__ void __launch_bounds__(kRows * D / 32)
-    flash_dq_fma_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ m,
-                        const float* __restrict__ l,
-                        const float* __restrict__ di,
-                        float* __restrict__ dq, int seq, float scale) {
-  __shared__ __align__(16) Tile32<D> sk;
-  __shared__ __align__(16) Tile32<D> sv;
-  const size_t base = (size_t)blockIdx.x * seq * D;
-  const size_t srow = (size_t)blockIdx.x * seq;
-  const int row = blockIdx.y * kRows + threadIdx.x / (D / 32);
-  const int c0 = (threadIdx.x % (D / 32)) * 32;
-  const bool live = row < seq;
-
-  float qr[32], dor[32], dq_acc[32];
-  load32(qr, q + base + (size_t)row * D + c0, live);
-  load32(dor, dout + base + (size_t)row * D + c0, live);
+__device__ __forceinline__ void add_rows_3xtf32(
+    float (&out)[D / 2], const float (&a)[32],
+    const float (*bb)[kBox * kBoxCols], const float (*bs)[kBox * kBoxCols],
+    int t, int g) {
+  float acc[D / 2];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) dq_acc[e] = 0.f;
-  const float rm = live ? m[srow + row] : 0.f;
-  const float rlinv = live ? 1.f / l[srow + row] : 1.f;
-  const float rdi = live ? di[srow + row] : 0.f;
-  for (int k0 = 0; k0 < seq; k0 += kTile) {
-    __syncthreads();
-    load_tile<float, D, 0>(sk, k + base, k0, seq);
-    load_tile<float, D, 0>(sv, v + base, k0, seq);
-    __syncthreads();
-    const int n = min(kTile, seq - k0);
-    for (int j = 0; j < n; ++j) {
-      const float p = expf(row_dot<D>(qr, &sk[j][c0]) * scale - rm) * rlinv;
-      const float ds = (row_dot<D>(dor, &sv[j][c0]) - rdi) * p * scale;
-      axpy32(dq_acc, ds, &sk[j][c0]);
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint32_t ab[4], as[4];
+    const float aj[4] = {a[4 * j], a[4 * j + 2], a[4 * j + 1],
+                         a[4 * j + 3]};
+    split_a(aj, ab, as);
+    const int r = 8 * j + 2 * t;
+#pragma unroll
+    for (int hf = 0; hf < D / kBoxCols; ++hf) {
+      const float4 be = box_chunk(bb[hf], r, g);
+      const float4 bo = box_chunk(bb[hf], r + 1, g);
+      const float4 se = box_chunk(bs[hf], r, g);
+      const float4 so = box_chunk(bs[hf], r + 1, g);
+      float* d = acc + 16 * hf;
+      mma_3xtf32(d, ab, as, __float_as_uint(be.x), __float_as_uint(bo.x),
+                 __float_as_uint(se.x), __float_as_uint(so.x));
+      mma_3xtf32(d + 4, ab, as, __float_as_uint(be.y), __float_as_uint(bo.y),
+                 __float_as_uint(se.y), __float_as_uint(so.y));
+      mma_3xtf32(d + 8, ab, as, __float_as_uint(be.z), __float_as_uint(bo.z),
+                 __float_as_uint(se.z), __float_as_uint(so.z));
+      mma_3xtf32(d + 12, ab, as, __float_as_uint(be.w),
+                 __float_as_uint(bo.w), __float_as_uint(se.w),
+                 __float_as_uint(so.w));
     }
   }
-  if (live) store32(dq + base + (size_t)row * D + c0, dq_acc, 1.f);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) out[i] += acc[i];
 }
 
-// ---------------------------------------------------------------- launch
-
-inline dim3 grid_of(int bh, int seq) {
-  return dim3(bh, (seq + kRows - 1) / kRows);
+// dK and dV in f32.  Block (b*h, key tile of 64 rows), flattened with the
+// key tile fastest: one consumer warpgroup, then the producer warp.
+//   s^T = k q^T, dp^T = v dO^T   wgmma, three passes a k-step
+//   p^T = exp(s^T scale - m) / l (0 for queries past seq: the producer
+//         wrote m = 0 and 1/l = 1 there), ds^T = (dp^T - di) p^T scale
+//   dV += p^T dO, dK += ds^T q   mma.sync (add_rows_3xtf32)
+template <int D>
+__global__ void __launch_bounds__(F32BwdSmem<D, true>::kThreads, 1)
+    flash_dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const float* __restrict__ m,
+                            const float* __restrict__ l,
+                            const float* __restrict__ di,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int seq, float scale) {
+  using Smem = F32BwdSmem<D, true>;
+  constexpr int kTileVecs = D * kBox / 4;  // float4s a tile
+  constexpr int kThreads = Smem::kConsumerThreads;
+  auto& sm = ring_smem<Smem>();
+  init_barriers(sm, kThreads);
+  const int own_tiles = (seq + Smem::kOwnRows - 1) / Smem::kOwnRows;
+  const int bh = blockIdx.x / own_tiles;
+  const int key0 = (blockIdx.x % own_tiles) * Smem::kOwnRows;
+  if (threadIdx.x >= kThreads) {
+    produce(sm, &tm_k, &tm_v, &tm_q, &tm_do, m, l, di, bh, key0, seq);
+    return;
+  }
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float scale2 = scale * kLog2e;
+  // k and v split once a block, big in place and small beside it
+  mbar_wait(&sm.own_full, 0);
+  split_planes<kThreads>(reinterpret_cast<float4*>(&sm.own[0][0][0][0]),
+                         reinterpret_cast<float4*>(&sm.own_s[0][0][0][0]),
+                         2 * Smem::kOwnBoxes * kTileVecs);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const int tiles = (seq + kBox - 1) / kBox;
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % Smem::kSlots, q0 = it * kBox;
+    mbar_wait(&sm.full[s], (it / Smem::kSlots) & 1);
+    // the tile's q and dO split once a block, as k and v
+    split_planes<kThreads>(reinterpret_cast<float4*>(&sm.ring[s][0][0][0]),
+                           reinterpret_cast<float4*>(&sm.ring_s[s][0][0][0]),
+                           2 * kTileVecs);
+    // s^T and dp^T: the warpgroup's 64 keys against the tile's 64 queries
+    float pt[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      wgmma_3xtf32(pt, sm.own[0][wg][ks / 4], sm.own_s[0][wg][ks / 4],
+                   sm.ring[s][0][ks / 4], sm.ring_s[s][0][ks / 4], ks % 4, ks);
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      wgmma_3xtf32(dpt, sm.own[1][wg][ks / 4], sm.own_s[1][wg][ks / 4],
+                   sm.ring[s][1][ks / 4], sm.ring_s[s][1][ks / 4], ks % 4,
+                   ks);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pt);
+    fence_regs(dpt);
+    // p^T: the accumulator's columns are queries, whose statistics the
+    // producer put beside the tile
+    const float* st_di = sm.stats[s][2];
+    if (q0 + kBox <= seq) {
+      probs_t<false>(pt, sm.stats[s][0], sm.stats[s][1], scale2, t, kBox);
+    } else {
+      probs_t<true>(pt, sm.stats[s][0], sm.stats[s][1], scale2, t,
+                    seq - q0);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + 2 * t + (e & 1);
+        dpt[4 * j + e] = (dpt[4 * j + e] - st_di[qi]) * pt[4 * j + e] * scale;
+      }
+    }
+    add_rows_3xtf32<D>(dv_acc, pt, sm.ring[s][1], sm.ring_s[s][1], t, g);
+    add_rows_3xtf32<D>(dk_acc, dpt, sm.ring[s][0], sm.ring_s[s][0], t, g);
+    mbar_arrive(&sm.empty[s]);  // this thread is done with the slot
+  }
+  const size_t base = (size_t)bh * seq * D;
+  const int row0 = key0 + wg * kBox + warp * 16;
+  store_rows_f32<D>(dk + base, dk_acc, row0, seq, g, t);
+  store_rows_f32<D>(dv + base, dv_acc, row0, seq, g, t);
 }
 
-// ------------------------------------------- bf16 backward: host side
+// dQ in f32.  Block (b*h, query tile of 64 rows), flattened with the query
+// tile fastest: one consumer warpgroup, then the producer warp.
+//   s = q k^T, dp = dO v^T   wgmma, three passes a k-step
+//   ds = (dp - di) p scale, p = exp(s scale - m) / l (0 for keys past seq),
+//        with m, 1/l and di of the thread's two rows in registers
+//   dQ += ds k               mma.sync (add_rows_3xtf32)
+// `unused` keeps the dK/dV kernel's signature.
+template <int D>
+__global__ void __launch_bounds__(F32BwdSmem<D, false>::kThreads, 1)
+    flash_dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ m,
+                           const float* __restrict__ l,
+                           const float* __restrict__ di,
+                           float* __restrict__ dq, float* __restrict__ unused,
+                           int seq, float scale) {
+  using Smem = F32BwdSmem<D, false>;
+  constexpr int kTileVecs = D * kBox / 4;
+  constexpr int kThreads = Smem::kConsumerThreads;
+  auto& sm = ring_smem<Smem>();
+  init_barriers(sm, kThreads);
+  const int own_tiles = (seq + Smem::kOwnRows - 1) / Smem::kOwnRows;
+  const int bh = blockIdx.x / own_tiles;
+  const int qblk0 = (blockIdx.x % own_tiles) * Smem::kOwnRows;
+  if (threadIdx.x >= kThreads) {
+    produce(sm, &tm_q, &tm_do, &tm_k, &tm_v, m, l, di, bh, qblk0, seq);
+    return;
+  }
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float scale2 = scale * kLog2e;
+  const size_t srow = (size_t)bh * seq;
+  const int row0 = qblk0 + wg * kBox + warp * 16;
+  float rm2[2], rlinv[2], rdi[2];  // rows row0 + g and row0 + g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    rm2[i] = r < seq ? m[srow + r] * kLog2e : 0.f;
+    rlinv[i] = r < seq ? 1.f / l[srow + r] : 1.f;
+    rdi[i] = r < seq ? di[srow + r] : 0.f;
+  }
+  // q and dO split once a block, big in place and small beside it
+  mbar_wait(&sm.own_full, 0);
+  split_planes<kThreads>(reinterpret_cast<float4*>(&sm.own[0][0][0][0]),
+                         reinterpret_cast<float4*>(&sm.own_s[0][0][0][0]),
+                         2 * Smem::kOwnBoxes * kTileVecs);
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  const int tiles = (seq + kBox - 1) / kBox;
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % Smem::kSlots, k0 = it * kBox;
+    mbar_wait(&sm.full[s], (it / Smem::kSlots) & 1);
+    // the tile's k and v split once a block, as q and dO
+    split_planes<kThreads>(reinterpret_cast<float4*>(&sm.ring[s][0][0][0]),
+                           reinterpret_cast<float4*>(&sm.ring_s[s][0][0][0]),
+                           2 * kTileVecs);
+    // s and dp: the warpgroup's 64 queries against the tile's 64 keys
+    float sc[32], ds[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      wgmma_3xtf32(sc, sm.own[0][wg][ks / 4], sm.own_s[0][wg][ks / 4],
+                   sm.ring[s][0][ks / 4], sm.ring_s[s][0][ks / 4], ks % 4, ks);
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      wgmma_3xtf32(ds, sm.own[1][wg][ks / 4], sm.own_s[1][wg][ks / 4],
+                   sm.ring[s][1][ks / 4], sm.ring_s[s][1][ks / 4], ks % 4,
+                   ks);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(ds);
+    if (k0 + kBox <= seq) {
+      grad_scores<false>(ds, sc, rm2, rlinv, rdi, scale2, scale, t, kBox);
+    } else {
+      grad_scores<true>(ds, sc, rm2, rlinv, rdi, scale2, scale, t,
+                        seq - k0);
+    }
+    add_rows_3xtf32<D>(dq_acc, ds, sm.ring[s][0], sm.ring_s[s][0], t, g);
+    mbar_arrive(&sm.empty[s]);
+  }
+  store_rows_f32<D>(dq + srow * D, dq_acc, row0, seq, g, t);
+  (void)unused;
+}
+
+// ------------------------------------------------ host side
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // links no libcuda.
@@ -1481,41 +1660,61 @@ cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& set) {
   return cudaSuccess;
 }
 
-template <int D, bool Dkv>
+// The dK/dV (Dkv) or dQ kernel from tensor maps of q, k, v and dO, bf16
+// or f32 (F32): out0 = dk, out1 = dv, or out0 = dq.
+template <int D, bool Dkv, bool F32>
 int launch_bwd(const CUtensorMap (&maps)[4], const float* m, const float* l,
                const float* di, void* out0, void* out1, int bh, int seq,
                float scale, cudaStream_t stream) {
-  constexpr int kSmem = (int)sizeof(BwdSmem<D, Dkv>) + 1024;
-  const auto kernel =
-      Dkv ? flash_dkv_wgmma_kernel<D> : flash_dq_wgmma_kernel<D>;
+  using Smem = std::conditional_t<F32, F32BwdSmem<D, Dkv>, BwdSmem<D, Dkv>>;
+  using Out = std::conditional_t<F32, float, bf16_t>;
+  constexpr int kSmem = (int)sizeof(Smem) + 1024;
+  const auto kernel = [] {
+    if constexpr (F32) {
+      return Dkv ? flash_dkv_tf32x3_kernel<D> : flash_dq_tf32x3_kernel<D>;
+    } else {
+      return Dkv ? flash_dkv_wgmma_kernel<D> : flash_dq_wgmma_kernel<D>;
+    }
+  }();
   static std::atomic<uint64_t> set{0};
   const cudaError_t err = allow_smem(kernel, kSmem, set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (seq + kOwnRows - 1) / kOwnRows);
-  kernel<<<grid, kRingThreads, kSmem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], m, l, di, (bf16_t*)out0,
-      (bf16_t*)out1, seq, scale);
+  if constexpr (F32) {
+    const long long blocks =
+        (long long)bh * ((seq + Smem::kOwnRows - 1) / Smem::kOwnRows);
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<(unsigned)blocks, Smem::kThreads, kSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], m, l, di, (Out*)out0,
+        (Out*)out1, seq, scale);
+  } else {
+    const dim3 grid(bh, (seq + kOwnRows - 1) / kOwnRows);
+    kernel<<<grid, kRingThreads, kSmem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], m, l, di, (Out*)out0,
+        (Out*)out1, seq, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bf16 dK/dV (dkv) or dQ kernel: out0 = dk, out1 = dv, or out0 = dq.
-int flash_bwd_bf16(bool dkv, const void* q, const void* k, const void* v,
-                   const void* dout, const float* m, const float* l,
-                   const float* di, void* out0, void* out1, int bh, int seq,
-                   int d, float scale, cudaStream_t stream) {
+using BwdLaunch = int (*)(const CUtensorMap (&)[4], const float*,
+                          const float*, const float*, void*, void*, int, int,
+                          float, cudaStream_t);
+
+// The dK/dV (dkv) or dQ kernel, bf16 or f32, for D = 32 or 64.
+int flash_bwd(bool dkv, const void* q, const void* k, const void* v,
+              const void* dout, const float* m, const float* l,
+              const float* di, void* out0, void* out1, int bh, int seq,
+              int d, bool bf16, float scale, cudaStream_t stream) {
+  // [d == 64][dkv][f32]
+  static constexpr BwdLaunch kLaunch[2][2][2] = {
+      {{launch_bwd<32, false, false>, launch_bwd<32, false, true>},
+       {launch_bwd<32, true, false>, launch_bwd<32, true, true>}},
+      {{launch_bwd<64, false, false>, launch_bwd<64, false, true>},
+       {launch_bwd<64, true, false>, launch_bwd<64, true, true>}}};
   CUtensorMap maps[4];
-  const int err = make_maps(maps, {q, k, v, dout}, bh, seq, d);
+  const int err = make_maps(maps, {q, k, v, dout}, bh, seq, d, !bf16);
   if (err != 0) return err;
-  if (d == 64) {
-    return dkv ? launch_bwd<64, true>(maps, m, l, di, out0, out1, bh, seq,
-                                      scale, stream)
-               : launch_bwd<64, false>(maps, m, l, di, out0, out1, bh, seq,
+  return kLaunch[d == 64][dkv][!bf16](maps, m, l, di, out0, out1, bh, seq,
                                        scale, stream);
-  }
-  return dkv ? launch_bwd<32, true>(maps, m, l, di, out0, out1, bh, seq,
-                                    scale, stream)
-             : launch_bwd<32, false>(maps, m, l, di, out0, out1, bh, seq,
-                                     scale, stream);
 }
 
 // The forward from tensor maps of q, k and v: the bf16 kernel (F32 false)
@@ -1582,23 +1781,9 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
                                    const float* di, void* dk, void* dv,
                                    int bh, int seq, int d, int bf16,
                                    float scale, cudaStream_t stream) {
-  const dim3 grid = grid_of(bh, seq);
-  using F = const float*;
-  if (bf16 && (d == 64 || d == 32)) {
-    return flash_bwd_bf16(true, q, k, v, dout, m, l, di, dk, dv, bh, seq, d,
-                          scale, stream);
-  } else if (!bf16 && d == 64) {
-    flash_dkv_fma_kernel<64><<<grid, 128, 0, stream>>>(
-        (F)q, (F)k, (F)v, (F)dout, m, l, di, (float*)dk, (float*)dv, seq,
-        scale);
-  } else if (!bf16 && d == 32) {
-    flash_dkv_fma_kernel<32><<<grid, 64, 0, stream>>>(
-        (F)q, (F)k, (F)v, (F)dout, m, l, di, (float*)dk, (float*)dv, seq,
-        scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d != 64 && d != 32) return static_cast<int>(cudaErrorInvalidValue);
+  return flash_bwd(true, q, k, v, dout, m, l, di, dk, dv, bh, seq, d,
+                   bf16 != 0, scale, stream);
 }
 
 extern "C" int flash_attention_dq(const void* q, const void* k,
@@ -1607,19 +1792,7 @@ extern "C" int flash_attention_dq(const void* q, const void* k,
                                   const float* di, void* dq, int bh,
                                   int seq, int d, int bf16, float scale,
                                   cudaStream_t stream) {
-  const dim3 grid = grid_of(bh, seq);
-  using F = const float*;
-  if (bf16 && (d == 64 || d == 32)) {
-    return flash_bwd_bf16(false, q, k, v, dout, m, l, di, dq, nullptr, bh,
-                          seq, d, scale, stream);
-  } else if (!bf16 && d == 64) {
-    flash_dq_fma_kernel<64><<<grid, 128, 0, stream>>>(
-        (F)q, (F)k, (F)v, (F)dout, m, l, di, (float*)dq, seq, scale);
-  } else if (!bf16 && d == 32) {
-    flash_dq_fma_kernel<32><<<grid, 64, 0, stream>>>(
-        (F)q, (F)k, (F)v, (F)dout, m, l, di, (float*)dq, seq, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d != 64 && d != 32) return static_cast<int>(cudaErrorInvalidValue);
+  return flash_bwd(false, q, k, v, dout, m, l, di, dq, nullptr, bh, seq, d,
+                   bf16 != 0, scale, stream);
 }

@@ -8,7 +8,8 @@ turns on one card.
 
 Each version of ``deepchem_tpu_torch/csrc/flash_attention.cu`` is compiled
 by nvcc with the package's flags into ``build/bench_flash/<name>.so``
-(all at once) and called through the same C entries as the package:
+(all at once; ptxas's registers and spill stores of each kernel are
+printed) and called through the same C entries as the package:
 ``base`` is the source as it is, ``parent`` the file given to
 ``--parent``.  The runs go parent, base, base, parent (base, base with
 no parent), and the two runs of each are averaged.
@@ -23,13 +24,15 @@ with no synchronise between them (what a caller's thread spends to
 encode and launch).  It also prints the card's name and power limit,
 each version's ptxas registers and any wgmma serialisation ptxas reports
 (info C7512), and a last JSON line with each version's means per shape.
-``--dtype float32`` times the forward alone (the backward kernels are the
-same FMA kernels in every version), with the device µs of SDPA's float32
-forward (``chip_smoke.library_attention``, every kernel of one call) in
-each run beside it.
+``--dtype float32`` adds the device µs of SDPA's float32 forward and of
+its backward (``chip_smoke.library_attention``; every kernel of one call)
+in each run, and holds each version's outputs to the package's: within
+2e-5 of max(1, |plain|) for the forward and 2e-4 for the gradients,
+twice ``chip_smoke.py``'s limits against the plain version.
 Shapes: the encoder's attention ``[32, 12, 128, 64]``,
 ``scripts/attn_crossover.py``'s (H 12, D 64, 65 536 tokens, S 128 to
-4096) and ``[3, 4, 200, 32]``.
+4096) and ``[3, 4, 200, 32]``.  From S 2048 each timing takes 50 calls
+instead of 200.
 """
 
 import argparse
@@ -67,9 +70,11 @@ def nvcc(sources: dict, out: Path = OUT) -> dict:
         if p.returncode:
             raise RuntimeError(f'nvcc failed for {n}:\n{log[-4000:]}')
         regs = re.findall(r"(flash_\w+_kernelILi\d+(?:ELi\d+)*)\S*' for "
-                          r"'sm_90a'\n.*\n.*\n.*Used (\d+) registers", log)
+                          r"'sm_90a'\n.*\n.* (\d+) bytes spill stores.*\n"
+                          r".*Used (\d+) registers", log)
         report[n] = {
-            'registers': {k: int(r) for k, r in regs if 'fma' not in k},
+            'registers': {k: int(r) for k, _, r in regs},
+            'spill_stores': {k: int(b) for k, b, _ in regs if int(b)},
             'serialised': sorted(set(re.findall(
                 r'C7512\) .*?(flash_\w+_kernelILi\d+)', log)))}
     return report
@@ -116,7 +121,9 @@ def time_version(name: str, calls: int, dtype: str) -> dict:
     import torch
     from chip_smoke import device_us, device_us_all, library_attention, \
         time_ms
-    from deepchem_tpu_torch.ops.flash_attention import flash_attention_forward
+    from deepchem_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_forward)
     lib = ctypes.CDLL(str(OUT / f'{name}.so'))
     fwd, dkv, dq = _entries(lib)
     dev = torch.device('cuda', 0)
@@ -143,30 +150,41 @@ def time_version(name: str, calls: int, dtype: str) -> dict:
                                D, bf16, scale, stream),
             'dq': lambda: dq(*ptrs, dqo.data_ptr(), B * H, S, D, bf16, scale,
                              stream)}
-        if not bf16:
-            del runs['dkv'], runs['dq']
         for part, fn in runs.items():
             if fn():
                 raise RuntimeError(f'{name} {part}: a launch failed at '
                                    f'{shape}')
         torch.cuda.synchronize()
-        if not bf16:  # the version's forward against the package's: each
-            # within 1e-5 of max(1, |plain|) in chip_smoke.py, so 2e-5 apart
-            err = max((a - b).abs().max().item()
-                      / max(1.0, b.abs().max().item())
-                      for a, b in ((o2, o), (m2, m), (l2, l)))
-            if err > 2e-5:
-                raise RuntimeError(f'{name}: forward differs by {err} at '
-                                   f'{shape}')
+        if not bf16:  # the version's outputs against the package's: each
+            # within 1e-5 (forward) and 1e-4 (gradients) of max(1, |plain|)
+            # in chip_smoke.py, so within twice that of each other
+            pk, pv = flash_attention_bwd_dkv(q, k, v, do, m, l, di, scale)
+            pq = flash_attention_bwd_dq(q, k, v, do, m, l, di, scale)
+            for limit, pairs in ((2e-5, ((o2, o), (m2, m), (l2, l))),
+                                 (2e-4, ((dk, pk), (dv, pv), (dqo, pq)))):
+                err = max((a - b).abs().max().item()
+                          / max(1.0, b.abs().max().item())
+                          for a, b in pairs)
+                if err > limit:
+                    raise RuntimeError(f'{name}: output differs by {err} at '
+                                       f'{shape}')
+            del pk, pv, pq
+        iters = HOST_CALLS if S < 2048 else 50
         res = out['x'.join(map(str, shape))] = {
             part: {'device_us': profiled_us(device_us, fn, f'flash_{part}_',
                                             calls),
-                   'event_us': time_ms(fn, HOST_CALLS) * 1e3,
-                   'host_us': host_us(fn, HOST_CALLS)}
+                   'event_us': time_ms(fn, iters) * 1e3,
+                   'host_us': host_us(fn, iters)}
             for part, fn in runs.items()}
         if not bf16:
+            lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_o = library_attention(lq, lk, lv, scale)
             res['sdpa_fwd'] = {'device_us': device_us_all(
                 lambda: library_attention(q, k, v, scale), calls)[0]}
+            res['sdpa_bwd'] = {'device_us': device_us_all(
+                lambda: torch.autograd.grad(lib_o, (lq, lk, lv), do,
+                                            retain_graph=True), calls)[0]}
+            del lq, lk, lv, lib_o
         del q, k, v, do, o, m, l, di, o2, m2, l2, dk, dv, dqo
     return out
 

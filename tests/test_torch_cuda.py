@@ -3,7 +3,8 @@ plain PyTorch version on the card (P1 and P3 also on segments long enough
 to be split across a block), P1's backward against autograd through its plain
 version, one PAGTN training step against the CPU, P4's forward (with its
 statistics m and l) and backward kernels against the plain flash
-attention, and the encoder's logits against the CPU.  They skip where
+attention (the float32 backward also against its formulas in float64),
+and the encoder's logits against the CPU.  They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
 
@@ -24,7 +25,8 @@ from deepchem_tpu_torch.ops.csr_segment import (
     csr_segment_sum_reference, edges_to_csr, fused_gather_segment_sum)
 from deepchem_tpu_torch.ops.flash_attention import (
     _forward_reference, flash_attention, flash_attention_bwd_dkv,
-    flash_attention_bwd_dq, flash_attention_forward,
+    flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference, flash_attention_forward,
     flash_attention_reference)
 
 # same f32 inputs, summed in another order
@@ -379,6 +381,59 @@ def test_flash_f32_forward_on_the_tensor_cores_matches_plain_version(cuda, S,
         assert bool(((a - ref).abs()
                      <= STAT_RTOL * ref.abs().clamp_min(1.0)).all())
     for a, b in zip((o, m, l), again):
+        assert torch.equal(a, b)
+
+
+def _flash_bwd64(q, k, v, do, m, l, di, scale):
+    """The backward kernels' formulas in float64 from the same inputs and
+    statistics: ``(dq, dk, dv)``."""
+    q, k, v, do, m, l, di = (t.double() for t in (q, k, v, do, m, l, di))
+    p = torch.exp(q @ k.transpose(-1, -2) * scale - m[..., None]) \
+        / l[..., None]
+    ds = (do @ v.transpose(-1, -2) - di[..., None]) * p * scale
+    return ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
+
+
+# S under, on and past a 64-row tile and 128 rows, and several tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize('D', [32, 64])
+@pytest.mark.parametrize('S', [1, 63, 64, 65, 129, 200, 512])
+def test_flash_f32_backward_on_the_tensor_cores_matches_plain_version(
+        cuda, S, D):
+    """The float32 dK/dV and dQ kernels, 3xTF32 on the tensor cores, from
+    the forward kernel's m and l: each gradient within FLASH_TOL's 1e-4 of
+    max(1, |ref|) of the plain version in float32 and within 1e-5 of
+    max(1, |g|) of the same formulas in float64, one launch each, and
+    bit-identical on a repeat."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.RandomState(5 * S + D)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 3, S, D).astype(np.float32))
+                   .to(cuda) for _ in range(4))
+    scale = D ** -0.5
+    o, m, l = flash_attention_forward(q, k, v, scale)
+    di = (o * do).sum(-1)
+    args = (q, k, v, do, m, l, di, scale)
+    before = [fn.launches for fn in (flash_attention_bwd_dkv,
+                                     flash_attention_bwd_dq)]
+    dk, dv = flash_attention_bwd_dkv(*args)
+    dq = flash_attention_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (flash_attention_bwd_dkv,
+                                   flash_attention_bwd_dq)] \
+        == [c + 1 for c in before]
+    ref_dk, ref_dv = flash_attention_bwd_dkv_reference(*args)
+    ref_dq = flash_attention_bwd_dq_reference(*args)
+    exact = _flash_bwd64(*args)
+    for name, a, ref, ref64 in (('dq', dq, ref_dq, exact[0]),
+                                ('dk', dk, ref_dk, exact[1]),
+                                ('dv', dv, ref_dv, exact[2])):
+        assert a.dtype == torch.float32
+        tol = FLASH_TOL[torch.float32][1] * max(1.0, ref.abs().max().item())
+        assert (a - ref).abs().max().item() <= tol, name
+        tol64 = 1e-5 * max(1.0, ref64.abs().max().item())
+        assert (a.double() - ref64).abs().max().item() <= tol64, name
+    again = flash_attention_bwd_dkv(*args) + (flash_attention_bwd_dq(*args),)
+    for a, b in zip((dk, dv, dq), again):
         assert torch.equal(a, b)
 
 

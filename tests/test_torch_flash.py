@@ -9,10 +9,11 @@ stock kernel needs S to be a multiple of 128.  The forward's statistics m
 and l are held against the stock kernel's residuals at S 256.
 Tolerances: float32 atol 1e-5 (the same arithmetic summed in another
 order); bfloat16 atol 2e-2 (one rounding of p, ds and the outputs to
-bfloat16, at other places).  The float32 forward kernel runs its products
-in three tf32 passes on the tensor cores (3xTF32); a torch emulation of
-that arithmetic is held against the stock kernel here, at the float32
-limit, beside one tf32 pass, which misses it.
+bfloat16, at other places).  The float32 kernels, forward and backward,
+run their products in three tf32 passes on the tensor cores (3xTF32); a
+torch emulation of that arithmetic is held against the stock kernel and
+its custom VJP here, at the float32 limit, beside one tf32 pass, which
+misses it.
 """
 
 import functools
@@ -198,10 +199,30 @@ def _tf32_matmul(a, b, passes):
 def _tf32_forward(q, k, v, sm_scale, passes):
     """The float32 forward kernel's arithmetic on ``[B, H, S, D]``: s = q
     kᵀ, p = exp(s · sm_scale - m) unnormalised, o = (p v) / l, both
-    products in ``passes`` tf32 passes."""
+    products in ``passes`` tf32 passes; returns o, m and l (``[B, H, S,
+    1]``)."""
     s = _tf32_matmul(q, k.transpose(-1, -2), passes) * sm_scale
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    return _tf32_matmul(p, v, passes) / p.sum(-1, keepdim=True)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return _tf32_matmul(p, v, passes) / l, m, l
+
+
+def _tf32_backward(q, k, v, do, sm_scale, passes):
+    """The float32 backward kernels' arithmetic, from the forward's o, m
+    and l and ``di = sum(o · do)``: p = exp(s · sm_scale - m) / l and ds =
+    (do vᵀ - di) · p · sm_scale in float32 (not rounded), then dQ = ds k,
+    dK = dsᵀ q and dV = pᵀ do; every product (s, dp and the three
+    gradients) in ``passes`` tf32 passes, p and ds split like any
+    operand.  Returns ``(dq, dk, dv)``."""
+    o, m, l = _tf32_forward(q, k, v, sm_scale, passes)
+    di = (o * do).sum(-1, keepdim=True)
+    s = _tf32_matmul(q, k.transpose(-1, -2), passes) * sm_scale
+    p = torch.exp(s - m) / l
+    ds = (_tf32_matmul(do, v.transpose(-1, -2), passes) - di) * p * sm_scale
+    return (_tf32_matmul(ds, k, passes),
+            _tf32_matmul(ds.transpose(-1, -2), q, passes),
+            _tf32_matmul(p.transpose(-1, -2), do, passes))
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,13 +237,41 @@ def _stock_f32(S):
     return q, k, v, np.asarray(ref)
 
 
+@functools.lru_cache(maxsize=None)
+def _stock_f32_grads(S):
+    """The inputs of :func:`_stock_f32`, a cotangent ``do`` from a numpy
+    seed, and the stock kernel's float32 gradients ``(dq, dk, dv)`` by its
+    custom VJP (the dK/dV and dQ kernels), in interpret mode."""
+    q, k, v, _ = _stock_f32(S)
+    do = np.ascontiguousarray(
+        _inputs(1, S, 2, 64, seed=7, n=1)[0].transpose(0, 2, 1, 3))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(
+            lambda a, b, c: stock_flash.flash_attention(
+                a, b, c, sm_scale=64 ** -0.5),
+            *(jnp.asarray(a) for a in (q, k, v)))
+        grads = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    return q, k, v, do, grads
+
+
+def _backward_errors(S, passes):
+    """Each gradient of :func:`_tf32_backward` against the stock VJP's, as
+    a share of FLASH_TOL's float32 limit, 1e-5 of max(1, |ref|)."""
+    q, k, v, do, ref = _stock_f32_grads(S)
+    ours = _tf32_backward(*(torch.from_numpy(a) for a in (q, k, v, do)),
+                          64 ** -0.5, passes=passes)
+    return [np.abs(a.numpy() - b).max()
+            / (TYPES['float32'][2] * max(1.0, np.abs(b).max()))
+            for a, b in zip(ours, ref)]
+
+
 @pytest.mark.parametrize('S', [128, 256])
 def test_3xtf32_forward_keeps_the_float32_limit(S):
     """The f32 forward kernel's arithmetic (three tf32 passes) against the
     stock kernel in float32: within FLASH_TOL's 1e-5 of max(1, |ref|)."""
     q, k, v, ref = _stock_f32(S)
     o = _tf32_forward(*(torch.from_numpy(a) for a in (q, k, v)), 64 ** -0.5,
-                      passes=3).numpy()
+                      passes=3)[0].numpy()
     tol = TYPES['float32'][2] * max(1.0, np.abs(ref).max())
     assert np.abs(o - ref).max() <= tol
 
@@ -233,9 +282,24 @@ def test_one_tf32_pass_misses_the_float32_limit(S):
     same limit by far."""
     q, k, v, ref = _stock_f32(S)
     o = _tf32_forward(*(torch.from_numpy(a) for a in (q, k, v)), 64 ** -0.5,
-                      passes=1).numpy()
+                      passes=1)[0].numpy()
     tol = TYPES['float32'][2] * max(1.0, np.abs(ref).max())
     assert np.abs(o - ref).max() > 10 * tol
+
+
+@pytest.mark.parametrize('S', [128, 256])
+def test_3xtf32_backward_keeps_the_float32_limit(S):
+    """The f32 dK/dV and dQ kernels' arithmetic (three tf32 passes) against
+    the stock kernel's custom VJP in float32: dQ, dK and dV each within
+    1e-5 of max(1, |ref|)."""
+    assert max(_backward_errors(S, passes=3)) <= 1.0
+
+
+@pytest.mark.parametrize('S', [128, 256])
+def test_one_tf32_pass_misses_the_float32_backward_limit(S):
+    """The control: the same backward in one tf32 pass misses that limit
+    by more than 10 times in each gradient."""
+    assert min(_backward_errors(S, passes=1)) > 10.0
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():
