@@ -16,7 +16,13 @@ Phases:
                 the model hands them, P2 fused_gather_segment_sum at the
                 shapes of scripts/bench_pallas_csr.py, plus wide and edge
                 cases and, for P1 and P3, segments long enough to be split
-                across a block (up to 40 000 edges).  Per case:
+                across a block (up to 40 000 edges); K1 nei_sum, K2
+                nei_max (forward with its winners, and backward) and K3
+                graph_max_pool (forward and backward) on the inputs
+                GraphConvModel hands them in phase 11's first batch of
+                256, and on a graph with degrees 0 to 10 (F 1 to 128), tied
+                and all-tie maxima, and empty graphs with a ghost tail.
+                Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
                 µs a launch and the library call's device µs (profiler),
@@ -27,7 +33,8 @@ Phases:
                 default widths, seeded random weights, answers requests of
                 1, 16 and 31 molecules with predict_on_batch; the outputs
                 are checked and held against the same model on the CPU, and
-                P1's and P3's launches are read.
+                P1's and P3's launches are read (P3 once a layer and once
+                for the sum readout).
   5. train   -- the same model with dropout 0.1 fits the 48 molecules with
                 seeded 0/1 labels for 4 epochs (12 steps of 16); losses,
                 step-1 gradients and launches are checked.  A dropout-free
@@ -64,7 +71,17 @@ Phases:
                 must overfit.
   9. encoder gradients -- the einsum route in float32, card against CPU:
                 every parameter's step-1 gradient.
- 10. kernels -- one JSON line with each kernel's numbers.
+ 11. graphconv -- GraphConvModel at bench.py's width (layers 64 and 64,
+                dense 128, batch 256, lr 0.002, 12 tasks), seeded random
+                weights, on the 48 SMILES repeated and shuffled to 768
+                with seeded 0/1 labels: predict_on_batch answers requests
+                of 1, 16 and 31 (held against the CPU), predict_on_device
+                scores the 768, 100 requests of 16 are timed (median,
+                p90); fit_on_device trains 3 epochs (the step time over the
+                last 2; K1-K3 and P3 launches a step counted), step-1
+                gradients are held against the CPU, a fixed batch must
+                overfit, and evaluate's ROC-AUC is held against the CPU.
+ 12. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -116,6 +133,13 @@ SMILES = [
     'Cc1ccc(cc1)-c1cc(nn1-c1ccc(cc1)S(N)(=O)=O)C(F)(F)F',
 ]
 REQUESTS = (1, 16, 31)          # molecules per predict_on_batch request
+# bench.py:56-66: GraphConvModel on Tox21's 12 tasks
+GRAPHCONV = dict(n_tasks=12, graph_conv_layers=[64, 64],
+                 dense_layer_size=128, batch_size=256,
+                 mode='classification', learning_rate=0.002)
+GRAPHCONV_MOLECULES = 768       # the 48 SMILES 16 times: 3 batches of 256
+LATENCY_REQUESTS = 100          # requests of 16 molecules, timed one by one
+ROC_ATOL = 1e-6                 # evaluate's ROC-AUC, card against CPU
 # scripts/bench_pallas_csr.py:76-78, (nodes, edges, features)
 P2_BENCH_SHAPES = [(2048, 4096, 64), (2048, 4096, 256),
                    (8192, 16384, 256), (8192, 16384, 512),
@@ -460,6 +484,246 @@ def gather_case(name, h, src, row_ptr):
     return res
 
 
+def table_csr(table, deg):
+    """The COO edges ``(src, dst)`` (int64) and the CSR ``(row_ptr, col)``
+    (int32) of a neighbour table's real slots, for the library calls."""
+    import torch
+    from deepchem_tpu_torch.ops.nei_table import slot_mask
+    real = slot_mask(table, deg)
+    dst = torch.arange(table.shape[0], device=table.device)[:, None] \
+        .expand_as(table)[real]
+    src = table[real].long()
+    row_ptr = torch.zeros(table.shape[0] + 1, dtype=torch.int32,
+                          device=table.device)
+    row_ptr[1:] = torch.cumsum(deg.long(), 0)
+    return src, dst, row_ptr, src.to(torch.int32)
+
+
+def library_nei_sum(h, row_ptr, col):
+    """K1's function as one library call, for comparison only: the CSR
+    adjacency of the table's real slots times ``h``; the CSR tensor is
+    built inside the timed call."""
+    import torch
+    adj = torch.sparse_csr_tensor(
+        row_ptr, col, torch.ones(col.shape[0], dtype=h.dtype,
+                                 device=h.device),
+        (h.shape[0], h.shape[0]), check_invariants=False)
+    return torch.sparse.mm(adj, h)
+
+
+def library_nei_max(h, src, dst):
+    """K2's forward (the max only) as one library call, for comparison
+    only: ``scatter_reduce_`` 'amax' of each edge's source row into its
+    destination, self included."""
+    idx = dst[:, None].expand(-1, h.shape[1])
+    return h.clone().scatter_reduce_(0, idx, h[src], 'amax',
+                                     include_self=True)
+
+
+def library_nei_max_bwd(g, winner_idx):
+    """K2's backward as one library call, for comparison only: each
+    cotangent ``g[i, f]`` added into the row of its winner, which is ``i``
+    or one of its neighbours (the table is undirected), so this sums the
+    same terms as the kernel's gather.  ``winner_idx`` is the winners as
+    int64, which ``scatter_add_`` takes, converted outside the timing."""
+    import torch
+    return torch.zeros_like(g).scatter_add_(0, winner_idx, g)
+
+
+def library_graph_max(x, lengths, rows):
+    """K3's forward (the max only, ties not averaged, no mask) as one
+    library call, for comparison only."""
+    import torch
+    return torch.segment_reduce(x[:rows], 'max', lengths=lengths, axis=0)
+
+
+def kernel_times(res, fn, plain, kernel, bound_ms, library=None):
+    """Adds each call's time (kernel, plain, library), the kernel's
+    device µs a launch and the library call's device µs to ``res``."""
+    res.update({'ms': time_ms(fn), 'plain_ms': time_ms(plain),
+                'device_us': device_us(fn, kernel, bound_ms * 1e3),
+                'library_ms': time_ms(library) if library else None,
+                'library_device_us': None, 'library_kernels': None})
+    if library:
+        res['library_device_us'], res['library_kernels'] = \
+            device_us_all(library)
+    return res
+
+
+def nei_sum_case(name, h, table, deg):
+    """K1 and its library call against the plain version on the card."""
+    import torch
+    from deepchem_tpu_torch.ops.nei_table import nei_sum, nei_sum_reference
+    out = nei_sum(h, table, deg)
+    again = nei_sum(h, table, deg)
+    torch.cuda.synchronize()
+    ref = nei_sum_reference(h, table, deg)
+    err, tol = max_err(out, ref), sum_tol(ref)
+    src, _, row_ptr, col = table_csr(table, deg)
+    lib_err = max_err(library_nei_sum(h, row_ptr, col), ref)
+    N, F = h.shape
+    slots = src.numel()
+    rows = src.unique().numel()               # rows of h the sums read
+    bound_ms, bound_by = bound(4 * (rows * F + slots + N * F) + N,
+                               slots * F)
+    res = {'kernel': 'nei_sum', 'case': name, 'N': N, 'F': F,
+           'slots': slots, 'max_abs_err': err, 'tol': tol,
+           'repeat_identical': torch.equal(out, again),
+           'library_err': lib_err, 'bound_ms': bound_ms,
+           'bound_by': bound_by}
+    kernel_times(res, lambda: nei_sum(h, table, deg),
+                 lambda: nei_sum_reference(h, table, deg), 'nei_sum_kernel',
+                 bound_ms, lambda: library_nei_sum(h, row_ptr, col))
+    print(f'phase 3 kernel {json.dumps(res)}', flush=True)
+    check(err <= tol, f'{name}: K1 error {err} > {tol}')
+    check(lib_err <= tol, f'{name}: K1 library error {lib_err} > {tol}')
+    check(res['repeat_identical'], f'{name}: a K1 repeat differs')
+    return res
+
+
+def nei_max_cases(name, h, table, deg, g):
+    """K2's forward (max and winners) and backward against the plain
+    versions on the card: one result for each kernel."""
+    import torch
+    from deepchem_tpu_torch.ops import nei_table
+    fwd = lambda: nei_table._nei_max_forward(h, table, deg)  # noqa: E731
+    out, winner = fwd()
+    again, again_w = fwd()
+    torch.cuda.synchronize()
+    ref, ref_w = nei_table.nei_max_reference(h, table, deg)
+    bwd = lambda: nei_table._nei_max_backward(  # noqa: E731
+        g, table, deg, winner)
+    grad, grad_again = bwd(), bwd()
+    torch.cuda.synchronize()
+    ref_grad = nei_table.nei_max_backward_reference(g, table, deg, winner)
+    src, dst, _, _ = table_csr(table, deg)
+    winner_idx = winner.long()
+    N, F = h.shape
+    slots = src.numel()
+    tbl = 4 * slots + N                       # real slots, degrees
+    results = []
+    for part, (got, want, same, nbytes, kernel, fn, plain, lib) in {
+            'fwd': (out, ref, torch.equal(out, again)
+                    and torch.equal(winner, again_w),
+                    4 * 3 * N * F + tbl, 'nei_max_fwd_kernel', fwd,
+                    lambda: nei_table.nei_max_reference(h, table, deg),
+                    lambda: library_nei_max(h, src, dst)),
+            'bwd': (grad, ref_grad, torch.equal(grad, grad_again),
+                    4 * 3 * N * F + tbl, 'nei_max_bwd_kernel', bwd,
+                    lambda: nei_table.nei_max_backward_reference(
+                        g, table, deg, winner),
+                    lambda: library_nei_max_bwd(g, winner_idx))}.items():
+        bound_ms, bound_by = bound(nbytes, slots * F)
+        # the max is exact; the backward's sums may differ in order
+        tol = sum_tol(want) if part == 'bwd' else 0.0
+        res = {'kernel': f'nei_max_{part}', 'case': name, 'N': N, 'F': F,
+               'slots': slots, 'max_abs_err': max_err(got, want),
+               'tol': tol, 'repeat_identical': same,
+               'library_err': max_err(lib(), want), 'bound_ms': bound_ms,
+               'bound_by': bound_by}
+        if part == 'fwd':
+            res['winners_equal'] = torch.equal(winner, ref_w)
+        kernel_times(res, fn, plain, kernel, bound_ms, lib)
+        print(f'phase 3 kernel {json.dumps(res)}', flush=True)
+        check(res['max_abs_err'] <= tol,
+              f'{name}: K2 {part} error {res["max_abs_err"]} > {tol}')
+        check(res.get('winners_equal', True), f'{name}: K2 winners differ')
+        check(res['library_err'] <= tol,
+              f'{name}: K2 {part} library error {res["library_err"]} > '
+              f'{tol}')
+        check(same, f'{name}: a K2 {part} repeat differs')
+        results.append(res)
+    return results
+
+
+def graph_max_cases(name, x, row_ptr, mask, g):
+    """K3's forward and backward against the plain versions on the card:
+    one result for each kernel."""
+    import torch
+    from deepchem_tpu_torch.ops import segment
+    fwd = lambda: segment._graph_max_forward(  # noqa: E731
+        x, row_ptr, mask)
+    out, mx, den = fwd()
+    again = fwd()
+    torch.cuda.synchronize()
+    ref, ref_mx, ref_den = segment.graph_max_pool_reference(x, row_ptr,
+                                                            mask)
+    bwd = lambda: segment._graph_max_backward(  # noqa: E731
+        g, x, row_ptr, mask, mx, den)
+    dx, dx_again = bwd(), bwd()
+    torch.cuda.synchronize()
+    ref_dx = segment.graph_max_pool_backward_reference(g, x, row_ptr, mask,
+                                                       mx, den)
+    G = row_ptr.shape[0] - 1
+    N, F = x.shape
+    rows = int(row_ptr[-1])                   # rows in real graphs
+    lengths = (row_ptr[1:] - row_ptr[:-1]).long()
+    # the library call reads no mask: held where a graph has rows and
+    # every one is valid
+    valid_rows = torch.ones(rows, device=x.device) if mask is None \
+        else (mask[:rows] > 0).float()
+    full = (lengths > 0) & (torch.segment_reduce(
+        valid_rows, 'sum', lengths=lengths) == lengths)
+    lib_err = max_err(library_graph_max(x, lengths, rows)[full], ref[full])
+    common = 4 * (rows * F + rows + G + 1)    # x, mask, row_ptr
+    results = []
+    for part, (got, want, same, nbytes, ops, kernel, fn, plain, lib) in {
+            'fwd': (out, ref, all(torch.equal(a, b) for a, b in
+                                  zip((out, mx, den), again)),
+                    common + 4 * 3 * G * F, 2 * rows * F,
+                    'graph_max_pool_fwd_kernel', fwd,
+                    lambda: segment.graph_max_pool_reference(x, row_ptr,
+                                                             mask),
+                    lambda: library_graph_max(x, lengths, rows)),
+            'bwd': (dx, ref_dx, torch.equal(dx, dx_again),
+                    common + 4 * 3 * G * F + 4 * N * F, rows * F,
+                    'graph_max_pool_bwd_kernel', bwd,
+                    lambda: segment.graph_max_pool_backward_reference(
+                        g, x, row_ptr, mask, mx, den), None)}.items():
+        bound_ms, bound_by = bound(nbytes, ops)
+        res = {'kernel': f'graph_max_pool_{part}', 'case': name, 'N': N,
+               'F': F, 'G': G, 'max_abs_err': max_err(got, want),
+               'tol': sum_tol(want), 'repeat_identical': same,
+               'bound_ms': bound_ms, 'bound_by': bound_by}
+        if part == 'fwd':
+            res['stats_equal'] = torch.equal(mx, ref_mx) \
+                and torch.equal(den, ref_den)
+            res['library_err'] = lib_err
+        kernel_times(res, fn, plain, kernel, bound_ms, lib)
+        print(f'phase 3 kernel {json.dumps(res)}', flush=True)
+        check(res['max_abs_err'] <= res['tol'],
+              f'{name}: K3 {part} error {res["max_abs_err"]} > '
+              f'{res["tol"]}')
+        check(res.get('stats_equal', True), f'{name}: K3 max or count '
+              'differs')
+        check(lib_err <= res['tol'], f'{name}: K3 library error {lib_err}')
+        check(same, f'{name}: a K3 {part} repeat differs')
+        results.append(res)
+    return results
+
+
+def random_table(rng, n, dev):
+    """A random undirected graph of ``n`` nodes with degrees 0 to 10 (node
+    0 has ten neighbours, the last 4 nodes none), its neighbour table and
+    degrees on ``dev``."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch.ops import build_neighbor_table
+    deg = np.zeros(n, int)
+    src, dst = [], []
+    pairs = [(0, j) for j in range(1, 11)] + [
+        tuple(sorted(rng.randint(0, n - 4, 2))) for _ in range(3 * n)]
+    for a, b in dict.fromkeys(pairs):
+        if a != b and deg[a] < 10 and deg[b] < 10:
+            src += [a, b]
+            dst += [b, a]
+            deg[a] += 1
+            deg[b] += 1
+    table, mask = build_neighbor_table(np.array(src), np.array(dst), n)
+    return (torch.from_numpy(table).to(dev),
+            torch.from_numpy(mask.sum(1).astype(np.int8)).to(dev))
+
+
 def library_attention(q, k, v, scale):
     """P4's forward as one library call, for comparison only: SDPA with
     its flash backend in bfloat16 and its memory-efficient backend in
@@ -688,9 +952,10 @@ def recorded(module, attr, run):
     arguments; return them."""
     fn, seen = getattr(module, attr), []
 
-    def record(*args):
-        seen.append(tuple(a.detach().clone() for a in args))
-        return fn(*args)
+    def record(*args, **kwargs):
+        seen.append(tuple(a.detach().clone() if a is not None else None
+                          for a in args))
+        return fn(*args, **kwargs)
 
     # a wrapper counts its launches through its module's name for it, so
     # the stand-in shares the wrapper's attributes (``launches``)
@@ -717,26 +982,53 @@ def bench_graph(rng, n_nodes, n_edges, feat, dev):
 
 
 def _counted():
+    """Each kernel's launch counter: the wrapper and its attribute."""
     from deepchem_tpu_torch.ops import (csr_segment_softmax, csr_segment_sum,
                                         flash_attention,
                                         flash_attention_bwd_dkv,
                                         flash_attention_bwd_dq,
-                                        fused_gather_segment_sum)
-    return {'csr_segment_softmax': csr_segment_softmax,
-            'csr_segment_sum': csr_segment_sum,
-            'fused_gather_segment_sum': fused_gather_segment_sum,
-            'flash_attention_fwd': flash_attention,
-            'flash_attention_dkv': flash_attention_bwd_dkv,
-            'flash_attention_dq': flash_attention_bwd_dq}
+                                        fused_gather_segment_sum,
+                                        graph_max_pool, nei_max_incl_self,
+                                        nei_sum)
+    return {'csr_segment_softmax': (csr_segment_softmax, 'launches'),
+            'csr_segment_sum': (csr_segment_sum, 'launches'),
+            'fused_gather_segment_sum': (fused_gather_segment_sum,
+                                         'launches'),
+            'flash_attention_fwd': (flash_attention, 'launches'),
+            'flash_attention_dkv': (flash_attention_bwd_dkv, 'launches'),
+            'flash_attention_dq': (flash_attention_bwd_dq, 'launches'),
+            'nei_sum': (nei_sum, 'launches'),
+            'nei_sum_bwd': (nei_sum, 'backward_launches'),
+            'nei_max_fwd': (nei_max_incl_self, 'launches'),
+            'nei_max_bwd': (nei_max_incl_self, 'backward_launches'),
+            'graph_max_pool_fwd': (graph_max_pool, 'launches'),
+            'graph_max_pool_bwd': (graph_max_pool, 'backward_launches')}
 
 
 def launch_counts():
-    return {k: fn.launches for k, fn in _counted().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counted().items()}
 
 
 def reset_launch_counts():
-    for fn in _counted().values():
-        fn.launches = 0
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
+
+
+def graphconv_data():
+    """The 48 SMILES featurized for GraphConvModel, repeated and shuffled
+    from a seed to GRAPHCONV_MOLECULES, with seeded 0/1 labels for its 12
+    tasks."""
+    import numpy as np
+    from deepchem_tpu_torch import ConvMolFeaturizer
+    X48 = ConvMolFeaturizer().featurize(SMILES)
+    check(all(hasattr(g, 'num_nodes') for g in X48),
+          'every molecule featurizes for GraphConv')
+    reps = GRAPHCONV_MOLECULES // len(SMILES)
+    order = np.random.RandomState(0).permutation(
+        np.tile(np.arange(len(SMILES)), reps))
+    labels = np.random.RandomState(1).randint(
+        0, 2, (len(order), GRAPHCONV['n_tasks'])).astype(np.float32)
+    return X48[order], labels
 
 
 def step1_grads(store):
@@ -782,7 +1074,7 @@ def main() -> int:
         build.load(kname)
     print(f'phase 2 build: {len(build.kernel_names())} kernel(s) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    check(len(build.kernel_names()) == 4, 'four kernel sources to build')
+    check(len(build.kernel_names()) == 6, 'six kernel sources to build')
     for kname in build.kernel_names():
         ptxas = [ln.strip() for ln in build.build_log(kname).splitlines()
                  if 'registers' in ln or 'spill' in ln]
@@ -797,7 +1089,9 @@ def main() -> int:
     from deepchem_tpu_torch.models import graph_models
     from deepchem_tpu_torch.ops import (NEG, csr_segment, csr_segment_softmax,
                                         flash_attention,
-                                        fused_gather_segment_sum, segment)
+                                        fused_gather_segment_sum,
+                                        graph_max_pool, nei_max_incl_self,
+                                        segment)
     t0 = time.perf_counter()
     X = PagtnMolGraphFeaturizer().featurize(SMILES)
     sizes = [g.num_nodes for g in X if hasattr(g, 'num_nodes')]
@@ -933,6 +1227,76 @@ def main() -> int:
         check(tuple(o.shape) == (rp_.shape[0] - 1, h.shape[1])
               and bool(torch.isfinite(o).all()), 'P2 outputs finite')
 
+    # K1-K3 at the inputs GraphConvModel hands them in phase 11's first
+    # batch of 256, then at edge cases
+    from deepchem_tpu_torch import GraphConvModel
+    from deepchem_tpu_torch.models import graph_layers
+    gc_X, gc_labels = graphconv_data()
+    gc_model = GraphConvModel(**GRAPHCONV, device=dev, seed=0)
+    gc_batch = gc_X[:GRAPHCONV['batch_size']]
+    gc_sum_in = recorded(graph_layers, 'nei_sum',
+                         lambda: gc_model.predict_on_batch(gc_batch))
+    gc_max_in = recorded(graph_layers, 'nei_max_incl_self',
+                         lambda: gc_model.predict_on_batch(gc_batch))
+    gc_pool_in = recorded(segment, 'graph_max_pool',
+                          lambda: gc_model.predict_on_batch(gc_batch))
+    n_gc_layers = len(GRAPHCONV['graph_conv_layers'])
+    check(len(gc_sum_in) == len(gc_max_in) == n_gc_layers
+          and len(gc_pool_in) == 1, 'K1 and K2 once a layer, K3 once')
+    check([a[0].shape[1] for a in gc_sum_in] == [75, 64]
+          and gc_pool_in[0][0].shape[1] == GRAPHCONV['dense_layer_size'],
+          'K1 at F 75 and 64, K3 at F 128 on the path')
+    gen = torch.Generator(dev).manual_seed(2)
+    nei_cases = [nei_sum_case(f'graphconv_batch256_layer{i}', *a)
+                 for i, a in enumerate(gc_sum_in)]
+    max_cases = [nei_max_cases(f'graphconv_batch256_layer{i}', *a,
+                               torch.randn(a[0].shape, generator=gen,
+                                           device=dev))
+                 for i, a in enumerate(gc_max_in)]
+    x, rp_, mask_ = gc_pool_in[0]
+    pool_cases = [graph_max_cases(
+        'graphconv_batch256_readout', x, rp_, mask_,
+        torch.randn((rp_.shape[0] - 1, x.shape[1]), generator=gen,
+                    device=dev))]
+    # degrees 0 to 10 (a node with ten neighbours); integer values in
+    # 0..2, half of them zeros, so most maxima tie; all ties
+    table_, deg_ = random_table(rng, 1000, dev)
+    for F in (1, 32, 64, 75, 128):
+        h = torch.from_numpy(rng.randn(1000, F).astype(np.float32)).to(dev)
+        nei_cases.append(nei_sum_case(f'degrees_0_10_F{F}', h, table_,
+                                      deg_))
+    for F in (1, 75):
+        h = torch.from_numpy(np.maximum(rng.randint(-2, 3, (1000, F)), 0)
+                             .astype(np.float32)).to(dev)
+        max_cases.append(nei_max_cases(
+            f'ties_degrees_0_10_F{F}', h, table_, deg_,
+            torch.randn((1000, F), generator=gen, device=dev)))
+    max_cases.append(nei_max_cases(
+        'all_ties_F64', torch.zeros(1000, 64, device=dev), table_, deg_,
+        torch.randn((1000, 64), generator=gen, device=dev)))
+    _, win = nei_max_incl_self(torch.zeros(1000, 64, device=dev), table_,
+                               deg_, return_winner=True)
+    check(bool((win == torch.arange(1000, device=dev)[:, None]).all()),
+          'K2: self wins an all-tie max')
+    # graphs of 3, 5, 0, 1, 40, 0 and 17 rows, 2 empty slots, a ghost
+    # tail of 20 rows; integer values (ties), one masked row
+    sizes = [3, 5, 0, 1, 40, 0, 17]
+    G = len(sizes) + 2
+    pool_rp = torch.tensor(np.concatenate([[0], np.cumsum(
+        sizes + [0, 0])]), dtype=torch.int32, device=dev)
+    N = sum(sizes) + 20
+    pool_mask = (torch.arange(N, device=dev) < sum(sizes)).float()
+    pool_mask[4] = 0.0
+    for F in (1, 37, 128):
+        x = torch.from_numpy(rng.randint(-3, 3, (N, F)).astype(
+            np.float32)).to(dev)
+        pool_cases.append(graph_max_cases(
+            f'empty_graphs_ties_F{F}', x, pool_rp, pool_mask,
+            torch.randn((G, F), generator=gen, device=dev)))
+    out = graph_max_pool(torch.full((N, 4), NEG, device=dev), pool_rp,
+                         pool_mask)
+    check(bool((out == 0).all()), 'K3: rows at NEG and empty graphs give 0')
+
     # -- 4. serve ---------------------------------------------------------
     model.predict_on_batch(X[1:17])             # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
@@ -949,10 +1313,13 @@ def main() -> int:
           f'{n_batches} batches, ms per request '
           f'{[round(t, 3) for t in request_ms]}, launches {serve}',
           flush=True)
-    for k in ('csr_segment_softmax', 'csr_segment_sum'):
-        check(serve[k] == n_layers * n_batches,
-              f'{k}: {serve[k]} launches != {n_layers} layers x '
-              f'{n_batches} batches')
+    check(serve['csr_segment_softmax'] == n_layers * n_batches,
+          f'P1: {serve["csr_segment_softmax"]} launches != {n_layers} '
+          f'layers x {n_batches} batches')
+    # P3 once a layer, and once for the sum readout (graph_pool)
+    check(serve['csr_segment_sum'] == (n_layers + 1) * n_batches,
+          f'P3: {serve["csr_segment_sum"]} launches != {n_layers + 1} x '
+          f'{n_batches} batches')
     cpu_model = PagtnModel(n_tasks=12, mode='classification', device='cpu')
     cpu_model.module.load_state_dict(
         {k: v.cpu() for k, v in model.module.state_dict().items()})
@@ -1003,8 +1370,10 @@ def main() -> int:
           flush=True)
     check(train['csr_segment_softmax'] == n_layers * steps,
           f'P1 launches {train["csr_segment_softmax"]} != {n_layers} a step')
-    check(train['csr_segment_sum'] == 2 * n_layers * steps,
-          f'P3 launches {train["csr_segment_sum"]} != {2 * n_layers} a step')
+    # P3 in each layer and P1's backward, and the sum readout's forward
+    check(train['csr_segment_sum'] == (2 * n_layers + 1) * steps,
+          f'P3 launches {train["csr_segment_sum"]} != {2 * n_layers + 1} a '
+          f'step')
 
     # a dropout-free copy on the card and on the CPU, from the same weights
     copies, copy_losses, copy_grads = [], [], []
@@ -1253,7 +1622,146 @@ def main() -> int:
           f'{CPU_ATOL}')
     del models, steps
 
-    # -- 10. kernels line -------------------------------------------------
+    # -- 11. GraphConvModel, bench.py's main path ------------------------
+    gc_ds = NumpyDataset(gc_X, gc_labels, np.ones_like(gc_labels))
+    B = GRAPHCONV['batch_size']
+    # per batch of the forward: K1 and K2 once a layer, K3 and P3 once
+    per_batch = {'nei_sum': n_gc_layers, 'nei_max_fwd': n_gc_layers,
+                 'graph_max_pool_fwd': 1, 'csr_segment_sum': 1}
+    gc_model.predict_on_batch(gc_X[:16])                 # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, request_ms, start = [], [], 0
+    for n in REQUESTS:
+        t0 = time.perf_counter()
+        outs.append(gc_model.predict_on_batch(gc_X[start:start + n]))
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        start += n
+    gc_serve = launch_counts()
+    cpu_gc = GraphConvModel(**GRAPHCONV, device='cpu')
+    cpu_gc.module.load_state_dict(
+        {k: v.cpu() for k, v in gc_model.module.state_dict().items()})
+    worst, start = 0.0, 0
+    for n, out in zip(REQUESTS, outs):
+        check(out.shape == (n, 12, 2) and bool(np.isfinite(out).all())
+              and np.allclose(out.sum(-1), 1.0, atol=1e-5),
+              f'GraphConv output [{n}, 12, 2], finite, rows sum to 1')
+        ref = cpu_gc.predict_on_batch(gc_X[start:start + n])
+        worst = max(worst, float(np.abs(out - ref).max()))
+        start += n
+    print(f'phase 11 graphconv serve ({smi}): requests {list(REQUESTS)} '
+          f'molecules, ms per request {[round(t, 3) for t in request_ms]}; '
+          f'max abs diff against the CPU run {worst:.3g}; launches '
+          f'{gc_serve}', flush=True)
+    check(worst <= CPU_ATOL, f'GraphConv card vs CPU {worst} > {CPU_ATOL}')
+    for k, v in launch_counts().items():
+        want = per_batch.get(k, 0) * len(REQUESTS)
+        check(gc_serve[k] == want, f'GraphConv serve: {k} launched '
+              f'{gc_serve[k]} times, not {want}')
+    t0 = time.perf_counter()
+    every = gc_model.predict_on_device(gc_ds)
+    on_device_ms = (time.perf_counter() - t0) * 1e3
+    by_batch = gc_model.predict(gc_ds)
+    on_device_err = float(np.abs(every - by_batch).max())
+    check(every.shape == (GRAPHCONV_MOLECULES, 12, 2)
+          and bool(np.isfinite(every).all()) and on_device_err <= CPU_ATOL,
+          f'predict_on_device over {GRAPHCONV_MOLECULES}: finite, within '
+          f'{CPU_ATOL} of predict ({on_device_err})')
+    latency = []
+    for i in range(LATENCY_REQUESTS):
+        lo = (16 * i) % (GRAPHCONV_MOLECULES - 16)
+        t0 = time.perf_counter()
+        gc_model.predict_on_batch(gc_X[lo:lo + 16])
+        latency.append((time.perf_counter() - t0) * 1e3)
+    p50, p90 = np.percentile(latency, [50, 90])
+    print(f'phase 11 graphconv serve ({smi}): predict_on_device over '
+          f'{GRAPHCONV_MOLECULES} molecules in {on_device_ms:.3f} ms, within '
+          f'{on_device_err:.3g} of predict; {LATENCY_REQUESTS} requests of '
+          f'16 molecules: median {p50:.3f} ms, p90 {p90:.3f} ms', flush=True)
+
+    # training: fit_on_device, 3 epochs of 3 steps of 256
+    trainer = GraphConvModel(**GRAPHCONV, device=dev, seed=1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    epoch_losses = []
+    trainer.fit_on_device(gc_ds, nb_epoch=1, seed=0,
+                          all_losses=epoch_losses)   # uploads, warms up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit_on_device(gc_ds, nb_epoch=2, seed=1,
+                          all_losses=epoch_losses)
+    torch.cuda.synchronize()
+    S = -(-GRAPHCONV_MOLECULES // B)
+    gc_step_ms = (time.perf_counter() - t0) * 1e3 / (2 * S)
+    gc_train = launch_counts()
+    gc_steps = trainer.get_global_step()
+    print(f'phase 11 graphconv train ({smi}): fit_on_device, {gc_steps} '
+          f'steps of {B} molecules, {gc_step_ms:.3f} ms a step over the '
+          f'last 2 epochs; loss per epoch '
+          f'{[round(v, 5) for v in epoch_losses]}; launches {gc_train}',
+          flush=True)
+    check(gc_steps == 3 * S and len(epoch_losses) == 3
+          and bool(np.all(np.isfinite(epoch_losses))),
+          f'{3 * S} steps, 3 finite epoch losses')
+    # a step: the forward's launches, K1's backward once (layer 1's input
+    # needs no gradient), K2's twice, K3's once; P3's backward is a gather
+    per_step = dict(per_batch, nei_sum_bwd=1, nei_max_bwd=n_gc_layers,
+                    graph_max_pool_bwd=1)
+    for k in gc_train:
+        want = per_step.get(k, 0) * gc_steps
+        check(gc_train[k] == want, f'GraphConv train: {k} launched '
+              f'{gc_train[k]} times, not {want}')
+
+    # step-1 gradients, card against CPU, from the same weights
+    grads = []
+    for device in (dev, 'cpu'):
+        m = GraphConvModel(**GRAPHCONV, device=device, log_frequency=1)
+        m.module.load_state_dict({k: v.to(device) for k, v in
+                                  gc_model.module.state_dict().items()})
+        grads.append({})
+        m.fit(NumpyDataset(gc_X[:B], gc_labels[:B]), nb_epoch=1,
+              checkpoint_interval=0, callbacks=step1_grads(grads[-1]))
+    gc_grad_err = max((grads[0][n] - g).abs().max().item()
+                      for n, g in grads[1].items())
+    zero = [n for n, g in grads[0].items() if not g.abs().max() > 0]
+    print(f'phase 11 graphconv train: step-1 gradients, card against CPU, '
+          f'max abs diff {gc_grad_err:.3g} over {len(grads[1])} parameters; '
+          f'zero gradients: {zero}', flush=True)
+    check(gc_grad_err <= GRAD_ATOL, f'GraphConv step-1 gradients '
+          f'{gc_grad_err} > {GRAD_ATOL}')
+    del grads
+    # one fixed batch of 256 at bench.py's rate
+    overfit = GraphConvModel(**GRAPHCONV, device=dev, seed=2)
+    fixed = []
+    overfit.fit_on_device(NumpyDataset(gc_X[:B], gc_labels[:B]),
+                          nb_epoch=50, all_losses=fixed)
+    below = next((i + 1 for i, v in enumerate(fixed) if v < 0.9 * fixed[0]),
+                 None)
+    print(f'phase 11 graphconv train: one fixed batch of {B}, lr '
+          f'{GRAPHCONV["learning_rate"]}: loss {fixed[0]:.5f} at step 1, '
+          f'{min(fixed):.5f} at best, below 0.9 of the first at step '
+          f'{below}', flush=True)
+    check(below is not None, 'the loss falls below 0.9 of its first value '
+          'within 50 steps')
+    del overfit
+
+    # scoring: ROC-AUC over the 768, card against CPU
+    from deepchem_tpu_torch import Metric, roc_auc_score
+    metric = Metric(roc_auc_score, np.mean)
+    cpu_gc.module.load_state_dict(
+        {k: v.cpu() for k, v in trainer.module.state_dict().items()})
+    t0 = time.perf_counter()
+    auc = trainer.evaluate(gc_ds, [metric])['roc_auc_score']
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    cpu_auc = cpu_gc.evaluate(gc_ds, [metric])['roc_auc_score']
+    print(f'phase 11 graphconv evaluate ({smi}): ROC-AUC {auc:.6f} on the '
+          f'card in {eval_ms:.3f} ms, {cpu_auc:.6f} on the CPU', flush=True)
+    check(bool(np.isfinite(auc)) and abs(auc - cpu_auc) <= ROC_ATOL,
+          f'ROC-AUC {auc} finite and within {ROC_ATOL} of the CPU\'s '
+          f'{cpu_auc}')
+    del cpu_gc, trainer
+
+    # -- 12. kernels line -------------------------------------------------
     def entry(kname, cases, main_case, path_launches, source=None, **extra):
         return {'name': kname, 'route': 'cuda',
                 'source': source or f'deepchem_tpu_torch/csrc/{kname}.cu',
@@ -1278,7 +1786,9 @@ def main() -> int:
                                             for c in backward_cases)})
     p3 = entry('csr_segment_sum', sum_cases, sum_cases[0],
                {'serve': serve['csr_segment_sum'],
-                'train': train['csr_segment_sum']},
+                'train': train['csr_segment_sum'],
+                'graphconv_serve': gc_serve['csr_segment_sum'],
+                'graphconv_train': gc_train['csr_segment_sum']},
                replaces='deepchem_tpu/ops/pallas_segment.py:45')
     # P2 has no model path: its row is its widest bench shape
     p2 = entry('fused_gather_segment_sum', gather_cases,
@@ -1306,6 +1816,37 @@ def main() -> int:
                 (('serve_flash', serve_flash),
                  ('train_flash_f32', train_flash_f32))}})
         for part, line in stock.items())
+    # K1-K3: custom-VJP XLA ops in the JAX package, no Pallas kernel
+    def gc_paths(key):
+        return {'graphconv_serve': gc_serve[key],
+                'graphconv_train': gc_train[key]}
+    xla_op = 'a custom-VJP XLA op, no Pallas kernel'
+    fwd_max = [c[0] for c in max_cases]
+    bwd_max = [c[1] for c in max_cases]
+    k1 = entry('nei_sum', nei_cases, nei_cases[0],
+               {'graphconv_serve': gc_serve['nei_sum'],
+                'graphconv_train': gc_train['nei_sum']
+                + gc_train['nei_sum_bwd']},
+               source='deepchem_tpu_torch/csrc/nei_table.cu',
+               replaces=f'deepchem_tpu/ops/nei_table.py:85 (nei_sum and '
+                        f'its backward, _slot_sum :75; {xla_op})')
+    k2 = (entry('nei_max_fwd', fwd_max, fwd_max[0], gc_paths('nei_max_fwd'),
+                source='deepchem_tpu_torch/csrc/nei_table.cu',
+                replaces=f'deepchem_tpu/ops/nei_table.py:104 '
+                         f'(nei_max_incl_self, _nei_max_fwd_impl :112; '
+                         f'{xla_op})'),
+          entry('nei_max_bwd', bwd_max, bwd_max[0], gc_paths('nei_max_bwd'),
+                source='deepchem_tpu_torch/csrc/nei_table.cu',
+                replaces=f'deepchem_tpu/ops/nei_table.py:132 '
+                         f'(_nei_max_bwd; {xla_op})'))
+    k3 = tuple(entry(
+        f'graph_max_pool_{part}', [c[i] for c in pool_cases],
+        pool_cases[0][i], gc_paths(f'graph_max_pool_{part}'),
+        source='deepchem_tpu_torch/csrc/graph_pool.cu',
+        replaces=f'deepchem_tpu/ops/segment.py:173 (segment_max_sumgrad '
+                 f'{"forward" if part == "fwd" else "backward"} in '
+                 f'graph_pool(..., "max") :214; {xla_op})')
+        for i, part in enumerate(('fwd', 'bwd')))
     print(json.dumps({'kernels': [
         {k: e[k] for k in ('name', 'route', 'source', 'replaces', 'launches',
                            'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
@@ -1313,7 +1854,7 @@ def main() -> int:
         | {k: v for k, v in e.items() if k in (
             'device_us', 'launches_by_path', 'backward', 'library_device_us',
             'backward_device_us', 'float32')}
-        for e in (p1, p3, p2) + p4]}), flush=True)
+        for e in (p1, p3, p2) + p4 + (k1,) + k2 + k3]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

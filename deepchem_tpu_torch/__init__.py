@@ -7,8 +7,12 @@ the caller passes ``device='cpu'``.
 """
 
 from deepchem_tpu_torch.data import NumpyDataset
-from deepchem_tpu_torch.feat import PagtnMolGraphFeaturizer, SmilesTokenizer
-from deepchem_tpu_torch.models import BertEncoderMLM, PagtnModel
+from deepchem_tpu_torch.feat import (ConvMolFeaturizer,
+                                     PagtnMolGraphFeaturizer, SmilesTokenizer)
+from deepchem_tpu_torch.metrics import Metric, roc_auc_score
+from deepchem_tpu_torch.models import (BertEncoderMLM, GraphConvModel,
+                                       PagtnModel)
 
-__all__ = ['BertEncoderMLM', 'NumpyDataset', 'PagtnMolGraphFeaturizer',
-           'PagtnModel', 'SmilesTokenizer']
+__all__ = ['BertEncoderMLM', 'ConvMolFeaturizer', 'GraphConvModel', 'Metric',
+           'NumpyDataset', 'PagtnMolGraphFeaturizer', 'PagtnModel',
+           'SmilesTokenizer', 'roc_auc_score']

@@ -104,6 +104,12 @@ class Atom:
             return float(self.isotope)
         return ATOMIC_MASS.get(self.atomic_num, 2.0 * self.atomic_num)
 
+    @property
+    def implicit_valence(self) -> int:
+        """Implicit hydrogens: 0 for a bracket atom with its hydrogens
+        written out, as RDKit's ``GetImplicitValence``."""
+        return 0 if self.explicit_hs >= 0 else self.implicit_hs
+
 
 @dataclass
 class Bond:

@@ -1,10 +1,21 @@
-"""Atom/bond one-hot helpers used by the PAGTN featurizer."""
+"""Atom/bond one-hot helpers of the PAGTN featurizer, and the 75-column
+atom features of the GraphConv featurizer."""
 
 from __future__ import annotations
 
 from typing import Any, List, Sequence
 
-from deepchem_tpu_torch.chem.mol import Atom, Bond
+import numpy as np
+
+from deepchem_tpu_torch.chem.mol import Atom, Bond, Molecule
+
+# the GraphConv featurizer's atom symbol vocabulary (44 symbols)
+GRAPH_CONV_SYMBOLS = [
+    'C', 'N', 'O', 'S', 'F', 'Si', 'P', 'Cl', 'Br', 'Mg', 'Na', 'Ca', 'Fe',
+    'As', 'Al', 'I', 'B', 'V', 'K', 'Tl', 'Yb', 'Sb', 'Sn', 'Ag', 'Pd', 'Co',
+    'Se', 'Ti', 'Zn', 'H', 'Li', 'Ge', 'Cu', 'Au', 'Ni', 'Cd', 'In', 'Mn',
+    'Zr', 'Cr', 'Pt', 'Hg', 'Pb', 'Unknown',
+]
 
 DEFAULT_HYBRIDIZATIONS = ['SP', 'SP2', 'SP3']
 DEFAULT_BOND_TYPES = ['SINGLE', 'DOUBLE', 'TRIPLE', 'AROMATIC']
@@ -38,3 +49,44 @@ def get_bond_type_one_hot(bond: Bond,
                           include_unknown_set: bool = False) -> List[float]:
     return one_hot_encode(bond.type_name(), allowable_set,
                           include_unknown_set)
+
+
+_SYM75_IDX = {s: i for i, s in enumerate(GRAPH_CONV_SYMBOLS[:-1])}
+_HYB75_IDX = {'SP': 0, 'SP2': 1, 'SP3': 2, 'SP3D': 3, 'SP3D2': 4}
+
+
+def atom_features_75_mol(mol: Molecule, use_chirality: bool = False,
+                         hydrogens_implicit: bool = True) -> np.ndarray:
+    """``[n_atoms, 75]`` float32 atom features of a molecule, column by
+    column as the JAX package's: symbol one-hot (44, the last for any other
+    element), degree 0-10 (11), implicit valence 0-6 (7), formal charge,
+    radical electrons, hybridization SP..SP3D2 (5), aromatic, total
+    hydrogens 0-4 (5; with ``hydrogens_implicit``); with ``use_chirality``
+    three more: R (``@@``), S (``@``), and a column of zeros."""
+    n = mol.num_atoms
+    width = 70 + (5 if hydrogens_implicit else 0) \
+        + (3 if use_chirality else 0)
+    out = np.zeros((n, width), dtype=np.float32)
+    for i, a in enumerate(mol.atoms):
+        row = out[i]
+        row[_SYM75_IDX.get(a.symbol, 43)] = 1.0
+        if 0 <= a.degree < 11:
+            row[44 + a.degree] = 1.0
+        iv = a.implicit_valence
+        if 0 <= iv < 7:
+            row[55 + iv] = 1.0
+        row[62] = a.formal_charge
+        row[63] = a.num_radical_electrons
+        h = _HYB75_IDX.get(a.hybridization)
+        if h is not None:
+            row[64 + h] = 1.0
+        row[69] = 1.0 if a.is_aromatic else 0.0
+        col = 70
+        if hydrogens_implicit:
+            if 0 <= a.total_hs < 5:
+                row[70 + a.total_hs] = 1.0
+            col = 75
+        if use_chirality:
+            row[col] = 1.0 if a.chirality == '@@' else 0.0
+            row[col + 1] = 1.0 if a.chirality == '@' else 0.0
+    return out

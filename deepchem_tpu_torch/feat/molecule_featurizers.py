@@ -82,3 +82,39 @@ class PagtnMolGraphFeaturizer(MolecularFeaturizer):
         ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
         return GraphData(atom_feats, ei,
                          np.asarray(efeats, dtype=np.float32))
+
+
+class ConvMolFeaturizer(MolecularFeaturizer):
+    """GraphConv featurizer: 75 atom features a row
+    (:func:`atom_features_75_mol`) and COO edges, both directions of each
+    bond in bond order, ``[a1 -> a2, a2 -> a1]``.  So a node's neighbours
+    stand in its neighbour-table row in bond order, which decides the ties
+    of the neighbour max.
+
+    ``master_atom`` appends a node holding the mean of the atom features,
+    joined to every atom; ``use_chirality`` adds three chirality columns.
+    Every molecule takes the Python parser: the JAX package's native C++
+    parse path is not ported.
+    """
+
+    def __init__(self, master_atom: bool = False,
+                 use_chirality: bool = False):
+        self.master_atom = master_atom
+        self.use_chirality = use_chirality
+
+    def _featurize(self, mol: Molecule) -> GraphData:
+        feats = fu.atom_features_75_mol(mol,
+                                        use_chirality=self.use_chirality)
+        src, dst = [], []
+        for b in mol.bonds:
+            src += [b.a1, b.a2]
+            dst += [b.a2, b.a1]
+        if self.master_atom:
+            feats = np.concatenate([feats, feats.mean(axis=0,
+                                                      keepdims=True)])
+            mi = len(feats) - 1
+            for i in range(mol.num_atoms):
+                src += [i, mi]
+                dst += [mi, i]
+        ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
+        return GraphData(feats, ei)

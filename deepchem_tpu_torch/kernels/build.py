@@ -17,6 +17,7 @@ this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -96,6 +97,37 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def c_entry(source: str, symbol: str, n_ptrs: int, n_ints: int,
+            n_floats: int = 0):
+    """The C function ``symbol`` of ``csrc/<source>.cu``, built at first
+    use: ``n_ptrs`` pointers, ``n_ints`` ints, ``n_floats`` floats, then
+    the stream, all declared (``c_void_p``, ``c_int``, ``c_float``) so that
+    ctypes cuts no pointer; it returns the launch's ``cudaError_t`` as an
+    int."""
+    fn = getattr(load(source), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(source: str, symbol: str, tensors, ints, floats=()) -> None:
+    """Launch the C entry ``symbol`` of ``csrc/<source>.cu`` on the current
+    stream of the first tensor's device: the tensors' pointers (None for
+    a null one), then ``ints``, then ``floats``; raise on the launch's
+    error code.  Every kernel wrapper of the package launches through
+    here."""
+    import torch
+    dev = tensors[0].device
+    fn = c_entry(source, symbol, len(tensors), len(ints), len(floats))
+    with torch.cuda.device(dev):
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                 *ints, *floats, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{symbol} launch failed: cudaError {err}')
 
 
 def build_log(name: str) -> str:

@@ -1,7 +1,7 @@
 """Load flax parameters, flattened to ``{'params/<scope>/<name>': array}``
 (the JAX package's ``jax_model._flatten_params``), into the port's
-modules: the PAGTN module (:func:`params_from_flax`) and the encoder
-(:func:`encoder_params_from_flax`)."""
+modules: the PAGTN and GraphConv modules (:func:`params_from_flax`) and
+the encoder (:func:`encoder_params_from_flax`)."""
 
 from __future__ import annotations
 
@@ -12,23 +12,34 @@ import numpy as np
 import torch
 from torch import nn
 
-# flax scope -> attribute path of the port's module
+# flax scope -> attribute path of the PAGTN module; a module names its own
+# in ``flax_scopes``
 _SCOPES = {'Dense_0': 'readout', 'Dense_1': 'head'}
-_LAYER = re.compile(r'pagtn_(\d+)$')
+# numbered flax scopes -> the port's module lists
+_LISTS = [(re.compile(r'pagtn_(\d+)$'), 'layers'),
+          (re.compile(r'GraphConv_(\d+)$'), 'convs'),
+          (re.compile(r'MaskedBatchNorm_(\d+)$'), 'norms')]
+# flax leaf -> torch leaf: Dense kernels (transposed) and biases, GraphConv's
+# per-degree weights, MaskedBatchNorm's scale
+_LEAVES = {'kernel': 'weight', 'bias': 'bias', 'W_self': 'W_self',
+           'W_nbr': 'W_nbr', 'b': 'b', 'scale': 'scale'}
 
 
-def _torch_name(key: str) -> str:
+def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES) -> str:
     parts = key.split('/')
     if len(parts) < 3 or parts[0] != 'params' \
-            or parts[-1] not in ('kernel', 'bias'):
-        raise KeyError(f'not a flax Dense parameter: {key!r}')
-    scopes = []
+            or parts[-1] not in _LEAVES:
+        raise KeyError(f'not a flax graph-model parameter: {key!r}')
+    names = []
     for scope in parts[1:-1]:
-        m = _LAYER.match(scope)
-        scopes.append(f'layers.{m.group(1)}' if m
-                      else _SCOPES.get(scope, scope))
-    leaf = 'weight' if parts[-1] == 'kernel' else 'bias'
-    return '.'.join(scopes + [leaf])
+        for pattern, attr in _LISTS:
+            m = pattern.match(scope)
+            if m:
+                names.append(f'{attr}.{m.group(1)}')
+                break
+        else:
+            names.append(scopes.get(scope, scope))
+    return '.'.join(names + [_LEAVES[parts[-1]]])
 
 
 def _tensor(key: str, value) -> torch.Tensor:
@@ -39,10 +50,16 @@ def _tensor(key: str, value) -> torch.Tensor:
 
 
 def params_from_flax(flat: Dict[str, np.ndarray], module: nn.Module) -> None:
-    """Copy ``flat`` into ``module`` in place.  Each Dense kernel ``[in,
-    out]`` becomes the ``nn.Linear`` weight ``[out, in]``.  Raises on a
-    missing or extra key and on a shape that differs."""
-    _load({_torch_name(key): _tensor(key, value)
+    """Copy ``flat`` into a graph model's ``module`` in place:
+    ``pagtn_<i>``, ``GraphConv_<i>`` and ``MaskedBatchNorm_<i>`` become
+    ``layers.<i>``, ``convs.<i>`` and ``norms.<i>``, each ``Dense_<i>`` the
+    attribute the module's ``flax_scopes`` names, and each Dense kernel
+    ``[in, out]`` the ``nn.Linear`` weight ``[out, in]``; GraphConv's
+    ``W_self``, ``W_nbr``, ``b`` and MaskedBatchNorm's ``scale`` and
+    ``bias`` keep their names and shapes.  Raises on a missing or extra key
+    and on a shape that differs."""
+    scopes = getattr(module, 'flax_scopes', _SCOPES)
+    _load({_torch_name(key, scopes): _tensor(key, value)
            for key, value in flat.items()}, module)
 
 

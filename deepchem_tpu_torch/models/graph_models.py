@@ -1,15 +1,16 @@
-"""Graph models on the padded COO batch layout: the PAGTN slice.
+"""Graph models on the padded COO batch layout: PAGTN and GraphConv.
 
 Counterparts of ``deepchem_tpu/models/graph_models.py``'s ``GraphModel``
 batching (single device), ``_heads``, ``_gnn_loss_outputs``,
-``PagtnLayer``, ``_PagtnModule`` and ``PagtnModel``.  A batch of
-``GraphData`` becomes fixed-shape padded arrays with masks
-(``feat/graph_data.py``), bucketed by node and edge quanta.
+``PagtnLayer``, ``_PagtnModule``, ``PagtnModel``, ``_GraphConvModule`` and
+``GraphConvModel``.  A batch of ``GraphData`` becomes fixed-shape padded
+arrays with masks (``feat/graph_data.py``), bucketed by node and edge
+quanta, plus a neighbour table for the models that aggregate through one.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,11 +20,15 @@ from torch import nn
 from deepchem_tpu_torch.data import NumpyDataset, pad_batch
 from deepchem_tpu_torch.feat.graph_data import BatchGraphData, bucket_caps
 from deepchem_tpu_torch.metrics import to_one_hot
+from deepchem_tpu_torch.models.graph_layers import (GraphConv, GraphGather,
+                                                    MaskedBatchNorm,
+                                                    graph_pool_max)
 from deepchem_tpu_torch.models.losses import L2Loss, SoftmaxCrossEntropy
 from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.models.torch_model import TorchModel
 from deepchem_tpu_torch.ops import (csr_row_ptr, csr_segment_sum, graph_pool,
                                     segment_softmax_sorted)
+from deepchem_tpu_torch.ops.nei_table import build_neighbor_table
 
 
 def dense(in_features: int, out_features: int,
@@ -45,38 +50,99 @@ class GraphModel(TorchModel):
     """Pads ragged graph batches into bucketed static shapes for the
     module.
 
-    Batches carry edge features and arrive sorted by edge destination, as
-    the CSR segment softmax needs; every other COO op is edge-order
-    invariant, so the sort changes nothing else.  The JAX ``GraphModel``
-    makes both a per-model switch (``uses_edge_features``,
-    ``sorts_edges_by_dst``); they come back with the first ported model
-    that needs the other value.
+    A batch's inputs are ``[node_features, edge_src, edge_dst,
+    graph_index, node_mask, edge_mask]``, then, per the model's switches:
+    a neighbour table ``[N, max_neighbors]`` int32 and int8 degrees
+    (``uses_neighbor_table``), and the edge features
+    (``uses_edge_features``).  ``sorts_edges_by_dst`` sorts the edges by
+    destination, as the CSR segment softmax needs; every other COO op is
+    edge-order invariant.
     """
 
     #: quanta for node/edge caps: padding waste vs number of shapes
     node_quantum = 512
     edge_quantum = 1024
+    uses_edge_features = False
+    sorts_edges_by_dst = False
+    #: models that aggregate through ops/nei_table.py get a padded
+    #: neighbour table and the degrees appended to their inputs
+    uses_neighbor_table = False
+    max_neighbors = 10
+    #: when set, every batch pads to these (node_cap, edge_cap): one
+    #: bucket for a whole epoch (:meth:`_collect_uniform_batches`)
+    _fixed_caps: Optional[Tuple[int, int]] = None
+    _sticky_caps: Optional[Tuple[int, int]] = None
 
     def _pack_one(self, graphs: List, node_cap: int, edge_cap: int,
                   num_graphs: int) -> List[np.ndarray]:
         batch = BatchGraphData(graphs)
         d = batch.pad(node_cap, edge_cap, num_graphs=num_graphs)
-        if 'edge_features' not in d:
-            raise ValueError('this model needs a featurizer that emits edge '
-                             'features')
-        perm = np.argsort(d['edge_index'][1], kind='stable')
-        return [d['node_features'], d['edge_index'][0, perm],
-                d['edge_index'][1, perm], d['graph_index'], d['node_mask'],
-                d['edge_mask'][perm], d['edge_features'][perm]]
+        if self.sorts_edges_by_dst:
+            perm = np.argsort(d['edge_index'][1], kind='stable')
+            d['edge_index'] = d['edge_index'][:, perm]
+            d['edge_mask'] = d['edge_mask'][perm]
+            if 'edge_features' in d:
+                d['edge_features'] = d['edge_features'][perm]
+        inputs = [d['node_features'], d['edge_index'][0],
+                  d['edge_index'][1], d['graph_index'], d['node_mask'],
+                  d['edge_mask']]
+        if self.uses_neighbor_table:
+            real = d['edge_mask'] > 0
+            table, nbr_mask = build_neighbor_table(
+                d['edge_index'][0][real], d['edge_index'][1][real],
+                node_cap, self.max_neighbors)
+            # degrees, not the [N, K] float mask: the kernels rebuild it
+            inputs += [table, nbr_mask.sum(axis=1).astype(np.int8)]
+        if self.uses_edge_features:
+            if 'edge_features' not in d:
+                raise ValueError('this model needs a featurizer that emits '
+                                 'edge features')
+            inputs.append(d['edge_features'])
+        return inputs
 
     def _graph_inputs(self, X_b: np.ndarray) -> List[np.ndarray]:
         graphs = list(X_b)
-        batch = BatchGraphData(graphs)
-        node_cap, edge_cap = bucket_caps(batch.num_nodes + 1,
-                                         batch.num_edges,
-                                         self.node_quantum,
-                                         self.edge_quantum)
+        if self._fixed_caps is not None:
+            node_cap, edge_cap = self._fixed_caps
+        else:
+            batch = BatchGraphData(graphs)
+            node_cap, edge_cap = bucket_caps(batch.num_nodes + 1,
+                                             batch.num_edges,
+                                             self.node_quantum,
+                                             self.edge_quantum)
         return self._pack_one(graphs, node_cap, edge_cap, self.batch_size)
+
+    def _collect_uniform_batches(self, dataset: NumpyDataset,
+                                 deterministic: bool = True,
+                                 mode: str = 'fit') -> List:
+        """One epoch of host batches padded to one (node_cap, edge_cap)
+        bucket that covers every batch.  The caps are sticky: a later
+        dataset that fits under them reuses them, and one that does not
+        raises them for the next."""
+        max_nodes = max_edges = 0
+        for (X_b, _, _, _) in dataset.iterbatches(
+                batch_size=self.batch_size, deterministic=True,
+                pad_batches=False):
+            batch = BatchGraphData(list(X_b))
+            max_nodes = max(max_nodes, batch.num_nodes + 1)
+            max_edges = max(max_edges, max(batch.num_edges, 1))
+        caps = bucket_caps(max_nodes, max_edges, self.node_quantum,
+                           self.edge_quantum)
+        sticky = self._sticky_caps
+        if sticky is not None and sticky[0] >= caps[0] \
+                and sticky[1] >= caps[1]:
+            caps = sticky
+        else:
+            caps = (max(caps[0], sticky[0] if sticky else 0),
+                    max(caps[1], sticky[1] if sticky else 0))
+            self._sticky_caps = caps
+        self._fixed_caps = caps
+        try:
+            return list(self.default_generator(
+                dataset, epochs=1, mode=mode, deterministic=deterministic,
+                pad_batches=True))
+        finally:
+            self._fixed_caps = None
 
     def default_generator(self, dataset: NumpyDataset, epochs: int = 1,
                           mode: str = 'fit', deterministic: bool = True,
@@ -101,14 +167,19 @@ class GraphModel(TorchModel):
 
 
 def _heads(x_graph: torch.Tensor, head: nn.Linear, n_tasks: int,
-           n_classes: int, mode: str):
+           n_classes: int, mode: str,
+           log_var: Optional[nn.Linear] = None):
     """Task heads shared by graph models: classification gives the class
     probabilities and the logits ``[B, n_tasks, n_classes]``, regression
-    the values ``[B, n_tasks]``."""
+    the values ``[B, n_tasks]``; with a ``log_var`` head, regression gives
+    ``(values, variance, values, log variance)``."""
     out = head(x_graph)
     if mode == 'classification':
         logits = out.reshape(-1, n_tasks, n_classes)
         return torch.softmax(logits, dim=-1), logits
+    if log_var is not None:
+        lv = log_var(x_graph)
+        return out, torch.exp(lv), out, lv
     return out
 
 
@@ -158,15 +229,40 @@ class PagtnLayer(nn.Module):
         return F.gelu(self.out(agg), approximate='tanh')
 
 
-class _PagtnModule(nn.Module):
+class _SeededDropout(nn.Module):
+    """A module whose ``_dropout`` draws its masks from a
+    ``torch.Generator`` on the input's device seeded with
+    ``dropout_seed``, not from the global RNG, so a run is reproducible."""
+
+    dropout: float = 0.0
+    dropout_seed: int = 0
+    _dropout_generator: Optional[torch.Generator] = None
+
+    def _dropout(self, h: torch.Tensor) -> torch.Tensor:
+        """Zero each entry with probability ``dropout`` and scale the rest
+        by ``1 / (1 - dropout)``, as flax's ``nn.Dropout``; the identity
+        outside ``train()`` mode."""
+        if not self.training or self.dropout == 0:
+            return h
+        gen = self._dropout_generator
+        if gen is None or gen.device != h.device:
+            gen = torch.Generator(h.device).manual_seed(self.dropout_seed)
+            self._dropout_generator = gen
+        keep = torch.empty_like(h).bernoulli_(1 - self.dropout,
+                                              generator=gen)
+        return h * keep / (1 - self.dropout)
+
+
+class _PagtnModule(_SeededDropout):
     """The PAGTN network: embedding, ``num_layers`` PAGTN layers with a
     residual to the embedding, a projection of ``[h ; node features]``,
     sum pooling over each graph and the task heads.
 
-    In ``train()`` mode dropout follows each layer.  Its masks come from a
-    ``torch.Generator`` on the input's device seeded with
-    ``dropout_seed``, not from the global RNG, so a run is reproducible.
+    In ``train()`` mode seeded dropout follows each layer.
     """
+
+    #: flax scope -> attribute (models/convert.py)
+    flax_scopes = {'Dense_0': 'readout', 'Dense_1': 'head'}
 
     def __init__(self, n_tasks: int, n_classes: int, mode: str,
                  num_graphs: int, node_features: int, edge_features: int,
@@ -186,7 +282,6 @@ class _PagtnModule(nn.Module):
                        generator) for _ in range(num_layers))
         self.dropout = dropout
         self.dropout_seed = dropout_seed
-        self._dropout_generator: Optional[torch.Generator] = None
         self.readout = dense(width + node_features, output_node_features,
                              generator)
         n_out = n_tasks * n_classes if mode == 'classification' else n_tasks
@@ -204,19 +299,6 @@ class _PagtnModule(nn.Module):
         x = F.relu(self.readout(torch.cat([h, nf], dim=-1)))
         g = graph_pool(x, gidx, self.num_graphs, nmask)
         return _heads(g, self.head, self.n_tasks, self.n_classes, self.mode)
-
-    def _dropout(self, h: torch.Tensor) -> torch.Tensor:
-        """Zero each entry with probability ``dropout`` and scale the rest
-        by ``1 / (1 - dropout)``, as flax's ``nn.Dropout``."""
-        if not self.training or self.dropout == 0:
-            return h
-        gen = self._dropout_generator
-        if gen is None or gen.device != h.device:
-            gen = torch.Generator(h.device).manual_seed(self.dropout_seed)
-            self._dropout_generator = gen
-        keep = torch.empty_like(h).bernoulli_(1 - self.dropout,
-                                              generator=gen)
-        return h * keep / (1 - self.dropout)
 
 
 class PagtnModel(GraphModel):
@@ -236,6 +318,8 @@ class PagtnModel(GraphModel):
     # complete-graph edges grow as n^2; a larger quantum keeps the number
     # of padded shapes small
     edge_quantum = 2048
+    uses_edge_features = True
+    sorts_edges_by_dst = True        # the CSR segment softmax (P1)
 
     def __init__(self, n_tasks: int, number_atom_features: int = 49,
                  number_bond_features: int = 38, mode: str = 'regression',
@@ -271,4 +355,134 @@ class PagtnModel(GraphModel):
                 f'batch has {nf.shape[-1]} atom and {ef.shape[-1]} pair '
                 f'features; the model was built for {want[0]} and '
                 f'{want[1]}')
+        super().build(sample_inputs)
+
+
+class _GraphConvModule(_SeededDropout):
+    """The GraphConv network: per layer, :class:`GraphConv`, masked batch
+    norm, ReLU, dropout and the neighbour max (:func:`graph_pool_max`);
+    then a dense layer with batch norm and ReLU, the
+    :class:`GraphGather` readout and the task heads.  Parameters are
+    initialised as flax initialises the JAX module, from ``generator``."""
+
+    #: flax scope -> attribute (models/convert.py)
+    flax_scopes = {'Dense_0': 'dense', 'Dense_1': 'head',
+                   'Dense_2': 'log_var'}
+
+    def __init__(self, n_tasks: int, n_classes: int,
+                 graph_conv_layers: Sequence[int], dense_layer_size: int,
+                 dropout: float, mode: str, num_graphs: int,
+                 node_features: int = 75, batch_normalize: bool = True,
+                 uncertainty: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 dropout_seed: int = 0):
+        super().__init__()
+        self.n_tasks, self.n_classes, self.mode = n_tasks, n_classes, mode
+        self.num_graphs = num_graphs
+        self.node_features = node_features
+        self.dropout, self.dropout_seed = dropout, dropout_seed
+        widths = [node_features] + list(graph_conv_layers)
+        self.convs = nn.ModuleList(
+            GraphConv(a, b, generator=generator)
+            for a, b in zip(widths[:-1], widths[1:]))
+        self.dense = dense(widths[-1], dense_layer_size, generator)
+        # MaskedBatchNorm_i of flax: one after each conv, then the dense's
+        self.norms = nn.ModuleList(
+            MaskedBatchNorm(w) for w in
+            list(graph_conv_layers) + [dense_layer_size]) \
+            if batch_normalize else None
+        self.gather = GraphGather()
+        n_out = n_tasks * n_classes if mode == 'classification' else n_tasks
+        self.head = dense(2 * dense_layer_size, n_out, generator)
+        self.log_var = dense(2 * dense_layer_size, n_tasks, generator) \
+            if uncertainty else None
+
+    def forward(self, nf, esrc, edst, gidx, nmask, emask, table, deg):
+        # esrc, edst and emask are the shared batch layout's; the
+        # aggregations read the neighbour table
+        x = nf
+        for i, conv in enumerate(self.convs):
+            x = conv(x, table, deg)
+            if self.norms is not None:
+                x = self.norms[i](x, nmask)
+            x = self._dropout(F.relu(x))
+            x = graph_pool_max(x, table, deg)
+        x = self.dense(x)
+        if self.norms is not None:
+            x = self.norms[-1](x, nmask)
+        x = self._dropout(F.relu(x))
+        g = self.gather(x, gidx, nmask, self.num_graphs)
+        return _heads(g, self.head, self.n_tasks, self.n_classes, self.mode,
+                      self.log_var)
+
+
+def _uncertainty_loss(outputs, labels, weights) -> torch.Tensor:
+    """Gaussian negative log likelihood of the labels under the predicted
+    mean and variance, weighted: ``(y - mean)^2 / var + log var``."""
+    y, var, _, log_var = outputs
+    losses = (labels[0] - y) ** 2 / torch.clamp_min(var, 1e-8) + log_var
+    w = weights[0]
+    if w.ndim < losses.ndim:
+        w = w[..., None]
+    return torch.sum(losses * w) / torch.clamp_min(
+        torch.broadcast_to(w, losses.shape).sum(), 1e-8)
+
+
+class GraphConvModel(GraphModel):
+    """Duvenaud graph-convolution model, fed by :class:`ConvMolFeaturizer`
+    (75 atom features, both directions of every bond).  Aggregation runs
+    through the padded neighbour table: K1 and K2 in the layers, P3 and
+    K3 in the readout.
+
+    The module is built at construction, with parameters drawn from a
+    ``torch.Generator`` seeded with ``seed`` (which also seeds dropout);
+    load trained flax parameters with :func:`params_from_flax`.  A
+    classifier trains on softmax cross entropy, a regressor on squared
+    error, an uncertainty regressor (``uncertainty=True``, which needs
+    ``dropout > 0``) on the Gaussian likelihood of its predicted variance,
+    with :class:`Adam` at ``learning_rate`` unless ``optimizer`` is given.
+    """
+
+    uses_neighbor_table = True
+
+    def __init__(self, n_tasks: int,
+                 graph_conv_layers: Sequence[int] = (64, 64),
+                 dense_layer_size: int = 128, dropout: float = 0.0,
+                 mode: str = 'classification',
+                 number_atom_features: int = 75, n_classes: int = 2,
+                 batch_size: int = 100, batch_normalize: bool = True,
+                 uncertainty: bool = False, learning_rate: float = 0.001,
+                 optimizer: Optional[Optimizer] = None,
+                 model_dir: Optional[str] = None, log_frequency: int = 100,
+                 device=None, seed: int = 0):
+        self.n_tasks = n_tasks
+        self.mode = mode
+        self.n_classes = n_classes
+        if uncertainty and mode != 'regression':
+            raise ValueError('uncertainty requires regression mode')
+        if uncertainty and dropout == 0.0:
+            raise ValueError('uncertainty requires dropout > 0')
+        module = _GraphConvModule(
+            n_tasks=n_tasks, n_classes=n_classes,
+            graph_conv_layers=tuple(graph_conv_layers),
+            dense_layer_size=dense_layer_size, dropout=dropout, mode=mode,
+            num_graphs=batch_size, node_features=number_atom_features,
+            batch_normalize=batch_normalize, uncertainty=uncertainty,
+            generator=torch.Generator().manual_seed(seed),
+            dropout_seed=seed)
+        if uncertainty:
+            loss = _uncertainty_loss
+            output_types = ['prediction', 'variance', 'loss', 'loss']
+        else:
+            loss, output_types = _gnn_loss_outputs(mode)
+        super().__init__(module, loss, output_types=output_types,
+                         batch_size=batch_size, model_dir=model_dir,
+                         learning_rate=learning_rate, optimizer=optimizer,
+                         log_frequency=log_frequency, device=device)
+
+    def build(self, sample_inputs: Sequence[torch.Tensor]) -> None:
+        width = sample_inputs[0].shape[-1]
+        if width != self.module.node_features:
+            raise ValueError(f'batch has {width} atom features; the model '
+                             f'was built for {self.module.node_features}')
         super().build(sample_inputs)

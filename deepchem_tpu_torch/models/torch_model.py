@@ -2,13 +2,13 @@
 DeepChem API.
 
 Counterpart of ``deepchem_tpu/models/jax_model.py``'s ``JaxModel``:
-``fit``, ``fit_generator``, ``fit_on_batch``, ``predict``, rotating
-checkpoints and the loss history.  Batches come from
-``default_generator``, are converted to float32 tensors on the model's
-device and run through the module: in ``train()`` mode with a gradient
-step when fitting, in ``eval()`` mode under ``torch.no_grad`` when
-predicting.  Each training step is a Python loop on the card; nothing is
-captured in a CUDA graph.
+``fit``, ``fit_on_device``, ``fit_generator``, ``fit_on_batch``,
+``predict``, ``predict_on_device``, ``evaluate``, rotating checkpoints
+and the loss history.  Batches come from ``default_generator``, are
+converted to float32 tensors on the model's device and run through the
+module: in ``train()`` mode with a gradient step when fitting, in
+``eval()`` mode under ``torch.no_grad`` when predicting.  Each training
+step is a Python loop on the card; nothing is captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from deepchem_tpu_torch.data import NumpyDataset
+from deepchem_tpu_torch.metrics import Metric
 from deepchem_tpu_torch.models.losses import Loss
 from deepchem_tpu_torch.models.optimizers import Adam, Optimizer
 
@@ -109,7 +110,9 @@ class TorchModel:
             self.module.parameters())
         self._global_step = 0
         self._losses_history: List[float] = []
-        self._fit_cache: Optional[Tuple[NumpyDataset, List]] = None
+        # one epoch of host batches, and their upload, per dataset
+        self._fit_cache: Optional[dict] = None
+        self._predict_cache: Optional[dict] = None
         self._built = False
 
     def __del__(self):
@@ -170,13 +173,43 @@ class TorchModel:
         self._global_step += 1
         return loss.detach()
 
+    def _collect_uniform_batches(self, dataset: NumpyDataset,
+                                 deterministic: bool = True,
+                                 mode: str = 'fit') -> List[Tuple]:
+        """One epoch of host batches in dataset order, the short last one
+        padded, as ``default_generator`` makes them in ``mode``.  Models
+        whose batches vary in shape override this to pad them all
+        alike."""
+        return list(self.default_generator(dataset, epochs=1, mode=mode,
+                                           deterministic=deterministic,
+                                           pad_batches=True))
+
     def _fit_batches(self, dataset: NumpyDataset) -> List[Tuple]:
-        """One epoch of packed host batches in dataset order, the short last
-        one padded; kept for the next call on the same dataset."""
-        if self._fit_cache is None or self._fit_cache[0] is not dataset:
-            self._fit_cache = (dataset, list(self.default_generator(
-                dataset, epochs=1, deterministic=True, pad_batches=True)))
-        return self._fit_cache[1]
+        """:meth:`_collect_uniform_batches` of ``dataset``, kept for the
+        next call on the same dataset (by identity)."""
+        if self._fit_cache is None or self._fit_cache['dataset'] is not \
+                dataset:
+            self._fit_cache = {'dataset': dataset, 'dev': None,
+                               'host': self._collect_uniform_batches(
+                                   dataset)}
+        return self._fit_cache['host']
+
+    def _upload(self, batches: List[Tuple]) -> Tuple[List, List, List]:
+        """An epoch's batches stacked on a leading batch axis, one tensor
+        per input, label and weight, copied to the device once."""
+        def stack(k):
+            return [self._tensor(np.stack([np.asarray(b[k][i])
+                                           for b in batches]))
+                    for i in range(len(_to_list(batches[0][k])))]
+        return stack(0), stack(1), stack(2)
+
+    def _resident_batches(self, dataset: NumpyDataset
+                          ) -> Tuple[List, List, List]:
+        """The fit batches of ``dataset`` on the device, uploaded once."""
+        batches = self._fit_batches(dataset)
+        if self._fit_cache['dev'] is None:
+            self._fit_cache['dev'] = self._upload(batches)
+        return self._fit_cache['dev']
 
     def _log_window(self, mean: float,
                     all_losses: Optional[List[float]]) -> float:
@@ -244,6 +277,33 @@ class TorchModel:
         if checkpoint_interval > 0:
             self.save_checkpoint(max_checkpoints_to_keep)
         return last_avg
+
+    def fit_on_device(self, dataset: NumpyDataset, nb_epoch: int = 10,
+                      seed: int = 0,
+                      all_losses: Optional[List[float]] = None) -> float:
+        """Train on batches that stay on the device: the epoch's padded
+        batches are uploaded once (kept for the next call on the same
+        dataset), and each step indexes them there.  The steps run in the
+        order of ``RandomState(seed)``'s successive permutations, one per
+        epoch; one mean loss per epoch is recorded, and the last is
+        returned.  No checkpoint is saved and no callback is called, as in
+        the JAX engine."""
+        batches = self._fit_batches(dataset)
+        S = len(batches)
+        if S == 0:
+            return 0.0
+        d_in, d_lab, d_w = self._resident_batches(dataset)
+        rng = np.random.RandomState(seed)
+        order = np.concatenate([rng.permutation(S) for _ in range(nb_epoch)])
+        step_losses = [self._train_step([a[i] for a in d_in],
+                                        [a[i] for a in d_lab],
+                                        [a[i] for a in d_w])
+                       for i in order.tolist()]
+        losses = torch.stack(step_losses).cpu().numpy()     # one sync
+        per_epoch = losses.reshape(nb_epoch, S).mean(axis=1)
+        for v in per_epoch:
+            self._log_window(float(v), all_losses)
+        return float(per_epoch[-1])
 
     def _run_callbacks(self, callbacks: List[Callable], step: int) -> bool:
         """Call each callback; True when one asks to stop."""
@@ -359,24 +419,26 @@ class TorchModel:
         inputs, labels, weights = batch
 
         def conv(arrs):
-            out = []
-            for a in _to_list(arrs):
-                if a is None:
-                    continue
-                a = np.asarray(a)
-                if a.dtype == np.float64:
-                    a = a.astype(np.float32)
-                elif a.dtype == object:
-                    a = np.stack([np.asarray(x, dtype=np.float32)
-                                  for x in a])
-                out.append(torch.from_numpy(np.ascontiguousarray(a))
-                           .to(self.device))
-            return out
+            return [self._tensor(a) for a in _to_list(arrs) if a is not None]
         return conv(inputs), conv(labels), conv(weights)
+
+    def _tensor(self, a) -> torch.Tensor:
+        """One array on the model's device: float64 becomes float32, an
+        object array of rows is stacked as float32, integers keep their
+        type."""
+        a = np.asarray(a)
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        elif a.dtype == object:
+            a = np.stack([np.asarray(x, dtype=np.float32) for x in a])
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # -- prediction --------------------------------------------------------
     def _predict(self, generator: Iterable[Tuple], transformers: Sequence,
-                 other_output_types: Optional[Sequence[str]] = None):
+                 other_output_types: Optional[Sequence[str]] = None,
+                 prepared: bool = False):
+        """Outputs of every batch of ``generator``, host batches or, with
+        ``prepared``, input tensors already on the device."""
         results: Optional[List[List[np.ndarray]]] = None
         if transformers and self.output_types is not None \
                 and len(self._prediction_outputs or []) > 1:
@@ -384,7 +446,7 @@ class TorchModel:
                 'cannot apply transformers with multiple predictions')
         self.module.eval()
         for batch in generator:
-            inputs, _, _ = self._prepare_batch(batch)
+            inputs = batch if prepared else self._prepare_batch(batch)[0]
             if not self._built:
                 self.build(inputs)
             outputs = [o.cpu().numpy() for o in self._forward(inputs)]
@@ -426,6 +488,64 @@ class TorchModel:
                                    deterministic=True, pad_batches=False),
             transformers, output_types)
         return _trim_to(out, len(dataset))
+
+    def predict_on_device(self, dataset: NumpyDataset,
+                          transformers: Sequence = (),
+                          output_types: Optional[Sequence[str]] = None):
+        """:meth:`predict` over batches uploaded once: the fit batches when
+        ``dataset`` is the one last fitted, else its own padded batches
+        (kept for the next call on the same dataset)."""
+        if self._fit_cache is not None \
+                and self._fit_cache['dataset'] is dataset:
+            d_in = self._resident_batches(dataset)[0]
+        else:
+            if self._predict_cache is None \
+                    or self._predict_cache['dataset'] is not dataset:
+                batches = self._collect_uniform_batches(dataset,
+                                                        mode='predict')
+                self._predict_cache = {
+                    'dataset': dataset,
+                    'dev': self._upload(batches)[0] if batches else []}
+            d_in = self._predict_cache['dev']
+        if not d_in:
+            return np.zeros(0)
+        out = self._predict(([a[i] for a in d_in]
+                             for i in range(d_in[0].shape[0])),
+                            transformers, output_types, prepared=True)
+        return _trim_to(out, len(dataset))
+
+    def evaluate(self, dataset: NumpyDataset, metrics,
+                 transformers: Sequence = (),
+                 per_task_metrics: bool = False,
+                 use_sample_weights: bool = False, n_classes: int = 2):
+        """Score :meth:`predict`'s outputs on ``dataset`` with each metric
+        (a :class:`Metric` or a plain scoring function), as the JAX
+        package's ``Evaluator.compute_model_performance``: a dict of
+        scores by metric name, and with ``per_task_metrics`` also each
+        task's.  Transformers that change the labels cannot be undone yet
+        (the port has no transformers) and raise."""
+        if any(getattr(t, 'transform_y', False) for t in transformers):
+            raise NotImplementedError(
+                'evaluate cannot undo a transformer of the labels: the '
+                'port has no transformers yet')
+        metrics = metrics if isinstance(metrics, (list, tuple)) \
+            else [metrics]
+        metrics = [m if isinstance(m, Metric) else Metric(m)
+                   for m in metrics]
+        y, w = dataset.y, dataset.w
+        y_pred = self.predict(dataset)
+        n_tasks = y.shape[1] if y.ndim > 1 else 1
+        scores, task_scores = {}, {}
+        for metric in metrics:
+            res = metric.compute_metric(
+                y, y_pred, w, per_task_metrics=per_task_metrics,
+                n_tasks=n_tasks, n_classes=n_classes,
+                use_sample_weights=use_sample_weights)
+            if per_task_metrics:
+                scores[metric.name], task_scores[metric.name] = res
+            else:
+                scores[metric.name] = res
+        return (scores, task_scores) if per_task_metrics else scores
 
 
 def _trim_to(out, n: int):

@@ -17,8 +17,6 @@ is the gather ``dmsgs = dy[seg]``.  P2 is forward only, as in JAX.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -47,7 +45,12 @@ def edges_to_csr(edge_dst: np.ndarray, num_nodes: int
 def csr_row_ptr(segment_ids_sorted: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """``row_ptr`` ``[num_segments + 1]`` int32 of non-decreasing segment
-    ids: segment ``i`` owns edges ``row_ptr[i]:row_ptr[i+1]``."""
+    ids: segment ``i`` owns edges ``row_ptr[i]:row_ptr[i+1]``.  On the CPU
+    it raises when the ids decrease; on the card, where that check would
+    wait for the device, the caller's layout guarantees the order."""
+    ids = segment_ids_sorted
+    if ids.device.type == 'cpu' and bool((ids[1:] < ids[:-1]).any()):
+        raise ValueError('csr_row_ptr: segment ids must be non-decreasing')
     bounds = torch.arange(num_segments + 1, dtype=segment_ids_sorted.dtype,
                           device=segment_ids_sorted.device)
     return torch.searchsorted(segment_ids_sorted.contiguous(),
@@ -113,29 +116,6 @@ def _check(what: str, floats: Tuple[torch.Tensor, ...],
         raise ValueError(f'{what}: sizes must fit in int32')
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f'{what} launch failed: cudaError {err}')
-
-
-@functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    """The C entry ``<name>_f32`` of ``csrc/<name>.cu``: pointers and the
-    stream as ``c_void_p``, sizes as ``c_int``."""
-    fn = getattr(build.load(name), f'{name}_f32')
-    n_ptrs, n_ints = {'csr_segment_softmax': (3, 3),
-                      'csr_segment_sum': (3, 3),
-                      'fused_gather_segment_sum': (4, 4)}[name]
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _softmax_forward(logits: torch.Tensor,
                      row_ptr: torch.Tensor) -> torch.Tensor:
     if logits.device.type == 'cpu' and row_ptr.device.type == 'cpu':
@@ -148,11 +128,8 @@ def _softmax_forward(logits: torch.Tensor,
         return out
     if N == 0:
         raise ValueError('row_ptr has no segment for the edges')
-    with torch.cuda.device(logits.device):
-        err = _entry('csr_segment_softmax')(
-            logits.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), N, E, H,
-            _stream(logits))
-    _raise_on(err, 'csr_segment_softmax')
+    build.launch('csr_segment_softmax', 'csr_segment_softmax_f32',
+                 (logits, row_ptr, out), (N, E, H))
     csr_segment_softmax.launches += 1
     return out
 
@@ -214,11 +191,8 @@ def _segment_sum_forward(msgs: torch.Tensor,
         return out
     if N * Fm >= 2**31:
         raise ValueError('csr_segment_sum: sizes must fit in int32')
-    with torch.cuda.device(msgs.device):
-        err = _entry('csr_segment_sum')(
-            msgs.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), N, E, Fm,
-            _stream(msgs))
-    _raise_on(err, 'csr_segment_sum')
+    build.launch('csr_segment_sum', 'csr_segment_sum_f32',
+                 (msgs, row_ptr, out), (N, E, Fm))
     csr_segment_sum.launches += 1
     return out
 
@@ -293,11 +267,8 @@ def fused_gather_segment_sum(h: torch.Tensor, src_sorted: torch.Tensor,
         raise ValueError('fused_gather_segment_sum: sizes must fit in int32')
     if Nh == 0 and E > 0:
         raise ValueError('fused_gather_segment_sum: edges but no rows in h')
-    with torch.cuda.device(h.device):
-        err = _entry('fused_gather_segment_sum')(
-            h.data_ptr(), src_sorted.data_ptr(), row_ptr.data_ptr(),
-            out.data_ptr(), N, Nh, E, Fh, _stream(h))
-    _raise_on(err, 'fused_gather_segment_sum')
+    build.launch('fused_gather_segment_sum', 'fused_gather_segment_sum_f32',
+                 (h, src_sorted, row_ptr, out), (N, Nh, E, Fh))
     fused_gather_segment_sum.launches += 1
     return out
 

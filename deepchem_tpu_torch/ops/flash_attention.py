@@ -23,15 +23,12 @@ digits; torch's TF32 flags do not reach them.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from deepchem_tpu_torch.kernels import build
-from deepchem_tpu_torch.ops.csr_segment import _raise_on, _stream
 
 HEAD_DIMS = (32, 64)          # the D the kernels take
 
@@ -130,29 +127,13 @@ def _check(what: str, data: Tuple[torch.Tensor, ...],
         raise ValueError(f'{what}: sizes must fit in int32')
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entries of csrc/flash_attention.cu: data and statistics pointers, then
-# (bh, seq, d, bf16), the scale and the stream
-_ARGTYPES = {'flash_attention_fwd': [_P] * 6,
-             'flash_attention_dkv': [_P] * 9,
-             'flash_attention_dq': [_P] * 8}
-
-
-@functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    fn = getattr(build.load('flash_attention'), name)
-    fn.argtypes = _ARGTYPES[name] + [_I] * 4 + [_F, _P]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, ptrs, like: torch.Tensor, sm_scale: float) -> None:
+    """Launch the C entry ``name`` of ``csrc/flash_attention.cu``: data
+    and statistics pointers, then (bh, seq, d, bf16) and the scale."""
     B, H, S, D = like.shape
-    with torch.cuda.device(like.device):
-        err = _entry(name)(*(t.data_ptr() for t in ptrs), B * H, S, D,
-                           int(like.dtype == torch.bfloat16),
-                           float(sm_scale), _stream(like))
-    _raise_on(err, name)
+    build.launch('flash_attention', name, ptrs,
+                 (B * H, S, D, int(like.dtype == torch.bfloat16)),
+                 (float(sm_scale),))
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:

@@ -1,0 +1,262 @@
+"""Padded neighbour-table aggregation with gather-transpose backwards:
+the Hopper kernels K1 and K2 and their plain versions.
+
+Counterparts of ``deepchem_tpu/ops/nei_table.py``'s
+``build_neighbor_table``, ``nei_sum`` and ``nei_max_incl_self``.  A batch
+of undirected graphs (both directions of every edge present) becomes a
+table ``[N, K]`` int32 whose row ``i`` lists ``i``'s neighbours in edge
+order, and int8 degrees ``[N]``: slot ``j`` of row ``i`` is real iff
+``j < deg[i]``.  The table of an undirected graph is its own transpose, so
+both ops' backwards are gathers too.
+
+On CPU tensors each op computes with its plain torch version
+(``*_reference``), written as the JAX slot loop; on CUDA tensors it
+launches ``csrc/nei_table.cu`` or raises, and counts the launch in
+``<op>.launches`` (forward) or ``<op>.backward_launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from deepchem_tpu_torch.kernels import build
+
+
+def build_neighbor_table(edge_src: np.ndarray, edge_dst: np.ndarray,
+                         num_nodes: int, max_nb: int = 10
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """COO edges (both directions present) -> ``(table, nbr_mask)``:
+    ``table[i, j]`` is the ``j``-th source of an edge into ``i`` in edge
+    order (0-padded), ``nbr_mask[i, j]`` 1.0 for real slots.
+
+    Raises when a node's degree exceeds ``max_nb``: the backwards assume a
+    complete table, so dropping neighbours would make both passes wrong.
+    """
+    edge_src = np.asarray(edge_src, np.int64)
+    edge_dst = np.asarray(edge_dst, np.int64)
+    order = np.argsort(edge_dst, kind='stable')
+    ds, ss = edge_dst[order], edge_src[order]
+    counts = np.bincount(ds, minlength=num_nodes)
+    max_deg = int(counts.max()) if len(counts) else 0
+    if max_deg > max_nb:
+        raise ValueError(
+            f'node degree {max_deg} exceeds the neighbor-table capacity '
+            f'max_nb={max_nb}; raise max_neighbors on the model (the '
+            'table aggregation cannot truncate: its gather-transpose '
+            'gradients assume a complete table)')
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(len(ds)) - np.repeat(starts, counts)
+    table = np.zeros((num_nodes, max_nb), np.int32)
+    table[ds, pos] = ss
+    nbr_mask = (np.arange(max_nb)[None, :]
+                < counts[:, None]).astype(np.float32)
+    return table, nbr_mask
+
+
+def slot_mask(table: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """``[N, K]`` bool: slot ``j`` of row ``i`` is real iff
+    ``j < deg[i]``."""
+    slots = torch.arange(table.shape[1], device=table.device)
+    return slots[None, :] < deg.long()[:, None]
+
+
+def nei_sum_reference(h: torch.Tensor, table: torch.Tensor,
+                      deg: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K1: ``sum over j < deg[i] of h[table[i, j]]``,
+    one slot at a time in ascending order."""
+    mask = slot_mask(table, deg).to(h.dtype)
+    idx = table.long()
+    out = h[idx[:, 0]] * mask[:, 0:1]
+    for j in range(1, table.shape[1]):
+        out = out + h[idx[:, j]] * mask[:, j:j + 1]
+    return out
+
+
+def nei_max_reference(h: torch.Tensor, table: torch.Tensor,
+                      deg: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K2's forward: the max over a node and its
+    real neighbours, and its winner ``[N, F]`` int32.  A neighbour takes
+    the max only when strictly greater, so self wins a tie, then the
+    lowest slot."""
+    mask = slot_mask(table, deg)
+    n = h.shape[0]
+    best = h
+    winner = torch.arange(n, dtype=torch.int32,
+                          device=h.device)[:, None].expand(h.shape)
+    for j in range(table.shape[1]):
+        idx = table[:, j]
+        cand = h[idx.long()]
+        take = (cand > best) & mask[:, j:j + 1]
+        best = torch.where(take, cand, best)
+        winner = torch.where(take, idx[:, None].expand(h.shape), winner)
+    return best, winner.contiguous()
+
+
+def nei_max_backward_reference(g: torch.Tensor, table: torch.Tensor,
+                               deg: torch.Tensor,
+                               winner: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K2's backward: ``g[m]`` where ``m`` won its
+    own max, plus, for each real slot ``j`` of ``m`` in order, ``g[t]``
+    where ``t = table[m, j]`` took its max from ``m``."""
+    mask = slot_mask(table, deg)
+    self_idx = torch.arange(g.shape[0], dtype=torch.int32,
+                            device=g.device)[:, None]
+    grad = torch.where(winner == self_idx, g, torch.zeros_like(g))
+    for j in range(table.shape[1]):
+        idx = table[:, j].long()
+        hit = (winner[idx] == self_idx) & mask[:, j:j + 1]
+        grad = grad + torch.where(hit, g[idx], torch.zeros_like(g))
+    return grad
+
+
+def _check(what: str, floats, table: torch.Tensor, deg: torch.Tensor,
+           ints=()) -> None:
+    """What the kernels take: float32 ``[N, F]`` data (and int32 ``[N,
+    F]`` winners), an int32 ``[N, K]`` table with ``K <= 32`` and int8
+    ``[N]`` degrees, contiguous, on one CUDA device."""
+    tensors = tuple(floats) + tuple(ints) + (table, deg)
+    dev = floats[0].device
+    if dev.type != 'cuda' or any(t.device != dev for t in tensors):
+        raise ValueError(f'{what}: every tensor must lie on one CUDA '
+                         f'device, got {[str(t.device) for t in tensors]}')
+    if any(t.dtype != torch.float32 for t in floats) \
+            or any(t.dtype != torch.int32 for t in tuple(ints) + (table,)) \
+            or deg.dtype != torch.int8:
+        raise TypeError(f'{what}: need float32 data, an int32 table and '
+                        f'int8 degrees, got {[t.dtype for t in tensors]}')
+    n = table.shape[0]
+    if table.ndim != 2 or table.shape[1] > 32 or tuple(deg.shape) != (n,) \
+            or any(t.ndim != 2 or t.shape[0] != n
+                   for t in tuple(floats) + tuple(ints)):
+        raise ValueError(f'{what}: need [N, F] data, an [N, K <= 32] table '
+                         f'and [N] degrees, got '
+                         f'{[tuple(t.shape) for t in tensors]}')
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f'{what}: every tensor must be contiguous')
+    if any(t.numel() >= 2**31 for t in tensors):
+        raise ValueError(f'{what}: sizes must fit in int32')
+
+
+def _nei_sum_forward(h: torch.Tensor, table: torch.Tensor,
+                     deg: torch.Tensor, backward: bool = False
+                     ) -> torch.Tensor:
+    """K1 on ``h`` (the cotangent when ``backward``): the kernel on the
+    card, the plain version on the CPU."""
+    if all(t.device.type == 'cpu' for t in (h, table, deg)):
+        return nei_sum_reference(h, table, deg)
+    _check('nei_sum', (h,), table, deg)
+    out = torch.empty_like(h)
+    if h.numel():
+        build.launch('nei_table', 'nei_sum_f32', (h, table, deg, out),
+                     (h.shape[0], table.shape[1], h.shape[1]))
+        if backward:
+            nei_sum.backward_launches += 1
+        else:
+            nei_sum.launches += 1
+    return out
+
+
+def _nei_max_forward(h: torch.Tensor, table: torch.Tensor,
+                     deg: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if all(t.device.type == 'cpu' for t in (h, table, deg)):
+        return nei_max_reference(h, table, deg)
+    _check('nei_max_incl_self', (h,), table, deg)
+    out = torch.empty_like(h)
+    winner = torch.empty(h.shape, dtype=torch.int32, device=h.device)
+    if h.numel():
+        build.launch('nei_table', 'nei_max_fwd_f32',
+                     (h, table, deg, out, winner),
+                     (h.shape[0], table.shape[1], h.shape[1]))
+        nei_max_incl_self.launches += 1
+    return out, winner
+
+
+def _nei_max_backward(g: torch.Tensor, table: torch.Tensor,
+                      deg: torch.Tensor,
+                      winner: torch.Tensor) -> torch.Tensor:
+    if all(t.device.type == 'cpu' for t in (g, table, deg, winner)):
+        return nei_max_backward_reference(g, table, deg, winner)
+    _check('nei_max_incl_self backward', (g,), table, deg, (winner,))
+    grad = torch.empty_like(g)
+    if g.numel():
+        build.launch('nei_table', 'nei_max_bwd_f32',
+                     (g, table, deg, winner, grad),
+                     (g.shape[0], table.shape[1], g.shape[1]))
+        nei_max_incl_self.backward_launches += 1
+    return grad
+
+
+class _NeiSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, table, deg):
+        ctx.save_for_backward(table, deg)
+        return _nei_sum_forward(h, table, deg)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        table, deg = ctx.saved_tensors
+        return _nei_sum_forward(g.contiguous(), table, deg,
+                                backward=True), None, None
+
+
+class _NeiMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, table, deg):
+        out, winner = _nei_max_forward(h, table, deg)
+        ctx.save_for_backward(table, deg, winner)
+        ctx.mark_non_differentiable(winner)
+        return out, winner
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, _):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        table, deg, winner = ctx.saved_tensors
+        return _nei_max_backward(g.contiguous(), table, deg,
+                                 winner), None, None
+
+
+def nei_sum(h: torch.Tensor, table: torch.Tensor,
+            deg: torch.Tensor) -> torch.Tensor:
+    """K1: ``out[i] = sum over j < deg[i] of h[table[i, j]]`` for ``h``
+    ``[N, F]`` float32, ``table`` ``[N, K]`` int32 and ``deg`` ``[N]`` int8.
+    Differentiable in ``h``; the backward is the same sum of the cotangent
+    (the table of an undirected graph is its own transpose), launched only
+    when ``h`` needs a gradient.
+
+    CPU tensors take :func:`nei_sum_reference`; CUDA tensors launch
+    ``nei_sum_kernel``, counted in ``nei_sum.launches`` and
+    ``nei_sum.backward_launches``.
+    """
+    return _NeiSum.apply(h, table, deg)
+
+
+def nei_max_incl_self(h: torch.Tensor, table: torch.Tensor,
+                      deg: torch.Tensor, return_winner: bool = False):
+    """K2: the elementwise max over a node and its real neighbours
+    (Duvenaud GraphPool).  With ``return_winner`` also the node each max
+    came from, ``[N, F]`` int32: self wins a tie, then the lowest slot.
+    Differentiable in ``h``: the cotangent of each max flows to its winner,
+    gathered through the table.
+
+    CPU tensors take :func:`nei_max_reference` and
+    :func:`nei_max_backward_reference`; CUDA tensors launch
+    ``nei_max_fwd_kernel`` and ``nei_max_bwd_kernel``, counted in
+    ``nei_max_incl_self.launches`` and ``.backward_launches``.
+    """
+    out, winner = _NeiMax.apply(h, table, deg)
+    return (out, winner) if return_winner else out
+
+
+nei_sum.launches = nei_sum.backward_launches = 0
+nei_max_incl_self.launches = nei_max_incl_self.backward_launches = 0

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where a PagtnModel request's, or training step's, time goes on one CUDA
-card.
+"""Where a graph model's request, or training step, spends its time on
+one CUDA card.
 
-    python3 scripts/profile_torch_pagtn.py [--mode serve|train]
-                                           [--batch 16] [--requests 20]
+    python3 scripts/profile_torch_pagtn.py [--model pagtn|graphconv]
+                                           [--mode serve|train]
+                                           [--batch N] [--requests 20]
 
-Builds the model of ``chip_smoke.py`` (PagtnModel(n_tasks=12,
-mode='classification'), default widths, seeded weights, ``batch_size``
-set to ``--batch``) and runs ``--requests`` batches of ``--batch``
-molecules drawn with replacement from its 48, already featurized:
+Builds a model of ``chip_smoke.py`` with seeded weights and ``batch_size``
+set to ``--batch``: PagtnModel(n_tasks=12, mode='classification') at its
+default widths (batch 16 by default), or GraphConvModel at ``bench.py``'s
+width (``chip_smoke.GRAPHCONV``; batch 16 to serve, 256 to train by
+default).  It runs ``--requests`` batches of ``--batch`` molecules drawn
+with replacement from the script's 48, already featurized:
 
 - ``serve``: answers each batch as a request.  Host clock, per request:
   packing the padded batch (numpy), copying it to the card, the forward
@@ -17,15 +20,18 @@ molecules drawn with replacement from its 48, already featurized:
   ``TorchModel._train_step`` runs it.  Host clock, per step: packing (with
   the one-hot labels), copying to the card, forward and loss, backward,
   and the Adam update, each ended by a synchronise.
-- both: ``torch.profiler`` over the same batches without the extra
+- ``fit_on_device``: the epoch's ``--requests`` batches uploaded once
+  (``TorchModel.fit_on_device``), one warm-up epoch, then host ms a step
+  over 2 timed epochs with no synchronise between steps.
+- all: ``torch.profiler`` over the same batches without the extra
   synchronises: device time by kernel, and the device's busy share of the
   window (sum of kernel self times over the window's wall time;
   overlapping kernels would count twice, and on one stream there are
   none).
 
 Prints one JSON line and writes it to
-``chiprun_out/profile_pagtn_<mode>.json``.  Needs a CUDA device; there is
-no CPU fallback.
+``chiprun_out/profile_<model>_<mode>.json``.  Needs a CUDA device; there
+is no CPU fallback.
 """
 
 import argparse
@@ -67,8 +73,11 @@ def device_breakdown(run, n: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--mode', choices=('serve', 'train'), default='serve')
-    ap.add_argument('--batch', type=int, default=16)
+    ap.add_argument('--model', choices=('pagtn', 'graphconv'),
+                    default='pagtn')
+    ap.add_argument('--mode', choices=('serve', 'train', 'fit_on_device'),
+                    default='serve')
+    ap.add_argument('--batch', type=int, default=None)
     ap.add_argument('--requests', type=int, default=20)
     args = ap.parse_args()
 
@@ -77,18 +86,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('profile_torch_pagtn: no CUDA device', file=sys.stderr)
         return 1
-    from chip_smoke import SMILES
-    from deepchem_tpu_torch import (NumpyDataset, PagtnModel,
+    from chip_smoke import GRAPHCONV, SMILES, _counted, launch_counts
+    from deepchem_tpu_torch import (ConvMolFeaturizer, GraphConvModel,
+                                    NumpyDataset, PagtnModel,
                                     PagtnMolGraphFeaturizer)
-    from deepchem_tpu_torch.ops import csr_segment_softmax, csr_segment_sum
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    X = PagtnMolGraphFeaturizer().featurize(SMILES)
+    if args.batch is None:
+        args.batch = 256 if args.model == 'graphconv' \
+            and args.mode != 'serve' else 16
+    if args.model == 'pagtn':
+        X = PagtnMolGraphFeaturizer().featurize(SMILES)
+        model = PagtnModel(n_tasks=12, mode='classification',
+                           batch_size=args.batch, seed=0)
+    else:
+        X = ConvMolFeaturizer().featurize(SMILES)
+        model = GraphConvModel(**dict(GRAPHCONV, batch_size=args.batch),
+                               seed=0)
     labels = np.random.RandomState(0).randint(0, 2, (len(X), 12)).astype(
         np.float32)
-    model = PagtnModel(n_tasks=12, mode='classification',
-                       batch_size=args.batch, seed=0)
     rng = np.random.RandomState(0)
     picks = [rng.randint(0, len(X), args.batch)
              for _ in range(args.requests)]
@@ -137,23 +154,42 @@ def main() -> int:
         t.append(time.perf_counter())
         return t
 
-    run = request if args.mode == 'serve' else train_step
-    for idx in picks[:3]:                        # warm-up
-        run(idx, {})
-    clock = dict.fromkeys(phases, 0.0)
-    for idx in picks:
-        t = run(idx, clock)
-        for key, a, b in zip(phases, t, t[1:]):
-            clock[key] += (b - a) * 1e3 / args.requests
-    clock['total'] = sum(clock.values())
+    if args.mode == 'fit_on_device':
+        idx = np.concatenate(picks)
+        epoch = NumpyDataset(X[idx], labels[idx], np.ones_like(labels[idx]))
+        model.fit_on_device(epoch, nb_epoch=1)   # uploads, warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit_on_device(epoch, nb_epoch=2)
+        torch.cuda.synchronize()
+        clock = {'step': (time.perf_counter() - t0) * 1e3
+                 / (2 * args.requests)}
 
-    csr_segment_softmax.launches = csr_segment_sum.launches = 0
-    wall_ms, kernels = device_breakdown(lambda: [run(i) for i in picks],
-                                        args.requests)
+        def run_epoch():
+            model.fit_on_device(epoch, nb_epoch=1)
+    else:
+        run = request if args.mode == 'serve' else train_step
+        for idx in picks[:3]:                        # warm-up
+            run(idx, {})
+        clock = dict.fromkeys(phases, 0.0)
+        for idx in picks:
+            t = run(idx, clock)
+            for key, a, b in zip(phases, t, t[1:]):
+                clock[key] += (b - a) * 1e3 / args.requests
+        clock['total'] = sum(clock.values())
+
+        def run_epoch():
+            for i in picks:
+                run(i)
+
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
+    wall_ms, kernels = device_breakdown(run_epoch, args.requests)
     busy_ms = sum(k['device_us_per_request'] for k in kernels) \
         * args.requests / 1e3
     result = {
-        'device': torch.cuda.get_device_name(0), 'mode': args.mode,
+        'device': torch.cuda.get_device_name(0), 'model': args.model,
+        'mode': args.mode,
         'batch': args.batch, 'requests': args.requests,
         'host_ms_per_request': clock,
         'profiled_wall_ms_per_request': wall_ms / args.requests,
@@ -161,14 +197,15 @@ def main() -> int:
         'device_busy_share': busy_ms / wall_ms if wall_ms else None,
         'kernel_launches_per_request': sum(k['calls'] for k in kernels)
         / args.requests,
-        'csr_segment_softmax_launches': csr_segment_softmax.launches,
-        'csr_segment_sum_launches': csr_segment_sum.launches,
+        'port_kernel_launches': {k: v for k, v in launch_counts().items()
+                                 if v},
         'top_kernels': kernels[:25],
     }
     line = json.dumps(result)
     out = REPO / 'chiprun_out'
     out.mkdir(exist_ok=True)
-    (out / f'profile_pagtn_{args.mode}.json').write_text(line + '\n')
+    (out / f'profile_{args.model}_{args.mode}.json').write_text(
+        line + '\n')
     print(line)
     if not kernels:
         print('profile_torch_pagtn: the profiler recorded no device time',

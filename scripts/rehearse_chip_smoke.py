@@ -99,6 +99,40 @@ def main() -> int:
         flash_dq.launches += 1
         return flash_dq(*args)
 
+    nei = importlib.import_module('deepchem_tpu_torch.ops.nei_table')
+    seg = importlib.import_module('deepchem_tpu_torch.ops.segment')
+    nei_sum_fwd, nei_max_fwd, nei_max_bwd = (
+        nei._nei_sum_forward, nei._nei_max_forward, nei._nei_max_backward)
+    pool_fwd, pool_bwd = seg._graph_max_forward, seg._graph_max_backward
+
+    def counted_nei_sum(h, table, deg, backward=False):
+        if backward:
+            nei.nei_sum.backward_launches += 1
+        else:
+            nei.nei_sum.launches += 1
+        return nei_sum_fwd(h, table, deg)
+
+    def counted_nei_max_fwd(*args):
+        nei.nei_max_incl_self.launches += 1
+        return nei_max_fwd(*args)
+
+    def counted_nei_max_bwd(*args):
+        nei.nei_max_incl_self.backward_launches += 1
+        return nei_max_bwd(*args)
+
+    def counted_pool_fwd(*args):
+        seg.graph_max_pool.launches += 1
+        return pool_fwd(*args)
+
+    def counted_pool_bwd(*args):
+        seg.graph_max_pool.backward_launches += 1
+        return pool_bwd(*args)
+
+    nei._nei_sum_forward = counted_nei_sum
+    nei._nei_max_forward = counted_nei_max_fwd
+    nei._nei_max_backward = counted_nei_max_bwd
+    seg._graph_max_forward = counted_pool_fwd
+    seg._graph_max_backward = counted_pool_bwd
     flash.flash_attention_forward = counted_flash_fwd
     flash.flash_attention_bwd_dkv = counted_flash_dkv
     flash.flash_attention_bwd_dq = counted_flash_dq

@@ -4,7 +4,10 @@ to be split across a block), P1's backward against autograd through its plain
 version, one PAGTN training step against the CPU, P4's forward (with its
 statistics m and l) and backward kernels against the plain flash
 attention (the float32 backward also against its formulas in float64),
-and the encoder's logits against the CPU.  They skip where
+the encoder's logits against the CPU, GraphConv's kernels K1 (neighbour
+sum), K2 (neighbour max and its backward) and K3 (graph max readout and
+its backward) against their plain versions, and one GraphConv training
+step against the CPU.  They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
 
@@ -16,9 +19,16 @@ import numpy as np
 import pytest
 import torch
 
-from deepchem_tpu_torch import (BertEncoderMLM, PagtnModel,
+from deepchem_tpu_torch import (BertEncoderMLM, ConvMolFeaturizer,
+                                GraphConvModel, PagtnModel,
                                 PagtnMolGraphFeaturizer)
-from deepchem_tpu_torch.ops import NEG
+from deepchem_tpu_torch.ops import (NEG, build_neighbor_table, graph_max_pool,
+                                    nei_max_incl_self, nei_sum)
+from deepchem_tpu_torch.ops.nei_table import (nei_max_backward_reference,
+                                              nei_max_reference,
+                                              nei_sum_reference)
+from deepchem_tpu_torch.ops.segment import (
+    graph_max_pool_backward_reference, graph_max_pool_reference)
 from deepchem_tpu_torch.ops.csr_segment import (
     csr_neighbor_sum_reference, csr_segment_softmax,
     csr_segment_softmax_reference, csr_segment_sum,
@@ -469,3 +479,163 @@ def test_encoder_logits_match_the_cpu(cuda):
         with torch.no_grad():
             out.append(model(ids.to(device), mask.to(device)).cpu())
     np.testing.assert_allclose(out[0].numpy(), out[1].numpy(), atol=1e-4)
+
+
+def _table(n=600, seed=0):
+    """A random undirected graph of ``n`` nodes with degrees 0 to 10: node
+    0 has ten neighbours and the last 4 none."""
+    rng = np.random.RandomState(seed)
+    deg = np.zeros(n, int)
+    src, dst = [], []
+    pairs = [(0, j) for j in range(1, 11)] + [
+        tuple(sorted(rng.randint(0, n - 4, 2))) for _ in range(3 * n)]
+    for a, b in dict.fromkeys(pairs):
+        if a != b and deg[a] < 10 and deg[b] < 10:
+            src += [a, b]
+            dst += [b, a]
+            deg[a] += 1
+            deg[b] += 1
+    table, mask = build_neighbor_table(np.array(src), np.array(dst), n)
+    deg = mask.sum(1).astype(np.int8)
+    assert deg.max() == 10 and deg.min() == 0
+    return torch.from_numpy(table), torch.from_numpy(deg)
+
+
+def _values(rng, n, F, kind):
+    if kind == 'normal':
+        return rng.randn(n, F).astype(np.float32)
+    if kind == 'ties':      # 0..2, half zeros, as after a ReLU
+        return np.maximum(rng.randint(-2, 3, (n, F)), 0).astype(np.float32)
+    return np.zeros((n, F), np.float32)              # every max a tie
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('F', [1, 32, 64, 75, 128])
+def test_nei_sum_kernel_matches_plain_version(cuda, F):
+    table, deg = _table()
+    h = torch.from_numpy(np.random.RandomState(F).randn(
+        len(table), F).astype(np.float32))
+    x = h.to(cuda).requires_grad_()
+    before = (nei_sum.launches, nei_sum.backward_launches)
+    out = nei_sum(x, table.to(cuda), deg.to(cuda))
+    again = nei_sum(x.detach(), table.to(cuda), deg.to(cuda))
+    g = torch.ones_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (nei_sum.launches, nei_sum.backward_launches) == \
+        (before[0] + 2, before[1] + 1)
+    ref = nei_sum_reference(h, table, deg)
+    _close(out.detach(), ref)
+    assert torch.equal(out.detach(), again)
+    # the backward is the same sum of the cotangent
+    _close(x.grad, nei_sum_reference(g.cpu(), table, deg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['normal', 'ties', 'all_ties'])
+@pytest.mark.parametrize('F', [1, 32, 64, 75, 128])
+def test_nei_max_kernels_match_plain_version(cuda, F, kind):
+    rng = np.random.RandomState(F)
+    table, deg = _table()
+    h = torch.from_numpy(_values(rng, len(table), F, kind))
+    g = torch.from_numpy(rng.randn(len(table), F).astype(np.float32))
+    x = h.to(cuda).requires_grad_()
+    out, winner = nei_max_incl_self(x, table.to(cuda), deg.to(cuda),
+                                    return_winner=True)
+    out.backward(g.to(cuda))
+    ref, ref_winner = nei_max_reference(h, table, deg)
+    assert torch.equal(out.detach().cpu(), ref)
+    assert torch.equal(winner.cpu(), ref_winner)
+    _close(x.grad, nei_max_backward_reference(g, table, deg, ref_winner))
+    if kind == 'all_ties':
+        assert torch.equal(winner.cpu(), torch.arange(
+            len(table), dtype=torch.int32)[:, None].expand(-1, F))
+    # bit-identical on a repeat
+    x2 = h.to(cuda).requires_grad_()
+    out2, winner2 = nei_max_incl_self(x2, table.to(cuda), deg.to(cuda),
+                                      return_winner=True)
+    out2.backward(g.to(cuda))
+    assert torch.equal(winner2, winner) and torch.equal(x2.grad, x.grad)
+
+
+def _pool_case(F, seed=0):
+    """Graphs of 3, 5, 0, 1, 40, 0 and 17 rows and 2 empty slots, a ghost
+    tail of 20 rows, one masked row; integer values, so maxima tie."""
+    sizes = [3, 5, 0, 1, 40, 0, 17]
+    rng = np.random.RandomState(seed)
+    n = sum(sizes) + 20
+    row_ptr = torch.tensor(np.concatenate([[0], np.cumsum(sizes + [0, 0])]),
+                           dtype=torch.int32)
+    mask = (torch.arange(n) < sum(sizes)).float()
+    mask[4] = 0.0
+    x = torch.from_numpy(rng.randint(-3, 3, (n, F)).astype(np.float32))
+    g = torch.from_numpy(rng.randn(len(row_ptr) - 1, F).astype(np.float32))
+    return x, row_ptr, mask, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('masked', [True, False])
+@pytest.mark.parametrize('F', [1, 32, 64, 75, 128])
+def test_graph_max_pool_kernels_match_plain_version(cuda, F, masked):
+    x, row_ptr, mask, g = _pool_case(F)
+    mask = mask if masked else None
+    before = (graph_max_pool.launches, graph_max_pool.backward_launches)
+    t = x.to(cuda).requires_grad_()
+    out = graph_max_pool(t, row_ptr.to(cuda),
+                         None if mask is None else mask.to(cuda))
+    out.backward(g.to(cuda))
+    torch.cuda.synchronize()
+    assert (graph_max_pool.launches, graph_max_pool.backward_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref, mx, den = graph_max_pool_reference(x, row_ptr, mask)
+    _close(out.detach(), ref)
+    assert not out[[2, 5, 7, 8]].any()                # empty graphs: 0
+    _close(t.grad, graph_max_pool_backward_reference(g, x, row_ptr, mask,
+                                                     mx, den))
+    assert not t.grad[-20:].any()                    # the ghost rows
+    t2 = x.to(cuda).requires_grad_()
+    out2 = graph_max_pool(t2, row_ptr.to(cuda),
+                          None if mask is None else mask.to(cuda))
+    out2.backward(g.to(cuda))
+    assert torch.equal(out2, out) and torch.equal(t2.grad, t.grad)
+
+
+@pytest.mark.cuda
+def test_graph_max_pool_gives_zero_below_half_neg(cuda):
+    x, row_ptr, mask, _ = _pool_case(4)
+    out = graph_max_pool(torch.full_like(x, NEG).to(cuda), row_ptr.to(cuda),
+                         mask.to(cuda))
+    assert not out.any()
+
+
+@pytest.mark.cuda
+def test_table_kernels_reject_what_they_do_not_take(cuda):
+    table, deg = _table(40)
+    h = torch.randn(40, 8, device=cuda)
+    with pytest.raises(TypeError):
+        nei_sum(h, table.to(cuda), deg.to(cuda).to(torch.int32))
+    with pytest.raises(ValueError):
+        nei_sum(h, table, deg)                       # table on the CPU
+    with pytest.raises(ValueError):
+        nei_max_incl_self(h[:, ::2], table.to(cuda), deg.to(cuda))
+    with pytest.raises(TypeError):
+        graph_max_pool(h, torch.tensor([0, 10, 40], device=cuda))
+
+
+@pytest.mark.cuda
+def test_graphconv_training_step_gradients_match_the_cpu(cuda):
+    """One step of a small GraphConvModel on the card and on the CPU from
+    the same seed: losses and every parameter's gradient agree."""
+    X = ConvMolFeaturizer().featurize(
+        ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1'])
+    y = np.random.RandomState(0).randint(0, 2, (4, 3)).astype(np.float32)
+    kw = dict(n_tasks=3, batch_size=4, graph_conv_layers=[16, 16],
+              dense_layer_size=32, seed=1)
+    models = [GraphConvModel(device=d, **kw) for d in (cuda, 'cpu')]
+    losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for name, p in models[0].module.named_parameters():
+        np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                   cpu[name].grad.numpy(), atol=1e-5,
+                                   err_msg=name)
