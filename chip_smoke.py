@@ -20,7 +20,8 @@ Phases:
                 nei_max (forward with its winners, and backward) and K3
                 graph_max_pool (forward and backward) on the inputs
                 GraphConvModel hands them in phase 11's first batch of
-                256, and on a graph with degrees 0 to 10 (F 1 to 128), tied
+                256, and on a graph with degrees 0 to 10 (F 1 to 128; K1
+                and K2 also at F 4 and at F 64 off 16-byte alignment), tied
                 and all-tie maxima, and empty graphs with a ghost tail.
                 Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
@@ -702,6 +703,14 @@ def graph_max_cases(name, x, row_ptr, mask, g):
     return results
 
 
+def misaligned(a):
+    """A contiguous copy of ``a`` whose data sits 4 bytes past a 16-byte
+    boundary."""
+    import torch
+    out = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)[1:]
+    return out.view(a.shape).copy_(a)
+
+
 def random_table(rng, n, dev):
     """A random undirected graph of ``n`` nodes with degrees 0 to 10 (node
     0 has ten neighbours, the last 4 nodes none), its neighbour table and
@@ -1091,7 +1100,8 @@ def main() -> int:
                                         flash_attention,
                                         fused_gather_segment_sum,
                                         graph_max_pool, nei_max_incl_self,
-                                        segment)
+                                        nei_sum, segment)
+    from deepchem_tpu_torch.ops.nei_table import float4_launches
     t0 = time.perf_counter()
     X = PagtnMolGraphFeaturizer().featurize(SMILES)
     sizes = [g.num_nodes for g in X if hasattr(g, 'num_nodes')]
@@ -1247,6 +1257,9 @@ def main() -> int:
           and gc_pool_in[0][0].shape[1] == GRAPHCONV['dense_layer_size'],
           'K1 at F 75 and 64, K3 at F 128 on the path')
     gen = torch.Generator(dev).manual_seed(2)
+    # the C entries of K1 and K2's backward count their float4 launches
+    paths_before = (nei_sum.launches, nei_max_incl_self.backward_launches,
+                    float4_launches())
     nei_cases = [nei_sum_case(f'graphconv_batch256_layer{i}', *a)
                  for i, a in enumerate(gc_sum_in)]
     max_cases = [nei_max_cases(f'graphconv_batch256_layer{i}', *a,
@@ -1265,6 +1278,16 @@ def main() -> int:
         h = torch.from_numpy(rng.randn(1000, F).astype(np.float32)).to(dev)
         nei_cases.append(nei_sum_case(f'degrees_0_10_F{F}', h, table_,
                                       deg_))
+    # K1 and K2 at F 4 (4 lanes a node) and at F 64 off 16-byte alignment
+    for F, tag, place in ((4, '', lambda t: t),
+                          (64, '_misaligned', misaligned)):
+        h = place(torch.from_numpy(rng.randn(1000, F).astype(
+            np.float32)).to(dev))
+        nei_cases.append(nei_sum_case(f'degrees_0_10_F{F}{tag}', h, table_,
+                                      deg_))
+        max_cases.append(nei_max_cases(
+            f'degrees_0_10_F{F}{tag}', h, table_, deg_,
+            place(torch.randn((1000, F), generator=gen, device=dev))))
     for F in (1, 75):
         h = torch.from_numpy(np.maximum(rng.randint(-2, 3, (1000, F)), 0)
                              .astype(np.float32)).to(dev)
@@ -1274,6 +1297,17 @@ def main() -> int:
     max_cases.append(nei_max_cases(
         'all_ties_F64', torch.zeros(1000, 64, device=dev), table_, deg_,
         torch.randn((1000, 64), generator=gen, device=dev)))
+    for kname, total, before4, after4 in zip(
+            ('K1', 'K2 backward'),
+            (nei_sum.launches - paths_before[0],
+             nei_max_incl_self.backward_launches - paths_before[1]),
+            paths_before[2], float4_launches()):
+        float4 = after4 - before4
+        print(f'phase 3 {kname} paths: {float4} float4 launches, '
+              f'{total - float4} one float a lane', flush=True)
+        check(0 < float4 < total,
+              f'{kname} launched both kernel paths: {float4} float4, '
+              f'{total - float4} one float a lane')
     _, win = nei_max_incl_self(torch.zeros(1000, 64, device=dev), table_,
                                deg_, return_winner=True)
     check(bool((win == torch.arange(1000, device=dev)[:, None]).all()),

@@ -22,15 +22,43 @@
 // a row's later reads by its neighbours hit L2), the table (205 KB) and
 // the degrees, and writes [5120, 64]: about 2.8 MB, 0.8 us at 3.35 TB/s
 // (K2's forward also writes the winners, K2's backward reads them).  At
-// that size latency sets the time: each warp's loads are a chain of up to
-// deg dependent row reads.
+// that size one wave of warps covers the grid and latency sets the time:
+// the longest chain of dependent loads in a warp.
 //
-// Design.  One warp per node, 8 nodes a block.  Lane j < deg reads
-// table[i, j] once; each slot's index is broadcast by a shuffle, and the
-// lanes run across the row's features, 32 a step (F = 75 takes three steps,
-// the last with 11 lanes), with single-float loads so that any F and any
-// row alignment work.  Each output element has one writer and its terms
-// are added in slot order: no atomics, the same bits on every run.
+// K2's forward (nei_max_fwd_kernel) keeps the first design: one warp per
+// node, 8 nodes a block; lane j < deg reads table[i, j] once after deg[i];
+// each slot's index is broadcast by a shuffle, and the lanes run across
+// the row's features, 32 a step, with single-float loads.
+//
+// K1 (nei_sum_kernel) and K2's backward (nei_max_bwd_kernel) had the same
+// design, and its chain held them back: deg, then the table entry, then
+// the slots one feature step at a time (F = 75 walked its slots three
+// times, F = 64 twice), 4-byte loads, and in the backward each g[t] load
+// waited on its winner[t] load.  Their design now:
+// - Two round trips, not a chain.  A lane reads deg[i] and the table
+//   entries of the first kSlots slots together (the table is a dense
+//   [N, K] allocation, so a pad slot's entry is read but never followed;
+//   K2's backward also reads the node's own winner and g here), then issues
+//   the rows of every real slot of the group (j < deg; for K2's backward
+//   both winner[t] and g[t]) before the first add, and reads the next
+//   group's entries while they are in flight.  Slots go kSlots a group,
+//   unrolled and predicated on j < deg: one group covers a Tox21 atom.
+// - Each lane owns all its features: a group of 2^shift lanes holds a
+//   node and each lane up to kMaxUnits units of the row (one pass over the
+//   slots unless the row has more than 32 * kMaxUnits units).  With F a
+//   multiple of 4 and 16-byte-aligned rows a unit is a float4 (and an
+//   int4 of winners): F = 64 is 16 lanes, two nodes a warp.  Otherwise a
+//   unit is one float: F = 75 is 32 lanes holding features lane, lane +
+//   32 and lane + 64.  Each C entry picks the path itself and counts its
+//   float4 launches (nei_table_float4_launches).  At GraphConv's [5120,
+//   64] the float4 path takes K1 1.72 us against one float's 2.16, and
+//   K2's backward 2.41-2.47 against 2.62-2.71 (scripts/bench_nei_table.py,
+//   H100 80GB HBM3 at 700 W); at 1000 nodes, or F = 4 or 32, one float a
+//   lane is as fast or faster.
+// - The same bits as the first design: each sum starts from 0.f and adds
+//   its terms in slot order, only where real (the backward's self term is
+//   an assignment, its slot terms `if (w == m) acc += g`), so a -0.0
+//   keeps its bits.  Each output element has one writer; no atomics.
 //
 // Inputs: h (or g) [N, F] float32 row-major, table [N, K] int32, deg [N]
 // int8, K <= 32.  deg is clamped to [0, K]; table entries of real slots
@@ -39,10 +67,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_vec.cuh"
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kSlots = 4;     // slots whose row loads are issued together
+constexpr int kMaxUnits = 4;  // units of a row a lane holds in one pass
 
 struct Row {
   int node;   // this warp's node, or -1 past the last
@@ -65,23 +98,100 @@ __device__ __forceinline__ Row warp_row(const int* __restrict__ table,
   return r;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-nei_sum_kernel(const float* __restrict__ h, const int* __restrict__ table,
-               const int8_t* __restrict__ deg, float* __restrict__ out,
-               int num_nodes, int k, int num_features) {
-  const Row r = warp_row(table, deg, num_nodes, k);
-  if (r.node < 0) return;  // uniform in the warp
-  const int lane = threadIdx.x & 31;
-  const int64_t F = num_features;
-  for (int f0 = 0; f0 < num_features; f0 += 32) {
-    const int f = f0 + lane;
-    const bool active = f < num_features;
-    float acc = 0.f;
-    for (int j = 0; j < r.deg; ++j) {
-      const int src = __shfl_sync(kFullMask, r.slot, j);
-      if (active) acc += h[src * F + f];
+// The winners' unit beside a float unit (int) or a float4 unit (int4).
+template <typename V> struct WinnerOf { using T = int; };
+template <> struct WinnerOf<float4> { using T = int4; };
+
+// acc = v where w == m, per element: the self term is an assignment.
+__device__ __forceinline__ void set_if(float& acc, float v, int w, int m) {
+  if (w == m) acc = v;
+}
+__device__ __forceinline__ void set_if(float4& acc, float4 v, int4 w, int m) {
+  set_if(acc.x, v.x, w.x, m);
+  set_if(acc.y, v.y, w.y, m);
+  set_if(acc.z, v.z, w.z, m);
+  set_if(acc.w, v.w, w.w, m);
+}
+// acc += v where w == m, per element; never acc += 0.
+__device__ __forceinline__ void add_if(float& acc, float v, int w, int m) {
+  if (w == m) acc += v;
+}
+__device__ __forceinline__ void add_if(float4& acc, float4 v, int4 w, int m) {
+  add_if(acc.x, v.x, w.x, m);
+  add_if(acc.y, v.y, w.y, m);
+  add_if(acc.z, v.z, w.z, m);
+  add_if(acc.w, v.w, w.w, m);
+}
+
+// src[s] = row[j0 + s] where j0 + s < limit, else 0.
+__device__ __forceinline__ void slot_entries(const int* __restrict__ row,
+                                             int j0, int limit,
+                                             int (&src)[kSlots]) {
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    src[s] = j0 + s < limit ? row[j0 + s] : 0;
+  }
+}
+
+// unit[i] = c0 + (i << shift), the lane's units of a pass, clamped to the
+// row's last: a unit past it is read but never stored, so that loads and
+// adds need no predicate of their own beside the slot's (a thread has 7
+// predicate registers).
+template <int C>
+__device__ __forceinline__ void units_of(int c0, int shift, int cols,
+                                         int (&unit)[C]) {
+#pragma unroll
+  for (int i = 0; i < C; ++i) unit[i] = min(c0 + (i << shift), cols - 1);
+}
+
+// K1.  V is float or float4, cols = F / (floats in V).  A group of
+// 2^shift lanes holds a node; each lane holds units c0 + (i << shift),
+// i < C, of a pass over the row.
+template <typename V, int C>
+__global__ void __launch_bounds__(kThreads)
+nei_sum_kernel(const V* __restrict__ h, const int* __restrict__ table,
+               const int8_t* __restrict__ deg, V* __restrict__ out,
+               int num_nodes, int k, int cols, int shift) {
+  const int node = blockIdx.x * (kThreads >> shift) + (threadIdx.x >> shift);
+  if (node >= num_nodes) return;
+  const int* row = table + static_cast<int64_t>(node) * k;
+  // round trip 1: the degree and the first slots' entries (pad ones too)
+  const int8_t dn = deg[node];
+  int first[kSlots];
+  slot_entries(row, 0, k, first);
+  const int d = min(max(static_cast<int>(dn), 0), k);
+  for (int c0 = threadIdx.x & ((1 << shift) - 1); c0 < cols;
+       c0 += C << shift) {
+    int unit[C];
+    units_of(c0, shift, cols, unit);
+    V acc[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) acc[i] = warp_vec::zero(V());
+    int src[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) src[s] = first[s];
+    for (int j0 = 0; j0 < d; j0 += kSlots) {
+      V v[kSlots][C];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          if (j0 + s < d) v[s][i] = h[src[s] * cols + unit[i]];
+        }
+      }
+      slot_entries(row, j0 + kSlots, d, src);
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          if (j0 + s < d) warp_vec::add(acc[i], v[s][i]);
+        }
+      }
     }
-    if (active) out[r.node * F + f] = acc;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (c0 + (i << shift) < cols) out[node * cols + unit[i]] = acc[i];
+    }
   }
 }
 
@@ -116,26 +226,71 @@ nei_max_fwd_kernel(const float* __restrict__ h, const int* __restrict__ table,
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-nei_max_bwd_kernel(const float* __restrict__ g, const int* __restrict__ table,
+// K2's backward, laid out as K1.  g's and winner[t]'s loads of a slot are
+// independent: both are issued before the slot's test.
+template <typename V, int C>
+__global__ void __launch_bounds__(kThreads)
+nei_max_bwd_kernel(const V* __restrict__ g, const int* __restrict__ table,
                    const int8_t* __restrict__ deg,
-                   const int* __restrict__ winner, float* __restrict__ grad,
-                   int num_nodes, int k, int num_features) {
-  const Row r = warp_row(table, deg, num_nodes, k);
-  if (r.node < 0) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t F = num_features;
-  for (int f0 = 0; f0 < num_features; f0 += 32) {
-    const int f = f0 + lane;
-    const bool active = f < num_features;
-    float acc = 0.f;
-    if (active && winner[r.node * F + f] == r.node) acc = g[r.node * F + f];
-    for (int j = 0; j < r.deg; ++j) {
-      const int src = __shfl_sync(kFullMask, r.slot, j);
-      // src's winner is this node: src names it in one of its own slots
-      if (active && winner[src * F + f] == r.node) acc += g[src * F + f];
+                   const typename WinnerOf<V>::T* __restrict__ winner,
+                   V* __restrict__ grad, int num_nodes, int k, int cols,
+                   int shift) {
+  using W = typename WinnerOf<V>::T;
+  const int node = blockIdx.x * (kThreads >> shift) + (threadIdx.x >> shift);
+  if (node >= num_nodes) return;
+  const int* row = table + static_cast<int64_t>(node) * k;
+  // round trip 1: the degree and the first slots' entries (pad ones too)
+  const int8_t dn = deg[node];
+  int first[kSlots];
+  slot_entries(row, 0, k, first);
+  for (int c0 = threadIdx.x & ((1 << shift) - 1); c0 < cols;
+       c0 += C << shift) {
+    int unit[C];
+    units_of(c0, shift, cols, unit);
+    W ws[C];
+    V gs[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      ws[i] = winner[node * cols + unit[i]];
+      gs[i] = g[node * cols + unit[i]];
     }
-    if (active) grad[r.node * F + f] = acc;
+    const int d = min(max(static_cast<int>(dn), 0), k);
+    V acc[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      acc[i] = warp_vec::zero(V());
+      set_if(acc[i], gs[i], ws[i], node);
+    }
+    int src[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) src[s] = first[s];
+    for (int j0 = 0; j0 < d; j0 += kSlots) {
+      W w[kSlots][C];
+      V v[kSlots][C];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          if (j0 + s < d) {
+            w[s][i] = winner[src[s] * cols + unit[i]];
+            v[s][i] = g[src[s] * cols + unit[i]];
+          }
+        }
+      }
+      slot_entries(row, j0 + kSlots, d, src);
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          // t = src[s] took its max from this node: t names it in a slot
+          if (j0 + s < d) add_if(acc[i], v[s][i], w[s][i], node);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (c0 + (i << shift) < cols) grad[node * cols + unit[i]] = acc[i];
+    }
   }
 }
 
@@ -143,15 +298,106 @@ inline int blocks_for(int num_nodes) {
   return (num_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
+// The grid of K1 and K2's backward for rows of `cols` units: lanes a node
+// 2^shift (the least power of two >= cols, at most 32), units a lane C.
+struct Layout {
+  int shift, units, blocks;
+};
+
+inline Layout layout_for(int num_nodes, int cols) {
+  Layout l{0, 0, 0};
+  while ((1 << l.shift) < warp_vec::lanes_per_group(cols)) ++l.shift;
+  const int lanes = 1 << l.shift;
+  const int units = (cols + lanes - 1) / lanes;
+  l.units = units < kMaxUnits ? units : kMaxUnits;
+  const int nodes = kThreads >> l.shift;
+  l.blocks = (num_nodes + nodes - 1) / nodes;
+  return l;
+}
+
+template <typename V>
+int nei_sum_launch(const float* h, const int* table, const int8_t* deg,
+                   float* out, int num_nodes, int k, int num_features,
+                   cudaStream_t stream) {
+  const int cols = num_features / static_cast<int>(sizeof(V) / 4);
+  const Layout l = layout_for(num_nodes, cols);
+  const V* hv = reinterpret_cast<const V*>(h);
+  V* ov = reinterpret_cast<V*>(out);
+#define NEI_SUM_CASE(C)                                                     \
+  case C:                                                                   \
+    nei_sum_kernel<V, C><<<l.blocks, kThreads, 0, stream>>>(                \
+        hv, table, deg, ov, num_nodes, k, cols, l.shift);                   \
+    break;
+  switch (l.units) {
+    NEI_SUM_CASE(1)
+    NEI_SUM_CASE(2)
+    NEI_SUM_CASE(3)
+    NEI_SUM_CASE(4)
+  }
+#undef NEI_SUM_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V>
+int nei_max_bwd_launch(const float* g, const int* table, const int8_t* deg,
+                       const int* winner, float* grad, int num_nodes, int k,
+                       int num_features, cudaStream_t stream) {
+  using W = typename WinnerOf<V>::T;
+  const int cols = num_features / static_cast<int>(sizeof(V) / 4);
+  const Layout l = layout_for(num_nodes, cols);
+  const V* gv = reinterpret_cast<const V*>(g);
+  const W* wv = reinterpret_cast<const W*>(winner);
+  V* ov = reinterpret_cast<V*>(grad);
+#define NEI_MAX_BWD_CASE(C)                                                 \
+  case C:                                                                   \
+    nei_max_bwd_kernel<V, C><<<l.blocks, kThreads, 0, stream>>>(            \
+        gv, table, deg, wv, ov, num_nodes, k, cols, l.shift);               \
+    break;
+  switch (l.units) {
+    NEI_MAX_BWD_CASE(1)
+    NEI_MAX_BWD_CASE(2)
+    NEI_MAX_BWD_CASE(3)
+    NEI_MAX_BWD_CASE(4)
+  }
+#undef NEI_MAX_BWD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float4 rows need F a multiple of 4 and 16-byte-aligned data.
+inline bool vec4_ok(int num_features, const void* a, const void* b,
+                    const void* c = nullptr) {
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  return num_features % 4 == 0 && !misaligned(a) && !misaligned(b)
+         && !misaligned(c);
+}
+
+// Launches of K1 and of K2's backward that took the float4 path.
+long long float4_launches[2] = {0, 0};
+
 }  // namespace
 
-// Each launches its kernel on `stream`; returns cudaGetLastError() as an int.
+// counts[0] and counts[1]: the float4 launches of K1 and of K2's backward
+// since the library was loaded; their other launches took one float a lane.
+extern "C" void nei_table_float4_launches(long long* counts) {
+  counts[0] = float4_launches[0];
+  counts[1] = float4_launches[1];
+}
+
+// Each launches its kernel on `stream`; returns cudaGetLastError() as an
+// int.  K1 and K2's backward take float4 rows (and int4 winners) where F is
+// a multiple of 4 and every pointer 16-byte aligned, else one float a unit.
 extern "C" int nei_sum_f32(const float* h, const int* table,
                            const int8_t* deg, float* out, int num_nodes,
                            int k, int num_features, cudaStream_t stream) {
-  nei_sum_kernel<<<blocks_for(num_nodes), kWarpsPerBlock * 32, 0, stream>>>(
-      h, table, deg, out, num_nodes, k, num_features);
-  return static_cast<int>(cudaGetLastError());
+  if (vec4_ok(num_features, h, out)) {
+    ++float4_launches[0];
+    return nei_sum_launch<float4>(h, table, deg, out, num_nodes, k,
+                                  num_features, stream);
+  }
+  return nei_sum_launch<float>(h, table, deg, out, num_nodes, k,
+                               num_features, stream);
 }
 
 extern "C" int nei_max_fwd_f32(const float* h, const int* table,
@@ -168,8 +414,11 @@ extern "C" int nei_max_bwd_f32(const float* g, const int* table,
                                const int8_t* deg, const int* winner,
                                float* grad, int num_nodes, int k,
                                int num_features, cudaStream_t stream) {
-  nei_max_bwd_kernel<<<blocks_for(num_nodes), kWarpsPerBlock * 32, 0,
-                       stream>>>(g, table, deg, winner, grad, num_nodes, k,
-                                 num_features);
-  return static_cast<int>(cudaGetLastError());
+  if (vec4_ok(num_features, g, grad, winner)) {
+    ++float4_launches[1];
+    return nei_max_bwd_launch<float4>(g, table, deg, winner, grad,
+                                      num_nodes, k, num_features, stream);
+  }
+  return nei_max_bwd_launch<float>(g, table, deg, winner, grad, num_nodes, k,
+                                   num_features, stream);
 }

@@ -1,6 +1,7 @@
-// Helpers shared by the warp-per-segment sum kernels (csr_segment_sum.cu,
-// fused_gather_segment_sum.cu): a row is read as float or float4 vectors,
-// and lane groups are merged with a fixed xor-shuffle butterfly.
+// Helpers shared by the sum kernels (csr_segment_sum.cu,
+// fused_gather_segment_sum.cu, nei_table.cu): a row is read as float or
+// float4 vectors by a group of lanes, and the warp-per-segment kernels merge
+// lane groups with a fixed xor-shuffle butterfly.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -12,11 +12,14 @@ both ops' backwards are gathers too.
 On CPU tensors each op computes with its plain torch version
 (``*_reference``), written as the JAX slot loop; on CUDA tensors it
 launches ``csrc/nei_table.cu`` or raises, and counts the launch in
-``<op>.launches`` (forward) or ``<op>.backward_launches``.
+``<op>.launches`` (forward) or ``<op>.backward_launches``.  K1 and K2's
+backward each have two kernel paths, float4 rows and one float a lane;
+the C entry picks one and counts it (:func:`float4_launches`).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -140,6 +143,15 @@ def _check(what: str, floats, table: torch.Tensor, deg: torch.Tensor,
         raise ValueError(f'{what}: every tensor must be contiguous')
     if any(t.numel() >= 2**31 for t in tensors):
         raise ValueError(f'{what}: sizes must fit in int32')
+
+
+def float4_launches() -> Tuple[int, int]:
+    """Launches of K1 and of K2's backward since the kernels were loaded
+    that took the float4 path (F a multiple of 4, every data pointer
+    16-byte aligned); their other launches took one float a lane."""
+    counts = (ctypes.c_longlong * 2)()
+    build.load('nei_table').nei_table_float4_launches(counts)
+    return counts[0], counts[1]
 
 
 def _nei_sum_forward(h: torch.Tensor, table: torch.Tensor,

@@ -6,7 +6,9 @@ statistics m and l) and backward kernels against the plain flash
 attention (the float32 backward also against its formulas in float64),
 the encoder's logits against the CPU, GraphConv's kernels K1 (neighbour
 sum), K2 (neighbour max and its backward) and K3 (graph max readout and
-its backward) against their plain versions, and one GraphConv training
+its backward) against their plain versions (K1 and K2's backward on both
+of their kernel paths, float4 rows and one float a lane, also bit for bit
+against their slot-order arithmetic), and one GraphConv training
 step against the CPU.  They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
@@ -14,6 +16,9 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,7 +29,9 @@ from deepchem_tpu_torch import (BertEncoderMLM, ConvMolFeaturizer,
                                 PagtnMolGraphFeaturizer)
 from deepchem_tpu_torch.ops import (NEG, build_neighbor_table, graph_max_pool,
                                     nei_max_incl_self, nei_sum)
-from deepchem_tpu_torch.ops.nei_table import (nei_max_backward_reference,
+from deepchem_tpu_torch.ops.nei_table import (_nei_max_backward,
+                                              float4_launches,
+                                              nei_max_backward_reference,
                                               nei_max_reference,
                                               nei_sum_reference)
 from deepchem_tpu_torch.ops.segment import (
@@ -556,6 +563,104 @@ def test_nei_max_kernels_match_plain_version(cuda, F, kind):
                                       return_winner=True)
     out2.backward(g.to(cuda))
     assert torch.equal(winner2, winner) and torch.equal(x2.grad, x.grad)
+
+
+def _padded_table(n, K, seed):
+    """A table ``[n, K]`` with degrees 0 to K (node 0 has K, node n - 1
+    none, so its whole row is pad) and random neighbours.  Returns the
+    kernels' table, whose pad entries point far out of range (the
+    kernels read them but must never follow them), the plain version's
+    with 0 there, and the degrees."""
+    rng = np.random.RandomState(seed)
+    deg = rng.randint(0, K + 1, n).astype(np.int8)
+    deg[0], deg[-1] = K, 0
+    safe = rng.randint(0, n, (n, K)).astype(np.int32)
+    pad = np.arange(K)[None, :] >= deg[:, None]
+    safe[pad] = 0
+    poisoned = np.where(pad, np.int32(2**30), safe).astype(np.int32)
+    return (torch.from_numpy(poisoned), torch.from_numpy(safe),
+            torch.from_numpy(deg))
+
+
+def _on_card(a, cuda, aligned):
+    """``a`` on the card; not ``aligned``: ``chip_smoke.misaligned``'s
+    contiguous copy 4 bytes past a 16-byte boundary."""
+    t = torch.from_numpy(a).to(cuda)
+    if aligned:
+        return t
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import misaligned
+    return misaligned(t)
+
+
+def _slot_order(first, terms):
+    """float32 ``first`` plus each of ``terms`` (value, where) in order,
+    added only where it applies: the kernels' arithmetic, bit for bit."""
+    acc = first.copy()
+    for value, where in terms:
+        acc = np.where(where, acc + value, acc).astype(np.float32)
+    return acc
+
+
+# (F, aligned, float4 path): float4 rows at F 4, 64 and 128; one float a
+# lane at F 1, 75 and at F 64 off 16-byte alignment
+KERNEL_PATHS = [(4, True, True), (64, True, True), (128, True, True),
+                (1, True, False), (75, True, False), (64, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [1, 10, 32])
+@pytest.mark.parametrize('F,aligned,float4', KERNEL_PATHS)
+def test_nei_sum_kernel_paths_match_plain_version(cuda, F, aligned, float4,
+                                                  K):
+    table, safe, deg = _padded_table(300, K, seed=F + K)
+    rng = np.random.RandomState(F * K)
+    a = rng.randn(len(table), F).astype(np.float32)
+    a[rng.rand(*a.shape) < 0.2] = -0.0
+    h = _on_card(a, cuda, aligned)
+    before, before4 = nei_sum.launches, float4_launches()
+    out = nei_sum(h, table.to(cuda), deg.to(cuda))
+    again = nei_sum(h, table.to(cuda), deg.to(cuda))
+    torch.cuda.synchronize()
+    assert nei_sum.launches == before + 2
+    assert float4_launches() == (before4[0] + 2 * float4, before4[1])
+    _close(out, nei_sum_reference(torch.from_numpy(a), safe, deg))
+    want = _slot_order(np.zeros_like(a), [
+        (a[safe[:, j].numpy()], (j < deg.numpy())[:, None])
+        for j in range(K)])
+    assert np.array_equal(out.cpu().numpy().view(np.int32),
+                          want.view(np.int32))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [1, 10, 32])
+@pytest.mark.parametrize('F,aligned,float4', KERNEL_PATHS)
+def test_nei_max_backward_kernel_paths_match_plain_version(cuda, F, aligned,
+                                                           float4, K):
+    table, safe, deg = _padded_table(300, K, seed=F + K)
+    rng = np.random.RandomState(F * K)
+    h = torch.from_numpy(_values(rng, len(table), F, 'ties'))
+    _, winner = nei_max_reference(h, safe, deg)
+    a = rng.randn(len(table), F).astype(np.float32)
+    a[rng.rand(*a.shape) < 0.2] = -0.0
+    g = _on_card(a, cuda, aligned)
+    w = winner.to(cuda)
+    before, before4 = nei_max_incl_self.backward_launches, float4_launches()
+    grad = _nei_max_backward(g, table.to(cuda), deg.to(cuda), w)
+    again = _nei_max_backward(g, table.to(cuda), deg.to(cuda), w)
+    torch.cuda.synchronize()
+    assert nei_max_incl_self.backward_launches == before + 2
+    assert float4_launches() == (before4[0], before4[1] + 2 * float4)
+    _close(grad, nei_max_backward_reference(torch.from_numpy(a), safe, deg,
+                                            winner))
+    wn, m = winner.numpy(), np.arange(len(table))[:, None]
+    want = _slot_order(np.where(wn == m, a, np.float32(0)), [
+        (a[t], (j < deg.numpy())[:, None] & (wn[t] == m))
+        for j, t in enumerate(safe.numpy().T)])
+    assert np.array_equal(grad.cpu().numpy().view(np.int32),
+                          want.view(np.int32))
+    assert torch.equal(grad, again)
 
 
 def _pool_case(F, seed=0):
