@@ -10,7 +10,8 @@ Phases:
                 of its own, whatever these flags say).
   2. build   -- compiles every kernel under deepchem_tpu_torch/csrc/, one
                 nvcc for each source, all at once, and prints ptxas's
-                report; ptxas must have serialised no wgmma (info C7512).
+                report; ptxas must have serialised no wgmma (info C7512),
+                and K1-K3's kernels must spill nothing.
   3. kernel  -- each kernel against its plain PyTorch version on the card:
                 P1 csr_segment_softmax and P3 csr_segment_sum on the inputs
                 the model hands them, P2 fused_gather_segment_sum at the
@@ -22,7 +23,12 @@ Phases:
                 GraphConvModel hands them in phase 11's first batch of
                 256, and on a graph with degrees 0 to 10 (F 1 to 128; K1
                 and K2 also at F 4 and at F 64 off 16-byte alignment), tied
-                and all-tie maxima, and empty graphs with a ghost tail.
+                and all-tie maxima, and empty graphs with a ghost tail;
+                every path of the two-path kernels (float4 rows, one float
+                a lane) launched.  Then K1-K3 at values the model never
+                hands them (NaN, infinities, signed zeros, values at and
+                below NEG), each path, held for exact equality with the
+                plain versions, NaN where NaN.
                 Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
@@ -88,6 +94,7 @@ The last line is the JSON device record.  Any failed check exits non-zero.
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -733,6 +740,122 @@ def random_table(rng, n, dev):
             torch.from_numpy(mask.sum(1).astype(np.int8)).to(dev))
 
 
+def same_values(a, b) -> bool:
+    """Equal shapes and values, NaN where NaN (-0.0 equals 0.0)."""
+    import torch
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def non_finite_inputs(rng, dev):
+    """Inputs on which K1-K3 have differed from the JAX package: NaN,
+    infinities, signed zeros and values at or below NEG.  Returns
+    ``{'table': (h, g) of K1 and K2 at F 64 and 75 on random_table's 1000
+    nodes, 'pool': (x, g) of K3 at F 128 and 37}`` beside the shared
+    ``table``, ``deg``, ``row_ptr`` and ``mask``."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch.ops import NEG
+    table, deg = random_table(rng, 1000, dev)
+    rows = {}
+    for F in (64, 75):
+        h = rng.randn(1000, F).astype(np.float32)
+        h[0, :3] = (np.inf, -np.inf, np.nan)      # row 0: behind the pads
+        h[:, 3] = -np.inf                         # nodes wholly at -inf,
+        h[:, 4] = -1e16                           # below NEG,
+        h[:, 5] = NEG                             # at NEG
+        h[:, 6] = rng.choice([NEG, -1e16, -np.inf, np.inf], 1000)
+        h[rng.rand(1000) < 0.2, 7] = np.nan
+        h[:, 8] = np.where(rng.rand(1000) < 0.5, -0.0, 0.0)
+        g = rng.randn(1000, F).astype(np.float32)
+        g[0, 0], g[1, 1], g[rng.rand(1000) < 0.1, 2] = np.inf, np.nan, -np.inf
+        rows[F] = tuple(torch.from_numpy(a).to(dev) for a in (h, g))
+    # graphs of 3, 5, 0, 1, 40, 0 and 17 rows, 2 empty slots, a ghost tail
+    # of 20 rows; row 4 (graph 1) masked
+    sizes = [3, 5, 0, 1, 40, 0, 17]
+    G, N = len(sizes) + 2, sum(sizes) + 20
+    row_ptr = torch.tensor(np.concatenate([[0], np.cumsum(sizes + [0, 0])]),
+                           dtype=torch.int32, device=dev)
+    mask = (torch.arange(N, device=dev) < sum(sizes)).float()
+    mask[4] = 0.0
+    pool = {}
+    for F in (128, 37):
+        x = rng.randint(-3, 3, (N, F)).astype(np.float32)
+        x[1, 0] = -np.inf            # graph 0: a valid -inf row
+        x[5, 1] = np.nan             # graph 1: a valid NaN row
+        x[4, 2] = np.nan             # graph 1: the masked row NaN
+        x[4, 3] = np.inf             # graph 1: the masked row +inf
+        x[10, 4] = np.inf            # graph 4: a +inf max
+        x[11, 5], x[12, 5] = np.inf, -np.inf
+        x[:, 6] = np.where(rng.rand(N) < 0.5, -0.0, 0.0)  # signed zero ties
+        x[:, 7] = NEG                # every row at NEG
+        x[:, 8] = -1e16              # every row below NEG
+        x[-1, 9] = np.nan            # a ghost row
+        g = rng.randn(G, F).astype(np.float32)
+        g[0, 10], g[1, 11], g[2, 12], g[4, 13] = (np.inf, np.nan, np.inf,
+                                                  -np.inf)
+        pool[F] = tuple(torch.from_numpy(a).to(dev) for a in (x, g))
+    return {'table': rows, 'pool': pool, 'table_deg': (table, deg),
+            'row_ptr': row_ptr, 'mask': mask}
+
+
+def non_finite_cases(rng, dev):
+    """K1, K2 and K3, forward and backward, at :func:`non_finite_inputs`,
+    each kernel on both of its paths where it has two, held for exact
+    equality with the plain versions (NaN where NaN; K2's winners
+    equal).  Returns a result for each case."""
+    import torch
+    from deepchem_tpu_torch.ops import nei_table, segment
+    inp = non_finite_inputs(rng, dev)
+    table, deg = inp['table_deg']
+    results = []
+    for F, (h, g) in inp['table'].items():
+        for tag, place in (('', lambda t: t), ('_misaligned', misaligned)):
+            h_, g_ = place(h), place(g)
+            out = nei_table._nei_sum_forward(h_, table, deg)
+            grad = nei_table._nei_sum_forward(g_, table, deg, backward=True)
+            best, win = nei_table._nei_max_forward(h_, table, deg)
+            gmax = nei_table._nei_max_backward(g_, table, deg, win)
+            torch.cuda.synchronize()
+            ref_best, ref_win = nei_table.nei_max_reference(h, table, deg)
+            res = {'case': f'non_finite_F{F}{tag}', 'checks': {
+                'nei_sum': same_values(
+                    out, nei_table.nei_sum_reference(h, table, deg)),
+                'nei_sum_bwd': same_values(
+                    grad, nei_table.nei_sum_reference(g, table, deg)),
+                'nei_max_fwd': same_values(best, ref_best)
+                and torch.equal(win, ref_win),
+                'nei_max_bwd': same_values(
+                    gmax, nei_table.nei_max_backward_reference(
+                        g, table, deg, ref_win))},
+                'nan_outputs': int(torch.isnan(out).sum()
+                                   + torch.isnan(best).sum())}
+            results.append(res)
+    row_ptr, mask = inp['row_ptr'], inp['mask']
+    for F, (x, g) in inp['pool'].items():
+        for tag, place in (('', lambda t: t), ('_misaligned', misaligned)):
+            x_ = place(x)
+            out, mx, den = segment._graph_max_forward(x_, row_ptr, mask)
+            dx = segment._graph_max_backward(g, x_, row_ptr, mask, mx, den)
+            torch.cuda.synchronize()
+            ref, ref_mx, ref_den = segment.graph_max_pool_reference(
+                x, row_ptr, mask)
+            ref_dx = segment.graph_max_pool_backward_reference(
+                g, x, row_ptr, mask, ref_mx, ref_den)
+            results.append({'case': f'non_finite_pool_F{F}{tag}', 'checks': {
+                'graph_max_pool_fwd': same_values(out, ref)
+                and same_values(mx, ref_mx) and torch.equal(den, ref_den),
+                'graph_max_pool_bwd': same_values(dx, ref_dx)},
+                'nan_outputs': int(torch.isnan(out).sum()
+                                   + torch.isnan(dx).sum())})
+    for res in results:
+        print(f'phase 3 non-finite {json.dumps(res)}', flush=True)
+        for kname, ok in res['checks'].items():
+            check(ok, f'{res["case"]}: {kname} differs from its plain '
+                  'version')
+    return results
+
+
 def library_attention(q, k, v, scale):
     """P4's forward as one library call, for comparison only: SDPA with
     its flash backend in bfloat16 and its memory-efficient backend in
@@ -1091,6 +1214,11 @@ def main() -> int:
     # ptxas reports a wgmma it had to serialise only as an info line
     check('C7512' not in build.build_log('flash_attention'),
           'ptxas serialised no wgmma of the bf16 flash kernels (C7512)')
+    for kname in ('nei_table', 'graph_pool'):
+        spills = [int(n) for n in re.findall(
+            r'(\d+) bytes spill (?:stores|loads)', build.build_log(kname))]
+        check(spills and not any(spills),
+              f'ptxas reports no spill in {kname}.cu: {spills}')
 
     # -- featurize the main path's molecules (host work) -------------------
     from deepchem_tpu_torch import (NumpyDataset, PagtnModel,
@@ -1102,6 +1230,7 @@ def main() -> int:
                                         graph_max_pool, nei_max_incl_self,
                                         nei_sum, segment)
     from deepchem_tpu_torch.ops.nei_table import float4_launches
+    from deepchem_tpu_torch.ops.segment import graph_max_pool_float4_launches
     t0 = time.perf_counter()
     X = PagtnMolGraphFeaturizer().featurize(SMILES)
     sizes = [g.num_nodes for g in X if hasattr(g, 'num_nodes')]
@@ -1257,9 +1386,10 @@ def main() -> int:
           and gc_pool_in[0][0].shape[1] == GRAPHCONV['dense_layer_size'],
           'K1 at F 75 and 64, K3 at F 128 on the path')
     gen = torch.Generator(dev).manual_seed(2)
-    # the C entries of K1 and K2's backward count their float4 launches
-    paths_before = (nei_sum.launches, nei_max_incl_self.backward_launches,
-                    float4_launches())
+    # the C entries of K1, K2 and K3's forward count their float4 launches
+    paths_before = ((nei_sum.launches, nei_max_incl_self.backward_launches,
+                     nei_max_incl_self.launches, graph_max_pool.launches),
+                    float4_launches() + (graph_max_pool_float4_launches(),))
     nei_cases = [nei_sum_case(f'graphconv_batch256_layer{i}', *a)
                  for i, a in enumerate(gc_sum_in)]
     max_cases = [nei_max_cases(f'graphconv_batch256_layer{i}', *a,
@@ -1297,17 +1427,6 @@ def main() -> int:
     max_cases.append(nei_max_cases(
         'all_ties_F64', torch.zeros(1000, 64, device=dev), table_, deg_,
         torch.randn((1000, 64), generator=gen, device=dev)))
-    for kname, total, before4, after4 in zip(
-            ('K1', 'K2 backward'),
-            (nei_sum.launches - paths_before[0],
-             nei_max_incl_self.backward_launches - paths_before[1]),
-            paths_before[2], float4_launches()):
-        float4 = after4 - before4
-        print(f'phase 3 {kname} paths: {float4} float4 launches, '
-              f'{total - float4} one float a lane', flush=True)
-        check(0 < float4 < total,
-              f'{kname} launched both kernel paths: {float4} float4, '
-              f'{total - float4} one float a lane')
     _, win = nei_max_incl_self(torch.zeros(1000, 64, device=dev), table_,
                                deg_, return_winner=True)
     check(bool((win == torch.arange(1000, device=dev)[:, None]).all()),
@@ -1330,6 +1449,20 @@ def main() -> int:
     out = graph_max_pool(torch.full((N, 4), NEG, device=dev), pool_rp,
                          pool_mask)
     check(bool((out == 0).all()), 'K3: rows at NEG and empty graphs give 0')
+    non_finite_cases(rng, dev)
+    launched = (nei_sum.launches, nei_max_incl_self.backward_launches,
+                nei_max_incl_self.launches, graph_max_pool.launches)
+    for kname, total, before4, after4 in zip(
+            ('K1', 'K2 backward', 'K2 forward', 'K3 forward'),
+            (a - b for a, b in zip(launched, paths_before[0])),
+            paths_before[1],
+            float4_launches() + (graph_max_pool_float4_launches(),)):
+        float4 = after4 - before4
+        print(f'phase 3 {kname} paths: {float4} float4 launches, '
+              f'{total - float4} one float a lane', flush=True)
+        check(0 < float4 < total,
+              f'{kname} launched both kernel paths: {float4} float4, '
+              f'{total - float4} one float a lane')
 
     # -- 4. serve ---------------------------------------------------------
     model.predict_on_batch(X[1:17])             # warm-up: cuBLAS, allocator

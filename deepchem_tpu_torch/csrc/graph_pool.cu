@@ -6,30 +6,64 @@
 // graph b owns rows [row_ptr[b], row_ptr[b+1]), and rows past row_ptr[G]
 // (the ghost slot) belong to no graph.  Per graph b and feature f, over the
 // rows r of b whose mask is set (every row when there is no mask):
-//   mx  = max x[r, f]; 0 where that is not finite or not above NEG / 2
-//         (no valid row, or values as low as the masking value)
-//   sel = x[r, f] >= mx
-//   den = number of selected rows; out = (sum of selected x) / den, in row
-//         order; 0 where den == 0
+//   mx  = max x[r, f], NaN if one is NaN; 0 where that is not finite or
+//         not above NEG / 2 (no valid row, or values as low as the masking
+//         value)
+//   sel = valid and x[r, f] >= mx
+//   den = number of selected rows
+//   num = sum over EVERY row r of b, masked ones included, of x[r, f] *
+//         sel, in row order, so a non-finite row that is not selected
+//         makes it NaN
+//   out = num / den; 0 where den == 0
 // so tied maxima share the result and an empty graph gives 0.  Backward,
 // as the JAX op's stop_gradients make it (mx and den carry none):
-//   dx[r, f] = g[b, f] / max(den, 1) where r is valid and selected, else 0,
-// and 0 on the ghost rows.  Masked rows are skipped, not multiplied by 0.
+//   dx[r, f] = t * sel on every row r of b, masked ones included, with
+//   t = g[b, f] / den where den > 0 and 0 where den == 0,
+// and 0 on the ghost rows.  An infinite or NaN t makes the rows that are
+// not selected NaN, as in the JAX gradient.
 //
 // Bound on this card: memory bytes.  GraphConv's main path hands it
-// x [5120, 128] f32 (about 4.6k real rows) and 256 graphs: the forward
-// reads x once (2.4 MB of real rows) and writes out, mx and den (3 x 131
-// KB); the backward reads x, g, mx, den and writes dx: 2.6 to 2.9 MB, about
-// 0.8 us at 3.35 TB/s.  At that size the launch and each block's chain of
-// ~18 dependent row reads set the time.
+// x [5120, 128] f32 (about 4.6k real rows) and 256 graphs of 9 to 33 rows:
+// the forward reads x once (2.4 MB of real rows) and writes out, mx and
+// den (3 x 131 KB); the backward reads x, g, mx, den and writes dx: 2.6 to
+// 2.9 MB, about 0.8 us at 3.35 TB/s.  At that size the launch, two
+// dependent memory round trips (row_ptr, then the rows) and the
+// instructions of the fold and the merge set the time.
 //
-// Design.  Forward: one block per real graph, threads across the features
-// (a block of up to 128 threads loops over wider rows); each thread walks
-// its graph's rows twice, for the max and for the selected sum, so every
-// output has one writer and its terms are added in row order: no atomics,
-// the same bits on every run.  The ghost segment gets no block.  Backward:
-// the same blocks recompute sel from x and the saved mx, and extra blocks
-// after the G graph blocks write the zeros of the ghost rows, 32 rows each.
+// Forward design.  One block of 8 warps per real graph (no block for the
+// ghost slot).  Lanes run across the features: a row group of 2^shift
+// lanes (the least power of two >= the row's units, at most 32) covers a
+// row, each lane up to kMaxUnits units, where a unit is a float4 when F is
+// a multiple of 4 and x 16-byte aligned, else one float (the C entry picks
+// and counts the path).  F = 128 is a float4 a lane, a warp a row; F = 75
+// is 3 floats a lane.  The block's 256 >> shift row groups split the
+// graph's rows into contiguous chunks in row order; a group issues the
+// mask and x loads of up to R rows of its chunk at once, then folds them
+// in row order, without a branch, into statistics per element: the strict
+// running max (a masked row competing as -inf), how many rows equal it,
+// and whether every row, valid or masked, was finite.  The chunks merge in
+// group order through shared memory, one thread an element, with the same
+// strict rule, so the merge equals one scan of the graph and keeps the
+// first of tied values in row order (-0 and +0 keep their sign).  Then:
+//   - every row finite and mx above NEG / 2: den = cnt and num is the sum
+//     of cnt copies of mx from 0.f, added one by one as the row-order sum
+//     adds them (each selected value equals mx, and the unselected rows
+//     add +-0, which leaves it as it was);
+//   - every row finite and no valid row above NEG / 2: mx = den = out = 0;
+//   - a row not finite: the thread reads the element's rows again, one
+//     after another, and takes every statistic from them (exact_element).
+// On finite inputs above NEG this gives the bits of the first design (one
+// thread a feature walking the rows twice, a mask load and a branch before
+// each row).  At GraphConv's [5120, 128] with 256 graphs that is 256
+// blocks of 256 threads: every one of the card's 132 SMs takes one or two,
+// where a warp a graph in blocks of 8 warps (32 blocks) would have left
+// 100 SMs idle.  Blocks of 4 warps, or 8 rows in flight a group, were
+// slower there (scripts/bench_nei_table.py, H100 80GB HBM3 at 700 W).
+//
+// Backward design: one block per graph, threads across the features, one
+// float a thread; the same blocks recompute sel from x and the saved mx,
+// and extra blocks after the G graph blocks write the zeros of the ghost
+// rows, 32 rows each.
 //
 // Inputs: x [N, F] float32 row-major, row_ptr [G+1] int32 non-decreasing
 // with row_ptr[0] == 0 (clamped to [0, N]), mask [N] float32 or null.
@@ -42,7 +76,9 @@ namespace {
 
 constexpr float kNeg = -9e15f;  // the masking value of ops/segment.py
 constexpr int kMaxThreads = 128;
-constexpr int kTailRows = 32;   // ghost rows zeroed by one backward block
+constexpr int kPoolThreads = 256;  // a forward block: 8 warps a graph
+constexpr int kMaxUnits = 4;       // units of a row a lane holds in a pass
+constexpr int kTailRows = 32;      // ghost rows zeroed by one backward block
 
 __device__ __forceinline__ bool valid(const float* __restrict__ mask,
                                       int64_t r) {
@@ -56,37 +92,181 @@ __device__ __forceinline__ void bounds(const int* __restrict__ row_ptr,
   *end = max(min(max(row_ptr[b + 1], 0), num_rows), *start);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-graph_max_pool_fwd_kernel(const float* __restrict__ x,
+template <typename V> struct Width { static constexpr int n = 1; };
+template <> struct Width<float4> { static constexpr int n = 4; };
+
+__device__ __forceinline__ float elem(float v, int) { return v; }
+__device__ __forceinline__ float elem(float4 v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// One element's running statistics over rows folded in row order.
+struct Stats {
+  float mx;     // strict running max of the valid rows, -inf before any
+  int cnt;      // rows equal to mx (masked ones while mx is -inf)
+  bool finite;  // every row so far finite, valid or not
+};
+
+// Folds row value v (valid where ok) into a, without a branch: lanes of a
+// warp hold different features, whose compares go different ways.  A
+// masked row competes as -inf, which only counts while nothing valid has
+// been seen.
+__device__ __forceinline__ void fold(Stats& a, float v, bool ok) {
+  const float c = ok ? v : -INFINITY;
+  const bool gt = c > a.mx;
+  a.cnt = gt ? 1 : a.cnt + (c == a.mx);
+  a.mx = gt ? c : a.mx;
+  a.finite = a.finite && fabsf(v) <= 3.402823466e38f;
+}
+
+// out, mx and den of element f of graph b where a row is not finite:
+// every statistic again from the rows, one after another.
+__device__ __forceinline__ void exact_element(const float* __restrict__ x,
+                              const float* __restrict__ mask, int start,
+                              int end, int64_t f, int64_t F, float* out,
+                              float* mx_out, float* den_out) {
+  float mx = -INFINITY;
+  int cnt = 0, pos = 0;
+  bool nan = false, bad = false;  // a valid NaN; a non-finite row not taken
+  for (int r = start; r < end; ++r) {
+    const float v = x[r * F + f];
+    if (valid(mask, r)) {
+      if (v > mx) {
+        mx = v;
+        cnt = 1;
+      } else if (v == mx) {
+        ++cnt;
+      }
+      pos += v >= 0.f;
+      nan = nan || v != v;
+      bad = bad || v == -INFINITY;
+    } else {
+      bad = bad || !isfinite(v);
+    }
+  }
+  float num = 0.f, den = 0.f;
+  if (nan || mx == INFINITY) {  // mx resets to 0: the rows >= 0 are taken
+    den = static_cast<float>(pos);
+    num = nan || bad ? NAN : INFINITY;
+    mx = 0.f;
+  } else if (mx > 0.5f * kNeg) {
+    den = static_cast<float>(cnt);
+    for (int q = 0; q < cnt; ++q) num += mx;
+    if (bad) num = NAN;
+  } else {
+    mx = 0.f;
+  }
+  *out = den > 0.f ? num / fmaxf(den, 1.f) : 0.f;
+  *mx_out = mx;
+  *den_out = den;
+}
+
+// K3's forward.  V is float or float4, cols = F / (floats in V), a row
+// group of 2^shift lanes a row, C units a lane, R rows issued at once.
+template <typename V, int C, int R>
+__global__ void __launch_bounds__(kPoolThreads)
+graph_max_pool_fwd_kernel(const V* __restrict__ x,
                           const int* __restrict__ row_ptr,
                           const float* __restrict__ mask,
                           float* __restrict__ out, float* __restrict__ mx_out,
                           float* __restrict__ den_out, int num_rows,
-                          int num_features) {
+                          int cols, int shift) {
+  constexpr int kW = Width<V>::n;
+  constexpr int kElems = kPoolThreads * C * kW;  // group x element of a pass
+  constexpr int kNonFinite = 1 << 31;            // flag beside s_cnt's count
+  __shared__ float s_mx[kElems];
+  __shared__ int s_cnt[kElems];
   const int b = blockIdx.x;
   int start, end;
   bounds(row_ptr, b, num_rows, &start, &end);
-  const int64_t F = num_features;
-  for (int f = threadIdx.x; f < num_features; f += blockDim.x) {
-    float mx = -INFINITY;
-    for (int r = start; r < end; ++r) {
-      if (!valid(mask, r)) continue;
-      const float v = x[r * F + f];
-      if (v > mx) mx = v;
+  const int groups = kPoolThreads >> shift;
+  const int group = threadIdx.x >> shift;
+  const int lane = threadIdx.x & ((1 << shift) - 1);
+  const int per = (end - start + groups - 1) / groups;
+  const int r0 = min(start + group * per, end);
+  const int r1 = min(r0 + per, end);
+  const int pass_units = C << shift;
+  const int pass_elems = pass_units * kW;
+  const int F = cols * kW;
+  for (int c0 = 0; c0 < cols; c0 += pass_units) {
+    int unit[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      unit[i] = min(c0 + lane + (i << shift), cols - 1);
     }
-    if (!(isfinite(mx) && mx > 0.5f * kNeg)) mx = 0.f;
-    float num = 0.f, den = 0.f;
-    for (int r = start; r < end; ++r) {
-      if (!valid(mask, r)) continue;
-      const float v = x[r * F + f];
-      if (v >= mx) {
-        num += v;
-        den += 1.f;
+    Stats st[C][kW];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+#pragma unroll
+      for (int e = 0; e < kW; ++e) st[i][e] = Stats{-INFINITY, 0, true};
+    }
+    for (int r = r0; r < r1; r += R) {
+      float m[R];
+      V v[R][C];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (r + q < r1) {
+          m[q] = mask == nullptr ? 1.f : mask[r + q];
+#pragma unroll
+          for (int i = 0; i < C; ++i) v[q][i] = x[(r + q) * cols + unit[i]];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (r + q < r1) {
+#pragma unroll
+          for (int i = 0; i < C; ++i) {
+#pragma unroll
+            for (int e = 0; e < kW; ++e) {
+              fold(st[i][e], elem(v[q][i], e), m[q] > 0.f);
+            }
+          }
+        }
       }
     }
-    out[b * F + f] = den > 0.f ? num / fmaxf(den, 1.f) : 0.f;
-    mx_out[b * F + f] = mx;
-    den_out[b * F + f] = den;
+    // this group's statistics, by element of the pass
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        const int k = group * pass_elems + (lane + (i << shift)) * kW + e;
+        s_mx[k] = st[i][e].mx;
+        s_cnt[k] = st[i][e].cnt | (st[i][e].finite ? 0 : kNonFinite);
+      }
+    }
+    __syncthreads();
+    // merge the groups in row order, one thread an element
+    for (int el = threadIdx.x; el < pass_elems; el += kPoolThreads) {
+      const int f = c0 * kW + el;
+      if (f >= F) break;
+      float mx = -INFINITY;
+      int cnt = 0, flags = 0;
+      for (int g = 0; g < groups; ++g) {
+        const int k = g * pass_elems + el;
+        const float gm = s_mx[k];
+        const int gc = s_cnt[k] & ~kNonFinite;
+        cnt = gm > mx ? gc : cnt + (gm == mx ? gc : 0);
+        mx = gm > mx ? gm : mx;
+        flags |= s_cnt[k];
+      }
+      if (flags & kNonFinite) {
+        exact_element(reinterpret_cast<const float*>(x), mask, start, end,
+                      f, F, out + b * F + f, mx_out + b * F + f,
+                      den_out + b * F + f);
+        continue;
+      }
+      float num = 0.f, den = 0.f;
+      if (mx > 0.5f * kNeg) {
+        den = static_cast<float>(cnt);
+        for (int q = 0; q < cnt; ++q) num += mx;
+      } else {
+        mx = 0.f;
+      }
+      out[b * F + f] = den > 0.f ? num / fmaxf(den, 1.f) : 0.f;
+      mx_out[b * F + f] = mx;
+      den_out[b * F + f] = den;
+    }
+    __syncthreads();
   }
 }
 
@@ -116,10 +296,11 @@ graph_max_pool_bwd_kernel(const float* __restrict__ g,
   bounds(row_ptr, b, num_rows, &start, &end);
   for (int f = threadIdx.x; f < num_features; f += blockDim.x) {
     const float mx = mx_in[b * F + f];
-    const float t = g[b * F + f] / fmaxf(den_in[b * F + f], 1.f);
+    const float den = den_in[b * F + f];
+    const float t = den > 0.f ? g[b * F + f] / fmaxf(den, 1.f) : 0.f;
     for (int r = start; r < end; ++r) {
       const float v = x[r * F + f];
-      dx[r * F + f] = valid(mask, r) && v >= mx ? t : 0.f;
+      dx[r * F + f] = t * (valid(mask, r) && v >= mx ? 1.f : 0.f);
     }
   }
 }
@@ -129,18 +310,62 @@ inline int threads_for(int num_features) {
   return t < kMaxThreads ? (t > 0 ? t : 32) : kMaxThreads;
 }
 
+template <typename V>
+int graph_max_pool_fwd_launch(const float* x, const int* row_ptr,
+                              const float* mask, float* out, float* mx,
+                              float* den, int num_graphs, int num_rows,
+                              int num_features, cudaStream_t stream) {
+  const int cols = num_features / static_cast<int>(sizeof(V) / 4);
+  int shift = 0;
+  while ((1 << shift) < cols && shift < 5) ++shift;
+  const int lanes = 1 << shift;
+  const int units = (cols + lanes - 1) / lanes;
+  const V* xv = reinterpret_cast<const V*>(x);
+#define GRAPH_MAX_FWD_CASE(C, R)                                            \
+  case C:                                                                   \
+    graph_max_pool_fwd_kernel<V, C, R><<<num_graphs, kPoolThreads, 0,       \
+                                         stream>>>(                         \
+        xv, row_ptr, mask, out, mx, den, num_rows, cols, shift);            \
+    break;
+  switch (units < kMaxUnits ? units : kMaxUnits) {
+    GRAPH_MAX_FWD_CASE(1, 4)
+    GRAPH_MAX_FWD_CASE(2, 4)
+    GRAPH_MAX_FWD_CASE(3, 4)
+    GRAPH_MAX_FWD_CASE(4, 2)
+  }
+#undef GRAPH_MAX_FWD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Forward launches that took the float4 path.
+long long fwd_float4_launches = 0;
+
 }  // namespace
 
-// Each launches its kernel on `stream`; returns cudaGetLastError() as an int.
+// counts[0]: the forward's float4 launches since the library was loaded;
+// its other launches took one float a unit.
+extern "C" void graph_pool_float4_launches(long long* counts) {
+  counts[0] = fwd_float4_launches;
+}
+
+// Each launches its kernel on `stream`; returns cudaGetLastError() as an
+// int.  The forward reads x as float4 rows where F is a multiple of 4 and
+// x is 16-byte aligned, else one float a unit; it writes out, mx and den a
+// float a thread, so their alignment does not matter.
 extern "C" int graph_max_pool_fwd_f32(const float* x, const int* row_ptr,
                                       const float* mask, float* out,
                                       float* mx, float* den, int num_graphs,
                                       int num_rows, int num_features,
                                       cudaStream_t stream) {
-  graph_max_pool_fwd_kernel<<<num_graphs, threads_for(num_features), 0,
-                              stream>>>(x, row_ptr, mask, out, mx, den,
-                                        num_rows, num_features);
-  return static_cast<int>(cudaGetLastError());
+  if (num_features % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    ++fwd_float4_launches;
+    return graph_max_pool_fwd_launch<float4>(x, row_ptr, mask, out, mx, den,
+                                             num_graphs, num_rows,
+                                             num_features, stream);
+  }
+  return graph_max_pool_fwd_launch<float>(x, row_ptr, mask, out, mx, den,
+                                          num_graphs, num_rows, num_features,
+                                          stream);
 }
 
 extern "C" int graph_max_pool_bwd_f32(const float* g, const float* x,

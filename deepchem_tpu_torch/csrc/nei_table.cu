@@ -4,17 +4,25 @@
 // Replace the custom-VJP XLA ops of deepchem_tpu/ops/nei_table.py, which the
 // JAX package computes as slot-by-slot gathers, with no Pallas kernel:
 //   K1  _slot_sum / nei_sum (:75-100):
-//         out[i] = sum over j < deg[i] of h[table[i, j]], in ascending j.
+//         out[i] = sum over every slot j < K of h[table[i, j]] * real(j), in
+//         ascending j, real(j) = 1 for j < deg[i] and 0 for a pad slot.
+//       A pad slot's row is read and added times 0: it adds a signed zero,
+//       or NaN where the row is not finite, as the JAX op's mask does.
 //       Its backward is the same sum of the cotangent: an undirected
 //       molecular graph's table is its own transpose.
 //   K2  nei_max_incl_self (:103-149), forward: best = h[i], winner = i;
-//         for j < deg[i] in ascending order, h[table[i, j]] > best (strict)
-//         takes it.  So self wins a tie, then the lowest slot.
+//         for every slot j in ascending order the candidate h[table[i, j]]
+//         (a real slot) or NEG (a pad slot) takes it where it is strictly
+//         greater, with winner table[i, j].  So self wins a tie, then the
+//         lowest slot, a NaN never takes the max, and a node whose values
+//         lie below NEG takes NEG from its first pad slot (later pad slots
+//         cannot beat it).
 //       backward: grad[m] = g[m] [winner[m] == m]
 //                   + sum over j < deg[m] of g[t] [winner[t] == m],
 //         t = table[m, j], added in that order.
-// Slots j >= deg[i] are skipped, not multiplied by a zero mask, so their
-// table entries are never read.
+// So K1 reads the rows of pad slots (the port's packer points them all at
+// row 0, which stays in L1), K2's forward reads the entry of the first pad
+// slot but not its row, and K2's backward neither.
 //
 // Bound on this card: memory bytes.  At GraphConv's main path (batch 256 of
 // Tox21-size molecules, about 4.6k real nodes padded to 5120, F = 75 and
@@ -25,24 +33,19 @@
 // that size one wave of warps covers the grid and latency sets the time:
 // the longest chain of dependent loads in a warp.
 //
-// K2's forward (nei_max_fwd_kernel) keeps the first design: one warp per
-// node, 8 nodes a block; lane j < deg reads table[i, j] once after deg[i];
-// each slot's index is broadcast by a shuffle, and the lanes run across
-// the row's features, 32 a step, with single-float loads.
-//
-// K1 (nei_sum_kernel) and K2's backward (nei_max_bwd_kernel) had the same
-// design, and its chain held them back: deg, then the table entry, then
-// the slots one feature step at a time (F = 75 walked its slots three
-// times, F = 64 twice), 4-byte loads, and in the backward each g[t] load
-// waited on its winner[t] load.  Their design now:
+// All three kernels share one design (K1 and K2's backward since the
+// first redesign, K2's forward since the second).  The first design, one
+// warp a node, a shuffle to broadcast each slot's index and one 4-byte
+// load after another, slot after slot, held them back.  Now:
 // - Two round trips, not a chain.  A lane reads deg[i] and the table
 //   entries of the first kSlots slots together (the table is a dense
-//   [N, K] allocation, so a pad slot's entry is read but never followed;
-//   K2's backward also reads the node's own winner and g here), then issues
-//   the rows of every real slot of the group (j < deg; for K2's backward
-//   both winner[t] and g[t]) before the first add, and reads the next
-//   group's entries while they are in flight.  Slots go kSlots a group,
-//   unrolled and predicated on j < deg: one group covers a Tox21 atom.
+//   [N, K] allocation; K1 also reads entry kSlots, K2's forward the
+//   node's own row, K2's backward its own winner and g), then issues the
+//   rows of every real slot of the group (K2's backward: both winner[t]
+//   and g[t]; K1: also the first pad slot's row) before the first add or
+//   compare, and reads the next group's entries while they are in flight.
+//   Slots go kSlots a group, unrolled and predicated on j < deg: one group
+//   covers a Tox21 atom.
 // - Each lane owns all its features: a group of 2^shift lanes holds a
 //   node and each lane up to kMaxUnits units of the row (one pass over the
 //   slots unless the row has more than 32 * kMaxUnits units).  With F a
@@ -50,19 +53,28 @@
 //   int4 of winners): F = 64 is 16 lanes, two nodes a warp.  Otherwise a
 //   unit is one float: F = 75 is 32 lanes holding features lane, lane +
 //   32 and lane + 64.  Each C entry picks the path itself and counts its
-//   float4 launches (nei_table_float4_launches).  At GraphConv's [5120,
-//   64] the float4 path takes K1 1.72 us against one float's 2.16, and
-//   K2's backward 2.41-2.47 against 2.62-2.71 (scripts/bench_nei_table.py,
-//   H100 80GB HBM3 at 700 W); at 1000 nodes, or F = 4 or 32, one float a
-//   lane is as fast or faster.
-// - The same bits as the first design: each sum starts from 0.f and adds
-//   its terms in slot order, only where real (the backward's self term is
-//   an assignment, its slot terms `if (w == m) acc += g`), so a -0.0
-//   keeps its bits.  Each output element has one writer; no atomics.
+//   float4 launches (nei_table_float4_launches); float4 wins at
+//   GraphConv's [5120, 64], one float at 1000 nodes or F = 4 to 32, so
+//   both stay.  K2's forward compares element by element (never a vector
+//   fmaxf, which drops NaN and the winner).
+// - K1's pad slots: the first one's row (row 0 from the port's packer) is
+//   read beside the real rows and added times 0 after them; the node's
+//   lanes check the other pad entries together (one ballot), and a pad
+//   row other than the first is added in a loop that the port's tables
+//   never enter.  At GraphConv's F = 75 this costs 0.6 us a launch over
+//   the real slots alone; adding every pad row in the slot loop cost 2.4,
+//   and checking the pad entries one after another 1.2
+//   (scripts/bench_nei_table.py, H100 80GB HBM3 at 700 W).
+// - The same bits as the first design on finite inputs: each sum starts
+//   from 0.f and adds its terms in slot order (a pad term is +-0, which
+//   leaves a sum that starts from +0 as it was), the backward's self term
+//   is an assignment and its slot terms `if (w == m) acc += g`, so a -0.0
+//   keeps its bits; the max copies the winning value.  Each output element
+//   has one writer; no atomics.
 //
 // Inputs: h (or g) [N, F] float32 row-major, table [N, K] int32, deg [N]
-// int8, K <= 32.  deg is clamped to [0, K]; table entries of real slots
-// must lie in [0, N).
+// int8, K <= 32.  deg is clamped to [0, K]; every table entry, pad slots'
+// included, must lie in [0, N).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,32 +83,10 @@
 
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kThreads = 256;
+constexpr float kNeg = -9e15f;  // the masking value of ops/segment.py
 constexpr int kSlots = 4;     // slots whose row loads are issued together
 constexpr int kMaxUnits = 4;  // units of a row a lane holds in one pass
-
-struct Row {
-  int node;   // this warp's node, or -1 past the last
-  int deg;    // clamped real slots
-  int slot;   // lane j < deg: table[node, j]
-};
-
-__device__ __forceinline__ Row warp_row(const int* __restrict__ table,
-                                        const int8_t* __restrict__ deg,
-                                        int num_nodes, int k) {
-  const int lane = threadIdx.x & 31;
-  Row r;
-  r.node = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r.node >= num_nodes) {
-    r.node = -1;
-    return r;
-  }
-  r.deg = min(max(static_cast<int>(deg[r.node]), 0), k);
-  r.slot = lane < r.deg ? table[static_cast<int64_t>(r.node) * k + lane] : 0;
-  return r;
-}
 
 // The winners' unit beside a float unit (int) or a float4 unit (int4).
 template <typename V> struct WinnerOf { using T = int; };
@@ -121,6 +111,54 @@ __device__ __forceinline__ void add_if(float4& acc, float4 v, int4 w, int m) {
   add_if(acc.y, v.y, w.y, m);
   add_if(acc.z, v.z, w.z, m);
   add_if(acc.w, v.w, w.w, m);
+}
+
+// acc += v * 0, per element: a pad slot's term, +-0 or NaN.
+__device__ __forceinline__ void add_times_zero(float& acc, float v) {
+  acc += v * 0.f;
+}
+__device__ __forceinline__ void add_times_zero(float4& acc, float4 v) {
+  add_times_zero(acc.x, v.x);
+  add_times_zero(acc.y, v.y);
+  add_times_zero(acc.z, v.z);
+  add_times_zero(acc.w, v.w);
+}
+
+__device__ __forceinline__ int splat(int, int v) { return v; }
+__device__ __forceinline__ int4 splat(int4, int v) {
+  return make_int4(v, v, v, v);
+}
+__device__ __forceinline__ float splat(float, float v) { return v; }
+__device__ __forceinline__ float4 splat(float4, float v) {
+  return make_float4(v, v, v, v);
+}
+
+// best, win = c, src where c > best (strict), per element: a NaN never
+// takes the max, and a NaN best keeps it.
+__device__ __forceinline__ void take_if_greater(float& best, int& win,
+                                                float c, int src) {
+  if (c > best) {
+    best = c;
+    win = src;
+  }
+}
+__device__ __forceinline__ void take_if_greater(float4& best, int4& win,
+                                                float4 c, int src) {
+  take_if_greater(best.x, win.x, c.x, src);
+  take_if_greater(best.y, win.y, c.y, src);
+  take_if_greater(best.z, win.z, c.z, src);
+  take_if_greater(best.w, win.w, c.w, src);
+}
+
+// Whether p holds on any lane of this lane's group of 2^shift lanes (the
+// groups of a warp run in step; a group past the last node has returned).
+__device__ __forceinline__ bool group_any(bool p, int shift) {
+  const unsigned votes = __ballot_sync(__activemask(), p);
+  const int lanes = 1 << shift;
+  const int base = (threadIdx.x & 31) & ~(lanes - 1);
+  const unsigned mine =
+      lanes == 32 ? 0xffffffffu : ((1u << lanes) - 1) << base;
+  return (votes & mine) != 0;
 }
 
 // src[s] = row[j0 + s] where j0 + s < limit, else 0.
@@ -155,18 +193,37 @@ nei_sum_kernel(const V* __restrict__ h, const int* __restrict__ table,
   const int node = blockIdx.x * (kThreads >> shift) + (threadIdx.x >> shift);
   if (node >= num_nodes) return;
   const int* row = table + static_cast<int64_t>(node) * k;
+  const int lanes = 1 << shift;
+  const int lane = threadIdx.x & (lanes - 1);
   // round trip 1: the degree and the first slots' entries (pad ones too)
   const int8_t dn = deg[node];
   int first[kSlots];
   slot_entries(row, 0, k, first);
   const int d = min(max(static_cast<int>(dn), 0), k);
-  for (int c0 = threadIdx.x & ((1 << shift) - 1); c0 < cols;
-       c0 += C << shift) {
+  // The pad slots add their rows times 0 after the real ones: +-0, which
+  // leaves a sum that starts from +0 as it was, or NaN, in any order.  So
+  // the first pad slot's row is added (loaded beside the real rows), then
+  // each other row that a pad slot names, once.  Its entry t0 is among the
+  // first kSlots + 1 read in round trip 1 unless deg > kSlots.  The port's
+  // packer points every pad slot at row 0; the node's lanes split the
+  // check of the other pad slots for another row (other).
+  const int fifth = kSlots < k ? row[kSlots] : 0;
+  int t0 = fifth;
+#pragma unroll
+  for (int s = kSlots - 1; s >= 0; --s) t0 = d == s ? first[s] : t0;
+  if (d > kSlots) t0 = row[min(d, k - 1)];
+  const int j1 = d + 1 + lane;
+  bool other = (j1 < k ? row[j1] : t0) != t0;
+  for (int j = j1 + lanes; j < k; j += lanes) other |= row[j] != t0;
+  for (int c0 = lane; c0 < cols; c0 += C << shift) {
     int unit[C];
     units_of(c0, shift, cols, unit);
-    V acc[C];
+    V pad[C], acc[C];
 #pragma unroll
-    for (int i = 0; i < C; ++i) acc[i] = warp_vec::zero(V());
+    for (int i = 0; i < C; ++i) {
+      pad[i] = h[t0 * cols + unit[i]];
+      acc[i] = warp_vec::zero(V());
+    }
     int src[kSlots];
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) src[s] = first[s];
@@ -188,6 +245,21 @@ nei_sum_kernel(const V* __restrict__ h, const int* __restrict__ table,
         }
       }
     }
+    if (d < k) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) add_times_zero(acc[i], pad[i]);
+    }
+    if (group_any(other, shift)) {
+      for (int j = d + 1; j < k; ++j) {
+        const int t = row[j];
+        if (t != t0) {
+#pragma unroll
+          for (int i = 0; i < C; ++i) {
+            add_times_zero(acc[i], h[t * cols + unit[i]]);
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < C; ++i) {
       if (c0 + (i << shift) < cols) out[node * cols + unit[i]] = acc[i];
@@ -195,33 +267,71 @@ nei_sum_kernel(const V* __restrict__ h, const int* __restrict__ table,
   }
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-nei_max_fwd_kernel(const float* __restrict__ h, const int* __restrict__ table,
-                   const int8_t* __restrict__ deg, float* __restrict__ out,
-                   int* __restrict__ winner, int num_nodes, int k,
-                   int num_features) {
-  const Row r = warp_row(table, deg, num_nodes, k);
-  if (r.node < 0) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t F = num_features;
-  for (int f0 = 0; f0 < num_features; f0 += 32) {
-    const int f = f0 + lane;
-    const bool active = f < num_features;
-    float best = active ? h[r.node * F + f] : 0.f;
-    int win = r.node;
-    for (int j = 0; j < r.deg; ++j) {
-      const int src = __shfl_sync(kFullMask, r.slot, j);
-      if (active) {
-        const float c = h[src * F + f];
-        if (c > best) {  // strict: self, then the lowest slot, wins a tie
-          best = c;
-          win = src;
+// K2's forward, laid out as K1.  Round trip 1 also reads the node's own
+// row; then the rows of a group's real slots are issued before its first
+// compare.  The walk ends after the first pad slot (slot deg, where deg <
+// K), which offers NEG and its entry without a load.
+template <typename V, int C>
+__global__ void __launch_bounds__(kThreads)
+nei_max_fwd_kernel(const V* __restrict__ h, const int* __restrict__ table,
+                   const int8_t* __restrict__ deg, V* __restrict__ out,
+                   typename WinnerOf<V>::T* __restrict__ winner,
+                   int num_nodes, int k, int cols, int shift) {
+  using W = typename WinnerOf<V>::T;
+  const int node = blockIdx.x * (kThreads >> shift) + (threadIdx.x >> shift);
+  if (node >= num_nodes) return;
+  const int* row = table + static_cast<int64_t>(node) * k;
+  // round trip 1: the degree, the first slots' entries and the own row
+  const int8_t dn = deg[node];
+  int first[kSlots];
+  slot_entries(row, 0, k, first);
+  for (int c0 = threadIdx.x & ((1 << shift) - 1); c0 < cols;
+       c0 += C << shift) {
+    int unit[C];
+    units_of(c0, shift, cols, unit);
+    V best[C];
+    W win[C];
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      best[i] = h[node * cols + unit[i]];
+      win[i] = splat(W(), node);
+    }
+    const int d = min(max(static_cast<int>(dn), 0), k);
+    const int last = min(d + 1, k);  // the real slots and the first pad one
+    int src[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) src[s] = first[s];
+    for (int j0 = 0; j0 < last; j0 += kSlots) {
+      V v[kSlots][C];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          if (j0 + s < d) v[s][i] = h[src[s] * cols + unit[i]];
         }
       }
+      int next[kSlots];
+      slot_entries(row, j0 + kSlots, last, next);
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          if (j0 + s < d) {
+            take_if_greater(best[i], win[i], v[s][i], src[s]);
+          } else if (j0 + s < last) {  // the first pad slot: NEG
+            take_if_greater(best[i], win[i], splat(V(), kNeg), src[s]);
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) src[s] = next[s];
     }
-    if (active) {
-      out[r.node * F + f] = best;
-      winner[r.node * F + f] = win;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (c0 + (i << shift) < cols) {
+        out[node * cols + unit[i]] = best[i];
+        winner[node * cols + unit[i]] = win[i];
+      }
     }
   }
 }
@@ -294,11 +404,7 @@ nei_max_bwd_kernel(const V* __restrict__ g, const int* __restrict__ table,
   }
 }
 
-inline int blocks_for(int num_nodes) {
-  return (num_nodes + kWarpsPerBlock - 1) / kWarpsPerBlock;
-}
-
-// The grid of K1 and K2's backward for rows of `cols` units: lanes a node
+// The grid of K1 and K2 for rows of `cols` units: lanes a node
 // 2^shift (the least power of two >= cols, at most 32), units a lane C.
 struct Layout {
   int shift, units, blocks;
@@ -339,6 +445,31 @@ int nei_sum_launch(const float* h, const int* table, const int8_t* deg,
 }
 
 template <typename V>
+int nei_max_fwd_launch(const float* h, const int* table, const int8_t* deg,
+                       float* out, int* winner, int num_nodes, int k,
+                       int num_features, cudaStream_t stream) {
+  using W = typename WinnerOf<V>::T;
+  const int cols = num_features / static_cast<int>(sizeof(V) / 4);
+  const Layout l = layout_for(num_nodes, cols);
+  const V* hv = reinterpret_cast<const V*>(h);
+  V* ov = reinterpret_cast<V*>(out);
+  W* wv = reinterpret_cast<W*>(winner);
+#define NEI_MAX_FWD_CASE(C)                                                 \
+  case C:                                                                   \
+    nei_max_fwd_kernel<V, C><<<l.blocks, kThreads, 0, stream>>>(            \
+        hv, table, deg, ov, wv, num_nodes, k, cols, l.shift);               \
+    break;
+  switch (l.units) {
+    NEI_MAX_FWD_CASE(1)
+    NEI_MAX_FWD_CASE(2)
+    NEI_MAX_FWD_CASE(3)
+    NEI_MAX_FWD_CASE(4)
+  }
+#undef NEI_MAX_FWD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V>
 int nei_max_bwd_launch(const float* g, const int* table, const int8_t* deg,
                        const int* winner, float* grad, int num_nodes, int k,
                        int num_features, cudaStream_t stream) {
@@ -373,21 +504,22 @@ inline bool vec4_ok(int num_features, const void* a, const void* b,
          && !misaligned(c);
 }
 
-// Launches of K1 and of K2's backward that took the float4 path.
-long long float4_launches[2] = {0, 0};
+// Launches of K1, of K2's backward and of K2's forward that took the
+// float4 path.
+long long float4_launches[3] = {0, 0, 0};
 
 }  // namespace
 
-// counts[0] and counts[1]: the float4 launches of K1 and of K2's backward
-// since the library was loaded; their other launches took one float a lane.
+// counts[0], counts[1] and counts[2]: the float4 launches of K1, of K2's
+// backward and of K2's forward since the library was loaded; their other
+// launches took one float a lane.
 extern "C" void nei_table_float4_launches(long long* counts) {
-  counts[0] = float4_launches[0];
-  counts[1] = float4_launches[1];
+  for (int i = 0; i < 3; ++i) counts[i] = float4_launches[i];
 }
 
 // Each launches its kernel on `stream`; returns cudaGetLastError() as an
-// int.  K1 and K2's backward take float4 rows (and int4 winners) where F is
-// a multiple of 4 and every pointer 16-byte aligned, else one float a unit.
+// int.  Each takes float4 rows (and int4 winners) where F is a multiple of
+// 4 and every pointer 16-byte aligned, else one float a unit.
 extern "C" int nei_sum_f32(const float* h, const int* table,
                            const int8_t* deg, float* out, int num_nodes,
                            int k, int num_features, cudaStream_t stream) {
@@ -404,10 +536,13 @@ extern "C" int nei_max_fwd_f32(const float* h, const int* table,
                                const int8_t* deg, float* out, int* winner,
                                int num_nodes, int k, int num_features,
                                cudaStream_t stream) {
-  nei_max_fwd_kernel<<<blocks_for(num_nodes), kWarpsPerBlock * 32, 0,
-                       stream>>>(h, table, deg, out, winner, num_nodes, k,
-                                 num_features);
-  return static_cast<int>(cudaGetLastError());
+  if (vec4_ok(num_features, h, out, winner)) {
+    ++float4_launches[2];
+    return nei_max_fwd_launch<float4>(h, table, deg, out, winner, num_nodes,
+                                      k, num_features, stream);
+  }
+  return nei_max_fwd_launch<float>(h, table, deg, out, winner, num_nodes, k,
+                                   num_features, stream);
 }
 
 extern "C" int nei_max_bwd_f32(const float* g, const int* table,

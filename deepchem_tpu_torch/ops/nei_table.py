@@ -13,8 +13,12 @@ On CPU tensors each op computes with its plain torch version
 (``*_reference``), written as the JAX slot loop; on CUDA tensors it
 launches ``csrc/nei_table.cu`` or raises, and counts the launch in
 ``<op>.launches`` (forward) or ``<op>.backward_launches``.  K1 and K2's
-backward each have two kernel paths, float4 rows and one float a lane;
-the C entry picks one and counts it (:func:`float4_launches`).
+forward and backward each have two kernel paths, float4 rows and one
+float a lane; the C entry picks one and counts it
+(:func:`float4_launches`).  The kernels give the JAX package's results on
+every input, NaN and infinities and values below ``NEG`` included: K1
+adds a pad slot's row times 0, and K2's forward lets a pad slot offer
+``NEG``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from deepchem_tpu_torch.kernels import build
+from deepchem_tpu_torch.ops.segment import NEG
 
 
 def build_neighbor_table(edge_src: np.ndarray, edge_dst: np.ndarray,
@@ -85,7 +90,9 @@ def nei_max_reference(h: torch.Tensor, table: torch.Tensor,
     """Plain torch version of K2's forward: the max over a node and its
     real neighbours, and its winner ``[N, F]`` int32.  A neighbour takes
     the max only when strictly greater, so self wins a tie, then the
-    lowest slot."""
+    lowest slot, and a NaN never takes it.  As in the JAX package a pad
+    slot offers ``NEG`` with its table entry, so a node whose values are
+    all below ``NEG`` takes ``NEG`` from its first pad slot."""
     mask = slot_mask(table, deg)
     n = h.shape[0]
     best = h
@@ -93,8 +100,9 @@ def nei_max_reference(h: torch.Tensor, table: torch.Tensor,
                           device=h.device)[:, None].expand(h.shape)
     for j in range(table.shape[1]):
         idx = table[:, j]
-        cand = h[idx.long()]
-        take = (cand > best) & mask[:, j:j + 1]
+        cand = torch.where(mask[:, j:j + 1], h[idx.long()],
+                           torch.full_like(h, NEG))
+        take = cand > best
         best = torch.where(take, cand, best)
         winner = torch.where(take, idx[:, None].expand(h.shape), winner)
     return best, winner.contiguous()
@@ -145,13 +153,14 @@ def _check(what: str, floats, table: torch.Tensor, deg: torch.Tensor,
         raise ValueError(f'{what}: sizes must fit in int32')
 
 
-def float4_launches() -> Tuple[int, int]:
-    """Launches of K1 and of K2's backward since the kernels were loaded
-    that took the float4 path (F a multiple of 4, every data pointer
-    16-byte aligned); their other launches took one float a lane."""
-    counts = (ctypes.c_longlong * 2)()
+def float4_launches() -> Tuple[int, int, int]:
+    """Launches of K1, of K2's backward and of K2's forward since the
+    kernels were loaded that took the float4 path (F a multiple of 4,
+    every data pointer 16-byte aligned); their other launches took one
+    float a lane."""
+    counts = (ctypes.c_longlong * 3)()
     build.load('nei_table').nei_table_float4_launches(counts)
-    return counts[0], counts[1]
+    return counts[0], counts[1], counts[2]
 
 
 def _nei_sum_forward(h: torch.Tensor, table: torch.Tensor,
@@ -241,7 +250,10 @@ class _NeiMax(torch.autograd.Function):
 def nei_sum(h: torch.Tensor, table: torch.Tensor,
             deg: torch.Tensor) -> torch.Tensor:
     """K1: ``out[i] = sum over j < deg[i] of h[table[i, j]]`` for ``h``
-    ``[N, F]`` float32, ``table`` ``[N, K]`` int32 and ``deg`` ``[N]`` int8.
+    ``[N, F]`` float32, ``table`` ``[N, K]`` int32 and ``deg`` ``[N]`` int8,
+    plus ``h[table[i, j]] * 0`` for each pad slot ``j >= deg[i]`` (NaN
+    where that row is not finite, as in the JAX package), so every table
+    entry must lie in ``[0, N)``.
     Differentiable in ``h``; the backward is the same sum of the cotangent
     (the table of an undirected graph is its own transpose), launched only
     when ``h`` needs a gradient.

@@ -8,6 +8,7 @@ masks zero what the ghosts contribute.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -60,8 +61,9 @@ def _max_select(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
     """``(mx, sel, den)`` of the max readout with tie averaging, with no
     gradient: ``mx`` is each segment's max over the rows where ``valid``
     (bool ``[N]``, or None for all) is set, ``empty_value`` where there is
-    none or it is not above ``NEG / 2``; ``sel`` marks the valid rows that
-    reach their segment's ``mx``, and ``den`` counts them."""
+    none, where it is not finite (a valid NaN makes it NaN) or not above
+    ``NEG / 2``; ``sel`` marks the valid rows that reach their segment's
+    ``mx``, and ``den`` counts them."""
     with torch.no_grad():
         v = None if valid is None else _expand_mask(valid, data.ndim)
         d = data if v is None else torch.where(
@@ -70,7 +72,10 @@ def _max_select(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
         mx = torch.full((num_segments,) + tuple(data.shape[1:]), -torch.inf,
                         dtype=data.dtype, device=data.device)
         mx = mx.scatter_reduce(0, idx, d, 'amax')
-        mx = torch.where(torch.isfinite(mx) & (mx > NEG / 2), mx,
+        # the max of a segment with a valid NaN is NaN on every device
+        nan = segment_sum(torch.isnan(d).to(data.dtype), seg,
+                          num_segments) > 0
+        mx = torch.where(torch.isfinite(mx) & (mx > NEG / 2) & ~nan, mx,
                          torch.full_like(mx, empty_value))
         sel = data >= mx[seg]
         if v is not None:
@@ -83,10 +88,13 @@ def _max_sumgrad(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
                  valid: Optional[torch.Tensor], empty_value: float = 0.0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(out, mx, den)``: the mean of the rows :func:`_max_select` picks
-    (``empty_value`` where it picks none), differentiable in ``data``."""
+    (``empty_value`` where it picks none), differentiable in ``data``.
+    As in the JAX package, the sum is of ``data * sel`` over every row of
+    the segment, so a non-finite row that is not picked, masked or not,
+    makes it NaN, and so does an infinite or NaN cotangent its
+    gradient."""
     mx, sel, den = _max_select(data, seg, num_segments, valid, empty_value)
-    num = segment_sum(torch.where(sel, data, torch.zeros_like(data)), seg,
-                      num_segments)
+    num = segment_sum(data * sel.to(data.dtype), seg, num_segments)
     out = torch.where(den > 0, num / torch.clamp_min(den, 1.0),
                       torch.full_like(num, empty_value))
     return out, mx, den
@@ -206,14 +214,18 @@ def graph_max_pool_backward_reference(g: torch.Tensor, x: torch.Tensor,
                                       node_mask: Optional[torch.Tensor],
                                       mx: torch.Tensor,
                                       den: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K3's backward: ``g[b] / max(den, 1)`` on the
-    valid rows of graph ``b`` that reach its max, 0 elsewhere."""
+    """Plain torch version of K3's backward: ``t * sel`` on every row of
+    graph ``b``, masked rows included, with ``t = g[b] / den`` where
+    ``den > 0`` and 0 where it is 0, and ``sel`` 1 on the valid rows that
+    reach the max (the JAX gradient: an infinite or NaN ``t`` makes the
+    other rows NaN); 0 on the rows past the last graph."""
     seg, valid = _graph_rows(row_ptr, x.shape[0], node_mask)
-    t = g / torch.clamp_min(den, 1.0)
+    t = torch.where(den > 0, g, torch.zeros_like(g)) / torch.clamp_min(
+        den, 1.0)
     # each row's graph, with a zero row past the last graph for seg == G
     mx, t = (F.pad(a, (0, 0, 0, 1))[seg] for a in (mx, t))
     sel = _expand_mask(valid, x.ndim) & (x >= mx)
-    return torch.where(sel, t, torch.zeros_like(x))
+    return t * sel.to(x.dtype)
 
 
 def _check_pool(what: str, floats, row_ptr: torch.Tensor,
@@ -302,12 +314,25 @@ def graph_max_pool(x: torch.Tensor, row_ptr: torch.Tensor,
     CPU tensors take :func:`graph_max_pool_reference` and its backward;
     CUDA tensors launch ``graph_max_pool_fwd_kernel`` and
     ``graph_max_pool_bwd_kernel``, counted in ``graph_max_pool.launches``
-    and ``.backward_launches``.
+    and ``.backward_launches`` (the forward's float4 path also in
+    :func:`graph_max_pool_float4_launches`).  Both give the JAX package's
+    results on every input: a valid NaN makes the max NaN and so resets
+    it to 0, and a non-finite row that is not selected makes the output
+    NaN, as a non-finite cotangent makes the gradient of such rows.
     """
     return _GraphMaxPool.apply(x, row_ptr, node_mask)
 
 
 graph_max_pool.launches = graph_max_pool.backward_launches = 0
+
+
+def graph_max_pool_float4_launches() -> int:
+    """Launches of K3's forward since the kernels were loaded that took
+    the float4 path (F a multiple of 4, ``x`` 16-byte aligned); its other
+    launches took one float a unit."""
+    counts = (ctypes.c_longlong * 1)()
+    build.load('graph_pool').graph_pool_float4_launches(counts)
+    return counts[0]
 
 
 def graph_pool(node_feats: torch.Tensor, graph_index: torch.Tensor,

@@ -1,29 +1,41 @@
 #!/usr/bin/env python3
-"""Device and host time of K1 (``nei_sum``) and K2's backward
-(``nei_max_bwd``): the source as it is and optionally other versions of
-it (a parent commit's, a variant), in turns on one card, with their
-library calls and the launch floor.
+"""Device and host time of GraphConv's kernels K1 (``nei_sum``), K2
+(``nei_max_fwd``, ``nei_max_bwd``) and K3 (``graph_max_pool_fwd``,
+``graph_max_pool_bwd``): the sources as they are and optionally other
+versions of them (a parent commit's, a variant), in turns on one card,
+with their library calls and the launch floor.
 
-    python3 scripts/bench_nei_table.py [--parent FILE]
-        [--version NAME=FILE ...] [--calls 20]
+    python3 scripts/bench_nei_table.py [--parent FILE] [--parent-pool FILE]
+        [--version NAME=FILE ...] [--pool-version NAME=FILE ...]
+        [--calls 20]
 
-Each version of ``deepchem_tpu_torch/csrc/nei_table.cu`` is compiled by
-nvcc with the package's flags into ``build/bench_nei_table/<name>.so``
-(all at once, beside an empty kernel; ptxas's registers and spill stores
-of each kernel are printed) and called through its C entries
-``nei_sum_f32`` and ``nei_max_bwd_f32``.  ``base`` is the source as it
-is, ``parent`` the file given to ``--parent``, and each ``--version``
-another.  The runs go parent, the versions, base, base, the versions in
-reverse, parent, and the two runs of each are averaged.
+Each version of ``deepchem_tpu_torch/csrc/nei_table.cu`` and of
+``graph_pool.cu`` is compiled by nvcc with the package's flags into
+``build/bench_nei_table/<name>.so`` and ``<name>_pool.so`` (all at once,
+beside an empty kernel; ptxas's registers and spill stores of each kernel
+are printed) and called through its C entries.  ``base`` is the sources
+as they are; ``parent`` takes the files given to ``--parent``
+(``nei_table.cu``) and ``--parent-pool`` (``graph_pool.cu``; the base's
+where it is not given), each ``--version`` another ``nei_table.cu``
+beside the base's ``graph_pool.cu``, and each ``--pool-version`` another
+``graph_pool.cu`` beside the base's ``nei_table.cu``.  The runs go parent, the versions,
+base, base, the versions in reverse, parent, and the two runs of each are
+averaged.
 
-Cases: the inputs ``GraphConvModel`` at ``bench.py``'s width hands K1 and
-K2 in ``chip_smoke.py`` phase 11's first batch of 256 (both layers; K2's
-cotangent from a seed, its winners from the package's K2 forward), the
-same in copies 4 bytes off 16-byte alignment (``chip_smoke.misaligned``:
-there the base kernels take one float a lane, not float4 rows), and
-``chip_smoke.random_table``'s graph of 1000 nodes with degrees 0 to 10 at
-F 1, 4, 32, 64, 75 and 128, at F 64 with rows 4 bytes off 16-byte
-alignment, with tied maxima (F 1, 75) and all ties (F 64).
+Cases of K1 and K2: the inputs ``GraphConvModel`` at ``bench.py``'s width
+hands them in ``chip_smoke.py`` phase 11's first batch of 256 (both
+layers; K2's cotangent from a seed, its winners from the package's K2
+forward), the same in copies 4 bytes off 16-byte alignment
+(``chip_smoke.misaligned``: there the base kernels take one float a lane,
+not float4 rows), and ``chip_smoke.random_table``'s graph of 1000 nodes
+with degrees 0 to 10 at F 1, 4, 32, 64, 75 and 128, at F 64 with rows 4
+bytes off 16-byte alignment, with tied maxima (F 1, 75) and all ties
+(F 64).  Cases of K3: the readout's input in the same batch (x [5120,
+128], 256 graphs and the node mask), its misaligned copy, and 1000 rows
+in graphs of 0 to 35 rows (a ghost tail of 20, one row in 50 masked) at
+F 37, 75 and 128, and with tied maxima at F 128.  K3's backward takes
+the cotangent from a seed and mx and den from the plain version, the
+same for every version.
 
 Per run, case and kernel it prints the profiler's device µs a launch
 (``chip_smoke.device_us``; null where no profile passed its checks), the
@@ -31,17 +43,22 @@ Per run, case and kernel it prints the profiler's device µs a launch
 ``--calls`` launches (the card's time, gaps between launches included),
 and the host µs a call of the C entry (200 back-to-back calls, no
 synchronise), and which path each base kernel took (the C entries'
-float4 count).  Each run also times an empty kernel at the base kernel's
-grid and at the parent's (one warp a node), the launch floor.  Before the
-runs it times the library calls once (``torch.sparse.mm`` for K1,
-``scatter_add_`` of g into its winners' rows for K2's backward): device
-µs over every kernel of one call, and µs a call between CUDA events.
-Each version's outputs are held against the plain version
-(``chip_smoke.sum_tol``), and every other version's must equal the
-base's bit for bit (``torch.equal``) in every case, or the script exits
-1.  The card's name and power limit come first and last, and stand in
-every JSON line of times (``card``); a JSON line of means comes before
-the last.
+float4 counts).  Each run also times an empty kernel at the base grid
+and at the parent's, the launch floor.  Before the runs it times the
+library calls once (``torch.sparse.mm`` for K1, ``scatter_reduce_``
+amax for K2's forward, ``scatter_add_`` of g into its winners' rows for
+K2's backward, ``segment_reduce`` max for K3's forward): device µs over
+every kernel of one call, and µs a call between CUDA events.  Each
+version's outputs are held against the plain version
+(``chip_smoke.sum_tol``; K2's forward exactly), and every other version's
+must equal the base's bit for bit (K2's winners and K3's mx and den
+too) in every case, all of whose inputs are finite and above NEG, or the
+script exits 1; only K3's backward may differ from a version before the
+repair of its non-finite cotangents in the signs of zeros (``zero_signs``:
+it writes t * 0 on the rows that are not selected, as the JAX gradient
+does).  The card's name and power limit come first and last,
+and stand in every JSON line of times (``card``); a JSON line of means
+comes before the last.
 """
 
 import argparse
@@ -59,7 +76,8 @@ CSRC = REPO / 'deepchem_tpu_torch' / 'csrc'
 OUT = REPO / 'build' / 'bench_nei_table'
 HOST_CALLS = 200
 GRAPH_REPLAYS = 20
-THREADS = 256                  # a block of either version
+THREADS = 256                  # a block of K1 and K2, either version
+POOL_THREADS = 128             # a block of K3's forward (base)
 EMPTY_CU = r'''
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -96,37 +114,42 @@ def nvcc(sources: dict) -> dict:
     return report
 
 
-def entries(name: str):
-    """The C entries of ``OUT/<name>.so`` by their names."""
-    lib = ctypes.CDLL(str(OUT / f'{name}.so'))
+# C entries: (pointers, ints) before the stream
+SIGNATURES = {'nei_sum_f32': (4, 3), 'nei_max_fwd_f32': (5, 3),
+              'nei_max_bwd_f32': (5, 3), 'graph_max_pool_fwd_f32': (6, 3),
+              'graph_max_pool_bwd_f32': (7, 3), 'empty_launch': (0, 2)}
+COUNTERS = ('nei_table_float4_launches', 'graph_pool_float4_launches')
+
+
+def entries(*names: str):
+    """The C entries of ``OUT/<name>.so`` for each of ``names``, by their
+    names."""
     fns = {}
-    for sym, n_ptrs in (('nei_sum_f32', 4), ('nei_max_bwd_f32', 5),
-                        ('empty_launch', 0), ('nei_table_float4_launches', 1)):
-        fn = getattr(lib, sym, None)
-        if fn is not None and sym == 'nei_table_float4_launches':
-            fn.argtypes, fn.restype = [ctypes.c_void_p], None
-            fns[sym] = fn
-        elif fn is not None:
-            n_ints = 2 if sym == 'empty_launch' else 3
-            fn.argtypes = [ctypes.c_void_p] * n_ptrs \
-                + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            fns[sym] = fn
+    for name in names:
+        lib = ctypes.CDLL(str(OUT / f'{name}.so'))
+        for sym, (n_ptrs, n_ints) in SIGNATURES.items():
+            fn = getattr(lib, sym, None)
+            if fn is not None:
+                fn.argtypes = [ctypes.c_void_p] * n_ptrs \
+                    + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                fns[sym] = fn
+        for sym in COUNTERS:
+            fn = getattr(lib, sym, None)
+            if fn is not None:
+                fn.argtypes, fn.restype = [ctypes.c_void_p], None
+                fns[sym] = fn
     return fns
 
 
-def cases(dev):
-    """{name: (h, g, table, deg, winner)} on the card: K1 sums h, K2's
-    backward takes g and the winners of h's max."""
+def table_cases(dev, X, model):
+    """{name: (h, hm, g, table, deg, winner)} on the card: K1 sums h,
+    K2's forward takes hm, its backward g and the winners of hm's max."""
     import numpy as np
     import torch
-    from chip_smoke import (GRAPHCONV, graphconv_data, misaligned,
-                            random_table, recorded)
-    from deepchem_tpu_torch import GraphConvModel
+    from chip_smoke import GRAPHCONV, misaligned, random_table, recorded
     from deepchem_tpu_torch.models import graph_layers
     from deepchem_tpu_torch.ops import nei_table
-    X, _ = graphconv_data()
-    model = GraphConvModel(**GRAPHCONV, device=dev, seed=0)
     batch = X[:GRAPHCONV['batch_size']]
     sums = recorded(graph_layers, 'nei_sum',
                     lambda: model.predict_on_batch(batch))
@@ -137,16 +160,16 @@ def cases(dev):
     table, deg = random_table(rng, 1000, dev)
     out = {}
 
-    def add(name, h, g, table, deg, h_max=None):
-        winner = nei_table._nei_max_forward(
-            h if h_max is None else h_max, table, deg)[1]
-        out[name] = (h, g, table, deg, winner)
+    def add(name, h, g, table, deg, hm=None):
+        hm = h if hm is None else hm
+        winner = nei_table._nei_max_forward(hm, table, deg)[1]
+        out[name] = (h, hm, g, table, deg, winner)
 
     for i, ((h, tbl, dg), (hm, _, _)) in enumerate(zip(sums, maxes)):
         g = torch.randn(hm.shape, generator=gen, device=dev)
         add(f'graphconv_batch256_layer{i}', h, g, tbl, dg, hm)
         add(f'graphconv_batch256_layer{i}_misaligned', misaligned(h),
-            misaligned(g), tbl, dg, hm)
+            misaligned(g), tbl, dg, misaligned(hm))
     for F in (1, 4, 32, 64, 75, 128):
         h = torch.from_numpy(rng.randn(1000, F).astype(np.float32)).to(dev)
         add(f'degrees_0_10_F{F}', h, torch.randn(
@@ -161,6 +184,45 @@ def cases(dev):
             (1000, F), generator=gen, device=dev), table, deg)
     add('all_ties_F64', torch.zeros(1000, 64, device=dev), torch.randn(
         (1000, 64), generator=gen, device=dev), table, deg)
+    return out
+
+
+def pool_cases(dev, X, model):
+    """{name: (x, row_ptr, mask, g, mx, den)} on the card: K3's forward
+    takes x, row_ptr and mask, its backward also g and the plain version's
+    mx and den."""
+    import numpy as np
+    import torch
+    from chip_smoke import GRAPHCONV, misaligned, recorded
+    from deepchem_tpu_torch.ops import segment
+    batch = X[:GRAPHCONV['batch_size']]
+    (x, row_ptr, mask), = recorded(segment, 'graph_max_pool',
+                                   lambda: model.predict_on_batch(batch))
+    gen = torch.Generator(dev).manual_seed(3)
+    rng = np.random.RandomState(1)
+    out = {}
+
+    def add(name, x, row_ptr, mask):
+        _, mx, den = segment.graph_max_pool_reference(x, row_ptr, mask)
+        g = torch.randn(mx.shape, generator=gen, device=dev)
+        out[name] = (x, row_ptr, mask, g, mx, den)
+
+    add('graphconv_batch256_readout', x, row_ptr, mask)
+    add('graphconv_batch256_readout_misaligned', misaligned(x), row_ptr,
+        mask)
+    sizes = []
+    while sum(sizes) < 980:
+        sizes.append(min(int(rng.randint(0, 36)), 980 - sum(sizes)))
+    rp = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                      dtype=torch.int32, device=dev)
+    n = sum(sizes) + 20
+    m = (torch.arange(n, device=dev) < sum(sizes)).float()
+    m[::50] = 0.0
+    for F in (37, 75, 128):
+        add(f'graphs_0_35_N1000_F{F}', torch.from_numpy(
+            rng.randn(n, F).astype(np.float32)).to(dev), rp, m)
+    add('ties_graphs_0_35_N1000_F128', torch.from_numpy(
+        rng.randint(-3, 3, (n, 128)).astype(np.float32)).to(dev), rp, m)
     return out
 
 
@@ -199,95 +261,189 @@ def timed(fn, kernel: str, calls: int) -> dict:
 
 
 def float4_counts(fns: dict) -> tuple:
-    """The C entries' float4 launches of K1 and K2's backward so far, or
-    (0, 0) for a version that does not count them."""
-    fn = fns.get('nei_table_float4_launches')
-    counts = (ctypes.c_longlong * 2)()
-    if fn is not None:
-        fn(counts)
-    return tuple(counts)
+    """The C entries' float4 launches so far: K1, K2's backward, K2's
+    forward, K3's forward (0 where a version does not count them)."""
+    table = (ctypes.c_longlong * 3)()
+    pool = (ctypes.c_longlong * 1)()
+    if 'nei_table_float4_launches' in fns:
+        fns['nei_table_float4_launches'](table)
+    if 'graph_pool_float4_launches' in fns:
+        fns['graph_pool_float4_launches'](pool)
+    return tuple(table) + tuple(pool)
 
 
-def grid(n: int, F: int, float4: bool) -> int:
-    """Blocks of the base kernels for ``n`` rows of ``F`` floats: a group
-    of lanes a node, the least power of two >= the row's units (floats or
-    float4s), at most 32 (``layout_for`` in ``nei_table.cu``)."""
-    cols = F // 4 if float4 else F
+def lanes_for(cols: int) -> int:
     lanes = 1
     while lanes < min(cols, 32):
         lanes *= 2
-    nodes = THREADS // lanes
+    return lanes
+
+
+def grid(n: int, F: int, float4: bool) -> int:
+    """Blocks of the base K1 and K2 for ``n`` rows of ``F`` floats: a
+    group of lanes a node, the least power of two >= the row's units
+    (floats or float4s), at most 32 (``layout_for`` in ``nei_table.cu``)."""
+    nodes = THREADS // lanes_for(F // 4 if float4 else F)
     return (n + nodes - 1) // nodes
 
 
-def run_version(name: str, fns: dict, empty, inputs: dict,
-                calls: int) -> tuple:
-    """({case: {part: timings}}, {case: {part: output}}, {case: [path of
-    K1, of K2's backward]}) of one version."""
+def pool_threads(F: int) -> int:
+    """Threads of the parent K3's blocks (``threads_for`` in
+    ``graph_pool.cu``), and of the base's backward."""
+    return min(max(32, (F + 31) // 32 * 32), 128)
+
+
+def held(name, case, part, got, ref, exact=False):
+    from chip_smoke import max_err, same_values, sum_tol
+    ok = same_values(got, ref) if exact else max_err(got, ref) <= sum_tol(ref)
+    if not ok:
+        raise RuntimeError(f'{name} {case} {part}: differs from the plain '
+                           f'version, error {max_err(got, ref)}')
+
+
+def run_table(name, fns, empty, case, inputs, calls, times, outs, paths):
     import torch
-    from chip_smoke import max_err, sum_tol
     from deepchem_tpu_torch.ops.nei_table import (
-        nei_max_backward_reference, nei_sum_reference)
+        nei_max_backward_reference, nei_max_reference, nei_sum_reference)
+    h, hm, g, table, deg, winner = inputs
+    N, F = h.shape
+    K = table.shape[1]
+    out, best, grad = (torch.empty_like(a) for a in (h, hm, g))
+    win = torch.empty(hm.shape, dtype=torch.int32, device=h.device)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    runs = {
+        'nei_sum': lambda: fns['nei_sum_f32'](
+            h.data_ptr(), table.data_ptr(), deg.data_ptr(), out.data_ptr(),
+            N, K, F, stream()),
+        'nei_max_fwd': lambda: fns['nei_max_fwd_f32'](
+            hm.data_ptr(), table.data_ptr(), deg.data_ptr(), best.data_ptr(),
+            win.data_ptr(), N, K, hm.shape[1], stream()),
+        'nei_max_bwd': lambda: fns['nei_max_bwd_f32'](
+            g.data_ptr(), table.data_ptr(), deg.data_ptr(),
+            winner.data_ptr(), grad.data_ptr(), N, K, g.shape[1],
+            stream())}
+    before = float4_counts(fns)
+    if any(run() for run in runs.values()):
+        raise RuntimeError(f'{name}: a launch failed at {case}')
+    after = float4_counts(fns)
+    paths[case] = {part: 'float4' if after[i] > before[i] else 'float'
+                   for part, i in (('nei_sum', 0), ('nei_max_fwd', 2),
+                                   ('nei_max_bwd', 1))}
+    torch.cuda.synchronize()
+    outs[case] = {'nei_sum': (out.clone(),),
+                  'nei_max_fwd': (best.clone(), win.clone()),
+                  'nei_max_bwd': (grad.clone(),)}
+    ref_best, ref_win = nei_max_reference(hm, table, deg)
+    held(name, case, 'nei_sum', out, nei_sum_reference(h, table, deg))
+    held(name, case, 'nei_max_fwd', best, ref_best, exact=True)
+    if not torch.equal(win, ref_win):
+        raise RuntimeError(f'{name} {case}: K2 winners differ')
+    held(name, case, 'nei_max_bwd', grad,
+         nei_max_backward_reference(g, table, deg, winner))
+    times[case] = {part: timed(run, f'{part}_kernel', calls)
+                   for part, run in runs.items()}
+    float4 = paths[case]['nei_sum'] == 'float4'
+    for label, blocks in (('empty_base_grid', grid(N, F, float4)),
+                          ('empty_parent_grid', grid(N, 32, False))):
+        times[case][label] = dict(timed(
+            lambda: empty(blocks, THREADS, stream()), 'empty_kernel',
+            calls), blocks=blocks, threads=THREADS)
+
+
+def run_pool(name, fns, empty, case, inputs, calls, times, outs, paths):
+    import torch
+    from deepchem_tpu_torch.ops.segment import (
+        graph_max_pool_backward_reference, graph_max_pool_reference)
+    x, row_ptr, mask, g, mx_in, den_in = inputs
+    N, F = x.shape
+    G = row_ptr.shape[0] - 1
+    out, mx, den = (torch.empty_like(g) for _ in range(3))
+    dx = torch.empty_like(x)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    runs = {
+        'graph_max_pool_fwd': lambda: fns['graph_max_pool_fwd_f32'](
+            x.data_ptr(), row_ptr.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), mx.data_ptr(), den.data_ptr(), G, N, F,
+            stream()),
+        'graph_max_pool_bwd': lambda: fns['graph_max_pool_bwd_f32'](
+            g.data_ptr(), x.data_ptr(), row_ptr.data_ptr(), mask.data_ptr(),
+            mx_in.data_ptr(), den_in.data_ptr(), dx.data_ptr(), G, N, F,
+            stream())}
+    before = float4_counts(fns)
+    if any(run() for run in runs.values()):
+        raise RuntimeError(f'{name}: a launch failed at {case}')
+    paths[case] = {'graph_max_pool_fwd': 'float4' if float4_counts(fns)[3]
+                   > before[3] else 'float'}
+    torch.cuda.synchronize()
+    outs[case] = {'graph_max_pool_fwd': (out.clone(), mx.clone(),
+                                         den.clone()),
+                  'graph_max_pool_bwd': (dx.clone(),)}
+    ref, ref_mx, ref_den = graph_max_pool_reference(x, row_ptr, mask)
+    held(name, case, 'graph_max_pool_fwd', out, ref)
+    if not (torch.equal(mx, ref_mx) and torch.equal(den, ref_den)):
+        raise RuntimeError(f'{name} {case}: K3 mx or den differs')
+    held(name, case, 'graph_max_pool_bwd', dx,
+         graph_max_pool_backward_reference(g, x, row_ptr, mask, mx_in,
+                                           den_in))
+    times[case] = {part: timed(run, f'{part}_kernel', calls)
+                   for part, run in runs.items()}
+    for label, blocks, threads in (
+            ('empty_base_grid', G, POOL_THREADS),
+            ('empty_parent_grid', G, pool_threads(F))):
+        times[case][label] = dict(timed(
+            lambda: empty(blocks, threads, stream()), 'empty_kernel',
+            calls), blocks=blocks, threads=threads)
+
+
+def run_version(name: str, fns: dict, empty, tables: dict, pools: dict,
+                calls: int) -> tuple:
+    """({case: {part: timings}}, {case: {part: outputs}}, {case: {part:
+    path}}) of one version."""
     times, outs, paths = {}, {}, {}
-    for case, (h, g, table, deg, winner) in inputs.items():
-        N, F = h.shape
-        K = table.shape[1]
-        out, grad = torch.empty_like(h), torch.empty_like(g)
-        k1, k2 = fns['nei_sum_f32'], fns['nei_max_bwd_f32']
-
-        def stream():
-            return torch.cuda.current_stream().cuda_stream
-
-        def run_k1():
-            return k1(h.data_ptr(), table.data_ptr(), deg.data_ptr(),
-                      out.data_ptr(), N, K, F, stream())
-
-        def run_k2():
-            return k2(g.data_ptr(), table.data_ptr(), deg.data_ptr(),
-                      winner.data_ptr(), grad.data_ptr(), N, K, g.shape[1],
-                      stream())
-        before = float4_counts(fns)
-        if run_k1() or run_k2():
-            raise RuntimeError(f'{name}: a launch failed at {case}')
-        paths[case] = ['float4' if b > a else 'float'
-                       for a, b in zip(before, float4_counts(fns))]
-        torch.cuda.synchronize()
-        outs[case] = {'nei_sum': out.clone(), 'nei_max_bwd': grad.clone()}
-        for part, got, ref in (
-                ('nei_sum', out, nei_sum_reference(h, table, deg)),
-                ('nei_max_bwd', grad, nei_max_backward_reference(
-                    g, table, deg, winner))):
-            err = max_err(got, ref)
-            if err > sum_tol(ref):
-                raise RuntimeError(f'{name} {case} {part}: error {err}')
-        times[case] = {
-            'nei_sum': timed(run_k1, 'nei_sum_kernel', calls),
-            'nei_max_bwd': timed(run_k2, 'nei_max_bwd_kernel', calls)}
-        float4 = paths[case][0] == 'float4'
-        for label, blocks in (('empty_base_grid', grid(N, F, float4)),
-                              ('empty_parent_grid', grid(N, 32, False))):
-            times[case][label] = dict(timed(
-                lambda: empty(blocks, THREADS, stream()), 'empty_kernel',
-                calls), blocks=blocks)
+    for case, inputs in tables.items():
+        run_table(name, fns, empty, case, inputs, calls, times, outs, paths)
+        print(f'{name} {case}: timed', file=sys.stderr, flush=True)
+    for case, inputs in pools.items():
+        run_pool(name, fns, empty, case, inputs, calls, times, outs, paths)
         print(f'{name} {case}: timed', file=sys.stderr, flush=True)
     return times, outs, paths
 
 
-def library_us(inputs: dict, calls: int) -> dict:
+def library_us(tables: dict, pools: dict, calls: int) -> dict:
     """{case: {call: device µs}} of the library calls, every kernel of one
     call (``chip_smoke.device_us_all``; null where the profiler recorded
     none), and the µs a call between CUDA events around 200 calls
     (``chip_smoke.time_ms``)."""
-    from chip_smoke import (device_us_all, library_nei_max_bwd,
+    from chip_smoke import (device_us_all, library_graph_max,
+                            library_nei_max, library_nei_max_bwd,
                             library_nei_sum, table_csr, time_ms)
-    out = {}
-    for case, (h, g, table, deg, winner) in inputs.items():
-        _, _, row_ptr, col = table_csr(table, deg)
+    calls_of = {}
+    for case, (h, hm, g, table, deg, winner) in tables.items():
+        src, dst, row_ptr, col = table_csr(table, deg)
         winner_idx = winner.long()
+        calls_of[case] = {
+            'sparse_mm': lambda h=h, r=row_ptr, c=col: library_nei_sum(
+                h, r, c),
+            'scatter_reduce_amax': lambda h=hm, s=src, d=dst:
+            library_nei_max(h, s, d),
+            'scatter_add': lambda g=g, w=winner_idx: library_nei_max_bwd(
+                g, w)}
+    for case, (x, row_ptr, mask, g, mx, den) in pools.items():
+        rows = int(row_ptr[-1])
+        lengths = (row_ptr[1:] - row_ptr[:-1]).long()
+        calls_of[case] = {
+            'segment_reduce_max': lambda x=x, n=lengths, r=rows:
+            library_graph_max(x, n, r)}
+    out = {}
+    for case, fns in calls_of.items():
         out[case] = {}
-        for call, fn in (
-                ('sparse_mm', lambda: library_nei_sum(h, row_ptr, col)),
-                ('scatter_add', lambda: library_nei_max_bwd(g, winner_idx))):
+        for call, fn in fns.items():
             try:
                 dev = device_us_all(fn, calls)[0]
             except RuntimeError as err:
@@ -298,6 +454,49 @@ def library_us(inputs: dict, calls: int) -> dict:
     return out
 
 
+def bounds(tables: dict, pools: dict) -> dict:
+    """{case: {'N', 'F', 'bound_us': {part: µs}}}: the bytes and
+    operations of each kernel as ``chip_smoke.py`` phase 3 counts them."""
+    from chip_smoke import bound, table_csr
+    info = {}
+    for case, (h, hm, g, table, deg, winner) in tables.items():
+        src, _, _, _ = table_csr(table, deg)
+        N, F = h.shape
+        slots, rows = src.numel(), src.unique().numel()
+        tbl = 4 * slots + N
+        info[case] = {'N': N, 'F': F, 'K': table.shape[1], 'slots': slots,
+                      'bound_us': {
+                          'nei_sum': bound(4 * (rows * F + slots + N * F)
+                                           + N, slots * F)[0] * 1e3,
+                          'nei_max_fwd': bound(4 * 3 * N * hm.shape[1] + tbl,
+                                               slots * hm.shape[1])[0] * 1e3,
+                          'nei_max_bwd': bound(4 * 3 * N * g.shape[1] + tbl,
+                                               slots * g.shape[1])[0] * 1e3}}
+    for case, (x, row_ptr, mask, g, mx, den) in pools.items():
+        N, F = x.shape
+        G = row_ptr.shape[0] - 1
+        rows = int(row_ptr[-1])
+        common = 4 * (rows * F + rows + G + 1)
+        info[case] = {'N': N, 'F': F, 'G': G, 'rows': rows, 'bound_us': {
+            'graph_max_pool_fwd': bound(common + 4 * 3 * G * F,
+                                        2 * rows * F)[0] * 1e3,
+            'graph_max_pool_bwd': bound(common + 4 * 3 * G * F + 4 * N * F,
+                                        rows * F)[0] * 1e3}}
+    return info
+
+
+def compare(a: tuple, b: tuple) -> str:
+    """'bits' where each pair of tensors is equal bit for bit,
+    'zero_signs' where they differ only in the signs of zeros (equal as
+    values, none NaN), else 'values'."""
+    import torch
+    if all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+           for x, y in zip(a, b)):
+        return 'bits'
+    return 'zero_signs' if all(torch.equal(x, y) for x, y in zip(a, b)) \
+        else 'values'
+
+
 def mean(values):
     values = [v for v in values if v is not None]
     return sum(values) / len(values) if values else None
@@ -306,67 +505,75 @@ def mean(values):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', type=Path)
+    ap.add_argument('--parent-pool', type=Path)
     ap.add_argument('--version', action='append', default=[],
+                    metavar='NAME=FILE')
+    ap.add_argument('--pool-version', action='append', default=[],
                     metavar='NAME=FILE')
     ap.add_argument('--calls', type=int, default=20)
     args = ap.parse_args()
     import torch
-    from chip_smoke import bound, table_csr
+    from chip_smoke import GRAPHCONV, graphconv_data
+    from deepchem_tpu_torch import GraphConvModel
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / 'empty.cu').write_text(EMPTY_CU)
-    sources = {'base': CSRC / 'nei_table.cu', 'empty': OUT / 'empty.cu'}
+    sources = {'base': CSRC / 'nei_table.cu',
+               'base_pool': CSRC / 'graph_pool.cu', 'empty': OUT / 'empty.cu'}
+    pool_of = {'base': 'base_pool'}
     given = [('parent', args.parent)] if args.parent else []
     given += [tuple(v.split('=', 1)) for v in args.version]
-    others = [n for n, _ in given if n != 'parent']
+    pool_given = [tuple(v.split('=', 1)) for v in args.pool_version]
+    others = [n for n, _ in given + pool_given if n != 'parent']
     for n, path in given:
         sources[n] = OUT / f'{n}.cu'
         sources[n].write_text(Path(path).read_text())
+        pool_of[n] = 'base_pool'
+    table_of = {n: n for n in pool_of}
+    for n, path in pool_given:
+        sources[f'{n}_pool'] = OUT / f'{n}_pool.cu'
+        sources[f'{n}_pool'].write_text(Path(path).read_text())
+        pool_of[n], table_of[n] = f'{n}_pool', 'base'
+    if args.parent and args.parent_pool:
+        sources['parent_pool'] = OUT / 'parent_pool.cu'
+        sources['parent_pool'].write_text(args.parent_pool.read_text())
+        pool_of['parent'] = 'parent_pool'
     name = card()
     print(name, flush=True)
     for n, rep in nvcc(sources).items():
         print(json.dumps({'version': n, 'registers_spills': rep}),
               flush=True)
     dev = torch.device('cuda', 0)
-    inputs = cases(dev)
-    info = {}
-    for case, (h, g, table, deg, winner) in inputs.items():
-        src, _, _, _ = table_csr(table, deg)
-        N, F = h.shape
-        Fg = g.shape[1]
-        slots, rows = src.numel(), src.unique().numel()
-        info[case] = {
-            'N': N, 'F': {'nei_sum': F, 'nei_max_bwd': Fg},
-            'K': table.shape[1], 'slots': slots,
-            'bound_us': {
-                'nei_sum': bound(4 * (rows * F + slots + N * F) + N,
-                                 slots * F)[0] * 1e3,
-                'nei_max_bwd': bound(4 * 3 * N * Fg + 4 * slots + N,
-                                     slots * Fg)[0] * 1e3}}
-    print(json.dumps({'card': name, 'cases': info}), flush=True)
+    X, _ = graphconv_data()
+    model = GraphConvModel(**GRAPHCONV, device=dev, seed=0)
+    tables = table_cases(dev, X, model)
+    pools = pool_cases(dev, X, model)
+    print(json.dumps({'card': name, 'cases': bounds(tables, pools)}),
+          flush=True)
     empty = entries('empty')['empty_launch']
-    fns = {n: entries(n) for n in sources if n != 'empty'}
+    fns = {n: entries(table_of.get(n, n), pool)
+           for n, pool in pool_of.items()}
     outer = ['parent'] if args.parent else []
     order = outer + others + ['base', 'base'] + others[::-1] + outer
     print(json.dumps({'card': name,
-                      'library_us': library_us(inputs, args.calls)}),
+                      'library_us': library_us(tables, pools, args.calls)}),
           flush=True)
     runs = {n: [] for n in fns}
     first_outs = {}
     for n in order:
-        times, outs, paths = run_version(n, fns[n], empty, inputs,
+        times, outs, paths = run_version(n, fns[n], empty, tables, pools,
                                          args.calls)
         runs[n].append(times)
         first_outs.setdefault(n, outs)
         print(json.dumps({'card': name, 'version': n, 'run': len(runs[n]),
                           'paths': paths, 'us': times}),
               flush=True)
-    identical = {n: {case: {part: torch.equal(first_outs['base'][case][part],
-                                              first_outs[n][case][part])
-                            for part in ('nei_sum', 'nei_max_bwd')}
-                     for case in inputs}
-                 for n in first_outs if n != 'base'}
+    base = first_outs['base']
+    identical = {n: {case: {part: compare(base[case][part], outs[case][part])
+                            for part in base[case]} for case in base}
+                 for n, outs in first_outs.items() if n != 'base'}
     if identical:
-        print(json.dumps({'base_equals_bit_for_bit': identical}), flush=True)
+        print(json.dumps({'base_against_each_version': identical}),
+              flush=True)
     print(json.dumps({'card': name, 'mean_us': {
         n: {case: {part: {x: mean([r[case][part][x] for r in rs])
                           for x in rs[0][case][part]}
@@ -374,8 +581,12 @@ def main() -> int:
             for case in rs[0]}
         for n, rs in runs.items()}}), flush=True)
     print(name, flush=True)
-    if not all(all(v.values()) for per in identical.values()
-               for v in per.values()):
+    # K3's backward writes t * 0, -0.0 where t < 0, on the rows that are
+    # not selected (the JAX gradient); the first design wrote +0.0
+    if any(got == 'values' or (got == 'zero_signs'
+                               and part != 'graph_max_pool_bwd')
+           for per in identical.values() for v in per.values()
+           for part, got in v.items()):
         print('outputs differ between versions', file=sys.stderr)
         return 1
     return 0

@@ -61,7 +61,8 @@ def main() -> int:
     from deepchem_tpu_torch.kernels import build
     build.build_all = lambda names=None: None
     build.load = lambda name: None
-    build.build_log = lambda name: 'not built: cpu rehearsal'
+    build.build_log = lambda name: ('not built: cpu rehearsal; 0 bytes '
+                                    'spill stores, 0 bytes spill loads')
 
     import deepchem_tpu_torch.ops as ops
     from deepchem_tpu_torch.ops import csr_segment
@@ -105,9 +106,10 @@ def main() -> int:
         nei._nei_sum_forward, nei._nei_max_forward, nei._nei_max_backward)
     pool_fwd, pool_bwd = seg._graph_max_forward, seg._graph_max_backward
 
-    # the float4 launches that nei_table.cu's entries would count: F a
-    # multiple of 4 and 16-byte-aligned rows (outputs are fresh, so aligned)
-    float4 = [0, 0]
+    # the float4 launches that nei_table.cu's and graph_pool.cu's entries
+    # would count: F a multiple of 4 and 16-byte-aligned rows (outputs are
+    # fresh, so aligned); K1, K2's backward, K2's forward, K3's forward
+    float4 = [0, 0, 0, 0]
 
     def vec4(*tensors):
         return tensors[0].shape[1] % 4 == 0 \
@@ -121,18 +123,20 @@ def main() -> int:
             nei.nei_sum.launches += 1
         return nei_sum_fwd(h, table, deg)
 
-    def counted_nei_max_fwd(*args):
+    def counted_nei_max_fwd(h, table, deg):
+        float4[2] += vec4(h)
         nei.nei_max_incl_self.launches += 1
-        return nei_max_fwd(*args)
+        return nei_max_fwd(h, table, deg)
 
     def counted_nei_max_bwd(g, table, deg, winner):
         float4[1] += vec4(g, winner)
         nei.nei_max_incl_self.backward_launches += 1
         return nei_max_bwd(g, table, deg, winner)
 
-    def counted_pool_fwd(*args):
+    def counted_pool_fwd(x, row_ptr, mask):
+        float4[3] += vec4(x)
         seg.graph_max_pool.launches += 1
-        return pool_fwd(*args)
+        return pool_fwd(x, row_ptr, mask)
 
     def counted_pool_bwd(*args):
         seg.graph_max_pool.backward_launches += 1
@@ -141,7 +145,8 @@ def main() -> int:
     nei._nei_sum_forward = counted_nei_sum
     nei._nei_max_forward = counted_nei_max_fwd
     nei._nei_max_backward = counted_nei_max_bwd
-    nei.float4_launches = lambda: tuple(float4)
+    nei.float4_launches = lambda: tuple(float4[:3])
+    seg.graph_max_pool_float4_launches = lambda: float4[3]
     seg._graph_max_forward = counted_pool_fwd
     seg._graph_max_backward = counted_pool_bwd
     flash.flash_attention_forward = counted_flash_fwd

@@ -6,10 +6,12 @@ statistics m and l) and backward kernels against the plain flash
 attention (the float32 backward also against its formulas in float64),
 the encoder's logits against the CPU, GraphConv's kernels K1 (neighbour
 sum), K2 (neighbour max and its backward) and K3 (graph max readout and
-its backward) against their plain versions (K1 and K2's backward on both
-of their kernel paths, float4 rows and one float a lane, also bit for bit
-against their slot-order arithmetic), and one GraphConv training
-step against the CPU.  They skip where
+its backward) against their plain versions (K1 and K2 forward and
+backward, and K3's forward, on both of their kernel paths, float4 rows
+and one float a lane, bit for bit against their slot-order arithmetic or
+their plain versions; all of them at NaN, infinities, signed zeros and
+values at and below NEG), and one GraphConv training step against the
+CPU.  They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
 
@@ -35,7 +37,8 @@ from deepchem_tpu_torch.ops.nei_table import (_nei_max_backward,
                                               nei_max_reference,
                                               nei_sum_reference)
 from deepchem_tpu_torch.ops.segment import (
-    graph_max_pool_backward_reference, graph_max_pool_reference)
+    _graph_max_forward, graph_max_pool_backward_reference,
+    graph_max_pool_float4_launches, graph_max_pool_reference)
 from deepchem_tpu_torch.ops.csr_segment import (
     csr_neighbor_sum_reference, csr_segment_softmax,
     csr_segment_softmax_reference, csr_segment_sum,
@@ -568,8 +571,8 @@ def test_nei_max_kernels_match_plain_version(cuda, F, kind):
 def _padded_table(n, K, seed):
     """A table ``[n, K]`` with degrees 0 to K (node 0 has K, node n - 1
     none, so its whole row is pad) and random neighbours.  Returns the
-    kernels' table, whose pad entries point far out of range (the
-    kernels read them but must never follow them), the plain version's
+    table for K2's kernels, whose pad entries point far out of range (they
+    may read a pad entry but must never follow it), the plain version's
     with 0 there, and the degrees."""
     rng = np.random.RandomState(seed)
     deg = rng.randint(0, K + 1, n).astype(np.int8)
@@ -580,6 +583,15 @@ def _padded_table(n, K, seed):
     poisoned = np.where(pad, np.int32(2**30), safe).astype(np.int32)
     return (torch.from_numpy(poisoned), torch.from_numpy(safe),
             torch.from_numpy(deg))
+
+
+def _spread_pads(table, deg, seed):
+    """``table`` with its pad entries pointing at random rows: K1 reads and
+    adds them (times 0), so they must lie in range."""
+    t = table.numpy().copy()
+    pad = np.arange(t.shape[1])[None, :] >= deg.numpy()[:, None]
+    t[pad] = np.random.RandomState(seed).randint(0, len(t), pad.sum())
+    return torch.from_numpy(t)
 
 
 def _on_card(a, cuda, aligned):
@@ -613,7 +625,8 @@ KERNEL_PATHS = [(4, True, True), (64, True, True), (128, True, True),
 @pytest.mark.parametrize('F,aligned,float4', KERNEL_PATHS)
 def test_nei_sum_kernel_paths_match_plain_version(cuda, F, aligned, float4,
                                                   K):
-    table, safe, deg = _padded_table(300, K, seed=F + K)
+    _, safe, deg = _padded_table(300, K, seed=F + K)
+    table = _spread_pads(safe, deg, seed=F + K)
     rng = np.random.RandomState(F * K)
     a = rng.randn(len(table), F).astype(np.float32)
     a[rng.rand(*a.shape) < 0.2] = -0.0
@@ -623,14 +636,48 @@ def test_nei_sum_kernel_paths_match_plain_version(cuda, F, aligned, float4,
     again = nei_sum(h, table.to(cuda), deg.to(cuda))
     torch.cuda.synchronize()
     assert nei_sum.launches == before + 2
-    assert float4_launches() == (before4[0] + 2 * float4, before4[1])
-    _close(out, nei_sum_reference(torch.from_numpy(a), safe, deg))
+    assert float4_launches() == (before4[0] + 2 * float4, before4[1],
+                                 before4[2])
+    _close(out, nei_sum_reference(torch.from_numpy(a), table, deg))
+    # the real slots, then each pad slot's row times 0 (+-0 here)
+    real = np.arange(K)[None, :] < deg.numpy()[:, None]
     want = _slot_order(np.zeros_like(a), [
-        (a[safe[:, j].numpy()], (j < deg.numpy())[:, None])
-        for j in range(K)])
+        (a[table[:, j].numpy()] * np.where(real[:, j:j + 1], 1, 0).astype(
+            np.float32), np.ones((len(a), 1), bool)) for j in range(K)])
     assert np.array_equal(out.cpu().numpy().view(np.int32),
                           want.view(np.int32))
     assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [1, 10, 32])
+@pytest.mark.parametrize('F,aligned,float4', KERNEL_PATHS)
+def test_nei_max_forward_kernel_paths_match_plain_version(cuda, F, aligned,
+                                                          float4, K):
+    """Both paths of K2's forward against the plain version, the max bit
+    for bit and the winners equal; the pad entries point out of range,
+    which the forward reads only for the first pad slot and never
+    follows."""
+    table, safe, deg = _padded_table(300, K, seed=F + K)
+    rng = np.random.RandomState(F * K + 1)
+    for kind in ('normal', 'ties'):
+        a = _values(rng, len(table), F, kind)
+        a[rng.rand(*a.shape) < 0.2] = -0.0
+        h = _on_card(a, cuda, aligned)
+        before, before4 = nei_max_incl_self.launches, float4_launches()
+        out, winner = nei_max_incl_self(h, table.to(cuda), deg.to(cuda),
+                                        return_winner=True)
+        again, again_w = nei_max_incl_self(h, table.to(cuda), deg.to(cuda),
+                                           return_winner=True)
+        torch.cuda.synchronize()
+        assert nei_max_incl_self.launches == before + 2
+        assert float4_launches() == (before4[0], before4[1],
+                                     before4[2] + 2 * float4)
+        ref, ref_w = nei_max_reference(torch.from_numpy(a), safe, deg)
+        assert np.array_equal(out.cpu().numpy().view(np.int32),
+                              ref.numpy().view(np.int32))
+        assert torch.equal(winner.cpu(), ref_w)
+        assert torch.equal(out, again) and torch.equal(winner, again_w)
 
 
 @pytest.mark.cuda
@@ -651,7 +698,8 @@ def test_nei_max_backward_kernel_paths_match_plain_version(cuda, F, aligned,
     again = _nei_max_backward(g, table.to(cuda), deg.to(cuda), w)
     torch.cuda.synchronize()
     assert nei_max_incl_self.backward_launches == before + 2
-    assert float4_launches() == (before4[0], before4[1] + 2 * float4)
+    assert float4_launches() == (before4[0], before4[1] + 2 * float4,
+                                 before4[2])
     _close(grad, nei_max_backward_reference(torch.from_numpy(a), safe, deg,
                                             winner))
     wn, m = winner.numpy(), np.arange(len(table))[:, None]
@@ -703,6 +751,56 @@ def test_graph_max_pool_kernels_match_plain_version(cuda, F, masked):
                           None if mask is None else mask.to(cuda))
     out2.backward(g.to(cuda))
     assert torch.equal(out2, out) and torch.equal(t2.grad, t.grad)
+
+
+# (F, x aligned, float4 path) of K3's forward: float4 rows at F 4, 64, 128
+# and 512 (two passes of 64 units); one float at F 1, 37, 75 and at F 128
+# off 16-byte alignment
+POOL_PATHS = [(4, True, True), (64, True, True), (128, True, True),
+              (512, True, True), (1, True, False), (37, True, False),
+              (75, True, False), (128, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['ties', 'normal', 'signed_zeros'])
+@pytest.mark.parametrize('F,aligned,float4', POOL_PATHS)
+def test_graph_max_pool_forward_kernel_paths_match_plain_version(
+        cuda, F, aligned, float4, kind):
+    """Both paths of K3's forward against the plain version: out bit for
+    bit, mx and den equal, counted by the C entry."""
+    x, row_ptr, mask, _ = _pool_case(F, seed=F)
+    rng = np.random.RandomState(F + 1)
+    if kind == 'normal':
+        x = torch.from_numpy(rng.randn(*x.shape).astype(np.float32))
+    elif kind == 'signed_zeros':
+        x = torch.from_numpy(np.where(rng.rand(*x.shape) < 0.5, -0.0,
+                                      0.0).astype(np.float32))
+    xc = _on_card(x.numpy(), cuda, aligned)
+    before, before4 = graph_max_pool.launches, \
+        graph_max_pool_float4_launches()
+    out, mx, den = _graph_max_forward(xc, row_ptr.to(cuda), mask.to(cuda))
+    again = _graph_max_forward(xc, row_ptr.to(cuda), mask.to(cuda))
+    torch.cuda.synchronize()
+    assert graph_max_pool.launches == before + 2
+    assert graph_max_pool_float4_launches() == before4 + 2 * float4
+    ref, ref_mx, ref_den = graph_max_pool_reference(x, row_ptr, mask)
+    assert np.array_equal(out.cpu().numpy().view(np.int32),
+                          ref.numpy().view(np.int32))
+    assert torch.equal(mx.cpu(), ref_mx) and torch.equal(den.cpu(), ref_den)
+    assert all(torch.equal(a, b) for a, b in zip((out, mx, den), again))
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_version_on_non_finite_values(cuda):
+    """K1, K2 and K3, forward and backward, on both paths, at NaN,
+    infinities, signed zeros and values at and below NEG (chip_smoke's
+    phase 3 cases): equal to the plain versions, NaN where NaN."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import non_finite_cases
+    results = non_finite_cases(np.random.RandomState(0), cuda)
+    assert len(results) == 8
+    assert all(all(r['checks'].values()) for r in results)
+    assert all(r['nan_outputs'] > 0 for r in results)
 
 
 @pytest.mark.cuda

@@ -43,7 +43,7 @@ from deepchem_tpu_torch.chem import mol_from_smiles
 from deepchem_tpu_torch.models import (GraphConv, GraphGather,
                                        MaskedBatchNorm, params_from_flax)
 from deepchem_tpu_torch.models.convert import _torch_name
-from deepchem_tpu_torch.ops import (build_neighbor_table, graph_pool,
+from deepchem_tpu_torch.ops import (NEG, build_neighbor_table, graph_pool,
                                     nei_max_incl_self, nei_sum,
                                     node_degrees, segment_max,
                                     segment_max_sumgrad, segment_mean)
@@ -158,6 +158,38 @@ def test_nei_sum_matches_jax():
     np.testing.assert_allclose(x.grad.numpy(), ref_grad, atol=1e-6)
 
 
+@pytest.mark.parametrize('case', ['inf_behind_the_pads', 'nan_behind_the_pads',
+                                  'inf_in_a_real_neighbour',
+                                  'inf_cotangent'])
+def test_nei_sum_matches_jax_on_non_finite_rows(case):
+    """Pad slots point at row 0, and the JAX op adds their rows times 0: a
+    row 0 that is not finite makes every node with a pad slot NaN there,
+    forward and backward."""
+    rng = np.random.RandomState(6)
+    table, mask, deg = _table(rng)
+    h = rng.randn(len(table), 4).astype(np.float32)
+    w = rng.randn(len(table), 4).astype(np.float32)
+    if case == 'inf_behind_the_pads':
+        h[0, 0] = np.inf
+    elif case == 'nan_behind_the_pads':
+        h[0, 1] = np.nan
+    elif case == 'inf_in_a_real_neighbour':
+        h[table[0, 3], 2] = -np.inf            # node 0 has no pad slot
+    else:
+        w[0, 0], w[5, 3] = np.inf, np.nan
+
+    def f(x):
+        return jnp.sum(jax_nei_table.nei_sum(x, table, mask) * w)
+    ref = jax_nei_table.nei_sum(h, table, mask)
+    ref_grad = jax.grad(f)(h)
+    x = torch.from_numpy(h).requires_grad_()
+    out = nei_sum(x, torch.from_numpy(table), torch.from_numpy(deg))
+    (out * torch.from_numpy(w)).sum().backward()
+    assert not np.isfinite(ref_grad if case == 'inf_cotangent' else ref).all()
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-6)
+    np.testing.assert_allclose(x.grad.numpy(), ref_grad, atol=1e-6)
+
+
 def test_nei_sum_skips_the_backward_without_an_input_gradient():
     rng = np.random.RandomState(2)
     table, _, deg = _table(rng)
@@ -192,6 +224,52 @@ def test_nei_max_matches_jax_with_ties(F):
     np.testing.assert_allclose(x.grad.numpy(), ref_grad, atol=1e-6)
 
 
+@pytest.mark.parametrize('case', ['neg_inf_nodes', 'below_neg_nodes',
+                                  'nan_values', 'at_neg_and_infinities'])
+def test_nei_max_matches_jax_below_neg_and_non_finite(case):
+    """A pad slot offers NEG with its table entry: a node whose own and
+    real neighbours' values are all -inf or below NEG takes NEG from its
+    first pad slot, winner the pad entry, whose cotangent then goes to no
+    neighbour.  A NaN never takes the max, and a NaN self keeps it."""
+    rng = np.random.RandomState(7)
+    table, mask, deg = _table(rng)
+    n = len(table)
+    h = rng.randn(n, 4).astype(np.float32)
+    g = rng.randn(n, 4).astype(np.float32)
+    if case == 'neg_inf_nodes':
+        h[:, 0] = -np.inf
+        h[rng.rand(n) < 0.3, 1] = -np.inf
+    elif case == 'below_neg_nodes':
+        h[:, 0] = -1e16
+        h[:, 1] = rng.choice([-1e16, -2e16, -np.inf], n)
+    elif case == 'nan_values':
+        h[rng.rand(n, 4) < 0.2] = np.nan
+    else:
+        h[:, :2] = rng.choice([np.float32(NEG), -np.inf, np.inf, -1e16],
+                              (n, 2))
+    ref, ref_winner = jax_nei_table._nei_max_fwd_impl(
+        jnp.asarray(h), jnp.asarray(table), jnp.asarray(mask))
+    ref_grad = jax.grad(lambda x: jnp.sum(
+        jax_nei_table.nei_max_incl_self(x, table, mask) * g))(h)
+    x = torch.from_numpy(h).requires_grad_()
+    out, winner = nei_max_incl_self(x, torch.from_numpy(table),
+                                    torch.from_numpy(deg),
+                                    return_winner=True)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_array_equal(out.detach().numpy(), ref)
+    np.testing.assert_array_equal(winner.numpy(), ref_winner)
+    np.testing.assert_allclose(x.grad.numpy(), ref_grad, atol=1e-6)
+    if case in ('neg_inf_nodes', 'below_neg_nodes'):
+        # in feature 0 every node with a pad slot took NEG from it, winner
+        # its entry 0, and the full nodes kept their own: no other node
+        # won a max, so none takes a cotangent
+        pad = deg < table.shape[1]
+        w0 = winner.numpy()[:, 0]
+        assert (out.detach().numpy()[pad, 0] == np.float32(NEG)).all()
+        assert (w0[pad] == 0).all() and (w0[~pad] == np.where(~pad)[0]).all()
+        assert not x.grad[~np.isin(np.arange(n), w0), 0].any()
+
+
 def _pool_batch(rng, F=8):
     """Graph-contiguous rows: 6 real graphs of 0 to 5 rows (graphs 2 and 5
     empty), 2 empty slots before the ghost slot, then 5 ghost rows;
@@ -219,6 +297,79 @@ def test_graph_pool_matches_jax(mode):
                      mode)
     (out * torch.from_numpy(g)).sum().backward()
     assert out.shape == (G, x.shape[1])
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-6)
+    np.testing.assert_allclose(t.grad.numpy(), ref_grad, atol=1e-6)
+
+
+# graphs of _pool_batch: 0 rows 0-2, 1 rows 3-7, 3 row 8, 4 rows 9-12;
+# 2, 5, 6 and 7 empty; ghost rows 13-17
+POOL_CASES = ['neg_inf_row', 'nan_row', 'masked_nan_row', 'masked_inf_row',
+              'pos_inf_max', 'signed_zero_ties', 'all_at_neg',
+              'nan_ghost_row', 'inf_and_nan_cotangent']
+
+
+def _special_pool_batch(case):
+    rng = np.random.RandomState(8)
+    x, gidx, mask, G = _pool_batch(rng, F=4)
+    g = rng.randn(G, x.shape[1]).astype(np.float32)
+    if case == 'neg_inf_row':
+        x[1, 0] = -np.inf
+    elif case == 'nan_row':
+        x[4, 1] = np.nan
+    elif case == 'masked_nan_row':
+        x[4, 1], mask[4] = np.nan, 0.0
+    elif case == 'masked_inf_row':
+        x[10, 2], mask[10] = np.inf, 0.0
+    elif case == 'pos_inf_max':
+        x[0, 2], x[10, 3], x[11, 3] = np.inf, np.inf, -np.inf
+    elif case == 'signed_zero_ties':
+        x[:] = np.where(rng.rand(*x.shape) < 0.5, -0.0, 0.0)
+    elif case == 'all_at_neg':
+        x[:] = NEG
+        x[:, 1] = -1e16
+    elif case == 'nan_ghost_row':
+        x[15, 0] = np.nan
+    else:
+        g[0, 0], g[1, 1], g[2, 2], g[4, 3] = np.inf, np.nan, np.inf, -np.inf
+    return x, gidx, mask, G, g
+
+
+@pytest.mark.parametrize('case', POOL_CASES)
+def test_graph_pool_max_matches_jax_on_non_finite_values(case):
+    """K3's plain version against the JAX op where the max or the sum meets
+    NaN, infinities, signed zeros or values at NEG: the sum multiplies by
+    the selection, so a non-finite row that is not selected, masked or
+    not, makes the output NaN, and a non-finite cotangent the gradient of
+    such rows; ghost rows stay out."""
+    x, gidx, mask, G, g = _special_pool_batch(case)
+    ref = jax_graph_pool(x, gidx, G, mask, 'max')
+    ref_grad = jax.grad(lambda a: jnp.sum(
+        jax_graph_pool(a, gidx, G, mask, 'max') * g))(x)
+    t = torch.from_numpy(x).requires_grad_()
+    out = graph_pool(t, torch.from_numpy(gidx), G, torch.from_numpy(mask),
+                     'max')
+    (out * torch.from_numpy(g)).sum().backward()
+    assert not (np.isfinite(ref).all() and np.isfinite(ref_grad).all()) \
+        or case in ('signed_zero_ties', 'all_at_neg', 'nan_ghost_row')
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-6)
+    np.testing.assert_allclose(t.grad.numpy(), ref_grad, atol=1e-6)
+
+
+@pytest.mark.parametrize('case', POOL_CASES)
+def test_segment_max_sumgrad_matches_jax_on_non_finite_values(case):
+    """The same values through segment_max_sumgrad with unsorted segment
+    ids, as its COO callers give them."""
+    x, gidx, mask, G, g = _special_pool_batch(case)
+    perm = np.random.RandomState(9).permutation(len(x))
+    x, ids, mask = x[perm], gidx[perm], mask[perm]
+    g = np.concatenate([g, np.zeros_like(g[:1])])   # the ghost segment
+    ref = jax_segment_max_sumgrad(x, ids, G + 1, mask)
+    ref_grad = jax.grad(lambda a: jnp.sum(
+        jax_segment_max_sumgrad(a, ids, G + 1, mask) * g))(x)
+    t = torch.from_numpy(x).requires_grad_()
+    out = segment_max_sumgrad(t, torch.from_numpy(ids), G + 1,
+                              torch.from_numpy(mask))
+    (out * torch.from_numpy(g)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-6)
     np.testing.assert_allclose(t.grad.numpy(), ref_grad, atol=1e-6)
 
