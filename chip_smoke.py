@@ -25,10 +25,13 @@ Phases:
                 and K2 also at F 4 and at F 64 off 16-byte alignment), tied
                 and all-tie maxima, and empty graphs with a ghost tail;
                 every path of the two-path kernels (float4 rows, one float
-                a lane) launched.  Then K1-K3 at values the model never
-                hands them (NaN, infinities, signed zeros, values at and
-                below NEG), each path, held for exact equality with the
-                plain versions, NaN where NaN.
+                a lane; K3's backward too) launched.  Then K1-K3 at
+                values the model never hands them (NaN, infinities,
+                signed zeros, values at and below NEG), each path, held
+                for exact equality with the plain versions, NaN where NaN
+                and signs of zeros equal, and P1 at +inf, NaN, -inf and
+                overflowing logits on each of its paths, NaN where the
+                plain version gives NaN.
                 Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
@@ -265,20 +268,24 @@ def device_us(fn, kernel: str, bound_us: float = 0.0, calls: int = 20,
           f'time): {runs}; bound {bound_us:.3f} µs')
 
 
-def device_us_all(fn, calls: int = 20, tries: int = 2):
+def device_us_all(fn, calls: int = 20, tries: int = 2, most: int = 5):
     """Device µs a call of ``fn`` over every CUDA kernel (and memset or
     copy) it launches, and the kernels a call, from ``torch.profiler``
     windows of ``calls`` calls.  Per kernel name: its mean time a record,
     times its launches a call (its records over ``calls``, rounded; the
     most of ``tries`` windows).  The profiler can drop a record or two of
     a window (see :func:`device_us`), which moves a mean little and the
-    rounded count not at all."""
+    rounded count not at all, and has been seen to record no device
+    event in two windows running (torch 2.11, CUDA 12.8): while it has
+    recorded none it profiles again, up to ``most`` windows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     seen = {}                     # name: (records, total µs)
-    for _ in range(tries):
+    for window in range(most):
+        if window >= tries and seen:
+            break
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -747,6 +754,81 @@ def same_values(a, b) -> bool:
         ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
+def same_bits(a, b) -> bool:
+    """Equal shapes, NaN where NaN, and elsewhere equal values with equal
+    sign bits (-0.0 differs from 0.0; a NaN's sign and payload are not
+    compared)."""
+    import torch
+    nan = torch.isnan(a)
+    return same_values(a, b) and torch.equal(torch.signbit(a[~nan]),
+                                             torch.signbit(b[~nan]))
+
+
+# logits of P1's non-finite case, each put into a segment of every length
+# of SOFTMAX_NON_FINITE_LENGTHS, in every head: +inf, NaN, -inf, a logit
+# whose exp overflows float32 (100), finite ones; a +inf or NaN makes the
+# JAX kernel's max not finite, so its m is 0 and its sum +inf or NaN
+SOFTMAX_NON_FINITE = {'inf_3_1': [float('inf'), 3.0, 1.0],
+                      'nan_3_1': [float('nan'), 3.0, 1.0],
+                      'inf_inf_neg_inf': [float('inf'), float('inf'),
+                                          -float('inf')],
+                      '100_inf_1': [100.0, float('inf'), 1.0],
+                      'mixed': [float('inf'), float('nan'), -float('inf'),
+                                100.0, 2.0],
+                      'nan_neg_inf': [float('nan'), -float('inf')]}
+# one edge a lane (<= 32), one warp unrolled (33 to 128), split across the
+# block (> 128)
+SOFTMAX_NON_FINITE_LENGTHS = (3, 20, 77, 300, 1500)
+
+
+def softmax_non_finite_inputs(rng, dev, H):
+    """``(logits [E, H], row_ptr)`` on ``dev``: for each pattern of
+    SOFTMAX_NON_FINITE and each length of SOFTMAX_NON_FINITE_LENGTHS a
+    segment of finite logits with the pattern (its first ``length``
+    values) at random places in every head, among short finite segments, an empty one, one all -inf and one
+    of a finite logit among -inf."""
+    import numpy as np
+    import torch
+    lengths, fills = [], []
+    for L in SOFTMAX_NON_FINITE_LENGTHS:
+        for pat in SOFTMAX_NON_FINITE.values():
+            lengths += [int(rng.randint(0, 33)), L]
+            fills += [None, pat]
+    lengths += [0, 9, 9]
+    fills += [None, 'neg_inf', 'one_finite']
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    logits = rng.randn(int(row_ptr[-1]), H).astype(np.float32) * 5
+    for i, fill in enumerate(fills):
+        part = logits[row_ptr[i]:row_ptr[i + 1]]
+        if fill in ('neg_inf', 'one_finite'):
+            part[:] = -np.inf
+            if fill == 'one_finite':
+                part[4] = 2.5
+        elif fill is not None:
+            fill = fill[:len(part)]
+            for h in range(H):
+                part[rng.choice(len(part), len(fill), replace=False),
+                     h] = fill
+    return (torch.from_numpy(logits).to(dev),
+            torch.from_numpy(row_ptr).to(dev))
+
+
+def softmax_non_finite_ok(y, logits, row_ptr) -> bool:
+    """Whether P1's output ``y`` at non-finite ``logits`` is NaN where the
+    plain version gives NaN, +0 where it gives 0, and within KERNEL_ATOL
+    of it in float64 elsewhere (in float32 its sums drift on long
+    segments)."""
+    import torch
+    from deepchem_tpu_torch.ops.csr_segment import \
+        csr_segment_softmax_reference
+    ref = csr_segment_softmax_reference(logits, row_ptr)
+    ref64 = csr_segment_softmax_reference(logits.double(), row_ptr)
+    keep, zero = ~torch.isnan(ref), ref == 0
+    return torch.equal(torch.isnan(y), ~keep) \
+        and max_err(y[keep].double(), ref64[keep]) <= KERNEL_ATOL \
+        and same_bits(y[zero], ref[zero])
+
+
 def non_finite_inputs(rng, dev):
     """Inputs on which K1-K3 have differed from the JAX package: NaN,
     infinities, signed zeros and values at or below NEG.  Returns
@@ -767,8 +849,15 @@ def non_finite_inputs(rng, dev):
         h[:, 6] = rng.choice([NEG, -1e16, -np.inf, np.inf], 1000)
         h[rng.rand(1000) < 0.2, 7] = np.nan
         h[:, 8] = np.where(rng.rand(1000) < 0.5, -0.0, 0.0)
+        h[0, 8] = -0.0                            # -0 behind the pads
+        h[:, 9] = -0.0                            # sums of -0 only
+        h[:, 10] = 0.0                            # node 0 (degree 10, the
+        h[0, 10] = 100.0                          # table's K) wins every max
         g = rng.randn(1000, F).astype(np.float32)
         g[0, 0], g[1, 1], g[rng.rand(1000) < 0.1, 2] = np.inf, np.nan, -np.inf
+        g[:, 3] = -0.0                            # K2's backward: +0
+        g[rng.rand(1000) < 0.3, 9] = -0.0
+        g[:, 10] = -0.0                           # K2's backward: -0 at node 0
         rows[F] = tuple(torch.from_numpy(a).to(dev) for a in (h, g))
     # graphs of 3, 5, 0, 1, 40, 0 and 17 rows, 2 empty slots, a ghost tail
     # of 20 rows; row 4 (graph 1) masked
@@ -794,6 +883,7 @@ def non_finite_inputs(rng, dev):
         g = rng.randn(G, F).astype(np.float32)
         g[0, 10], g[1, 11], g[2, 12], g[4, 13] = (np.inf, np.nan, np.inf,
                                                   -np.inf)
+        g[:, 14] = -0.0              # -0 times the selection
         pool[F] = tuple(torch.from_numpy(a).to(dev) for a in (x, g))
     return {'table': rows, 'pool': pool, 'table_deg': (table, deg),
             'row_ptr': row_ptr, 'mask': mask}
@@ -802,10 +892,14 @@ def non_finite_inputs(rng, dev):
 def non_finite_cases(rng, dev):
     """K1, K2 and K3, forward and backward, at :func:`non_finite_inputs`,
     each kernel on both of its paths where it has two, held for exact
-    equality with the plain versions (NaN where NaN; K2's winners
-    equal).  Returns a result for each case."""
+    equality with the plain versions, signs of zeros included
+    (:func:`same_bits`; K2's winners equal; K3's internal mx, which the
+    backward only compares with >=, as values).  Then P1 at
+    :func:`softmax_non_finite_inputs`, H 1 and 3, on its three paths
+    (:func:`softmax_non_finite_ok`).  Returns a result for each case."""
     import torch
     from deepchem_tpu_torch.ops import nei_table, segment
+    from deepchem_tpu_torch.ops.csr_segment import _softmax_forward
     inp = non_finite_inputs(rng, dev)
     table, deg = inp['table_deg']
     results = []
@@ -819,13 +913,13 @@ def non_finite_cases(rng, dev):
             torch.cuda.synchronize()
             ref_best, ref_win = nei_table.nei_max_reference(h, table, deg)
             res = {'case': f'non_finite_F{F}{tag}', 'checks': {
-                'nei_sum': same_values(
+                'nei_sum': same_bits(
                     out, nei_table.nei_sum_reference(h, table, deg)),
-                'nei_sum_bwd': same_values(
+                'nei_sum_bwd': same_bits(
                     grad, nei_table.nei_sum_reference(g, table, deg)),
-                'nei_max_fwd': same_values(best, ref_best)
+                'nei_max_fwd': same_bits(best, ref_best)
                 and torch.equal(win, ref_win),
-                'nei_max_bwd': same_values(
+                'nei_max_bwd': same_bits(
                     gmax, nei_table.nei_max_backward_reference(
                         g, table, deg, ref_win))},
                 'nan_outputs': int(torch.isnan(out).sum()
@@ -843,11 +937,19 @@ def non_finite_cases(rng, dev):
             ref_dx = segment.graph_max_pool_backward_reference(
                 g, x, row_ptr, mask, ref_mx, ref_den)
             results.append({'case': f'non_finite_pool_F{F}{tag}', 'checks': {
-                'graph_max_pool_fwd': same_values(out, ref)
+                'graph_max_pool_fwd': same_bits(out, ref)
                 and same_values(mx, ref_mx) and torch.equal(den, ref_den),
-                'graph_max_pool_bwd': same_values(dx, ref_dx)},
+                'graph_max_pool_bwd': same_bits(dx, ref_dx)},
                 'nan_outputs': int(torch.isnan(out).sum()
                                    + torch.isnan(dx).sum())})
+    for H in (1, 3):
+        logits, row_ptr = softmax_non_finite_inputs(rng, dev, H)
+        y = _softmax_forward(logits, row_ptr)
+        torch.cuda.synchronize()
+        results.append({'case': f'non_finite_softmax_H{H}', 'checks': {
+            'csr_segment_softmax': softmax_non_finite_ok(y, logits,
+                                                         row_ptr)},
+            'nan_outputs': int(torch.isnan(y).sum())})
     for res in results:
         print(f'phase 3 non-finite {json.dumps(res)}', flush=True)
         for kname, ok in res['checks'].items():
@@ -1386,10 +1488,11 @@ def main() -> int:
           and gc_pool_in[0][0].shape[1] == GRAPHCONV['dense_layer_size'],
           'K1 at F 75 and 64, K3 at F 128 on the path')
     gen = torch.Generator(dev).manual_seed(2)
-    # the C entries of K1, K2 and K3's forward count their float4 launches
+    # the C entries of K1, K2 and K3 count their float4 launches
     paths_before = ((nei_sum.launches, nei_max_incl_self.backward_launches,
-                     nei_max_incl_self.launches, graph_max_pool.launches),
-                    float4_launches() + (graph_max_pool_float4_launches(),))
+                     nei_max_incl_self.launches, graph_max_pool.launches,
+                     graph_max_pool.backward_launches),
+                    float4_launches() + graph_max_pool_float4_launches())
     nei_cases = [nei_sum_case(f'graphconv_batch256_layer{i}', *a)
                  for i, a in enumerate(gc_sum_in)]
     max_cases = [nei_max_cases(f'graphconv_batch256_layer{i}', *a,
@@ -1451,12 +1554,13 @@ def main() -> int:
     check(bool((out == 0).all()), 'K3: rows at NEG and empty graphs give 0')
     non_finite_cases(rng, dev)
     launched = (nei_sum.launches, nei_max_incl_self.backward_launches,
-                nei_max_incl_self.launches, graph_max_pool.launches)
+                nei_max_incl_self.launches, graph_max_pool.launches,
+                graph_max_pool.backward_launches)
     for kname, total, before4, after4 in zip(
-            ('K1', 'K2 backward', 'K2 forward', 'K3 forward'),
+            ('K1', 'K2 backward', 'K2 forward', 'K3 forward', 'K3 backward'),
             (a - b for a, b in zip(launched, paths_before[0])),
             paths_before[1],
-            float4_launches() + (graph_max_pool_float4_launches(),)):
+            float4_launches() + graph_max_pool_float4_launches()):
         float4 = after4 - before4
         print(f'phase 3 {kname} paths: {float4} float4 launches, '
               f'{total - float4} one float a lane', flush=True)

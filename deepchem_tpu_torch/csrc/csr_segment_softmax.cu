@@ -2,9 +2,13 @@
 //
 // Replaces the TPU kernel deepchem_tpu/ops/pallas_segment.py
 // :_csr_segment_softmax_kernel (P1).  For each node i and head h it computes
-// the softmax of logits[row_ptr[i]:row_ptr[i+1], h]: a segment max of -inf
-// (no finite logit) becomes 0, and the sum of exponentials is clamped to at
-// least 1e-16, as on the TPU.
+// the softmax of logits[row_ptr[i]:row_ptr[i+1], h] as the TPU kernel does
+// (:167-183): m is the segment max, NaN if a logit is NaN, and becomes 0
+// where it is not finite; s = sum of exp(x - m), clamped to at least 1e-16
+// by a max that keeps NaN; out = exp(x - m) / s.  So a segment with no
+// finite logit and no +inf or NaN (all -inf) gives 0, and one with a +inf
+// or a NaN logit has m = 0 and s = +inf, or NaN where a logit is NaN: its
+// outputs are exp(x) / s, 0 or NaN.
 //
 // Bound on this card: memory bytes.  The work is a few flops per element; a
 // call reads E*H*4 bytes of logits twice (the max/sum pass and the write
@@ -26,6 +30,15 @@
 // work doubled the time of many short segments with H = 8 (PERF.md).  The
 // warp merges its lanes' pairs with butterfly shuffles, so every lane ends
 // with the same (m, s); a second pass writes exp(x - m) / max(s, 1e-16).
+//   A +inf or NaN logit makes the TPU kernel's max not finite, so its m is
+// 0, and its s = sum of exp(x) is exactly +inf, or NaN if a logit is NaN:
+// the write pass runs with those, with no second pass over the segment.
+// The online max tells such a segment by itself: it is taken by
+// max.NaN.f32, which keeps a NaN where fmaxf would drop it (as JAX's
+// jnp.maximum keeps it), so the merged max is NaN where a logit is NaN,
+// else +inf where one is +inf.  (The sum beside it is then NaN, and
+// unused.)  On finite logits max.NaN.f32 equals fmaxf, so they keep the
+// bits of a max taken by fmaxf.
 //   A segment of at most kSplitEdges edges is its own warp's work.  A
 // longer one (the ghost node's) is split across the whole block, once every
 // warp is done with its own node: warp w folds the w-th of 8 contiguous,
@@ -58,10 +71,17 @@ constexpr int kUnroll = 8;
 // one step of kUnroll edges a lane, in each pass.
 constexpr int kSplitEdges = 128;
 
+// The larger of a and b, NaN if either is NaN.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // Merge the online-softmax pair (m2, s2) into (m, s).
 __device__ __forceinline__ void merge_pair(float& m, float& s, float m2,
                                            float s2) {
-  const float mn = fmaxf(m, m2);
+  const float mn = max_nan(m, m2);
   if (mn == -INFINITY) {  // both sides saw no finite logit
     s = 0.f;
     return;
@@ -71,7 +91,9 @@ __device__ __forceinline__ void merge_pair(float& m, float& s, float m2,
 }
 
 // The online-softmax pair of head h over edges [start, end), merged across
-// the warp: every lane returns the same (m, s).  All 32 lanes must call it.
+// the warp: every lane returns the same (m, s); m is NaN where a logit is
+// NaN, else +inf where one is +inf (s then means nothing).  All 32 lanes
+// must call it.
 __device__ __forceinline__ void warp_pair(const float* __restrict__ logits,
                                           int64_t stride, int h, int start,
                                           int end, float& m, float& s) {
@@ -93,9 +115,9 @@ __device__ __forceinline__ void warp_pair(const float* __restrict__ logits,
     for (int u = 0; u < kUnroll; ++u) {
       const int e = base + lane + 32 * u;
       x[u] = e < end ? logits[e * stride + h] : -INFINITY;
-      cmax = fmaxf(cmax, x[u]);
+      cmax = max_nan(cmax, x[u]);
     }
-    const float mn = fmaxf(m, cmax);
+    const float mn = max_nan(m, cmax);
     if (mn == -INFINITY) continue;  // nothing finite yet: s stays 0
     float add = 0.f;
 #pragma unroll
@@ -109,6 +131,19 @@ __device__ __forceinline__ void warp_pair(const float* __restrict__ logits,
     const float s2 = __shfl_xor_sync(kFullMask, s, offset);
     merge_pair(m, s, m2, s2);
   }
+}
+
+// The max to shift by and the denominator from the merged pair, as the TPU
+// kernel takes them: a max that is not finite becomes 0, and the sum is
+// clamped to at least 1e-16 by a max that keeps NaN.  Where m is NaN or
+// +inf, the sum of exp(x - 0) is NaN or +inf.
+__device__ __forceinline__ float finish(float& m, float s) {
+  float denom = fmaxf(s, 1e-16f);
+  if (!isfinite(m)) {
+    if (m != -INFINITY) denom = m == INFINITY ? INFINITY : NAN;
+    m = 0.f;
+  }
+  return denom;
 }
 
 // out = exp(x - m) / denom over edges [start, end) of head h.
@@ -171,8 +206,8 @@ csr_segment_softmax_kernel(const float* __restrict__ logits,
     for (int h = 0; h < num_heads; ++h) {
       float m, s;
       warp_pair(logits, stride, h, start, end, m, s);
-      if (!isfinite(m)) m = 0.f;
-      warp_write(logits, out, stride, h, start, end, m, fmaxf(s, 1e-16f));
+      const float denom = finish(m, s);
+      warp_write(logits, out, stride, h, start, end, m, denom);
     }
   }
   while (long_nodes != 0) {  // uniform across the block
@@ -197,8 +232,8 @@ csr_segment_softmax_kernel(const float* __restrict__ logits,
       for (int k = 1; k < kWarpsPerBlock; ++k) {
         merge_pair(m, s, part_m[k], part_s[k]);
       }
-      if (!isfinite(m)) m = 0.f;
-      warp_write(logits, out, stride, h, ps, pe, m, fmaxf(s, 1e-16f));
+      const float denom = finish(m, s);
+      warp_write(logits, out, stride, h, ps, pe, m, denom);
     }
   }
 }

@@ -60,10 +60,22 @@
 // 100 SMs idle.  Blocks of 4 warps, or 8 rows in flight a group, were
 // slower there (scripts/bench_nei_table.py, H100 80GB HBM3 at 700 W).
 //
-// Backward design: one block per graph, threads across the features, one
-// float a thread; the same blocks recompute sel from x and the saved mx,
-// and extra blocks after the G graph blocks write the zeros of the ghost
-// rows, 32 rows each.
+// Backward design, on the forward's layout: one block of 8 warps per real
+// graph, a row group of 2^shift lanes a row, C units a lane, a unit a
+// float4 where F is a multiple of 4 and g, x, mx, den and dx are all
+// 16-byte aligned, else one float (the C entry picks and counts the path).
+// Two round trips: a group loads the bounds and its units' g, den and mx
+// together, then issues the mask and x loads of R rows of its contiguous
+// chunk at once, forms t = g / den while they are in flight, recomputes
+// sel from them and stores dx = t * sel, a unit at a time.  Each element
+// is that one product, so any layout gives the same bits.  kTailBlocks
+// blocks after the G graph blocks write the zeros of the ghost rows, a
+// unit a thread, striding over them.  (The first design, one block a
+// graph of one thread a feature walking the rows one after another, a
+// mask load and a compare before each store, and the ghost rows' zeros a
+// float at a time from a block per 32 rows, took 3.78 us at GraphConv's
+// [5120, 128] with 256 graphs; scripts/bench_nei_table.py, H100 80GB HBM3
+// at 700 W.)
 //
 // Inputs: x [N, F] float32 row-major, row_ptr [G+1] int32 non-decreasing
 // with row_ptr[0] == 0 (clamped to [0, N]), mask [N] float32 or null.
@@ -72,13 +84,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_vec.cuh"
+
 namespace {
 
 constexpr float kNeg = -9e15f;  // the masking value of ops/segment.py
-constexpr int kMaxThreads = 128;
-constexpr int kPoolThreads = 256;  // a forward block: 8 warps a graph
+constexpr int kPoolThreads = 256;  // a block: 8 warps a graph
 constexpr int kMaxUnits = 4;       // units of a row a lane holds in a pass
-constexpr int kTailRows = 32;      // ghost rows zeroed by one backward block
+constexpr int kTailBlocks = 16;    // backward blocks that zero the ghost rows
 
 __device__ __forceinline__ bool valid(const float* __restrict__ mask,
                                       int64_t r) {
@@ -270,44 +283,119 @@ graph_max_pool_fwd_kernel(const V* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-graph_max_pool_bwd_kernel(const float* __restrict__ g,
-                          const float* __restrict__ x,
+// t = g / den where den > 0, else 0, per element.
+__device__ __forceinline__ float share(float g, float den) {
+  return den > 0.f ? g / fmaxf(den, 1.f) : 0.f;
+}
+__device__ __forceinline__ float4 share(float4 g, float4 den) {
+  return make_float4(share(g.x, den.x), share(g.y, den.y),
+                     share(g.z, den.z), share(g.w, den.w));
+}
+
+// t * sel, sel = 1 where the row is valid and v >= mx, else 0, per element.
+__device__ __forceinline__ float grad_of(float t, float v, float mx,
+                                         bool ok) {
+  return t * (ok && v >= mx ? 1.f : 0.f);
+}
+__device__ __forceinline__ float4 grad_of(float4 t, float4 v, float4 mx,
+                                          bool ok) {
+  return make_float4(grad_of(t.x, v.x, mx.x, ok), grad_of(t.y, v.y, mx.y, ok),
+                     grad_of(t.z, v.z, mx.z, ok),
+                     grad_of(t.w, v.w, mx.w, ok));
+}
+
+// K3's backward, laid out as its forward: V is float or float4, cols = F /
+// (floats in V), a row group of 2^shift lanes a row, C units a lane, R rows
+// issued at once.
+template <typename V, int C, int R>
+__global__ void __launch_bounds__(kPoolThreads)
+graph_max_pool_bwd_kernel(const V* __restrict__ g, const V* __restrict__ x,
                           const int* __restrict__ row_ptr,
                           const float* __restrict__ mask,
-                          const float* __restrict__ mx_in,
-                          const float* __restrict__ den_in,
-                          float* __restrict__ dx, int num_graphs,
-                          int num_rows, int num_features) {
-  const int64_t F = num_features;
+                          const V* __restrict__ mx_in,
+                          const V* __restrict__ den_in, V* __restrict__ dx,
+                          int num_graphs, int num_rows, int cols,
+                          int shift) {
   const int b = blockIdx.x;
   if (b >= num_graphs) {  // the ghost rows past row_ptr[G]: zeros
     const int ghost = min(max(row_ptr[num_graphs], 0), num_rows);
-    const int lo = max((b - num_graphs) * kTailRows, ghost);
-    const int hi = min((b - num_graphs + 1) * kTailRows, num_rows);
-    for (int r = lo; r < hi; ++r) {
-      for (int f = threadIdx.x; f < num_features; f += blockDim.x) {
-        dx[r * F + f] = 0.f;
-      }
+    const int units = (num_rows - ghost) * cols;
+    V* tail = dx + static_cast<int64_t>(ghost) * cols;
+    for (int u = (b - num_graphs) * kPoolThreads + threadIdx.x; u < units;
+         u += kTailBlocks * kPoolThreads) {
+      tail[u] = warp_vec::zero(V());
     }
     return;
   }
-  int start, end;
-  bounds(row_ptr, b, num_rows, &start, &end);
-  for (int f = threadIdx.x; f < num_features; f += blockDim.x) {
-    const float mx = mx_in[b * F + f];
-    const float den = den_in[b * F + f];
-    const float t = den > 0.f ? g[b * F + f] / fmaxf(den, 1.f) : 0.f;
-    for (int r = start; r < end; ++r) {
-      const float v = x[r * F + f];
-      dx[r * F + f] = t * (valid(mask, r) && v >= mx ? 1.f : 0.f);
+  const int lane = threadIdx.x & ((1 << shift) - 1);
+  int unit[C];
+  V gv[C], dv[C], mx[C];
+  // round trip 1: the bounds, and the first pass's g, den and mx, which
+  // do not depend on them
+  const int rp0 = row_ptr[b], rp1 = row_ptr[b + 1];
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    unit[i] = min(lane + (i << shift), cols - 1);
+    gv[i] = g[b * cols + unit[i]];
+    dv[i] = den_in[b * cols + unit[i]];
+    mx[i] = mx_in[b * cols + unit[i]];
+  }
+  const int start = min(max(rp0, 0), num_rows);
+  const int end = max(min(max(rp1, 0), num_rows), start);
+  const int groups = kPoolThreads >> shift;
+  const int per = (end - start + groups - 1) / groups;
+  const int r0 = min(start + (static_cast<int>(threadIdx.x) >> shift) * per,
+                     end);
+  const int r1 = min(r0 + per, end);
+  for (int c0 = 0; c0 < cols; c0 += C << shift) {
+    if (c0 > 0) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) {
+        unit[i] = min(c0 + lane + (i << shift), cols - 1);
+        gv[i] = g[b * cols + unit[i]];
+        dv[i] = den_in[b * cols + unit[i]];
+        mx[i] = mx_in[b * cols + unit[i]];
+      }
+    }
+    V t[C];
+    for (int r = r0; r < r1; r += R) {
+      // round trip 2: the mask and x of R rows
+      float m[R];
+      V v[R][C];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        if (r + q < r1) {
+          m[q] = mask == nullptr ? 1.f : mask[r + q];
+#pragma unroll
+          for (int i = 0; i < C; ++i) v[q][i] = x[(r + q) * cols + unit[i]];
+        }
+      }
+      if (r == r0) {  // while the rows are in flight
+#pragma unroll
+        for (int i = 0; i < C; ++i) t[i] = share(gv[i], dv[i]);
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          if (r + q < r1 && c0 + lane + (i << shift) < cols) {
+            dx[(r + q) * cols + unit[i]] =
+                grad_of(t[i], v[q][i], mx[i], m[q] > 0.f);
+          }
+        }
+      }
     }
   }
 }
 
-inline int threads_for(int num_features) {
-  const int t = ((num_features + 31) / 32) * 32;
-  return t < kMaxThreads ? (t > 0 ? t : 32) : kMaxThreads;
+// The row group of K3's kernels for rows of `cols` units: 2^shift lanes
+// (the least power of two >= cols, at most 32), `units` units a lane.
+inline void row_group(int cols, int* shift, int* units) {
+  *shift = 0;
+  while ((1 << *shift) < cols && *shift < 5) ++*shift;
+  const int lanes = 1 << *shift;
+  const int u = (cols + lanes - 1) / lanes;
+  *units = u < kMaxUnits ? u : kMaxUnits;
 }
 
 template <typename V>
@@ -316,10 +404,8 @@ int graph_max_pool_fwd_launch(const float* x, const int* row_ptr,
                               float* den, int num_graphs, int num_rows,
                               int num_features, cudaStream_t stream) {
   const int cols = num_features / static_cast<int>(sizeof(V) / 4);
-  int shift = 0;
-  while ((1 << shift) < cols && shift < 5) ++shift;
-  const int lanes = 1 << shift;
-  const int units = (cols + lanes - 1) / lanes;
+  int shift, units;
+  row_group(cols, &shift, &units);
   const V* xv = reinterpret_cast<const V*>(x);
 #define GRAPH_MAX_FWD_CASE(C, R)                                            \
   case C:                                                                   \
@@ -327,7 +413,7 @@ int graph_max_pool_fwd_launch(const float* x, const int* row_ptr,
                                          stream>>>(                         \
         xv, row_ptr, mask, out, mx, den, num_rows, cols, shift);            \
     break;
-  switch (units < kMaxUnits ? units : kMaxUnits) {
+  switch (units) {
     GRAPH_MAX_FWD_CASE(1, 4)
     GRAPH_MAX_FWD_CASE(2, 4)
     GRAPH_MAX_FWD_CASE(3, 4)
@@ -337,28 +423,66 @@ int graph_max_pool_fwd_launch(const float* x, const int* row_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Forward launches that took the float4 path.
-long long fwd_float4_launches = 0;
+template <typename V>
+int graph_max_pool_bwd_launch(const float* g, const float* x,
+                              const int* row_ptr, const float* mask,
+                              const float* mx, const float* den, float* dx,
+                              int num_graphs, int num_rows, int num_features,
+                              cudaStream_t stream) {
+  const int cols = num_features / static_cast<int>(sizeof(V) / 4);
+  int shift, units;
+  row_group(cols, &shift, &units);
+  const V* gv = reinterpret_cast<const V*>(g);
+  const V* xv = reinterpret_cast<const V*>(x);
+  const V* mxv = reinterpret_cast<const V*>(mx);
+  const V* denv = reinterpret_cast<const V*>(den);
+  V* dxv = reinterpret_cast<V*>(dx);
+#define GRAPH_MAX_BWD_CASE(C, R)                                            \
+  case C:                                                                   \
+    graph_max_pool_bwd_kernel<V, C, R><<<num_graphs + kTailBlocks,          \
+                                         kPoolThreads, 0, stream>>>(        \
+        gv, xv, row_ptr, mask, mxv, denv, dxv, num_graphs, num_rows, cols,  \
+        shift);                                                             \
+    break;
+  switch (units) {
+    GRAPH_MAX_BWD_CASE(1, 4)
+    GRAPH_MAX_BWD_CASE(2, 4)
+    GRAPH_MAX_BWD_CASE(3, 4)
+    GRAPH_MAX_BWD_CASE(4, 4)
+  }
+#undef GRAPH_MAX_BWD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Launches of the forward and of the backward that took the float4 path.
+long long float4_launches[2] = {0, 0};
 
 }  // namespace
 
-// counts[0]: the forward's float4 launches since the library was loaded;
-// its other launches took one float a unit.
+// counts[0] and counts[1]: the forward's and the backward's float4
+// launches since the library was loaded; their other launches took one
+// float a unit.
 extern "C" void graph_pool_float4_launches(long long* counts) {
-  counts[0] = fwd_float4_launches;
+  for (int i = 0; i < 2; ++i) counts[i] = float4_launches[i];
 }
 
 // Each launches its kernel on `stream`; returns cudaGetLastError() as an
 // int.  The forward reads x as float4 rows where F is a multiple of 4 and
 // x is 16-byte aligned, else one float a unit; it writes out, mx and den a
-// float a thread, so their alignment does not matter.
+// float a thread, so their alignment does not matter.  The backward takes
+// float4 units where F is a multiple of 4 and g, x, mx, den and dx are all
+// 16-byte aligned, else one float a unit.
 extern "C" int graph_max_pool_fwd_f32(const float* x, const int* row_ptr,
                                       const float* mask, float* out,
                                       float* mx, float* den, int num_graphs,
                                       int num_rows, int num_features,
                                       cudaStream_t stream) {
-  if (num_features % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    ++fwd_float4_launches;
+  if (num_features % 4 == 0 && aligned16(x)) {
+    ++float4_launches[0];
     return graph_max_pool_fwd_launch<float4>(x, row_ptr, mask, out, mx, den,
                                              num_graphs, num_rows,
                                              num_features, stream);
@@ -374,10 +498,14 @@ extern "C" int graph_max_pool_bwd_f32(const float* g, const float* x,
                                       float* dx, int num_graphs,
                                       int num_rows, int num_features,
                                       cudaStream_t stream) {
-  const int tail = (num_rows + kTailRows - 1) / kTailRows;
-  graph_max_pool_bwd_kernel<<<num_graphs + tail, threads_for(num_features),
-                              0, stream>>>(g, x, row_ptr, mask, mx, den, dx,
-                                           num_graphs, num_rows,
-                                           num_features);
-  return static_cast<int>(cudaGetLastError());
+  if (num_features % 4 == 0 && aligned16(g) && aligned16(x)
+      && aligned16(mx) && aligned16(den) && aligned16(dx)) {
+    ++float4_launches[1];
+    return graph_max_pool_bwd_launch<float4>(g, x, row_ptr, mask, mx, den,
+                                             dx, num_graphs, num_rows,
+                                             num_features, stream);
+  }
+  return graph_max_pool_bwd_launch<float>(g, x, row_ptr, mask, mx, den, dx,
+                                          num_graphs, num_rows, num_features,
+                                          stream);
 }

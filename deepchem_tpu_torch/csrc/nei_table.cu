@@ -65,12 +65,21 @@
 //   the real slots alone; adding every pad row in the slot loop cost 2.4,
 //   and checking the pad entries one after another 1.2
 //   (scripts/bench_nei_table.py, H100 80GB HBM3 at 700 W).
-// - The same bits as the first design on finite inputs: each sum starts
-//   from 0.f and adds its terms in slot order (a pad term is +-0, which
-//   leaves a sum that starts from +0 as it was), the backward's self term
-//   is an assignment and its slot terms `if (w == m) acc += g`, so a -0.0
-//   keeps its bits; the max copies the winning value.  Each output element
-//   has one writer; no atomics.
+// - The JAX op's bits, signed zeros included.  K1's sums start from -0.f,
+//   which leaves the first term as it is (-0 + a == a bit for bit for
+//   every a, +0 and NaN included), as the JAX sum starts from its first
+//   slot's term; then come the real slots in slot order and the pad terms,
+//   each +-0 or NaN, whose order cannot change the result.  K2's backward
+//   assigns the self term and adds a slot's term only where it hits (`if
+//   (w == m) acc += g`); the JAX sum adds +0.0 for each of its K + 1 terms
+//   that is not taken, which turns a -0 into +0 and leaves every other
+//   value's bits as they are.  So the kernel adds one +0 unless the self
+//   term and every one of the K slots were taken: it adds it wherever deg
+//   < K (a pad slot is never taken), and where deg == K to a -0 alone
+//   after reading the neighbours' winners again to tell (rare: every term
+//   it took was -0).
+//   The max copies the winning value.  Each output element has one
+//   writer; no atomics.
 //
 // Inputs: h (or g) [N, F] float32 row-major, table [N, K] int32, deg [N]
 // int8, K <= 32.  deg is clamped to [0, K]; every table entry, pad slots'
@@ -111,6 +120,43 @@ __device__ __forceinline__ void add_if(float4& acc, float4 v, int4 w, int m) {
   add_if(acc.y, v.y, w.y, m);
   add_if(acc.z, v.z, w.z, m);
   add_if(acc.w, v.w, w.w, m);
+}
+
+// -0.f, per element: where K1's sums start.
+__device__ __forceinline__ float neg_zero(float) { return -0.f; }
+__device__ __forceinline__ float4 neg_zero(float4) {
+  return make_float4(-0.f, -0.f, -0.f, -0.f);
+}
+
+// miss |= (w != m), per element.
+__device__ __forceinline__ void note_miss(int& miss, int w, int m) {
+  miss |= w != m;
+}
+__device__ __forceinline__ void note_miss(int4& miss, int4 w, int m) {
+  note_miss(miss.x, w.x, m);
+  note_miss(miss.y, w.y, m);
+  note_miss(miss.z, w.z, m);
+  note_miss(miss.w, w.w, m);
+}
+// acc += +0 where miss is set, per element: -0 becomes +0, nothing else
+// changes.
+__device__ __forceinline__ void add_zero_where(float& acc, int miss) {
+  if (miss) acc += 0.f;
+}
+__device__ __forceinline__ void add_zero_where(float4& acc, int4 miss) {
+  add_zero_where(acc.x, miss.x);
+  add_zero_where(acc.y, miss.y);
+  add_zero_where(acc.z, miss.z);
+  add_zero_where(acc.w, miss.w);
+}
+
+// Whether an element is -0.
+__device__ __forceinline__ bool has_neg_zero(float a) {
+  return __float_as_uint(a) == 0x80000000u;
+}
+__device__ __forceinline__ bool has_neg_zero(float4 a) {
+  return has_neg_zero(a.x) || has_neg_zero(a.y) || has_neg_zero(a.z)
+         || has_neg_zero(a.w);
 }
 
 // acc += v * 0, per element: a pad slot's term, +-0 or NaN.
@@ -200,8 +246,8 @@ nei_sum_kernel(const V* __restrict__ h, const int* __restrict__ table,
   int first[kSlots];
   slot_entries(row, 0, k, first);
   const int d = min(max(static_cast<int>(dn), 0), k);
-  // The pad slots add their rows times 0 after the real ones: +-0, which
-  // leaves a sum that starts from +0 as it was, or NaN, in any order.  So
+  // The pad slots add their rows times 0 after the real ones: +-0 or NaN,
+  // whose order cannot change the sum.  So
   // the first pad slot's row is added (loaded beside the real rows), then
   // each other row that a pad slot names, once.  Its entry t0 is among the
   // first kSlots + 1 read in round trip 1 unless deg > kSlots.  The port's
@@ -222,7 +268,7 @@ nei_sum_kernel(const V* __restrict__ h, const int* __restrict__ table,
 #pragma unroll
     for (int i = 0; i < C; ++i) {
       pad[i] = h[t0 * cols + unit[i]];
-      acc[i] = warp_vec::zero(V());
+      acc[i] = neg_zero(V());
     }
     int src[kSlots];
 #pragma unroll
@@ -395,6 +441,21 @@ nei_max_bwd_kernel(const V* __restrict__ g, const int* __restrict__ table,
           // t = src[s] took its max from this node: t names it in a slot
           if (j0 + s < d) add_if(acc[i], v[s][i], w[s][i], node);
         }
+      }
+    }
+    // JAX adds +0.0 for each term not taken: a pad slot never is, and
+    // where every slot is real only a -0 can tell
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      if (d < k) {
+        warp_vec::add(acc[i], warp_vec::zero(V()));
+      } else if (has_neg_zero(acc[i])) {
+        W miss = splat(W(), 0);
+        note_miss(miss, ws[i], node);
+        for (int j = 0; j < k; ++j) {
+          note_miss(miss, winner[row[j] * cols + unit[i]], node);
+        }
+        add_zero_where(acc[i], miss);
       }
     }
 #pragma unroll

@@ -75,9 +75,10 @@ def _take_rows(t: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
 
 def csr_segment_softmax_reference(logits: torch.Tensor,
                                   row_ptr: torch.Tensor) -> torch.Tensor:
-    """Plain torch version: per-segment max, shifted exp, segment sum.  A
-    max of -inf (no finite logit) becomes 0 and the sum is clamped to at
-    least 1e-16, as in the kernel."""
+    """Plain torch version: per-segment max, shifted exp, segment sum, as
+    the JAX kernel takes them.  The max is NaN where a logit is NaN, and a
+    max that is not finite (no finite logit, +inf or NaN) becomes 0; the
+    sum is clamped to at least 1e-16 by a clamp that keeps NaN."""
     E, H = logits.shape
     N = row_ptr.shape[0] - 1
     seg = _edge_segments(row_ptr, E)
@@ -85,7 +86,10 @@ def csr_segment_softmax_reference(logits: torch.Tensor,
     seg_max = torch.full((N, H), -torch.inf, dtype=logits.dtype,
                          device=logits.device)
     seg_max = seg_max.scatter_reduce(0, idx, logits, 'amax')
-    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+    # scatter_reduce's amax may drop a NaN (on the card it does): count them
+    nan = torch.zeros_like(seg_max).index_add_(
+        0, seg, torch.isnan(logits).to(logits.dtype)) > 0
+    seg_max = torch.where(torch.isfinite(seg_max) & ~nan, seg_max,
                           torch.zeros_like(seg_max))
     ex = torch.exp(logits - seg_max[seg])
     denom = torch.zeros_like(seg_max).index_add_(0, seg, ex)

@@ -314,7 +314,7 @@ def graph_max_pool(x: torch.Tensor, row_ptr: torch.Tensor,
     CPU tensors take :func:`graph_max_pool_reference` and its backward;
     CUDA tensors launch ``graph_max_pool_fwd_kernel`` and
     ``graph_max_pool_bwd_kernel``, counted in ``graph_max_pool.launches``
-    and ``.backward_launches`` (the forward's float4 path also in
+    and ``.backward_launches`` (each one's float4 path also in
     :func:`graph_max_pool_float4_launches`).  Both give the JAX package's
     results on every input: a valid NaN makes the max NaN and so resets
     it to 0, and a non-finite row that is not selected makes the output
@@ -326,13 +326,14 @@ def graph_max_pool(x: torch.Tensor, row_ptr: torch.Tensor,
 graph_max_pool.launches = graph_max_pool.backward_launches = 0
 
 
-def graph_max_pool_float4_launches() -> int:
-    """Launches of K3's forward since the kernels were loaded that took
-    the float4 path (F a multiple of 4, ``x`` 16-byte aligned); its other
-    launches took one float a unit."""
-    counts = (ctypes.c_longlong * 1)()
+def graph_max_pool_float4_launches() -> Tuple[int, int]:
+    """Launches of K3's forward and of its backward since the kernels were
+    loaded that took the float4 path (F a multiple of 4; the forward's
+    ``x``, the backward's ``g``, ``x``, ``mx``, ``den`` and ``dx`` 16-byte
+    aligned); their other launches took one float a unit."""
+    counts = (ctypes.c_longlong * 2)()
     build.load('graph_pool').graph_pool_float4_launches(counts)
-    return counts[0]
+    return counts[0], counts[1]
 
 
 def graph_pool(node_feats: torch.Tensor, graph_index: torch.Tensor,

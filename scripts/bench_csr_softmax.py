@@ -23,9 +23,15 @@ profile passed its checks), the µs a call between CUDA events around 200
 back-to-back calls (the card's time where the kernel outlasts the host's
 call) and the host µs a call (200 back-to-back calls, no synchronise),
 after checking each version against the plain version in float64 (in
-float32 the plain version's own sums drift on long segments).  The
-card's name, power limit, SM clock and driver come first, a JSON line of
-means last.
+float32 the plain version's own sums drift on long segments).  Every
+other version's outputs must equal the base's bit for bit in these
+finite cases, or the script exits 1.  One more case, not timed, holds
+each version at ``chip_smoke.softmax_non_finite_inputs`` (+inf, NaN,
+-inf and overflowing logits on each path of the kernel, H 3) to
+``chip_smoke.softmax_non_finite_ok`` (``non_finite_parity``); the base
+must pass it.  The card's
+name, power limit, SM clock and driver come first, a JSON line of means
+last.
 """
 
 import argparse
@@ -79,10 +85,13 @@ def cases(dev):
             np.float32)), t(long_rp))}
 
 
-def time_version(name: str, inputs: dict, calls: int) -> dict:
+def time_version(name: str, inputs: dict, non_finite: tuple,
+                 calls: int) -> tuple:
+    """({case: timings}, {case: output}, non-finite parity) of one
+    version."""
     import torch
     from bench_flash import host_us, profiled_us
-    from chip_smoke import device_us, time_ms
+    from chip_smoke import device_us, softmax_non_finite_ok, time_ms
     from deepchem_tpu_torch.ops.csr_segment import \
         csr_segment_softmax_reference
     fn = ctypes.CDLL(str(OUT / f'{name}.so')).csr_segment_softmax_f32
@@ -90,7 +99,7 @@ def time_version(name: str, inputs: dict, calls: int) -> dict:
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
-    out = {}
+    out, outs = {}, {}
     for case, (logits, row_ptr) in inputs.items():
         N, (E, H) = row_ptr.shape[0] - 1, logits.shape
         res = torch.empty_like(logits)
@@ -105,11 +114,18 @@ def time_version(name: str, inputs: dict, calls: int) -> dict:
         err = (res - ref).abs().max().item()
         if err > KERNEL_ATOL:
             raise RuntimeError(f'{name} {case}: error {err}')
+        outs[case] = res.clone()
         out[case] = {'device_us': profiled_us(
                          device_us, run, 'csr_segment_softmax_kernel', calls),
                      'event_us': time_ms(run, HOST_CALLS) * 1e3,
                      'host_us': host_us(run, HOST_CALLS)}
-    return out
+    logits, row_ptr = non_finite
+    y = torch.empty_like(logits)
+    if fn(logits.data_ptr(), row_ptr.data_ptr(), y.data_ptr(),
+          row_ptr.shape[0] - 1, *logits.shape, stream):
+        raise RuntimeError(f'{name}: launch failed at the non-finite case')
+    torch.cuda.synchronize()
+    return out, outs, softmax_non_finite_ok(y, logits, row_ptr)
 
 
 def main() -> int:
@@ -118,6 +134,7 @@ def main() -> int:
                     metavar='NAME=FILE')
     ap.add_argument('--calls', type=int, default=20)
     args = ap.parse_args()
+    import numpy as np
     import torch
     from bench_flash import mean, nvcc
     OUT.mkdir(parents=True, exist_ok=True)
@@ -134,19 +151,37 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip(),
         flush=True)
     nvcc(sources, OUT)
-    inputs = cases(torch.device('cuda', 0))
+    from chip_smoke import softmax_non_finite_inputs
+    dev = torch.device('cuda', 0)
+    inputs = cases(dev)
+    non_finite = softmax_non_finite_inputs(np.random.RandomState(5), dev, 3)
     print(json.dumps({'cases': {k: [list(x.shape), r.shape[0] - 1]
                                 for k, (x, r) in inputs.items()}}))
     order = parents + ['base', 'base'] + parents[::-1]
     runs = {n: [] for n in sources}
+    first_outs, parity = {}, {}
     for n in order:
-        runs[n].append(time_version(n, inputs, args.calls))
-        print(json.dumps({'version': n, 'run': len(runs[n]),
-                          'us': runs[n][-1]}), flush=True)
+        times, outs, parity[n] = time_version(n, inputs, non_finite,
+                                              args.calls)
+        runs[n].append(times)
+        first_outs.setdefault(n, outs)
+        print(json.dumps({'version': n, 'run': len(runs[n]), 'us': times,
+                          'non_finite_parity': parity[n]}), flush=True)
+    base = first_outs['base']
+    bits = {n: {case: torch.equal(base[case].view(torch.int32),
+                                  outs[case].view(torch.int32))
+                for case in base}
+            for n, outs in first_outs.items() if n != 'base'}
+    print(json.dumps({'base_bits_equal_each_version': bits}), flush=True)
     print(json.dumps({'mean_us': {
         n: {case: {x: mean([r[case][x] for r in rs]) for x in rs[0][case]}
             for case in rs[0]}
         for n, rs in runs.items()}}))
+    if not parity['base'] or not all(all(v.values())
+                                     for v in bits.values()):
+        print('the base fails the non-finite case or differs from a '
+              'version on finite logits', file=sys.stderr)
+        return 1
     return 0
 
 

@@ -42,21 +42,24 @@ Per run, case and kernel it prints the profiler's device µs a launch
 µs a launch between CUDA events around replays of a CUDA graph of
 ``--calls`` launches (the card's time, gaps between launches included),
 and the host µs a call of the C entry (200 back-to-back calls, no
-synchronise), and which path each base kernel took (the C entries'
-float4 counts).  Each run also times an empty kernel at the base grid
+synchronise), and which path each kernel took (the C entries' float4
+counts).  Each run also times an empty kernel at the base grid
 and at the parent's, the launch floor.  Before the runs it times the
 library calls once (``torch.sparse.mm`` for K1, ``scatter_reduce_``
 amax for K2's forward, ``scatter_add_`` of g into its winners' rows for
 K2's backward, ``segment_reduce`` max for K3's forward): device µs over
 every kernel of one call, and µs a call between CUDA events.  Each
 version's outputs are held against the plain version
-(``chip_smoke.sum_tol``; K2's forward exactly), and every other version's
-must equal the base's bit for bit (K2's winners and K3's mx and den
-too) in every case, all of whose inputs are finite and above NEG, or the
-script exits 1; only K3's backward may differ from a version before the
-repair of its non-finite cotangents in the signs of zeros (``zero_signs``:
-it writes t * 0 on the rows that are not selected, as the JAX gradient
-does).  The card's name and power limit come first and last,
+(``chip_smoke.sum_tol``; K2's forward exactly), the base's K1, K2 and
+K3's backward bit for bit, signs of zeros included
+(``chip_smoke.same_bits``), and every other version's must equal the
+base's bit for bit (K2's winners and K3's mx and den too) in every case,
+all of whose inputs are finite and above NEG, or the script exits 1;
+only K1 and K2's backward may differ from a version before the repair of
+their signed zeros, in the signs of zeros alone (``zero_signs``: K1's
+sums start from -0, as the JAX sum starts from its first term, and K2's
+backward adds +0 for the terms it does not take, as the JAX sum does).
+The card's name and power limit come first and last,
 and stand in every JSON line of times (``card``); a JSON line of means
 comes before the last.
 """
@@ -77,7 +80,7 @@ OUT = REPO / 'build' / 'bench_nei_table'
 HOST_CALLS = 200
 GRAPH_REPLAYS = 20
 THREADS = 256                  # a block of K1 and K2, either version
-POOL_THREADS = 128             # a block of K3's forward (base)
+POOL_THREADS = 256             # a block of K3, forward and backward (base)
 EMPTY_CU = r'''
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -262,9 +265,10 @@ def timed(fn, kernel: str, calls: int) -> dict:
 
 def float4_counts(fns: dict) -> tuple:
     """The C entries' float4 launches so far: K1, K2's backward, K2's
-    forward, K3's forward (0 where a version does not count them)."""
+    forward, K3's forward, K3's backward (0 where a version does not count
+    them)."""
     table = (ctypes.c_longlong * 3)()
-    pool = (ctypes.c_longlong * 1)()
+    pool = (ctypes.c_longlong * 2)()
     if 'nei_table_float4_launches' in fns:
         fns['nei_table_float4_launches'](table)
     if 'graph_pool_float4_launches' in fns:
@@ -288,17 +292,32 @@ def grid(n: int, F: int, float4: bool) -> int:
 
 
 def pool_threads(F: int) -> int:
-    """Threads of the parent K3's blocks (``threads_for`` in
-    ``graph_pool.cu``), and of the base's backward."""
+    """Threads of a block of K3's backward before its redesign
+    (``threads_for`` in that ``graph_pool.cu``): the parent's grid."""
     return min(max(32, (F + 31) // 32 * 32), 128)
 
 
 def held(name, case, part, got, ref, exact=False):
-    from chip_smoke import max_err, same_values, sum_tol
-    ok = same_values(got, ref) if exact else max_err(got, ref) <= sum_tol(ref)
+    """``got`` against the plain version's ``ref``: bit for bit for the
+    base's kernels that add in the plain version's order, else equal
+    values where ``exact``, else within ``chip_smoke.sum_tol``."""
+    from chip_smoke import max_err, same_bits, same_values, sum_tol
+    if name == 'base' and part in BITS_OF_BASE:
+        ok = same_bits(got, ref)
+    elif exact:
+        ok = same_values(got, ref)
+    else:
+        ok = max_err(got, ref) <= sum_tol(ref)
     if not ok:
         raise RuntimeError(f'{name} {case} {part}: differs from the plain '
                            f'version, error {max_err(got, ref)}')
+
+
+# the base kernels that give their plain versions' bits
+BITS_OF_BASE = ('nei_sum', 'nei_max_bwd', 'graph_max_pool_bwd')
+# the kernels whose zeros may differ in sign from a version before the
+# repair of their signed zeros
+ZERO_SIGNS_REPAIRED = ('nei_sum', 'nei_max_bwd')
 
 
 def run_table(name, fns, empty, case, inputs, calls, times, outs, paths):
@@ -378,8 +397,10 @@ def run_pool(name, fns, empty, case, inputs, calls, times, outs, paths):
     before = float4_counts(fns)
     if any(run() for run in runs.values()):
         raise RuntimeError(f'{name}: a launch failed at {case}')
-    paths[case] = {'graph_max_pool_fwd': 'float4' if float4_counts(fns)[3]
-                   > before[3] else 'float'}
+    after = float4_counts(fns)
+    paths[case] = {part: 'float4' if after[i] > before[i] else 'float'
+                   for part, i in (('graph_max_pool_fwd', 3),
+                                   ('graph_max_pool_bwd', 4))}
     torch.cuda.synchronize()
     outs[case] = {'graph_max_pool_fwd': (out.clone(), mx.clone(),
                                          den.clone()),
@@ -581,10 +602,8 @@ def main() -> int:
             for case in rs[0]}
         for n, rs in runs.items()}}), flush=True)
     print(name, flush=True)
-    # K3's backward writes t * 0, -0.0 where t < 0, on the rows that are
-    # not selected (the JAX gradient); the first design wrote +0.0
     if any(got == 'values' or (got == 'zero_signs'
-                               and part != 'graph_max_pool_bwd')
+                               and part not in ZERO_SIGNS_REPAIRED)
            for per in identical.values() for v in per.values()
            for part, got in v.items()):
         print('outputs differ between versions', file=sys.stderr)

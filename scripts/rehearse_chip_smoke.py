@@ -108,8 +108,9 @@ def main() -> int:
 
     # the float4 launches that nei_table.cu's and graph_pool.cu's entries
     # would count: F a multiple of 4 and 16-byte-aligned rows (outputs are
-    # fresh, so aligned); K1, K2's backward, K2's forward, K3's forward
-    float4 = [0, 0, 0, 0]
+    # fresh, so aligned); K1, K2's backward, K2's forward, K3's forward,
+    # K3's backward
+    float4 = [0, 0, 0, 0, 0]
 
     def vec4(*tensors):
         return tensors[0].shape[1] % 4 == 0 \
@@ -138,15 +139,16 @@ def main() -> int:
         seg.graph_max_pool.launches += 1
         return pool_fwd(x, row_ptr, mask)
 
-    def counted_pool_bwd(*args):
+    def counted_pool_bwd(g, x, row_ptr, mask, mx, den):
+        float4[4] += vec4(g, x, mx, den)
         seg.graph_max_pool.backward_launches += 1
-        return pool_bwd(*args)
+        return pool_bwd(g, x, row_ptr, mask, mx, den)
 
     nei._nei_sum_forward = counted_nei_sum
     nei._nei_max_forward = counted_nei_max_fwd
     nei._nei_max_backward = counted_nei_max_bwd
     nei.float4_launches = lambda: tuple(float4[:3])
-    seg.graph_max_pool_float4_launches = lambda: float4[3]
+    seg.graph_max_pool_float4_launches = lambda: tuple(float4[3:])
     seg._graph_max_forward = counted_pool_fwd
     seg._graph_max_backward = counted_pool_bwd
     flash.flash_attention_forward = counted_flash_fwd

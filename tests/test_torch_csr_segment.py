@@ -3,14 +3,20 @@
 On the CPU the port's wrapper takes its plain torch version; it is held
 against the JAX Pallas kernel in interpret mode and the JAX oracle, on the
 cases of tests/test_csr_softmax.py plus a fully masked segment.  Tolerance
-atol 1e-6: the same f32 inputs, summed in another order.  The CUDA kernel
+atol 1e-6: the same f32 inputs, summed in another order.  At +inf and NaN
+logits, where every output is 0 or NaN, forward and gradient are held bit
+for bit.  The CUDA kernel
 itself is compared with the plain version in tests/test_torch_cuda.py.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deepchem_tpu.ops import segment_softmax as jax_segment_softmax
@@ -212,3 +218,54 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
                                       torch.from_numpy(rp)).numpy()
     np.testing.assert_array_equal(a, b)
     assert csr_segment_softmax.launches == before
+
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import SOFTMAX_NON_FINITE  # noqa: E402
+
+
+def _same_bits(a, b):
+    """NaN where NaN; elsewhere equal values with equal sign bits."""
+    nan = np.isnan(a)
+    np.testing.assert_array_equal(nan, np.isnan(b))
+    np.testing.assert_array_equal(a[~nan].view(np.int32),
+                                  b[~nan].view(np.int32))
+
+
+@pytest.mark.parametrize('H', [1, 3])
+@pytest.mark.parametrize('length', [3, 77, 300])
+@pytest.mark.parametrize('case', sorted(SOFTMAX_NON_FINITE))
+def test_non_finite_logits_match_jax_bit_for_bit(case, length, H):
+    """The port's P1 and its gradient equal the JAX kernel's (interpret
+    mode, its custom VJP) bit for bit, NaN where NaN, with chip_smoke's
+    non-finite patterns (their first ``length`` values) at random places
+    in every head of a segment of finite logits, at each length the CUDA
+    kernel treats apart (<= 32 edges, 33-128, > 128 split across a
+    block), beside an all -inf segment (0), a finite logit among -inf ones
+    (1), an empty segment and one of NaN and -inf."""
+    rng = np.random.RandomState(length + H)
+    lengths = [length, 5, 4, 0, 2]
+    rp = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    logits = (rng.randn(int(rp[-1]), H) * 5).astype(np.float32)
+    pattern = SOFTMAX_NON_FINITE[case][:length]
+    for h in range(H):
+        logits[rng.choice(length, len(pattern), replace=False), h] = pattern
+    logits[rp[1]:] = -np.inf
+    logits[rp[2] + 1] = 2.5
+    logits[rp[4]] = np.nan
+    w = rng.randn(*logits.shape).astype(np.float32)
+    N = len(lengths)
+    n_pad = -(-N // 8) * 8
+    rp_pad = jnp.asarray(np.concatenate(
+        [rp, np.full(n_pad - N, rp[-1], np.int32)]))
+    ref = np.asarray(jax_csr_segment_softmax(jnp.asarray(logits), rp_pad,
+                                             n_pad, True))
+    ref_grad = np.asarray(jax.grad(lambda x: jnp.sum(
+        jax_csr_segment_softmax(x, rp_pad, n_pad, True) * w))(
+            jnp.asarray(logits)))
+    x = torch.from_numpy(logits).requires_grad_()
+    y = csr_segment_softmax(x, torch.from_numpy(rp))
+    (y * torch.from_numpy(w)).sum().backward()
+    assert np.isnan(ref[:length]).any()
+    _same_bits(y.detach().numpy(), ref)
+    _same_bits(x.grad.numpy(), ref_grad)

@@ -6,12 +6,12 @@ statistics m and l) and backward kernels against the plain flash
 attention (the float32 backward also against its formulas in float64),
 the encoder's logits against the CPU, GraphConv's kernels K1 (neighbour
 sum), K2 (neighbour max and its backward) and K3 (graph max readout and
-its backward) against their plain versions (K1 and K2 forward and
-backward, and K3's forward, on both of their kernel paths, float4 rows
-and one float a lane, bit for bit against their slot-order arithmetic or
+its backward) against their plain versions (K1, K2 and K3, forward and
+backward, on both of their kernel paths, float4 rows and one float a
+lane, bit for bit against the JAX package's slot-order arithmetic or
 their plain versions; all of them at NaN, infinities, signed zeros and
-values at and below NEG), and one GraphConv training step against the
-CPU.  They skip where
+values at and below NEG, signs of zeros compared, and P1 at +inf and NaN
+logits), and one GraphConv training step against the CPU.  They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
 
@@ -37,7 +37,8 @@ from deepchem_tpu_torch.ops.nei_table import (_nei_max_backward,
                                               nei_max_reference,
                                               nei_sum_reference)
 from deepchem_tpu_torch.ops.segment import (
-    _graph_max_forward, graph_max_pool_backward_reference,
+    _graph_max_backward, _graph_max_forward,
+    graph_max_pool_backward_reference,
     graph_max_pool_float4_launches, graph_max_pool_reference)
 from deepchem_tpu_torch.ops.csr_segment import (
     csr_neighbor_sum_reference, csr_segment_softmax,
@@ -639,9 +640,10 @@ def test_nei_sum_kernel_paths_match_plain_version(cuda, F, aligned, float4,
     assert float4_launches() == (before4[0] + 2 * float4, before4[1],
                                  before4[2])
     _close(out, nei_sum_reference(torch.from_numpy(a), table, deg))
-    # the real slots, then each pad slot's row times 0 (+-0 here)
+    # from -0 (the JAX sum starts from its first term), the real slots,
+    # then each pad slot's row times 0 (+-0 here)
     real = np.arange(K)[None, :] < deg.numpy()[:, None]
-    want = _slot_order(np.zeros_like(a), [
+    want = _slot_order(np.full_like(a, -0.0), [
         (a[table[:, j].numpy()] * np.where(real[:, j:j + 1], 1, 0).astype(
             np.float32), np.ones((len(a), 1), bool)) for j in range(K)])
     assert np.array_equal(out.cpu().numpy().view(np.int32),
@@ -702,9 +704,12 @@ def test_nei_max_backward_kernel_paths_match_plain_version(cuda, F, aligned,
                                  before4[2])
     _close(grad, nei_max_backward_reference(torch.from_numpy(a), safe, deg,
                                             winner))
+    # the JAX sum: each of the K slots adds g[t] where it hits, else +0.0
     wn, m = winner.numpy(), np.arange(len(table))[:, None]
+    every = np.ones((len(a), 1), bool)
     want = _slot_order(np.where(wn == m, a, np.float32(0)), [
-        (a[t], (j < deg.numpy())[:, None] & (wn[t] == m))
+        (np.where((j < deg.numpy())[:, None] & (wn[t] == m), a[t],
+                  np.float32(0)), every)
         for j, t in enumerate(safe.numpy().T)])
     assert np.array_equal(grad.cpu().numpy().view(np.int32),
                           want.view(np.int32))
@@ -753,9 +758,9 @@ def test_graph_max_pool_kernels_match_plain_version(cuda, F, masked):
     assert torch.equal(out2, out) and torch.equal(t2.grad, t.grad)
 
 
-# (F, x aligned, float4 path) of K3's forward: float4 rows at F 4, 64, 128
-# and 512 (two passes of 64 units); one float at F 1, 37, 75 and at F 128
-# off 16-byte alignment
+# (F, x aligned, float4 path) of K3's forward and backward: float4 rows at
+# F 4, 64, 128 and 512 (4 units a lane); one float at F 1, 37, 75
+# and at F 128 off 16-byte alignment
 POOL_PATHS = [(4, True, True), (64, True, True), (128, True, True),
               (512, True, True), (1, True, False), (37, True, False),
               (75, True, False), (128, False, False)]
@@ -782,7 +787,8 @@ def test_graph_max_pool_forward_kernel_paths_match_plain_version(
     again = _graph_max_forward(xc, row_ptr.to(cuda), mask.to(cuda))
     torch.cuda.synchronize()
     assert graph_max_pool.launches == before + 2
-    assert graph_max_pool_float4_launches() == before4 + 2 * float4
+    assert graph_max_pool_float4_launches() == (before4[0] + 2 * float4,
+                                                before4[1])
     ref, ref_mx, ref_den = graph_max_pool_reference(x, row_ptr, mask)
     assert np.array_equal(out.cpu().numpy().view(np.int32),
                           ref.numpy().view(np.int32))
@@ -791,14 +797,50 @@ def test_graph_max_pool_forward_kernel_paths_match_plain_version(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['ties', 'normal', 'signed_zeros'])
+@pytest.mark.parametrize('F,aligned,float4', POOL_PATHS)
+def test_graph_max_pool_backward_kernel_paths_match_plain_version(
+        cuda, F, aligned, float4, kind):
+    """Both paths of K3's backward against the plain version, bit for bit
+    (each element is the one product t * sel), counted by the C entry; the
+    cotangent holds -0 entries."""
+    x, row_ptr, mask, g = _pool_case(F, seed=F)
+    rng = np.random.RandomState(F + 2)
+    if kind == 'normal':
+        x = torch.from_numpy(rng.randn(*x.shape).astype(np.float32))
+    elif kind == 'signed_zeros':
+        x = torch.from_numpy(np.where(rng.rand(*x.shape) < 0.5, -0.0,
+                                      0.0).astype(np.float32))
+    g[torch.from_numpy(rng.rand(*g.shape) < 0.2)] = -0.0
+    _, mx, den = graph_max_pool_reference(x, row_ptr, mask)
+    xc = _on_card(x.numpy(), cuda, aligned)
+    args = (g.to(cuda), xc, row_ptr.to(cuda), mask.to(cuda), mx.to(cuda),
+            den.to(cuda))
+    before, before4 = graph_max_pool.backward_launches, \
+        graph_max_pool_float4_launches()
+    dx = _graph_max_backward(*args)
+    again = _graph_max_backward(*args)
+    torch.cuda.synchronize()
+    assert graph_max_pool.backward_launches == before + 2
+    assert graph_max_pool_float4_launches() == (before4[0],
+                                                before4[1] + 2 * float4)
+    ref = graph_max_pool_backward_reference(g, x, row_ptr, mask, mx, den)
+    assert np.array_equal(dx.cpu().numpy().view(np.int32),
+                          ref.numpy().view(np.int32))
+    assert torch.equal(dx, again)
+
+
+@pytest.mark.cuda
 def test_kernels_match_plain_version_on_non_finite_values(cuda):
     """K1, K2 and K3, forward and backward, on both paths, at NaN,
-    infinities, signed zeros and values at and below NEG (chip_smoke's
-    phase 3 cases): equal to the plain versions, NaN where NaN."""
+    infinities, signed zeros and values at and below NEG, and P1 at +inf,
+    NaN, -inf and overflowing logits on its three paths, H 1 and 3
+    (chip_smoke's phase 3 cases): equal to the plain versions, NaN where
+    NaN, signs of zeros equal."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     from chip_smoke import non_finite_cases
     results = non_finite_cases(np.random.RandomState(0), cuda)
-    assert len(results) == 8
+    assert len(results) == 10
     assert all(all(r['checks'].values()) for r in results)
     assert all(r['nan_outputs'] > 0 for r in results)
 

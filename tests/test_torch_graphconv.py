@@ -37,13 +37,16 @@ from deepchem_tpu.ops import segment_max as jax_segment_max
 from deepchem_tpu.ops import segment_max_sumgrad as jax_segment_max_sumgrad
 from deepchem_tpu.ops import segment_mean as jax_segment_mean
 from deepchem_tpu.ops import nei_table as jax_nei_table
+from deepchem_tpu.ops.pallas_segment import \
+    csr_segment_sum as jax_csr_segment_sum
 from deepchem_tpu_torch import (ConvMolFeaturizer, GraphConvModel, Metric,
                                 NumpyDataset, roc_auc_score)
 from deepchem_tpu_torch.chem import mol_from_smiles
 from deepchem_tpu_torch.models import (GraphConv, GraphGather,
                                        MaskedBatchNorm, params_from_flax)
 from deepchem_tpu_torch.models.convert import _torch_name
-from deepchem_tpu_torch.ops import (NEG, build_neighbor_table, graph_pool,
+from deepchem_tpu_torch.ops import (NEG, build_neighbor_table,
+                                    csr_segment_sum, graph_pool,
                                     nei_max_incl_self, nei_sum,
                                     node_degrees, segment_max,
                                     segment_max_sumgrad, segment_mean)
@@ -372,6 +375,78 @@ def test_segment_max_sumgrad_matches_jax_on_non_finite_values(case):
     (out * torch.from_numpy(g)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-6)
     np.testing.assert_allclose(t.grad.numpy(), ref_grad, atol=1e-6)
+
+
+def _same_bits(a, b):
+    """NaN where NaN; elsewhere equal values with equal sign bits, so -0.0
+    differs from 0.0."""
+    a, b = np.asarray(a), np.asarray(b)
+    nan = np.isnan(a)
+    np.testing.assert_array_equal(nan, np.isnan(b))
+    np.testing.assert_array_equal(a[~nan], b[~nan])
+    np.testing.assert_array_equal(np.signbit(a[~nan]), np.signbit(b[~nan]))
+
+
+def _signed_zeros(rng, shape, share=0.6):
+    """float32 values of which ``share`` are zeros, half of them -0.0."""
+    a = rng.randn(*shape).astype(np.float32)
+    zero = rng.rand(*shape) < share
+    a[zero] = np.where(rng.rand(int(zero.sum())) < 0.5, -0.0, 0.0)
+    return a
+
+
+@pytest.mark.parametrize('op', ['nei_sum', 'nei_max_incl_self',
+                                'graph_pool_max', 'csr_segment_sum'])
+def test_plain_versions_give_jax_signs_of_zero(op):
+    """Inputs and cotangents holding +0 and -0 through the JAX ops and the
+    port's plain versions, forward and gradient: equal values and equal
+    sign bits.  The JAX sums start from their first term (nei_sum: a node
+    whose every term is -0, as at degree 0 with a negative row 0 behind
+    its pads, gives -0) or from +0 (segment sums: P3, the readout's
+    numerator), and nei_max's backward adds +0.0 for each term it does
+    not take, so it gives -0 only where a node took every term."""
+    rng = np.random.RandomState(11)
+    table, mask, deg = _table(rng)
+    n, F = len(table), 6
+    if op in ('nei_sum', 'nei_max_incl_self'):
+        h = _signed_zeros(rng, (n, F))
+        h[0] = -np.abs(h[0])                      # row 0, behind the pads
+        h[:, 0] = -0.0
+        w = _signed_zeros(rng, (n, F))
+        w[:, 1] = -0.0
+        jax_op = getattr(jax_nei_table, op)
+        torch_op = nei_sum if op == 'nei_sum' else nei_max_incl_self
+        ref = jax_op(h, table, mask)
+        ref_grad = jax.grad(lambda a: jnp.sum(jax_op(a, table, mask) * w))(h)
+        x = torch.from_numpy(h).requires_grad_()
+        out = torch_op(x, torch.from_numpy(table), torch.from_numpy(deg))
+    elif op == 'graph_pool_max':
+        h, gidx, mask, G = _pool_batch(rng, F)
+        h[:] = np.where(rng.rand(*h.shape) < 0.5, -0.0, 0.0)
+        h[:, 0] = -0.0
+        h[1:4, 1] = -1.0
+        w = _signed_zeros(rng, (G, F))
+        w[:, 2] = -0.0
+        ref = jax_graph_pool(h, gidx, G, mask, 'max')
+        ref_grad = jax.grad(lambda a: jnp.sum(
+            jax_graph_pool(a, gidx, G, mask, 'max') * w))(h)
+        x = torch.from_numpy(h).requires_grad_()
+        out = graph_pool(x, torch.from_numpy(gidx), G,
+                         torch.from_numpy(mask), 'max')
+    else:                                  # P3 has no JAX gradient
+        msgs = _signed_zeros(rng, (60, F), share=0.9)
+        msgs[:, 0] = -0.0
+        rp = np.array([0, 0, 5, 6, 6, 20, 33, 47, 60], np.int32)
+        ref = jax_csr_segment_sum(jnp.asarray(msgs), jnp.asarray(rp), 8,
+                                  block_nodes=8, interpret=True)
+        out = csr_segment_sum(torch.from_numpy(msgs), torch.from_numpy(rp))
+        _same_bits(out.numpy(), ref)
+        return
+    (out * torch.from_numpy(w)).sum().backward()
+    assert any(np.signbit(a[a == 0]).any()
+               for a in map(np.asarray, (ref, ref_grad)))
+    _same_bits(out.detach().numpy(), ref)
+    _same_bits(x.grad.numpy(), ref_grad)
 
 
 @pytest.mark.parametrize('mode', ['sum', 'mean', 'max'])
