@@ -24,10 +24,15 @@ Phases:
                 256, and on a graph with degrees 0 to 10 (F 1 to 128; K1
                 and K2 also at F 4 and at F 64 off 16-byte alignment), tied
                 and all-tie maxima, and empty graphs with a ghost tail;
+                K1 also from MPNN's edge rows into its nodes, through the
+                incoming-edge table (nei_sum_edges) and the outgoing one
+                (take_src's backward) of phase 12's first batch, and P1
+                and P3 at that batch's set2set readout;
                 every path of the two-path kernels (float4 rows, one float
                 a lane; K3's backward too) launched.  Then K1-K3 at
                 values the model never hands them (NaN, infinities,
-                signed zeros, values at and below NEG), each path, held
+                signed zeros, values at and below NEG; K1 also from 2400
+                edge rows into 1000 nodes), each path, held
                 for exact equality with the plain versions, NaN where NaN
                 and signs of zeros equal, and P1 at +inf, NaN, -inf and
                 overflowing logits on each of its paths, NaN where the
@@ -91,7 +96,21 @@ Phases:
                 last 2; K1-K3 and P3 launches a step counted), step-1
                 gradients are held against the CPU, a fixed batch must
                 overfit, and evaluate's ROC-AUC is held against the CPU.
- 12. kernels -- one JSON line with each kernel's numbers.
+ 12. mpnn    -- MPNNModel(n_tasks=1) at the JAX package's defaults (30
+                atom and 11 bond features, T 3, M 6, node_dim 64, batch
+                100, regression), seeded random weights, on the 48 SMILES
+                and 6 with cis/trans marks shuffled to 300, seeded labels
+                normalised by NormalizationTransformer: predict_on_batch
+                answers requests of 1, 16 and 31 (held against the CPU),
+                predict scores the 300 (held against the CPU), 100
+                requests of 16 are timed (median, p90); fit trains 3
+                epochs (the step time over the last 2; K1, P1 and P3
+                launches a step counted: K1 T forward in nei_sum_edges and
+                T backward in take_src, P1 M, P3 2 M), step-1 gradients
+                are held against the CPU, a fixed batch must overfit, and
+                evaluate's pearson r2, RMS and MAE through the transformer
+                are held against the CPU.
+ 13. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -151,6 +170,16 @@ GRAPHCONV = dict(n_tasks=12, graph_conv_layers=[64, 64],
 GRAPHCONV_MOLECULES = 768       # the 48 SMILES 16 times: 3 batches of 256
 LATENCY_REQUESTS = 100          # requests of 16 molecules, timed one by one
 ROC_ATOL = 1e-6                 # evaluate's ROC-AUC, card against CPU
+# graph_models.py:644-669: MPNNModel at the JAX package's defaults (30 atom
+# and 11 bond features, T 3, M 6, node_dim 64, batch 100), one regression
+# task
+MPNN = dict(n_tasks=1, mode='regression')
+MPNN_MOLECULES = 300            # 3 batches of 100
+# cis/trans double bonds, beside the 48: MolGraphConvFeaturizer's stereo
+# one-hot reads their marks
+STEREO_SMILES = ['C/C=C/C', 'F/C=C\\F', 'O=C(O)/C=C/c1ccccc1',
+                 'C/C=C\\C(=O)O', 'CC/C=C(/C)C1CCCC1', 'OC(=O)/C=C\\C(=O)O']
+EVAL_ATOL = 1e-6                # evaluate's regression scores, card vs CPU
 # scripts/bench_pallas_csr.py:76-78, (nodes, edges, features)
 P2_BENCH_SHAPES = [(2048, 4096, 64), (2048, 4096, 256),
                    (8192, 16384, 256), (8192, 16384, 512),
@@ -516,13 +545,13 @@ def table_csr(table, deg):
 
 def library_nei_sum(h, row_ptr, col):
     """K1's function as one library call, for comparison only: the CSR
-    adjacency of the table's real slots times ``h``; the CSR tensor is
-    built inside the timed call."""
+    adjacency ``[N, R]`` of the table's real slots times ``h`` ``[R, F]``;
+    the CSR tensor is built inside the timed call."""
     import torch
     adj = torch.sparse_csr_tensor(
         row_ptr, col, torch.ones(col.shape[0], dtype=h.dtype,
                                  device=h.device),
-        (h.shape[0], h.shape[0]), check_invariants=False)
+        (row_ptr.shape[0] - 1, h.shape[0]), check_invariants=False)
     return torch.sparse.mm(adj, h)
 
 
@@ -566,27 +595,34 @@ def kernel_times(res, fn, plain, kernel, bound_ms, library=None):
 
 
 def nei_sum_case(name, h, table, deg):
-    """K1 and its library call against the plain version on the card."""
+    """K1 from the rows of ``h`` ``[R, F]`` through ``table`` ``[N, K]``
+    (R == N for a neighbour table, R edges for MPNN's edge-id tables), and
+    its library call, against the plain version on the card."""
     import torch
-    from deepchem_tpu_torch.ops.nei_table import nei_sum, nei_sum_reference
-    out = nei_sum(h, table, deg)
-    again = nei_sum(h, table, deg)
+    from deepchem_tpu_torch.ops.nei_table import (_nei_sum_forward, nei_sum,
+                                                  nei_sum_reference)
+
+    def kernel():
+        return _nei_sum_forward(h, table, deg, nei_sum)
+    out = kernel()
+    again = kernel()
     torch.cuda.synchronize()
     ref = nei_sum_reference(h, table, deg)
     err, tol = max_err(out, ref), sum_tol(ref)
     src, _, row_ptr, col = table_csr(table, deg)
     lib_err = max_err(library_nei_sum(h, row_ptr, col), ref)
-    N, F = h.shape
+    R, F = h.shape
+    N = table.shape[0]
     slots = src.numel()
     rows = src.unique().numel()               # rows of h the sums read
     bound_ms, bound_by = bound(4 * (rows * F + slots + N * F) + N,
                                slots * F)
-    res = {'kernel': 'nei_sum', 'case': name, 'N': N, 'F': F,
+    res = {'kernel': 'nei_sum', 'case': name, 'N': N, 'R': R, 'F': F,
            'slots': slots, 'max_abs_err': err, 'tol': tol,
            'repeat_identical': torch.equal(out, again),
            'library_err': lib_err, 'bound_ms': bound_ms,
            'bound_by': bound_by}
-    kernel_times(res, lambda: nei_sum(h, table, deg),
+    kernel_times(res, kernel,
                  lambda: nei_sum_reference(h, table, deg), 'nei_sum_kernel',
                  bound_ms, lambda: library_nei_sum(h, row_ptr, col))
     print(f'phase 3 kernel {json.dumps(res)}', flush=True)
@@ -747,6 +783,20 @@ def random_table(rng, n, dev):
             torch.from_numpy(mask.sum(1).astype(np.int8)).to(dev))
 
 
+def random_edge_table(rng, n, rows, dev):
+    """An edge-id table of ``n`` nodes over ``rows`` edge rows, degrees 0
+    to 10 (node 0 has ten, node n - 1 none), real entries random rows and
+    pad entries 0, as the packer leaves them; and the degrees, on
+    ``dev``."""
+    import numpy as np
+    import torch
+    deg = rng.randint(0, 11, n).astype(np.int8)
+    deg[0], deg[-1] = 10, 0
+    table = rng.randint(0, rows, (n, 10)).astype(np.int32)
+    table[np.arange(10)[None, :] >= deg[:, None]] = 0
+    return torch.from_numpy(table).to(dev), torch.from_numpy(deg).to(dev)
+
+
 def same_values(a, b) -> bool:
     """Equal shapes and values, NaN where NaN (-0.0 equals 0.0)."""
     import torch
@@ -833,8 +883,10 @@ def non_finite_inputs(rng, dev):
     """Inputs on which K1-K3 have differed from the JAX package: NaN,
     infinities, signed zeros and values at or below NEG.  Returns
     ``{'table': (h, g) of K1 and K2 at F 64 and 75 on random_table's 1000
-    nodes, 'pool': (x, g) of K3 at F 128 and 37}`` beside the shared
-    ``table``, ``deg``, ``row_ptr`` and ``mask``."""
+    nodes, 'pool': (x, g) of K3 at F 128 and 37, 'edges': h of K1 at F 64
+    and 75 on 2400 edge rows}`` beside the shared ``table``, ``deg``,
+    ``row_ptr`` and ``mask``, and the edge-id table and degrees of 1000
+    nodes (``edge_table_deg``)."""
     import numpy as np
     import torch
     from deepchem_tpu_torch.ops import NEG
@@ -885,8 +937,21 @@ def non_finite_inputs(rng, dev):
                                                   -np.inf)
         g[:, 14] = -0.0              # -0 times the selection
         pool[F] = tuple(torch.from_numpy(a).to(dev) for a in (x, g))
+    # K1 from 2400 edge rows into 1000 nodes (MPNN's edge-id tables),
+    # from a generator of their own
+    erng = np.random.RandomState(12)
+    edges = {}
+    for F in (64, 75):
+        h = erng.randn(2400, F).astype(np.float32)
+        h[0, :3] = (np.inf, -np.inf, np.nan)      # edge 0: behind the pads
+        h[erng.rand(2400) < 0.1, 3] = np.nan
+        h[erng.rand(2400) < 0.1, 4] = np.inf
+        h[:, 5] = np.where(erng.rand(2400) < 0.5, -0.0, 0.0)
+        h[:, 6] = -0.0                            # sums of -0 only
+        edges[F] = torch.from_numpy(h).to(dev)
     return {'table': rows, 'pool': pool, 'table_deg': (table, deg),
-            'row_ptr': row_ptr, 'mask': mask}
+            'row_ptr': row_ptr, 'mask': mask, 'edges': edges,
+            'edge_table_deg': random_edge_table(erng, 1000, 2400, dev)}
 
 
 def non_finite_cases(rng, dev):
@@ -894,7 +959,8 @@ def non_finite_cases(rng, dev):
     each kernel on both of its paths where it has two, held for exact
     equality with the plain versions, signs of zeros included
     (:func:`same_bits`; K2's winners equal; K3's internal mx, which the
-    backward only compares with >=, as values).  Then P1 at
+    backward only compares with >=, as values); K1 also from edge rows
+    through an edge-id table.  Then P1 at
     :func:`softmax_non_finite_inputs`, H 1 and 3, on its three paths
     (:func:`softmax_non_finite_ok`).  Returns a result for each case."""
     import torch
@@ -906,8 +972,11 @@ def non_finite_cases(rng, dev):
     for F, (h, g) in inp['table'].items():
         for tag, place in (('', lambda t: t), ('_misaligned', misaligned)):
             h_, g_ = place(h), place(g)
-            out = nei_table._nei_sum_forward(h_, table, deg)
-            grad = nei_table._nei_sum_forward(g_, table, deg, backward=True)
+            out = nei_table._nei_sum_forward(h_, table, deg,
+                                             nei_table.nei_sum)
+            grad = nei_table._nei_sum_forward(g_, table, deg,
+                                              nei_table.nei_sum,
+                                              'backward_launches')
             best, win = nei_table._nei_max_forward(h_, table, deg)
             gmax = nei_table._nei_max_backward(g_, table, deg, win)
             torch.cuda.synchronize()
@@ -925,6 +994,16 @@ def non_finite_cases(rng, dev):
                 'nan_outputs': int(torch.isnan(out).sum()
                                    + torch.isnan(best).sum())}
             results.append(res)
+    e_table, e_deg = inp['edge_table_deg']
+    for F, h in inp['edges'].items():
+        for tag, place in (('', lambda t: t), ('_misaligned', misaligned)):
+            out = nei_table._nei_sum_forward(place(h), e_table, e_deg,
+                                             nei_table.nei_sum)
+            torch.cuda.synchronize()
+            results.append({'case': f'non_finite_edges_F{F}{tag}', 'checks': {
+                'nei_sum_edges': same_bits(out, nei_table.nei_sum_reference(
+                    h, e_table, e_deg))},
+                'nan_outputs': int(torch.isnan(out).sum())})
     row_ptr, mask = inp['row_ptr'], inp['mask']
     for F, (x, g) in inp['pool'].items():
         for tag, place in (('', lambda t: t), ('_misaligned', misaligned)):
@@ -1223,7 +1302,7 @@ def _counted():
                                         flash_attention_bwd_dq,
                                         fused_gather_segment_sum,
                                         graph_max_pool, nei_max_incl_self,
-                                        nei_sum)
+                                        nei_sum, nei_sum_edges, take_src)
     return {'csr_segment_softmax': (csr_segment_softmax, 'launches'),
             'csr_segment_sum': (csr_segment_sum, 'launches'),
             'fused_gather_segment_sum': (fused_gather_segment_sum,
@@ -1233,6 +1312,8 @@ def _counted():
             'flash_attention_dq': (flash_attention_bwd_dq, 'launches'),
             'nei_sum': (nei_sum, 'launches'),
             'nei_sum_bwd': (nei_sum, 'backward_launches'),
+            'nei_sum_edges': (nei_sum_edges, 'launches'),
+            'take_src_bwd': (take_src, 'backward_launches'),
             'nei_max_fwd': (nei_max_incl_self, 'launches'),
             'nei_max_bwd': (nei_max_incl_self, 'backward_launches'),
             'graph_max_pool_fwd': (graph_max_pool, 'launches'),
@@ -1263,6 +1344,22 @@ def graphconv_data():
     labels = np.random.RandomState(1).randint(
         0, 2, (len(order), GRAPHCONV['n_tasks'])).astype(np.float32)
     return X48[order], labels
+
+
+def mpnn_data():
+    """The 48 SMILES and STEREO_SMILES featurized for MPNNModel
+    (MolGraphConvFeaturizer with bond features), repeated and shuffled
+    from a seed to MPNN_MOLECULES, with seeded normal labels."""
+    import numpy as np
+    from deepchem_tpu_torch import MolGraphConvFeaturizer
+    smiles = SMILES + STEREO_SMILES
+    X = MolGraphConvFeaturizer(use_edges=True).featurize(smiles)
+    check(all(hasattr(g, 'num_nodes') for g in X),
+          'every molecule featurizes for MPNN')
+    order = np.random.RandomState(0).permutation(
+        np.resize(np.arange(len(smiles)), MPNN_MOLECULES))
+    labels = np.random.RandomState(1).randn(MPNN_MOLECULES, 1)
+    return X[order], labels.astype(np.float32)
 
 
 def step1_grads(store):
@@ -1487,14 +1584,45 @@ def main() -> int:
     check([a[0].shape[1] for a in gc_sum_in] == [75, 64]
           and gc_pool_in[0][0].shape[1] == GRAPHCONV['dense_layer_size'],
           'K1 at F 75 and 64, K3 at F 128 on the path')
+    # K1 from MPNN's edge rows, P1 and P3 in its readout, at the inputs
+    # MPNNModel hands them in phase 12's first batch of 100
+    from deepchem_tpu_torch import MPNNModel
+    mp_X, mp_y = mpnn_data()
+    mp_model = MPNNModel(**MPNN, device=dev, seed=0)
+    mp_batch = mp_X[:mp_model.batch_size]
+
+    def mp_inputs(module, attr):
+        return recorded(module, attr,
+                        lambda: mp_model.predict_on_batch(mp_batch))
+    mp_sum_in = mp_inputs(graph_layers, 'nei_sum_edges')
+    mp_take_in = mp_inputs(graph_layers, 'take_src')
+    mp_softmax_in = mp_inputs(segment, 'csr_segment_softmax')
+    mp_readout_in = mp_inputs(graph_layers, 'csr_segment_sum')
+    T, M = mp_model.module.mpnn.n_steps, mp_model.module.set2set.n_steps
+    check(len(mp_sum_in) == len(mp_take_in) == T
+          and len(mp_softmax_in) == len(mp_readout_in) == M,
+          'MPNN: K1 and take_src once a message step, P1 and P3 once a '
+          'set2set step')
+    softmax_cases.append(softmax_case('mpnn_batch100_set2set',
+                                      *mp_softmax_in[0]))
+    sum_cases.append(sum_case('mpnn_batch100_set2set_readout',
+                              *mp_readout_in[0]))
     gen = torch.Generator(dev).manual_seed(2)
+    carry, esrc, o_table, o_deg = mp_take_in[0]
+    mp_nei_cases = [
+        nei_sum_case('mpnn_batch100_nei_sum_edges', *mp_sum_in[0][:3]),
+        nei_sum_case('mpnn_batch100_take_src_bwd', torch.randn(
+            (esrc.shape[0], carry.shape[1]), generator=gen, device=dev),
+            o_table, o_deg)]
+    check(all(c['F'] == 64 and c['R'] != c['N'] for c in mp_nei_cases),
+          'MPNN: K1 from [E, 64] edge rows into N nodes')
     # the C entries of K1, K2 and K3 count their float4 launches
     paths_before = ((nei_sum.launches, nei_max_incl_self.backward_launches,
                      nei_max_incl_self.launches, graph_max_pool.launches,
                      graph_max_pool.backward_launches),
                     float4_launches() + graph_max_pool_float4_launches())
     nei_cases = [nei_sum_case(f'graphconv_batch256_layer{i}', *a)
-                 for i, a in enumerate(gc_sum_in)]
+                 for i, a in enumerate(gc_sum_in)] + mp_nei_cases
     max_cases = [nei_max_cases(f'graphconv_batch256_layer{i}', *a,
                                torch.randn(a[0].shape, generator=gen,
                                            device=dev))
@@ -2032,7 +2160,146 @@ def main() -> int:
           f'{cpu_auc}')
     del cpu_gc, trainer
 
-    # -- 12. kernels line -------------------------------------------------
+    # -- 12. MPNNModel at the JAX package's defaults ---------------------
+    from deepchem_tpu_torch import (MPNNModel, NormalizationTransformer,
+                                    mae_score, pearson_r2_score, rms_score)
+    raw_ds = NumpyDataset(mp_X, mp_y)
+    mp_t = NormalizationTransformer(transform_y=True, dataset=raw_ds)
+    mp_ds = mp_t.transform(raw_ds)
+    B = mp_model.batch_size
+    # per batch of the forward: K1 once a message step, P1 and P3 once a
+    # set2set step
+    per_batch = {'nei_sum_edges': T, 'csr_segment_softmax': M,
+                 'csr_segment_sum': M}
+    mp_model.predict_on_batch(mp_X[:16])                 # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, request_ms, start = [], [], 0
+    for n in REQUESTS:
+        t0 = time.perf_counter()
+        outs.append(mp_model.predict_on_batch(mp_X[start:start + n]))
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        start += n
+    mp_serve = launch_counts()
+    cpu_mp = MPNNModel(**MPNN, device='cpu')
+    cpu_mp.module.load_state_dict(
+        {k: v.cpu() for k, v in mp_model.module.state_dict().items()})
+    worst, start = 0.0, 0
+    for n, out in zip(REQUESTS, outs):
+        check(out.shape == (n, 1) and bool(np.isfinite(out).all()),
+              f'MPNN output [{n}, 1], finite')
+        ref = cpu_mp.predict_on_batch(mp_X[start:start + n])
+        worst = max(worst, float(np.abs(out - ref).max()))
+        start += n
+    print(f'phase 12 mpnn serve ({smi}): requests {list(REQUESTS)} '
+          f'molecules, ms per request {[round(t, 3) for t in request_ms]}; '
+          f'max abs diff against the CPU run {worst:.3g}; launches '
+          f'{mp_serve}', flush=True)
+    check(worst <= CPU_ATOL, f'MPNN card vs CPU {worst} > {CPU_ATOL}')
+    for k, v in mp_serve.items():
+        want = per_batch.get(k, 0) * len(REQUESTS)
+        check(v == want, f'MPNN serve: {k} launched {v} times, not {want}')
+    t0 = time.perf_counter()
+    every = mp_model.predict(mp_ds, [mp_t])
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    predict_err = float(np.abs(every - cpu_mp.predict(mp_ds, [mp_t])).max())
+    check(every.shape == (MPNN_MOLECULES, 1)
+          and bool(np.isfinite(every).all()) and predict_err <= CPU_ATOL,
+          f'predict over {MPNN_MOLECULES}: finite, within {CPU_ATOL} of the '
+          f'CPU ({predict_err})')
+    latency = []
+    for i in range(LATENCY_REQUESTS):
+        lo = (16 * i) % (MPNN_MOLECULES - 16)
+        t0 = time.perf_counter()
+        mp_model.predict_on_batch(mp_X[lo:lo + 16])
+        latency.append((time.perf_counter() - t0) * 1e3)
+    p50, p90 = np.percentile(latency, [50, 90])
+    print(f'phase 12 mpnn serve ({smi}): predict over {MPNN_MOLECULES} '
+          f'molecules, in the labels\' units, in {predict_ms:.3f} ms, within '
+          f'{predict_err:.3g} of the CPU; {LATENCY_REQUESTS} requests of 16 '
+          f'molecules: median {p50:.3f} ms, p90 {p90:.3f} ms', flush=True)
+
+    # training: fit, 3 epochs of 3 steps of 100
+    S = -(-MPNN_MOLECULES // B)
+    trainer = MPNNModel(**MPNN, device=dev, seed=1, log_frequency=S)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    epoch_losses = []
+    trainer.fit(mp_ds, nb_epoch=1, checkpoint_interval=0,
+                all_losses=epoch_losses)          # packs, warms up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(mp_ds, nb_epoch=2, checkpoint_interval=0,
+                all_losses=epoch_losses)
+    torch.cuda.synchronize()
+    mp_step_ms = (time.perf_counter() - t0) * 1e3 / (2 * S)
+    mp_train = launch_counts()
+    mp_steps = trainer.get_global_step()
+    print(f'phase 12 mpnn train ({smi}): fit, {mp_steps} steps of {B} '
+          f'molecules, {mp_step_ms:.3f} ms a step over the last 2 epochs; '
+          f'loss per epoch {[round(v, 5) for v in epoch_losses]}; launches '
+          f'{mp_train}', flush=True)
+    check(mp_steps == 3 * S and len(epoch_losses) == 3
+          and bool(np.all(np.isfinite(epoch_losses))),
+          f'{3 * S} steps, 3 finite epoch losses')
+    # a step: the forward's launches, K1 again in each take_src's
+    # backward, P3 again in each P1's backward (P3's own is a gather)
+    per_step = dict(per_batch, take_src_bwd=T, csr_segment_sum=2 * M)
+    for k, v in mp_train.items():
+        want = per_step.get(k, 0) * mp_steps
+        check(v == want, f'MPNN train: {k} launched {v} times, not {want}')
+
+    # step-1 gradients, card against CPU, from the same weights
+    grads = []
+    for device in (dev, 'cpu'):
+        m = MPNNModel(**MPNN, device=device, log_frequency=1)
+        m.module.load_state_dict({k: v.to(device) for k, v in
+                                  mp_model.module.state_dict().items()})
+        grads.append({})
+        m.fit(NumpyDataset(mp_X[:B], mp_ds.y[:B]), nb_epoch=1,
+              checkpoint_interval=0, callbacks=step1_grads(grads[-1]))
+    mp_grad_err = max(scaled_err(grads[0][n], g)
+                      for n, g in grads[1].items())
+    zero = [n for n, g in grads[0].items() if not g.abs().max() > 0]
+    print(f'phase 12 mpnn train: step-1 gradients, card against CPU, max '
+          f'abs diff over max(1, |g|) {mp_grad_err:.3g} over '
+          f'{len(grads[1])} parameters; zero gradients: {zero}', flush=True)
+    check(mp_grad_err <= GRAD_ATOL, f'MPNN step-1 gradients {mp_grad_err} '
+          f'> {GRAD_ATOL} of max(1, |g|)')
+    check(not zero, f'every parameter gets a gradient; zero: {zero}')
+    del grads
+    overfit = MPNNModel(**MPNN, device=dev, seed=2, log_frequency=1)
+    fixed = []
+    overfit.fit(NumpyDataset(mp_X[:B], mp_ds.y[:B]), nb_epoch=50,
+                checkpoint_interval=0, all_losses=fixed)
+    below = next((i + 1 for i, v in enumerate(fixed) if v < 0.9 * fixed[0]),
+                 None)
+    print(f'phase 12 mpnn train: one fixed batch of {B}, lr 0.001: loss '
+          f'{fixed[0]:.5f} at step 1, {min(fixed):.5f} at best, below 0.9 '
+          f'of the first at step {below}', flush=True)
+    check(below is not None, 'the loss falls below 0.9 of its first value '
+          'within 50 steps')
+    del overfit
+
+    # scoring: through the transformer, in the labels' units
+    metrics = [Metric(pearson_r2_score), Metric(rms_score),
+               Metric(mae_score)]
+    cpu_mp.module.load_state_dict(
+        {k: v.cpu() for k, v in trainer.module.state_dict().items()})
+    t0 = time.perf_counter()
+    scores = trainer.evaluate(mp_ds, metrics, [mp_t])
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    cpu_scores = cpu_mp.evaluate(mp_ds, metrics, [mp_t])
+    eval_err = max(abs(scores[k] - cpu_scores[k]) for k in cpu_scores)
+    print(f'phase 12 mpnn evaluate ({smi}): {json.dumps(scores)} on the card '
+          f'in {eval_ms:.3f} ms, {json.dumps(cpu_scores)} on the CPU',
+          flush=True)
+    check(set(scores) == set(cpu_scores) and eval_err <= EVAL_ATOL
+          and all(np.isfinite(v) for v in scores.values()),
+          f'evaluate finite and within {EVAL_ATOL} of the CPU ({eval_err})')
+    del cpu_mp, trainer
+
+    # -- 13. kernels line -------------------------------------------------
     def entry(kname, cases, main_case, path_launches, source=None, **extra):
         return {'name': kname, 'route': 'cuda',
                 'source': source or f'deepchem_tpu_torch/csrc/{kname}.cu',
@@ -2049,7 +2316,9 @@ def main() -> int:
                    if k in main_case}, **extra}
     p1 = entry('csr_segment_softmax', softmax_cases, softmax_cases[0],
                {'serve': serve['csr_segment_softmax'],
-                'train': train['csr_segment_softmax']},
+                'train': train['csr_segment_softmax'],
+                'mpnn_serve': mp_serve['csr_segment_softmax'],
+                'mpnn_train': mp_train['csr_segment_softmax']},
                replaces='deepchem_tpu/ops/pallas_segment.py:156',
                backward={'route': 'torch.autograd.Function: dx = y * (dy - '
                                   't[seg]), t from csr_segment_sum (cuda)',
@@ -2059,7 +2328,9 @@ def main() -> int:
                {'serve': serve['csr_segment_sum'],
                 'train': train['csr_segment_sum'],
                 'graphconv_serve': gc_serve['csr_segment_sum'],
-                'graphconv_train': gc_train['csr_segment_sum']},
+                'graphconv_train': gc_train['csr_segment_sum'],
+                'mpnn_serve': mp_serve['csr_segment_sum'],
+                'mpnn_train': mp_train['csr_segment_sum']},
                replaces='deepchem_tpu/ops/pallas_segment.py:45')
     # P2 has no model path: its row is its widest bench shape
     p2 = entry('fused_gather_segment_sum', gather_cases,
@@ -2094,13 +2365,23 @@ def main() -> int:
     xla_op = 'a custom-VJP XLA op, no Pallas kernel'
     fwd_max = [c[0] for c in max_cases]
     bwd_max = [c[1] for c in max_cases]
+    # K1's MPNN shape: nei_sum_edges over the incoming-edge table
+    mp_k1 = mp_nei_cases[0]
     k1 = entry('nei_sum', nei_cases, nei_cases[0],
                {'graphconv_serve': gc_serve['nei_sum'],
                 'graphconv_train': gc_train['nei_sum']
-                + gc_train['nei_sum_bwd']},
+                + gc_train['nei_sum_bwd'],
+                'mpnn_serve': mp_serve['nei_sum_edges'],
+                'mpnn_train': mp_train['nei_sum_edges']
+                + mp_train['take_src_bwd']},
                source='deepchem_tpu_torch/csrc/nei_table.cu',
                replaces=f'deepchem_tpu/ops/nei_table.py:85 (nei_sum and '
-                        f'its backward, _slot_sum :75; {xla_op})')
+                        f'its backward, _slot_sum :75; also nei_sum_edges '
+                        f':214 and take_src\'s backward :258; {xla_op})',
+               mpnn={k: mp_k1[k] for k in (
+                   'N', 'R', 'F', 'slots', 'ms', 'device_us', 'plain_ms',
+                   'bound_ms', 'bound_by', 'library_ms', 'library_device_us',
+                   'max_abs_err')})
     k2 = (entry('nei_max_fwd', fwd_max, fwd_max[0], gc_paths('nei_max_fwd'),
                 source='deepchem_tpu_torch/csrc/nei_table.cu',
                 replaces=f'deepchem_tpu/ops/nei_table.py:104 '
@@ -2124,7 +2405,7 @@ def main() -> int:
                            'bound_by', 'library_ms')}
         | {k: v for k, v in e.items() if k in (
             'device_us', 'launches_by_path', 'backward', 'library_device_us',
-            'backward_device_us', 'float32')}
+            'backward_device_us', 'float32', 'mpnn')}
         for e in (p1, p3, p2) + p4 + (k1,) + k2 + k3]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

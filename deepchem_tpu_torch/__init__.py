@@ -8,11 +8,16 @@ the caller passes ``device='cpu'``.
 
 from deepchem_tpu_torch.data import NumpyDataset
 from deepchem_tpu_torch.feat import (ConvMolFeaturizer,
+                                     MolGraphConvFeaturizer,
                                      PagtnMolGraphFeaturizer, SmilesTokenizer)
-from deepchem_tpu_torch.metrics import Metric, roc_auc_score
+from deepchem_tpu_torch.metrics import (Metric, mae_score, pearson_r2_score,
+                                        rms_score, roc_auc_score)
 from deepchem_tpu_torch.models import (BertEncoderMLM, GraphConvModel,
-                                       PagtnModel)
+                                       MPNNModel, PagtnModel)
+from deepchem_tpu_torch.trans import NormalizationTransformer
 
 __all__ = ['BertEncoderMLM', 'ConvMolFeaturizer', 'GraphConvModel', 'Metric',
+           'MolGraphConvFeaturizer', 'MPNNModel', 'NormalizationTransformer',
            'NumpyDataset', 'PagtnMolGraphFeaturizer', 'PagtnModel',
-           'SmilesTokenizer', 'roc_auc_score']
+           'SmilesTokenizer', 'mae_score', 'pearson_r2_score', 'rms_score',
+           'roc_auc_score']

@@ -120,6 +120,12 @@ class Bond:
     is_aromatic: bool = False
     in_ring: bool = False
     index: int = -1
+    stereo_dir: str = ''           # '/' or '\\' as written, a1 to a2
+    #: a double bond's configuration from the direction marks beside it:
+    #: '', 'cis' or 'trans' of ``stereo_atoms`` = (x, y), x bonded to a1
+    #: and y to a2
+    stereo: str = ''
+    stereo_atoms: Optional[Tuple[int, int]] = None
 
     @property
     def is_conjugated(self) -> bool:
@@ -164,13 +170,14 @@ class Molecule:
         return atom.index
 
     def add_bond(self, a1: int, a2: int, order: float = BOND_SINGLE,
-                 is_aromatic: bool = False) -> int:
+                 is_aromatic: bool = False, stereo_dir: str = '') -> int:
         if a1 == a2:
             raise ValueError('self-bond')
         for bi in self._adj[a1]:
             if self.bonds[bi].other(a1) == a2:
                 raise ValueError(f'duplicate bond {a1}-{a2}')
-        bond = Bond(a1, a2, order=order, is_aromatic=is_aromatic)
+        bond = Bond(a1, a2, order=order, is_aromatic=is_aromatic,
+                    stereo_dir=stereo_dir)
         bond.index = len(self.bonds)
         self.bonds.append(bond)
         self._adj[a1].append(bond.index)

@@ -4,8 +4,10 @@ The Daylight SMILES grammar subset drug-discovery datasets use:
 organic-subset atoms, bracket atoms with isotope/charge/H-count/
 chirality/atom-map, aromatic lowercase atoms, all bond symbols, branches,
 ring-closure digits (incl. ``%nn``) and dot disconnections.  The port's
-own copy of ``deepchem_tpu/chem/smiles.py``; stereo marks are read and
-dropped, because no feature of this package uses them.
+own copy of ``deepchem_tpu/chem/smiles.py``.  A bond keeps its ``/`` or
+``\\`` mark, and a double bond with a marked single bond at each end gets
+its cis/trans configuration (MolGraphConvFeaturizer's stereo one-hot);
+tetrahedral ``@``/``@@`` is kept on the atom.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ _BOND_CHARS = {'-': BOND_SINGLE, '=': BOND_DOUBLE, '#': BOND_TRIPLE,
                '$': BOND_QUADRUPLE, ':': BOND_AROMATIC,
                '/': BOND_SINGLE, '\\': BOND_SINGLE}
 _TWO_LETTER = ('Cl', 'Br')
+_FLIP = {'/': '\\', '\\': '/'}
 
 
 class SmilesParseError(ValueError):
@@ -145,7 +148,8 @@ def _parse(smiles: str) -> Molecule:
     prev_atom: List[Optional[int]] = [None]   # stack via branch parens
     pending_bond: Optional[float] = None
     pending_aromatic_bond = False
-    ring_bonds = {}    # ring-closure number -> (atom_idx, order|None)
+    pending_dir = ''
+    ring_bonds = {}    # ring-closure number -> (atom_idx, order|None, dir)
     i = 0
     n = len(smiles)
     while i < n:
@@ -153,6 +157,7 @@ def _parse(smiles: str) -> Molecule:
         if c in _BOND_CHARS:
             pending_bond = _BOND_CHARS[c]
             pending_aromatic_bond = (c == ':')
+            pending_dir = c if c in '/\\' else ''
             i += 1
             continue
         if c == '.':
@@ -184,15 +189,20 @@ def _parse(smiles: str) -> Molecule:
             if cur is None:
                 raise SmilesParseError('ring closure with no atom')
             if num in ring_bonds:
-                other, order0 = ring_bonds.pop(num)
+                other, order0, dir0 = ring_bonds.pop(num)
                 pending = pending_bond if pending_bond is not None else order0
                 order, arom = _bond_order(mol, cur, other, pending,
                                           pending_aromatic_bond)
-                mol.add_bond(other, cur, order=order, is_aromatic=arom)
+                # the bond is stored (other, cur): a mark written at the
+                # closing digit (cur to other) is flipped
+                sdir = _FLIP[pending_dir] if pending_dir else dir0
+                mol.add_bond(other, cur, order=order, is_aromatic=arom,
+                             stereo_dir=sdir)
             else:
-                ring_bonds[num] = (cur, pending_bond)
+                ring_bonds[num] = (cur, pending_bond, pending_dir)
             pending_bond = None
             pending_aromatic_bond = False
+            pending_dir = ''
             continue
         if c == '[':
             atom, i = _parse_bracket_atom(smiles, i)
@@ -215,12 +225,43 @@ def _parse(smiles: str) -> Molecule:
         if cur is not None:
             order, arom = _bond_order(mol, cur, idx, pending_bond,
                                       pending_aromatic_bond)
-            mol.add_bond(cur, idx, order=order, is_aromatic=arom)
+            mol.add_bond(cur, idx, order=order, is_aromatic=arom,
+                         stereo_dir=pending_dir)
         pending_bond = None
         pending_aromatic_bond = False
+        pending_dir = ''
         prev_atom[-1] = idx
     if len(prev_atom) != 1:
         raise SmilesParseError('unbalanced parens at end')
     if ring_bonds:
         raise SmilesParseError(f'unclosed ring bonds: {sorted(ring_bonds)}')
-    return mol.finalize()
+    out = mol.finalize()
+    _perceive_double_bond_stereo(out)
+    return out
+
+
+def _perceive_double_bond_stereo(mol: Molecule) -> None:
+    """Each non-aromatic double bond with a marked single bond at both
+    ends gets ``stereo`` ('cis' or 'trans') and ``stereo_atoms``: the
+    first marked neighbour of each end, in bond order."""
+
+    def marked_neighbor(end: int, exclude: int):
+        """(x, the mark read from x to end) of end's first marked single
+        bond to another atom than ``exclude``."""
+        for b in mol.atom_bonds(end):
+            x = b.other(end)
+            if x == exclude or b.order != BOND_SINGLE or not b.stereo_dir:
+                continue
+            return x, b.stereo_dir if b.a1 == x else _FLIP[b.stereo_dir]
+        return None
+
+    for db in mol.bonds:
+        if db.order != BOND_DOUBLE or db.is_aromatic:
+            continue
+        m1 = marked_neighbor(db.a1, db.a2)
+        m2 = marked_neighbor(db.a2, db.a1)
+        if m1 is None or m2 is None:
+            continue
+        (x, d_x_to_a1), (y, d_y_to_a2) = m1, m2
+        db.stereo = 'trans' if d_x_to_a1 == _FLIP[d_y_to_a2] else 'cis'
+        db.stereo_atoms = (x, y)

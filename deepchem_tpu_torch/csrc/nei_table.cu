@@ -10,6 +10,10 @@
 //       or NaN where the row is not finite, as the JAX op's mask does.
 //       Its backward is the same sum of the cotangent: an undirected
 //       molecular graph's table is its own transpose.
+//       The rows h may have another count R than the table's N: a table
+//       over edge ids sums edge rows [E, F] into nodes [N, F], as MPNN's
+//       nei_sum_edges (:213-240) does forward and take_src (:242-263)
+//       backward, each through its own table (incoming edges, outgoing).
 //   K2  nei_max_incl_self (:103-149), forward: best = h[i], winner = i;
 //         for every slot j in ascending order the candidate h[table[i, j]]
 //         (a real slot) or NEG (a pad slot) takes it where it is strictly
@@ -81,9 +85,9 @@
 //   The max copies the winning value.  Each output element has one
 //   writer; no atomics.
 //
-// Inputs: h (or g) [N, F] float32 row-major, table [N, K] int32, deg [N]
-// int8, K <= 32.  deg is clamped to [0, K]; every table entry, pad slots'
-// included, must lie in [0, N).
+// Inputs: h (or g) [N, F] float32 row-major (K1: [R, F], R >= 1), table
+// [N, K] int32, deg [N] int8, K <= 32.  deg is clamped to [0, K]; every
+// table entry, pad slots' included, must lie in [0, N) (K1: [0, R)).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -581,9 +585,17 @@ extern "C" void nei_table_float4_launches(long long* counts) {
 // Each launches its kernel on `stream`; returns cudaGetLastError() as an
 // int.  Each takes float4 rows (and int4 winners) where F is a multiple of
 // 4 and every pointer 16-byte aligned, else one float a unit.
+// nei_sum_f32 sums rows of h [num_rows, F] into out [num_nodes, F]; it
+// refuses (cudaErrorInvalidValue) a source with no row, which a pad slot
+// would read, and one whose elements int32 cannot index.
 extern "C" int nei_sum_f32(const float* h, const int* table,
-                           const int8_t* deg, float* out, int num_nodes,
-                           int k, int num_features, cudaStream_t stream) {
+                           const int8_t* deg, float* out, int num_rows,
+                           int num_nodes, int k, int num_features,
+                           cudaStream_t stream) {
+  if (num_rows < 1
+      || static_cast<int64_t>(num_rows) * num_features >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (vec4_ok(num_features, h, out)) {
     ++float4_launches[0];
     return nei_sum_launch<float4>(h, table, deg, out, num_nodes, k,

@@ -98,3 +98,27 @@ class NumpyDataset:
                     X_b, y_b, w_b, ids_b = pad_batch(batch_size, X_b, y_b,
                                                      w_b, ids_b)
                 yield X_b, y_b, w_b, ids_b
+
+    def transform(self, transformer) -> 'NumpyDataset':
+        """A new dataset of ``transformer.transform_array``'s arrays."""
+        return NumpyDataset(*transformer.transform_array(
+            self._X, self._y, self._w, self._ids))
+
+    def get_statistics(self, X_stats: bool = True,
+                       y_stats: bool = True) -> Tuple:
+        """Means and population standard deviations over the samples, in
+        float64: ``(X_means, X_stds)`` then ``(y_means, y_stds)``, each
+        pair where it is asked for."""
+        out = []
+        for wanted, arr in ((X_stats, self._X), (y_stats, self._y)):
+            if not wanted:
+                continue
+            total = sumsq = None
+            for a in arr:             # sample by sample, as the JAX package
+                a = np.asarray(a, dtype=np.float64)
+                total = a if total is None else total + a
+                sumsq = a * a if sumsq is None else sumsq + a * a
+            means = total / len(arr)
+            out += [means, np.sqrt(np.maximum(sumsq / len(arr) - means ** 2,
+                                              0))]
+        return tuple(out)

@@ -1,5 +1,6 @@
-"""Atom/bond one-hot helpers of the PAGTN featurizer, and the 75-column
-atom features of the GraphConv featurizer."""
+"""Atom/bond one-hot helpers of the PAGTN and MolGraphConv featurizers,
+the hydrogen-bond donor and acceptor rule, and the 75-column atom
+features of the GraphConv featurizer."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ GRAPH_CONV_SYMBOLS = [
     'Zr', 'Cr', 'Pt', 'Hg', 'Pb', 'Unknown',
 ]
 
+# MolGraphConvFeaturizer's atom types
+DEFAULT_ATOM_TYPES = ['C', 'N', 'O', 'F', 'P', 'S', 'Cl', 'Br', 'I']
 DEFAULT_HYBRIDIZATIONS = ['SP', 'SP2', 'SP3']
 DEFAULT_BOND_TYPES = ['SINGLE', 'DOUBLE', 'TRIPLE', 'AROMATIC']
 
@@ -37,6 +40,45 @@ def one_hot_encode(val: Any, allowable_set: Sequence,
     return vec
 
 
+def get_atom_type_one_hot(atom: Atom, allowable_set=DEFAULT_ATOM_TYPES,
+                          include_unknown_set: bool = True) -> List[float]:
+    return one_hot_encode(atom.symbol, allowable_set, include_unknown_set)
+
+
+def get_atom_formal_charge(atom: Atom) -> List[float]:
+    return [float(atom.formal_charge)]
+
+
+def get_atom_total_num_Hs_one_hot(atom: Atom,
+                                  allowable_set=(0, 1, 2, 3, 4),
+                                  include_unknown_set: bool = True
+                                  ) -> List[float]:
+    return one_hot_encode(atom.total_hs, list(allowable_set),
+                          include_unknown_set)
+
+
+def get_atom_is_in_aromatic_one_hot(atom: Atom) -> List[float]:
+    return [float(atom.is_aromatic)]
+
+
+def get_atom_total_degree_one_hot(atom: Atom,
+                                  allowable_set=(0, 1, 2, 3, 4, 5),
+                                  include_unknown_set: bool = True
+                                  ) -> List[float]:
+    return one_hot_encode(atom.degree, list(allowable_set),
+                          include_unknown_set)
+
+
+def get_atom_partial_charge(atom: Atom) -> List[float]:
+    """0.0: Gasteiger charges need RDKit, which neither package uses."""
+    return [0.0]
+
+
+def get_atom_chirality_one_hot(atom: Atom) -> List[float]:
+    """[R, S] as the SMILES parity marks give them: ``@@`` and ``@``."""
+    return [float(atom.chirality == '@@'), float(atom.chirality == '@')]
+
+
 def get_atom_hybridization_one_hot(
         atom: Atom, allowable_set=DEFAULT_HYBRIDIZATIONS,
         include_unknown_set: bool = False) -> List[float]:
@@ -49,6 +91,44 @@ def get_bond_type_one_hot(bond: Bond,
                           include_unknown_set: bool = False) -> List[float]:
     return one_hot_encode(bond.type_name(), allowable_set,
                           include_unknown_set)
+
+
+def get_bond_is_in_same_ring_one_hot(bond: Bond) -> List[float]:
+    return [float(bond.in_ring)]
+
+
+def get_bond_is_conjugated_one_hot(bond: Bond) -> List[float]:
+    return [float(bond.is_conjugated)]
+
+
+def get_bond_stereo_one_hot(bond: Bond) -> List[float]:
+    """[NONE, ANY, Z, E, CIS, TRANS] of a bond: CIS or TRANS where its
+    configuration was perceived, ANY where it carries a direction mark
+    without one, else NONE."""
+    vec = [0.0] * 6
+    if bond.stereo == 'cis':
+        vec[4] = 1.0
+    elif bond.stereo == 'trans':
+        vec[5] = 1.0
+    elif bond.stereo_dir:
+        vec[1] = 1.0
+    else:
+        vec[0] = 1.0
+    return vec
+
+
+def construct_hydrogen_bonding_info(mol: Molecule):
+    """``[(atom index, 'Donor' or 'Acceptor')]``: N and O accept, and
+    donate where they carry a hydrogen; F accepts."""
+    out = []
+    for a in mol.atoms:
+        if a.atomic_num in (7, 8):
+            if a.total_hs > 0:
+                out.append((a.index, 'Donor'))
+            out.append((a.index, 'Acceptor'))
+        if a.atomic_num == 9:
+            out.append((a.index, 'Acceptor'))
+    return out
 
 
 _SYM75_IDX = {s: i for i, s in enumerate(GRAPH_CONV_SYMBOLS[:-1])}

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from collections import deque
+from typing import List, Optional
 
 import numpy as np
 
@@ -118,3 +119,62 @@ class ConvMolFeaturizer(MolecularFeaturizer):
                 dst += [mi, i]
         ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
         return GraphData(feats, ei)
+
+
+class MolGraphConvFeaturizer(MolecularFeaturizer):
+    """30 atom features and, with ``use_edges``, 11 bond features, for the
+    graph models that read MolGraphConv graphs (MPNN, GCN, GAT,
+    AttentiveFP).
+
+    Atom: type one-hot over C, N, O, F, P, S, Cl, Br, I and other (10),
+    formal charge, hybridization SP, SP2, SP3 (3), hydrogen-bond acceptor
+    and donor, aromatic, total degree 0-5 and more (7), total hydrogens
+    0-4 and more (6); ``use_chirality`` adds R and S, and
+    ``use_partial_charge`` a column of zeros.  Bond, written for both
+    directions: type one-hot (4), in a ring, conjugated, and the first
+    five of the stereo one-hot (none, any, Z, E, cis).  A molecule with no
+    bond has ``[0, 11]`` edge features.
+    """
+
+    def __init__(self, use_edges: bool = False,
+                 use_chirality: bool = False,
+                 use_partial_charge: bool = False):
+        self.use_edges = use_edges
+        self.use_chirality = use_chirality
+        self.use_partial_charge = use_partial_charge
+
+    def _featurize(self, mol: Molecule) -> GraphData:
+        hbond = fu.construct_hydrogen_bonding_info(mol)
+        donors = {i for i, t in hbond if t == 'Donor'}
+        acceptors = {i for i, t in hbond if t == 'Acceptor'}
+        atom_feats = []
+        for a in mol.atoms:
+            f = (fu.get_atom_type_one_hot(a)
+                 + fu.get_atom_formal_charge(a)
+                 + fu.get_atom_hybridization_one_hot(a)
+                 + [float(a.index in acceptors), float(a.index in donors)]
+                 + fu.get_atom_is_in_aromatic_one_hot(a)
+                 + fu.get_atom_total_degree_one_hot(a)
+                 + fu.get_atom_total_num_Hs_one_hot(a))
+            if self.use_chirality:
+                f += fu.get_atom_chirality_one_hot(a)
+            if self.use_partial_charge:
+                f += fu.get_atom_partial_charge(a)
+            atom_feats.append(f)
+        src, dst = [], []
+        bond_feats: Optional[List] = [] if self.use_edges else None
+        for b in mol.bonds:
+            src += [b.a1, b.a2]
+            dst += [b.a2, b.a1]
+            if self.use_edges:
+                bf = (fu.get_bond_type_one_hot(b)
+                      + fu.get_bond_is_in_same_ring_one_hot(b)
+                      + fu.get_bond_is_conjugated_one_hot(b)
+                      + fu.get_bond_stereo_one_hot(b)[:5])
+                bond_feats += [bf, bf]
+        ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
+        ef = None
+        if self.use_edges:
+            ef = np.asarray(bond_feats, dtype=np.float32).reshape(
+                ei.shape[1], 11)
+        return GraphData(np.asarray(atom_feats, dtype=np.float32), ei, ef)

@@ -1,7 +1,9 @@
 """Metrics: the port's copy of ``deepchem_tpu/metrics/metric.py``'s
-``Metric`` with the shape helpers it uses, ``to_one_hot``, and a numpy
-``roc_auc_score`` equal to scikit-learn's for binary labels (the card's
-machine has no scikit-learn)."""
+``Metric`` with the shape helpers it uses, ``to_one_hot``, a numpy
+``roc_auc_score`` equal to scikit-learn's for binary labels, and the
+regression scores ``pearson_r2_score``, ``rms_score`` and ``mae_score``
+of ``metrics/score_function.py``, in numpy (the card's machine has no
+scikit-learn)."""
 
 from __future__ import annotations
 
@@ -53,6 +55,37 @@ def roc_auc_score(y_true: np.ndarray, y_score: np.ndarray,
     tpr = np.r_[0.0, tps] / tps[-1]
     fpr = np.r_[0.0, fps] / fps[-1]
     return float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
+
+
+def pearson_r2_score(y: np.ndarray, y_pred: np.ndarray) -> float:
+    """The squared Pearson correlation of labels and predictions; 0 where
+    either is constant."""
+    y = np.asarray(y, dtype=float).reshape(-1)
+    y_pred = np.asarray(y_pred, dtype=float).reshape(-1)
+    if y.std() == 0 or y_pred.std() == 0:
+        return 0.0
+    return float(np.corrcoef(y, y_pred)[0, 1] ** 2)
+
+
+def rms_score(y_true: np.ndarray, y_pred: np.ndarray,
+              sample_weight: Optional[np.ndarray] = None) -> float:
+    """The root of the (weighted) mean squared error."""
+    return float(np.sqrt(_mean_over_outputs(
+        (np.asarray(y_true) - np.asarray(y_pred)) ** 2, sample_weight)))
+
+
+def mae_score(y_true: np.ndarray, y_pred: np.ndarray,
+              sample_weight: Optional[np.ndarray] = None) -> float:
+    """The (weighted) mean absolute error."""
+    return float(_mean_over_outputs(
+        np.abs(np.asarray(y_pred) - np.asarray(y_true)), sample_weight))
+
+
+def _mean_over_outputs(err: np.ndarray,
+                       sample_weight: Optional[np.ndarray]) -> float:
+    """scikit-learn's regression mean: the weighted mean over samples of
+    each output, then the mean over outputs."""
+    return np.average(np.average(err, axis=0, weights=sample_weight))
 
 
 def normalize_weight_shape(w: Optional[np.ndarray], n_samples: int,

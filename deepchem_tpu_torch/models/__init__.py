@@ -3,20 +3,24 @@ from deepchem_tpu_torch.models.bert_encoder import (BertEncoderMLM,
                                                     mlm_loss)
 from deepchem_tpu_torch.models.convert import (encoder_params_from_flax,
                                                params_from_flax)
-from deepchem_tpu_torch.models.graph_layers import (GraphConv, GraphGather,
-                                                    MaskedBatchNorm,
+from deepchem_tpu_torch.models.graph_layers import (EdgeNetworkMPNN,
+                                                    GraphConv, GraphGather,
+                                                    GRUCell, LSTMCell,
+                                                    MaskedBatchNorm, SetGather,
                                                     graph_pool_max)
 from deepchem_tpu_torch.models.graph_models import (GraphConvModel,
-                                                    GraphModel, PagtnLayer,
-                                                    PagtnModel)
+                                                    GraphModel, MPNNModel,
+                                                    PagtnLayer, PagtnModel)
 from deepchem_tpu_torch.models.losses import (L2Loss, Loss,
                                               SoftmaxCrossEntropy)
 from deepchem_tpu_torch.models.optimizers import Adam, AdamW, Optimizer
 from deepchem_tpu_torch.models.torch_model import TorchModel
 
-__all__ = ['Adam', 'AdamW', 'BertEncoderMLM', 'GraphConv', 'GraphConvModel',
-           'GraphGather', 'GraphModel', 'L2Loss', 'Loss', 'MaskedBatchNorm',
-           'Optimizer', 'PagtnLayer', 'PagtnModel', 'SoftmaxCrossEntropy',
+__all__ = ['Adam', 'AdamW', 'BertEncoderMLM', 'EdgeNetworkMPNN', 'GRUCell',
+           'GraphConv', 'GraphConvModel', 'GraphGather', 'GraphModel',
+           'L2Loss', 'LSTMCell', 'Loss', 'MPNNModel', 'MaskedBatchNorm',
+           'Optimizer', 'PagtnLayer', 'PagtnModel', 'SetGather',
+           'SoftmaxCrossEntropy',
            'TorchModel', 'encoder_params_from_flax',
            'flash_or_xla_attention', 'graph_pool_max', 'mlm_loss',
            'params_from_flax']

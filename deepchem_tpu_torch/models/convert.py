@@ -1,7 +1,7 @@
 """Load flax parameters, flattened to ``{'params/<scope>/<name>': array}``
 (the JAX package's ``jax_model._flatten_params``), into the port's
-modules: the PAGTN and GraphConv modules (:func:`params_from_flax`) and
-the encoder (:func:`encoder_params_from_flax`)."""
+modules: the PAGTN, GraphConv and MPNN modules (:func:`params_from_flax`)
+and the encoder (:func:`encoder_params_from_flax`)."""
 
 from __future__ import annotations
 
@@ -26,20 +26,77 @@ _LEAVES = {'kernel': 'weight', 'bias': 'bias', 'W_self': 'W_self',
 
 
 def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES) -> str:
+    """The module's name of a flax leaf: each scope becomes the attribute
+    ``scopes`` names for its path (``'A_0/Dense_1'``) or, failing that,
+    for the scope alone, or a numbered list entry."""
     parts = key.split('/')
     if len(parts) < 3 or parts[0] != 'params' \
             or parts[-1] not in _LEAVES:
         raise KeyError(f'not a flax graph-model parameter: {key!r}')
     names = []
-    for scope in parts[1:-1]:
+    for i, scope in enumerate(parts[1:-1]):
+        path = '/'.join(parts[1:i + 2])
         for pattern, attr in _LISTS:
             m = pattern.match(scope)
             if m:
                 names.append(f'{attr}.{m.group(1)}')
                 break
         else:
-            names.append(scopes.get(scope, scope))
+            names.append(scopes.get(path, scopes.get(scope, scope)))
     return '.'.join(names + [_LEAVES[parts[-1]]])
+
+
+# flax's recurrent cells: a Dense (kernel [in, out], bias) per gate, under
+# the cell's scope -> the port's cells (graph_layers.GRUCell, LSTMCell),
+# which stack the gates' weights [out, in]: torch leaf -> the flax gates
+_CELL = re.compile(r'(params/(?:.+/)?(GRUCell|OptimizedLSTMCell)_\d+)/'
+                   r'(\w+)/(kernel|bias)$')
+_CELL_LEAVES = {
+    'GRUCell': {'weight_ih': ('ir', 'iz', 'in'),
+                'bias_ih': ('ir', 'iz', 'in'),
+                'weight_hh': ('hr', 'hz', 'hn'), 'bias_hn': ('hn',)},
+    'OptimizedLSTMCell': {'weight_ih': ('ii', 'if', 'ig', 'io'),
+                          'weight_hh': ('hi', 'hf', 'hg', 'ho'),
+                          'bias_hh': ('hi', 'hf', 'hg', 'ho')}}
+
+
+def _cell_state(prefix: str, kind: str, leaves: Dict, scopes: Dict[str, str]
+                ) -> Dict[str, torch.Tensor]:
+    """The port cell's tensors from one flax cell's ``{(gate, leaf):
+    array}``; raises unless the gates are exactly flax's."""
+    base = _torch_name(prefix + '/kernel', scopes)[:-len('.weight')]
+    want = {(g, 'bias' if name.startswith('bias') else 'kernel')
+            for name, gates in _CELL_LEAVES[kind].items() for g in gates}
+    if set(leaves) != want:
+        raise KeyError(f'{prefix}: flax gates {sorted(leaves)} are not '
+                       f'those of a {kind}: {sorted(want)}')
+    out = {}
+    for name, gates in _CELL_LEAVES[kind].items():
+        leaf = 'bias' if name.startswith('bias') else 'kernel'
+        parts = [np.asarray(leaves[(g, leaf)], dtype=np.float32)
+                 for g in gates]
+        out[f'{base}.{name}'] = torch.from_numpy(
+            np.concatenate(parts, axis=-1).T.copy() if leaf == 'kernel'
+            else np.concatenate(parts))
+    return out
+
+
+def flax_state(flat: Dict[str, np.ndarray],
+               module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``flat`` (parameters, or gradients of them) as the graph module's
+    state: see :func:`params_from_flax`."""
+    scopes = getattr(module, 'flax_scopes', _SCOPES)
+    state, cells = {}, {}
+    for key, value in flat.items():
+        m = _CELL.match(key)
+        if m:
+            cells.setdefault((m.group(1), m.group(2)), {})[
+                (m.group(3), m.group(4))] = value
+        else:
+            state[_torch_name(key, scopes)] = _tensor(key, value)
+    for (prefix, kind), leaves in cells.items():
+        state.update(_cell_state(prefix, kind, leaves, scopes))
+    return state
 
 
 def _tensor(key: str, value) -> torch.Tensor:
@@ -52,15 +109,17 @@ def _tensor(key: str, value) -> torch.Tensor:
 def params_from_flax(flat: Dict[str, np.ndarray], module: nn.Module) -> None:
     """Copy ``flat`` into a graph model's ``module`` in place:
     ``pagtn_<i>``, ``GraphConv_<i>`` and ``MaskedBatchNorm_<i>`` become
-    ``layers.<i>``, ``convs.<i>`` and ``norms.<i>``, each ``Dense_<i>`` the
-    attribute the module's ``flax_scopes`` names, and each Dense kernel
-    ``[in, out]`` the ``nn.Linear`` weight ``[out, in]``; GraphConv's
-    ``W_self``, ``W_nbr``, ``b`` and MaskedBatchNorm's ``scale`` and
-    ``bias`` keep their names and shapes.  Raises on a missing or extra key
-    and on a shape that differs."""
-    scopes = getattr(module, 'flax_scopes', _SCOPES)
-    _load({_torch_name(key, scopes): _tensor(key, value)
-           for key, value in flat.items()}, module)
+    ``layers.<i>``, ``convs.<i>`` and ``norms.<i>``, each other scope the
+    attribute the module's ``flax_scopes`` names for its path or its name,
+    and each Dense kernel ``[in, out]`` the ``nn.Linear`` weight ``[out,
+    in]``; GraphConv's ``W_self``, ``W_nbr``, ``b`` and MaskedBatchNorm's
+    ``scale`` and ``bias`` keep their names and shapes.  A ``GRUCell``'s
+    gates become :class:`GRUCell`'s ``weight_ih`` (ir, iz, in),
+    ``bias_ih``, ``weight_hh`` (hr, hz, hn) and ``bias_hn``; an
+    ``OptimizedLSTMCell``'s :class:`LSTMCell`'s ``weight_ih`` (ii, if, ig,
+    io), ``weight_hh`` and ``bias_hh`` (hi, hf, hg, ho).  Raises on a
+    missing or extra key and on a shape that differs."""
+    _load(flax_state(flat, module), module)
 
 
 # flax leaf -> torch leaf in the encoder: Dense kernel (transposed), Embed

@@ -1,11 +1,15 @@
-"""Graph layers of GraphConvModel over the padded batch layout.
+"""Graph layers of GraphConvModel and MPNNModel over the padded batch
+layout.
 
 Counterparts of ``deepchem_tpu/models/graph_layers.py``'s
-``MaskedBatchNorm``, ``GraphConv``, ``graph_pool_max`` and
-``GraphGather``, on the neighbour-table path: the aggregations are the
-kernels K1 (:func:`nei_sum`), K2 (:func:`nei_max_incl_self`), K3 and P3
-(:func:`graph_pool`).  The JAX package's COO path for these layers (edge
-lists, no table) is not ported.
+``MaskedBatchNorm``, ``GraphConv``, ``graph_pool_max``, ``GraphGather``,
+``EdgeNetworkMPNN`` and ``SetGather``, and of flax's ``Dense``,
+``GRUCell`` and ``OptimizedLSTMCell`` as those layers use them, on the
+table paths: the aggregations are the kernels K1 (:func:`nei_sum`,
+:func:`nei_sum_edges`, :func:`take_src`'s backward), K2
+(:func:`nei_max_incl_self`), K3, P1 and P3 (:func:`graph_pool`,
+:func:`segment_softmax_sorted`, :func:`csr_segment_sum`).  The JAX
+package's COO path for these layers (edge lists, no table) is not ported.
 """
 
 from __future__ import annotations
@@ -17,8 +21,104 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepchem_tpu_torch.ops.nei_table import nei_max_incl_self, nei_sum
-from deepchem_tpu_torch.ops.segment import graph_pool
+from deepchem_tpu_torch.ops.csr_segment import csr_row_ptr, csr_segment_sum
+from deepchem_tpu_torch.ops.nei_table import (nei_max_incl_self, nei_sum,
+                                              nei_sum_edges, take_src)
+from deepchem_tpu_torch.ops.segment import (graph_pool,
+                                            segment_softmax_sorted)
+
+
+def lecun_normal_(t: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Fill a weight ``[out, in]`` as flax's ``lecun_normal`` fills its
+    kernel: a normal truncated at two standard deviations with variance
+    ``1 / in``."""
+    # std of the truncated normal is 0.8796 of its parent's; flax rescales
+    std = (1.0 / t.shape[1]) ** 0.5 / .87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+
+def dense(in_features: int, out_features: int,
+          generator: Optional[torch.Generator] = None,
+          bias: bool = True) -> nn.Linear:
+    """``nn.Linear`` initialised as flax's ``Dense``: the weight
+    :func:`lecun_normal_`, the bias zero."""
+    layer = nn.Linear(in_features, out_features, bias=bias)
+    lecun_normal_(layer.weight, generator)
+    if bias:
+        with torch.no_grad():
+            layer.bias.zero_()
+    return layer
+
+
+def _gate_weights(gates: int, in_features: int, features: int,
+                  recurrent: bool,
+                  generator: Optional[torch.Generator]) -> nn.Parameter:
+    """``[gates * features, in_features]``: each gate's block initialised
+    as flax initialises that gate's kernel, orthogonal for a recurrent
+    one, else :func:`lecun_normal_`."""
+    w = torch.empty(gates * features, in_features)
+    for b in w.split(features):
+        if recurrent:
+            with torch.no_grad():
+                nn.init.orthogonal_(b, generator=generator)
+        else:
+            lecun_normal_(b, generator)
+    return nn.Parameter(w)
+
+
+class GRUCell(nn.Module):
+    """flax's ``GRUCell``: ``r = sigmoid(W_ir x + b_ir + W_hr h)``, ``z``
+    alike, ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``, ``h' = (1 -
+    z) n + z h``.  Gates r, z, n stacked in ``weight_ih`` and
+    ``weight_hh``; the hidden side has only ``bias_hn``, as flax."""
+
+    def __init__(self, in_features: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight_ih = _gate_weights(3, in_features, features, False,
+                                       generator)
+        self.bias_ih = nn.Parameter(torch.zeros(3 * features))
+        self.weight_hh = _gate_weights(3, features, features, True,
+                                       generator)
+        self.bias_hn = nn.Parameter(torch.zeros(features))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        i_r, i_z, i_n = F.linear(x, self.weight_ih,
+                                 self.bias_ih).chunk(3, dim=-1)
+        h_r, h_z, h_n = F.linear(h, self.weight_hh).chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * (h_n + self.bias_hn))
+        return (1.0 - z) * n + z * h
+
+
+class LSTMCell(nn.Module):
+    """flax's ``OptimizedLSTMCell``: gates i, f, g, o of ``W_i x + W_h h +
+    b_h`` (only the hidden side has a bias), ``c' = f c + i g``, ``h' = o
+    tanh(c')``.  Takes and returns the carry ``(c, h)`` and ``h'``, as
+    flax."""
+
+    def __init__(self, in_features: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight_ih = _gate_weights(4, in_features, features, False,
+                                       generator)
+        self.weight_hh = _gate_weights(4, features, features, True,
+                                       generator)
+        self.bias_hh = nn.Parameter(torch.zeros(4 * features))
+
+    def forward(self, carry, x: torch.Tensor):
+        c, h = carry
+        gates = F.linear(h, self.weight_hh, self.bias_hh) \
+            + F.linear(x, self.weight_ih)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
 
 
 def glorot_uniform_(t: torch.Tensor,
@@ -106,3 +206,77 @@ class GraphGather(nn.Module):
         s = graph_pool(h, graph_index, num_graphs, node_mask, 'sum')
         m = graph_pool(h, graph_index, num_graphs, node_mask, 'max')
         return torch.cat([torch.tanh(s), torch.tanh(m)], dim=1)
+
+
+class EdgeNetworkMPNN(nn.Module):
+    """Gilmer MPNN's message phase: a dense embedding of the atoms to
+    ``node_dim`` D, a ``[D, D]`` message matrix from each edge's features
+    (``Dense(D * D)``, row-major), then ``n_steps`` rounds of: each edge's
+    source state (:func:`take_src`) times its matrix, masked, summed into
+    its destination (:func:`nei_sum_edges`, K1), and a GRU update of the
+    node states."""
+
+    #: flax scope -> attribute (models/convert.py)
+    flax_scopes = {'Dense_0': 'node_dense', 'Dense_1': 'edge_dense',
+                   'GRUCell_0': 'gru'}
+
+    def __init__(self, node_features: int, edge_features: int,
+                 node_dim: int, n_steps: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.node_dim, self.n_steps = node_dim, n_steps
+        self.node_dense = dense(node_features, node_dim, generator)
+        self.edge_dense = dense(edge_features, node_dim * node_dim,
+                                generator)
+        self.gru = GRUCell(node_dim, node_dim, generator)
+
+    def forward(self, h, esrc, edst, ef, emask, e_table, e_deg, o_table,
+                o_deg):
+        D = self.node_dim
+        carry = self.node_dense(h)
+        A = self.edge_dense(ef).reshape(-1, D, D)
+        for _ in range(self.n_steps):
+            src_h = take_src(carry, esrc, o_table, o_deg)
+            msg = torch.bmm(A, src_h[:, :, None])[:, :, 0] * emask[:, None]
+            agg = nei_sum_edges(msg, e_table, e_deg, edst, emask)
+            carry = self.gru(carry, agg)
+        return carry
+
+
+class SetGather(nn.Module):
+    """set2set readout: ``n_steps`` rounds of an LSTM over ``q* = [q ;
+    r]``, each node's attention to its graph's query ``q`` (a softmax
+    over the graph's valid nodes, P1) and the attention-weighted sum of
+    the graph's nodes ``r`` (P3).  Returns ``[num_graphs, 2 * node_dim]``.
+    ``graph_index`` must be non-decreasing, the ghost graph
+    ``num_graphs`` last, as the packer lays it out."""
+
+    #: flax scope -> attribute (models/convert.py)
+    flax_scopes = {'OptimizedLSTMCell_0': 'lstm', 'Dense_0': 'W_q'}
+
+    def __init__(self, node_dim: int, n_steps: int = 6,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.node_dim, self.n_steps = node_dim, n_steps
+        self.lstm = LSTMCell(2 * node_dim, node_dim, generator)
+        self.W_q = dense(node_dim, node_dim, generator, bias=False)
+
+    def forward(self, h: torch.Tensor, graph_index: torch.Tensor,
+                node_mask: torch.Tensor, num_graphs: int) -> torch.Tensor:
+        B, D = num_graphs, self.node_dim
+        row_ptr = csr_row_ptr(graph_index, B + 1)       # one for all steps
+        graph = graph_index.long().clamp(max=B)
+        hq = self.W_q(h)
+        q_star = h.new_zeros((B, 2 * D))
+        carry = (h.new_zeros((B, D)), h.new_zeros((B, D)))
+        for _ in range(self.n_steps):
+            carry, q = self.lstm(carry, q_star)
+            # the ghost graph's query is 0
+            q_nodes = F.pad(q, (0, 0, 0, 1)).index_select(0, graph)
+            a = segment_softmax_sorted((hq * q_nodes).sum(dim=1), graph_index,
+                                       B + 1, mask=node_mask,
+                                       row_ptr=row_ptr)
+            # the real graphs' segments only: the ghost's are dropped
+            r = csr_segment_sum(h * a[:, None], row_ptr[:B + 1])
+            q_star = torch.cat([q, r], dim=1)
+        return q_star

@@ -1,11 +1,14 @@
-"""Graph models on the padded COO batch layout: PAGTN and GraphConv.
+"""Graph models on the padded COO batch layout: PAGTN, GraphConv and
+MPNN.
 
 Counterparts of ``deepchem_tpu/models/graph_models.py``'s ``GraphModel``
 batching (single device), ``_heads``, ``_gnn_loss_outputs``,
-``PagtnLayer``, ``_PagtnModule``, ``PagtnModel``, ``_GraphConvModule`` and
-``GraphConvModel``.  A batch of ``GraphData`` becomes fixed-shape padded
-arrays with masks (``feat/graph_data.py``), bucketed by node and edge
-quanta, plus a neighbour table for the models that aggregate through one.
+``PagtnLayer``, ``_PagtnModule``, ``PagtnModel``, ``_GraphConvModule``,
+``GraphConvModel``, ``_MPNNModule`` and ``MPNNModel``.  A batch of
+``GraphData`` becomes fixed-shape padded arrays with masks
+(``feat/graph_data.py``), bucketed by node and edge quanta, plus a
+neighbour table or edge-id tables for the models that aggregate through
+them.
 """
 
 from __future__ import annotations
@@ -20,30 +23,16 @@ from torch import nn
 from deepchem_tpu_torch.data import NumpyDataset, pad_batch
 from deepchem_tpu_torch.feat.graph_data import BatchGraphData, bucket_caps
 from deepchem_tpu_torch.metrics import to_one_hot
-from deepchem_tpu_torch.models.graph_layers import (GraphConv, GraphGather,
-                                                    MaskedBatchNorm,
-                                                    graph_pool_max)
+from deepchem_tpu_torch.models.graph_layers import (EdgeNetworkMPNN,
+                                                    GraphConv, GraphGather,
+                                                    MaskedBatchNorm, SetGather,
+                                                    dense, graph_pool_max)
 from deepchem_tpu_torch.models.losses import L2Loss, SoftmaxCrossEntropy
 from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.models.torch_model import TorchModel
 from deepchem_tpu_torch.ops import (csr_row_ptr, csr_segment_sum, graph_pool,
                                     segment_softmax_sorted)
 from deepchem_tpu_torch.ops.nei_table import build_neighbor_table
-
-
-def dense(in_features: int, out_features: int,
-          generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """``nn.Linear`` initialised as flax's ``Dense``: the weight from a
-    normal truncated at two standard deviations with variance 1/fan_in
-    (``lecun_normal``), the bias zero."""
-    layer = nn.Linear(in_features, out_features)
-    # std of the truncated normal is 0.8796 of its parent's; flax rescales
-    std = (1.0 / in_features) ** 0.5 / .87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
-        layer.bias.zero_()
-    return layer
 
 
 class GraphModel(TorchModel):
@@ -53,7 +42,9 @@ class GraphModel(TorchModel):
     A batch's inputs are ``[node_features, edge_src, edge_dst,
     graph_index, node_mask, edge_mask]``, then, per the model's switches:
     a neighbour table ``[N, max_neighbors]`` int32 and int8 degrees
-    (``uses_neighbor_table``), and the edge features
+    (``uses_neighbor_table``); each node's incoming-edge-id table and
+    degrees, then with ``uses_edge_table = 'both'`` its outgoing ones
+    (``uses_edge_table``); and the edge features
     (``uses_edge_features``).  ``sorts_edges_by_dst`` sorts the edges by
     destination, as the CSR segment softmax needs; every other COO op is
     edge-order invariant.
@@ -67,11 +58,29 @@ class GraphModel(TorchModel):
     #: models that aggregate through ops/nei_table.py get a padded
     #: neighbour table and the degrees appended to their inputs
     uses_neighbor_table = False
+    #: models that aggregate edges into nodes through edge-id tables:
+    #: True for the incoming table, 'both' for the outgoing one too
+    uses_edge_table = False
     max_neighbors = 10
     #: when set, every batch pads to these (node_cap, edge_cap): one
     #: bucket for a whole epoch (:meth:`_collect_uniform_batches`)
     _fixed_caps: Optional[Tuple[int, int]] = None
     _sticky_caps: Optional[Tuple[int, int]] = None
+
+    def build(self, sample_inputs: Sequence[torch.Tensor]) -> None:
+        """Checks the batch's atom (and bond) feature widths against the
+        module's ``node_features`` (and ``edge_features``)."""
+        got = [sample_inputs[0].shape[-1]]
+        want = [self.module.node_features]
+        if self.uses_edge_features:
+            got.append(sample_inputs[-1].shape[-1])
+            want.append(self.module.edge_features)
+        if got != want:
+            has = ' and '.join(f'{n} {kind}'
+                               for n, kind in zip(got, ('atom', 'bond')))
+            raise ValueError(f'batch has {has} features; the model was '
+                             f'built for {" and ".join(map(str, want))}')
+        super().build(sample_inputs)
 
     def _pack_one(self, graphs: List, node_cap: int, edge_cap: int,
                   num_graphs: int) -> List[np.ndarray]:
@@ -93,6 +102,16 @@ class GraphModel(TorchModel):
                 node_cap, self.max_neighbors)
             # degrees, not the [N, K] float mask: the kernels rebuild it
             inputs += [table, nbr_mask.sum(axis=1).astype(np.int8)]
+        if self.uses_edge_table:
+            # each node's incoming edge ids, and with 'both' its outgoing
+            # ones: tables over edge rows, pad entries 0
+            real = d['edge_mask'] > 0
+            e_ids = np.arange(len(d['edge_mask']))[real]
+            for end in (1, 0) if self.uses_edge_table == 'both' else (1,):
+                table, nbr_mask = build_neighbor_table(
+                    e_ids, d['edge_index'][end][real], node_cap,
+                    self.max_neighbors)
+                inputs += [table, nbr_mask.sum(axis=1).astype(np.int8)]
         if self.uses_edge_features:
             if 'edge_features' not in d:
                 raise ValueError('this model needs a featurizer that emits '
@@ -347,16 +366,6 @@ class PagtnModel(GraphModel):
                          learning_rate=learning_rate, optimizer=optimizer,
                          log_frequency=log_frequency, device=device)
 
-    def build(self, sample_inputs: Sequence[torch.Tensor]) -> None:
-        nf, ef = sample_inputs[0], sample_inputs[-1]
-        want = (self.module.node_features, self.module.edge_features)
-        if (nf.shape[-1], ef.shape[-1]) != want:
-            raise ValueError(
-                f'batch has {nf.shape[-1]} atom and {ef.shape[-1]} pair '
-                f'features; the model was built for {want[0]} and '
-                f'{want[1]}')
-        super().build(sample_inputs)
-
 
 class _GraphConvModule(_SeededDropout):
     """The GraphConv network: per layer, :class:`GraphConv`, masked batch
@@ -480,9 +489,83 @@ class GraphConvModel(GraphModel):
                          learning_rate=learning_rate, optimizer=optimizer,
                          log_frequency=log_frequency, device=device)
 
-    def build(self, sample_inputs: Sequence[torch.Tensor]) -> None:
-        width = sample_inputs[0].shape[-1]
-        if width != self.module.node_features:
-            raise ValueError(f'batch has {width} atom features; the model '
-                             f'was built for {self.module.node_features}')
-        super().build(sample_inputs)
+
+class _MPNNModule(nn.Module):
+    """The Gilmer MPNN: :class:`EdgeNetworkMPNN` (T message steps on the
+    edge-id tables), :class:`SetGather` (M set2set steps), a dense layer
+    with ReLU and the task heads.  Parameters are initialised as flax
+    initialises the JAX module, from ``generator``."""
+
+    #: flax scope (or scope path) -> attribute (models/convert.py)
+    flax_scopes = {'EdgeNetworkMPNN_0': 'mpnn', 'SetGather_0': 'set2set',
+                   'Dense_0': 'dense', 'Dense_1': 'head',
+                   **{f'{scope}/{k}': v
+                      for scope, layer in (('EdgeNetworkMPNN_0',
+                                            EdgeNetworkMPNN),
+                                           ('SetGather_0', SetGather))
+                      for k, v in layer.flax_scopes.items()}}
+
+    def __init__(self, n_tasks: int, n_classes: int, mode: str,
+                 num_graphs: int, node_features: int, edge_features: int,
+                 node_dim: int = 64, n_steps: int = 3,
+                 set2set_steps: int = 6,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_tasks, self.n_classes, self.mode = n_tasks, n_classes, mode
+        self.num_graphs = num_graphs
+        self.node_features, self.edge_features = node_features, edge_features
+        self.mpnn = EdgeNetworkMPNN(node_features, edge_features, node_dim,
+                                    n_steps, generator)
+        self.set2set = SetGather(node_dim, set2set_steps, generator)
+        self.dense = dense(2 * node_dim, node_dim, generator)
+        n_out = n_tasks * n_classes if mode == 'classification' else n_tasks
+        self.head = dense(node_dim, n_out, generator)
+
+    def forward(self, nf, esrc, edst, gidx, nmask, emask, e_table, e_deg,
+                o_table, o_deg, ef):
+        h = self.mpnn(nf, esrc, edst, ef, emask, e_table, e_deg, o_table,
+                      o_deg)
+        g = self.set2set(h, gidx, nmask, self.num_graphs)
+        x = F.relu(self.dense(g))
+        return _heads(x, self.head, self.n_tasks, self.n_classes, self.mode)
+
+
+class MPNNModel(GraphModel):
+    """Gilmer message-passing network with a set2set readout, fed by
+    :class:`MolGraphConvFeaturizer` with ``use_edges=True`` (30 atom and
+    11 bond features).  Messages run through each node's incoming and
+    outgoing edge-id tables: K1 sums the messages into their destinations
+    and takes the gradient of each edge's source state; the readout's
+    attention is P1 and its weighted sums P3.
+
+    The module is built at construction, with parameters drawn from a
+    ``torch.Generator`` seeded with ``seed``; load trained flax parameters
+    with :func:`params_from_flax`.  A regressor (the default) trains on
+    squared error, a classifier on softmax cross entropy, with
+    :class:`Adam` at ``learning_rate`` unless ``optimizer`` is given.
+    """
+
+    uses_edge_features = True
+    uses_edge_table = 'both'
+
+    def __init__(self, n_tasks: int, n_atom_feat: int = 30,
+                 n_pair_feat: int = 11, T: int = 3, M: int = 6,
+                 node_dim: int = 64, mode: str = 'regression',
+                 n_classes: int = 2, batch_size: int = 100,
+                 learning_rate: float = 0.001,
+                 optimizer: Optional[Optimizer] = None,
+                 model_dir: Optional[str] = None, log_frequency: int = 100,
+                 device=None, seed: int = 0):
+        self.n_tasks = n_tasks
+        self.mode = mode
+        self.n_classes = n_classes
+        module = _MPNNModule(
+            n_tasks=n_tasks, n_classes=n_classes, mode=mode,
+            num_graphs=batch_size, node_features=n_atom_feat,
+            edge_features=n_pair_feat, node_dim=node_dim, n_steps=T,
+            set2set_steps=M, generator=torch.Generator().manual_seed(seed))
+        loss, output_types = _gnn_loss_outputs(mode)
+        super().__init__(module, loss, output_types=output_types,
+                         batch_size=batch_size, model_dir=model_dir,
+                         learning_rate=learning_rate, optimizer=optimizer,
+                         log_frequency=log_frequency, device=device)

@@ -28,6 +28,7 @@ from deepchem_tpu_torch.data import NumpyDataset
 from deepchem_tpu_torch.metrics import Metric
 from deepchem_tpu_torch.models.losses import Loss
 from deepchem_tpu_torch.models.optimizers import Adam, Optimizer
+from deepchem_tpu_torch.trans import undo_transforms
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -522,18 +523,16 @@ class TorchModel:
         (a :class:`Metric` or a plain scoring function), as the JAX
         package's ``Evaluator.compute_model_performance``: a dict of
         scores by metric name, and with ``per_task_metrics`` also each
-        task's.  Transformers that change the labels cannot be undone yet
-        (the port has no transformers) and raise."""
-        if any(getattr(t, 'transform_y', False) for t in transformers):
-            raise NotImplementedError(
-                'evaluate cannot undo a transformer of the labels: the '
-                'port has no transformers yet')
+        task's.  The transformers of the labels are undone, the last
+        first, on the predictions and on ``dataset.y`` alike, so the
+        scores are in the labels' own units."""
         metrics = metrics if isinstance(metrics, (list, tuple)) \
             else [metrics]
         metrics = [m if isinstance(m, Metric) else Metric(m)
                    for m in metrics]
-        y, w = dataset.y, dataset.w
-        y_pred = self.predict(dataset)
+        transformers = [t for t in transformers if t.transform_y]
+        y_pred = self.predict(dataset, transformers)
+        y, w = undo_transforms(dataset.y, transformers), dataset.w
         n_tasks = y.shape[1] if y.ndim > 1 else 1
         scores, task_scores = {}, {}
         for metric in metrics:

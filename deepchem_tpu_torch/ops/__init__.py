@@ -8,7 +8,8 @@ from deepchem_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq_reference, flash_attention_forward,
     flash_attention_reference)
 from deepchem_tpu_torch.ops.nei_table import (build_neighbor_table,
-                                              nei_max_incl_self, nei_sum)
+                                              nei_max_incl_self, nei_sum,
+                                              nei_sum_edges, take_src)
 from deepchem_tpu_torch.ops.segment import (NEG, graph_max_pool, graph_pool,
                                             node_degrees, segment_max,
                                             segment_max_sumgrad, segment_mean,
@@ -25,6 +26,6 @@ __all__ = ['NEG', 'build_neighbor_table', 'csr_neighbor_sum_reference',
            'flash_attention_bwd_dq_reference', 'flash_attention_forward',
            'flash_attention_reference', 'fused_gather_segment_sum',
            'graph_max_pool', 'graph_pool', 'nei_max_incl_self', 'nei_sum',
-           'node_degrees', 'segment_max', 'segment_max_sumgrad',
-           'segment_mean', 'segment_softmax', 'segment_softmax_sorted',
-           'segment_sum']
+           'nei_sum_edges', 'node_degrees', 'segment_max',
+           'segment_max_sumgrad', 'segment_mean', 'segment_softmax',
+           'segment_softmax_sorted', 'segment_sum', 'take_src']

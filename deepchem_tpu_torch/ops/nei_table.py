@@ -2,12 +2,15 @@
 the Hopper kernels K1 and K2 and their plain versions.
 
 Counterparts of ``deepchem_tpu/ops/nei_table.py``'s
-``build_neighbor_table``, ``nei_sum`` and ``nei_max_incl_self``.  A batch
-of undirected graphs (both directions of every edge present) becomes a
-table ``[N, K]`` int32 whose row ``i`` lists ``i``'s neighbours in edge
-order, and int8 degrees ``[N]``: slot ``j`` of row ``i`` is real iff
-``j < deg[i]``.  The table of an undirected graph is its own transpose, so
-both ops' backwards are gathers too.
+``build_neighbor_table``, ``nei_sum``, ``nei_max_incl_self``,
+``nei_sum_edges`` and ``take_src``.  A batch of undirected graphs (both
+directions of every edge present) becomes a table ``[N, K]`` int32 whose
+row ``i`` lists ``i``'s neighbours in edge order, and int8 degrees
+``[N]``: slot ``j`` of row ``i`` is real iff ``j < deg[i]``.  The table of
+an undirected graph is its own transpose, so both ops' backwards are
+gathers too.  A directed message-passing model (MPNN) builds the same
+tables over edge ids instead: each node's incoming edges and its outgoing
+ones, whose K1 sums rows of ``[E, F]`` edge data into ``[N, F]``.
 
 On CPU tensors each op computes with its plain torch version
 (``*_reference``), written as the JAX slot loop; on CUDA tensors it
@@ -74,8 +77,9 @@ def slot_mask(table: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
 
 def nei_sum_reference(h: torch.Tensor, table: torch.Tensor,
                       deg: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of K1: ``sum over j < deg[i] of h[table[i, j]]``,
-    one slot at a time in ascending order."""
+    """Plain torch version of K1: ``sum over j < deg[i] of h[table[i, j]]``
+    for ``h`` ``[R, F]`` and ``table`` ``[N, K]`` into ``[N, F]``, one slot
+    at a time in ascending order."""
     mask = slot_mask(table, deg).to(h.dtype)
     idx = table.long()
     out = h[idx[:, 0]] * mask[:, 0:1]
@@ -126,16 +130,18 @@ def nei_max_backward_reference(g: torch.Tensor, table: torch.Tensor,
 
 
 def _check(what: str, floats, table: torch.Tensor, deg: torch.Tensor,
-           ints=()) -> None:
+           ints=(), source=None) -> None:
     """What the kernels take: float32 ``[N, F]`` data (and int32 ``[N,
-    F]`` winners), an int32 ``[N, K]`` table with ``K <= 32`` and int8
-    ``[N]`` degrees, contiguous, on one CUDA device."""
-    tensors = tuple(floats) + tuple(ints) + (table, deg)
-    dev = floats[0].device
+    F]`` winners), or a float32 ``source`` ``[R, F]`` of any R >= 1, an
+    int32 ``[N, K]`` table with ``K <= 32`` and int8 ``[N]`` degrees,
+    contiguous, on one CUDA device."""
+    src = () if source is None else (source,)
+    tensors = src + tuple(floats) + tuple(ints) + (table, deg)
+    dev = tensors[0].device
     if dev.type != 'cuda' or any(t.device != dev for t in tensors):
         raise ValueError(f'{what}: every tensor must lie on one CUDA '
                          f'device, got {[str(t.device) for t in tensors]}')
-    if any(t.dtype != torch.float32 for t in floats) \
+    if any(t.dtype != torch.float32 for t in src + tuple(floats)) \
             or any(t.dtype != torch.int32 for t in tuple(ints) + (table,)) \
             or deg.dtype != torch.int8:
         raise TypeError(f'{what}: need float32 data, an int32 table and '
@@ -143,13 +149,15 @@ def _check(what: str, floats, table: torch.Tensor, deg: torch.Tensor,
     n = table.shape[0]
     if table.ndim != 2 or table.shape[1] > 32 or tuple(deg.shape) != (n,) \
             or any(t.ndim != 2 or t.shape[0] != n
-                   for t in tuple(floats) + tuple(ints)):
-        raise ValueError(f'{what}: need [N, F] data, an [N, K <= 32] table '
-                         f'and [N] degrees, got '
-                         f'{[tuple(t.shape) for t in tensors]}')
+                   for t in tuple(floats) + tuple(ints)) \
+            or any(t.ndim != 2 or t.shape[0] < 1 for t in src):
+        raise ValueError(f'{what}: need [N, F] data or an [R >= 1, F] '
+                         f'source, an [N, K <= 32] table and [N] degrees, '
+                         f'got {[tuple(t.shape) for t in tensors]}')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f'{what}: every tensor must be contiguous')
-    if any(t.numel() >= 2**31 for t in tensors):
+    if any(t.numel() >= 2**31 for t in tensors) \
+            or n * (src[0].shape[1] if src else 1) >= 2**31:
         raise ValueError(f'{what}: sizes must fit in int32')
 
 
@@ -164,21 +172,20 @@ def float4_launches() -> Tuple[int, int, int]:
 
 
 def _nei_sum_forward(h: torch.Tensor, table: torch.Tensor,
-                     deg: torch.Tensor, backward: bool = False
+                     deg: torch.Tensor, counter, attr: str = 'launches'
                      ) -> torch.Tensor:
-    """K1 on ``h`` (the cotangent when ``backward``): the kernel on the
-    card, the plain version on the CPU."""
+    """K1 from the ``[R, F]`` rows ``h`` through the ``[N, K]`` table into
+    ``[N, F]``: the kernel on the card, counted in ``counter.<attr>``;
+    the plain version on the CPU."""
     if all(t.device.type == 'cpu' for t in (h, table, deg)):
         return nei_sum_reference(h, table, deg)
-    _check('nei_sum', (h,), table, deg)
-    out = torch.empty_like(h)
-    if h.numel():
+    _check('nei_sum', (), table, deg, source=h)
+    out = h.new_empty((table.shape[0], h.shape[1]))
+    if out.numel():
         build.launch('nei_table', 'nei_sum_f32', (h, table, deg, out),
-                     (h.shape[0], table.shape[1], h.shape[1]))
-        if backward:
-            nei_sum.backward_launches += 1
-        else:
-            nei_sum.launches += 1
+                     (h.shape[0], table.shape[0], table.shape[1],
+                      h.shape[1]))
+        setattr(counter, attr, getattr(counter, attr) + 1)
     return out
 
 
@@ -216,8 +223,13 @@ def _nei_max_backward(g: torch.Tensor, table: torch.Tensor,
 class _NeiSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, table, deg):
+        if h.shape[0] != table.shape[0]:
+            raise ValueError(
+                f'nei_sum: {h.shape[0]} rows through a table of '
+                f'{table.shape[0]}; its backward needs a square, symmetric '
+                'table (edge-id tables take nei_sum_edges or take_src)')
         ctx.save_for_backward(table, deg)
-        return _nei_sum_forward(h, table, deg)
+        return _nei_sum_forward(h, table, deg, nei_sum)
 
     @staticmethod
     @once_differentiable
@@ -225,8 +237,38 @@ class _NeiSum(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, None, None
         table, deg = ctx.saved_tensors
-        return _nei_sum_forward(g.contiguous(), table, deg,
-                                backward=True), None, None
+        return _nei_sum_forward(g.contiguous(), table, deg, nei_sum,
+                                'backward_launches'), None, None
+
+
+class _NeiSumEdges(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, e_table, e_deg, edst, emask):
+        ctx.save_for_backward(edst, emask)
+        return _nei_sum_forward(h, e_table, e_deg, nei_sum_edges)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        edst, emask = ctx.saved_tensors
+        return (g.index_select(0, edst.long()) * emask[:, None], None, None,
+                None, None)
+
+
+class _TakeSrc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, carry, esrc, o_table, o_deg):
+        ctx.save_for_backward(o_table, o_deg)
+        return carry.index_select(0, esrc.long())
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        o_table, o_deg = ctx.saved_tensors
+        return _nei_sum_forward(g.contiguous(), o_table, o_deg, take_src,
+                                'backward_launches'), None, None, None
 
 
 class _NeiMax(torch.autograd.Function):
@@ -265,6 +307,36 @@ def nei_sum(h: torch.Tensor, table: torch.Tensor,
     return _NeiSum.apply(h, table, deg)
 
 
+def nei_sum_edges(h: torch.Tensor, e_table: torch.Tensor,
+                  e_deg: torch.Tensor, edst: torch.Tensor,
+                  emask: torch.Tensor) -> torch.Tensor:
+    """Edge-to-node sum: K1 from ``h`` ``[E, F]`` float32 through the
+    incoming-edge-id table ``e_table`` ``[N, K]`` int32 (entries in ``[0,
+    E)``) and ``e_deg`` ``[N]`` int8 into ``[N, F]``.  Each directed edge
+    arrives at one node, so the gradient of ``h`` is the row gather
+    ``g[edst] * emask`` (``edst`` ``[E]`` the edges' destinations,
+    ``emask`` ``[E]`` 1.0 for real edges), as in the JAX package.
+
+    CPU tensors take :func:`nei_sum_reference`; CUDA tensors launch
+    ``nei_sum_kernel``, counted in ``nei_sum_edges.launches``.
+    """
+    return _NeiSumEdges.apply(h, e_table, e_deg, edst, emask)
+
+
+def take_src(carry: torch.Tensor, esrc: torch.Tensor, o_table: torch.Tensor,
+             o_deg: torch.Tensor) -> torch.Tensor:
+    """Node-to-edge broadcast ``carry[esrc]`` ``[E, F]`` whose gradient is
+    no scatter: K1 of the cotangent ``[E, F]`` through each node's
+    outgoing-edge-id table ``o_table`` ``[N, K]`` int32 and ``o_deg``
+    ``[N]`` int8, so every edge that leaves a node must stand in its row.
+
+    The backward runs :func:`nei_sum_reference` on CPU tensors and
+    launches ``nei_sum_kernel`` on CUDA tensors, counted in
+    ``take_src.backward_launches``, when ``carry`` needs a gradient.
+    """
+    return _TakeSrc.apply(carry, esrc, o_table, o_deg)
+
+
 def nei_max_incl_self(h: torch.Tensor, table: torch.Tensor,
                       deg: torch.Tensor, return_winner: bool = False):
     """K2: the elementwise max over a node and its real neighbours
@@ -283,4 +355,6 @@ def nei_max_incl_self(h: torch.Tensor, table: torch.Tensor,
 
 
 nei_sum.launches = nei_sum.backward_launches = 0
+nei_sum_edges.launches = 0
+take_src.backward_launches = 0
 nei_max_incl_self.launches = nei_max_incl_self.backward_launches = 0

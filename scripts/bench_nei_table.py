@@ -30,7 +30,15 @@ forward), the same in copies 4 bytes off 16-byte alignment
 not float4 rows), and ``chip_smoke.random_table``'s graph of 1000 nodes
 with degrees 0 to 10 at F 1, 4, 32, 64, 75 and 128, at F 64 with rows 4
 bytes off 16-byte alignment, with tied maxima (F 1, 75) and all ties
-(F 64).  Cases of K3: the readout's input in the same batch (x [5120,
+(F 64); and K1 alone from MPNN's edge rows into its nodes, at the
+inputs ``MPNNModel`` at its defaults hands it in ``chip_smoke.py`` phase
+12's first batch of 100 (``nei_sum_edges`` over the incoming-edge table,
+its rows also 4 bytes off alignment, and ``take_src``'s backward over the
+outgoing-edge table with a cotangent from a seed).  A version whose
+``nei_sum_f32`` takes no ``num_rows`` (before K1 took the source's row
+count apart from the table's) is called without it: its kernel indexes
+the rows through the table alone, so it runs the edge cases too.  Cases
+of K3: the readout's input in the same batch (x [5120,
 128], 256 graphs and the node mask), its misaligned copy, and 1000 rows
 in graphs of 0 to 35 rows (a ghost tail of 20, one row in 50 masked) at
 F 37, 75 and 128, and with tied maxima at F 128.  K3's backward takes
@@ -124,13 +132,22 @@ SIGNATURES = {'nei_sum_f32': (4, 3), 'nei_max_fwd_f32': (5, 3),
 COUNTERS = ('nei_table_float4_launches', 'graph_pool_float4_launches')
 
 
-def entries(*names: str):
+def rows_arg(cu: Path) -> bool:
+    """Whether a version's ``nei_sum_f32`` takes ``num_rows``."""
+    m = re.search(r'int nei_sum_f32\(([^)]*)\)', cu.read_text())
+    return bool(m) and 'num_rows' in m.group(1)
+
+
+def entries(*names: str, rows: bool = False):
     """The C entries of ``OUT/<name>.so`` for each of ``names``, by their
-    names."""
-    fns = {}
+    names; ``nei_sum_f32`` with ``num_rows`` where ``rows``
+    (``fns['nei_sum_rows']``)."""
+    fns = {'nei_sum_rows': rows}
     for name in names:
         lib = ctypes.CDLL(str(OUT / f'{name}.so'))
         for sym, (n_ptrs, n_ints) in SIGNATURES.items():
+            if sym == 'nei_sum_f32' and rows:
+                n_ints += 1
             fn = getattr(lib, sym, None)
             if fn is not None:
                 fn.argtypes = [ctypes.c_void_p] * n_ptrs \
@@ -188,6 +205,29 @@ def table_cases(dev, X, model):
     add('all_ties_F64', torch.zeros(1000, 64, device=dev), torch.randn(
         (1000, 64), generator=gen, device=dev), table, deg)
     return out
+
+
+def edge_cases(dev):
+    """{name: (h, table, deg)} on the card: K1 from MPNN's edge rows
+    through its edge-id tables, as ``chip_smoke.py`` phase 3 takes them."""
+    import torch
+    from chip_smoke import MPNN, misaligned, mpnn_data, recorded
+    from deepchem_tpu_torch import MPNNModel
+    from deepchem_tpu_torch.models import graph_layers
+    X, _ = mpnn_data()
+    model = MPNNModel(**MPNN, device=dev, seed=0)
+    batch = X[:model.batch_size]
+    (msg, e_table, e_deg, _, _), = recorded(
+        graph_layers, 'nei_sum_edges',
+        lambda: model.predict_on_batch(batch))[:1]
+    (carry, esrc, o_table, o_deg), = recorded(
+        graph_layers, 'take_src', lambda: model.predict_on_batch(batch))[:1]
+    g = torch.randn((esrc.shape[0], carry.shape[1]),
+                    generator=torch.Generator(dev).manual_seed(4), device=dev)
+    return {'mpnn_batch100_nei_sum_edges': (msg, e_table, e_deg),
+            'mpnn_batch100_nei_sum_edges_misaligned': (misaligned(msg),
+                                                       e_table, e_deg),
+            'mpnn_batch100_take_src_bwd': (g, o_table, o_deg)}
 
 
 def pool_cases(dev, X, model):
@@ -333,10 +373,11 @@ def run_table(name, fns, empty, case, inputs, calls, times, outs, paths):
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
+    rows = (N,) if fns['nei_sum_rows'] else ()
     runs = {
         'nei_sum': lambda: fns['nei_sum_f32'](
             h.data_ptr(), table.data_ptr(), deg.data_ptr(), out.data_ptr(),
-            N, K, F, stream()),
+            *rows, N, K, F, stream()),
         'nei_max_fwd': lambda: fns['nei_max_fwd_f32'](
             hm.data_ptr(), table.data_ptr(), deg.data_ptr(), best.data_ptr(),
             win.data_ptr(), N, K, hm.shape[1], stream()),
@@ -370,6 +411,39 @@ def run_table(name, fns, empty, case, inputs, calls, times, outs, paths):
         times[case][label] = dict(timed(
             lambda: empty(blocks, THREADS, stream()), 'empty_kernel',
             calls), blocks=blocks, threads=THREADS)
+
+
+def run_edges(name, fns, empty, case, inputs, calls, times, outs, paths):
+    """K1 alone from R edge rows into the table's N nodes."""
+    import torch
+    from deepchem_tpu_torch.ops.nei_table import nei_sum_reference
+    h, table, deg = inputs
+    R, F = h.shape
+    N, K = table.shape
+    out = torch.empty((N, F), device=h.device)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    rows = (R,) if fns['nei_sum_rows'] else ()
+
+    def run():
+        return fns['nei_sum_f32'](h.data_ptr(), table.data_ptr(),
+                                  deg.data_ptr(), out.data_ptr(), *rows, N,
+                                  K, F, stream())
+    before = float4_counts(fns)
+    if run():
+        raise RuntimeError(f'{name}: a launch failed at {case}')
+    paths[case] = {'nei_sum': 'float4' if float4_counts(fns)[0] > before[0]
+                   else 'float'}
+    torch.cuda.synchronize()
+    outs[case] = {'nei_sum': (out.clone(),)}
+    held(name, case, 'nei_sum', out, nei_sum_reference(h, table, deg))
+    times[case] = {'nei_sum': timed(run, 'nei_sum_kernel', calls)}
+    blocks = grid(N, F, paths[case]['nei_sum'] == 'float4')
+    times[case]['empty_base_grid'] = dict(timed(
+        lambda: empty(blocks, THREADS, stream()), 'empty_kernel', calls),
+        blocks=blocks, threads=THREADS)
 
 
 def run_pool(name, fns, empty, case, inputs, calls, times, outs, paths):
@@ -423,12 +497,15 @@ def run_pool(name, fns, empty, case, inputs, calls, times, outs, paths):
 
 
 def run_version(name: str, fns: dict, empty, tables: dict, pools: dict,
-                calls: int) -> tuple:
+                edges: dict, calls: int) -> tuple:
     """({case: {part: timings}}, {case: {part: outputs}}, {case: {part:
     path}}) of one version."""
     times, outs, paths = {}, {}, {}
     for case, inputs in tables.items():
         run_table(name, fns, empty, case, inputs, calls, times, outs, paths)
+        print(f'{name} {case}: timed', file=sys.stderr, flush=True)
+    for case, inputs in edges.items():
+        run_edges(name, fns, empty, case, inputs, calls, times, outs, paths)
         print(f'{name} {case}: timed', file=sys.stderr, flush=True)
     for case, inputs in pools.items():
         run_pool(name, fns, empty, case, inputs, calls, times, outs, paths)
@@ -436,7 +513,7 @@ def run_version(name: str, fns: dict, empty, tables: dict, pools: dict,
     return times, outs, paths
 
 
-def library_us(tables: dict, pools: dict, calls: int) -> dict:
+def library_us(tables: dict, pools: dict, edges: dict, calls: int) -> dict:
     """{case: {call: device µs}} of the library calls, every kernel of one
     call (``chip_smoke.device_us_all``; null where the profiler recorded
     none), and the µs a call between CUDA events around 200 calls
@@ -455,6 +532,11 @@ def library_us(tables: dict, pools: dict, calls: int) -> dict:
             library_nei_max(h, s, d),
             'scatter_add': lambda g=g, w=winner_idx: library_nei_max_bwd(
                 g, w)}
+    for case, (h, table, deg) in edges.items():
+        _, _, row_ptr, col = table_csr(table, deg)
+        calls_of[case] = {
+            'sparse_mm': lambda h=h, r=row_ptr, c=col: library_nei_sum(
+                h, r, c)}
     for case, (x, row_ptr, mask, g, mx, den) in pools.items():
         rows = int(row_ptr[-1])
         lengths = (row_ptr[1:] - row_ptr[:-1]).long()
@@ -475,7 +557,7 @@ def library_us(tables: dict, pools: dict, calls: int) -> dict:
     return out
 
 
-def bounds(tables: dict, pools: dict) -> dict:
+def bounds(tables: dict, pools: dict, edges: dict) -> dict:
     """{case: {'N', 'F', 'bound_us': {part: µs}}}: the bytes and
     operations of each kernel as ``chip_smoke.py`` phase 3 counts them."""
     from chip_smoke import bound, table_csr
@@ -493,6 +575,15 @@ def bounds(tables: dict, pools: dict) -> dict:
                                                slots * hm.shape[1])[0] * 1e3,
                           'nei_max_bwd': bound(4 * 3 * N * g.shape[1] + tbl,
                                                slots * g.shape[1])[0] * 1e3}}
+    for case, (h, table, deg) in edges.items():
+        src, _, _, _ = table_csr(table, deg)
+        R, F = h.shape
+        N = table.shape[0]
+        slots, rows = src.numel(), src.unique().numel()
+        info[case] = {'N': N, 'R': R, 'F': F, 'K': table.shape[1],
+                      'slots': slots, 'bound_us': {'nei_sum': bound(
+                          4 * (rows * F + slots + N * F) + N,
+                          slots * F)[0] * 1e3}}
     for case, (x, row_ptr, mask, g, mx, den) in pools.items():
         N, F = x.shape
         G = row_ptr.shape[0] - 1
@@ -568,21 +659,24 @@ def main() -> int:
     model = GraphConvModel(**GRAPHCONV, device=dev, seed=0)
     tables = table_cases(dev, X, model)
     pools = pool_cases(dev, X, model)
-    print(json.dumps({'card': name, 'cases': bounds(tables, pools)}),
+    edges = edge_cases(dev)
+    print(json.dumps({'card': name, 'cases': bounds(tables, pools, edges)}),
           flush=True)
     empty = entries('empty')['empty_launch']
-    fns = {n: entries(table_of.get(n, n), pool)
+    fns = {n: entries(table_of.get(n, n), pool,
+                      rows=rows_arg(sources[table_of.get(n, n)]))
            for n, pool in pool_of.items()}
     outer = ['parent'] if args.parent else []
     order = outer + others + ['base', 'base'] + others[::-1] + outer
     print(json.dumps({'card': name,
-                      'library_us': library_us(tables, pools, args.calls)}),
+                      'library_us': library_us(tables, pools, edges,
+                                               args.calls)}),
           flush=True)
     runs = {n: [] for n in fns}
     first_outs = {}
     for n in order:
         times, outs, paths = run_version(n, fns[n], empty, tables, pools,
-                                         args.calls)
+                                         edges, args.calls)
         runs[n].append(times)
         first_outs.setdefault(n, outs)
         print(json.dumps({'card': name, 'version': n, 'run': len(runs[n]),

@@ -2,18 +2,22 @@
 """Where a graph model's request, or training step, spends its time on
 one CUDA card.
 
-    python3 scripts/profile_torch_pagtn.py [--model pagtn|graphconv]
+    python3 scripts/profile_torch_pagtn.py [--model pagtn|graphconv|mpnn]
                                            [--mode serve|train]
                                            [--batch N] [--requests 20]
 
 Builds a model of ``chip_smoke.py`` with seeded weights and ``batch_size``
 set to ``--batch``: PagtnModel(n_tasks=12, mode='classification') at its
-default widths (batch 16 by default), or GraphConvModel at ``bench.py``'s
+default widths (batch 16 by default), GraphConvModel at ``bench.py``'s
 width (``chip_smoke.GRAPHCONV``; batch 16 to serve, 256 to train by
-default).  It runs ``--requests`` batches of ``--batch`` molecules drawn
-with replacement from the script's 48, already featurized:
+default), or MPNNModel at the JAX package's defaults (``chip_smoke.MPNN``,
+one regression task; batch 16 to serve, 100 to train by default).  It
+runs ``--requests`` batches of ``--batch`` molecules drawn with
+replacement from the script's 48 (MPNN: and ``chip_smoke.STEREO_SMILES``),
+already featurized, with seeded 0/1 labels (MPNN: normal):
 
-- ``serve``: answers each batch as a request.  Host clock, per request:
+- ``serve``: answers each batch as a request.  Host clock, per request
+  (means, and the median and p90 of the totals):
   packing the padded batch (numpy), copying it to the card, the forward
   pass (ended by a synchronise) and copying the outputs back.
 - ``train``: one training step per batch, with seeded 0/1 labels, as
@@ -73,7 +77,7 @@ def device_breakdown(run, n: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('pagtn', 'graphconv'),
+    ap.add_argument('--model', choices=('pagtn', 'graphconv', 'mpnn'),
                     default='pagtn')
     ap.add_argument('--mode', choices=('serve', 'train', 'fit_on_device'),
                     default='serve')
@@ -86,26 +90,33 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('profile_torch_pagtn: no CUDA device', file=sys.stderr)
         return 1
-    from chip_smoke import GRAPHCONV, SMILES, _counted, launch_counts
+    from chip_smoke import (GRAPHCONV, MPNN, SMILES, STEREO_SMILES,
+                            _counted, launch_counts)
     from deepchem_tpu_torch import (ConvMolFeaturizer, GraphConvModel,
+                                    MolGraphConvFeaturizer, MPNNModel,
                                     NumpyDataset, PagtnModel,
                                     PagtnMolGraphFeaturizer)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.batch is None:
-        args.batch = 256 if args.model == 'graphconv' \
-            and args.mode != 'serve' else 16
+        args.batch = {'graphconv': 256, 'mpnn': 100}.get(args.model, 16) \
+            if args.mode != 'serve' else 16
+    labels = np.random.RandomState(0).randint(0, 2, (len(SMILES), 12))
     if args.model == 'pagtn':
         X = PagtnMolGraphFeaturizer().featurize(SMILES)
         model = PagtnModel(n_tasks=12, mode='classification',
                            batch_size=args.batch, seed=0)
-    else:
+    elif args.model == 'graphconv':
         X = ConvMolFeaturizer().featurize(SMILES)
         model = GraphConvModel(**dict(GRAPHCONV, batch_size=args.batch),
                                seed=0)
-    labels = np.random.RandomState(0).randint(0, 2, (len(X), 12)).astype(
-        np.float32)
+    else:
+        X = MolGraphConvFeaturizer(use_edges=True).featurize(
+            SMILES + STEREO_SMILES)
+        model = MPNNModel(**dict(MPNN, batch_size=args.batch), seed=0)
+        labels = np.random.RandomState(0).randn(len(X), 1)
+    labels = labels.astype(np.float32)
     rng = np.random.RandomState(0)
     picks = [rng.randint(0, len(X), args.batch)
              for _ in range(args.requests)]
@@ -143,7 +154,9 @@ def main() -> int:
         model.module.train()
         opt = model._torch_optimizer
         opt.zero_grad(set_to_none=True)
-        loss = model._compute_loss(list(model.module(*inputs)), y, w)
+        out = model.module(*inputs)
+        loss = model._compute_loss(
+            list(out) if isinstance(out, tuple) else [out], y, w)
         sync()
         t.append(time.perf_counter())
         loss.backward()
@@ -172,11 +185,15 @@ def main() -> int:
         for idx in picks[:3]:                        # warm-up
             run(idx, {})
         clock = dict.fromkeys(phases, 0.0)
+        totals = []
         for idx in picks:
             t = run(idx, clock)
             for key, a, b in zip(phases, t, t[1:]):
                 clock[key] += (b - a) * 1e3 / args.requests
+            totals.append((t[-1] - t[0]) * 1e3)
         clock['total'] = sum(clock.values())
+        clock['total_median'], clock['total_p90'] = (
+            float(v) for v in np.percentile(totals, [50, 90]))
 
         def run_epoch():
             for i in picks:

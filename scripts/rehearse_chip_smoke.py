@@ -116,13 +116,10 @@ def main() -> int:
         return tensors[0].shape[1] % 4 == 0 \
             and all(t.data_ptr() % 16 == 0 for t in tensors)
 
-    def counted_nei_sum(h, table, deg, backward=False):
+    def counted_nei_sum(h, table, deg, counter, attr='launches'):
         float4[0] += vec4(h)
-        if backward:
-            nei.nei_sum.backward_launches += 1
-        else:
-            nei.nei_sum.launches += 1
-        return nei_sum_fwd(h, table, deg)
+        setattr(counter, attr, getattr(counter, attr) + 1)
+        return nei_sum_fwd(h, table, deg, counter, attr)
 
     def counted_nei_max_fwd(h, table, deg):
         float4[2] += vec4(h)

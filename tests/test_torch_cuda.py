@@ -5,7 +5,8 @@ version, one PAGTN training step against the CPU, P4's forward (with its
 statistics m and l) and backward kernels against the plain flash
 attention (the float32 backward also against its formulas in float64),
 the encoder's logits against the CPU, GraphConv's kernels K1 (neighbour
-sum), K2 (neighbour max and its backward) and K3 (graph max readout and
+sum; also from R edge rows into N nodes, as MPNN's edge-id tables call
+it), K2 (neighbour max and its backward) and K3 (graph max readout and
 its backward) against their plain versions (K1, K2 and K3, forward and
 backward, on both of their kernel paths, float4 rows and one float a
 lane, bit for bit against the JAX package's slot-order arithmetic or
@@ -30,8 +31,10 @@ from deepchem_tpu_torch import (BertEncoderMLM, ConvMolFeaturizer,
                                 GraphConvModel, PagtnModel,
                                 PagtnMolGraphFeaturizer)
 from deepchem_tpu_torch.ops import (NEG, build_neighbor_table, graph_max_pool,
-                                    nei_max_incl_self, nei_sum)
+                                    nei_max_incl_self, nei_sum,
+                                    nei_sum_edges, take_src)
 from deepchem_tpu_torch.ops.nei_table import (_nei_max_backward,
+                                              _nei_sum_forward,
                                               float4_launches,
                                               nei_max_backward_reference,
                                               nei_max_reference,
@@ -651,6 +654,104 @@ def test_nei_sum_kernel_paths_match_plain_version(cuda, F, aligned, float4,
     assert torch.equal(out, again)
 
 
+def _edge_table(n, rows, K, seed):
+    """An edge-id table ``[n, K]`` over ``rows`` edge rows, degrees 0 to K
+    (node 0 has K, node n - 1 none), real entries random rows and pad
+    entries 0, as the packer leaves them; and the degrees."""
+    rng = np.random.RandomState(seed)
+    deg = rng.randint(0, K + 1, n).astype(np.int8)
+    deg[0], deg[-1] = K, 0
+    table = rng.randint(0, rows, (n, K)).astype(np.int32)
+    table[np.arange(K)[None, :] >= deg[:, None]] = 0
+    return torch.from_numpy(table), torch.from_numpy(deg)
+
+
+def _bits_equal(out, want):
+    """NaN where NaN, and elsewhere the same float32 bits."""
+    out, want = out.cpu().numpy(), np.asarray(want, np.float32)
+    nan = np.isnan(want)
+    return np.array_equal(np.isnan(out), nan) and np.array_equal(
+        out[~nan].view(np.int32), want[~nan].view(np.int32))
+
+
+# (F, aligned, float4 path) of MPNN's K1 (F 64 at node_dim 64) and of
+# GraphConv's first layer (F 75)
+EDGE_PATHS = [(64, True, True), (64, False, False), (75, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,rows', [(300, 700), (300, 120), (1, 5)])
+@pytest.mark.parametrize('F,aligned,float4', EDGE_PATHS)
+@pytest.mark.parametrize('values', ['normal', 'non_finite'])
+def test_nei_sum_kernel_over_edge_tables_matches_plain_version(
+        cuda, F, aligned, float4, n, rows, values):
+    """K1 from R source rows into N others (R != N), as MPNN's
+    ``nei_sum_edges`` and ``take_src``'s backward call it, on both kernel
+    paths: bit for bit the JAX slot order (from -0, the real slots, each
+    pad slot's row times 0), NaN where NaN."""
+    table, deg = _edge_table(n, rows, 10, seed=F + rows)
+    rng = np.random.RandomState(F * rows)
+    a = rng.randn(rows, F).astype(np.float32)
+    a[rng.rand(*a.shape) < 0.2] = -0.0
+    if values == 'non_finite':
+        a[0, :3] = (np.inf, -np.inf, np.nan)        # row 0: behind the pads
+        a[rng.rand(rows) < 0.1, 3] = np.nan
+        a[rng.rand(rows) < 0.1, 4] = -np.inf
+    h = _on_card(a, cuda, aligned)
+    before, before4 = nei_sum.launches, float4_launches()
+    out = _nei_sum_forward(h, table.to(cuda), deg.to(cuda), nei_sum)
+    again = _nei_sum_forward(h, table.to(cuda), deg.to(cuda), nei_sum)
+    torch.cuda.synchronize()
+    assert out.shape == (n, F)
+    assert nei_sum.launches == before + 2
+    assert float4_launches() == (before4[0] + 2 * float4, before4[1],
+                                 before4[2])
+    ref = nei_sum_reference(torch.from_numpy(a), table, deg)
+    assert _bits_equal(out, ref.numpy())
+    real = np.arange(10)[None, :] < deg.numpy()[:, None]
+    with np.errstate(invalid='ignore'):
+        want = _slot_order(np.full((n, F), -0.0, np.float32), [
+            (a[table[:, j].numpy()] * real[:, j:j + 1].astype(np.float32),
+             np.ones((n, 1), bool)) for j in range(10)])
+    assert _bits_equal(out, want)
+    assert _bits_equal(again, out.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_mpnn_edge_ops_launch_k1_and_match_plain_version(cuda):
+    """``nei_sum_edges`` forward and ``take_src`` backward each launch K1
+    once, and agree with the CPU's plain versions bit for bit; the other
+    directions are gathers."""
+    rng = np.random.RandomState(0)
+    n, E, F = 200, 512, 64
+    e_table, e_deg = _edge_table(n, E, 10, seed=1)
+    o_table, o_deg = _edge_table(n, E, 10, seed=2)
+    edst = torch.from_numpy(rng.randint(0, n, E).astype(np.int32))
+    esrc = torch.from_numpy(rng.randint(0, n, E).astype(np.int32))
+    emask = torch.from_numpy((rng.rand(E) < 0.9).astype(np.float32))
+    h = torch.from_numpy(rng.randn(E, F).astype(np.float32))
+    c = torch.from_numpy(rng.randn(n, F).astype(np.float32))
+    g_n = torch.from_numpy(rng.randn(n, F).astype(np.float32))
+    g_e = torch.from_numpy(rng.randn(E, F).astype(np.float32))
+    results = []
+    for dev in (cuda, 'cpu'):
+        x = h.to(dev).requires_grad_()
+        y = c.to(dev).requires_grad_()
+        before = (nei_sum_edges.launches, take_src.backward_launches)
+        out = nei_sum_edges(x, e_table.to(dev), e_deg.to(dev),
+                            edst.to(dev), emask.to(dev))
+        taken = take_src(y, esrc.to(dev), o_table.to(dev), o_deg.to(dev))
+        ((out * g_n.to(dev)).sum() + (taken * g_e.to(dev)).sum()).backward()
+        if dev != 'cpu':
+            torch.cuda.synchronize()
+            assert (nei_sum_edges.launches, take_src.backward_launches) \
+                == (before[0] + 1, before[1] + 1)
+        results.append([t.detach().cpu() for t in (out, x.grad, taken,
+                                                   y.grad)])
+    for a, b in zip(*results):
+        assert _bits_equal(a, b.numpy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('K', [1, 10, 32])
 @pytest.mark.parametrize('F,aligned,float4', KERNEL_PATHS)
@@ -833,14 +934,15 @@ def test_graph_max_pool_backward_kernel_paths_match_plain_version(
 @pytest.mark.cuda
 def test_kernels_match_plain_version_on_non_finite_values(cuda):
     """K1, K2 and K3, forward and backward, on both paths, at NaN,
-    infinities, signed zeros and values at and below NEG, and P1 at +inf,
-    NaN, -inf and overflowing logits on its three paths, H 1 and 3
-    (chip_smoke's phase 3 cases): equal to the plain versions, NaN where
-    NaN, signs of zeros equal."""
+    infinities, signed zeros and values at and below NEG, K1 also from
+    edge rows through an edge-id table, and P1 at +inf, NaN, -inf and
+    overflowing logits on its three paths, H 1 and 3 (chip_smoke's phase 3
+    cases): equal to the plain versions, NaN where NaN, signs of zeros
+    equal."""
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     from chip_smoke import non_finite_cases
     results = non_finite_cases(np.random.RandomState(0), cuda)
-    assert len(results) == 10
+    assert len(results) == 14
     assert all(all(r['checks'].values()) for r in results)
     assert all(r['nan_outputs'] > 0 for r in results)
 

@@ -50,6 +50,7 @@ from deepchem_tpu_torch.ops import (NEG, build_neighbor_table,
                                     nei_max_incl_self, nei_sum,
                                     node_degrees, segment_max,
                                     segment_max_sumgrad, segment_mean)
+from deepchem_tpu_torch.trans import Transformer
 
 torch.set_num_threads(1)
 
@@ -660,11 +661,14 @@ def test_fit_on_device_follows_the_jax_losses(data):
 
 
 def test_evaluate_raises_on_a_label_transformer(data):
+    """A transformer of the labels that cannot undo itself raises, as the
+    JAX package's base ``Transformer`` does."""
     ds, _ = data
     model = GraphConvModel(device='cpu', **SMALL)
 
-    class Scale:
-        transform_y = True
+    class Scale(Transformer):
+        def __init__(self):
+            super().__init__(transform_y=True)
     with pytest.raises(NotImplementedError):
         model.evaluate(ds, [Metric(roc_auc_score)], [Scale()])
 
