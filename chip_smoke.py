@@ -27,16 +27,25 @@ Phases:
                 K1 also from MPNN's edge rows into its nodes, through the
                 incoming-edge table (nei_sum_edges) and the outgoing one
                 (take_src's backward) of phase 12's first batch, and P1
-                and P3 at that batch's set2set readout;
+                and P3 at that batch's set2set readout; K1 at GCN's F 30
+                and 64 and from DMPNN's [4096, 300] edge rows, and K4
+                nei_gather (forward, and its backward on K1 through the
+                reverse-slot rows) at GAT's C 8 and 64 and AttentiveFP's
+                C 200, at the inputs phase 13's and 14's first batch of
+                100 hands them, with the library call (index_select times
+                the mask, and its autograd backward);
                 every path of the two-path kernels (float4 rows, one float
-                a lane; K3's backward too) launched.  Then K1-K3 at
+                a lane; K3's backward and K4 too) launched.  Then K1-K3 at
                 values the model never hands them (NaN, infinities,
                 signed zeros, values at and below NEG; K1 also from 2400
                 edge rows into 1000 nodes), each path, held
                 for exact equality with the plain versions, NaN where NaN
                 and signs of zeros equal, and P1 at +inf, NaN, -inf and
                 overflowing logits on each of its paths, NaN where the
-                plain version gives NaN.
+                plain version gives NaN; K4 forward and backward at C 1,
+                8, 64, 200 and 75 and off alignment, and K1 at F 30 and
+                300, at NaN, infinities and signed zeros, held the same
+                way.
                 Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
@@ -110,7 +119,29 @@ Phases:
                 are held against the CPU, a fixed batch must overfit, and
                 evaluate's pearson r2, RMS and MAE through the transformer
                 are held against the CPU.
- 13. kernels -- one JSON line with each kernel's numbers.
+ 13. gnn     -- GCNModel (layers 64, 64), GATModel (layers 8, 8 of 8
+                heads) and AttentiveFPModel (2 layers of 200) at the JAX
+                package's defaults (batch 100, predictor 128, one
+                regression task), seeded random weights, on the 48 SMILES
+                featurized by MolGraphConvFeaturizer and shuffled to 300
+                with seeded normal labels, each: predict_on_batch answers
+                requests of 1, 16 and 31 and predict scores the 300 (held
+                against the CPU), 100 requests of 16 are timed (median,
+                p90); fit trains 3 epochs (the step time over the last 2;
+                launches a batch and a step counted: GCN K1 2 forward + 1
+                backward, GAT and AttentiveFP K4 4 forward + K1 4 in its
+                backward, P3 2 for the mean readout or 1 for the sum),
+                step-1 gradients are held against the CPU, a fixed batch
+                must overfit, evaluate's pearson r2, RMS and MAE are held
+                against the CPU, and the card's busy µs and kernels of a
+                request of 16 and of a step are read.
+ 14. dmpnn   -- DMPNNModel at the JAX package's defaults (133 atom and 14
+                bond features, hidden 300, depth 3, FFN 300 x 3, batch
+                100, one regression task) on the 48 SMILES and 6 with
+                cis/trans marks featurized by DMPNNFeaturizer, shuffled to
+                300, as phase 13 (K1 3 a forward in nei_sum_edges, none in
+                its backward, a gather; P3 1).
+ 15. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -180,6 +211,15 @@ MPNN_MOLECULES = 300            # 3 batches of 100
 STEREO_SMILES = ['C/C=C/C', 'F/C=C\\F', 'O=C(O)/C=C/c1ccccc1',
                  'C/C=C\\C(=O)O', 'CC/C=C(/C)C1CCCC1', 'OC(=O)/C=C\\C(=O)O']
 EVAL_ATOL = 1e-6                # evaluate's regression scores, card vs CPU
+# graph_models.py:526-612 and dmpnn.py:94-121: GCN (layers 64, 64,
+# predictor 128), GAT (layers 8, 8 of 8 heads, predictor 128), AttentiveFP
+# (2 layers of 200) and DMPNN (hidden 300, depth 3, FFN 300 x 3) at the JAX
+# package's defaults, batch 100, one regression task
+GCN = dict(n_tasks=1, mode='regression')
+GAT = dict(n_tasks=1, mode='regression')
+ATTENTIVEFP = dict(n_tasks=1, mode='regression')
+DMPNN = dict(n_tasks=1, mode='regression')
+TABLE_MOLECULES = 300           # 3 batches of 100
 # scripts/bench_pallas_csr.py:76-78, (nodes, edges, features)
 P2_BENCH_SHAPES = [(2048, 4096, 64), (2048, 4096, 256),
                    (8192, 16384, 256), (8192, 16384, 512),
@@ -630,6 +670,140 @@ def nei_sum_case(name, h, table, deg):
     check(lib_err <= tol, f'{name}: K1 library error {lib_err} > {tol}')
     check(res['repeat_identical'], f'{name}: a K1 repeat differs')
     return res
+
+
+def library_nei_gather(x, table, mask):
+    """K4's forward as one library call, for comparison only: every slot's
+    row by ``index_select``, times the slot mask ``[N, K, 1]`` (float, made
+    outside the timing)."""
+    n, k = table.shape
+    return x.index_select(0, table.view(-1)).view(n, k, -1) * mask
+
+
+def nei_gather_cases(name, x, table, rev_slot, deg, g):
+    """K4's forward (``x`` ``[N, ...]`` flattened to ``[N, C]``) and its
+    backward (K1 of ``g`` ``[N, K, C]`` through the reverse-slot rows
+    ``table * K + rev_slot``) against their plain versions on the card,
+    bit for bit, and the library calls: ``index_select`` times the mask,
+    and that call's autograd backward.  One result for each."""
+    import torch
+    from deepchem_tpu_torch.ops import nei_table
+    n, k = table.shape
+    x = x.reshape(n, -1).contiguous()
+    C = x.shape[1]
+    g = g.reshape(n * k, C).contiguous()
+    rows = (table * k + rev_slot.to(table.dtype)).contiguous()
+
+    def fwd():
+        return nei_table._nei_gather_forward(x, table, deg)
+
+    def bwd():
+        return nei_table._nei_sum_forward(g, rows, deg, nei_table.nei_gather,
+                                          'backward_launches')
+
+    def plain_fwd():
+        return nei_table.nei_gather_reference(x, table, deg)
+
+    def plain_bwd():
+        return nei_table.nei_sum_reference(g, rows, deg)
+    out, again, grad, grad_again = fwd(), fwd(), bwd(), bwd()
+    torch.cuda.synchronize()
+    ref, ref_grad = plain_fwd(), plain_bwd()
+    real = nei_table.slot_mask(table, deg)
+    mask = real.to(x.dtype)[..., None]
+    x_lib = x.detach().clone().requires_grad_()
+    lib_out = library_nei_gather(x_lib, table, mask)
+    g3 = g.view(n, k, C)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, x_lib, g3, retain_graph=True)[0]
+    slots = int(real.sum())
+    rows_read = table.unique().numel()           # pad slots' rows included
+    fwd_ms, fwd_by = bound(4 * (rows_read * C + n * k + n * k * C) + n,
+                           n * k * C)
+    bwd_ms, bwd_by = bound(4 * (slots * C + slots + n * C) + n, slots * C)
+    res = []
+    for part, got, repeat, want, lib, kname, b_ms, b_by, fns in (
+            ('forward', out, again, ref, lib_out.detach(), 'nei_gather_kernel',
+             fwd_ms, fwd_by, (fwd, plain_fwd,
+                              lambda: library_nei_gather(x, table, mask))),
+            ('backward', grad, grad_again, ref_grad, lib_bwd(),
+             'nei_sum_kernel', bwd_ms, bwd_by, (bwd, plain_bwd, lib_bwd))):
+        r = {'kernel': f'nei_gather_{part}', 'case': name, 'N': n, 'K': k,
+             'C': C, 'slots': slots, 'max_abs_err': max_err(got, want),
+             'bit_identical': same_bits(got, want),
+             'repeat_identical': same_bits(repeat, got),
+             'library_err': max_err(lib, want), 'tol': sum_tol(want),
+             'bound_ms': b_ms, 'bound_by': b_by}
+        kernel_times(r, *fns[:2], kname, b_ms, fns[2])
+        print(f'phase 3 kernel {json.dumps(r)}', flush=True)
+        check(r['bit_identical'], f'{name}: K4 {part} differs from its plain '
+              'version')
+        check(r['repeat_identical'], f'{name}: a K4 {part} repeat differs')
+        check(r['library_err'] <= r['tol'], f'{name}: K4 {part} library '
+              f'error {r["library_err"]} > {r["tol"]}')
+        res.append(r)
+    return res
+
+
+def more_non_finite_cases(dev):
+    """K4's forward and backward on both kernel paths, and K1 at GCN's F 30
+    (square table) and DMPNN's F 300 (4096 edge rows into 2048 nodes), on
+    NaN, infinities and signed zeros, held for exact equality with the
+    plain versions (:func:`same_bits`), from a generator of their own.
+    Returns a result for each case."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch.ops import build_rev_slot, nei_table
+    rng = np.random.RandomState(13)
+    table, deg = random_table(rng, 1000, dev)
+    real = nei_table.slot_mask(table, deg)
+    rev = torch.from_numpy(build_rev_slot(
+        table.cpu().numpy(), real.cpu().numpy().astype(np.float32))).to(dev)
+    rows = table * 10 + rev.to(table.dtype)
+
+    def values(n, C):
+        a = rng.randn(n, C).astype(np.float32)
+        a[rng.rand(n, C) < 0.2] = -0.0
+        a[0, 0], a[0, -1] = np.inf, np.nan        # row 0: behind the pads
+        a[rng.rand(n) < 0.1, C // 2] = -np.inf
+        a[rng.rand(n) < 0.1, C - 1 - C // 3] = np.nan
+        return torch.from_numpy(a).to(dev)
+    results = []
+    for C, tag, place in ((1, '', lambda t: t), (8, '', lambda t: t),
+                          (64, '', lambda t: t), (200, '', lambda t: t),
+                          (75, '', lambda t: t), (64, '_misaligned',
+                                                  misaligned)):
+        x, g = values(1000, C), values(10000, C)
+        out = nei_table._nei_gather_forward(place(x), table, deg)
+        again = nei_table._nei_gather_forward(place(x), table, deg)
+        grad = nei_table._nei_sum_forward(place(g), rows, deg,
+                                          nei_table.nei_gather,
+                                          'backward_launches')
+        torch.cuda.synchronize()
+        results.append({'case': f'non_finite_gather_C{C}{tag}', 'checks': {
+            'nei_gather': same_bits(out, nei_table.nei_gather_reference(
+                x, table, deg)) and same_bits(again, out),
+            'nei_gather_bwd': same_bits(grad, nei_table.nei_sum_reference(
+                g, rows, deg))},
+            'nan_outputs': int(torch.isnan(out).sum()
+                               + torch.isnan(grad).sum())})
+    e_table, e_deg = random_edge_table(rng, 2048, 4096, dev)
+    for F, n, tab, dg in ((30, 1000, table, deg), (300, 4096, e_table, e_deg)):
+        h = values(n, F)
+        for tag, place in (('', lambda t: t), ('_misaligned', misaligned)):
+            out = nei_table._nei_sum_forward(place(h), tab, dg,
+                                             nei_table.nei_sum)
+            torch.cuda.synchronize()
+            results.append({'case': f'non_finite_sum_F{F}{tag}', 'checks': {
+                'nei_sum': same_bits(out, nei_table.nei_sum_reference(
+                    h, tab, dg))}, 'nan_outputs': int(torch.isnan(out).sum())})
+    for res in results:
+        print(f'phase 3 non-finite {json.dumps(res)}', flush=True)
+        for kname, ok in res['checks'].items():
+            check(ok, f'{res["case"]}: {kname} differs from its plain '
+                  'version')
+    return results
 
 
 def nei_max_cases(name, h, table, deg, g):
@@ -1301,8 +1475,9 @@ def _counted():
                                         flash_attention_bwd_dkv,
                                         flash_attention_bwd_dq,
                                         fused_gather_segment_sum,
-                                        graph_max_pool, nei_max_incl_self,
-                                        nei_sum, nei_sum_edges, take_src)
+                                        graph_max_pool, nei_gather,
+                                        nei_max_incl_self, nei_sum,
+                                        nei_sum_edges, take_src)
     return {'csr_segment_softmax': (csr_segment_softmax, 'launches'),
             'csr_segment_sum': (csr_segment_sum, 'launches'),
             'fused_gather_segment_sum': (fused_gather_segment_sum,
@@ -1314,6 +1489,8 @@ def _counted():
             'nei_sum_bwd': (nei_sum, 'backward_launches'),
             'nei_sum_edges': (nei_sum_edges, 'launches'),
             'take_src_bwd': (take_src, 'backward_launches'),
+            'nei_gather': (nei_gather, 'launches'),
+            'nei_gather_bwd': (nei_gather, 'backward_launches'),
             'nei_max_fwd': (nei_max_incl_self, 'launches'),
             'nei_max_bwd': (nei_max_incl_self, 'backward_launches'),
             'graph_max_pool_fwd': (graph_max_pool, 'launches'),
@@ -1362,6 +1539,19 @@ def mpnn_data():
     return X[order], labels.astype(np.float32)
 
 
+def table_data(featurizer, smiles):
+    """``smiles`` featurized by ``featurizer``, repeated and shuffled from a
+    seed to TABLE_MOLECULES, with seeded normal labels."""
+    import numpy as np
+    X = featurizer.featurize(smiles)
+    check(all(hasattr(g, 'num_nodes') for g in X),
+          f'every molecule featurizes with {type(featurizer).__name__}')
+    order = np.random.RandomState(0).permutation(
+        np.resize(np.arange(len(smiles)), TABLE_MOLECULES))
+    labels = np.random.RandomState(1).randn(TABLE_MOLECULES, 1)
+    return X[order], labels.astype(np.float32)
+
+
 def step1_grads(store):
     """A fit callback that keeps a copy of every gradient after step 1."""
     def grab(model, step):
@@ -1369,6 +1559,165 @@ def step1_grads(store):
             store.update({n: p.grad.detach().cpu().clone()
                           for n, p in model.module.named_parameters()})
     return grab
+
+
+def table_model_phase(phase, tag, make, X, y, per_batch, per_step, smi):
+    """Serves, trains and scores one regression model of the table paths
+    on the card, each held against the CPU: requests of REQUESTS molecules
+    (CPU_ATOL), ``predict`` over ``X`` (CPU_ATOL), LATENCY_REQUESTS timed
+    requests of 16 (median, p90), 3 ``fit`` epochs (the step time over
+    the last 2), the kernel launches of a forward batch (``per_batch``) and
+    of a step (``per_step``), step-1 gradients (GRAD_ATOL of max(1, |g|)),
+    a fixed batch that must overfit, ``evaluate``'s pearson r2, RMS and
+    MAE (EVAL_ATOL); then the card's busy µs and kernels of a request of
+    16 and of a training step (profiler, after every host timing).
+    ``make(device, seed, **kw)`` builds the model.  Returns the launches
+    of the serve and train runs and the numbers."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch import (Metric, NumpyDataset, mae_score,
+                                    pearson_r2_score, rms_score)
+    head = f'phase {phase} {tag}'
+    model = make(torch.device('cuda', 0), 0)
+    B = model.batch_size
+    ds = NumpyDataset(X, y)
+    model.predict_on_batch(X[:16])                       # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, request_ms, start = [], [], 0
+    for n in REQUESTS:
+        t0 = time.perf_counter()
+        outs.append(model.predict_on_batch(X[start:start + n]))
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        start += n
+    serve = launch_counts()
+    cpu = make('cpu', 0)
+    cpu.module.load_state_dict(
+        {k: v.cpu() for k, v in model.module.state_dict().items()})
+    worst, start = 0.0, 0
+    for n, out in zip(REQUESTS, outs):
+        check(out.shape == (n, 1) and bool(np.isfinite(out).all()),
+              f'{tag} output [{n}, 1], finite')
+        ref = cpu.predict_on_batch(X[start:start + n])
+        worst = max(worst, float(np.abs(out - ref).max()))
+        start += n
+    print(f'{head} serve ({smi}): requests {list(REQUESTS)} molecules, ms '
+          f'per request {[round(t, 3) for t in request_ms]}; max abs diff '
+          f'against the CPU run {worst:.3g}; launches {serve}', flush=True)
+    check(worst <= CPU_ATOL, f'{tag} card vs CPU {worst} > {CPU_ATOL}')
+    for k, v in serve.items():
+        want = per_batch.get(k, 0) * len(REQUESTS)
+        check(v == want, f'{tag} serve: {k} launched {v} times, not {want}')
+    t0 = time.perf_counter()
+    every = model.predict(ds)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    predict_err = float(np.abs(every - cpu.predict(ds)).max())
+    check(every.shape == (len(X), 1) and bool(np.isfinite(every).all())
+          and predict_err <= CPU_ATOL,
+          f'{tag} predict over {len(X)}: finite, within {CPU_ATOL} of the '
+          f'CPU ({predict_err})')
+    latency = []
+    for i in range(LATENCY_REQUESTS):
+        lo = (16 * i) % (len(X) - 16)
+        t0 = time.perf_counter()
+        model.predict_on_batch(X[lo:lo + 16])
+        latency.append((time.perf_counter() - t0) * 1e3)
+    p50, p90 = (float(v) for v in np.percentile(latency, [50, 90]))
+    print(f'{head} serve ({smi}): predict over {len(X)} molecules in '
+          f'{predict_ms:.3f} ms, within {predict_err:.3g} of the CPU; '
+          f'{LATENCY_REQUESTS} requests of 16 molecules: median {p50:.3f} '
+          f'ms, p90 {p90:.3f} ms', flush=True)
+
+    # training: fit, 3 epochs
+    S = -(-len(X) // B)
+    trainer = make(torch.device('cuda', 0), 1, log_frequency=S)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    epoch_losses = []
+    trainer.fit(ds, nb_epoch=1, checkpoint_interval=0,
+                all_losses=epoch_losses)          # packs, warms up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(ds, nb_epoch=2, checkpoint_interval=0,
+                all_losses=epoch_losses)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (2 * S)
+    train = launch_counts()
+    steps = trainer.get_global_step()
+    print(f'{head} train ({smi}): fit, {steps} steps of {B} molecules, '
+          f'{step_ms:.3f} ms a step over the last 2 epochs; loss per epoch '
+          f'{[round(v, 5) for v in epoch_losses]}; launches {train}',
+          flush=True)
+    check(steps == 3 * S and len(epoch_losses) == 3
+          and bool(np.all(np.isfinite(epoch_losses))),
+          f'{tag}: {3 * S} steps, 3 finite epoch losses')
+    for k, v in train.items():
+        want = per_step.get(k, 0) * steps
+        check(v == want, f'{tag} train: {k} launched {v} times, not {want}')
+
+    # step-1 gradients, card against CPU, from the same weights
+    grads = []
+    for device in (torch.device('cuda', 0), 'cpu'):
+        m = make(device, 0, log_frequency=1)
+        m.module.load_state_dict({k: v.to(device) for k, v in
+                                  model.module.state_dict().items()})
+        grads.append({})
+        m.fit(NumpyDataset(X[:B], y[:B]), nb_epoch=1, checkpoint_interval=0,
+              callbacks=step1_grads(grads[-1]))
+    grad_err = max(scaled_err(grads[0][n], g) for n, g in grads[1].items())
+    zero = [n for n, g in grads[0].items() if not g.abs().max() > 0]
+    print(f'{head} train: step-1 gradients, card against CPU, max abs '
+          f'diff over max(1, |g|) {grad_err:.3g} over {len(grads[1])} '
+          f'parameters; zero gradients: {zero}', flush=True)
+    check(grad_err <= GRAD_ATOL, f'{tag} step-1 gradients {grad_err} > '
+          f'{GRAD_ATOL} of max(1, |g|)')
+    check(not zero, f'{tag}: every parameter gets a gradient; zero: {zero}')
+    del grads
+    overfit = make(torch.device('cuda', 0), 2, log_frequency=1)
+    fixed = []
+    overfit.fit(NumpyDataset(X[:B], y[:B]), nb_epoch=50,
+                checkpoint_interval=0, all_losses=fixed)
+    below = next((i + 1 for i, v in enumerate(fixed) if v < 0.9 * fixed[0]),
+                 None)
+    print(f'{head} train: one fixed batch of {B}, lr 0.001: loss '
+          f'{fixed[0]:.5f} at step 1, {min(fixed):.5f} at best, below 0.9 '
+          f'of the first at step {below}', flush=True)
+    check(below is not None, f'{tag}: the loss falls below 0.9 of its first '
+          'value within 50 steps')
+    del overfit
+
+    # scoring
+    metrics = [Metric(pearson_r2_score), Metric(rms_score),
+               Metric(mae_score)]
+    cpu.module.load_state_dict(
+        {k: v.cpu() for k, v in trainer.module.state_dict().items()})
+    t0 = time.perf_counter()
+    scores = trainer.evaluate(ds, metrics)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    cpu_scores = cpu.evaluate(ds, metrics)
+    eval_err = max(abs(scores[k] - cpu_scores[k]) for k in cpu_scores)
+    print(f'{head} evaluate ({smi}): {json.dumps(scores)} on the card in '
+          f'{eval_ms:.3f} ms, {json.dumps(cpu_scores)} on the CPU',
+          flush=True)
+    check(set(scores) == set(cpu_scores) and eval_err <= EVAL_ATOL
+          and all(np.isfinite(v) for v in scores.values()),
+          f'{tag} evaluate finite and within {EVAL_ATOL} of the CPU '
+          f'({eval_err})')
+
+    # the card's busy time: every kernel, memset and copy of a call
+    serve_us, serve_kernels = device_us_all(
+        lambda: model.predict_on_batch(X[:16]))
+    w = np.ones_like(y[:B])
+    step_us, step_kernels = device_us_all(
+        lambda: trainer.fit_on_batch(X[:B], y[:B], w))
+    numbers = {'request16_median_ms': p50, 'request16_p90_ms': p90,
+               'step_ms': step_ms, 'request16_device_us': serve_us,
+               'request16_device_kernels': serve_kernels,
+               'step_device_us': step_us, 'step_device_kernels': step_kernels,
+               'max_request_err': worst, 'step1_grad_err': grad_err,
+               'eval_err': eval_err}
+    print(f'{head} card: {json.dumps(numbers)}', flush=True)
+    return serve, train, numbers
 
 
 def main() -> int:
@@ -1405,7 +1754,7 @@ def main() -> int:
         build.load(kname)
     print(f'phase 2 build: {len(build.kernel_names())} kernel(s) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    check(len(build.kernel_names()) == 6, 'six kernel sources to build')
+    check(len(build.kernel_names()) == 7, 'seven kernel sources to build')
     for kname in build.kernel_names():
         ptxas = [ln.strip() for ln in build.build_log(kname).splitlines()
                  if 'registers' in ln or 'spill' in ln]
@@ -1413,7 +1762,7 @@ def main() -> int:
     # ptxas reports a wgmma it had to serialise only as an info line
     check('C7512' not in build.build_log('flash_attention'),
           'ptxas serialised no wgmma of the bf16 flash kernels (C7512)')
-    for kname in ('nei_table', 'graph_pool'):
+    for kname in ('nei_table', 'graph_pool', 'nei_gather'):
         spills = [int(n) for n in re.findall(
             r'(\d+) bytes spill (?:stores|loads)', build.build_log(kname))]
         check(spills and not any(spills),
@@ -1426,9 +1775,10 @@ def main() -> int:
     from deepchem_tpu_torch.ops import (NEG, csr_segment, csr_segment_softmax,
                                         flash_attention,
                                         fused_gather_segment_sum,
-                                        graph_max_pool, nei_max_incl_self,
-                                        nei_sum, segment)
-    from deepchem_tpu_torch.ops.nei_table import float4_launches
+                                        graph_max_pool, nei_gather,
+                                        nei_max_incl_self, nei_sum, segment)
+    from deepchem_tpu_torch.ops.nei_table import (float4_launches,
+                                                  nei_gather_float4_launches)
     from deepchem_tpu_torch.ops.segment import graph_max_pool_float4_launches
     t0 = time.perf_counter()
     X = PagtnMolGraphFeaturizer().featurize(SMILES)
@@ -1695,6 +2045,62 @@ def main() -> int:
         check(0 < float4 < total,
               f'{kname} launched both kernel paths: {float4} float4, '
               f'{total - float4} one float a lane')
+    # K1 in GCN's layers (F 30 and 64) and DMPNN's edge sums (F 300 from
+    # 4096 edge rows), K4 in GAT's (C 8 and 64) and AttentiveFP's (C 200)
+    # layers, at the inputs each model hands them in phase 13's and 14's
+    # first batch of 100
+    from deepchem_tpu_torch import (AttentiveFPModel, DMPNNFeaturizer,
+                                    DMPNNModel, GATModel, GCNModel,
+                                    MolGraphConvFeaturizer)
+    from deepchem_tpu_torch.models import dmpnn as dmpnn_module
+    gnn_X, gnn_y = table_data(MolGraphConvFeaturizer(), SMILES)
+    dm_X, dm_y = table_data(DMPNNFeaturizer(), SMILES + STEREO_SMILES)
+    gnn_makers = {
+        'gcn': lambda d, seed, **kw: GCNModel(**GCN, device=d, seed=seed,
+                                              **kw),
+        'gat': lambda d, seed, **kw: GATModel(**GAT, device=d, seed=seed,
+                                              **kw),
+        'attentivefp': lambda d, seed, **kw: AttentiveFPModel(
+            **ATTENTIVEFP, device=d, seed=seed, **kw)}
+
+    def dm_make(d, seed, **kw):
+        return DMPNNModel(**DMPNN, device=d, seed=seed, **kw)
+    gnn_models = {k: make(dev, 0) for k, make in gnn_makers.items()}
+    dm_model = dm_make(dev, 0)
+    B = dm_model.batch_size
+    gcn_sum_in = recorded(graph_layers, 'nei_sum', lambda: gnn_models[
+        'gcn'].predict_on_batch(gnn_X[:B]))
+    dm_sum_in = recorded(dmpnn_module, 'nei_sum_edges',
+                         lambda: dm_model.predict_on_batch(dm_X[:B]))
+    gather_in = {k: recorded(graph_layers, 'nei_gather', lambda: gnn_models[
+        k].predict_on_batch(gnn_X[:B])) for k in ('gat', 'attentivefp')}
+    check([a[0].shape[1] for a in gcn_sum_in] == [30, 64],
+          'GCN: K1 at F 30 and 64')
+    check([tuple(a[0].shape[1:]) for a in dm_sum_in] == [(300,)] * 3
+          and dm_sum_in[0][0].shape[0] != dm_sum_in[0][1].shape[0],
+          'DMPNN: K1 from [E, 300] edge rows into N nodes, 3 a forward')
+    check([tuple(a[0].shape[1:]) for a in gather_in['gat']]
+          == [(8,), (8, 8)] * 2
+          and [tuple(a[0].shape[1:]) for a in gather_in['attentivefp']]
+          == [(200,)] * 4, "K4 at GAT's C 8 and 8 x 8, AttentiveFP's C 200")
+    new_k1_cases = [nei_sum_case(f'gcn_batch100_layer{i}', *a[:3])
+                    for i, a in enumerate(gcn_sum_in)] + [
+        nei_sum_case('dmpnn_batch100_nei_sum_edges', *dm_sum_in[0][:3])]
+    gather_before = (nei_gather.launches, nei_gather_float4_launches())
+    k4_cases = [
+        nei_gather_cases(f'{k}_batch100_layer0_{part}', *a, torch.randn(
+            tuple(a[1].shape) + tuple(a[0].shape[1:]), generator=gen,
+            device=dev))
+        for k, part, a in (('gat', 'e_src', gather_in['gat'][0]),
+                           ('gat', 'z', gather_in['gat'][1]),
+                           ('attentivefp', 'z', gather_in['attentivefp'][0]))]
+    more_non_finite_cases(dev)
+    total = nei_gather.launches - gather_before[0]
+    float4 = nei_gather_float4_launches() - gather_before[1]
+    print(f'phase 3 K4 paths: {float4} float4 launches, {total - float4} '
+          f'one float a lane', flush=True)
+    check(0 < float4 < total, f'K4 launched both kernel paths: {float4} '
+          f'float4, {total - float4} one float a lane')
 
     # -- 4. serve ---------------------------------------------------------
     model.predict_on_batch(X[1:17])             # warm-up: cuBLAS, allocator
@@ -2299,7 +2705,31 @@ def main() -> int:
           f'evaluate finite and within {EVAL_ATOL} of the CPU ({eval_err})')
     del cpu_mp, trainer
 
-    # -- 13. kernels line -------------------------------------------------
+    # -- 13. GCN, GAT and AttentiveFP at the JAX package's defaults ------
+    # per batch of the forward: GCN K1 once a layer, GAT and AttentiveFP K4
+    # twice a layer; P3 once for the sum readout, twice for the mean (the
+    # node counts); a step adds K1 in K4's backward, and GCN's K1 backward
+    # in its second layer (the first reads the atoms, which need none)
+    table_runs = {}
+    for k, per_batch in (('gcn', {'nei_sum': 2, 'csr_segment_sum': 2}),
+                         ('gat', {'nei_gather': 4, 'csr_segment_sum': 2}),
+                         ('attentivefp', {'nei_gather': 4,
+                                          'csr_segment_sum': 1})):
+        per_step = dict(per_batch, **({'nei_sum_bwd': 1} if k == 'gcn'
+                                      else {'nei_gather_bwd': 4}))
+        table_runs[k] = table_model_phase(13, k, gnn_makers[k], gnn_X, gnn_y,
+                                          per_batch, per_step, smi)
+    del gnn_models
+
+    # -- 14. DMPNN at the JAX package's defaults --------------------------
+    # K1 once a round and once after, P3 once; nei_sum_edges' backward is
+    # a gather
+    per_batch = {'nei_sum_edges': 3, 'csr_segment_sum': 1}
+    table_runs['dmpnn'] = table_model_phase(14, 'dmpnn', dm_make, dm_X, dm_y,
+                                            per_batch, per_batch, smi)
+    del dm_model
+
+    # -- 15. kernels line -------------------------------------------------
     def entry(kname, cases, main_case, path_launches, source=None, **extra):
         return {'name': kname, 'route': 'cuda',
                 'source': source or f'deepchem_tpu_torch/csrc/{kname}.cu',
@@ -2324,13 +2754,19 @@ def main() -> int:
                                   't[seg]), t from csr_segment_sum (cuda)',
                          'max_abs_err': max(c['max_abs_err']
                                             for c in backward_cases)})
+    def table_paths(key):
+        return {f'{m}_{run}': counts[key] for m, (srv, trn, _) in
+                table_runs.items() for run, counts in (('serve', srv),
+                                                       ('train', trn))
+                if counts[key]}
     p3 = entry('csr_segment_sum', sum_cases, sum_cases[0],
                {'serve': serve['csr_segment_sum'],
                 'train': train['csr_segment_sum'],
                 'graphconv_serve': gc_serve['csr_segment_sum'],
                 'graphconv_train': gc_train['csr_segment_sum'],
                 'mpnn_serve': mp_serve['csr_segment_sum'],
-                'mpnn_train': mp_train['csr_segment_sum']},
+                'mpnn_train': mp_train['csr_segment_sum'],
+                **table_paths('csr_segment_sum')},
                replaces='deepchem_tpu/ops/pallas_segment.py:45')
     # P2 has no model path: its row is its widest bench shape
     p2 = entry('fused_gather_segment_sum', gather_cases,
@@ -2365,23 +2801,55 @@ def main() -> int:
     xla_op = 'a custom-VJP XLA op, no Pallas kernel'
     fwd_max = [c[0] for c in max_cases]
     bwd_max = [c[1] for c in max_cases]
-    # K1's MPNN shape: nei_sum_edges over the incoming-edge table
-    mp_k1 = mp_nei_cases[0]
-    k1 = entry('nei_sum', nei_cases, nei_cases[0],
+    # K1's MPNN shape: nei_sum_edges over the incoming-edge table; GCN's
+    # layer 0 (F 30) and DMPNN's F 300 edge rows
+    k1_keys = ('N', 'R', 'F', 'slots', 'ms', 'device_us', 'plain_ms',
+               'bound_ms', 'bound_by', 'library_ms', 'library_device_us',
+               'max_abs_err')
+    k1 = entry('nei_sum', nei_cases + new_k1_cases, nei_cases[0],
                {'graphconv_serve': gc_serve['nei_sum'],
                 'graphconv_train': gc_train['nei_sum']
                 + gc_train['nei_sum_bwd'],
                 'mpnn_serve': mp_serve['nei_sum_edges'],
                 'mpnn_train': mp_train['nei_sum_edges']
-                + mp_train['take_src_bwd']},
+                + mp_train['take_src_bwd'],
+                **{f'{path}_nei_sum': n
+                   for path, n in table_paths('nei_sum').items()},
+                **{f'{path}_nei_sum_bwd': n
+                   for path, n in table_paths('nei_sum_bwd').items()},
+                **{f'{path}_nei_sum_edges': n
+                   for path, n in table_paths('nei_sum_edges').items()},
+                **{f'{path}_nei_gather_bwd': n
+                   for path, n in table_paths('nei_gather_bwd').items()}},
                source='deepchem_tpu_torch/csrc/nei_table.cu',
                replaces=f'deepchem_tpu/ops/nei_table.py:85 (nei_sum and '
                         f'its backward, _slot_sum :75; also nei_sum_edges '
-                        f':214 and take_src\'s backward :258; {xla_op})',
-               mpnn={k: mp_k1[k] for k in (
-                   'N', 'R', 'F', 'slots', 'ms', 'device_us', 'plain_ms',
-                   'bound_ms', 'bound_by', 'library_ms', 'library_device_us',
-                   'max_abs_err')})
+                        f':214, take_src\'s backward :258 and '
+                        f'_nei_gather_bwd :194; {xla_op})',
+               mpnn={k: mp_nei_cases[0][k] for k in k1_keys},
+               gcn={k: new_k1_cases[0][k] for k in k1_keys},
+               dmpnn={k: new_k1_cases[-1][k] for k in k1_keys})
+    # K4: main case AttentiveFP's C 200; its backward is K1's kernel
+    k4_fwd = [c[0] for c in k4_cases]
+    k4_bwd = [c[1] for c in k4_cases]
+    k4 = entry('nei_gather', k4_fwd, k4_fwd[-1], table_paths('nei_gather'),
+               replaces=f'deepchem_tpu/ops/nei_table.py:171 (nei_gather '
+                        f'forward; backward _nei_gather_bwd :194 on K1; '
+                        f'{xla_op})',
+               backward={
+                   'route': 'cuda, deepchem_tpu_torch/csrc/nei_table.cu '
+                            'nei_sum_kernel (K1) over the rows table * K + '
+                            'rev_slot',
+                   'launches_by_path': table_paths('nei_gather_bwd'),
+                   **{k: k4_bwd[-1][k] for k in (
+                       'ms', 'device_us', 'plain_ms', 'bound_ms', 'bound_by',
+                       'library_ms', 'library_device_us')},
+                   'max_abs_err': max(c['max_abs_err'] for c in k4_bwd)},
+               shapes={f"{c['kernel']} {c['case']}": {k: c[k] for k in (
+                   'C', 'device_us', 'bound_ms', 'library_device_us')}
+                   for c in k4_fwd + k4_bwd},
+               models={m: numbers for m, (_, _, numbers) in
+                       table_runs.items()})
     k2 = (entry('nei_max_fwd', fwd_max, fwd_max[0], gc_paths('nei_max_fwd'),
                 source='deepchem_tpu_torch/csrc/nei_table.cu',
                 replaces=f'deepchem_tpu/ops/nei_table.py:104 '
@@ -2405,8 +2873,9 @@ def main() -> int:
                            'bound_by', 'library_ms')}
         | {k: v for k, v in e.items() if k in (
             'device_us', 'launches_by_path', 'backward', 'library_device_us',
-            'backward_device_us', 'float32', 'mpnn')}
-        for e in (p1, p3, p2) + p4 + (k1,) + k2 + k3]}), flush=True)
+            'backward_device_us', 'float32', 'mpnn', 'gcn', 'dmpnn',
+            'shapes', 'models')}
+        for e in (p1, p3, p2) + p4 + (k1,) + k2 + k3 + (k4,)]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

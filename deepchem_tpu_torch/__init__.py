@@ -7,16 +7,19 @@ the caller passes ``device='cpu'``.
 """
 
 from deepchem_tpu_torch.data import NumpyDataset
-from deepchem_tpu_torch.feat import (ConvMolFeaturizer,
+from deepchem_tpu_torch.feat import (ConvMolFeaturizer, DMPNNFeaturizer,
                                      MolGraphConvFeaturizer,
                                      PagtnMolGraphFeaturizer, SmilesTokenizer)
 from deepchem_tpu_torch.metrics import (Metric, mae_score, pearson_r2_score,
                                         rms_score, roc_auc_score)
-from deepchem_tpu_torch.models import (BertEncoderMLM, GraphConvModel,
-                                       MPNNModel, PagtnModel)
+from deepchem_tpu_torch.models import (AttentiveFPModel, BertEncoderMLM,
+                                       DMPNNModel, GATModel, GCNModel,
+                                       GraphConvModel, MPNNModel, PagtnModel)
 from deepchem_tpu_torch.trans import NormalizationTransformer
 
-__all__ = ['BertEncoderMLM', 'ConvMolFeaturizer', 'GraphConvModel', 'Metric',
+__all__ = ['AttentiveFPModel', 'BertEncoderMLM', 'ConvMolFeaturizer',
+           'DMPNNFeaturizer', 'DMPNNModel', 'GATModel', 'GCNModel',
+           'GraphConvModel', 'Metric',
            'MolGraphConvFeaturizer', 'MPNNModel', 'NormalizationTransformer',
            'NumpyDataset', 'PagtnMolGraphFeaturizer', 'PagtnModel',
            'SmilesTokenizer', 'mae_score', 'pearson_r2_score', 'rms_score',

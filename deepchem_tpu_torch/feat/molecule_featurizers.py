@@ -178,3 +178,67 @@ class MolGraphConvFeaturizer(MolecularFeaturizer):
             ef = np.asarray(bond_feats, dtype=np.float32).reshape(
                 ei.shape[1], 11)
         return GraphData(np.asarray(atom_feats, dtype=np.float32), ei, ef)
+
+
+class DMPNNFeaturizer(MolecularFeaturizer):
+    """Chemprop's D-MPNN featurization: 133 atom and 14 bond features, for
+    :class:`DMPNNModel`.
+
+    Atom, each one-hot with a trailing unknown slot: atomic number over
+    the first 100 elements (101), degree 0-5 (7), formal charge -1, -2, 1,
+    2, 0 (6), chirality none, ``@``, ``@@``, other (5), total hydrogens 0-4
+    (6), hybridization SP, SP2, SP3, SP3D, SP3D2 (6), aromatic (1), mass
+    times 0.01 (1).  Bond: a null-bond flag (0), type single, double,
+    triple, aromatic (4), conjugated (1), in a ring (1), the first six of
+    the stereo one-hot and a 0 (7).  Edges come in ``(u -> v, v -> u)``
+    adjacent pairs, so the reverse of edge ``e`` is ``e ^ 1``.
+
+    ``features_generators=['morgan']`` (a Morgan count vector as global
+    features) is not ported yet and raises.
+    """
+
+    def __init__(self, features_generators: Optional[List[str]] = None,
+                 is_adding_hs: bool = False):
+        if is_adding_hs:
+            raise NotImplementedError(
+                'explicit-H featurization not supported')
+        if features_generators:
+            raise NotImplementedError(
+                f'features generators {features_generators} are not ported '
+                '(the Morgan fingerprints of chem/fingerprints.py)')
+        self.features_generators = features_generators
+
+    @staticmethod
+    def _atom_features(a) -> List[float]:
+        f = fu.one_hot_encode(a.atomic_num, list(range(1, 101)), True)
+        f += fu.one_hot_encode(a.degree, [0, 1, 2, 3, 4, 5], True)
+        f += fu.one_hot_encode(a.formal_charge, [-1, -2, 1, 2, 0], True)
+        chir = {'': 0, '@': 1, '@@': 2}.get(a.chirality, 3)
+        f += fu.one_hot_encode(chir, [0, 1, 2, 3], True)
+        f += fu.one_hot_encode(a.total_hs, [0, 1, 2, 3, 4], True)
+        f += fu.one_hot_encode(a.hybridization,
+                               ['SP', 'SP2', 'SP3', 'SP3D', 'SP3D2'], True)
+        f += fu.get_atom_is_in_aromatic_one_hot(a)
+        f += [a.mass * 0.01]
+        return f
+
+    @staticmethod
+    def _bond_features(b) -> List[float]:
+        return ([0.0] + fu.get_bond_type_one_hot(b)
+                + fu.get_bond_is_conjugated_one_hot(b)
+                + fu.get_bond_is_in_same_ring_one_hot(b)
+                + fu.get_bond_stereo_one_hot(b)[:6] + [0.0])
+
+    def _featurize(self, mol: Molecule) -> GraphData:
+        atom_feats = np.asarray([self._atom_features(a) for a in mol.atoms],
+                                dtype=np.float32)
+        src, dst, bond_feats = [], [], []
+        for b in mol.bonds:
+            bf = self._bond_features(b)
+            src += [b.a1, b.a2]
+            dst += [b.a2, b.a1]
+            bond_feats += [bf, bf]
+        ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
+        ef = np.asarray(bond_feats, dtype=np.float32).reshape(
+            ei.shape[1], 14)
+        return GraphData(atom_feats, ei, ef)

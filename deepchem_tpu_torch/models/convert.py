@@ -1,7 +1,8 @@
 """Load flax parameters, flattened to ``{'params/<scope>/<name>': array}``
 (the JAX package's ``jax_model._flatten_params``), into the port's
-modules: the PAGTN, GraphConv and MPNN modules (:func:`params_from_flax`)
-and the encoder (:func:`encoder_params_from_flax`)."""
+modules: the PAGTN, GraphConv, GCN, GAT, AttentiveFP, MPNN and DMPNN
+modules (:func:`params_from_flax`) and the encoder
+(:func:`encoder_params_from_flax`)."""
 
 from __future__ import annotations
 
@@ -16,13 +17,15 @@ from torch import nn
 # in ``flax_scopes``
 _SCOPES = {'Dense_0': 'readout', 'Dense_1': 'head'}
 # numbered flax scopes -> the port's module lists
-_LISTS = [(re.compile(r'pagtn_(\d+)$'), 'layers'),
+_LAYER = r'(?:pagtn|GCNLayer|GATLayer|AttentiveFPLayer)'
+_LISTS = [(re.compile(_LAYER + r'_(\d+)$'), 'layers'),
           (re.compile(r'GraphConv_(\d+)$'), 'convs'),
           (re.compile(r'MaskedBatchNorm_(\d+)$'), 'norms')]
 # flax leaf -> torch leaf: Dense kernels (transposed) and biases, GraphConv's
-# per-degree weights, MaskedBatchNorm's scale
+# per-degree weights, MaskedBatchNorm's scale, GATLayer's attention vectors
 _LEAVES = {'kernel': 'weight', 'bias': 'bias', 'W_self': 'W_self',
-           'W_nbr': 'W_nbr', 'b': 'b', 'scale': 'scale'}
+           'W_nbr': 'W_nbr', 'b': 'b', 'scale': 'scale', 'a_src': 'a_src',
+           'a_dst': 'a_dst'}
 
 
 def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES) -> str:
@@ -30,7 +33,7 @@ def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES) -> str:
     ``scopes`` names for its path (``'A_0/Dense_1'``) or, failing that,
     for the scope alone, or a numbered list entry."""
     parts = key.split('/')
-    if len(parts) < 3 or parts[0] != 'params' \
+    if len(parts) < 2 or parts[0] != 'params' \
             or parts[-1] not in _LEAVES:
         raise KeyError(f'not a flax graph-model parameter: {key!r}')
     names = []
@@ -108,17 +111,19 @@ def _tensor(key: str, value) -> torch.Tensor:
 
 def params_from_flax(flat: Dict[str, np.ndarray], module: nn.Module) -> None:
     """Copy ``flat`` into a graph model's ``module`` in place:
-    ``pagtn_<i>``, ``GraphConv_<i>`` and ``MaskedBatchNorm_<i>`` become
-    ``layers.<i>``, ``convs.<i>`` and ``norms.<i>``, each other scope the
-    attribute the module's ``flax_scopes`` names for its path or its name,
-    and each Dense kernel ``[in, out]`` the ``nn.Linear`` weight ``[out,
-    in]``; GraphConv's ``W_self``, ``W_nbr``, ``b`` and MaskedBatchNorm's
-    ``scale`` and ``bias`` keep their names and shapes.  A ``GRUCell``'s
-    gates become :class:`GRUCell`'s ``weight_ih`` (ir, iz, in),
-    ``bias_ih``, ``weight_hh`` (hr, hz, hn) and ``bias_hn``; an
-    ``OptimizedLSTMCell``'s :class:`LSTMCell`'s ``weight_ih`` (ii, if, ig,
-    io), ``weight_hh`` and ``bias_hh`` (hi, hf, hg, ho).  Raises on a
-    missing or extra key and on a shape that differs."""
+    ``pagtn_<i>``, ``GCNLayer_<i>``, ``GATLayer_<i>`` and
+    ``AttentiveFPLayer_<i>`` become ``layers.<i>``, ``GraphConv_<i>`` and
+    ``MaskedBatchNorm_<i>`` ``convs.<i>`` and ``norms.<i>``, each other
+    scope the attribute the module's ``flax_scopes`` names for its path or
+    its name, and each Dense kernel ``[in, out]`` the ``nn.Linear`` weight
+    ``[out, in]``; GraphConv's ``W_self``, ``W_nbr``, ``b``,
+    MaskedBatchNorm's ``scale`` and ``bias`` and GATLayer's ``a_src`` and
+    ``a_dst`` keep their names and shapes.  A ``GRUCell``'s gates become
+    :class:`GRUCell`'s ``weight_ih`` (ir, iz, in), ``bias_ih``,
+    ``weight_hh`` (hr, hz, hn) and ``bias_hn``; an ``OptimizedLSTMCell``'s
+    :class:`LSTMCell`'s ``weight_ih`` (ii, if, ig, io), ``weight_hh`` and
+    ``bias_hh`` (hi, hf, hg, ho).  Raises on a missing or extra key and on
+    a shape that differs."""
     _load(flax_state(flat, module), module)
 
 

@@ -1,15 +1,17 @@
-"""Graph layers of GraphConvModel and MPNNModel over the padded batch
-layout.
+"""Graph layers of GraphConvModel, MPNNModel, GCNModel, GATModel and
+AttentiveFPModel over the padded batch layout.
 
 Counterparts of ``deepchem_tpu/models/graph_layers.py``'s
 ``MaskedBatchNorm``, ``GraphConv``, ``graph_pool_max``, ``GraphGather``,
-``EdgeNetworkMPNN`` and ``SetGather``, and of flax's ``Dense``,
-``GRUCell`` and ``OptimizedLSTMCell`` as those layers use them, on the
-table paths: the aggregations are the kernels K1 (:func:`nei_sum`,
-:func:`nei_sum_edges`, :func:`take_src`'s backward), K2
-(:func:`nei_max_incl_self`), K3, P1 and P3 (:func:`graph_pool`,
-:func:`segment_softmax_sorted`, :func:`csr_segment_sum`).  The JAX
-package's COO path for these layers (edge lists, no table) is not ported.
+``GCNLayer``, ``GATLayer``, ``AttentiveFPLayer``, ``EdgeNetworkMPNN`` and
+``SetGather``, and of flax's ``Dense``, ``GRUCell`` and
+``OptimizedLSTMCell`` as those layers use them, on the table paths: the
+aggregations are the kernels K1 (:func:`nei_sum`, :func:`nei_sum_edges`,
+:func:`take_src`'s backward, :func:`nei_gather`'s backward), K2
+(:func:`nei_max_incl_self`), K3, K4 (:func:`nei_gather`), P1 and P3
+(:func:`graph_pool`, :func:`segment_softmax_sorted`,
+:func:`csr_segment_sum`).  The JAX package's COO path for these layers
+(edge lists, no table) is not ported.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepchem_tpu_torch.ops.csr_segment import csr_row_ptr, csr_segment_sum
-from deepchem_tpu_torch.ops.nei_table import (nei_max_incl_self, nei_sum,
-                                              nei_sum_edges, take_src)
-from deepchem_tpu_torch.ops.segment import (graph_pool,
+from deepchem_tpu_torch.ops.nei_table import (nei_gather, nei_max_incl_self,
+                                              nei_sum, nei_sum_edges,
+                                              slot_mask, take_src)
+from deepchem_tpu_torch.ops.segment import (NEG, graph_pool,
                                             segment_softmax_sorted)
 
 
@@ -206,6 +209,108 @@ class GraphGather(nn.Module):
         s = graph_pool(h, graph_index, num_graphs, node_mask, 'sum')
         m = graph_pool(h, graph_index, num_graphs, node_mask, 'max')
         return torch.cat([torch.tanh(s), torch.tanh(m)], dim=1)
+
+
+class GCNLayer(nn.Module):
+    """Kipf-Welling graph convolution with symmetric normalisation: with
+    ``norm = rsqrt(max(deg, 1))``, ``agg = norm * nei_sum(h * norm)`` (K1),
+    then ``Dense(agg) + Dense_no_bias(h)``, plus a residual
+    ``Dense_no_bias(h)``, then ReLU."""
+
+    #: flax scope -> attribute (models/convert.py)
+    flax_scopes = {'Dense_0': 'agg', 'Dense_1': 'self_loop',
+                   'Dense_2': 'res'}
+
+    def __init__(self, in_features: int, out_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.agg = dense(in_features, out_channels, generator)
+        self.self_loop = dense(in_features, out_channels, generator,
+                               bias=False)
+        self.res = dense(in_features, out_channels, generator, bias=False)
+
+    def forward(self, h: torch.Tensor, table: torch.Tensor,
+                deg: torch.Tensor) -> torch.Tensor:
+        norm = torch.rsqrt(torch.clamp_min(deg.to(h.dtype), 1.0))[:, None]
+        agg = nei_sum(h * norm, table, deg) * norm
+        return F.relu(self.agg(agg) + self.self_loop(h) + self.res(h))
+
+
+def _slot_softmax(logits: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+    """Softmax over the K slots (dim 1) with pad slots' logits at ``NEG``,
+    times the slot mask: a node with no real slot gets 0 everywhere.
+    ``real`` ``[N, K]`` bool, broadcast over the logits' trailing axes."""
+    real = real.reshape(real.shape + (1,) * (logits.ndim - 2))
+    att = torch.softmax(logits.masked_fill(~real, NEG), dim=1)
+    return att * real.to(logits.dtype)
+
+
+class GATLayer(nn.Module):
+    """Multi-head graph attention over the neighbour slots: ``z =
+    Dense_no_bias(h)`` ``[N, H, O]``, per-head logits ``LeakyReLU(a_src .
+    z[t] + a_dst . z[i], 0.2)`` for each slot's neighbour ``t`` (K4 of
+    ``a_src . z``), a softmax over the slots, and the weighted sum of the
+    neighbours' ``z`` (K4 of ``z``), flattened to ``[N, H * O]``."""
+
+    #: flax scope -> attribute (models/convert.py)
+    flax_scopes = {'Dense_0': 'W'}
+
+    def __init__(self, in_features: int, out_channels: int,
+                 n_heads: int = 8,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_heads, self.out_channels = n_heads, out_channels
+        self.W = dense(in_features, n_heads * out_channels, generator,
+                       bias=False)
+        self.a_src = nn.Parameter(glorot_uniform_(
+            torch.empty(n_heads, out_channels), generator))
+        self.a_dst = nn.Parameter(glorot_uniform_(
+            torch.empty(n_heads, out_channels), generator))
+
+    def forward(self, h: torch.Tensor, table: torch.Tensor,
+                deg: torch.Tensor, rev_slot: torch.Tensor) -> torch.Tensor:
+        n, H, O = h.shape[0], self.n_heads, self.out_channels
+        z = self.W(h).reshape(n, H, O)
+        e_src = torch.einsum('nho,ho->nh', z, self.a_src)
+        e_dst = torch.einsum('nho,ho->nh', z, self.a_dst)
+        es = nei_gather(e_src, table, rev_slot, deg)              # [N, K, H]
+        logits = F.leaky_relu(es + e_dst[:, None, :], 0.2)
+        att = _slot_softmax(logits, slot_mask(table, deg))
+        zg = nei_gather(z, table, rev_slot, deg)               # [N, K, H, O]
+        return torch.einsum('nkh,nkho->nho', att, zg).reshape(n, H * O)
+
+
+class AttentiveFPLayer(nn.Module):
+    """AttentiveFP's graph attention with a GRU update over the neighbour
+    slots: ``z = Dense(h)``, slot logits ``Dense_1(LeakyReLU(Dense(
+    [z_i ; z_t])))`` (flax's slope 0.01) for each slot's neighbour ``t``
+    (K4 of ``z``), a softmax over the slots, the weighted sum of the
+    neighbours' ``msg_proj(z)`` (K4), ELU, and :class:`GRUCell` with carry
+    ``z`` and input that context."""
+
+    #: flax scope -> attribute (models/convert.py)
+    flax_scopes = {'Dense_0': 'z', 'Dense_1': 'att_h', 'Dense_2': 'att_out',
+                   'Dense_3': 'msg_proj', 'GRUCell_0': 'gru'}
+
+    def __init__(self, in_features: int, out_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.z = dense(in_features, out_channels, generator)
+        self.att_h = dense(2 * out_channels, out_channels, generator)
+        self.att_out = dense(out_channels, 1, generator)
+        self.msg_proj = dense(out_channels, out_channels, generator)
+        self.gru = GRUCell(out_channels, out_channels, generator)
+
+    def forward(self, h: torch.Tensor, table: torch.Tensor,
+                deg: torch.Tensor, rev_slot: torch.Tensor) -> torch.Tensor:
+        z = self.z(h)
+        zs = nei_gather(z, table, rev_slot, deg)                  # [N, K, O]
+        cat = torch.cat([z[:, None, :].expand_as(zs), zs], dim=-1)
+        logits = self.att_out(F.leaky_relu(self.att_h(cat), 0.01))[..., 0]
+        att = _slot_softmax(logits, slot_mask(table, deg))
+        msgs = nei_gather(self.msg_proj(z), table, rev_slot, deg)
+        context = F.elu(torch.einsum('nk,nko->no', att, msgs))
+        return self.gru(z, context)
 
 
 class EdgeNetworkMPNN(nn.Module):

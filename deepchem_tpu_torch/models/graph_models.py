@@ -1,10 +1,11 @@
-"""Graph models on the padded COO batch layout: PAGTN, GraphConv and
-MPNN.
+"""Graph models on the padded COO batch layout: PAGTN, GraphConv, GCN,
+GAT, AttentiveFP and MPNN.
 
 Counterparts of ``deepchem_tpu/models/graph_models.py``'s ``GraphModel``
 batching (single device), ``_heads``, ``_gnn_loss_outputs``,
 ``PagtnLayer``, ``_PagtnModule``, ``PagtnModel``, ``_GraphConvModule``,
-``GraphConvModel``, ``_MPNNModule`` and ``MPNNModel``.  A batch of
+``GraphConvModel``, ``_StackedGNNModule``, ``GCNModel``, ``GATModel``,
+``AttentiveFPModel``, ``_MPNNModule`` and ``MPNNModel``.  A batch of
 ``GraphData`` becomes fixed-shape padded arrays with masks
 (``feat/graph_data.py``), bucketed by node and edge quanta, plus a
 neighbour table or edge-id tables for the models that aggregate through
@@ -23,8 +24,10 @@ from torch import nn
 from deepchem_tpu_torch.data import NumpyDataset, pad_batch
 from deepchem_tpu_torch.feat.graph_data import BatchGraphData, bucket_caps
 from deepchem_tpu_torch.metrics import to_one_hot
-from deepchem_tpu_torch.models.graph_layers import (EdgeNetworkMPNN,
-                                                    GraphConv, GraphGather,
+from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
+                                                    EdgeNetworkMPNN, GATLayer,
+                                                    GCNLayer, GraphConv,
+                                                    GraphGather,
                                                     MaskedBatchNorm, SetGather,
                                                     dense, graph_pool_max)
 from deepchem_tpu_torch.models.losses import L2Loss, SoftmaxCrossEntropy
@@ -32,7 +35,8 @@ from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.models.torch_model import TorchModel
 from deepchem_tpu_torch.ops import (csr_row_ptr, csr_segment_sum, graph_pool,
                                     segment_softmax_sorted)
-from deepchem_tpu_torch.ops.nei_table import build_neighbor_table
+from deepchem_tpu_torch.ops.nei_table import (build_neighbor_table,
+                                              build_rev_slot)
 
 
 class GraphModel(TorchModel):
@@ -42,9 +46,10 @@ class GraphModel(TorchModel):
     A batch's inputs are ``[node_features, edge_src, edge_dst,
     graph_index, node_mask, edge_mask]``, then, per the model's switches:
     a neighbour table ``[N, max_neighbors]`` int32 and int8 degrees
-    (``uses_neighbor_table``); each node's incoming-edge-id table and
-    degrees, then with ``uses_edge_table = 'both'`` its outgoing ones
-    (``uses_edge_table``); and the edge features
+    (``uses_neighbor_table``), then each slot's reverse slot ``[N,
+    max_neighbors]`` int8 (``uses_rev_slot``); each node's
+    incoming-edge-id table and degrees, then with ``uses_edge_table =
+    'both'`` its outgoing ones (``uses_edge_table``); and the edge features
     (``uses_edge_features``).  ``sorts_edges_by_dst`` sorts the edges by
     destination, as the CSR segment softmax needs; every other COO op is
     edge-order invariant.
@@ -58,6 +63,8 @@ class GraphModel(TorchModel):
     #: models that aggregate through ops/nei_table.py get a padded
     #: neighbour table and the degrees appended to their inputs
     uses_neighbor_table = False
+    #: attention models also get each slot's reverse slot (nei_gather)
+    uses_rev_slot = False
     #: models that aggregate edges into nodes through edge-id tables:
     #: True for the incoming table, 'both' for the outgoing one too
     uses_edge_table = False
@@ -102,6 +109,8 @@ class GraphModel(TorchModel):
                 node_cap, self.max_neighbors)
             # degrees, not the [N, K] float mask: the kernels rebuild it
             inputs += [table, nbr_mask.sum(axis=1).astype(np.int8)]
+            if self.uses_rev_slot:       # the attention layers' K4
+                inputs.append(build_rev_slot(table, nbr_mask))
         if self.uses_edge_table:
             # each node's incoming edge ids, and with 'both' its outgoing
             # ones: tables over edge rows, pad entries 0
@@ -488,6 +497,185 @@ class GraphConvModel(GraphModel):
                          batch_size=batch_size, model_dir=model_dir,
                          learning_rate=learning_rate, optimizer=optimizer,
                          log_frequency=log_frequency, device=device)
+
+
+class _StackedGNNModule(_SeededDropout):
+    """A stack of one kind of table-path graph layer (``'gcn'``: GCNLayer;
+    ``'gat'``: GATLayer with ELU after it; ``'attentivefp'``:
+    AttentiveFPLayer), each followed by dropout, then the ``readout``
+    (``'mean'`` or ``'sum'``, P3) over each graph's valid nodes, a dense
+    layer of ``predictor_hidden_feats`` with ReLU and dropout, and the task
+    heads.  Parameters are initialised as flax initialises the JAX module,
+    from ``generator``."""
+
+    _LAYERS = {'gcn': 'GCNLayer', 'gat': 'GATLayer',
+               'attentivefp': 'AttentiveFPLayer'}
+
+    def __init__(self, n_tasks: int, n_classes: int,
+                 layer_sizes: Sequence[int], layer_kind: str, mode: str,
+                 num_graphs: int, node_features: int = 30,
+                 dropout: float = 0.0, predictor_hidden_feats: int = 128,
+                 readout: str = 'mean', n_attention_heads: int = 8,
+                 generator: Optional[torch.Generator] = None,
+                 dropout_seed: int = 0):
+        super().__init__()
+        if layer_kind not in self._LAYERS:
+            raise ValueError(f'bad layer kind {layer_kind}')
+        self.n_tasks, self.n_classes, self.mode = n_tasks, n_classes, mode
+        self.layer_kind, self.readout = layer_kind, readout
+        self.num_graphs = num_graphs
+        self.node_features = node_features
+        self.dropout, self.dropout_seed = dropout, dropout_seed
+        layers, width = [], node_features
+        for size in layer_sizes:
+            if layer_kind == 'gcn':
+                layers.append(GCNLayer(width, size, generator))
+                width = size
+            elif layer_kind == 'gat':
+                layers.append(GATLayer(width, size, n_attention_heads,
+                                       generator=generator))
+                width = size * n_attention_heads
+            else:
+                layers.append(AttentiveFPLayer(width, size, generator))
+                width = size
+        self.layers = nn.ModuleList(layers)
+        self.predictor = dense(width, predictor_hidden_feats, generator)
+        n_out = n_tasks * n_classes if mode == 'classification' else n_tasks
+        self.head = dense(predictor_hidden_feats, n_out, generator)
+        # flax scope (or scope path) -> attribute (models/convert.py)
+        scope = self._LAYERS[layer_kind]
+        self.flax_scopes = {
+            'Dense_0': 'predictor', 'Dense_1': 'head',
+            **{f'{scope}_{i}/{k}': v for i, layer in enumerate(layers)
+               for k, v in layer.flax_scopes.items()}}
+
+    def forward(self, nf, esrc, edst, gidx, nmask, emask, table, deg,
+                rev_slot=None):
+        # esrc, edst and emask are the shared batch layout's; the layers
+        # read the neighbour table
+        x = nf
+        for layer in self.layers:
+            if self.layer_kind == 'gcn':
+                x = layer(x, table, deg)
+            elif self.layer_kind == 'gat':
+                x = F.elu(layer(x, table, deg, rev_slot))
+            else:
+                x = layer(x, table, deg, rev_slot)
+            x = self._dropout(x)
+        g = graph_pool(x, gidx, self.num_graphs, nmask, self.readout)
+        h = self._dropout(F.relu(self.predictor(g)))
+        return _heads(h, self.head, self.n_tasks, self.n_classes, self.mode)
+
+
+class _StackedGNNModel(GraphModel):
+    """The shared constructor of GCN, GAT and AttentiveFP: the module is
+    built at construction, with parameters drawn from a ``torch.Generator``
+    seeded with ``seed`` (which also seeds dropout); load trained flax
+    parameters with :func:`params_from_flax`.  A regressor (the default)
+    trains on squared error, a classifier on softmax cross entropy, with
+    :class:`Adam` at ``learning_rate`` unless ``optimizer`` is given."""
+
+    uses_neighbor_table = True
+
+    def __init__(self, n_tasks: int, module_kwargs: dict, mode: str,
+                 n_classes: int, batch_size: int, learning_rate: float,
+                 optimizer: Optional[Optimizer], model_dir: Optional[str],
+                 log_frequency: int, device, seed: int):
+        self.n_tasks = n_tasks
+        self.mode = mode
+        self.n_classes = n_classes
+        module = _StackedGNNModule(
+            n_tasks=n_tasks, n_classes=n_classes, mode=mode,
+            num_graphs=batch_size,
+            generator=torch.Generator().manual_seed(seed), dropout_seed=seed,
+            **module_kwargs)
+        loss, output_types = _gnn_loss_outputs(mode)
+        super().__init__(module, loss, output_types=output_types,
+                         batch_size=batch_size, model_dir=model_dir,
+                         learning_rate=learning_rate, optimizer=optimizer,
+                         log_frequency=log_frequency, device=device)
+
+
+class GCNModel(_StackedGNNModel):
+    """Graph convolutional network (Kipf and Welling), fed by
+    :class:`MolGraphConvFeaturizer` (30 atom features): a
+    :class:`GCNLayer` per entry of ``graph_conv_layers`` (each K1 over the
+    neighbour table, with a residual), a mean readout (P3), a dense layer
+    of ``predictor_hidden_feats`` and the task heads.  See
+    :class:`_StackedGNNModel` for the parameters and the loss."""
+
+    def __init__(self, n_tasks: int, graph_conv_layers=(64, 64),
+                 dropout: float = 0.0, mode: str = 'regression',
+                 n_classes: int = 2, predictor_hidden_feats: int = 128,
+                 number_atom_features: int = 30, batch_size: int = 100,
+                 learning_rate: float = 0.001,
+                 optimizer: Optional[Optimizer] = None,
+                 model_dir: Optional[str] = None, log_frequency: int = 100,
+                 device=None, seed: int = 0):
+        super().__init__(
+            n_tasks, dict(layer_sizes=tuple(graph_conv_layers),
+                          layer_kind='gcn', node_features=number_atom_features,
+                          dropout=dropout,
+                          predictor_hidden_feats=predictor_hidden_feats),
+            mode, n_classes, batch_size, learning_rate, optimizer, model_dir,
+            log_frequency, device, seed)
+
+
+class GATModel(_StackedGNNModel):
+    """Graph attention network, fed by :class:`MolGraphConvFeaturizer` (30
+    atom features): a :class:`GATLayer` of ``n_attention_heads`` heads per
+    entry of ``graph_attention_layers``, heads flattened and ELU after
+    each, the attention over the neighbour slots (LeakyReLU slope 0.2)
+    through K4 (and its backward through K1), a mean readout (P3), a dense
+    layer of ``predictor_hidden_feats`` and the task heads.  See
+    :class:`_StackedGNNModel` for the parameters and the loss."""
+
+    uses_rev_slot = True
+
+    def __init__(self, n_tasks: int, graph_attention_layers=(8, 8),
+                 n_attention_heads: int = 8, dropout: float = 0.0,
+                 mode: str = 'regression', n_classes: int = 2,
+                 predictor_hidden_feats: int = 128,
+                 number_atom_features: int = 30, batch_size: int = 100,
+                 learning_rate: float = 0.001,
+                 optimizer: Optional[Optimizer] = None,
+                 model_dir: Optional[str] = None, log_frequency: int = 100,
+                 device=None, seed: int = 0):
+        super().__init__(
+            n_tasks, dict(layer_sizes=tuple(graph_attention_layers),
+                          layer_kind='gat', node_features=number_atom_features,
+                          dropout=dropout,
+                          predictor_hidden_feats=predictor_hidden_feats,
+                          n_attention_heads=n_attention_heads),
+            mode, n_classes, batch_size, learning_rate, optimizer, model_dir,
+            log_frequency, device, seed)
+
+
+class AttentiveFPModel(_StackedGNNModel):
+    """AttentiveFP, fed by :class:`MolGraphConvFeaturizer` (30 atom
+    features; bond features are not read): ``num_layers``
+    :class:`AttentiveFPLayer` of ``graph_feat_size``, the attention over
+    the neighbour slots through K4 (and its backward through K1), a sum
+    readout (P3), a dense layer of 128 and the task heads.  See
+    :class:`_StackedGNNModel` for the parameters and the loss."""
+
+    uses_rev_slot = True
+
+    def __init__(self, n_tasks: int, num_layers: int = 2,
+                 graph_feat_size: int = 200, dropout: float = 0.0,
+                 mode: str = 'regression', n_classes: int = 2,
+                 number_atom_features: int = 30, batch_size: int = 100,
+                 learning_rate: float = 0.001,
+                 optimizer: Optional[Optimizer] = None,
+                 model_dir: Optional[str] = None, log_frequency: int = 100,
+                 device=None, seed: int = 0):
+        super().__init__(
+            n_tasks, dict(layer_sizes=(graph_feat_size,) * num_layers,
+                          layer_kind='attentivefp',
+                          node_features=number_atom_features,
+                          dropout=dropout, readout='sum'),
+            mode, n_classes, batch_size, learning_rate, optimizer, model_dir,
+            log_frequency, device, seed)
 
 
 class _MPNNModule(nn.Module):

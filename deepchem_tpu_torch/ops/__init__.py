@@ -8,6 +8,7 @@ from deepchem_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dq_reference, flash_attention_forward,
     flash_attention_reference)
 from deepchem_tpu_torch.ops.nei_table import (build_neighbor_table,
+                                              build_rev_slot, nei_gather,
                                               nei_max_incl_self, nei_sum,
                                               nei_sum_edges, take_src)
 from deepchem_tpu_torch.ops.segment import (NEG, graph_max_pool, graph_pool,
@@ -17,7 +18,8 @@ from deepchem_tpu_torch.ops.segment import (NEG, graph_max_pool, graph_pool,
                                             segment_softmax_sorted,
                                             segment_sum)
 
-__all__ = ['NEG', 'build_neighbor_table', 'csr_neighbor_sum_reference',
+__all__ = ['NEG', 'build_neighbor_table', 'build_rev_slot',
+           'csr_neighbor_sum_reference',
            'csr_row_ptr', 'csr_segment_softmax',
            'csr_segment_softmax_reference',
            'csr_segment_sum', 'csr_segment_sum_reference', 'edges_to_csr',
@@ -25,7 +27,8 @@ __all__ = ['NEG', 'build_neighbor_table', 'csr_neighbor_sum_reference',
            'flash_attention_bwd_dkv_reference', 'flash_attention_bwd_dq',
            'flash_attention_bwd_dq_reference', 'flash_attention_forward',
            'flash_attention_reference', 'fused_gather_segment_sum',
-           'graph_max_pool', 'graph_pool', 'nei_max_incl_self', 'nei_sum',
+           'graph_max_pool', 'graph_pool', 'nei_gather', 'nei_max_incl_self',
+           'nei_sum',
            'nei_sum_edges', 'node_degrees', 'segment_max',
            'segment_max_sumgrad', 'segment_mean', 'segment_softmax',
            'segment_softmax_sorted', 'segment_sum', 'take_src']

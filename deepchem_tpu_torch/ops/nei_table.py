@@ -1,9 +1,10 @@
 """Padded neighbour-table aggregation with gather-transpose backwards:
-the Hopper kernels K1 and K2 and their plain versions.
+the Hopper kernels K1, K2 and K4 and their plain versions.
 
 Counterparts of ``deepchem_tpu/ops/nei_table.py``'s
-``build_neighbor_table``, ``nei_sum``, ``nei_max_incl_self``,
-``nei_sum_edges`` and ``take_src``.  A batch of undirected graphs (both
+``build_neighbor_table``, ``build_rev_slot``, ``nei_sum``,
+``nei_max_incl_self``, ``nei_gather``, ``nei_sum_edges`` and
+``take_src``.  A batch of undirected graphs (both
 directions of every edge present) becomes a table ``[N, K]`` int32 whose
 row ``i`` lists ``i``'s neighbours in edge order, and int8 degrees
 ``[N]``: slot ``j`` of row ``i`` is real iff ``j < deg[i]``.  The table of
@@ -11,10 +12,14 @@ an undirected graph is its own transpose, so both ops' backwards are
 gathers too.  A directed message-passing model (MPNN) builds the same
 tables over edge ids instead: each node's incoming edges and its outgoing
 ones, whose K1 sums rows of ``[E, F]`` edge data into ``[N, F]``.
+The attention layers (GAT, AttentiveFP) gather each slot's row with K4
+(:func:`nei_gather`), whose backward is K1 over the cotangent's slot rows
+through each slot's reverse slot (:func:`build_rev_slot`).
 
 On CPU tensors each op computes with its plain torch version
 (``*_reference``), written as the JAX slot loop; on CUDA tensors it
-launches ``csrc/nei_table.cu`` or raises, and counts the launch in
+launches ``csrc/nei_table.cu`` (K4's forward ``csrc/nei_gather.cu``) or
+raises, and counts the launch in
 ``<op>.launches`` (forward) or ``<op>.backward_launches``.  K1 and K2's
 forward and backward each have two kernel paths, float4 rows and one
 float a lane; the C entry picks one and counts it
@@ -68,6 +73,18 @@ def build_neighbor_table(edge_src: np.ndarray, edge_dst: np.ndarray,
     return table, nbr_mask
 
 
+def build_rev_slot(table: np.ndarray, nbr_mask: np.ndarray) -> np.ndarray:
+    """``rev_slot[i, j]``: the position of ``i`` in row ``table[i, j]``, the
+    slot its neighbour uses for the reverse direction; 0 on pad slots.
+    int8 ``[N, K]``.  The graph must be simple and undirected (each
+    neighbour once a row), as molecular graphs are: a parallel edge would
+    alias to one reverse slot."""
+    n = table.shape[0]
+    hit = table[table] == np.arange(n)[:, None, None]          # [N, K, K]
+    rs = np.argmax(hit, axis=2).astype(np.int8)
+    return np.where(nbr_mask > 0, rs, 0).astype(np.int8)
+
+
 def slot_mask(table: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
     """``[N, K]`` bool: slot ``j`` of row ``i`` is real iff
     ``j < deg[i]``."""
@@ -86,6 +103,17 @@ def nei_sum_reference(h: torch.Tensor, table: torch.Tensor,
     for j in range(1, table.shape[1]):
         out = out + h[idx[:, j]] * mask[:, j:j + 1]
     return out
+
+
+def nei_gather_reference(x: torch.Tensor, table: torch.Tensor,
+                         deg: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of K4's forward: ``x[table[i, j]]`` times 1.0 on
+    a real slot and 0.0 on a pad slot, ``[N, K, ...]`` from ``x`` ``[N,
+    ...]``; a pad slot gives a signed zero, or NaN where its row is not
+    finite, as the JAX op's mask does."""
+    mask = slot_mask(table, deg).to(x.dtype)
+    out = x[table.long()]
+    return out * mask.reshape(mask.shape + (1,) * (out.ndim - 2))
 
 
 def nei_max_reference(h: torch.Tensor, table: torch.Tensor,
@@ -189,6 +217,34 @@ def _nei_sum_forward(h: torch.Tensor, table: torch.Tensor,
     return out
 
 
+def nei_gather_float4_launches() -> int:
+    """Launches of K4's forward since the kernels were loaded that took
+    the float4 path (C a multiple of 4, ``x`` and the output 16-byte
+    aligned); its other launches took one float a lane."""
+    counts = (ctypes.c_longlong * 1)()
+    build.load('nei_gather').nei_gather_float4_launches(counts)
+    return counts[0]
+
+
+def _nei_gather_forward(x: torch.Tensor, table: torch.Tensor,
+                        deg: torch.Tensor) -> torch.Tensor:
+    """K4's forward over ``x`` ``[N, C]``: ``[N, K, C]``, the kernel on the
+    card, counted in ``nei_gather.launches``; the plain version on the
+    CPU."""
+    if all(t.device.type == 'cpu' for t in (x, table, deg)):
+        return nei_gather_reference(x, table, deg)
+    _check('nei_gather', (x,), table, deg)
+    n, k = table.shape
+    if n * k * x.shape[1] >= 2**31:
+        raise ValueError('nei_gather: sizes must fit in int32')
+    out = x.new_empty((n, k, x.shape[1]))
+    if out.numel():
+        build.launch('nei_gather', 'nei_gather_f32', (x, table, deg, out),
+                     (n, k, x.shape[1]))
+        nei_gather.launches += 1
+    return out
+
+
 def _nei_max_forward(h: torch.Tensor, table: torch.Tensor,
                      deg: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -271,6 +327,34 @@ class _TakeSrc(torch.autograd.Function):
                                 'backward_launches'), None, None, None
 
 
+class _NeiGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, table, rev_slot, deg):
+        n, k = table.shape
+        if x.shape[0] != n:
+            raise ValueError(
+                f'nei_gather: {x.shape[0]} rows through a table of {n}; its '
+                'backward needs a square, symmetric table')
+        ctx.x_shape = x.shape
+        if ctx.needs_input_grad[0]:
+            # row of g [N * K, C] that each slot's reverse slot names; 0 on
+            # pad slots, whose terms the mask zeroes
+            ctx.save_for_backward(table * k + rev_slot.to(table.dtype), deg)
+        out = _nei_gather_forward(x.reshape(n, -1).contiguous(), table, deg)
+        return out.reshape((n, k) + tuple(x.shape[1:]))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        rev_rows, deg = ctx.saved_tensors
+        n, k = rev_rows.shape
+        grad = _nei_sum_forward(g.reshape(n * k, -1).contiguous(), rev_rows,
+                                deg, nei_gather, 'backward_launches')
+        return grad.reshape(ctx.x_shape), None, None, None
+
+
 class _NeiMax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, table, deg):
@@ -337,6 +421,27 @@ def take_src(carry: torch.Tensor, esrc: torch.Tensor, o_table: torch.Tensor,
     return _TakeSrc.apply(carry, esrc, o_table, o_deg)
 
 
+def nei_gather(x: torch.Tensor, table: torch.Tensor,
+               rev_slot: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """K4: ``out[i, j] = x[table[i, j]]`` on a real slot (``j < deg[i]``)
+    and ``x[table[i, j]] * 0`` on a pad slot, ``[N, K, ...]`` from ``x``
+    ``[N, ...]`` float32 (its trailing dimensions flattened to C), with
+    ``table`` ``[N, K]`` int32 (every entry in ``[0, N)``), ``rev_slot``
+    ``[N, K]`` int8 (:func:`build_rev_slot`) and ``deg`` ``[N]`` int8.
+    Differentiable in ``x``: ``grad[m] = sum over j of g[table[m, j],
+    rev_slot[m, j]]`` times the slot's mask, in ascending ``j`` from the
+    term of slot 0, as the JAX op sums it; that is K1 of ``g`` viewed as
+    ``[N * K, C]`` through the rows ``table * K + rev_slot``, built on
+    ``x``'s device in the forward when ``x`` needs a gradient.
+
+    CPU tensors take :func:`nei_gather_reference` and
+    :func:`nei_sum_reference`; CUDA tensors launch ``nei_gather_kernel``
+    and ``nei_sum_kernel``, counted in ``nei_gather.launches`` and
+    ``nei_gather.backward_launches``.
+    """
+    return _NeiGather.apply(x, table, rev_slot, deg)
+
+
 def nei_max_incl_self(h: torch.Tensor, table: torch.Tensor,
                       deg: torch.Tensor, return_winner: bool = False):
     """K2: the elementwise max over a node and its real neighbours
@@ -356,5 +461,6 @@ def nei_max_incl_self(h: torch.Tensor, table: torch.Tensor,
 
 nei_sum.launches = nei_sum.backward_launches = 0
 nei_sum_edges.launches = 0
+nei_gather.launches = nei_gather.backward_launches = 0
 take_src.backward_launches = 0
 nei_max_incl_self.launches = nei_max_incl_self.backward_launches = 0

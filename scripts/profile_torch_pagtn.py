@@ -2,19 +2,21 @@
 """Where a graph model's request, or training step, spends its time on
 one CUDA card.
 
-    python3 scripts/profile_torch_pagtn.py [--model pagtn|graphconv|mpnn]
-                                           [--mode serve|train]
-                                           [--batch N] [--requests 20]
+    python3 scripts/profile_torch_pagtn.py
+        [--model pagtn|graphconv|mpnn|gcn|gat|attentivefp|dmpnn]
+        [--mode serve|train|fit_on_device] [--batch N] [--requests 20]
 
 Builds a model of ``chip_smoke.py`` with seeded weights and ``batch_size``
 set to ``--batch``: PagtnModel(n_tasks=12, mode='classification') at its
 default widths (batch 16 by default), GraphConvModel at ``bench.py``'s
 width (``chip_smoke.GRAPHCONV``; batch 16 to serve, 256 to train by
-default), or MPNNModel at the JAX package's defaults (``chip_smoke.MPNN``,
-one regression task; batch 16 to serve, 100 to train by default).  It
-runs ``--requests`` batches of ``--batch`` molecules drawn with
-replacement from the script's 48 (MPNN: and ``chip_smoke.STEREO_SMILES``),
-already featurized, with seeded 0/1 labels (MPNN: normal):
+default), or MPNNModel, GCNModel, GATModel, AttentiveFPModel or
+DMPNNModel at the JAX package's defaults (``chip_smoke.MPNN``, ``GCN``,
+``GAT``, ``ATTENTIVEFP``, ``DMPNN``, one regression task; batch 16 to
+serve, 100 to train by default).  It runs ``--requests`` batches of
+``--batch`` molecules drawn with replacement from the script's 48 (MPNN
+and DMPNN: and ``chip_smoke.STEREO_SMILES``), already featurized, with
+seeded 0/1 labels (the regression models: normal):
 
 - ``serve``: answers each batch as a request.  Host clock, per request
   (means, and the median and p90 of the totals):
@@ -77,7 +79,8 @@ def device_breakdown(run, n: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--model', choices=('pagtn', 'graphconv', 'mpnn'),
+    ap.add_argument('--model', choices=('pagtn', 'graphconv', 'mpnn', 'gcn',
+                                        'gat', 'attentivefp', 'dmpnn'),
                     default='pagtn')
     ap.add_argument('--mode', choices=('serve', 'train', 'fit_on_device'),
                     default='serve')
@@ -90,9 +93,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('profile_torch_pagtn: no CUDA device', file=sys.stderr)
         return 1
-    from chip_smoke import (GRAPHCONV, MPNN, SMILES, STEREO_SMILES,
-                            _counted, launch_counts)
-    from deepchem_tpu_torch import (ConvMolFeaturizer, GraphConvModel,
+    from chip_smoke import (ATTENTIVEFP, DMPNN, GAT, GCN, GRAPHCONV, MPNN,
+                            SMILES, STEREO_SMILES, _counted, launch_counts)
+    from deepchem_tpu_torch import (AttentiveFPModel, ConvMolFeaturizer,
+                                    DMPNNFeaturizer, DMPNNModel, GATModel,
+                                    GCNModel, GraphConvModel,
                                     MolGraphConvFeaturizer, MPNNModel,
                                     NumpyDataset, PagtnModel,
                                     PagtnMolGraphFeaturizer)
@@ -100,7 +105,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.batch is None:
-        args.batch = {'graphconv': 256, 'mpnn': 100}.get(args.model, 16) \
+        args.batch = {'pagtn': 16, 'graphconv': 256}.get(args.model, 100) \
             if args.mode != 'serve' else 16
     labels = np.random.RandomState(0).randint(0, 2, (len(SMILES), 12))
     if args.model == 'pagtn':
@@ -111,10 +116,20 @@ def main() -> int:
         X = ConvMolFeaturizer().featurize(SMILES)
         model = GraphConvModel(**dict(GRAPHCONV, batch_size=args.batch),
                                seed=0)
+    elif args.model in ('mpnn', 'dmpnn'):
+        feat = DMPNNFeaturizer() if args.model == 'dmpnn' \
+            else MolGraphConvFeaturizer(use_edges=True)
+        X = feat.featurize(SMILES + STEREO_SMILES)
+        cls, config = ((DMPNNModel, DMPNN) if args.model == 'dmpnn'
+                       else (MPNNModel, MPNN))
+        model = cls(**dict(config, batch_size=args.batch), seed=0)
+        labels = np.random.RandomState(0).randn(len(X), 1)
     else:
-        X = MolGraphConvFeaturizer(use_edges=True).featurize(
-            SMILES + STEREO_SMILES)
-        model = MPNNModel(**dict(MPNN, batch_size=args.batch), seed=0)
+        X = MolGraphConvFeaturizer().featurize(SMILES)
+        cls, config = {'gcn': (GCNModel, GCN), 'gat': (GATModel, GAT),
+                       'attentivefp': (AttentiveFPModel, ATTENTIVEFP)}[
+                           args.model]
+        model = cls(**dict(config, batch_size=args.batch), seed=0)
         labels = np.random.RandomState(0).randn(len(X), 1)
     labels = labels.astype(np.float32)
     rng = np.random.RandomState(0)

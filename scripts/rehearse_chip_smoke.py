@@ -109,7 +109,7 @@ def main() -> int:
     # the float4 launches that nei_table.cu's and graph_pool.cu's entries
     # would count: F a multiple of 4 and 16-byte-aligned rows (outputs are
     # fresh, so aligned); K1, K2's backward, K2's forward, K3's forward,
-    # K3's backward
+    # K3's backward (K4's, in nei_gather.cu, below)
     float4 = [0, 0, 0, 0, 0]
 
     def vec4(*tensors):
@@ -141,6 +141,16 @@ def main() -> int:
         seg.graph_max_pool.backward_launches += 1
         return pool_bwd(g, x, row_ptr, mask, mx, den)
 
+    gather_fwd = nei._nei_gather_forward
+    gather4 = [0]
+
+    def counted_gather_fwd(x, table, deg):
+        gather4[0] += vec4(x)
+        nei.nei_gather.launches += 1
+        return gather_fwd(x, table, deg)
+
+    nei._nei_gather_forward = counted_gather_fwd
+    nei.nei_gather_float4_launches = lambda: gather4[0]
     nei._nei_sum_forward = counted_nei_sum
     nei._nei_max_forward = counted_nei_max_fwd
     nei._nei_max_backward = counted_nei_max_bwd

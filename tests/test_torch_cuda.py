@@ -12,7 +12,11 @@ backward, on both of their kernel paths, float4 rows and one float a
 lane, bit for bit against the JAX package's slot-order arithmetic or
 their plain versions; all of them at NaN, infinities, signed zeros and
 values at and below NEG, signs of zeros compared, and P1 at +inf and NaN
-logits), and one GraphConv training step against the CPU.  They skip where
+logits), K4 (the neighbour-slot gather of GAT and AttentiveFP, forward and
+its backward through K1) bit for bit against its plain versions on both
+kernel paths, at degrees 0 to 10 and non-finite rows, one GraphConv
+training step against the CPU, and one step of GCN, GAT, AttentiveFP and
+DMPNN against the CPU.  They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
 
@@ -27,15 +31,19 @@ import numpy as np
 import pytest
 import torch
 
-from deepchem_tpu_torch import (BertEncoderMLM, ConvMolFeaturizer,
-                                GraphConvModel, PagtnModel,
-                                PagtnMolGraphFeaturizer)
-from deepchem_tpu_torch.ops import (NEG, build_neighbor_table, graph_max_pool,
+from deepchem_tpu_torch import (AttentiveFPModel, BertEncoderMLM,
+                                ConvMolFeaturizer, DMPNNFeaturizer,
+                                DMPNNModel, GATModel, GCNModel,
+                                GraphConvModel, MolGraphConvFeaturizer,
+                                PagtnModel, PagtnMolGraphFeaturizer)
+from deepchem_tpu_torch.ops import (NEG, build_neighbor_table, build_rev_slot,
+                                    graph_max_pool, nei_gather,
                                     nei_max_incl_self, nei_sum,
                                     nei_sum_edges, take_src)
 from deepchem_tpu_torch.ops.nei_table import (_nei_max_backward,
                                               _nei_sum_forward,
                                               float4_launches,
+                                              nei_gather_float4_launches,
                                               nei_max_backward_reference,
                                               nei_max_reference,
                                               nei_sum_reference)
@@ -674,9 +682,11 @@ def _bits_equal(out, want):
         out[~nan].view(np.int32), want[~nan].view(np.int32))
 
 
-# (F, aligned, float4 path) of MPNN's K1 (F 64 at node_dim 64) and of
-# GraphConv's first layer (F 75)
-EDGE_PATHS = [(64, True, True), (64, False, False), (75, True, False)]
+# (F, aligned, float4 path) of MPNN's K1 (F 64 at node_dim 64), of
+# GraphConv's first layer (F 75), of DMPNN's (F 300, 75 float4 units a row)
+# and of GCN's first layer (F 30)
+EDGE_PATHS = [(64, True, True), (64, False, False), (75, True, False),
+              (300, True, True), (300, False, False), (30, True, False)]
 
 
 @pytest.mark.cuda
@@ -750,6 +760,85 @@ def test_mpnn_edge_ops_launch_k1_and_match_plain_version(cuda):
                                                    y.grad)])
     for a, b in zip(*results):
         assert _bits_equal(a, b.numpy())
+
+
+# (C, aligned, float4 path) of K4: GAT's e_src (C 8 at 8 heads) and z (C
+# 64), AttentiveFP's C 200; one float a lane at C 1 and 75 and at C 64 off
+# 16-byte alignment
+GATHER_PATHS = [(8, True, True), (64, True, True), (200, True, True),
+                (1, True, False), (75, True, False), (64, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('values', ['normal', 'non_finite'])
+@pytest.mark.parametrize('C,aligned,float4', GATHER_PATHS)
+def test_nei_gather_kernel_matches_plain_version(cuda, C, aligned, float4,
+                                                 values):
+    """K4's forward and its backward (K1 over the reverse-slot rows) on
+    the card against their plain versions on the CPU, bit for bit, NaN
+    where NaN: degrees 0 to 10, signed zeros, and with ``non_finite`` a
+    non-finite row 0 (behind every pad slot) and cotangents; each launched
+    once a call, on the path the entry says, and bit-identical on a
+    repeat."""
+    table, deg = _table()
+    mask = (np.arange(10)[None, :] < deg.numpy()[:, None]).astype(np.float32)
+    rs = torch.from_numpy(build_rev_slot(table.numpy(), mask))
+    rng = np.random.RandomState(C)
+    n = len(table)
+    a = rng.randn(n, C).astype(np.float32)
+    a[rng.rand(*a.shape) < 0.2] = -0.0
+    w = rng.randn(n, 10, C).astype(np.float32)
+    w[rng.rand(*w.shape) < 0.2] = -0.0
+    if values == 'non_finite':
+        a[0, 0], a[0, -1] = np.inf, np.nan
+        a[rng.rand(n) < 0.1, C // 2] = -np.inf
+        w[0, 0, 0] = np.inf                   # the pad slots' cotangent
+        w[rng.rand(n) < 0.1, 3, -1] = np.nan
+    results = []
+    for dev in (cuda, 'cpu'):
+        on = (lambda t: _on_card(t, cuda, aligned)) if dev == cuda \
+            else torch.from_numpy
+        x = on(a).requires_grad_()
+        g = on(w)
+        args = (table.to(dev), rs.to(dev), deg.to(dev))
+        before = (nei_gather.launches, nei_gather.backward_launches)
+        out = nei_gather(x, *args)
+        out.backward(g)
+        if dev == cuda:
+            before4 = nei_gather_float4_launches()
+            again = nei_gather(x.detach(), *args)
+            torch.cuda.synchronize()
+            assert (nei_gather.launches, nei_gather.backward_launches) == \
+                (before[0] + 2, before[1] + 1)
+            assert nei_gather_float4_launches() == before4 + float4
+            assert _bits_equal(again, out.detach().cpu().numpy())
+        results.append((out.detach().cpu(), x.grad.cpu()))
+    assert results[0][0].shape == (n, 10, C)
+    for got, want in zip(*results):
+        assert _bits_equal(got, want.numpy())
+
+
+@pytest.mark.cuda
+def test_nei_gather_keeps_trailing_dims_and_repeats_bit_identically(cuda):
+    """GAT's z ``[N, H, O]`` through K4 into ``[N, K, H, O]``, its
+    gradient, twice."""
+    table, deg = _table()
+    mask = (np.arange(10)[None, :] < deg.numpy()[:, None]).astype(np.float32)
+    rs = torch.from_numpy(build_rev_slot(table.numpy(), mask)).to(cuda)
+    table, deg = table.to(cuda), deg.to(cuda)
+    z = torch.randn(len(table), 8, 8, device=cuda)
+    g = torch.randn(len(table), 10, 8, 8, device=cuda)
+    runs = []
+    for _ in range(2):
+        x = z.clone().requires_grad_()
+        out = nei_gather(x, table, rs, deg)
+        out.backward(g)
+        runs.append((out.detach(), x.grad))
+    assert runs[0][0].shape == (len(table), 10, 8, 8)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert _bits_equal(runs[0][0], nei_gather(z.cpu(), table.cpu(), rs.cpu(),
+                                              deg.cpu()).numpy())
 
 
 @pytest.mark.cuda
@@ -986,3 +1075,48 @@ def test_graphconv_training_step_gradients_match_the_cpu(cuda):
         np.testing.assert_allclose(p.grad.cpu().numpy(),
                                    cpu[name].grad.numpy(), atol=1e-5,
                                    err_msg=name)
+
+
+# each new model small, from one seed, on the card and on the CPU
+NEW_MODELS = {
+    'gcn': (GCNModel, dict(graph_conv_layers=[16, 16])),
+    'gat': (GATModel, dict(graph_attention_layers=[8, 8],
+                           n_attention_heads=2)),
+    'attentivefp': (AttentiveFPModel, dict(graph_feat_size=16)),
+    'dmpnn': (DMPNNModel, dict(enc_hidden=16, ffn_hidden=16, ffn_layers=2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(NEW_MODELS))
+def test_table_path_models_training_step_matches_the_cpu(cuda, name):
+    """One step of a small GCN, GAT, AttentiveFP or DMPNN on the card and
+    on the CPU from the same seed: losses within 1e-5 relative and every
+    parameter's gradient within 1e-5 of max(1, |g|); the card launches K1
+    (GCN, DMPNN) or K4 and K1 in its backward (GAT, AttentiveFP)."""
+    smiles = ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1',
+              'C', 'C[C@H](N)C(=O)O']
+    model, kw = NEW_MODELS[name]
+    feat = DMPNNFeaturizer() if name == 'dmpnn' else MolGraphConvFeaturizer()
+    X = feat.featurize(smiles)
+    y = np.random.RandomState(0).randn(len(smiles), 2).astype(np.float32)
+    models = [model(n_tasks=2, batch_size=len(smiles), seed=1, device=d,
+                    **kw) for d in (cuda, 'cpu')]
+    def counts():
+        return (nei_sum.launches, nei_sum.backward_launches,
+                nei_sum_edges.launches, nei_gather.launches,
+                nei_gather.backward_launches)
+    before = counts()
+    losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+    torch.cuda.synchronize()
+    # GCN's first layer reads the atom features, which need no gradient
+    assert [a - b for a, b in zip(counts(), before)] == {
+        'gcn': [2, 1, 0, 0, 0], 'dmpnn': [0, 0, 3, 0, 0],
+        'gat': [0, 0, 0, 4, 4], 'attentivefp': [0, 0, 0, 4, 4]}[name]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
