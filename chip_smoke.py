@@ -141,7 +141,30 @@ Phases:
                 cis/trans marks featurized by DMPNNFeaturizer, shuffled to
                 300, as phase 13 (K1 3 a forward in nei_sum_edges, none in
                 its backward, a gather; P3 1).
- 15. kernels -- one JSON line with each kernel's numbers.
+ 15. engine  -- the training engine on GraphConvModel at bench.py's width
+                over the 48 SMILES repeated and shuffled to 7680 (30
+                batches of 256) with seeded 0/1 labels: step 1 under
+                ExponentialDecay(0.002, 0.9, 10) held against the CPU
+                (1e-5); fit for 2 epochs with a ValidationCallback every 10
+                steps (the rate of each step, equal to the schedule's, and
+                each validation line printed), the best checkpoint restored
+                and scored to the logged best score; evaluate_on_device's
+                ROC-AUC, PRC-AUC and accuracy within 1e-12 of evaluate's;
+                reinitialize(seed=3) bit for bit a fresh seed-3 model, and a
+                fit_on_device epoch after it timed against a fresh model's
+                first; fit_on_device for 2 epochs streamed in chunks of 5
+                batches past device_data_budget against the resident run
+                from the same weights and seed: per-epoch losses and
+                parameters bit for bit, the same launches, the peak memory
+                within 1.1 times 2 chunks plus the resident run's working
+                set, host ms a step of both (streamed, resident, streamed,
+                resident); a regressor with
+                uncertainty=True and dropout 0.2 gives
+                predict_uncertainty(masks=50) over 768 molecules through the
+                kernels and through the plain versions from the same dropout
+                seeds, within 1e-5 of max(1, |ref|), standard deviations
+                finite and positive.  K1-K3 and P3 must launch.
+ 16. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -201,6 +224,16 @@ GRAPHCONV = dict(n_tasks=12, graph_conv_layers=[64, 64],
 GRAPHCONV_MOLECULES = 768       # the 48 SMILES 16 times: 3 batches of 256
 LATENCY_REQUESTS = 100          # requests of 16 molecules, timed one by one
 ROC_ATOL = 1e-6                 # evaluate's ROC-AUC, card against CPU
+# phase 15: the engine at bench.py's width over 30 batches of 256
+ENGINE_MOLECULES = 7680         # the 48 SMILES 160 times
+ENGINE_VALID = 768              # the validation and uncertainty set
+ENGINE_SCHEDULE = (0.002, 0.9, 10)    # ExponentialDecay, staircase
+ENGINE_INTERVAL = 10            # steps between validations
+ENGINE_CHUNK = 5                # batches a streamed chunk
+UNCERTAINTY_MASKS = 50
+UNCERTAINTY_RTOL = 1e-5         # kernels against plain, of max(1, |ref|)
+STREAM_MEMORY_SLACK = 1.1       # streamed peak over 2 chunks + working set
+SCORE_ATOL = 1e-12              # evaluate_on_device against evaluate
 # graph_models.py:644-669: MPNNModel at the JAX package's defaults (30 atom
 # and 11 bond features, T 3, M 6, node_dim 64, batch 100), one regression
 # task
@@ -497,16 +530,23 @@ def sum_case(name, msgs, row_ptr):
     out = csr_segment_sum(msgs, row_ptr)
     again = csr_segment_sum(msgs, row_ptr)
     torch.cuda.synchronize()
-    ref = csr_segment_sum_reference(msgs, row_ptr)
-    err, tol = max_err(out, ref), sum_tol(ref)
+    # the plain version in float64: in float32 its index_add_ sums a long
+    # segment in an order that changes from run to run, and drifts by
+    # about as much as the tolerance (40k edges: 2.3e-3 to 5.1e-3 of a
+    # 4.9e-3 limit)
+    ref = csr_segment_sum_reference(msgs.double(), row_ptr)
+    err, tol = max_err(out.double(), ref), sum_tol(ref)
+    plain_f32_err = max_err(
+        csr_segment_sum_reference(msgs, row_ptr).double(), ref)
     used = int(row_ptr[-1])                   # edges past row_ptr[N] unread
     lib_in = msgs[:used]
-    lib_err = max_err(library_segment_sum(lib_in, row_ptr), ref)
+    lib_err = max_err(library_segment_sum(lib_in, row_ptr).double(), ref)
     E, F = msgs.shape
     N = row_ptr.shape[0] - 1
     bound_ms, bound_by = bound(4 * (used * F + N * F + N + 1), used * F)
     res = {'kernel': 'csr_segment_sum', 'case': name, 'E': E, 'F': F,
            'N': N, 'max_abs_err': err, 'tol': tol,
+           'plain_f32_err': plain_f32_err,
            'repeat_identical': torch.equal(out, again),
            'ms': time_ms(lambda: csr_segment_sum(msgs, row_ptr)),
            'device_us': device_us(lambda: csr_segment_sum(msgs, row_ptr),
@@ -534,9 +574,12 @@ def gather_case(name, h, src, row_ptr):
     out = fused_gather_segment_sum(h, src, row_ptr)
     again = fused_gather_segment_sum(h, src, row_ptr)
     torch.cuda.synchronize()
-    ref = csr_neighbor_sum_reference(h, src, row_ptr)
-    err, tol = max_err(out, ref), sum_tol(ref)
-    lib_err = max_err(library_neighbor_sum(h, src, row_ptr), ref)
+    # the plain version in float64, as in sum_case
+    ref = csr_neighbor_sum_reference(h.double(), src, row_ptr)
+    err, tol = max_err(out.double(), ref), sum_tol(ref)
+    plain_f32_err = max_err(
+        csr_neighbor_sum_reference(h, src, row_ptr).double(), ref)
+    lib_err = max_err(library_neighbor_sum(h, src, row_ptr).double(), ref)
     Nh, F = h.shape
     N = row_ptr.shape[0] - 1
     used = int(row_ptr[-1])
@@ -545,7 +588,7 @@ def gather_case(name, h, src, row_ptr):
     bound_ms, bound_by = bound(4 * rows * F + rest, used * F)
     res = {'kernel': 'fused_gather_segment_sum', 'case': name,
            'N_h': Nh, 'E': src.shape[0], 'F': F, 'N': N,
-           'max_abs_err': err, 'tol': tol,
+           'max_abs_err': err, 'tol': tol, 'plain_f32_err': plain_f32_err,
            'repeat_identical': torch.equal(out, again),
            'ms': time_ms(lambda: fused_gather_segment_sum(h, src, row_ptr)),
            'device_us': device_us(
@@ -1559,6 +1602,255 @@ def step1_grads(store):
             store.update({n: p.grad.detach().cpu().clone()
                           for n, p in model.module.named_parameters()})
     return grab
+
+
+def engine_data():
+    """The 48 SMILES featurized for GraphConvModel, repeated and shuffled
+    from a seed to ENGINE_MOLECULES, with seeded 0/1 labels for its 12
+    tasks and seeded normal ones for the uncertainty regressor."""
+    import numpy as np
+    from deepchem_tpu_torch import ConvMolFeaturizer
+    X48 = ConvMolFeaturizer().featurize(SMILES)
+    order = np.random.RandomState(0).permutation(
+        np.resize(np.arange(len(SMILES)), ENGINE_MOLECULES))
+    labels = np.random.RandomState(2).randint(
+        0, 2, (ENGINE_MOLECULES, GRAPHCONV['n_tasks'])).astype(np.float32)
+    values = np.random.RandomState(3).randn(
+        ENGINE_VALID, GRAPHCONV['n_tasks']).astype(np.float32)
+    return X48[order], labels, values
+
+
+@contextlib.contextmanager
+def plain_routed():
+    """K1, K2, K3 and P3 through their plain PyTorch versions, on the card
+    too, while the block runs."""
+    import importlib
+    nei = importlib.import_module('deepchem_tpu_torch.ops.nei_table')
+    seg = importlib.import_module('deepchem_tpu_torch.ops.segment')
+    csr = importlib.import_module('deepchem_tpu_torch.ops.csr_segment')
+    swaps = [
+        (nei, '_nei_sum_forward', lambda h, table, deg, counter,
+         attr='launches': nei.nei_sum_reference(h, table, deg)),
+        (nei, '_nei_max_forward', nei.nei_max_reference),
+        (nei, '_nei_max_backward', nei.nei_max_backward_reference),
+        (seg, '_graph_max_forward', seg.graph_max_pool_reference),
+        (seg, '_graph_max_backward', seg.graph_max_pool_backward_reference),
+        (csr, '_segment_sum_forward', csr.csr_segment_sum_reference)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, fn in swaps:
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def engine_phase(dev, smi):
+    """Phase 15: the engine's public surface on GraphConvModel at bench.py's
+    width.  Returns the kernels' launches over the phase."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch import GraphConvModel, Metric, NumpyDataset
+    from deepchem_tpu_torch.metrics import (accuracy_score, prc_auc_score,
+                                            roc_auc_score)
+    from deepchem_tpu_torch.models.callbacks import ValidationCallback
+    from deepchem_tpu_torch.models.optimizers import ExponentialDecay
+    t_phase = time.perf_counter()
+    X, y, values = engine_data()
+    ds = NumpyDataset(X, y, np.ones_like(y))
+    valid = NumpyDataset(X[:ENGINE_VALID], y[:ENGINE_VALID])
+    B = GRAPHCONV['batch_size']
+    S = ENGINE_MOLECULES // B
+    sched = ExponentialDecay(*ENGINE_SCHEDULE)
+    kw = dict(GRAPHCONV, learning_rate=sched)
+    reset_launch_counts()
+
+    # schedules: step 1 on the card and the CPU from the same weights
+    grads, step1 = [], []
+    for device in (dev, 'cpu'):
+        m = GraphConvModel(**kw, device=device, seed=1, log_frequency=1)
+        grads.append({})
+        out = []
+        m.fit(NumpyDataset(X[:B], y[:B]), nb_epoch=1, checkpoint_interval=0,
+              callbacks=step1_grads(grads[-1]), all_losses=out)
+        step1.append(out[0])
+    grad_err = max((grads[0][n] - g).abs().max().item()
+                   for n, g in grads[1].items())
+    print(f'phase 15 engine schedule: step 1 at lr {sched(0)}, card against '
+          f'CPU: loss {step1[0]:.7f} against {step1[1]:.7f}, gradients max '
+          f'abs diff {grad_err:.3g}', flush=True)
+    check(abs(step1[0] - step1[1]) <= GRAD_ATOL and grad_err <= GRAD_ATOL,
+          f'step-1 loss and gradients within {GRAD_ATOL} of the CPU')
+    del grads, m
+
+    # schedules: 2 epochs of fit with a ValidationCallback every 10 steps
+    save_dir = tempfile.mkdtemp()
+    model = GraphConvModel(**kw, device=dev, seed=1)
+    metric = Metric(roc_auc_score, np.mean)
+    vc = ValidationCallback(valid, ENGINE_INTERVAL, [metric],
+                            save_dir=save_dir, save_on_minimum=False)
+    rates = []
+    print('phase 15 engine schedule: validation lines:', flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_losses = []
+    model.fit(ds, nb_epoch=2, checkpoint_interval=0, all_losses=fit_losses,
+              callbacks=[lambda m, step: rates.append(
+                  m._torch_optimizer.learning_rate()), vc])
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3 / (2 * S)
+    used = [sched(0)] + rates[:-1]
+    print(f'phase 15 engine schedule: fit, {2 * S} steps of {B} with '
+          f'ExponentialDecay{ENGINE_SCHEDULE}, {fit_ms:.3f} ms a step with '
+          f'{2 * S // ENGINE_INTERVAL} validations; rate of each step '
+          f'{used}; loss per window '
+          f'{[round(v, 5) for v in fit_losses]}; best ROC-AUC '
+          f'{vc.get_best_score():.6f}', flush=True)
+    check(rates == [sched(k) for k in range(1, 2 * S + 1)]
+          and model._torch_optimizer.count == 2 * S,
+          'each step at the schedule\'s rate of its update count')
+    model.restore(model_dir=save_dir)
+    best = model.evaluate(valid, [metric])['roc_auc_score']
+    print(f'phase 15 engine schedule: the best checkpoint scores {best:.6f} '
+          f'(logged {vc.get_best_score():.6f})', flush=True)
+    check(best == vc.get_best_score(), 'the best checkpoint scores the '
+          'logged best score')
+    shutil.rmtree(save_dir, ignore_errors=True)
+
+    # evaluation: evaluate_on_device against evaluate
+    scores = [Metric(roc_auc_score, np.mean), Metric(prc_auc_score, np.mean),
+              Metric(accuracy_score, np.mean)]
+    by_batch = model.evaluate(valid, scores)
+    t0 = time.perf_counter()
+    on_device = model.evaluate_on_device(valid, scores)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_err = max(abs(on_device[k] - by_batch[k]) for k in by_batch)
+    print(f'phase 15 engine evaluate: evaluate_on_device '
+          f'{json.dumps({k: float(v) for k, v in on_device.items()})} in '
+          f'{eval_ms:.3f} ms, evaluate '
+          f'{json.dumps({k: float(v) for k, v in by_batch.items()})}',
+          flush=True)
+    check(set(on_device) == set(by_batch) and eval_err <= SCORE_ATOL,
+          f'evaluate_on_device within {SCORE_ATOL} of evaluate ({eval_err})')
+
+    # reinitialize: a fresh model's parameters, bit for bit
+    model.reinitialize(seed=3)
+    fresh = GraphConvModel(**kw, device=dev, seed=3)
+    differ = [n for (n, a), b in zip(model.module.state_dict().items(),
+                                     fresh.module.state_dict().values())
+              if not torch.equal(a, b)]
+    check(not differ and model.get_global_step() == 0
+          and model._torch_optimizer.count == 0,
+          f'reinitialize(seed=3) equals a fresh model; differ: {differ}')
+    epoch_ms = []
+    for m in (model, fresh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.fit_on_device(ds, nb_epoch=1, seed=0)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f'phase 15 engine reinitialize: equal to a fresh seed-3 model bit '
+          f'for bit; a fit_on_device epoch of {S} steps {epoch_ms[0]:.1f} ms '
+          f'after reinitialize (batches packed) against {epoch_ms[1]:.1f} ms '
+          f'for a fresh model (packs and uploads)', flush=True)
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # streaming: chunks of ENGINE_CHUNK batches against the resident epoch
+    stack = model._host_stack(ds)
+    epoch_bytes = sum(a.nbytes for part in stack for a in part)
+    per_batch = epoch_bytes // S
+    runs = []
+    for kind in ('streamed', 'resident') * 2:      # in turns
+        model.reinitialize(seed=4)
+        model.device_data_budget = 2 * ENGINE_CHUNK * per_batch + 1 \
+            if kind == 'streamed' else 2 << 30
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = []
+        model.fit_on_device(ds, nb_epoch=2, seed=5, all_losses=out)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (2 * S)
+        runs.append(dict(
+            kind=kind, losses=out, ms=ms, base=base,
+            peak=torch.cuda.max_memory_allocated(),
+            launches={k: v - before[k] for k, v in launch_counts().items()},
+            state={k: v.clone() for k, v in
+                   model.module.state_dict().items()}))
+    st, rs = runs[0], runs[1]
+    chunk = ENGINE_CHUNK * per_batch
+    work = rs['peak'] - rs['base']      # the step's own tensors, resident
+    differ = [(r['kind'], k) for r in runs[1:]
+              for k, v in r['state'].items() if not torch.equal(
+                  v, st['state'][k])]
+    held = max(r['peak'] - r['base'] for r in runs
+               if r['kind'] == 'streamed')
+    print(f'phase 15 engine streaming: {S} batches of {per_batch} bytes, '
+          f'budget {2 * chunk + 1} bytes, chunks of {ENGINE_CHUNK}; epoch '
+          f'losses streamed {st["losses"]}, resident {rs["losses"]}; '
+          f'max_memory_allocated streamed {st["peak"]} (base {st["base"]}), '
+          f'resident {rs["peak"]} (base {rs["base"]}, its epoch of '
+          f'{epoch_bytes} bytes uploaded before); host ms a step in turns '
+          f'{[(r["kind"], round(r["ms"], 3)) for r in runs]}', flush=True)
+    check(all(r['losses'] == st['losses'] for r in runs) and not differ,
+          f'streamed fit_on_device equals resident bit for bit; parameters '
+          f'that differ: {differ}')
+    check(all(r['launches'] == st['launches'] for r in runs),
+          'the streamed runs launch what the resident runs do')
+    check(held <= STREAM_MEMORY_SLACK * (2 * chunk + work),
+          f'the streamed run holds at most 2 chunks and a step\'s tensors '
+          f'(+{STREAM_MEMORY_SLACK - 1:.0%}): {held} > '
+          f'{STREAM_MEMORY_SLACK} * ({2 * chunk} + {work})')
+    del model, runs, st, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # uncertainty: MC dropout through the kernels and the plain versions
+    unc = GraphConvModel(**dict(GRAPHCONV, mode='regression'),
+                         uncertainty=True, dropout=0.2, device=dev, seed=6)
+    unc_ds = NumpyDataset(X[:ENGINE_VALID], values)
+    results = []
+    for routed in (False, True):
+        unc.module._dropout_generator = None        # the same masks
+        with plain_routed() if routed else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results.append(unc.predict_uncertainty(
+                unc_ds, masks=UNCERTAINTY_MASKS))
+            torch.cuda.synchronize()
+            results[-1] += ((time.perf_counter() - t0) * 1e3,)
+    (pred, std, unc_ms), (pred_p, std_p, plain_ms) = results
+    unc_err = max(scaled_err(torch.from_numpy(a), torch.from_numpy(b))
+                  for a, b in ((pred, pred_p), (std, std_p)))
+    forwards = UNCERTAINTY_MASKS * -(-ENGINE_VALID // B)
+    print(f'phase 15 engine uncertainty: predict_uncertainty(masks='
+          f'{UNCERTAINTY_MASKS}) over {ENGINE_VALID} molecules, {forwards} '
+          f'forwards, {unc_ms:.1f} ms through the kernels, {plain_ms:.1f} ms '
+          f'through the plain versions; max diff / max(1, |ref|) {unc_err:.3g}'
+          f'; std {float(std.min()):.4g} to {float(std.max()):.4g}',
+          flush=True)
+    check(pred.shape == std.shape == (ENGINE_VALID, GRAPHCONV['n_tasks'])
+          and bool(np.isfinite(pred).all()) and bool(np.isfinite(std).all())
+          and bool((std > 0).all()), 'finite predictions, finite positive '
+          'standard deviations')
+    check(unc_err <= UNCERTAINTY_RTOL, f'kernels within {UNCERTAINTY_RTOL} '
+          f'of the plain versions ({unc_err})')
+    del unc
+    launches = launch_counts()
+    for k in ('nei_sum', 'nei_sum_bwd', 'nei_max_fwd', 'nei_max_bwd',
+              'graph_max_pool_fwd', 'graph_max_pool_bwd', 'csr_segment_sum'):
+        check(launches[k] > 0, f'phase 15 launched {k}')
+    print(f'phase 15 engine: launches {launches}; '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    return launches
 
 
 def table_model_phase(phase, tag, make, X, y, per_batch, per_step, smi):
@@ -2729,7 +3021,10 @@ def main() -> int:
                                             per_batch, per_batch, smi)
     del dm_model
 
-    # -- 15. kernels line -------------------------------------------------
+    # -- 15. the engine on GraphConv at bench.py's width ------------------
+    engine = engine_phase(dev, smi)
+
+    # -- 16. kernels line -------------------------------------------------
     def entry(kname, cases, main_case, path_launches, source=None, **extra):
         return {'name': kname, 'route': 'cuda',
                 'source': source or f'deepchem_tpu_torch/csrc/{kname}.cu',
@@ -2766,7 +3061,8 @@ def main() -> int:
                 'graphconv_train': gc_train['csr_segment_sum'],
                 'mpnn_serve': mp_serve['csr_segment_sum'],
                 'mpnn_train': mp_train['csr_segment_sum'],
-                **table_paths('csr_segment_sum')},
+                **table_paths('csr_segment_sum'),
+                'graphconv_engine': engine['csr_segment_sum']},
                replaces='deepchem_tpu/ops/pallas_segment.py:45')
     # P2 has no model path: its row is its widest bench shape
     p2 = entry('fused_gather_segment_sum', gather_cases,
@@ -2797,7 +3093,8 @@ def main() -> int:
     # K1-K3: custom-VJP XLA ops in the JAX package, no Pallas kernel
     def gc_paths(key):
         return {'graphconv_serve': gc_serve[key],
-                'graphconv_train': gc_train[key]}
+                'graphconv_train': gc_train[key],
+                'graphconv_engine': engine[key]}
     xla_op = 'a custom-VJP XLA op, no Pallas kernel'
     fwd_max = [c[0] for c in max_cases]
     bwd_max = [c[1] for c in max_cases]
@@ -2810,6 +3107,8 @@ def main() -> int:
                {'graphconv_serve': gc_serve['nei_sum'],
                 'graphconv_train': gc_train['nei_sum']
                 + gc_train['nei_sum_bwd'],
+                'graphconv_engine': engine['nei_sum']
+                + engine['nei_sum_bwd'],
                 'mpnn_serve': mp_serve['nei_sum_edges'],
                 'mpnn_train': mp_train['nei_sum_edges']
                 + mp_train['take_src_bwd'],

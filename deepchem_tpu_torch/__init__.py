@@ -16,9 +16,11 @@ from deepchem_tpu_torch.models import (AttentiveFPModel, BertEncoderMLM,
                                        DMPNNModel, GATModel, GCNModel,
                                        GraphConvModel, MPNNModel, PagtnModel)
 from deepchem_tpu_torch.trans import NormalizationTransformer
+from deepchem_tpu_torch.utils.evaluate import Evaluator, GeneratorEvaluator
 
 __all__ = ['AttentiveFPModel', 'BertEncoderMLM', 'ConvMolFeaturizer',
-           'DMPNNFeaturizer', 'DMPNNModel', 'GATModel', 'GCNModel',
+           'DMPNNFeaturizer', 'DMPNNModel', 'Evaluator', 'GATModel',
+           'GCNModel', 'GeneratorEvaluator',
            'GraphConvModel', 'Metric',
            'MolGraphConvFeaturizer', 'MPNNModel', 'NormalizationTransformer',
            'NumpyDataset', 'PagtnMolGraphFeaturizer', 'PagtnModel',

@@ -56,7 +56,10 @@ class NumpyDataset:
         if w.ndim == 0:
             w = np.full(y.shape, float(w), dtype=np.float32)
         elif w.shape != y.shape and y.ndim == 2:
-            w = np.broadcast_to(w, y.shape).copy()
+            try:
+                w = np.broadcast_to(w, y.shape).copy()
+            except ValueError:
+                pass      # as the JAX package: left to the metrics
         self._X = X
         self._y = y
         self._w = w
@@ -81,6 +84,11 @@ class NumpyDataset:
     @property
     def ids(self) -> np.ndarray:
         return self._ids
+
+    def get_task_names(self) -> np.ndarray:
+        """The tasks' indices, ``0 .. n_tasks - 1``."""
+        return np.arange(self._y.shape[1]) if self._y.ndim > 1 \
+            else np.array([0])
 
     def iterbatches(self, batch_size: Optional[int] = None, epochs: int = 1,
                     deterministic: bool = False,

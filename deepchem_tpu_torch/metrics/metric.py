@@ -1,9 +1,7 @@
-"""Metrics: the port's copy of ``deepchem_tpu/metrics/metric.py``'s
-``Metric`` with the shape helpers it uses, ``to_one_hot``, a numpy
-``roc_auc_score`` equal to scikit-learn's for binary labels, and the
-regression scores ``pearson_r2_score``, ``rms_score`` and ``mae_score``
-of ``metrics/score_function.py``, in numpy (the card's machine has no
-scikit-learn)."""
+"""The port's copy of ``deepchem_tpu/metrics/metric.py``: ``Metric``,
+the shape helpers it uses, ``to_one_hot``, ``from_one_hot``,
+``handle_classification_mode`` and ``threshold_predictions``, numpy
+only."""
 
 from __future__ import annotations
 
@@ -31,61 +29,6 @@ def to_one_hot(y: np.ndarray, n_classes: int = 2) -> np.ndarray:
 
 def from_one_hot(y: np.ndarray, axis: int = 1) -> np.ndarray:
     return np.argmax(y, axis=axis)
-
-
-def roc_auc_score(y_true: np.ndarray, y_score: np.ndarray,
-                  sample_weight: Optional[np.ndarray] = None) -> float:
-    """Area under the ROC curve of binary labels (1 positive) against
-    scores: the trapezoids under the curve whose points are the distinct
-    score thresholds, so tied scores count half, as scikit-learn's
-    ``roc_auc_score``.  Raises ``ValueError`` unless both classes occur."""
-    y_true = np.asarray(y_true).reshape(-1)
-    y_score = np.asarray(y_score, dtype=np.float64).reshape(-1)
-    if len(np.unique(y_true)) != 2:
-        raise ValueError('Only one class present in y_true. ROC AUC score '
-                         'is not defined in that case.')
-    pos = (y_true == 1).astype(np.float64)
-    w = np.ones_like(y_score) if sample_weight is None \
-        else np.asarray(sample_weight, dtype=np.float64).reshape(-1)
-    order = np.argsort(y_score, kind='mergesort')[::-1]
-    y_score, pos, w = y_score[order], pos[order], w[order]
-    last = np.r_[np.where(np.diff(y_score))[0], len(y_score) - 1]
-    tps = np.cumsum(pos * w)[last]
-    fps = np.cumsum((1 - pos) * w)[last]
-    tpr = np.r_[0.0, tps] / tps[-1]
-    fpr = np.r_[0.0, fps] / fps[-1]
-    return float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2))
-
-
-def pearson_r2_score(y: np.ndarray, y_pred: np.ndarray) -> float:
-    """The squared Pearson correlation of labels and predictions; 0 where
-    either is constant."""
-    y = np.asarray(y, dtype=float).reshape(-1)
-    y_pred = np.asarray(y_pred, dtype=float).reshape(-1)
-    if y.std() == 0 or y_pred.std() == 0:
-        return 0.0
-    return float(np.corrcoef(y, y_pred)[0, 1] ** 2)
-
-
-def rms_score(y_true: np.ndarray, y_pred: np.ndarray,
-              sample_weight: Optional[np.ndarray] = None) -> float:
-    """The root of the (weighted) mean squared error."""
-    return float(np.sqrt(_mean_over_outputs(
-        (np.asarray(y_true) - np.asarray(y_pred)) ** 2, sample_weight)))
-
-
-def mae_score(y_true: np.ndarray, y_pred: np.ndarray,
-              sample_weight: Optional[np.ndarray] = None) -> float:
-    """The (weighted) mean absolute error."""
-    return float(_mean_over_outputs(
-        np.abs(np.asarray(y_pred) - np.asarray(y_true)), sample_weight))
-
-
-def _mean_over_outputs(err: np.ndarray,
-                       sample_weight: Optional[np.ndarray]) -> float:
-    """scikit-learn's regression mean: the weighted mean over samples of
-    each output, then the mean over outputs."""
-    return np.average(np.average(err, axis=0, weights=sample_weight))
 
 
 def normalize_weight_shape(w: Optional[np.ndarray], n_samples: int,
@@ -184,6 +127,32 @@ def normalize_prediction_shape(y: np.ndarray, mode: str, n_tasks: int = 1,
     raise ValueError('mode must be classification or regression')
 
 
+def handle_classification_mode(
+        y: np.ndarray, classification_handling_mode: Optional[str],
+        threshold_value: Optional[float] = None) -> np.ndarray:
+    """``(N, T, C)`` probabilities as ``classification_handling_mode``
+    asks: None keeps them, 'threshold' gives class indices ``(N, T)``,
+    'threshold-one-hot' those indices one-hot."""
+    if classification_handling_mode is None:
+        return y
+    if y.ndim != 3:
+        raise ValueError('expected (N, T, C) probabilities')
+    N, T, C = y.shape
+    if classification_handling_mode == 'threshold':
+        out = np.zeros((N, T))
+        for t in range(T):
+            out[:, t] = threshold_predictions(y[:, t, :], threshold_value)
+        return out
+    if classification_handling_mode == 'threshold-one-hot':
+        out = np.zeros_like(y)
+        for t in range(T):
+            idx = threshold_predictions(y[:, t, :], threshold_value)
+            out[:, t, :] = to_one_hot(idx, C)
+        return out
+    raise ValueError(f'bad classification_handling_mode '
+                     f'{classification_handling_mode}')
+
+
 def threshold_predictions(y: np.ndarray,
                           threshold: Optional[float] = None) -> np.ndarray:
     """``(N, C)`` probabilities -> ``(N,)`` class indices."""
@@ -219,8 +188,9 @@ class Metric:
 
     def __init__(self, metric: Callable,
                  task_averager: Optional[Callable] = None,
-                 name: Optional[str] = None, mode: Optional[str] = None,
-                 n_tasks: Optional[int] = None,
+                 name: Optional[str] = None,
+                 threshold: Optional[float] = None,
+                 mode: Optional[str] = None, n_tasks: Optional[int] = None,
                  classification_handling_mode: Optional[str] = None,
                  threshold_value: Optional[float] = None):
         self.metric = metric
@@ -241,9 +211,6 @@ class Metric:
                 and mode == 'classification' \
                 and fn_name in _THRESHOLD_METRICS:
             classification_handling_mode = 'threshold'
-        if classification_handling_mode not in (None, 'threshold'):
-            raise ValueError(f'bad classification_handling_mode '
-                             f'{classification_handling_mode}')
         self.classification_handling_mode = classification_handling_mode
         self.threshold_value = threshold_value
 
@@ -251,8 +218,11 @@ class Metric:
                        w: Optional[np.ndarray] = None,
                        n_tasks: Optional[int] = None, n_classes: int = 2,
                        per_task_metrics: bool = False,
-                       use_sample_weights: bool = False
-                       ) -> Union[float, tuple]:
+                       use_sample_weights: bool = False,
+                       **kwargs) -> Union[float, tuple]:
+        """The mean over tasks of the task scores (and with
+        ``per_task_metrics`` the task scores too); extra keywords go to
+        the scoring function."""
         y_true = np.asarray(y_true)
         if n_tasks is None:
             if self.n_tasks is not None:
@@ -270,7 +240,8 @@ class Metric:
             try:
                 score = self.compute_singletask_metric(
                     y_true[:, t], y_pred[:, t], w[:, t],
-                    use_sample_weights=use_sample_weights)
+                    n_samples=n_samples,
+                    use_sample_weights=use_sample_weights, **kwargs)
             except Exception as e:   # e.g. a task with one class only
                 logger.warning('error computing %s for task %d: %s',
                                self.name, t, e)
@@ -284,19 +255,26 @@ class Metric:
         return (overall, scores) if per_task_metrics else overall
 
     def compute_singletask_metric(self, y_true, y_pred, w=None,
-                                  use_sample_weights: bool = False) -> float:
+                                  n_samples: Optional[int] = None,
+                                  use_sample_weights: bool = False,
+                                  **kwargs) -> float:
         y_true, y_pred = np.asarray(y_true), np.asarray(y_pred)
         if w is not None:
             w = np.asarray(w)
             keep = w != 0
+            if keep.ndim > 1:
+                keep = keep.any(axis=tuple(range(1, keep.ndim)))
             y_true, y_pred, w = y_true[keep], y_pred[keep], w[keep]
         if self.mode == 'classification':
+            y_pred = handle_classification_mode(
+                y_pred[:, None, :], self.classification_handling_mode,
+                self.threshold_value)[:, 0]
             y_true_idx = from_one_hot(y_true) if y_true.ndim == 2 \
                 else y_true
             fn_name = getattr(self.metric, '__name__', '')
             if self.classification_handling_mode == 'threshold':
-                args = (y_true_idx, threshold_predictions(
-                    y_pred, self.threshold_value))
+                y_in = y_pred if y_pred.ndim == 1 else from_one_hot(y_pred)
+                args = (y_true_idx, y_in)
             elif fn_name in ('roc_auc_score', 'prc_auc_score',
                              'bedroc_score') \
                     and y_pred.ndim == 2 and y_pred.shape[1] == 2:
@@ -306,5 +284,5 @@ class Metric:
         else:
             args = (y_true, y_pred)
         if use_sample_weights and w is not None:
-            return float(self.metric(*args, sample_weight=w))
-        return float(self.metric(*args))
+            return float(self.metric(*args, sample_weight=w, **kwargs))
+        return float(self.metric(*args, **kwargs))

@@ -119,15 +119,17 @@ class DMPNNModel(GraphModel):
         self.n_tasks = n_tasks
         self.mode = mode
         self.n_classes = n_classes
-        module = _DMPNNModule(
-            n_tasks=n_tasks, n_classes=n_classes, mode=mode,
-            num_graphs=batch_size, node_features=number_atom_features,
-            edge_features=number_bond_features, enc_hidden=enc_hidden,
-            depth=depth, ffn_hidden=ffn_hidden, ffn_layers=ffn_layers,
-            dropout=dropout_p, generator=torch.Generator().manual_seed(seed),
-            dropout_seed=seed)
+        def module(generator):
+            return _DMPNNModule(
+                n_tasks=n_tasks, n_classes=n_classes, mode=mode,
+                num_graphs=batch_size, node_features=number_atom_features,
+                edge_features=number_bond_features, enc_hidden=enc_hidden,
+                depth=depth, ffn_hidden=ffn_hidden, ffn_layers=ffn_layers,
+                dropout=dropout_p, generator=generator,
+                dropout_seed=seed)
         loss, output_types = _gnn_loss_outputs(mode)
         super().__init__(module, loss, output_types=output_types,
                          batch_size=batch_size, model_dir=model_dir,
                          learning_rate=learning_rate, optimizer=optimizer,
-                         log_frequency=log_frequency, device=device)
+                         log_frequency=log_frequency, device=device,
+                         seed=seed)

@@ -172,6 +172,12 @@ class GraphModel(TorchModel):
         finally:
             self._fixed_caps = None
 
+    def get_num_tasks(self) -> int:
+        return self.n_tasks
+
+    def get_task_type(self) -> str:
+        return self.mode
+
     def default_generator(self, dataset: NumpyDataset, epochs: int = 1,
                           mode: str = 'fit', deterministic: bool = True,
                           pad_batches: bool = True):
@@ -361,19 +367,21 @@ class PagtnModel(GraphModel):
         self.n_tasks = n_tasks
         self.mode = mode
         self.n_classes = n_classes
-        module = _PagtnModule(
-            n_tasks=n_tasks, n_classes=n_classes, mode=mode,
-            num_graphs=batch_size, node_features=number_atom_features,
-            edge_features=number_bond_features,
-            hidden_features=hidden_features,
-            output_node_features=output_node_features,
-            num_layers=num_layers, num_heads=num_heads, dropout=dropout,
-            generator=torch.Generator().manual_seed(seed), dropout_seed=seed)
+        def module(generator):
+            return _PagtnModule(
+                n_tasks=n_tasks, n_classes=n_classes, mode=mode,
+                num_graphs=batch_size, node_features=number_atom_features,
+                edge_features=number_bond_features,
+                hidden_features=hidden_features,
+                output_node_features=output_node_features,
+                num_layers=num_layers, num_heads=num_heads, dropout=dropout,
+                generator=generator, dropout_seed=seed)
         loss, output_types = _gnn_loss_outputs(mode)
         super().__init__(module, loss, output_types=output_types,
                          batch_size=batch_size, model_dir=model_dir,
                          learning_rate=learning_rate, optimizer=optimizer,
-                         log_frequency=log_frequency, device=device)
+                         log_frequency=log_frequency, device=device,
+                         seed=seed)
 
 
 class _GraphConvModule(_SeededDropout):
@@ -480,14 +488,14 @@ class GraphConvModel(GraphModel):
             raise ValueError('uncertainty requires regression mode')
         if uncertainty and dropout == 0.0:
             raise ValueError('uncertainty requires dropout > 0')
-        module = _GraphConvModule(
-            n_tasks=n_tasks, n_classes=n_classes,
-            graph_conv_layers=tuple(graph_conv_layers),
-            dense_layer_size=dense_layer_size, dropout=dropout, mode=mode,
-            num_graphs=batch_size, node_features=number_atom_features,
-            batch_normalize=batch_normalize, uncertainty=uncertainty,
-            generator=torch.Generator().manual_seed(seed),
-            dropout_seed=seed)
+        def module(generator):
+            return _GraphConvModule(
+                n_tasks=n_tasks, n_classes=n_classes,
+                graph_conv_layers=tuple(graph_conv_layers),
+                dense_layer_size=dense_layer_size, dropout=dropout, mode=mode,
+                num_graphs=batch_size, node_features=number_atom_features,
+                batch_normalize=batch_normalize, uncertainty=uncertainty,
+                generator=generator, dropout_seed=seed)
         if uncertainty:
             loss = _uncertainty_loss
             output_types = ['prediction', 'variance', 'loss', 'loss']
@@ -496,7 +504,8 @@ class GraphConvModel(GraphModel):
         super().__init__(module, loss, output_types=output_types,
                          batch_size=batch_size, model_dir=model_dir,
                          learning_rate=learning_rate, optimizer=optimizer,
-                         log_frequency=log_frequency, device=device)
+                         log_frequency=log_frequency, device=device,
+                         seed=seed)
 
 
 class _StackedGNNModule(_SeededDropout):
@@ -584,16 +593,18 @@ class _StackedGNNModel(GraphModel):
         self.n_tasks = n_tasks
         self.mode = mode
         self.n_classes = n_classes
-        module = _StackedGNNModule(
-            n_tasks=n_tasks, n_classes=n_classes, mode=mode,
-            num_graphs=batch_size,
-            generator=torch.Generator().manual_seed(seed), dropout_seed=seed,
-            **module_kwargs)
+        def module(generator):
+            return _StackedGNNModule(
+                n_tasks=n_tasks, n_classes=n_classes, mode=mode,
+                num_graphs=batch_size,
+                generator=generator, dropout_seed=seed,
+                **module_kwargs)
         loss, output_types = _gnn_loss_outputs(mode)
         super().__init__(module, loss, output_types=output_types,
                          batch_size=batch_size, model_dir=model_dir,
                          learning_rate=learning_rate, optimizer=optimizer,
-                         log_frequency=log_frequency, device=device)
+                         log_frequency=log_frequency, device=device,
+                         seed=seed)
 
 
 class GCNModel(_StackedGNNModel):
@@ -747,13 +758,15 @@ class MPNNModel(GraphModel):
         self.n_tasks = n_tasks
         self.mode = mode
         self.n_classes = n_classes
-        module = _MPNNModule(
-            n_tasks=n_tasks, n_classes=n_classes, mode=mode,
-            num_graphs=batch_size, node_features=n_atom_feat,
-            edge_features=n_pair_feat, node_dim=node_dim, n_steps=T,
-            set2set_steps=M, generator=torch.Generator().manual_seed(seed))
+        def module(generator):
+            return _MPNNModule(
+                n_tasks=n_tasks, n_classes=n_classes, mode=mode,
+                num_graphs=batch_size, node_features=n_atom_feat,
+                edge_features=n_pair_feat, node_dim=node_dim, n_steps=T,
+                set2set_steps=M, generator=generator)
         loss, output_types = _gnn_loss_outputs(mode)
         super().__init__(module, loss, output_types=output_types,
                          batch_size=batch_size, model_dir=model_dir,
                          learning_rate=learning_rate, optimizer=optimizer,
-                         log_frequency=log_frequency, device=device)
+                         log_frequency=log_frequency, device=device,
+                         seed=seed)

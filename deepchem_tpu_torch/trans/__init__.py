@@ -1,5 +1,11 @@
-from deepchem_tpu_torch.trans.transformers import (NormalizationTransformer,
-                                                   Transformer,
-                                                   undo_transforms)
+from deepchem_tpu_torch.trans.transformers import (
+    BalancingTransformer, CDFTransformer, ClippingTransformer,
+    DuplicateBalancingTransformer, FlatteningTransformer, LogTransformer,
+    MinMaxTransformer, NormalizationTransformer, PowerTransformer,
+    Transformer, undo_grad_transforms, undo_transforms)
 
-__all__ = ['NormalizationTransformer', 'Transformer', 'undo_transforms']
+__all__ = ['BalancingTransformer', 'CDFTransformer', 'ClippingTransformer',
+           'DuplicateBalancingTransformer', 'FlatteningTransformer',
+           'LogTransformer', 'MinMaxTransformer', 'NormalizationTransformer',
+           'PowerTransformer', 'Transformer', 'undo_grad_transforms',
+           'undo_transforms']

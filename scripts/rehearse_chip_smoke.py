@@ -15,8 +15,11 @@ runs every phase of ``chip_smoke.py`` with:
 - P4 and the encoder cut to a size the CPU can hold (attention [2, 2,
   128, 64], crossover shapes of 2048 tokens up to S = 512, the float32
   forward's at S = 512 only, an encoder of
-  hidden 64 and 2 layers trained at lr 1e-2), and SDPA without a chosen
-  backend.
+  hidden 64 and 2 layers trained at lr 1e-2), phase 15's engine to 1024
+  molecules (256 to validate every 2 steps), chunks of 1 batch and 3
+  dropout masks, and
+  SDPA without a chosen backend;
+- the card's memory counters read as 0.
 
 It finds wrong paths, shapes, counts and control flow.  Its times are the
 CPU's and mean nothing for the card; its errors are 0 because both sides
@@ -55,6 +58,9 @@ def main() -> int:
     torch.cuda.device_count = lambda: 1
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.Event = _HostEvent
+    torch.cuda.memory_allocated = lambda *a: 0
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
     subprocess.run = lambda *a, **k: types.SimpleNamespace(
         stdout='cpu rehearsal, no power limit\n')
 
@@ -187,6 +193,9 @@ def main() -> int:
     smoke.ENCODER = dict(smoke.ENCODER, hidden=64, layers=2, heads=2,
                          intermediate=128)
     smoke.ENCODER_LR = 1e-2
+    smoke.ENGINE_MOLECULES, smoke.ENGINE_VALID = 1024, 256
+    smoke.ENGINE_CHUNK, smoke.UNCERTAINTY_MASKS = 1, 3
+    smoke.ENGINE_INTERVAL = 2
     return smoke.main()
 
 
