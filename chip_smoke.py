@@ -45,7 +45,15 @@ Phases:
                 plain version gives NaN; K4 forward and backward at C 1,
                 8, 64, 200 and 75 and off alignment, and K1 at F 30 and
                 300, at NaN, infinities and signed zeros, held the same
-                way.
+                way.  P2 in bfloat16 at the same bench shapes, at F 37
+                and off 16-byte alignment, bit for bit against its plain
+                version (the float64 sums of the same inputs recorded),
+                with index_select and index_add_ in bfloat16 as the
+                library call, and its own path: one call per bench shape;
+                P2 (float32) at the inputs phase 16's first batch of 100
+                hands it (GNNModular's GCN layers at F 30 and 64 and their
+                backward's transpose, PNA's [E, 64] edge sums) and K3 at
+                PNA's max over each node's edges.
                 Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
@@ -127,10 +135,12 @@ Phases:
                 with seeded normal labels, each: predict_on_batch answers
                 requests of 1, 16 and 31 and predict scores the 300 (held
                 against the CPU), 100 requests of 16 are timed (median,
-                p90); fit trains 3 epochs (the step time over the last 2;
-                launches a batch and a step counted: GCN K1 2 forward + 1
-                backward, GAT and AttentiveFP K4 4 forward + K1 4 in its
-                backward, P3 2 for the mean readout or 1 for the sum),
+                p90); fit and fit_on_device train 3 epochs each (the step
+                time over the last 2; fit_on_device's per-epoch losses
+                against the CPU's; launches a batch and a step counted:
+                GCN K1 2 forward + 1 backward, GAT and AttentiveFP K4 4
+                forward + K1 4 in its backward, P3 2 for the mean
+                readout or 1 for the sum),
                 step-1 gradients are held against the CPU, a fixed batch
                 must overfit, evaluate's pearson r2, RMS and MAE are held
                 against the CPU, and the card's busy µs and kernels of a
@@ -164,7 +174,26 @@ Phases:
                 kernels and through the plain versions from the same dropout
                 seeds, within 1e-5 of max(1, |ref|), standard deviations
                 finite and positive.  K1-K3 and P3 must launch.
- 16. kernels -- one JSON line with each kernel's numbers.
+ 16. coo     -- PNAModel (hidden 64, 3 layers, mean, max, min and std
+                under identity, amplification and attenuation),
+                GNNModular (emb_dim 64, 3 GCN layers) as a regressor and
+                on edge prediction, and InfoGraphStarModel (embedding 64,
+                3 layers) at the JAX package's defaults (batch 100, one
+                regression task), seeded random weights, on phase 13's
+                300 molecules, each: requests of 1, 16 and 31 and the
+                whole set answered (predictions, or edge_pred's per-edge
+                scores) and held against the CPU, 100 requests of 16
+                timed (median, p90); fit and fit_on_device train 3 epochs
+                each (the step time over the last 2; fit_on_device's
+                per-epoch losses against the CPU's; launches a batch and
+                a step counted: P2 once a GCN layer and its transpose in
+                the backward of layers 2 and 3, PNA P2 2 and K3 2 a layer
+                and K3's backward, P3 for the readouts), step-1 gradients
+                against the CPU, a fixed batch that must overfit, and
+                evaluate's pearson r2, RMS and MAE (edge_pred: loss_func
+                on a batch) against the CPU; the card's busy µs and
+                kernels of a request of 16 and of a step.
+ 17. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -253,6 +282,16 @@ GAT = dict(n_tasks=1, mode='regression')
 ATTENTIVEFP = dict(n_tasks=1, mode='regression')
 DMPNN = dict(n_tasks=1, mode='regression')
 TABLE_MOLECULES = 300           # 3 batches of 100
+# pna.py:121, gnn_modular.py:198 and infograph.py:114: PNA (hidden 64, 3
+# layers, mean, max, min and std under identity, amplification and
+# attenuation, residual), GNNModular (emb_dim 64, 3 GCN layers) as a
+# regressor and on edge prediction, and InfoGraph* (embedding 64, 3
+# layers) at the JAX package's defaults, batch 100, one regression task,
+# on the phase 13 molecules
+PNA = dict(n_tasks=1)
+GNN_REGRESSION = dict(task='regression', n_tasks=1)
+GNN_EDGE_PRED = dict(task='edge_pred')
+INFOGRAPH_STAR = dict(n_tasks=1)
 # scripts/bench_pallas_csr.py:76-78, (nodes, edges, features)
 P2_BENCH_SHAPES = [(2048, 4096, 64), (2048, 4096, 256),
                    (8192, 16384, 256), (8192, 16384, 512),
@@ -607,6 +646,64 @@ def gather_case(name, h, src, row_ptr):
     print(f'phase 3 kernel {json.dumps(res)}', flush=True)
     check(err <= tol, f'{name}: kernel error {err} > {tol}')
     check(lib_err <= tol, f'{name}: library error {lib_err} > {tol}')
+    check(res['repeat_identical'], f'{name}: a repeat differs')
+    return res
+
+
+def library_neighbor_sum_bf16(h, src, dst, num_nodes):
+    """P2's function in bfloat16 as PyTorch calls, for comparison only:
+    ``index_select`` of the rows, then ``index_add_`` by each edge's
+    segment ``dst`` (atomics: another order of the adds)."""
+    return h.new_zeros((num_nodes, h.shape[1])).index_add_(
+        0, dst, h.index_select(0, src))
+
+
+def gather_bf16_case(name, h, src, row_ptr):
+    """P2's bfloat16 kernel against its plain version on the card, bit for
+    bit (both add each segment's edges in CSR order, every add rounded to
+    bfloat16), with times, bound and the library call; both also against
+    the float64 sum of the same bfloat16 inputs, recorded."""
+    import torch
+    from deepchem_tpu_torch.ops.csr_segment import (
+        csr_neighbor_sum_reference, fused_gather_segment_sum)
+    out = fused_gather_segment_sum(h, src, row_ptr)
+    again = fused_gather_segment_sum(h, src, row_ptr)
+    ref = csr_neighbor_sum_reference(h, src, row_ptr)
+    torch.cuda.synchronize()
+    same = torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    f64 = csr_neighbor_sum_reference(h.double(), src, row_ptr)
+    Nh, F = h.shape
+    N = row_ptr.shape[0] - 1
+    used = int(row_ptr[-1])
+    dst = torch.searchsorted(row_ptr[1:], torch.arange(
+        used, dtype=torch.int32, device=h.device), right=True)
+    lib_src = src[:used].long()
+    lib_out = library_neighbor_sum_bf16(h, lib_src, dst, N)
+    rows = src[:used].unique().numel()        # rows of h the sums read
+    bound_ms, bound_by = bound(2 * rows * F + 4 * (used + N + 1)
+                               + 2 * N * F, used * F)
+    res = {'kernel': 'fused_gather_segment_sum_bf16', 'case': name,
+           'N_h': Nh, 'E': src.shape[0], 'F': F, 'N': N,
+           'max_abs_err': max_err(out.float(), ref.float()),
+           'bits_equal': same, 'tol': 'bit for bit',
+           'err_f64': max_err(out.double(), f64),
+           'plain_err_f64': max_err(ref.double(), f64),
+           'repeat_identical': torch.equal(out, again),
+           'ms': time_ms(lambda: fused_gather_segment_sum(h, src, row_ptr)),
+           'device_us': device_us(
+               lambda: fused_gather_segment_sum(h, src, row_ptr),
+               'fused_gather_segment_sum_bf16_kernel', bound_ms * 1e3),
+           'plain_ms': time_ms(
+               lambda: csr_neighbor_sum_reference(h, src, row_ptr)),
+           'library_err_f64': max_err(lib_out.double(), f64),
+           'library_ms': time_ms(
+               lambda: library_neighbor_sum_bf16(h, lib_src, dst, N)),
+           'bound_ms': bound_ms, 'bound_by': bound_by}
+    res['library_device_us'], res['library_kernels'] = device_us_all(
+        lambda: library_neighbor_sum_bf16(h, lib_src, dst, N))
+    print(f'phase 3 kernel {json.dumps(res)}', flush=True)
+    check(same, f'{name}: the bfloat16 kernel differs from its plain '
+          f'version by {res["max_abs_err"]}')
     check(res['repeat_identical'], f'{name}: a repeat differs')
     return res
 
@@ -1480,11 +1577,12 @@ def scaled_err(a, b) -> float:
 def recorded(module, attr, run):
     """Run ``run()`` with ``module.attr`` wrapped to record copies of its
     arguments; return them."""
+    import torch
     fn, seen = getattr(module, attr), []
 
     def record(*args, **kwargs):
-        seen.append(tuple(a.detach().clone() if a is not None else None
-                          for a in args))
+        seen.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor)
+                          else a for a in args))
         return fn(*args, **kwargs)
 
     # a wrapper counts its launches through its module's name for it, so
@@ -1525,6 +1623,10 @@ def _counted():
             'csr_segment_sum': (csr_segment_sum, 'launches'),
             'fused_gather_segment_sum': (fused_gather_segment_sum,
                                          'launches'),
+            'fused_gather_segment_sum_bwd': (fused_gather_segment_sum,
+                                             'backward_launches'),
+            'fused_gather_segment_sum_bf16': (fused_gather_segment_sum,
+                                              'bf16_launches'),
             'flash_attention_fwd': (flash_attention, 'launches'),
             'flash_attention_dkv': (flash_attention_bwd_dkv, 'launches'),
             'flash_attention_dq': (flash_attention_bwd_dq, 'launches'),
@@ -1853,33 +1955,50 @@ def engine_phase(dev, smi):
     return launches
 
 
-def table_model_phase(phase, tag, make, X, y, per_batch, per_step, smi):
-    """Serves, trains and scores one regression model of the table paths
-    on the card, each held against the CPU: requests of REQUESTS molecules
-    (CPU_ATOL), ``predict`` over ``X`` (CPU_ATOL), LATENCY_REQUESTS timed
-    requests of 16 (median, p90), 3 ``fit`` epochs (the step time over
-    the last 2), the kernel launches of a forward batch (``per_batch``) and
-    of a step (``per_step``), step-1 gradients (GRAD_ATOL of max(1, |g|)),
-    a fixed batch that must overfit, ``evaluate``'s pearson r2, RMS and
-    MAE (EVAL_ATOL); then the card's busy µs and kernels of a request of
-    16 and of a training step (profiler, after every host timing).
-    ``make(device, seed, **kw)`` builds the model.  Returns the launches
-    of the serve and train runs and the numbers."""
+def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
+                scored=True):
+    """Phases 13, 14 and 16: serves, trains and scores one regression graph
+    model on the card, each held against the CPU: requests of REQUESTS
+    molecules and the whole of ``X`` (CPU_ATOL), LATENCY_REQUESTS timed
+    requests of 16 (median, p90), 3 ``fit`` epochs (the step time over the
+    last 2) and 3 ``fit_on_device`` epochs against the same on the CPU
+    (per-epoch losses within CPU_ATOL relative; the step time over the
+    last 2), the kernel
+    launches of a forward batch (``per_batch``) and of a step
+    (``per_step``, both training loops), step-1 gradients (GRAD_ATOL of
+    max(1, |g|)), a fixed batch that must overfit, and the score: with
+    ``scored``, ``evaluate``'s pearson r2, RMS and MAE (EVAL_ATOL), else
+    (a pretraining task, whose outputs are per-edge or per-node
+    embeddings) ``loss_func`` on the first batch (EVAL_ATOL relative);
+    then the card's busy µs and kernels of a request of 16 and of a
+    training step.  ``make(device, seed, **kw)`` builds the model.
+    Returns the launches of the serve, fit and fit_on_device runs and the
+    numbers."""
     import numpy as np
     import torch
     from deepchem_tpu_torch import (Metric, NumpyDataset, mae_score,
                                     pearson_r2_score, rms_score)
     head = f'phase {phase} {tag}'
-    model = make(torch.device('cuda', 0), 0)
+    dev = torch.device('cuda', 0)
+    model = make(dev, 0)
     B = model.batch_size
     ds = NumpyDataset(X, y)
-    model.predict_on_batch(X[:16])                       # warm-up
+
+    def answer(m, Xs):
+        """The model's answer to a request: its predictions, or for a
+        pretraining task every output of the batch, untrimmed."""
+        if scored:
+            return [m.predict_on_batch(Xs)]
+        return m.predict_on_generator(m.default_generator(
+            NumpyDataset(Xs), mode='predict'), output_types=['embedding'])
+
+    answer(model, X[:16])                                 # warm-up
     torch.cuda.synchronize()
     reset_launch_counts()
     outs, request_ms, start = [], [], 0
     for n in REQUESTS:
         t0 = time.perf_counter()
-        outs.append(model.predict_on_batch(X[start:start + n]))
+        outs.append(answer(model, X[start:start + n]))
         request_ms.append((time.perf_counter() - t0) * 1e3)
         start += n
     serve = launch_counts()
@@ -1888,10 +2007,14 @@ def table_model_phase(phase, tag, make, X, y, per_batch, per_step, smi):
         {k: v.cpu() for k, v in model.module.state_dict().items()})
     worst, start = 0.0, 0
     for n, out in zip(REQUESTS, outs):
-        check(out.shape == (n, 1) and bool(np.isfinite(out).all()),
-              f'{tag} output [{n}, 1], finite')
-        ref = cpu.predict_on_batch(X[start:start + n])
-        worst = max(worst, float(np.abs(out - ref).max()))
+        ref = answer(cpu, X[start:start + n])
+        check(len(out) == len(ref) and all(
+            a.shape == b.shape and bool(np.isfinite(a).all())
+            for a, b in zip(out, ref)), f'{tag} request of {n}: finite, '
+              'the CPU run\'s shapes')
+        check(not scored or out[0].shape == (n, 1), f'{tag} output [{n}, 1]')
+        worst = max([worst] + [float(np.abs(a - b).max())
+                               for a, b in zip(out, ref)])
         start += n
     print(f'{head} serve ({smi}): requests {list(REQUESTS)} molecules, ms '
           f'per request {[round(t, 3) for t in request_ms]}; max abs diff '
@@ -1901,10 +2024,11 @@ def table_model_phase(phase, tag, make, X, y, per_batch, per_step, smi):
         want = per_batch.get(k, 0) * len(REQUESTS)
         check(v == want, f'{tag} serve: {k} launched {v} times, not {want}')
     t0 = time.perf_counter()
-    every = model.predict(ds)
+    every = answer(model, X)
     predict_ms = (time.perf_counter() - t0) * 1e3
-    predict_err = float(np.abs(every - cpu.predict(ds)).max())
-    check(every.shape == (len(X), 1) and bool(np.isfinite(every).all())
+    predict_err = max(float(np.abs(a - b).max())
+                      for a, b in zip(every, answer(cpu, X)))
+    check(all(bool(np.isfinite(a).all()) for a in every)
           and predict_err <= CPU_ATOL,
           f'{tag} predict over {len(X)}: finite, within {CPU_ATOL} of the '
           f'CPU ({predict_err})')
@@ -1912,44 +2036,64 @@ def table_model_phase(phase, tag, make, X, y, per_batch, per_step, smi):
     for i in range(LATENCY_REQUESTS):
         lo = (16 * i) % (len(X) - 16)
         t0 = time.perf_counter()
-        model.predict_on_batch(X[lo:lo + 16])
+        answer(model, X[lo:lo + 16])
         latency.append((time.perf_counter() - t0) * 1e3)
     p50, p90 = (float(v) for v in np.percentile(latency, [50, 90]))
-    print(f'{head} serve ({smi}): predict over {len(X)} molecules in '
+    print(f'{head} serve ({smi}): all {len(X)} molecules in '
           f'{predict_ms:.3f} ms, within {predict_err:.3g} of the CPU; '
           f'{LATENCY_REQUESTS} requests of 16 molecules: median {p50:.3f} '
           f'ms, p90 {p90:.3f} ms', flush=True)
 
-    # training: fit, 3 epochs
+    # training: fit, then fit_on_device, 3 epochs each
     S = -(-len(X) // B)
-    trainer = make(torch.device('cuda', 0), 1, log_frequency=S)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    epoch_losses = []
-    trainer.fit(ds, nb_epoch=1, checkpoint_interval=0,
-                all_losses=epoch_losses)          # packs, warms up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    trainer.fit(ds, nb_epoch=2, checkpoint_interval=0,
-                all_losses=epoch_losses)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / (2 * S)
-    train = launch_counts()
-    steps = trainer.get_global_step()
-    print(f'{head} train ({smi}): fit, {steps} steps of {B} molecules, '
-          f'{step_ms:.3f} ms a step over the last 2 epochs; loss per epoch '
-          f'{[round(v, 5) for v in epoch_losses]}; launches {train}',
-          flush=True)
-    check(steps == 3 * S and len(epoch_losses) == 3
-          and bool(np.all(np.isfinite(epoch_losses))),
-          f'{tag}: {3 * S} steps, 3 finite epoch losses')
-    for k, v in train.items():
-        want = per_step.get(k, 0) * steps
-        check(v == want, f'{tag} train: {k} launched {v} times, not {want}')
+    runs = {}
+    for loop in ('fit', 'fit_on_device'):
+        trainer = make(dev, 1, log_frequency=S)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses = []
+
+        def train(epochs, m=trainer, out=losses):
+            if loop == 'fit':
+                m.fit(ds, nb_epoch=epochs, checkpoint_interval=0,
+                      all_losses=out)
+            else:
+                m.fit_on_device(ds, nb_epoch=epochs, all_losses=out)
+        train(1)                                  # packs, warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train(2)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (2 * S)
+        counts = launch_counts()
+        steps = trainer.get_global_step()
+        cpu_losses = []
+        if loop == 'fit_on_device':
+            cpu_t = make('cpu', 1, log_frequency=S)
+            cpu_t.fit_on_device(ds, nb_epoch=1, all_losses=cpu_losses)
+            cpu_t.fit_on_device(ds, nb_epoch=2, all_losses=cpu_losses)
+        loss_err = max((abs(a - b) / max(1.0, abs(b))
+                        for a, b in zip(losses, cpu_losses)), default=0.0)
+        print(f'{head} train ({smi}): {loop}, {steps} steps of {B} '
+              f'molecules, {step_ms:.3f} ms a step over the last 2 epochs; '
+              f'loss per epoch {[round(v, 5) for v in losses]}'
+              + (f', on the CPU {[round(v, 5) for v in cpu_losses]}'
+                 if cpu_losses else '') + f'; launches {counts}',
+              flush=True)
+        check(steps == 3 * S and len(losses) == 3
+              and bool(np.all(np.isfinite(losses))),
+              f'{tag} {loop}: {3 * S} steps, 3 finite epoch losses')
+        check(loss_err <= CPU_ATOL, f'{tag} {loop}: epoch losses '
+              f'{loss_err} of max(1, |loss|) from the CPU\'s')
+        for k, v in counts.items():
+            want = per_step.get(k, 0) * steps
+            check(v == want,
+                  f'{tag} {loop}: {k} launched {v} times, not {want}')
+        runs[loop] = (counts, step_ms, trainer)
 
     # step-1 gradients, card against CPU, from the same weights
     grads = []
-    for device in (torch.device('cuda', 0), 'cpu'):
+    for device in (dev, 'cpu'):
         m = make(device, 0, log_frequency=1)
         m.module.load_state_dict({k: v.to(device) for k, v in
                                   model.module.state_dict().items()})
@@ -1965,7 +2109,7 @@ def table_model_phase(phase, tag, make, X, y, per_batch, per_step, smi):
           f'{GRAD_ATOL} of max(1, |g|)')
     check(not zero, f'{tag}: every parameter gets a gradient; zero: {zero}')
     del grads
-    overfit = make(torch.device('cuda', 0), 2, log_frequency=1)
+    overfit = make(dev, 2, log_frequency=1)
     fixed = []
     overfit.fit(NumpyDataset(X[:B], y[:B]), nb_epoch=50,
                 checkpoint_interval=0, all_losses=fixed)
@@ -1979,37 +2123,48 @@ def table_model_phase(phase, tag, make, X, y, per_batch, per_step, smi):
     del overfit
 
     # scoring
-    metrics = [Metric(pearson_r2_score), Metric(rms_score),
-               Metric(mae_score)]
+    trainer = runs['fit'][2]
     cpu.module.load_state_dict(
         {k: v.cpu() for k, v in trainer.module.state_dict().items()})
     t0 = time.perf_counter()
-    scores = trainer.evaluate(ds, metrics)
-    eval_ms = (time.perf_counter() - t0) * 1e3
-    cpu_scores = cpu.evaluate(ds, metrics)
-    eval_err = max(abs(scores[k] - cpu_scores[k]) for k in cpu_scores)
+    if scored:
+        metrics = [Metric(pearson_r2_score), Metric(rms_score),
+                   Metric(mae_score)]
+        scores = trainer.evaluate(ds, metrics)
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        cpu_scores = cpu.evaluate(ds, metrics)
+        eval_err = max(abs(scores[k] - cpu_scores[k]) for k in cpu_scores)
+    else:
+        first = [next(m.default_generator(ds)) for m in (trainer, cpu)]
+        scores, cpu_scores = ({'loss_func': m.loss_func(
+            *m._prepare_batch(b)).item()} for m, b in zip((trainer, cpu),
+                                                          first))
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        eval_err = abs(scores['loss_func'] - cpu_scores['loss_func']) / max(
+            1.0, abs(cpu_scores['loss_func']))
     print(f'{head} evaluate ({smi}): {json.dumps(scores)} on the card in '
           f'{eval_ms:.3f} ms, {json.dumps(cpu_scores)} on the CPU',
           flush=True)
     check(set(scores) == set(cpu_scores) and eval_err <= EVAL_ATOL
           and all(np.isfinite(v) for v in scores.values()),
-          f'{tag} evaluate finite and within {EVAL_ATOL} of the CPU '
+          f'{tag} score finite and within {EVAL_ATOL} of the CPU '
           f'({eval_err})')
 
     # the card's busy time: every kernel, memset and copy of a call
-    serve_us, serve_kernels = device_us_all(
-        lambda: model.predict_on_batch(X[:16]))
+    serve_us, serve_kernels = device_us_all(lambda: answer(model, X[:16]))
     w = np.ones_like(y[:B])
     step_us, step_kernels = device_us_all(
         lambda: trainer.fit_on_batch(X[:B], y[:B], w))
     numbers = {'request16_median_ms': p50, 'request16_p90_ms': p90,
-               'step_ms': step_ms, 'request16_device_us': serve_us,
+               'fit_step_ms': runs['fit'][1],
+               'fit_on_device_step_ms': runs['fit_on_device'][1],
+               'request16_device_us': serve_us,
                'request16_device_kernels': serve_kernels,
                'step_device_us': step_us, 'step_device_kernels': step_kernels,
                'max_request_err': worst, 'step1_grad_err': grad_err,
                'eval_err': eval_err}
     print(f'{head} card: {json.dumps(numbers)}', flush=True)
-    return serve, train, numbers
+    return serve, runs['fit'][0], runs['fit_on_device'][0], numbers
 
 
 def main() -> int:
@@ -2206,6 +2361,38 @@ def main() -> int:
     for (h, _, rp_), o in zip(p2_inputs, p2_outs):
         check(tuple(o.shape) == (rp_.shape[0] - 1, h.shape[1])
               and bool(torch.isfinite(o).all()), 'P2 outputs finite')
+    # P2 in bfloat16, as scripts/bench_pallas_csr.py runs it: each bench
+    # shape, then the one-value-a-lane path (F 37, and F 64 off 16-byte
+    # alignment)
+    bf16_inputs = [bench_graph(rng, n, e, f, dev)
+                   for n, e, f in P2_BENCH_SHAPES]
+    bf16_cases = [gather_bf16_case(f'bench_N{n}_E{e}_F{f}_bf16',
+                                   h.to(torch.bfloat16), src, rp_)
+                  for (n, e, f), (h, src, rp_) in zip(P2_BENCH_SHAPES,
+                                                      bf16_inputs)]
+    h, src, rp_ = bench_graph(rng, 2048, 4096, 37, dev)
+    bf16_cases.append(gather_bf16_case('F37_bf16', h.to(torch.bfloat16),
+                                       src, rp_))
+    h, src, rp_ = bench_graph(rng, 2048, 4096, 64, dev)
+    flat = torch.empty(h.numel() + 1, dtype=torch.bfloat16, device=dev)
+    flat[1:] = h.reshape(-1).to(torch.bfloat16)
+    bf16_cases.append(gather_bf16_case('F64_unaligned_bf16',
+                                       flat[1:].view(h.shape), src, rp_))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        bf16_outs = [fused_gather_segment_sum(h.to(torch.bfloat16), src, rp_)
+                     for h, src, rp_ in bf16_inputs]
+    torch.cuda.synchronize()
+    p2_bf16_path = launch_counts()
+    print(f'phase 3 p2 bf16 path: {len(bf16_outs)} calls at the bench '
+          f'shapes, launches {p2_bf16_path}', flush=True)
+    check(p2_bf16_path['fused_gather_segment_sum_bf16']
+          == len(P2_BENCH_SHAPES)
+          and p2_bf16_path['fused_gather_segment_sum'] == 0,
+          'P2 bf16 launched once per bench shape, the f32 kernel never')
+    check(all(o.dtype == torch.bfloat16 and bool(torch.isfinite(o).all())
+              for o in bf16_outs), 'P2 bf16 outputs finite, in bf16')
 
     # K1-K3 at the inputs GraphConvModel hands them in phase 11's first
     # batch of 256, then at edge cases
@@ -2393,6 +2580,51 @@ def main() -> int:
           f'one float a lane', flush=True)
     check(0 < float4 < total, f'K4 launched both kernel paths: {float4} '
           f'float4, {total - float4} one float a lane')
+    # P2 (f32) and K3 on the COO models' paths, at the inputs phase 16's
+    # first batch of 100 hands them: GNNModular's GCN layers (F 30 and 64,
+    # forward, and the backward's transpose), PNA's edge sums (the [E, 64]
+    # messages by destination) and its max over each node's edges (K3)
+    from deepchem_tpu_torch import (GNNModular, InfoGraphStarModel,
+                                    PNAModel)
+    from deepchem_tpu_torch.ops import coo as coo_module
+    coo_makers = {
+        'pna': lambda d, seed, **kw: PNAModel(**PNA, device=d, seed=seed,
+                                              **kw),
+        'gnn_regression': lambda d, seed, **kw: GNNModular(
+            **GNN_REGRESSION, device=d, seed=seed, **kw),
+        'gnn_edge_pred': lambda d, seed, **kw: GNNModular(
+            **GNN_EDGE_PRED, device=d, seed=seed, **kw),
+        'infograph_star': lambda d, seed, **kw: InfoGraphStarModel(
+            **INFOGRAPH_STAR, device=d, seed=seed, **kw)}
+    gnn_probe = coo_makers['gnn_regression'](dev, 0)
+    pna_probe = coo_makers['pna'](dev, 0)
+    gcn_fwd_in = recorded(csr_segment, '_gather_sum_forward',
+                          lambda: gnn_probe.predict_on_batch(gnn_X[:B]))
+    gcn_train_in = recorded(
+        csr_segment, '_gather_sum_forward', lambda: gnn_probe.fit_on_batch(
+            gnn_X[:B], gnn_y[:B], np.ones_like(gnn_y[:B])))
+    pna_sum_in = recorded(csr_segment, '_gather_sum_forward',
+                          lambda: pna_probe.predict_on_batch(gnn_X[:B]))
+    pna_max_in = recorded(coo_module, 'graph_max_pool',
+                          lambda: pna_probe.predict_on_batch(gnn_X[:B]))
+    del gnn_probe, pna_probe
+    gcn_bwd_in = [a for a in gcn_train_in if a[3:] == ('backward_launches',)]
+    check([a[0].shape[1] for a in gcn_fwd_in] == [30, 64, 64]
+          and len(gcn_bwd_in) == 2,
+          'GNNModular: P2 at F 30, 64, 64 a forward, 2 in the backward')
+    check(len(pna_sum_in) == 6 and len(pna_max_in) == 6
+          and pna_sum_in[0][0].shape[0] == pna_sum_in[0][1].shape[0]
+          and pna_max_in[0][0].shape[1] == 64,
+          'PNA: P2 over [E, 64] edge rows 2 a layer, K3 2 a layer')
+    coo_cases = [gather_case(f'gnn_batch100_layer{i}', *a[:3])
+                 for i, a in enumerate(gcn_fwd_in[:2])]
+    coo_cases.append(gather_case('gnn_batch100_layer2_backward',
+                                 *gcn_bwd_in[0][:3]))
+    coo_cases.append(gather_case('pna_batch100_edge_sum', *pna_sum_in[0]))
+    x, rp_, emask_sorted = pna_max_in[0]
+    pna_pool_cases = graph_max_cases(
+        'pna_batch100_edge_max', x, rp_, emask_sorted, torch.randn(
+            rp_.shape[0] - 1, x.shape[1], generator=gen, device=dev))
 
     # -- 4. serve ---------------------------------------------------------
     model.predict_on_batch(X[1:17])             # warm-up: cuBLAS, allocator
@@ -3009,22 +3241,44 @@ def main() -> int:
                                           'csr_segment_sum': 1})):
         per_step = dict(per_batch, **({'nei_sum_bwd': 1} if k == 'gcn'
                                       else {'nei_gather_bwd': 4}))
-        table_runs[k] = table_model_phase(13, k, gnn_makers[k], gnn_X, gnn_y,
-                                          per_batch, per_step, smi)
+        table_runs[k] = model_phase(13, k, gnn_makers[k], gnn_X, gnn_y,
+                                    per_batch, per_step, smi)
     del gnn_models
 
     # -- 14. DMPNN at the JAX package's defaults --------------------------
     # K1 once a round and once after, P3 once; nei_sum_edges' backward is
     # a gather
     per_batch = {'nei_sum_edges': 3, 'csr_segment_sum': 1}
-    table_runs['dmpnn'] = table_model_phase(14, 'dmpnn', dm_make, dm_X, dm_y,
-                                            per_batch, per_batch, smi)
+    table_runs['dmpnn'] = model_phase(14, 'dmpnn', dm_make, dm_X, dm_y,
+                                      per_batch, per_batch, smi)
     del dm_model
 
     # -- 15. the engine on GraphConv at bench.py's width ------------------
     engine = engine_phase(dev, smi)
 
-    # -- 16. kernels line -------------------------------------------------
+    # -- 16. the COO message-passing models at the JAX package's defaults -
+    # per batch of the forward: P2 once a GCN layer (GNNModular, InfoGraph*)
+    # or twice a PNA layer (the mean and the variance's sums), K3 twice a
+    # PNA layer (max, min); P3 twice for a mean readout (PNA, GNNModular's
+    # regressor), once for InfoGraph*'s sum; a step adds P2's transpose in
+    # the GCN layers after the first (which reads the atoms) and K3's
+    # backward
+    gcn = {'fused_gather_segment_sum': 3}
+    coo_runs = {}
+    for k, per_batch, per_step, scored in (
+            ('pna', {'fused_gather_segment_sum': 6, 'graph_max_pool_fwd': 6,
+                     'csr_segment_sum': 2}, {'graph_max_pool_bwd': 6}, True),
+            ('gnn_regression', dict(gcn, csr_segment_sum=2),
+             {'fused_gather_segment_sum_bwd': 2}, True),
+            ('gnn_edge_pred', gcn, {'fused_gather_segment_sum_bwd': 2},
+             False),
+            ('infograph_star', dict(gcn, csr_segment_sum=1),
+             {'fused_gather_segment_sum_bwd': 2}, True)):
+        coo_runs[k] = model_phase(16, k, coo_makers[k], gnn_X, gnn_y,
+                                  per_batch, dict(per_batch, **per_step),
+                                  smi, scored)
+
+    # -- 17. kernels line -------------------------------------------------
     def entry(kname, cases, main_case, path_launches, source=None, **extra):
         return {'name': kname, 'route': 'cuda',
                 'source': source or f'deepchem_tpu_torch/csrc/{kname}.cu',
@@ -3049,11 +3303,17 @@ def main() -> int:
                                   't[seg]), t from csr_segment_sum (cuda)',
                          'max_abs_err': max(c['max_abs_err']
                                             for c in backward_cases)})
-    def table_paths(key):
-        return {f'{m}_{run}': counts[key] for m, (srv, trn, _) in
-                table_runs.items() for run, counts in (('serve', srv),
-                                                       ('train', trn))
+    def run_paths(runs, key):
+        return {f'{m}_{run}': counts[key] for m, (srv, fit, dev_fit, _) in
+                runs.items() for run, counts in (
+                    ('serve', srv), ('fit', fit), ('fit_on_device', dev_fit))
                 if counts[key]}
+
+    def table_paths(key):
+        return run_paths(table_runs, key)
+
+    def coo_paths(key):
+        return run_paths(coo_runs, key)
     p3 = entry('csr_segment_sum', sum_cases, sum_cases[0],
                {'serve': serve['csr_segment_sum'],
                 'train': train['csr_segment_sum'],
@@ -3062,13 +3322,40 @@ def main() -> int:
                 'mpnn_serve': mp_serve['csr_segment_sum'],
                 'mpnn_train': mp_train['csr_segment_sum'],
                 **table_paths('csr_segment_sum'),
-                'graphconv_engine': engine['csr_segment_sum']},
+                'graphconv_engine': engine['csr_segment_sum'],
+                **coo_paths('csr_segment_sum')},
                replaces='deepchem_tpu/ops/pallas_segment.py:45')
-    # P2 has no model path: its row is its widest bench shape
-    p2 = entry('fused_gather_segment_sum', gather_cases,
-               gather_cases[len(P2_BENCH_SHAPES) - 1],
-               {'p2_bench_shapes': p2_path['fused_gather_segment_sum']},
-               replaces='deepchem_tpu/ops/pallas_segment.py:94')
+    # P2: main case GNNModular's layer-1 sum at batch 100; its launches on
+    # the COO models' forwards and (the transpose) backwards
+    p2 = entry('fused_gather_segment_sum', gather_cases + coo_cases,
+               coo_cases[1],
+               {'p2_bench_shapes': p2_path['fused_gather_segment_sum'],
+                **coo_paths('fused_gather_segment_sum'),
+                **{f'{path}_backward': n for path, n in
+                   coo_paths('fused_gather_segment_sum_bwd').items()}},
+               replaces='deepchem_tpu/ops/pallas_segment.py:94',
+               shapes={c['case']: {k: c[k] for k in (
+                   'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
+                   'bound_by', 'library_ms', 'library_device_us')}
+                   for c in gather_cases[:len(P2_BENCH_SHAPES)]
+                   + coo_cases},
+               models={m: numbers for m, (_, _, _, numbers) in
+                       coo_runs.items()})
+    # P2 in bfloat16: bench shapes only, as in the JAX package; main case
+    # the widest
+    p2_bf16 = entry('fused_gather_segment_sum_bf16', bf16_cases,
+                    bf16_cases[len(P2_BENCH_SHAPES) - 1],
+                    {'p2_bench_shapes_bf16':
+                     p2_bf16_path['fused_gather_segment_sum_bf16']},
+                    source='deepchem_tpu_torch/csrc/'
+                           'fused_gather_segment_sum.cu',
+                    replaces='deepchem_tpu/ops/pallas_segment.py:94 '
+                             '(bfloat16 h)',
+                    shapes={c['case']: {k: c[k] for k in (
+                        'N', 'E', 'F', 'ms', 'device_us', 'plain_ms',
+                        'bound_ms', 'bound_by', 'library_ms',
+                        'library_device_us', 'err_f64', 'library_err_f64')}
+                        for c in bf16_cases})
     # P4: the stock kernels, reached through bert_encoder.py:62; main case
     # the encoder's attention in bfloat16
     stock = {'fwd': 758, 'dkv': 1121, 'dq': 1456}
@@ -3147,7 +3434,7 @@ def main() -> int:
                shapes={f"{c['kernel']} {c['case']}": {k: c[k] for k in (
                    'C', 'device_us', 'bound_ms', 'library_device_us')}
                    for c in k4_fwd + k4_bwd},
-               models={m: numbers for m, (_, _, numbers) in
+               models={m: numbers for m, (_, _, _, numbers) in
                        table_runs.items()})
     k2 = (entry('nei_max_fwd', fwd_max, fwd_max[0], gc_paths('nei_max_fwd'),
                 source='deepchem_tpu_torch/csrc/nei_table.cu',
@@ -3159,8 +3446,14 @@ def main() -> int:
                 replaces=f'deepchem_tpu/ops/nei_table.py:132 '
                          f'(_nei_max_bwd; {xla_op})'))
     k3 = tuple(entry(
-        f'graph_max_pool_{part}', [c[i] for c in pool_cases],
-        pool_cases[0][i], gc_paths(f'graph_max_pool_{part}'),
+        f'graph_max_pool_{part}', [c[i] for c in pool_cases]
+        + [pna_pool_cases[i]], pool_cases[0][i],
+        dict(gc_paths(f'graph_max_pool_{part}'),
+             **coo_paths(f'graph_max_pool_{part}')),
+        pna={k: pna_pool_cases[i][k] for k in (
+            'N', 'F', 'G', 'ms', 'device_us', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms', 'library_device_us', 'max_abs_err')
+            if k in pna_pool_cases[i]},
         source='deepchem_tpu_torch/csrc/graph_pool.cu',
         replaces=f'deepchem_tpu/ops/segment.py:173 (segment_max_sumgrad '
                  f'{"forward" if part == "fwd" else "backward"} in '
@@ -3172,9 +3465,10 @@ def main() -> int:
                            'bound_by', 'library_ms')}
         | {k: v for k, v in e.items() if k in (
             'device_us', 'launches_by_path', 'backward', 'library_device_us',
-            'backward_device_us', 'float32', 'mpnn', 'gcn', 'dmpnn',
+            'backward_device_us', 'float32', 'mpnn', 'gcn', 'dmpnn', 'pna',
             'shapes', 'models')}
-        for e in (p1, p3, p2) + p4 + (k1,) + k2 + k3 + (k4,)]}), flush=True)
+        for e in (p1, p3, p2, p2_bf16) + p4 + (k1,) + k2 + k3 + (k4,)]}),
+        flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -14,15 +14,18 @@ from deepchem_tpu_torch.metrics import (Metric, mae_score, pearson_r2_score,
                                         rms_score, roc_auc_score)
 from deepchem_tpu_torch.models import (AttentiveFPModel, BertEncoderMLM,
                                        DMPNNModel, GATModel, GCNModel,
-                                       GraphConvModel, MPNNModel, PagtnModel)
+                                       GNNModular, GraphConvModel,
+                                       InfoGraphModel, InfoGraphStarModel,
+                                       MPNNModel, PagtnModel, PNAModel)
 from deepchem_tpu_torch.trans import NormalizationTransformer
 from deepchem_tpu_torch.utils.evaluate import Evaluator, GeneratorEvaluator
 
 __all__ = ['AttentiveFPModel', 'BertEncoderMLM', 'ConvMolFeaturizer',
            'DMPNNFeaturizer', 'DMPNNModel', 'Evaluator', 'GATModel',
-           'GCNModel', 'GeneratorEvaluator',
-           'GraphConvModel', 'Metric',
+           'GCNModel', 'GNNModular', 'GeneratorEvaluator',
+           'GraphConvModel', 'InfoGraphModel', 'InfoGraphStarModel', 'Metric',
            'MolGraphConvFeaturizer', 'MPNNModel', 'NormalizationTransformer',
-           'NumpyDataset', 'PagtnMolGraphFeaturizer', 'PagtnModel',
+           'NumpyDataset', 'PNAModel', 'PagtnMolGraphFeaturizer',
+           'PagtnModel',
            'SmilesTokenizer', 'mae_score', 'pearson_r2_score', 'rms_score',
            'roc_auc_score']

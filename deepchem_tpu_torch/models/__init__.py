@@ -4,6 +4,7 @@ from deepchem_tpu_torch.models.bert_encoder import (BertEncoderMLM,
 from deepchem_tpu_torch.models.convert import (encoder_params_from_flax,
                                                params_from_flax)
 from deepchem_tpu_torch.models.dmpnn import DMPNNModel
+from deepchem_tpu_torch.models.gnn_modular import GNNModular, ModularModel
 from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
                                                     EdgeNetworkMPNN, GATLayer,
                                                     GCNLayer, GraphConv,
@@ -15,13 +16,18 @@ from deepchem_tpu_torch.models.graph_models import (AttentiveFPModel,
                                                     GraphConvModel,
                                                     GraphModel, MPNNModel,
                                                     PagtnLayer, PagtnModel)
+from deepchem_tpu_torch.models.infograph import (InfoGraphModel,
+                                                 InfoGraphStarModel)
 from deepchem_tpu_torch.models.base import Model
 from deepchem_tpu_torch.models.callbacks import ValidationCallback
 from deepchem_tpu_torch.models.losses import (
-    BinaryCrossEntropy, CategoricalCrossEntropy, HingeLoss, HuberLoss,
-    L1Loss, L2Loss, Loss, PoissonLoss, ShannonEntropy, SigmoidCrossEntropy,
-    SoftmaxCrossEntropy, SparseSoftmaxCrossEntropy, SquaredHingeLoss,
-    VAE_ELBO, VAE_KLDivergence)
+    BinaryCrossEntropy, CategoricalCrossEntropy, DeepGraphInfomaxLoss,
+    EdgePredictionLoss, GlobalMutualInformationLoss, GraphEdgeMaskingLoss,
+    GraphNodeMaskingLoss, HingeLoss, HuberLoss, L1Loss, L2Loss,
+    LocalMutualInformationLoss, Loss, PoissonLoss, ShannonEntropy,
+    SigmoidCrossEntropy, SoftmaxCrossEntropy, SparseSoftmaxCrossEntropy,
+    SquaredHingeLoss, VAE_ELBO, VAE_KLDivergence)
+from deepchem_tpu_torch.models.pna import PNALayer, PNAModel
 from deepchem_tpu_torch.models.optimizers import (
     KFAC, AdaGrad, Adam, AdamW, ExponentialDecay, GradientDescent, Lamb,
     LambdaLRWithWarmup, LearningRateSchedule, LinearCosineDecay, Optimizer,
@@ -30,13 +36,18 @@ from deepchem_tpu_torch.models.torch_model import TorchModel
 
 __all__ = ['AdaGrad', 'Adam', 'AdamW', 'AttentiveFPLayer',
            'AttentiveFPModel', 'BertEncoderMLM', 'BinaryCrossEntropy',
-           'CategoricalCrossEntropy', 'DMPNNModel', 'EdgeNetworkMPNN',
-           'ExponentialDecay', 'GATLayer', 'GATModel', 'GCNLayer',
-           'GCNModel', 'GRUCell', 'GradientDescent', 'GraphConv',
-           'GraphConvModel', 'GraphGather', 'GraphModel', 'HingeLoss',
-           'HuberLoss', 'KFAC', 'L1Loss', 'L2Loss', 'LSTMCell', 'Lamb',
-           'LambdaLRWithWarmup', 'LearningRateSchedule', 'LinearCosineDecay',
-           'Loss', 'MPNNModel', 'MaskedBatchNorm', 'Model', 'Optimizer',
+           'CategoricalCrossEntropy', 'DMPNNModel', 'DeepGraphInfomaxLoss',
+           'EdgeNetworkMPNN', 'EdgePredictionLoss', 'ExponentialDecay',
+           'GATLayer', 'GATModel', 'GCNLayer', 'GCNModel', 'GNNModular',
+           'GRUCell', 'GlobalMutualInformationLoss', 'GradientDescent',
+           'GraphConv', 'GraphConvModel', 'GraphEdgeMaskingLoss',
+           'GraphGather', 'GraphModel', 'GraphNodeMaskingLoss', 'HingeLoss',
+           'HuberLoss', 'InfoGraphModel', 'InfoGraphStarModel', 'KFAC',
+           'L1Loss', 'L2Loss', 'LSTMCell', 'Lamb', 'LambdaLRWithWarmup',
+           'LearningRateSchedule', 'LinearCosineDecay',
+           'LocalMutualInformationLoss', 'Loss', 'MPNNModel',
+           'MaskedBatchNorm', 'Model', 'ModularModel', 'Optimizer',
+           'PNALayer', 'PNAModel',
            'PagtnLayer', 'PagtnModel', 'PiecewiseConstantSchedule',
            'PoissonLoss', 'PolynomialDecay', 'RMSProp', 'SetGather',
            'ShannonEntropy', 'SigmoidCrossEntropy', 'SoftmaxCrossEntropy',

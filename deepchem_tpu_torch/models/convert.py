@@ -1,7 +1,8 @@
 """Load flax parameters, flattened to ``{'params/<scope>/<name>': array}``
 (the JAX package's ``jax_model._flatten_params``), into the port's
-modules: the PAGTN, GraphConv, GCN, GAT, AttentiveFP, MPNN and DMPNN
-modules (:func:`params_from_flax`) and the encoder
+modules: the PAGTN, GraphConv, GCN, GAT, AttentiveFP, MPNN, DMPNN,
+GNNModular, InfoGraph and PNA modules (:func:`params_from_flax`, each
+module naming its scopes in ``flax_scopes``) and the encoder
 (:func:`encoder_params_from_flax`)."""
 
 from __future__ import annotations

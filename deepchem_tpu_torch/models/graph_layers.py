@@ -10,8 +10,9 @@ aggregations are the kernels K1 (:func:`nei_sum`, :func:`nei_sum_edges`,
 :func:`take_src`'s backward, :func:`nei_gather`'s backward), K2
 (:func:`nei_max_incl_self`), K3, K4 (:func:`nei_gather`), P1 and P3
 (:func:`graph_pool`, :func:`segment_softmax_sorted`,
-:func:`csr_segment_sum`).  The JAX package's COO path for these layers
-(edge lists, no table) is not ported.
+:func:`csr_segment_sum`), and ``GCNLayer``'s COO branch (edge lists, no
+table) P2 (:func:`gather_neighbors_sum`).  The COO branches of the other
+layers are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deepchem_tpu_torch.ops.coo import gather_neighbors_sum
 from deepchem_tpu_torch.ops.csr_segment import csr_row_ptr, csr_segment_sum
 from deepchem_tpu_torch.ops.nei_table import (nei_gather, nei_max_incl_self,
                                               nei_sum, nei_sum_edges,
@@ -213,9 +215,12 @@ class GraphGather(nn.Module):
 
 class GCNLayer(nn.Module):
     """Kipf-Welling graph convolution with symmetric normalisation: with
-    ``norm = rsqrt(max(deg, 1))``, ``agg = norm * nei_sum(h * norm)`` (K1),
+    ``norm = rsqrt(max(deg, 1))``, ``agg = norm * Σ_neighbours(h * norm)``,
     then ``Dense(agg) + Dense_no_bias(h)``, plus a residual
-    ``Dense_no_bias(h)``, then ReLU."""
+    ``Dense_no_bias(h)``, then ReLU.  The neighbour sum is K1
+    (:func:`nei_sum`) over the neighbour ``table``, or, with no table, P2
+    (:func:`gather_neighbors_sum`) over ``coo``, the batch's ``(edge_src,
+    edge_dst, edge_mask, csr)``."""
 
     #: flax scope -> attribute (models/convert.py)
     flax_scopes = {'Dense_0': 'agg', 'Dense_1': 'self_loop',
@@ -229,10 +234,15 @@ class GCNLayer(nn.Module):
                                bias=False)
         self.res = dense(in_features, out_channels, generator, bias=False)
 
-    def forward(self, h: torch.Tensor, table: torch.Tensor,
-                deg: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, table: Optional[torch.Tensor],
+                deg: torch.Tensor, coo: Optional[tuple] = None
+                ) -> torch.Tensor:
         norm = torch.rsqrt(torch.clamp_min(deg.to(h.dtype), 1.0))[:, None]
-        agg = nei_sum(h * norm, table, deg) * norm
+        if table is not None:
+            agg = nei_sum(h * norm, table, deg)
+        else:
+            agg = gather_neighbors_sum(h * norm, *coo)
+        agg = agg * norm
         return F.relu(self.agg(agg) + self.self_loop(h) + self.res(h))
 
 

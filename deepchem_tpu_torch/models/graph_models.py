@@ -33,8 +33,8 @@ from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
 from deepchem_tpu_torch.models.losses import L2Loss, SoftmaxCrossEntropy
 from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.models.torch_model import TorchModel
-from deepchem_tpu_torch.ops import (csr_row_ptr, csr_segment_sum, graph_pool,
-                                    segment_softmax_sorted)
+from deepchem_tpu_torch.ops import (coo_csr, csr_row_ptr, csr_segment_sum,
+                                    graph_pool, segment_softmax_sorted)
 from deepchem_tpu_torch.ops.nei_table import (build_neighbor_table,
                                               build_rev_slot)
 
@@ -45,7 +45,8 @@ class GraphModel(TorchModel):
 
     A batch's inputs are ``[node_features, edge_src, edge_dst,
     graph_index, node_mask, edge_mask]``, then, per the model's switches:
-    a neighbour table ``[N, max_neighbors]`` int32 and int8 degrees
+    the six arrays of the edges' CSR (``uses_coo_csr``: :class:`CooCsr`'s
+    fields); a neighbour table ``[N, max_neighbors]`` int32 and int8 degrees
     (``uses_neighbor_table``), then each slot's reverse slot ``[N,
     max_neighbors]`` int8 (``uses_rev_slot``); each node's
     incoming-edge-id table and degrees, then with ``uses_edge_table =
@@ -68,6 +69,9 @@ class GraphModel(TorchModel):
     #: models that aggregate edges into nodes through edge-id tables:
     #: True for the incoming table, 'both' for the outgoing one too
     uses_edge_table = False
+    #: COO message-passing models get their edges' CSR by destination and
+    #: by source (ops/coo.py ``coo_csr``); the edge arrays keep their order
+    uses_coo_csr = False
     max_neighbors = 10
     #: when set, every batch pads to these (node_cap, edge_cap): one
     #: bucket for a whole epoch (:meth:`_collect_uniform_batches`)
@@ -102,6 +106,9 @@ class GraphModel(TorchModel):
         inputs = [d['node_features'], d['edge_index'][0],
                   d['edge_index'][1], d['graph_index'], d['node_mask'],
                   d['edge_mask']]
+        if self.uses_coo_csr:
+            inputs += coo_csr(d['edge_index'][0], d['edge_index'][1],
+                              node_cap)
         if self.uses_neighbor_table:
             real = d['edge_mask'] > 0
             table, nbr_mask = build_neighbor_table(

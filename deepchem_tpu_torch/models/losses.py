@@ -1,7 +1,10 @@
 """Per-sample losses: counterparts of ``deepchem_tpu/models/losses.py``'s
-``Loss`` and its general losses (the model-specific ones wait for their
-models).  Each returns the unreduced loss; the engine weights and
-averages it (``TorchModel._compute_loss``)."""
+``Loss`` and its general losses, each returning the unreduced loss that
+the engine weights and averages (``TorchModel._compute_loss``), and the
+graph self-supervised losses of the pretraining models (InfoGraph's
+mutual information, edge prediction, node and edge masking, Deep Graph
+Infomax), each called with its own arguments and returning a scalar.
+The other model-specific losses wait for their models."""
 
 from __future__ import annotations
 
@@ -177,6 +180,83 @@ class ShannonEntropy(Loss):
         p = _clip(output, _EPS, 1 - _EPS)
         return torch.mean(-(p * torch.log(p) + (1 - p) * torch.log(1 - p)),
                           dim=-1) / math.log(2.0)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no linear cut-off."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class GlobalMutualInformationLoss(Loss):
+    """InfoGraph's Jensen-Shannon estimate of the mutual information
+    between node and graph embeddings, negated: ``sim = local @ global.T``
+    ``[N, G]``; a node's own graph is its positive pair, every other graph
+    a negative; ``E_neg[softplus(sim)] - E_pos[-softplus(-sim)]``, each the
+    mean over its pairs, rows of masked nodes left out.  A graph index
+    outside ``[0, G)`` has no positive pair."""
+
+    def __call__(self, global_enc, local_enc, batch_graph_index,
+                 node_mask=None):
+        sim = local_enc @ global_enc.T
+        num_graphs = global_enc.shape[0]
+        pos_mask = (batch_graph_index.long()[:, None] == torch.arange(
+            num_graphs, device=sim.device)).to(sim.dtype)
+        neg_mask = 1.0 - pos_mask
+        if node_mask is not None:
+            pos_mask = pos_mask * node_mask[:, None]
+            neg_mask = neg_mask * node_mask[:, None]
+        e_pos = torch.sum(-_softplus(-sim) * pos_mask) \
+            / torch.clamp_min(pos_mask.sum(), 1.0)
+        e_neg = torch.sum(_softplus(sim) * neg_mask) \
+            / torch.clamp_min(neg_mask.sum(), 1.0)
+        return e_neg - e_pos
+
+    def _compute(self, output, labels):
+        raise NotImplementedError('call with (global, local, graph_index)')
+
+
+class LocalMutualInformationLoss(GlobalMutualInformationLoss):
+    """The same estimator on local patches."""
+
+
+class EdgePredictionLoss(Loss):
+    """Link prediction: the mean sigmoid cross entropy of positive edge
+    scores against 1 plus that of negative ones against 0."""
+
+    def __call__(self, pos_scores, neg_scores):
+        sce = SigmoidCrossEntropy()
+        return torch.mean(sce(pos_scores, torch.ones_like(pos_scores))) \
+            + torch.mean(sce(neg_scores, torch.zeros_like(neg_scores)))
+
+    def _compute(self, output, labels):
+        return self.__call__(output, labels)
+
+
+class GraphNodeMaskingLoss(Loss):
+    """Masked-node attribute prediction: the mean softmax cross entropy of
+    the logits against integer labels."""
+
+    def __call__(self, node_logits, masked_labels):
+        return SparseSoftmaxCrossEntropy()(node_logits,
+                                           masked_labels).mean()
+
+    def _compute(self, output, labels):
+        return self.__call__(output, labels)
+
+
+class GraphEdgeMaskingLoss(GraphNodeMaskingLoss):
+    """Masked-edge attribute prediction, as :class:`GraphNodeMaskingLoss`."""
+
+
+class DeepGraphInfomaxLoss(Loss):
+    """Deep Graph Infomax's discriminator loss: :class:`EdgePredictionLoss`
+    of the positive and negative scores."""
+
+    def __call__(self, pos_scores, neg_scores):
+        return EdgePredictionLoss()(pos_scores, neg_scores)
+
+    def _compute(self, output, labels):
+        return self.__call__(output, labels)
 
 
 _EPS = 1e-7

@@ -266,9 +266,14 @@ class TorchModel(Model):
             grads = torch.autograd.grad(value, opt.params, allow_unused=True)
             for p, g in zip(opt.params, grads):
                 p.grad = g
+        self._transform_gradients()
         opt.step()
         self._global_step += 1
         return value.detach()
+
+    def _transform_gradients(self) -> None:
+        """Hook between a step's backward and its optimizer update, on the
+        gradients in each ``param.grad``; nothing by default."""
 
     def _collect_uniform_batches(self, dataset: NumpyDataset,
                                  deterministic: bool = True,

@@ -2,6 +2,9 @@ from deepchem_tpu_torch.ops.csr_segment import (
     csr_neighbor_sum_reference, csr_row_ptr, csr_segment_softmax,
     csr_segment_softmax_reference, csr_segment_sum,
     csr_segment_sum_reference, edges_to_csr, fused_gather_segment_sum)
+from deepchem_tpu_torch.ops.coo import (CooCsr, coo_csr,
+                                        dst_segment_max_sumgrad,
+                                        dst_segment_sum, gather_neighbors_sum)
 from deepchem_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
@@ -18,7 +21,9 @@ from deepchem_tpu_torch.ops.segment import (NEG, graph_max_pool, graph_pool,
                                             segment_softmax_sorted,
                                             segment_sum)
 
-__all__ = ['NEG', 'build_neighbor_table', 'build_rev_slot',
+__all__ = ['CooCsr', 'NEG', 'build_neighbor_table', 'build_rev_slot',
+           'coo_csr', 'dst_segment_max_sumgrad', 'dst_segment_sum',
+           'gather_neighbors_sum',
            'csr_neighbor_sum_reference',
            'csr_row_ptr', 'csr_segment_softmax',
            'csr_segment_softmax_reference',

@@ -12,7 +12,9 @@ the kernel or raises, and counts the launch in ``<wrapper>.launches``.
 P1 and P3 are ``torch.autograd.Function``s on both devices, with the JAX
 package's backwards: P1's is the softmax VJP ``dx = y * (dy - t[seg])``
 with ``t = csr_segment_sum(y * dy)``, so on the card it launches P3; P3's
-is the gather ``dmsgs = dy[seg]``.  P2 is forward only, as in JAX.
+is the gather ``dmsgs = dy[seg]``.  P2 is forward only, as in JAX, in
+float32 or bfloat16; ``ops/coo.py`` puts it in the autograd Functions of
+the COO message passing.
 """
 
 from __future__ import annotations
@@ -97,17 +99,20 @@ def csr_segment_softmax_reference(logits: torch.Tensor,
 
 
 def _check(what: str, floats: Tuple[torch.Tensor, ...],
-           ints: Tuple[torch.Tensor, ...]) -> None:
-    """What every kernel takes: float32 ``[rows, F]`` data and int32 1-D
-    indices, contiguous, on one CUDA device, with sizes that fit int32."""
+           ints: Tuple[torch.Tensor, ...],
+           float_types: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """What every kernel takes: ``[rows, F]`` data of one of
+    ``float_types`` (float32 unless given) and int32 1-D indices,
+    contiguous, on one CUDA device, with sizes that fit int32."""
     dev = floats[0].device
     if dev.type != 'cuda' or any(t.device != dev for t in floats + ints):
         raise ValueError(f'{what}: every tensor must lie on one CUDA '
                          f'device, got '
                          f'{[str(t.device) for t in floats + ints]}')
-    if any(t.dtype != torch.float32 for t in floats) \
+    if any(t.dtype not in float_types for t in floats) \
             or any(t.dtype != torch.int32 for t in ints):
-        raise TypeError(f'{what}: need float32 data and int32 indices, got '
+        raise TypeError(f'{what}: need {float_types} data and int32 '
+                        f'indices, got '
                         f'{[t.dtype for t in floats + ints]}')
     if any(t.ndim != 2 for t in floats) or any(t.ndim != 1 for t in ints) \
             or ints[-1].shape[0] < 1:
@@ -236,31 +241,54 @@ csr_segment_sum.launches = 0
 
 # ---------------------------------------------------------------- P2
 
+def _csr_ranges(row_ptr: torch.Tensor, num_edges: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each segment's first edge and its edge count (int64), the ranges
+    clamped to ``[0, num_edges]`` as the kernels clamp them."""
+    rp = row_ptr.long()
+    start = rp[:-1].clamp(0, num_edges)
+    end = torch.maximum(rp[1:].clamp(max=num_edges), start)
+    return start, end - start
+
+
 def csr_neighbor_sum_reference(h: torch.Tensor, src_sorted: torch.Tensor,
                                row_ptr: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of :func:`fused_gather_segment_sum`: gather the
-    messages ``h[src_sorted]``, then :func:`csr_segment_sum_reference`."""
-    return csr_segment_sum_reference(h.index_select(0, src_sorted.long()),
-                                     row_ptr)
+    """Plain torch version of :func:`fused_gather_segment_sum`.  float32:
+    gather the messages ``h[src_sorted]``, then
+    :func:`csr_segment_sum_reference`.  bfloat16: slot by slot, the k-th
+    edge of every segment at step k, so each segment's edges are added in
+    CSR order with every add rounded to bfloat16, as the JAX kernel adds
+    them (and with no ``index_add_``, so the same on every run)."""
+    if h.dtype != torch.bfloat16:
+        return csr_segment_sum_reference(
+            h.index_select(0, src_sorted.long()), row_ptr)
+    E = src_sorted.shape[0]
+    start, count = _csr_ranges(row_ptr, E)
+    acc = h.new_zeros((start.shape[0], h.shape[1]))
+    if E == 0 or h.shape[0] == 0:
+        return acc
+    src = src_sorted.long().clamp(0, h.shape[0] - 1)
+    for k in range(int(count.max()) if count.numel() else 0):
+        has = (count > k)[:, None]
+        rows = h.index_select(0, src[(start + k).clamp(max=E - 1)])
+        acc = torch.where(has, acc + rows, acc)
+    return acc
 
 
-def fused_gather_segment_sum(h: torch.Tensor, src_sorted: torch.Tensor,
-                             row_ptr: torch.Tensor) -> torch.Tensor:
-    """``out[i] = sum(h[src_sorted[e]] for e in row_ptr[i]:row_ptr[i+1])``
-    for ``h`` ``[N_h, F]`` float32, ``src_sorted`` ``[E]`` int32 in CSR
-    order and ``row_ptr`` ``[N+1]`` int32; returns ``[N, F]`` without
-    materialising the messages.  Forward only, as in JAX: it raises when
-    ``h`` needs a gradient.
+_P2_ENTRIES = {torch.float32: 'fused_gather_segment_sum_f32',
+               torch.bfloat16: 'fused_gather_segment_sum_bf16'}
 
-    CPU tensors take :func:`csr_neighbor_sum_reference`; CUDA tensors
-    launch the kernel, counted in ``fused_gather_segment_sum.launches``.
-    """
-    if torch.is_grad_enabled() and h.requires_grad:
-        raise RuntimeError('fused_gather_segment_sum has no backward; call '
-                           'it under torch.no_grad() or on a detached h')
+
+def _gather_sum_forward(h: torch.Tensor, src_sorted: torch.Tensor,
+                        row_ptr: torch.Tensor,
+                        attr: str = 'launches') -> torch.Tensor:
+    """P2 on any ``h``, with no autograd: the plain version on the CPU, the
+    kernel on the card, counted in ``fused_gather_segment_sum.<attr>``
+    (``bf16_launches`` for a bfloat16 ``h``)."""
     if all(t.device.type == 'cpu' for t in (h, src_sorted, row_ptr)):
         return csr_neighbor_sum_reference(h, src_sorted, row_ptr)
-    _check('fused_gather_segment_sum', (h,), (src_sorted, row_ptr))
+    _check('fused_gather_segment_sum', (h,), (src_sorted, row_ptr),
+           float_types=tuple(_P2_ENTRIES))
     Nh, Fh = h.shape
     E = src_sorted.shape[0]
     N = row_ptr.shape[0] - 1
@@ -271,10 +299,39 @@ def fused_gather_segment_sum(h: torch.Tensor, src_sorted: torch.Tensor,
         raise ValueError('fused_gather_segment_sum: sizes must fit in int32')
     if Nh == 0 and E > 0:
         raise ValueError('fused_gather_segment_sum: edges but no rows in h')
-    build.launch('fused_gather_segment_sum', 'fused_gather_segment_sum_f32',
+    build.launch('fused_gather_segment_sum', _P2_ENTRIES[h.dtype],
                  (h, src_sorted, row_ptr, out), (N, Nh, E, Fh))
-    fused_gather_segment_sum.launches += 1
+    if h.dtype == torch.bfloat16:
+        attr = 'bf16_launches'
+    setattr(fused_gather_segment_sum, attr,
+            getattr(fused_gather_segment_sum, attr) + 1)
     return out
 
 
+def fused_gather_segment_sum(h: torch.Tensor, src_sorted: torch.Tensor,
+                             row_ptr: torch.Tensor) -> torch.Tensor:
+    """``out[i] = sum(h[src_sorted[e]] for e in row_ptr[i]:row_ptr[i+1])``
+    for ``h`` ``[N_h, F]`` float32 or bfloat16, ``src_sorted`` ``[E]``
+    int32 in CSR order and ``row_ptr`` ``[N+1]`` int32; returns ``[N, F]``
+    in ``h``'s type without materialising the messages.  A bfloat16 sum
+    adds each segment's edges in CSR order, rounding every add to
+    bfloat16, as the JAX kernel does; a float32 one adds them in another
+    fixed order on the card.  Forward only, as in JAX: it raises when
+    ``h`` needs a gradient (the COO graph ops in ``ops/coo.py`` wrap it in
+    autograd Functions).
+
+    CPU tensors take :func:`csr_neighbor_sum_reference`; CUDA tensors
+    launch the kernel, counted in ``fused_gather_segment_sum.launches``
+    (float32) or ``.bf16_launches`` (bfloat16).
+    """
+    if torch.is_grad_enabled() and h.requires_grad:
+        raise RuntimeError('fused_gather_segment_sum has no backward; call '
+                           'it under torch.no_grad() or on a detached h')
+    return _gather_sum_forward(h, src_sorted, row_ptr)
+
+
+#: f32 launches of the forward, f32 launches in the COO ops' backwards,
+#: bf16 launches
 fused_gather_segment_sum.launches = 0
+fused_gather_segment_sum.backward_launches = 0
+fused_gather_segment_sum.bf16_launches = 0

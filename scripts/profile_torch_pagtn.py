@@ -3,7 +3,8 @@
 one CUDA card.
 
     python3 scripts/profile_torch_pagtn.py
-        [--model pagtn|graphconv|mpnn|gcn|gat|attentivefp|dmpnn]
+        [--model pagtn|graphconv|mpnn|gcn|gat|attentivefp|dmpnn|pna|
+                 gnn_regression|gnn_edge_pred|infograph_star]
         [--mode serve|train|fit_on_device] [--batch N] [--requests 20]
 
 Builds a model of ``chip_smoke.py`` with seeded weights and ``batch_size``
@@ -13,7 +14,10 @@ width (``chip_smoke.GRAPHCONV``; batch 16 to serve, 256 to train by
 default), or MPNNModel, GCNModel, GATModel, AttentiveFPModel or
 DMPNNModel at the JAX package's defaults (``chip_smoke.MPNN``, ``GCN``,
 ``GAT``, ``ATTENTIVEFP``, ``DMPNN``, one regression task; batch 16 to
-serve, 100 to train by default).  It runs ``--requests`` batches of
+serve, 100 to train by default), or the COO models of phase 16 (PNAModel,
+GNNModular as a regressor and on edge prediction, InfoGraphStarModel;
+``chip_smoke.PNA``, ``GNN_REGRESSION``, ``GNN_EDGE_PRED``,
+``INFOGRAPH_STAR``), alike.  It runs ``--requests`` batches of
 ``--batch`` molecules drawn with replacement from the script's 48 (MPNN
 and DMPNN: and ``chip_smoke.STEREO_SMILES``), already featurized, with
 seeded 0/1 labels (the regression models: normal):
@@ -80,7 +84,9 @@ def device_breakdown(run, n: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--model', choices=('pagtn', 'graphconv', 'mpnn', 'gcn',
-                                        'gat', 'attentivefp', 'dmpnn'),
+                                        'gat', 'attentivefp', 'dmpnn',
+                                        'pna', 'gnn_regression',
+                                        'gnn_edge_pred', 'infograph_star'),
                     default='pagtn')
     ap.add_argument('--mode', choices=('serve', 'train', 'fit_on_device'),
                     default='serve')
@@ -93,14 +99,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('profile_torch_pagtn: no CUDA device', file=sys.stderr)
         return 1
-    from chip_smoke import (ATTENTIVEFP, DMPNN, GAT, GCN, GRAPHCONV, MPNN,
-                            SMILES, STEREO_SMILES, _counted, launch_counts)
+    from chip_smoke import (ATTENTIVEFP, DMPNN, GAT, GCN, GNN_EDGE_PRED,
+                            GNN_REGRESSION, GRAPHCONV, INFOGRAPH_STAR, MPNN,
+                            PNA, SMILES, STEREO_SMILES, _counted,
+                            launch_counts)
     from deepchem_tpu_torch import (AttentiveFPModel, ConvMolFeaturizer,
                                     DMPNNFeaturizer, DMPNNModel, GATModel,
-                                    GCNModel, GraphConvModel,
+                                    GCNModel, GNNModular, GraphConvModel,
+                                    InfoGraphStarModel,
                                     MolGraphConvFeaturizer, MPNNModel,
                                     NumpyDataset, PagtnModel,
-                                    PagtnMolGraphFeaturizer)
+                                    PagtnMolGraphFeaturizer, PNAModel)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -127,8 +136,12 @@ def main() -> int:
     else:
         X = MolGraphConvFeaturizer().featurize(SMILES)
         cls, config = {'gcn': (GCNModel, GCN), 'gat': (GATModel, GAT),
-                       'attentivefp': (AttentiveFPModel, ATTENTIVEFP)}[
-                           args.model]
+                       'attentivefp': (AttentiveFPModel, ATTENTIVEFP),
+                       'pna': (PNAModel, PNA),
+                       'gnn_regression': (GNNModular, GNN_REGRESSION),
+                       'gnn_edge_pred': (GNNModular, GNN_EDGE_PRED),
+                       'infograph_star': (InfoGraphStarModel,
+                                          INFOGRAPH_STAR)}[args.model]
         model = cls(**dict(config, batch_size=args.batch), seed=0)
         labels = np.random.RandomState(0).randn(len(X), 1)
     labels = labels.astype(np.float32)

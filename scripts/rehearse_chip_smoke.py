@@ -70,11 +70,10 @@ def main() -> int:
     build.build_log = lambda name: ('not built: cpu rehearsal; 0 bytes '
                                     'spill stores, 0 bytes spill loads')
 
-    import deepchem_tpu_torch.ops as ops
     from deepchem_tpu_torch.ops import csr_segment
     softmax_fwd = csr_segment._softmax_forward
     sum_fwd = csr_segment._segment_sum_forward
-    gather = csr_segment.fused_gather_segment_sum
+    gather_fwd_p2 = csr_segment._gather_sum_forward
 
     def counted_softmax(logits, row_ptr):
         csr_segment.csr_segment_softmax.launches += 1
@@ -84,11 +83,12 @@ def main() -> int:
         csr_segment.csr_segment_sum.launches += 1
         return sum_fwd(msgs, row_ptr)
 
-    def counted_gather(h, src, row_ptr):
-        counted_gather.launches += 1
-        return gather(h, src, row_ptr)
-
-    counted_gather.launches = 0
+    def counted_p2(h, src, row_ptr, attr='launches'):
+        if h.dtype == torch.bfloat16:
+            attr = 'bf16_launches'
+        p2 = csr_segment.fused_gather_segment_sum
+        setattr(p2, attr, getattr(p2, attr) + 1)
+        return gather_fwd_p2(h, src, row_ptr, attr)
     flash = importlib.import_module('deepchem_tpu_torch.ops.flash_attention')
     flash_fwd = flash.flash_attention_forward
     flash_dkv, flash_dq = flash.flash_attention_bwd_dkv, \
@@ -169,8 +169,7 @@ def main() -> int:
     flash.flash_attention_bwd_dq = counted_flash_dq
     csr_segment._softmax_forward = counted_softmax
     csr_segment._segment_sum_forward = counted_sum
-    csr_segment.fused_gather_segment_sum = counted_gather
-    ops.fused_gather_segment_sum = counted_gather
+    csr_segment._gather_sum_forward = counted_p2
 
     source = (REPO / 'chip_smoke.py').read_text().replace(
         "torch.device('cuda', 0)", "torch.device('cpu')")

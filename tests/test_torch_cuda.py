@@ -17,8 +17,13 @@ its backward through K1) bit for bit against its plain versions on both
 kernel paths, at degrees 0 to 10 and non-finite rows, one GraphConv
 training step against the CPU, one step of GCN, GAT, AttentiveFP and
 DMPNN against the CPU, GraphConv's streamed fit_on_device bit for bit
-against its resident run, and a learning-rate schedule on the card
-against the CPU.  They skip where
+against its resident run, a learning-rate schedule on the card
+against the CPU, P2 in bfloat16 bit for bit against its plain version
+(each segment's edges added in CSR order, every add rounded), the COO
+message passing (P2 forward and backward, K3 over edge destinations)
+against the plain versions at ghost and non-finite rows, and one step of
+GNNModular (each task), InfoGraph, InfoGraph* and PNA against the CPU.
+They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
 
@@ -35,10 +40,14 @@ import torch
 
 from deepchem_tpu_torch import (AttentiveFPModel, BertEncoderMLM,
                                 ConvMolFeaturizer, DMPNNFeaturizer,
-                                DMPNNModel, GATModel, GCNModel,
-                                GraphConvModel, MolGraphConvFeaturizer,
-                                PagtnModel, PagtnMolGraphFeaturizer)
-from deepchem_tpu_torch.ops import (NEG, build_neighbor_table, build_rev_slot,
+                                DMPNNModel, GATModel, GCNModel, GNNModular,
+                                GraphConvModel, InfoGraphModel,
+                                InfoGraphStarModel, MolGraphConvFeaturizer,
+                                PagtnModel, PagtnMolGraphFeaturizer,
+                                PNAModel)
+from deepchem_tpu_torch.ops import (NEG, CooCsr, build_neighbor_table,
+                                    build_rev_slot, dst_segment_max_sumgrad,
+                                    dst_segment_sum, gather_neighbors_sum,
                                     graph_max_pool, nei_gather,
                                     nei_max_incl_self, nei_sum,
                                     nei_sum_edges, take_src)
@@ -1185,3 +1194,144 @@ def test_schedule_on_the_card_matches_the_cpu(cuda):
     assert n_g == n_c == 6
     assert seen_g == seen_c == [sched(k) for k in range(1, 7)]
     np.testing.assert_allclose(out_g, out_c, rtol=1e-5)
+
+
+# scripts/bench_pallas_csr.py:76-78, then the one-value-a-lane path
+P2_BF16_SHAPES = [(2048, 4096, 64), (2048, 4096, 256), (8192, 16384, 256),
+                  (8192, 16384, 512), (16384, 32768, 512), (64, 300, 37),
+                  (64, 200, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('aligned', [True, False])
+@pytest.mark.parametrize('N,E,F', P2_BF16_SHAPES)
+def test_fused_gather_segment_sum_bf16_kernel_is_its_plain_version(
+        cuda, N, E, F, aligned):
+    """P2 in bfloat16 adds each segment's edges in CSR order, rounding every
+    add to bfloat16, as its plain version (and the JAX kernel) does: bit
+    for bit, on uniform and on signed inputs, aligned or 2 bytes off."""
+    rng = np.random.RandomState(N + E + F)
+    perm, row_ptr = edges_to_csr(rng.randint(0, N, E), N)
+    src = torch.from_numpy(rng.randint(0, N, E).astype(np.int32)[perm])
+    src, row_ptr = src.to(cuda), torch.from_numpy(row_ptr).to(cuda)
+    for values in (rng.rand(N, F), rng.randn(N, F) * 100):
+        h = torch.from_numpy(values.astype(np.float32)).to(cuda).to(
+            torch.bfloat16)
+        if not aligned:
+            flat = torch.empty(N * F + 1, dtype=torch.bfloat16, device=cuda)
+            flat[1:] = h.reshape(-1)
+            h = flat[1:].view(N, F)
+        before = fused_gather_segment_sum.bf16_launches
+        out = fused_gather_segment_sum(h, src, row_ptr)
+        torch.cuda.synchronize()
+        assert fused_gather_segment_sum.bf16_launches == before + 1
+        assert out.dtype == torch.bfloat16
+        ref = csr_neighbor_sum_reference(h, src, row_ptr)
+        assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+def _coo_batch(cuda):
+    """A packed COO batch of 6 molecules, on the card and on the CPU."""
+    smiles = ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1',
+              'C', 'C[C@H](N)C(=O)O']
+    batch = GNNModular(device='cpu', batch_size=6)._graph_inputs(
+        MolGraphConvFeaturizer().featurize(smiles))
+    return [[torch.from_numpy(a).to(d) for a in batch]
+            for d in (cuda, 'cpu')]
+
+
+def _same_values(a, b, atol=ATOL):
+    """Within ``atol``, NaN where NaN, infinities equal."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    ok = ~torch.isnan(a)
+    np.testing.assert_allclose(a[ok].numpy(), b[ok].numpy(), atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('specials', [False, True])
+def test_coo_ops_match_plain_version(cuda, specials):
+    """``gather_neighbors_sum`` (P2 forward, its transpose backward, the
+    ghost edges' term) and PNA's edge-destination sum (P2) and max (K3)
+    on the card against the plain versions on the CPU, forward and
+    gradient, with NaN, infinities and -0 in real and ghost rows."""
+    ours, plain = _coo_batch(cuda)
+    N, E = ours[0].shape[0], ours[1].shape[0]
+    rng = np.random.RandomState(3)
+    x = rng.randn(N, 64).astype(np.float32)
+    msgs = rng.randn(E, 64).astype(np.float32)
+    if specials:
+        for a in (x, msgs):
+            a[1, 0], a[2, 1], a[3, 2], a[4] = np.nan, np.inf, -np.inf, -0.0
+            a[-1, :3] = np.nan, np.inf, -0.0
+    g_nodes = rng.randn(N, 64).astype(np.float32)
+    before = (fused_gather_segment_sum.launches,
+              fused_gather_segment_sum.backward_launches,
+              graph_max_pool.launches, graph_max_pool.backward_launches)
+    results = []
+    for batch in (ours, plain):
+        dev = batch[0].device
+        esrc, edst, emask = batch[1], batch[2], batch[5]
+        csr = CooCsr(*batch[6:])
+        t = torch.from_numpy(x).to(dev).requires_grad_()
+        m = torch.from_numpy(msgs).to(dev).requires_grad_()
+        g = torch.from_numpy(g_nodes).to(dev)
+        outs = [gather_neighbors_sum(t, esrc, edst, emask, csr),
+                dst_segment_sum(m * emask[:, None], edst, csr),
+                dst_segment_max_sumgrad(m, emask, csr)]
+        torch.autograd.backward(outs, [g] * 3)
+        results.append(outs + [t.grad, m.grad])
+    torch.cuda.synchronize()
+    assert (fused_gather_segment_sum.launches - before[0],
+            fused_gather_segment_sum.backward_launches - before[1],
+            graph_max_pool.launches - before[2],
+            graph_max_pool.backward_launches - before[3]) == (2, 1, 1, 1)
+    for a, b in zip(*results):
+        _same_values(a, b)
+
+
+# each COO model small, from one seed, on the card and on the CPU
+COO_MODELS = {
+    **{f'gnn_{task}': (GNNModular, dict(task=task, emb_dim=16))
+       for task in ('edge_pred', 'mask_nodes', 'infomax', 'regression',
+                    'classification')},
+    'infograph': (InfoGraphModel, dict(embedding_dim=16)),
+    'infograph_star': (InfoGraphStarModel, dict(embedding_dim=16)),
+    'pna': (PNAModel, dict(hidden_dim=16)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(COO_MODELS))
+def test_coo_models_training_step_matches_the_cpu(cuda, name):
+    """One step of a small GNNModular (each task), InfoGraph, InfoGraph* or
+    PNA on the card and on the CPU from the same seed: losses within 1e-5
+    relative and every parameter's gradient within 1e-5 of max(1, |g|);
+    the card launches P2 three times a forward (GCN layers) and twice in
+    the backward, or PNA's P2 6 and K3 6 and 6 in its backward."""
+    smiles = ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1',
+              'C', 'C[C@H](N)C(=O)O']
+    model, kw = COO_MODELS[name]
+    X = MolGraphConvFeaturizer().featurize(smiles)
+    y = np.random.RandomState(0).randn(len(smiles), 1).astype(np.float32)
+    if name == 'gnn_classification':
+        y = (y > 0).astype(np.float32)
+    models = [model(batch_size=len(smiles), seed=1, device=d, **kw)
+              for d in (cuda, 'cpu')]
+
+    def counts():
+        return (fused_gather_segment_sum.launches,
+                fused_gather_segment_sum.backward_launches,
+                graph_max_pool.launches, graph_max_pool.backward_launches)
+    before = counts()
+    losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == (
+        [6, 0, 6, 6] if name == 'pna' else [3, 2, 0, 0])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
