@@ -53,7 +53,12 @@ Phases:
                 P2 (float32) at the inputs phase 16's first batch of 100
                 hands it (GNNModular's GCN layers at F 30 and 64 and their
                 backward's transpose, PNA's [E, 64] edge sums) and K3 at
-                PNA's max over each node's edges.
+                PNA's max over each node's edges; and at the inputs phase
+                17's first batches hand them: P2 at GraphConv's COO
+                neighbour sum (F 75, batch 256, the ghost edges' long last
+                segment) and its neighbour max's source gather backward,
+                K3 at that neighbour max, P1 at GAT's [E, 8] edge logits
+                and P2 at DMPNN's [E, 300] edge sums (batch 100).
                 Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
@@ -193,7 +198,35 @@ Phases:
                 evaluate's pearson r2, RMS and MAE (edge_pred: loss_func
                 on a batch) against the CPU; the card's busy µs and
                 kernels of a request of 16 and of a step.
- 17. kernels -- one JSON line with each kernel's numbers.
+ 17. coo branches -- GraphConvModel at bench.py's width (phase 11's
+                model and molecules, 12 classification tasks), GCN, GAT,
+                AttentiveFP, MPNN (T 3, M 6) and DMPNN at the JAX
+                package's defaults (phase 13's, 12's and 14's models and
+                molecules), each with its class switched to the COO
+                branch (uses_neighbor_table and uses_rev_slot, or
+                uses_edge_table, set to False, as the JAX package's tests
+                switch them): its predictions over the whole set held
+                against its table path on the card from the same weights
+                (rtol 1e-4, atol 1e-5), then as phase 13 through
+                model_phase (ROC-AUC for GraphConv), with the launches of
+                P1, P2, P2's transpose, P3 and K3 forward and backward a
+                batch and a step asserted.
+ 18. dense  -- the fingerprint models on CircularFingerprint(size=1024)
+                of the 48 SMILES repeated and shuffled to 768 (featurize
+                ms a molecule), seeded labels for 12 tasks, at
+                molnet/run_benchmark.py's presets: tf (MultitaskClassifier
+                [1500], dropout 0.5, l2 penalty 0.1, batch 50), tf_robust
+                ([500], bypass [100]), tf_regression ([1000, 1000],
+                dropout 0.25, batch 128), ProgressiveMultitaskClassifier,
+                MultitaskIRVClassifier (K 10, through IRVTransformer),
+                ScScoreModel (on pairs) and SingletaskToMultitask over
+                three MultitaskRegressors, each: requests of 16 against
+                the CPU and 100 timed (median, p90), 3 fit epochs (the
+                step time over the last 2), and its scores (ROC-AUC, RMS,
+                ScScore's hinge loss) over each SMILES's first copy
+                against the CPU from the same weights.  These models run
+                no kernel of their own.
+ 19. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -289,6 +322,27 @@ TABLE_MOLECULES = 300           # 3 batches of 100
 # layers) at the JAX package's defaults, batch 100, one regression task,
 # on the phase 13 molecules
 PNA = dict(n_tasks=1)
+# phase 17: the COO branches, at phase 11's and 13's sizes; each held
+# against its table path on the card within the JAX package's tests'
+# tolerance
+COO_RTOL, COO_ATOL = 1e-4, 1e-5
+# phase 18: the fingerprint models at molnet/run_benchmark.py's presets
+FP_BITS = 1024
+DENSE_MOLECULES = 768           # the 48 SMILES 16 times
+DENSE_TASKS = 12
+TF = dict(n_tasks=DENSE_TASKS, n_features=FP_BITS, layer_sizes=[1500],
+          dropouts=0.5, weight_decay_penalty=0.1,
+          weight_decay_penalty_type='l2', batch_size=50, learning_rate=0.001)
+TF_ROBUST = dict(n_tasks=DENSE_TASKS, n_features=FP_BITS, layer_sizes=[500],
+                 bypass_layer_sizes=[100], dropouts=0.5, bypass_dropouts=0.5,
+                 batch_size=50, learning_rate=0.0005)
+TF_REGRESSION = dict(n_tasks=DENSE_TASKS, n_features=FP_BITS,
+                     layer_sizes=[1000, 1000], dropouts=0.25, batch_size=128,
+                     learning_rate=0.0008)
+PROGRESSIVE = dict(n_tasks=DENSE_TASKS, n_features=FP_BITS)
+IRV_K = 10
+SCSCORE = dict(n_features=FP_BITS)
+SINGLETASK_TASKS = 3            # MultitaskRegressor(1 task) a task
 GNN_REGRESSION = dict(task='regression', n_tasks=1)
 GNN_EDGE_PRED = dict(task='edge_pred')
 INFOGRAPH_STAR = dict(n_tasks=1)
@@ -332,6 +386,17 @@ ROUTE_TOL = {'float32': 1e-4, 'bfloat16': 2e-2}   # flash against einsum
 # the forward's m and l against the plain version's, each within this of
 # max(1, |ref|): the same scores summed in another order, exp by ex2.approx
 STAT_RTOL = 1e-5
+
+
+_PHASE = [None, 0.0]          # the phase running and when it started
+
+
+def phase_start(n: int) -> None:
+    """Print the wall time of the phase that ran before phase ``n``."""
+    now = time.perf_counter()
+    if _PHASE[0] is not None:
+        print(f'phase {_PHASE[0]} wall: {now - _PHASE[1]:.1f} s', flush=True)
+    _PHASE[:] = [n, now]
 
 
 def check(ok: bool, what: str) -> None:
@@ -1955,8 +2020,28 @@ def engine_phase(dev, smi):
     return launches
 
 
+@contextlib.contextmanager
+def coo_branch(cls):
+    """``cls`` switched to its COO branch while the block runs, as the JAX
+    package's tests switch it: the table flags set to False on the
+    class."""
+    flags = {'uses_edge_table': False} if cls.uses_edge_table else \
+        {'uses_neighbor_table': False, 'uses_rev_slot': False}
+    own = {k: cls.__dict__[k] for k in flags if k in cls.__dict__}
+    for k, v in flags.items():
+        setattr(cls, k, v)
+    try:
+        yield
+    finally:
+        for k in flags:
+            if k in own:
+                setattr(cls, k, own[k])
+            else:
+                delattr(cls, k)
+
+
 def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
-                scored=True):
+                scored=True, out_tail=(1,), metrics=None):
     """Phases 13, 14 and 16: serves, trains and scores one regression graph
     model on the card, each held against the CPU: requests of REQUESTS
     molecules and the whole of ``X`` (CPU_ATOL), LATENCY_REQUESTS timed
@@ -1971,9 +2056,10 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
     (a pretraining task, whose outputs are per-edge or per-node
     embeddings) ``loss_func`` on the first batch (EVAL_ATOL relative);
     then the card's busy µs and kernels of a request of 16 and of a
-    training step.  ``make(device, seed, **kw)`` builds the model.
-    Returns the launches of the serve, fit and fit_on_device runs and the
-    numbers."""
+    training step.  ``make(device, seed, **kw)`` builds the model; a
+    prediction is ``[n, *out_tail]``; ``metrics`` replaces the regression
+    scores (a classifier's ROC-AUC).  Returns the launches of the serve,
+    fit and fit_on_device runs and the numbers."""
     import numpy as np
     import torch
     from deepchem_tpu_torch import (Metric, NumpyDataset, mae_score,
@@ -2012,7 +2098,8 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
             a.shape == b.shape and bool(np.isfinite(a).all())
             for a, b in zip(out, ref)), f'{tag} request of {n}: finite, '
               'the CPU run\'s shapes')
-        check(not scored or out[0].shape == (n, 1), f'{tag} output [{n}, 1]')
+        check(not scored or out[0].shape == (n,) + tuple(out_tail),
+              f'{tag} output [{n}, {out_tail}]')
         worst = max([worst] + [float(np.abs(a - b).max())
                                for a, b in zip(out, ref)])
         start += n
@@ -2128,8 +2215,8 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
         {k: v.cpu() for k, v in trainer.module.state_dict().items()})
     t0 = time.perf_counter()
     if scored:
-        metrics = [Metric(pearson_r2_score), Metric(rms_score),
-                   Metric(mae_score)]
+        metrics = metrics or [Metric(pearson_r2_score), Metric(rms_score),
+                              Metric(mae_score)]
         scores = trainer.evaluate(ds, metrics)
         eval_ms = (time.perf_counter() - t0) * 1e3
         cpu_scores = cpu.evaluate(ds, metrics)
@@ -2167,6 +2254,121 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
     return serve, runs['fit'][0], runs['fit_on_device'][0], numbers
 
 
+def table_vs_coo(tag, cls, make, X):
+    """Phase 17: one model's predictions over ``X`` on the card through its
+    table path and, from the same weights, through its COO branch, within
+    COO_RTOL and COO_ATOL."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch import NumpyDataset
+    model = make(torch.device('cuda', 0), 0)
+    table = model.predict(NumpyDataset(X))
+    with coo_branch(cls):
+        coo = model.predict(NumpyDataset(X))
+    err = float(np.abs(coo - table).max())
+    print(f'phase 17 {tag}: COO branch against the table path on the card '
+          f'over {len(X)} molecules, max abs diff {err:.3g}', flush=True)
+    check(bool(np.isfinite(coo).all()) and np.allclose(
+        coo, table, rtol=COO_RTOL, atol=COO_ATOL),
+          f'{tag}: COO branch within rtol {COO_RTOL}, atol {COO_ATOL} of '
+          f'the table path ({err})')
+    return err
+
+
+def dense_data():
+    """Phase 18's molecules: the 48 SMILES repeated and shuffled from a
+    seed to DENSE_MOLECULES, as ``CircularFingerprint(size=FP_BITS)``
+    (timed a molecule), with seeded 0/1 and normal labels, and the rows
+    of each SMILES's first copy: the set that is scored, since a score
+    that ranks (ROC-AUC) breaks the ties of equal molecules by the last
+    bit of each, which the card's GEMMs round by the row's place in its
+    batch."""
+    import numpy as np
+    from deepchem_tpu_torch.feat import CircularFingerprint
+    order = np.random.RandomState(0).permutation(
+        np.resize(np.arange(len(SMILES)), DENSE_MOLECULES))
+    smiles = [SMILES[i] for i in order]
+    t0 = time.perf_counter()
+    X = CircularFingerprint(size=FP_BITS).featurize(smiles)
+    per_mol_ms = (time.perf_counter() - t0) * 1e3 / len(smiles)
+    check(X.shape == (DENSE_MOLECULES, FP_BITS) and X.any(axis=1).all(),
+          'every molecule has a fingerprint')
+    labels = np.random.RandomState(1).randint(
+        0, 2, (DENSE_MOLECULES, DENSE_TASKS)).astype(np.float32)
+    values = np.random.RandomState(2).randn(
+        DENSE_MOLECULES, DENSE_TASKS).astype(np.float32)
+    first = np.unique(order, return_index=True)[1]
+    return X.astype(np.float32), labels, values, per_mol_ms, first
+
+
+def dense_phase(tag, make, ds, score, featurize_ms, smi, epochs=3):
+    """Phase 18: one fingerprint model, card and CPU from the same weights.
+    Requests of 16 samples against the CPU (CPU_ATOL) and
+    LATENCY_REQUESTS of them timed (median, p90); ``epochs`` of ``fit``
+    (the step time over all but the first, losses finite); then
+    ``score(model)`` (a dict of floats) on the card against the CPU within
+    EVAL_ATOL.  ``make(device)`` builds the model with seed 0."""
+    import numpy as np
+    import torch
+    dev = torch.device('cuda', 0)
+    t_phase = time.perf_counter()
+    model, cpu = make(dev), make('cpu')
+    models = getattr(model, 'models', [model])
+    for m, c in zip(models, getattr(cpu, 'models', [cpu])):
+        c.module.load_state_dict(
+            {k: v.cpu() for k, v in m.module.state_dict().items()})
+    X = ds.X
+
+    def flat(out):
+        return [np.asarray(o) for o in (out if isinstance(out, list)
+                                        else [out])]
+    flat(model.predict_on_batch(X[:16]))                  # warm-up
+    worst, latency = 0.0, []
+    for i in range(LATENCY_REQUESTS):
+        lo = (16 * i) % (len(X) - 16)
+        t0 = time.perf_counter()
+        out = flat(model.predict_on_batch(X[lo:lo + 16]))
+        latency.append((time.perf_counter() - t0) * 1e3)
+        if i < 3:
+            ref = flat(cpu.predict_on_batch(X[lo:lo + 16]))
+            check(all(a.shape == b.shape and bool(np.isfinite(a).all())
+                      for a, b in zip(out, ref)),
+                  f'{tag} request: finite, the CPU run\'s shapes')
+            worst = max([worst] + [float(np.abs(a - b).max())
+                                   for a, b in zip(out, ref)])
+    check(worst <= CPU_ATOL, f'{tag} card vs CPU {worst} > {CPU_ATOL}')
+    p50, p90 = (float(v) for v in np.percentile(latency, [50, 90]))
+    losses = []
+    torch.cuda.synchronize()
+    t0 = t1 = time.perf_counter()
+    for e in range(epochs):
+        if e == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        losses.append(model.fit(ds, nb_epoch=1, checkpoint_interval=0))
+    torch.cuda.synchronize()
+    steps = sum(m.get_global_step() for m in models)
+    step_ms = (time.perf_counter() - t1) * 1e3 / max(
+        1, steps * (epochs - 1) // epochs)
+    check(all(np.isfinite(v) for v in losses if v is not None),
+          f'{tag}: finite losses {losses}')
+    for m, c in zip(models, getattr(cpu, 'models', [cpu])):
+        c.module.load_state_dict(
+            {k: v.cpu() for k, v in m.module.state_dict().items()})
+    scores, cpu_scores = score(model), score(cpu)
+    err = max(abs(scores[k] - cpu_scores[k]) for k in cpu_scores)
+    numbers = {'featurize_ms_per_molecule': featurize_ms,
+               'request16_median_ms': p50, 'request16_p90_ms': p90,
+               'max_request_err': worst, 'fit_steps': steps,
+               'fit_step_ms': step_ms, 'epoch_losses': losses,
+               'scores': scores, 'cpu_scores': cpu_scores, 'eval_err': err,
+               'phase_s': time.perf_counter() - t_phase}
+    print(f'phase 18 {tag} ({smi}): {json.dumps(numbers)}', flush=True)
+    check(all(np.isfinite(v) for v in scores.values()) and err <= EVAL_ATOL,
+          f'{tag}: scores finite and within {EVAL_ATOL} of the CPU ({err})')
+    return numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2181,6 +2383,7 @@ def main() -> int:
     warnings.filterwarnings('ignore', message='Sparse CSR tensor support')
 
     # -- 1. device --------------------------------------------------------
+    phase_start(1)
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -2194,6 +2397,7 @@ def main() -> int:
           f'{torch.version.cuda}; tf32 off', flush=True)
 
     # -- 2. build ---------------------------------------------------------
+    phase_start(2)
     from deepchem_tpu_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all()
@@ -2242,6 +2446,7 @@ def main() -> int:
     n_layers = len(model.module.layers)
 
     # -- 3. kernels against their plain versions --------------------------
+    phase_start(3)
     # the inputs the model hands the wrappers in one batch of 16
     batch16 = X[1:17]
     softmax_in = recorded(segment, 'csr_segment_softmax',
@@ -2626,7 +2831,57 @@ def main() -> int:
         'pna_batch100_edge_max', x, rp_, emask_sorted, torch.randn(
             rp_.shape[0] - 1, x.shape[1], generator=gen, device=dev))
 
+    # P1, P2 (both ways) and K3 on the COO branches' paths, at the inputs
+    # phase 17's first batches hand them: GraphConv's neighbour sum (F 75,
+    # the ghost edges' long last segment), its neighbour max (K3 over the
+    # edge rows by destination) and that max's source gather backward
+    # (P2 over the edge rows by source) at batch 256; GAT's edge softmax
+    # (P1, [E, 8]) and DMPNN's edge sums (P2, [E, 300]) at batch 100
+    from deepchem_tpu_torch.ops import segment as seg_module
+    gc_cls = type(gc_model)
+    with coo_branch(gc_cls):
+        gc_coo = gc_cls(**GRAPHCONV, device=dev, seed=0)
+        gcb = gc_X[:GRAPHCONV['batch_size']]
+        gc_p2_in = recorded(csr_segment, '_gather_sum_forward',
+                            lambda: gc_coo.predict_on_batch(gcb))
+        gc_k3_in = recorded(coo_module, 'graph_max_pool',
+                            lambda: gc_coo.predict_on_batch(gcb))
+        gc_train_in = recorded(
+            csr_segment, '_gather_sum_forward', lambda: gc_coo.fit_on_batch(
+                gcb, gc_labels[:len(gcb)], np.ones_like(gc_labels[:len(gcb)])))
+    del gc_coo
+    gat_cls = GATModel
+    with coo_branch(gat_cls):
+        gat_coo = gnn_makers['gat'](dev, 0)
+        gat_p1_in = recorded(seg_module, 'csr_segment_softmax',
+                             lambda: gat_coo.predict_on_batch(gnn_X[:B]))
+    with coo_branch(DMPNNModel):
+        dm_coo = dm_make(dev, 0)
+        dm_p2_in = recorded(csr_segment, '_gather_sum_forward',
+                            lambda: dm_coo.predict_on_batch(dm_X[:B]))
+    del gat_coo, dm_coo
+    gc_bwd_in = [a for a in gc_train_in if a[3:] == ('backward_launches',)]
+    check([a[0].shape[1] for a in gc_p2_in] == [75, 64]
+          and len(gc_k3_in) == 2 and len(gc_bwd_in) == 3,
+          'GraphConv COO: P2 at F 75 and 64, K3 2 neighbour maxima (and '
+          'the readout), 3 P2 in the backward')
+    check([tuple(a[0].shape[1:]) for a in gat_p1_in] == [(8,)] * 2
+          and [a[0].shape[1] for a in dm_p2_in] == [300] * 3,
+          "P1 at GAT's [E, 8] logits, P2 at DMPNN's [E, 300] edge rows")
+    x, rp_, emask_sorted = gc_k3_in[0]
+    coo_branch_cases = [
+        gather_case('graphconv_coo_batch256_layer0', *gc_p2_in[0][:3]),
+        gather_case('graphconv_coo_batch256_pool_max_backward',
+                    *gc_bwd_in[-1][:3]),
+        gather_case('dmpnn_coo_batch100_edge_sum', *dm_p2_in[0][:3]),
+        softmax_case('gat_coo_batch100_layer0', *gat_p1_in[0])]
+    gc_pool_cases = graph_max_cases(
+        'graphconv_coo_batch256_neighbour_max', x, rp_, emask_sorted,
+        torch.randn(rp_.shape[0] - 1, x.shape[1], generator=gen,
+                    device=dev))
+
     # -- 4. serve ---------------------------------------------------------
+    phase_start(4)
     model.predict_on_batch(X[1:17])             # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -2665,6 +2920,7 @@ def main() -> int:
     check(worst <= CPU_ATOL, f'card vs CPU {worst} > {CPU_ATOL}')
 
     # -- 5. train ---------------------------------------------------------
+    phase_start(5)
     dataset = NumpyDataset(X, labels, weights)
     trainer = PagtnModel(n_tasks=12, mode='classification', device=dev,
                          seed=0, log_frequency=1)
@@ -2744,6 +3000,7 @@ def main() -> int:
           'within 50 steps')
 
     # -- 6. P4 flash attention against its plain versions ----------------
+    phase_start(6)
     flash_cases = [flash_case(f'encoder_{kind}', FLASH_MAIN, dt, dev)
                    for kind, dt in (('bf16', torch.bfloat16),
                                     ('f32', torch.float32))]
@@ -2783,6 +3040,7 @@ def main() -> int:
               f'{kname} launched once per crossover shape')
 
     # -- 7. encoder serving, einsum route ---------------------------------
+    phase_start(7)
     from deepchem_tpu_torch import BertEncoderMLM, SmilesTokenizer
     from deepchem_tpu_torch.models import AdamW, mlm_loss
     tok = SmilesTokenizer.from_corpus(SMILES)
@@ -2828,6 +3086,7 @@ def main() -> int:
           'the default (einsum) route launches no P4 kernel')
 
     # -- 8. the encoder through P4 ---------------------------------------
+    phase_start(8)
     req = slice(REQUESTS[0] + REQUESTS[1], sum(REQUESTS))  # the 31 request
     with torch.no_grad():
         einsum_logits = server(ids[req].to(dev))
@@ -2932,6 +3191,7 @@ def main() -> int:
           'within 50 steps')
 
     # -- 9. encoder gradients, card against CPU (einsum route, f32) -------
+    phase_start(9)
     small = [t[:4] for t in (mlm_in, ids, mask)]
     models = [BertEncoderMLM(**ENCODER, device=d, seed=4).train()
               for d in (dev, 'cpu')]
@@ -2952,6 +3212,7 @@ def main() -> int:
     del models, steps
 
     # -- 11. GraphConvModel, bench.py's main path ------------------------
+    phase_start(11)
     gc_ds = NumpyDataset(gc_X, gc_labels, np.ones_like(gc_labels))
     B = GRAPHCONV['batch_size']
     # per batch of the forward: K1 and K2 once a layer, K3 and P3 once
@@ -3091,6 +3352,7 @@ def main() -> int:
     del cpu_gc, trainer
 
     # -- 12. MPNNModel at the JAX package's defaults ---------------------
+    phase_start(12)
     from deepchem_tpu_torch import (MPNNModel, NormalizationTransformer,
                                     mae_score, pearson_r2_score, rms_score)
     raw_ds = NumpyDataset(mp_X, mp_y)
@@ -3230,6 +3492,7 @@ def main() -> int:
     del cpu_mp, trainer
 
     # -- 13. GCN, GAT and AttentiveFP at the JAX package's defaults ------
+    phase_start(13)
     # per batch of the forward: GCN K1 once a layer, GAT and AttentiveFP K4
     # twice a layer; P3 once for the sum readout, twice for the mean (the
     # node counts); a step adds K1 in K4's backward, and GCN's K1 backward
@@ -3246,6 +3509,7 @@ def main() -> int:
     del gnn_models
 
     # -- 14. DMPNN at the JAX package's defaults --------------------------
+    phase_start(14)
     # K1 once a round and once after, P3 once; nei_sum_edges' backward is
     # a gather
     per_batch = {'nei_sum_edges': 3, 'csr_segment_sum': 1}
@@ -3254,9 +3518,11 @@ def main() -> int:
     del dm_model
 
     # -- 15. the engine on GraphConv at bench.py's width ------------------
+    phase_start(15)
     engine = engine_phase(dev, smi)
 
     # -- 16. the COO message-passing models at the JAX package's defaults -
+    phase_start(16)
     # per batch of the forward: P2 once a GCN layer (GNNModular, InfoGraph*)
     # or twice a PNA layer (the mean and the variance's sums), K3 twice a
     # PNA layer (max, min); P3 twice for a mean readout (PNA, GNNModular's
@@ -3278,7 +3544,126 @@ def main() -> int:
                                   per_batch, dict(per_batch, **per_step),
                                   smi, scored)
 
-    # -- 17. kernels line -------------------------------------------------
+    # -- 17. the COO branches -------------------------------------------
+    phase_start(17)
+    # per batch of the forward: P2 once a GraphConv or GCN layer, once a
+    # GAT or AttentiveFP layer (the weighted messages) after P1 (the edge
+    # softmax), once a DMPNN round and after (the edge states' sums), once
+    # an MPNN step; K3 once a GraphConv layer (the neighbour max) and for
+    # the max readout; P1 M times and P3 M times in MPNN's set2set, P3 for
+    # the readouts.  A step adds P2's transpose for each source or
+    # destination gather and GraphConv's and GCN's neighbour sums after
+    # the first layer, K3's backward, and P3 in each P1's backward
+    from deepchem_tpu_torch import MPNNModel as MPNNCls
+    branch_runs, branch_diffs = {}, {}
+    n_gc = len(GRAPHCONV['graph_conv_layers'])
+    for k, cls, make, X_k, y_k, per_batch, per_step, extra in (
+            ('graphconv', gc_cls,
+             lambda d, seed, **kw: gc_cls(**GRAPHCONV, device=d, seed=seed,
+                                          **kw),
+             gc_X, gc_labels,
+             {'fused_gather_segment_sum': n_gc,
+              'graph_max_pool_fwd': n_gc + 1, 'csr_segment_sum': 1},
+             {'fused_gather_segment_sum_bwd': 2 * n_gc - 1,
+              'graph_max_pool_bwd': n_gc + 1},
+             dict(out_tail=(GRAPHCONV['n_tasks'], 2), metrics=[
+                 Metric(roc_auc_score, np.mean)])),
+            ('gcn', GCNModel, gnn_makers['gcn'], gnn_X, gnn_y,
+             {'fused_gather_segment_sum': 2, 'csr_segment_sum': 2},
+             {'fused_gather_segment_sum_bwd': 1}, {}),
+            ('gat', GATModel, gnn_makers['gat'], gnn_X, gnn_y,
+             {'csr_segment_softmax': 2, 'fused_gather_segment_sum': 2,
+              'csr_segment_sum': 2},
+             {'fused_gather_segment_sum_bwd': 6, 'csr_segment_sum': 4}, {}),
+            ('attentivefp', AttentiveFPModel, gnn_makers['attentivefp'],
+             gnn_X, gnn_y,
+             {'csr_segment_softmax': 2, 'fused_gather_segment_sum': 2,
+              'csr_segment_sum': 1},
+             {'fused_gather_segment_sum_bwd': 6, 'csr_segment_sum': 3}, {}),
+            ('mpnn', MPNNCls,
+             lambda d, seed, **kw: MPNNCls(**MPNN, device=d, seed=seed,
+                                           **kw), mp_X, mp_y,
+             {'fused_gather_segment_sum': 3, 'csr_segment_softmax': 6,
+              'csr_segment_sum': 6},
+             {'fused_gather_segment_sum_bwd': 3, 'csr_segment_sum': 12}, {}),
+            ('dmpnn', DMPNNModel, dm_make, dm_X, dm_y,
+             {'fused_gather_segment_sum': 3, 'csr_segment_sum': 1},
+             {'fused_gather_segment_sum_bwd': 2}, {})):
+        t0 = time.perf_counter()
+        branch_diffs[k] = table_vs_coo(k, cls, make, X_k)
+        with coo_branch(cls):
+            branch_runs[f'{k}_coo'] = model_phase(
+                17, f'{k}_coo', make, X_k, y_k, per_batch,
+                dict(per_batch, **per_step), smi, **extra)
+        print(f'phase 17 {k}: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # -- 18. the fingerprint models --------------------------------------
+    phase_start(18)
+    from deepchem_tpu_torch.models import (MultitaskClassifier,
+                                           MultitaskIRVClassifier,
+                                           MultitaskRegressor,
+                                           ProgressiveMultitaskClassifier,
+                                           RobustMultitaskClassifier,
+                                           ScScoreModel,
+                                           SingletaskToMultitask)
+    from deepchem_tpu_torch.trans import IRVTransformer
+    fp_X, fp_labels, fp_values, fp_ms, first = dense_data()
+    fp_cls = NumpyDataset(fp_X, fp_labels)
+    fp_reg = NumpyDataset(fp_X, fp_values)
+
+    def scored_rows(data):
+        return NumpyDataset(data.X[first], data.y[first])
+
+    def auc(m, data=fp_cls):
+        return m.evaluate(scored_rows(data),
+                          [Metric(roc_auc_score, np.mean)])
+
+    def rms(m, data=fp_reg):
+        return m.evaluate(scored_rows(data), [Metric(rms_score, np.mean)])
+    irv_ds = IRVTransformer(IRV_K, DENSE_TASKS, fp_cls).transform(fp_cls)
+    pairs = NumpyDataset(np.stack([fp_X, np.roll(fp_X, 1, axis=0)], axis=1),
+                         np.zeros((DENSE_MOLECULES, 1), np.float32))
+    pairs_scored = NumpyDataset(np.stack(
+        [fp_X[first], np.roll(fp_X[first], 1, axis=0)], axis=1))
+
+    def sc_score(m):
+        s1, s2 = m.predict(pairs_scored)
+        return {'mean_score': float(np.mean(s2)), 'hinge_loss': float(
+            np.mean(np.maximum(1.0 - (s2 - s1), 0.0)))}
+    single = NumpyDataset(fp_X, fp_values[:, :SINGLETASK_TASKS])
+
+    def single_rms(m):
+        pred = m.predict(scored_rows(single))
+        return {'rms_score': float(np.sqrt(np.mean(
+            (pred - single.y[first]) ** 2)))}
+    dense_runs = {}
+    for k, make, data, score in (
+            ('tf', lambda d: MultitaskClassifier(**TF, device=d), fp_cls,
+             auc),
+            ('tf_robust', lambda d: RobustMultitaskClassifier(
+                **TF_ROBUST, device=d), fp_cls, auc),
+            ('tf_regression', lambda d: MultitaskRegressor(
+                **TF_REGRESSION, device=d), fp_reg, rms),
+            ('progressive', lambda d: ProgressiveMultitaskClassifier(
+                **PROGRESSIVE, device=d), fp_cls, auc),
+            ('irv', lambda d: MultitaskIRVClassifier(
+                DENSE_TASKS, K=IRV_K, device=d), irv_ds,
+             lambda m: auc(m, irv_ds)),
+            ('scscore', lambda d: ScScoreModel(**SCSCORE, device=d), pairs,
+             sc_score),
+            ('singletask_to_multitask', lambda d: SingletaskToMultitask(
+                list(range(SINGLETASK_TASKS)), lambda t: MultitaskRegressor(
+                    1, FP_BITS, device=d)), single, single_rms)):
+        dense_runs[k] = dense_phase(k, make, data, score, fp_ms, smi)
+
+    # -- 19. kernels line -------------------------------------------------
+    phase_start(19)
+    def run_paths(runs, key):
+        return {f'{m}_{run}': counts[key] for m, (srv, fit, dev_fit, _) in
+                runs.items() for run, counts in (
+                    ('serve', srv), ('fit', fit), ('fit_on_device', dev_fit))
+                if counts[key]}
+
     def entry(kname, cases, main_case, path_launches, source=None, **extra):
         return {'name': kname, 'route': 'cuda',
                 'source': source or f'deepchem_tpu_torch/csrc/{kname}.cu',
@@ -3297,18 +3682,17 @@ def main() -> int:
                {'serve': serve['csr_segment_softmax'],
                 'train': train['csr_segment_softmax'],
                 'mpnn_serve': mp_serve['csr_segment_softmax'],
-                'mpnn_train': mp_train['csr_segment_softmax']},
+                'mpnn_train': mp_train['csr_segment_softmax'],
+                **run_paths(branch_runs, 'csr_segment_softmax')},
                replaces='deepchem_tpu/ops/pallas_segment.py:156',
+               coo_branches={c['case']: {k: c[k] for k in (
+                   'E', 'H', 'N', 'ms', 'device_us', 'plain_ms', 'bound_ms',
+                   'bound_by', 'library_ms', 'library_device_us',
+                   'max_abs_err') if k in c} for c in coo_branch_cases[3:]},
                backward={'route': 'torch.autograd.Function: dx = y * (dy - '
                                   't[seg]), t from csr_segment_sum (cuda)',
                          'max_abs_err': max(c['max_abs_err']
                                             for c in backward_cases)})
-    def run_paths(runs, key):
-        return {f'{m}_{run}': counts[key] for m, (srv, fit, dev_fit, _) in
-                runs.items() for run, counts in (
-                    ('serve', srv), ('fit', fit), ('fit_on_device', dev_fit))
-                if counts[key]}
-
     def table_paths(key):
         return run_paths(table_runs, key)
 
@@ -3323,24 +3707,29 @@ def main() -> int:
                 'mpnn_train': mp_train['csr_segment_sum'],
                 **table_paths('csr_segment_sum'),
                 'graphconv_engine': engine['csr_segment_sum'],
-                **coo_paths('csr_segment_sum')},
+                **coo_paths('csr_segment_sum'),
+                **run_paths(branch_runs, 'csr_segment_sum')},
                replaces='deepchem_tpu/ops/pallas_segment.py:45')
     # P2: main case GNNModular's layer-1 sum at batch 100; its launches on
     # the COO models' forwards and (the transpose) backwards
-    p2 = entry('fused_gather_segment_sum', gather_cases + coo_cases,
+    p2 = entry('fused_gather_segment_sum',
+               gather_cases + coo_cases + coo_branch_cases[:3],
                coo_cases[1],
                {'p2_bench_shapes': p2_path['fused_gather_segment_sum'],
                 **coo_paths('fused_gather_segment_sum'),
                 **{f'{path}_backward': n for path, n in
-                   coo_paths('fused_gather_segment_sum_bwd').items()}},
+                   coo_paths('fused_gather_segment_sum_bwd').items()},
+                **run_paths(branch_runs, 'fused_gather_segment_sum'),
+                **{f'{path}_backward': n for path, n in run_paths(
+                    branch_runs, 'fused_gather_segment_sum_bwd').items()}},
                replaces='deepchem_tpu/ops/pallas_segment.py:94',
                shapes={c['case']: {k: c[k] for k in (
                    'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
                    'bound_by', 'library_ms', 'library_device_us')}
                    for c in gather_cases[:len(P2_BENCH_SHAPES)]
-                   + coo_cases},
+                   + coo_cases + coo_branch_cases[:3]},
                models={m: numbers for m, (_, _, _, numbers) in
-                       coo_runs.items()})
+                       (coo_runs | branch_runs).items()})
     # P2 in bfloat16: bench shapes only, as in the JAX package; main case
     # the widest
     p2_bf16 = entry('fused_gather_segment_sum_bf16', bf16_cases,
@@ -3447,9 +3836,15 @@ def main() -> int:
                          f'(_nei_max_bwd; {xla_op})'))
     k3 = tuple(entry(
         f'graph_max_pool_{part}', [c[i] for c in pool_cases]
-        + [pna_pool_cases[i]], pool_cases[0][i],
+        + [pna_pool_cases[i], gc_pool_cases[i]], pool_cases[0][i],
         dict(gc_paths(f'graph_max_pool_{part}'),
-             **coo_paths(f'graph_max_pool_{part}')),
+             **coo_paths(f'graph_max_pool_{part}'),
+             **run_paths(branch_runs, f'graph_max_pool_{part}')),
+        coo_branches={gc_pool_cases[i]['case']: {k: gc_pool_cases[i][k] for
+                                                 k in (
+            'N', 'F', 'G', 'ms', 'device_us', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms', 'library_device_us', 'max_abs_err')
+            if k in gc_pool_cases[i]}},
         pna={k: pna_pool_cases[i][k] for k in (
             'N', 'F', 'G', 'ms', 'device_us', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'library_device_us', 'max_abs_err')
@@ -3466,7 +3861,7 @@ def main() -> int:
         | {k: v for k, v in e.items() if k in (
             'device_us', 'launches_by_path', 'backward', 'library_device_us',
             'backward_device_us', 'float32', 'mpnn', 'gcn', 'dmpnn', 'pna',
-            'shapes', 'models')}
+            'shapes', 'models', 'coo_branches')}
         for e in (p1, p3, p2, p2_bf16) + p4 + (k1,) + k2 + k3 + (k4,)]}),
         flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -18,7 +18,9 @@ class MolecularFeaturizer:
     ``_featurize(self, mol: Molecule)``.
 
     A datapoint that fails to parse or featurize is logged and becomes an
-    empty array, so outputs stay aligned with inputs.
+    empty array, so outputs stay aligned with inputs.  Numeric arrays of
+    one shape are stacked into one array; anything else comes back as an
+    object array, one entry a datapoint.
     """
 
     def featurize(self, datapoints, log_every_n: int = 1000) -> np.ndarray:
@@ -38,13 +40,23 @@ class MolecularFeaturizer:
                     'Failed to featurize datapoint %d, %s. Appending empty '
                     'array. Exception message: %s', i, point, e)
                 features.append(np.array([]))
-        out = np.empty(len(features), dtype=object)
-        for i, f in enumerate(features):
-            out[i] = f
-        return out
+        return _stack_or_object(features)
 
     def __call__(self, datapoints, **kwargs) -> np.ndarray:
         return self.featurize(datapoints, **kwargs)
 
     def _featurize(self, mol: Molecule):
         raise NotImplementedError
+
+
+def _stack_or_object(features: List[Any]) -> np.ndarray:
+    """``np.stack`` of numeric arrays of one shape, else an object array."""
+    first = features[0] if features else None
+    if features and all(isinstance(f, np.ndarray)
+                        and f.shape == first.shape and f.dtype.kind in 'fiub'
+                        for f in features):
+        return np.stack(features)
+    out = np.empty(len(features), dtype=object)
+    for i, f in enumerate(features):
+        out[i] = f
+    return out

@@ -23,10 +23,13 @@ class GraphData:
     node_features: np.ndarray, shape (num_nodes, num_node_features)
     edge_index: np.ndarray of int, shape (2, num_edges)
     edge_features: optional np.ndarray, shape (num_edges, num_edge_features)
+
+    Any other keyword (``global_features``, say) is kept as an attribute of
+    that name and listed in ``kwargs``.
     """
 
     def __init__(self, node_features: np.ndarray, edge_index: np.ndarray,
-                 edge_features: Optional[np.ndarray] = None):
+                 edge_features: Optional[np.ndarray] = None, **kwargs):
         node_features = np.asarray(node_features)
         edge_index = np.asarray(edge_index, dtype=np.int64)
         if edge_index.ndim != 2 or edge_index.shape[0] != 2:
@@ -40,6 +43,9 @@ class GraphData:
         self.node_features = node_features
         self.edge_index = edge_index
         self.edge_features = edge_features
+        self.kwargs = kwargs
+        for k, v in kwargs.items():
+            setattr(self, k, v)
 
     @property
     def num_nodes(self) -> int:

@@ -1,4 +1,5 @@
-"""Molecule featurizers."""
+"""Molecule featurizers: graphs for the graph models and circular
+fingerprints for the dense ones."""
 
 from __future__ import annotations
 
@@ -7,7 +8,8 @@ from typing import List, Optional
 
 import numpy as np
 
-from deepchem_tpu_torch.chem import Molecule
+from deepchem_tpu_torch.chem import (Molecule, morgan_fingerprint,
+                                     sparse_morgan_fingerprint)
 from deepchem_tpu_torch.feat import feature_utils as fu
 from deepchem_tpu_torch.feat.base import MolecularFeaturizer
 from deepchem_tpu_torch.feat.graph_data import GraphData
@@ -193,8 +195,8 @@ class DMPNNFeaturizer(MolecularFeaturizer):
     the stereo one-hot and a 0 (7).  Edges come in ``(u -> v, v -> u)``
     adjacent pairs, so the reverse of edge ``e`` is ``e ^ 1``.
 
-    ``features_generators=['morgan']`` (a Morgan count vector as global
-    features) is not ported yet and raises.
+    ``features_generators=['morgan']`` adds each graph's 2048-bit Morgan
+    fingerprint (radius 2) as float32 ``global_features``.
     """
 
     def __init__(self, features_generators: Optional[List[str]] = None,
@@ -202,10 +204,9 @@ class DMPNNFeaturizer(MolecularFeaturizer):
         if is_adding_hs:
             raise NotImplementedError(
                 'explicit-H featurization not supported')
-        if features_generators:
-            raise NotImplementedError(
-                f'features generators {features_generators} are not ported '
-                '(the Morgan fingerprints of chem/fingerprints.py)')
+        for gen in features_generators or ():
+            if gen != 'morgan':
+                raise ValueError(f'unsupported features generator {gen!r}')
         self.features_generators = features_generators
 
     @staticmethod
@@ -241,4 +242,48 @@ class DMPNNFeaturizer(MolecularFeaturizer):
         ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
         ef = np.asarray(bond_feats, dtype=np.float32).reshape(
             ei.shape[1], 14)
-        return GraphData(atom_feats, ei, ef)
+        extra = {}
+        if self.features_generators:
+            extra['global_features'] = np.concatenate([
+                morgan_fingerprint(mol, radius=2, n_bits=2048).astype(
+                    np.float32) for _ in self.features_generators])
+        return GraphData(atom_feats, ei, ef, **extra)
+
+
+class CircularFingerprint(MolecularFeaturizer):
+    """Extended-connectivity (Morgan, ECFP) fingerprints of
+    ``chem/fingerprints.py``: ``size`` float64 bits (or counts with
+    ``is_counts_based``) of every atom environment up to ``radius``; with
+    ``chiral`` the chirality tags enter the atom invariants, with
+    ``bonds`` the bond orders the environment hashes, and ``features``
+    replaces the atom invariants by pharmacophore flags (FCFP).  With
+    ``sparse`` each molecule gives the unfolded ``{hash: {'count': c}}``
+    (with ``smiles``, each entry also an empty ``'smiles'``: fragment
+    SMILES are not extracted)."""
+
+    def __init__(self, radius: int = 2, size: int = 2048,
+                 chiral: bool = False, bonds: bool = True,
+                 features: bool = False, sparse: bool = False,
+                 smiles: bool = False, is_counts_based: bool = False):
+        self.radius = radius
+        self.size = size
+        self.chiral = chiral
+        self.bonds = bonds
+        self.features = features
+        self.sparse = sparse
+        self.smiles = smiles
+        self.is_counts_based = is_counts_based
+
+    def _featurize(self, mol: Molecule):
+        if self.sparse:
+            d = sparse_morgan_fingerprint(
+                mol, self.radius, use_chirality=self.chiral,
+                use_bond_types=self.bonds, use_features=self.features)
+            if self.smiles:
+                return {k: {'smiles': '', 'count': v['count']}
+                        for k, v in d.items()}
+            return d
+        return morgan_fingerprint(
+            mol, self.radius, self.size, use_chirality=self.chiral,
+            use_bond_types=self.bonds, use_features=self.features,
+            counts=self.is_counts_based).astype(np.float64)

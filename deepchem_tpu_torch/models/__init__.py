@@ -4,6 +4,11 @@ from deepchem_tpu_torch.models.bert_encoder import (BertEncoderMLM,
 from deepchem_tpu_torch.models.convert import (encoder_params_from_flax,
                                                params_from_flax)
 from deepchem_tpu_torch.models.dmpnn import DMPNNModel
+from deepchem_tpu_torch.models.fcnet import (MultitaskClassifier,
+                                             MultitaskFitTransformRegressor,
+                                             MultitaskRegressor,
+                                             RobustMultitaskClassifier,
+                                             RobustMultitaskRegressor)
 from deepchem_tpu_torch.models.gnn_modular import GNNModular, ModularModel
 from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
                                                     EdgeNetworkMPNN, GATLayer,
@@ -27,7 +32,13 @@ from deepchem_tpu_torch.models.losses import (
     LocalMutualInformationLoss, Loss, PoissonLoss, ShannonEntropy,
     SigmoidCrossEntropy, SoftmaxCrossEntropy, SparseSoftmaxCrossEntropy,
     SquaredHingeLoss, VAE_ELBO, VAE_KLDivergence)
+from deepchem_tpu_torch.models.irv import (IRVClassifier,
+                                           MultitaskIRVClassifier)
+from deepchem_tpu_torch.models.multitask import SingletaskToMultitask
 from deepchem_tpu_torch.models.pna import PNALayer, PNAModel
+from deepchem_tpu_torch.models.progressive import (
+    ProgressiveMultitaskClassifier, ProgressiveMultitaskRegressor)
+from deepchem_tpu_torch.models.scscore import ScScoreModel
 from deepchem_tpu_torch.models.optimizers import (
     KFAC, AdaGrad, Adam, AdamW, ExponentialDecay, GradientDescent, Lamb,
     LambdaLRWithWarmup, LearningRateSchedule, LinearCosineDecay, Optimizer,
@@ -42,14 +53,20 @@ __all__ = ['AdaGrad', 'Adam', 'AdamW', 'AttentiveFPLayer',
            'GRUCell', 'GlobalMutualInformationLoss', 'GradientDescent',
            'GraphConv', 'GraphConvModel', 'GraphEdgeMaskingLoss',
            'GraphGather', 'GraphModel', 'GraphNodeMaskingLoss', 'HingeLoss',
-           'HuberLoss', 'InfoGraphModel', 'InfoGraphStarModel', 'KFAC',
+           'HuberLoss', 'IRVClassifier', 'InfoGraphModel',
+           'InfoGraphStarModel', 'KFAC',
            'L1Loss', 'L2Loss', 'LSTMCell', 'Lamb', 'LambdaLRWithWarmup',
            'LearningRateSchedule', 'LinearCosineDecay',
            'LocalMutualInformationLoss', 'Loss', 'MPNNModel',
-           'MaskedBatchNorm', 'Model', 'ModularModel', 'Optimizer',
+           'MaskedBatchNorm', 'Model', 'ModularModel',
+           'MultitaskClassifier', 'MultitaskFitTransformRegressor',
+           'MultitaskIRVClassifier', 'MultitaskRegressor', 'Optimizer',
            'PNALayer', 'PNAModel',
            'PagtnLayer', 'PagtnModel', 'PiecewiseConstantSchedule',
-           'PoissonLoss', 'PolynomialDecay', 'RMSProp', 'SetGather',
+           'PoissonLoss', 'PolynomialDecay', 'ProgressiveMultitaskClassifier',
+           'ProgressiveMultitaskRegressor', 'RMSProp',
+           'RobustMultitaskClassifier', 'RobustMultitaskRegressor',
+           'ScScoreModel', 'SetGather', 'SingletaskToMultitask',
            'ShannonEntropy', 'SigmoidCrossEntropy', 'SoftmaxCrossEntropy',
            'SparseAdam', 'SparseSoftmaxCrossEntropy', 'SquaredHingeLoss',
            'TorchModel', 'VAE_ELBO', 'VAE_KLDivergence',

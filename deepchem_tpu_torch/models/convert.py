@@ -1,9 +1,14 @@
 """Load flax parameters, flattened to ``{'params/<scope>/<name>': array}``
 (the JAX package's ``jax_model._flatten_params``), into the port's
 modules: the PAGTN, GraphConv, GCN, GAT, AttentiveFP, MPNN, DMPNN,
-GNNModular, InfoGraph and PNA modules (:func:`params_from_flax`, each
-module naming its scopes in ``flax_scopes``) and the encoder
-(:func:`encoder_params_from_flax`)."""
+GNNModular, InfoGraph and PNA modules (their table and COO branches share
+one parameter tree), and the fingerprint models' (``_MLPTrunk_0/Dense_i``,
+``output_head``, ``uncertainty_head``; the robust models' shared, bypass
+and head ``Dense_i``; the progressive columns' ``task{t}_dense{i}``,
+``_alpha{i}``, ``_adapter{i}``, ``_lateral{i}``, ``_out``; IRV's ``W``,
+``b``, ``b2``; ScScore's net) through :func:`params_from_flax`, each
+module naming its scopes in ``flax_scopes`` and any leaf of its own in
+``flax_leaves``; and the encoder (:func:`encoder_params_from_flax`)."""
 
 from __future__ import annotations
 
@@ -29,14 +34,16 @@ _LEAVES = {'kernel': 'weight', 'bias': 'bias', 'W_self': 'W_self',
            'a_dst': 'a_dst'}
 
 
-def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES) -> str:
+def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES,
+                leaves: Dict[str, str] = _LEAVES) -> str:
     """The module's name of a flax leaf: each scope becomes the attribute
     ``scopes`` names for its path (``'A_0/Dense_1'``) or, failing that,
-    for the scope alone, or a numbered list entry."""
+    for the scope alone, or a numbered list entry; the leaf the name
+    ``leaves`` gives it."""
     parts = key.split('/')
     if len(parts) < 2 or parts[0] != 'params' \
-            or parts[-1] not in _LEAVES:
-        raise KeyError(f'not a flax graph-model parameter: {key!r}')
+            or parts[-1] not in leaves:
+        raise KeyError(f'not a flax model parameter: {key!r}')
     names = []
     for i, scope in enumerate(parts[1:-1]):
         path = '/'.join(parts[1:i + 2])
@@ -47,7 +54,7 @@ def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES) -> str:
                 break
         else:
             names.append(scopes.get(path, scopes.get(scope, scope)))
-    return '.'.join(names + [_LEAVES[parts[-1]]])
+    return '.'.join(names + [leaves[parts[-1]]])
 
 
 # flax's recurrent cells: a Dense (kernel [in, out], bias) per gate, under
@@ -90,6 +97,7 @@ def flax_state(flat: Dict[str, np.ndarray],
     """``flat`` (parameters, or gradients of them) as the graph module's
     state: see :func:`params_from_flax`."""
     scopes = getattr(module, 'flax_scopes', _SCOPES)
+    leaves = {**_LEAVES, **getattr(module, 'flax_leaves', {})}
     state, cells = {}, {}
     for key, value in flat.items():
         m = _CELL.match(key)
@@ -97,7 +105,7 @@ def flax_state(flat: Dict[str, np.ndarray],
             cells.setdefault((m.group(1), m.group(2)), {})[
                 (m.group(3), m.group(4))] = value
         else:
-            state[_torch_name(key, scopes)] = _tensor(key, value)
+            state[_torch_name(key, scopes, leaves)] = _tensor(key, value)
     for (prefix, kind), leaves in cells.items():
         state.update(_cell_state(prefix, kind, leaves, scopes))
     return state

@@ -4,9 +4,12 @@ Counterparts of ``deepchem_tpu/models/dmpnn.py``'s ``_DMPNNModule`` and
 ``DMPNNModel`` on the table path (``uses_edge_table = True``).  The
 featurizer (:class:`DMPNNFeaturizer`) writes each bond as two adjacent
 directed edges, so the reverse of edge ``e`` is ``e ^ 1``, and the packer
-keeps that order (the edges are not sorted by destination).  The JAX
-package's COO branch (edge features in the table's place, segment sums)
-is not ported.
+keeps that order (the edges are not sorted by destination).  With
+``uses_edge_table`` set to False on the class, the module takes the JAX
+package's COO branch: the batch's CSR in the table's place, each sum of
+edge states into their destinations P2 (:func:`dst_segment_sum`), the
+gather of those sums by source :func:`gather_src` (P2 in its backward)
+and the reverse edges' gather a permutation (a gather both ways).
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from deepchem_tpu_torch.models.graph_models import (GraphModel,
                                                     _SeededDropout, _heads,
                                                     _gnn_loss_outputs)
 from deepchem_tpu_torch.models.optimizers import Optimizer
-from deepchem_tpu_torch.ops import graph_pool, nei_sum_edges
+from deepchem_tpu_torch.ops import (N_CSR, CooCsr, dst_segment_sum,
+                                    gather_src, graph_pool, nei_sum_edges,
+                                    permute_rows)
 
 
 class _DMPNNModule(_SeededDropout):
@@ -65,22 +70,38 @@ class _DMPNNModule(_SeededDropout):
             **{f'Dense_{3 + i}': f'ffn.{i}' for i in range(ffn_layers)},
             f'Dense_{3 + ffn_layers}': 'head'}
 
-    def forward(self, nf, esrc, edst, gidx, nmask, emask, e_table, e_deg,
-                ef):
+    def forward(self, nf, esrc, edst, gidx, nmask, emask, *rest):
         # index_select, whose backward is index_add_, not advanced
         # indexing, whose backward sorts the indices
         esrc = esrc.long()
+        ef = rest[-1]
         E = ef.shape[0]
         h0 = F.relu(self.W_i(torch.cat([nf.index_select(0, esrc), ef],
                                        dim=1)))
         # the featurizer's (u -> v, v -> u) adjacent pairs
         rev = torch.arange(E, device=ef.device) ^ 1
+        if len(rest) == N_CSR + 1:              # the COO branch
+            csr = CooCsr(*rest[:-1])
+
+            def edge_to_node(x):
+                return dst_segment_sum(x * emask[:, None], edst, csr)
+
+            def message(node_in, x):
+                return gather_src(node_in, esrc, csr) \
+                    - permute_rows(x, rev, rev)
+        else:
+            e_table, e_deg = rest[:2]
+
+            def edge_to_node(x):
+                return nei_sum_edges(x, e_table, e_deg, edst, emask)
+
+            def message(node_in, x):
+                return node_in.index_select(0, esrc) - x.index_select(0, rev)
         h = h0
         for _ in range(self.depth - 1):
-            node_in = nei_sum_edges(h, e_table, e_deg, edst, emask)
-            m = node_in.index_select(0, esrc) - h.index_select(0, rev)
-            h = self._dropout(F.relu(h0 + self.W_h(m)))
-        node_in = nei_sum_edges(h, e_table, e_deg, edst, emask)
+            h = self._dropout(F.relu(h0 + self.W_h(message(edge_to_node(h),
+                                                           h))))
+        node_in = edge_to_node(h)
         z = F.relu(self.W_o(torch.cat([nf, node_in], dim=1)))
         x = graph_pool(z, gidx, self.num_graphs, nmask, 'sum')
         for layer in self.ffn:
@@ -105,6 +126,7 @@ class DMPNNModel(GraphModel):
 
     uses_edge_features = True
     uses_edge_table = True
+    has_coo_branch = True
 
     def __init__(self, n_tasks: int = 1, mode: str = 'regression',
                  n_classes: int = 2, batch_size: int = 100,

@@ -5,14 +5,23 @@ Counterparts of ``deepchem_tpu/models/graph_layers.py``'s
 ``MaskedBatchNorm``, ``GraphConv``, ``graph_pool_max``, ``GraphGather``,
 ``GCNLayer``, ``GATLayer``, ``AttentiveFPLayer``, ``EdgeNetworkMPNN`` and
 ``SetGather``, and of flax's ``Dense``, ``GRUCell`` and
-``OptimizedLSTMCell`` as those layers use them, on the table paths: the
+``OptimizedLSTMCell`` as those layers use them.  On the table paths the
 aggregations are the kernels K1 (:func:`nei_sum`, :func:`nei_sum_edges`,
 :func:`take_src`'s backward, :func:`nei_gather`'s backward), K2
 (:func:`nei_max_incl_self`), K3, K4 (:func:`nei_gather`), P1 and P3
 (:func:`graph_pool`, :func:`segment_softmax_sorted`,
-:func:`csr_segment_sum`), and ``GCNLayer``'s COO branch (edge lists, no
-table) P2 (:func:`gather_neighbors_sum`).  The COO branches of the other
-layers are not ported.
+:func:`csr_segment_sum`).  Each layer also has the JAX package's COO
+branch (edge lists and their CSR, no table), on ``ops/coo.py``:
+``GraphConv`` and ``GCNLayer`` sum the neighbours with P2
+(:func:`gather_neighbors_sum`, P2 both ways); ``graph_pool_max`` takes
+the neighbour max with K3 (:func:`gather_neighbors_max`: a source gather
+whose backward is P2, then K3 forward and backward); ``GATLayer`` and
+``AttentiveFPLayer`` softmax their edge logits with P1
+(:func:`dst_segment_softmax`, P3 in its backward), gather node rows by
+edge end with :func:`gather_src` and :func:`gather_dst` (P2 in the
+backward) and sum the weighted messages with P2
+(:func:`dst_segment_sum`); ``EdgeNetworkMPNN`` gathers the sources with
+:func:`gather_src` and sums the messages with P2.
 """
 
 from __future__ import annotations
@@ -24,7 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepchem_tpu_torch.ops.coo import gather_neighbors_sum
+from deepchem_tpu_torch.ops.coo import (dst_segment_softmax, dst_segment_sum,
+                                        gather_dst, gather_neighbors_max,
+                                        gather_neighbors_sum, gather_src)
 from deepchem_tpu_torch.ops.csr_segment import csr_row_ptr, csr_segment_sum
 from deepchem_tpu_torch.ops.nei_table import (nei_gather, nei_max_incl_self,
                                               nei_sum, nei_sum_edges,
@@ -170,7 +181,9 @@ class GraphConv(nn.Module):
     ``out_i = W_self[d_i] h_i + W_nbr[d_i] sum_j h_j + b[d_i]``, the degree
     clipped to ``max_degree``.  Every degree branch is computed densely
     (``[D, N, O]``) and a one-hot selects each node's, as the JAX layer
-    does; the neighbour sum is K1."""
+    does; the neighbour sum is K1 over ``table``, or with no table P2
+    (:func:`gather_neighbors_sum`) over ``coo``, the batch's
+    ``(edge_src, edge_dst, edge_mask, csr)``."""
 
     def __init__(self, in_features: int, out_channels: int,
                  max_degree: int = 10,
@@ -184,9 +197,11 @@ class GraphConv(nn.Module):
             torch.empty(d, in_features, out_channels), generator))
         self.b = nn.Parameter(torch.zeros(d, out_channels))
 
-    def forward(self, h: torch.Tensor, table: torch.Tensor,
-                deg: torch.Tensor) -> torch.Tensor:
-        msgs = nei_sum(h, table, deg)
+    def forward(self, h: torch.Tensor, table: Optional[torch.Tensor],
+                deg: torch.Tensor, coo: Optional[tuple] = None
+                ) -> torch.Tensor:
+        msgs = nei_sum(h, table, deg) if table is not None \
+            else gather_neighbors_sum(h, *coo)
         onehot = F.one_hot(deg.long().clamp(0, self.max_degree),
                            self.max_degree + 1).to(h.dtype)      # [N, D]
         self_all = torch.einsum('nf,dfo->dno', h, self.W_self)
@@ -195,11 +210,17 @@ class GraphConv(nn.Module):
         return out + onehot @ self.b
 
 
-def graph_pool_max(h: torch.Tensor, table: torch.Tensor,
-                   deg: torch.Tensor) -> torch.Tensor:
-    """GraphPool: the elementwise max over a node and its neighbours
-    (K2)."""
-    return nei_max_incl_self(h, table, deg)
+def graph_pool_max(h: torch.Tensor, table: Optional[torch.Tensor],
+                   deg: torch.Tensor, coo: Optional[tuple] = None
+                   ) -> torch.Tensor:
+    """GraphPool: the elementwise max over a node and its neighbours: K2
+    over ``table``, or with no table ``max(h, gather_neighbors_max)`` over
+    ``coo`` (``(edge_src, edge_dst, edge_mask, csr)``; K3, with 0 for a
+    node with no neighbour, as the JAX package's COO branch gives it)."""
+    if table is not None:
+        return nei_max_incl_self(h, table, deg)
+    esrc, _, emask, csr = coo
+    return torch.maximum(h, gather_neighbors_max(h, esrc, emask, csr))
 
 
 class GraphGather(nn.Module):
@@ -260,7 +281,10 @@ class GATLayer(nn.Module):
     Dense_no_bias(h)`` ``[N, H, O]``, per-head logits ``LeakyReLU(a_src .
     z[t] + a_dst . z[i], 0.2)`` for each slot's neighbour ``t`` (K4 of
     ``a_src . z``), a softmax over the slots, and the weighted sum of the
-    neighbours' ``z`` (K4 of ``z``), flattened to ``[N, H * O]``."""
+    neighbours' ``z`` (K4 of ``z``), flattened to ``[N, H * O]``.  With
+    no table, the COO branch over ``coo``: edge logits ``e_src[src] +
+    e_dst[dst]``, P1 over each destination's edges, P2 of ``z[src] *
+    att``."""
 
     #: flax scope -> attribute (models/convert.py)
     flax_scopes = {'Dense_0': 'W'}
@@ -277,12 +301,20 @@ class GATLayer(nn.Module):
         self.a_dst = nn.Parameter(glorot_uniform_(
             torch.empty(n_heads, out_channels), generator))
 
-    def forward(self, h: torch.Tensor, table: torch.Tensor,
-                deg: torch.Tensor, rev_slot: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, table: Optional[torch.Tensor],
+                deg: torch.Tensor, rev_slot: Optional[torch.Tensor],
+                coo: Optional[tuple] = None) -> torch.Tensor:
         n, H, O = h.shape[0], self.n_heads, self.out_channels
         z = self.W(h).reshape(n, H, O)
         e_src = torch.einsum('nho,ho->nh', z, self.a_src)
         e_dst = torch.einsum('nho,ho->nh', z, self.a_dst)
+        if table is None:
+            esrc, edst, emask, csr = coo
+            logits = F.leaky_relu(gather_src(e_src, esrc, csr)
+                                  + gather_dst(e_dst, edst, csr), 0.2)
+            att = dst_segment_softmax(logits, emask, csr)        # [E, H]
+            msgs = gather_src(z, esrc, csr) * att[:, :, None]
+            return dst_segment_sum(msgs, edst, csr).reshape(n, H * O)
         es = nei_gather(e_src, table, rev_slot, deg)              # [N, K, H]
         logits = F.leaky_relu(es + e_dst[:, None, :], 0.2)
         att = _slot_softmax(logits, slot_mask(table, deg))
@@ -296,7 +328,9 @@ class AttentiveFPLayer(nn.Module):
     [z_i ; z_t])))`` (flax's slope 0.01) for each slot's neighbour ``t``
     (K4 of ``z``), a softmax over the slots, the weighted sum of the
     neighbours' ``msg_proj(z)`` (K4), ELU, and :class:`GRUCell` with carry
-    ``z`` and input that context."""
+    ``z`` and input that context.  With no table, the COO branch over
+    ``coo``: edge logits of ``[z_dst ; z_src]``, P1 over each
+    destination's edges, P2 of ``msg_proj(z)[src] * att``."""
 
     #: flax scope -> attribute (models/convert.py)
     flax_scopes = {'Dense_0': 'z', 'Dense_1': 'att_h', 'Dense_2': 'att_out',
@@ -311,9 +345,19 @@ class AttentiveFPLayer(nn.Module):
         self.msg_proj = dense(out_channels, out_channels, generator)
         self.gru = GRUCell(out_channels, out_channels, generator)
 
-    def forward(self, h: torch.Tensor, table: torch.Tensor,
-                deg: torch.Tensor, rev_slot: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, table: Optional[torch.Tensor],
+                deg: torch.Tensor, rev_slot: Optional[torch.Tensor],
+                coo: Optional[tuple] = None) -> torch.Tensor:
         z = self.z(h)
+        if table is None:
+            esrc, edst, emask, csr = coo
+            cat = torch.cat([gather_dst(z, edst, csr),
+                             gather_src(z, esrc, csr)], dim=1)
+            logits = self.att_out(F.leaky_relu(self.att_h(cat), 0.01))[:, 0]
+            att = dst_segment_softmax(logits, emask, csr)
+            msgs = gather_src(self.msg_proj(z), esrc, csr)
+            context = F.elu(dst_segment_sum(msgs * att[:, None], edst, csr))
+            return self.gru(z, context)
         zs = nei_gather(z, table, rev_slot, deg)                  # [N, K, O]
         cat = torch.cat([z[:, None, :].expand_as(zs), zs], dim=-1)
         logits = self.att_out(F.leaky_relu(self.att_h(cat), 0.01))[..., 0]
@@ -329,7 +373,8 @@ class EdgeNetworkMPNN(nn.Module):
     (``Dense(D * D)``, row-major), then ``n_steps`` rounds of: each edge's
     source state (:func:`take_src`) times its matrix, masked, summed into
     its destination (:func:`nei_sum_edges`, K1), and a GRU update of the
-    node states."""
+    node states.  With no tables, the COO branch over the batch's ``csr``:
+    :func:`gather_src` and :func:`dst_segment_sum` (P2)."""
 
     #: flax scope -> attribute (models/convert.py)
     flax_scopes = {'Dense_0': 'node_dense', 'Dense_1': 'edge_dense',
@@ -345,15 +390,19 @@ class EdgeNetworkMPNN(nn.Module):
                                 generator)
         self.gru = GRUCell(node_dim, node_dim, generator)
 
-    def forward(self, h, esrc, edst, ef, emask, e_table, e_deg, o_table,
-                o_deg):
+    def forward(self, h, esrc, edst, ef, emask, e_table=None, e_deg=None,
+                o_table=None, o_deg=None, csr=None):
         D = self.node_dim
         carry = self.node_dense(h)
         A = self.edge_dense(ef).reshape(-1, D, D)
         for _ in range(self.n_steps):
-            src_h = take_src(carry, esrc, o_table, o_deg)
+            if e_table is None:
+                src_h = gather_src(carry, esrc, csr)
+            else:
+                src_h = take_src(carry, esrc, o_table, o_deg)
             msg = torch.bmm(A, src_h[:, :, None])[:, :, 0] * emask[:, None]
-            agg = nei_sum_edges(msg, e_table, e_deg, edst, emask)
+            agg = nei_sum_edges(msg, e_table, e_deg, edst, emask) \
+                if e_table is not None else dst_segment_sum(msg, edst, csr)
             carry = self.gru(carry, agg)
         return carry
 

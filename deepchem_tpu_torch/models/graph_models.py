@@ -33,8 +33,9 @@ from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
 from deepchem_tpu_torch.models.losses import L2Loss, SoftmaxCrossEntropy
 from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.models.torch_model import TorchModel
-from deepchem_tpu_torch.ops import (coo_csr, csr_row_ptr, csr_segment_sum,
-                                    graph_pool, segment_softmax_sorted)
+from deepchem_tpu_torch.ops import (N_CSR, CooCsr, coo_csr, coo_degrees,
+                                    csr_row_ptr, csr_segment_sum, graph_pool,
+                                    segment_softmax_sorted)
 from deepchem_tpu_torch.ops.nei_table import (build_neighbor_table,
                                               build_rev_slot)
 
@@ -45,9 +46,12 @@ class GraphModel(TorchModel):
 
     A batch's inputs are ``[node_features, edge_src, edge_dst,
     graph_index, node_mask, edge_mask]``, then, per the model's switches:
-    the six arrays of the edges' CSR (``uses_coo_csr``: :class:`CooCsr`'s
-    fields); a neighbour table ``[N, max_neighbors]`` int32 and int8 degrees
-    (``uses_neighbor_table``), then each slot's reverse slot ``[N,
+    the seven arrays of the edges' CSR (:class:`CooCsr`'s fields: with
+    ``uses_coo_csr``, or in place of the tables for a model with a COO
+    branch, ``has_coo_branch``, whose class has ``uses_neighbor_table``
+    and ``uses_edge_table`` set to False, as the JAX package's tests
+    switch them); a neighbour table ``[N, max_neighbors]`` int32 and int8
+    degrees (``uses_neighbor_table``), then each slot's reverse slot ``[N,
     max_neighbors]`` int8 (``uses_rev_slot``); each node's
     incoming-edge-id table and degrees, then with ``uses_edge_table =
     'both'`` its outgoing ones (``uses_edge_table``); and the edge features
@@ -72,6 +76,9 @@ class GraphModel(TorchModel):
     #: COO message-passing models get their edges' CSR by destination and
     #: by source (ops/coo.py ``coo_csr``); the edge arrays keep their order
     uses_coo_csr = False
+    #: models whose modules also run the JAX package's COO branch: with
+    #: the table switches off they get the CSR in the tables' place
+    has_coo_branch = False
     max_neighbors = 10
     #: when set, every batch pads to these (node_cap, edge_cap): one
     #: bucket for a whole epoch (:meth:`_collect_uniform_batches`)
@@ -93,6 +100,17 @@ class GraphModel(TorchModel):
                              f'built for {" and ".join(map(str, want))}')
         super().build(sample_inputs)
 
+    def _ships_coo_csr(self) -> bool:
+        """Whether a batch carries the CSR: read when each batch is
+        packed, so switching the class's flags takes effect at once."""
+        return self.uses_coo_csr or (
+            self.has_coo_branch and not self.uses_neighbor_table
+            and not self.uses_edge_table)
+
+    def _batch_layout(self) -> Tuple:
+        return (self.uses_neighbor_table, self.uses_rev_slot,
+                self.uses_edge_table, self._ships_coo_csr())
+
     def _pack_one(self, graphs: List, node_cap: int, edge_cap: int,
                   num_graphs: int) -> List[np.ndarray]:
         batch = BatchGraphData(graphs)
@@ -106,7 +124,7 @@ class GraphModel(TorchModel):
         inputs = [d['node_features'], d['edge_index'][0],
                   d['edge_index'][1], d['graph_index'], d['node_mask'],
                   d['edge_mask']]
-        if self.uses_coo_csr:
+        if self._ships_coo_csr():
             inputs += coo_csr(d['edge_index'][0], d['edge_index'][1],
                               node_cap)
         if self.uses_neighbor_table:
@@ -279,19 +297,20 @@ class _SeededDropout(nn.Module):
     dropout_seed: int = 0
     _dropout_generator: Optional[torch.Generator] = None
 
-    def _dropout(self, h: torch.Tensor) -> torch.Tensor:
-        """Zero each entry with probability ``dropout`` and scale the rest
-        by ``1 / (1 - dropout)``, as flax's ``nn.Dropout``; the identity
-        outside ``train()`` mode."""
-        if not self.training or self.dropout == 0:
+    def _dropout(self, h: torch.Tensor,
+                 rate: Optional[float] = None) -> torch.Tensor:
+        """Zero each entry with probability ``rate`` (by default
+        ``dropout``) and scale the rest by ``1 / (1 - rate)``, as flax's
+        ``nn.Dropout``; the identity outside ``train()`` mode."""
+        rate = self.dropout if rate is None else rate
+        if not self.training or rate == 0:
             return h
         gen = self._dropout_generator
         if gen is None or gen.device != h.device:
             gen = torch.Generator(h.device).manual_seed(self.dropout_seed)
             self._dropout_generator = gen
-        keep = torch.empty_like(h).bernoulli_(1 - self.dropout,
-                                              generator=gen)
-        return h * keep / (1 - self.dropout)
+        keep = torch.empty_like(h).bernoulli_(1 - rate, generator=gen)
+        return h * keep / (1 - rate)
 
 
 class _PagtnModule(_SeededDropout):
@@ -430,16 +449,16 @@ class _GraphConvModule(_SeededDropout):
         self.log_var = dense(2 * dense_layer_size, n_tasks, generator) \
             if uncertainty else None
 
-    def forward(self, nf, esrc, edst, gidx, nmask, emask, table, deg):
-        # esrc, edst and emask are the shared batch layout's; the
-        # aggregations read the neighbour table
+    def forward(self, nf, esrc, edst, gidx, nmask, emask, *rest):
+        # the neighbour table and degrees, or the COO branch's CSR
+        table, deg, coo = _aggregation_inputs(esrc, edst, emask, rest)
         x = nf
         for i, conv in enumerate(self.convs):
-            x = conv(x, table, deg)
+            x = conv(x, table, deg, coo)
             if self.norms is not None:
                 x = self.norms[i](x, nmask)
             x = self._dropout(F.relu(x))
-            x = graph_pool_max(x, table, deg)
+            x = graph_pool_max(x, table, deg, coo)
         x = self.dense(x)
         if self.norms is not None:
             x = self.norms[-1](x, nmask)
@@ -447,6 +466,18 @@ class _GraphConvModule(_SeededDropout):
         g = self.gather(x, gidx, nmask, self.num_graphs)
         return _heads(g, self.head, self.n_tasks, self.n_classes, self.mode,
                       self.log_var)
+
+
+def _aggregation_inputs(esrc, edst, emask, rest):
+    """``(table, deg, coo)`` of a batch's inputs after the first six: the
+    neighbour table and degrees (``coo`` None), or the :class:`CooCsr`
+    arrays of the COO branch, whose ``coo`` is ``(edge_src, edge_dst,
+    edge_mask, csr)`` and whose degrees come from the CSR (table None)."""
+    if len(rest) == N_CSR:
+        csr = CooCsr(*rest)
+        return None, coo_degrees(csr), (esrc.long(), edst.long(), emask,
+                                        csr)
+    return rest[0], rest[1], None
 
 
 def _uncertainty_loss(outputs, labels, weights) -> torch.Tensor:
@@ -465,7 +496,9 @@ class GraphConvModel(GraphModel):
     """Duvenaud graph-convolution model, fed by :class:`ConvMolFeaturizer`
     (75 atom features, both directions of every bond).  Aggregation runs
     through the padded neighbour table: K1 and K2 in the layers, P3 and
-    K3 in the readout.
+    K3 in the readout.  With ``uses_neighbor_table`` set to False on the
+    class, the layers take the COO branch: P2 for the neighbour sum and
+    K3 for the neighbour max (see :class:`GraphModel`).
 
     The module is built at construction, with parameters drawn from a
     ``torch.Generator`` seeded with ``seed`` (which also seeds dropout);
@@ -477,6 +510,7 @@ class GraphConvModel(GraphModel):
     """
 
     uses_neighbor_table = True
+    has_coo_branch = True
 
     def __init__(self, n_tasks: int,
                  graph_conv_layers: Sequence[int] = (64, 64),
@@ -565,18 +599,19 @@ class _StackedGNNModule(_SeededDropout):
             **{f'{scope}_{i}/{k}': v for i, layer in enumerate(layers)
                for k, v in layer.flax_scopes.items()}}
 
-    def forward(self, nf, esrc, edst, gidx, nmask, emask, table, deg,
-                rev_slot=None):
-        # esrc, edst and emask are the shared batch layout's; the layers
-        # read the neighbour table
+    def forward(self, nf, esrc, edst, gidx, nmask, emask, *rest):
+        # the neighbour table, degrees and reverse slots, or the COO
+        # branch's CSR
+        table, deg, coo = _aggregation_inputs(esrc, edst, emask, rest)
+        rev_slot = rest[2] if len(rest) == 3 else None
         x = nf
         for layer in self.layers:
             if self.layer_kind == 'gcn':
-                x = layer(x, table, deg)
+                x = layer(x, table, deg, coo)
             elif self.layer_kind == 'gat':
-                x = F.elu(layer(x, table, deg, rev_slot))
+                x = F.elu(layer(x, table, deg, rev_slot, coo))
             else:
-                x = layer(x, table, deg, rev_slot)
+                x = layer(x, table, deg, rev_slot, coo)
             x = self._dropout(x)
         g = graph_pool(x, gidx, self.num_graphs, nmask, self.readout)
         h = self._dropout(F.relu(self.predictor(g)))
@@ -589,9 +624,12 @@ class _StackedGNNModel(GraphModel):
     seeded with ``seed`` (which also seeds dropout); load trained flax
     parameters with :func:`params_from_flax`.  A regressor (the default)
     trains on squared error, a classifier on softmax cross entropy, with
-    :class:`Adam` at ``learning_rate`` unless ``optimizer`` is given."""
+    :class:`Adam` at ``learning_rate`` unless ``optimizer`` is given.
+    With ``uses_neighbor_table`` and ``uses_rev_slot`` set to False on the
+    class, the layers take their COO branches (see :class:`GraphModel`)."""
 
     uses_neighbor_table = True
+    has_coo_branch = True
 
     def __init__(self, n_tasks: int, module_kwargs: dict, mode: str,
                  n_classes: int, batch_size: int, learning_rate: float,
@@ -727,10 +765,15 @@ class _MPNNModule(nn.Module):
         n_out = n_tasks * n_classes if mode == 'classification' else n_tasks
         self.head = dense(node_dim, n_out, generator)
 
-    def forward(self, nf, esrc, edst, gidx, nmask, emask, e_table, e_deg,
-                o_table, o_deg, ef):
-        h = self.mpnn(nf, esrc, edst, ef, emask, e_table, e_deg, o_table,
-                      o_deg)
+    def forward(self, nf, esrc, edst, gidx, nmask, emask, *rest):
+        # the edge-id tables, or the COO branch's CSR; the edge features
+        # last
+        ef = rest[-1]
+        if len(rest) == N_CSR + 1:
+            h = self.mpnn(nf, esrc.long(), edst, ef, emask,
+                          csr=CooCsr(*rest[:-1]))
+        else:
+            h = self.mpnn(nf, esrc, edst, ef, emask, *rest[:-1])
         g = self.set2set(h, gidx, nmask, self.num_graphs)
         x = F.relu(self.dense(g))
         return _heads(x, self.head, self.n_tasks, self.n_classes, self.mode)
@@ -742,7 +785,10 @@ class MPNNModel(GraphModel):
     11 bond features).  Messages run through each node's incoming and
     outgoing edge-id tables: K1 sums the messages into their destinations
     and takes the gradient of each edge's source state; the readout's
-    attention is P1 and its weighted sums P3.
+    attention is P1 and its weighted sums P3.  With ``uses_edge_table``
+    set to False on the class, the messages take the COO branch: P2 sums
+    them and takes the gradient of the sources' gather; the edge features
+    follow the CSR (see :class:`GraphModel`).
 
     The module is built at construction, with parameters drawn from a
     ``torch.Generator`` seeded with ``seed``; load trained flax parameters
@@ -753,6 +799,7 @@ class MPNNModel(GraphModel):
 
     uses_edge_features = True
     uses_edge_table = 'both'
+    has_coo_branch = True
 
     def __init__(self, n_tasks: int, n_atom_feat: int = 30,
                  n_pair_feat: int = 11, T: int = 3, M: int = 6,

@@ -260,16 +260,15 @@ class SparseAdam(Adam):
 
 class AdamW(Optimizer):
     """``optax.adamw`` with no mask: Adam's direction plus ``weight_decay
-    * p``, scaled by the rate."""
+    * p``, scaled by the rate.  ``amsgrad`` is accepted and ignored, as
+    the JAX package ignores it."""
 
     def __init__(self, learning_rate=0.001, weight_decay: float = 0.01,
                  beta1: float = 0.9, beta2: float = 0.999,
                  epsilon: float = 1e-8, amsgrad: bool = False):
         super().__init__(learning_rate)
-        if amsgrad:
-            raise NotImplementedError('AdamW(amsgrad=True) is not ported: '
-                                      'the JAX package ignores it')
         self.weight_decay = weight_decay
+        self.amsgrad = amsgrad
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
     def _init_state(self, params):

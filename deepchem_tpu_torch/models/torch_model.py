@@ -105,6 +105,11 @@ class TorchModel(Model):
         when there is none).
     seed: int
         seeds the generator a module function draws the parameters from.
+    regularization_loss: callable, optional
+        ``f(module) -> scalar tensor``, added to the loss of every training
+        step (``fit``, ``fit_generator``, ``fit_on_device``, resident or
+        streamed) and to the loss values they record, as the JAX engine
+        adds its ``regularization_loss(params)``.
     """
 
     #: bytes of one epoch's batches that ``fit_on_device`` keeps on the
@@ -124,7 +129,8 @@ class TorchModel(Model):
                  optimizer: Optional[Optimizer] = None,
                  log_frequency: int = 100,
                  device: Union[str, torch.device, None] = None,
-                 seed: int = 0) -> None:
+                 seed: int = 0,
+                 regularization_loss: Optional[Callable] = None) -> None:
         self.device = resolve_device(device)
         super().__init__(model_dir=model_dir)
         self._param_generator = torch.Generator().manual_seed(seed)
@@ -134,6 +140,7 @@ class TorchModel(Model):
             module = module(self._param_generator)
         self.module = self.model = module.to(self.device).eval()
         self._loss = loss
+        self.regularization_loss = regularization_loss
         self.batch_size = batch_size
         self.log_frequency = log_frequency
         self.output_types = list(output_types) if output_types else None
@@ -260,6 +267,8 @@ class TorchModel(Model):
         out = self.module(*inputs)
         outputs = list(out) if isinstance(out, (list, tuple)) else [out]
         value = self._compute_loss(outputs, labels, weights, loss)
+        if self.regularization_loss is not None:
+            value = value + self.regularization_loss(self.module)
         if variables is None:
             value.backward()
         else:
@@ -286,13 +295,23 @@ class TorchModel(Model):
                                            deterministic=deterministic,
                                            pad_batches=True))
 
+    def _batch_layout(self):
+        """What decides the arrays a batch is packed into, besides the
+        data (a graph model's switches); batches kept for a dataset are
+        packed again when it changes."""
+        return None
+
+    def _cached(self, cache: Optional[dict], dataset: NumpyDataset) -> bool:
+        return cache is not None and cache['dataset'] is dataset \
+            and cache['layout'] == self._batch_layout()
+
     def _fit_batches(self, dataset: NumpyDataset) -> List[Tuple]:
         """:meth:`_collect_uniform_batches` of ``dataset``, kept for the
-        next call on the same dataset (by identity)."""
-        if self._fit_cache is None or self._fit_cache['dataset'] is not \
-                dataset:
+        next call on the same dataset (by identity) and batch layout."""
+        if not self._cached(self._fit_cache, dataset):
             self._fit_cache = {'dataset': dataset, 'dev': None,
                                'stack': None,
+                               'layout': self._batch_layout(),
                                'host': self._collect_uniform_batches(
                                    dataset)}
         return self._fit_cache['host']
@@ -852,8 +871,7 @@ class TorchModel(Model):
         ``dataset`` is the one last fitted, else its own padded batches
         (kept for the next call on the same dataset).  Fit batches past
         ``device_data_budget`` are copied in one batch at a time."""
-        if self._fit_cache is not None \
-                and self._fit_cache['dataset'] is dataset:
+        if self._cached(self._fit_cache, dataset):
             if self._fit_cache['dev'] is None and self._epoch_bytes(
                     dataset) > self.device_data_budget:
                 host = self._host_stack(dataset)[0]
@@ -864,12 +882,11 @@ class TorchModel(Model):
                 batches = ([a[i] for a in d_in]
                            for i in range(d_in[0].shape[0]))
         else:
-            if self._predict_cache is None \
-                    or self._predict_cache['dataset'] is not dataset:
+            if not self._cached(self._predict_cache, dataset):
                 collected = self._collect_uniform_batches(dataset,
                                                           mode='predict')
                 self._predict_cache = {
-                    'dataset': dataset,
+                    'dataset': dataset, 'layout': self._batch_layout(),
                     'dev': self._upload(collected)[0] if collected else []}
             d_in = self._predict_cache['dev']
             if not d_in:

@@ -33,15 +33,27 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.index_add_(0, segment_ids.long(), data)
 
 
-def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int, empty_value: float = 0.0) -> torch.Tensor:
-    """Per-segment max; ``empty_value`` where a segment has no row."""
-    idx = segment_ids.long().reshape(
-        segment_ids.shape + (1,) * (data.ndim - 1)).expand_as(data)
+def _segment_amax(data: torch.Tensor, ids: torch.Tensor,
+                  num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-segment ``amax`` (``-inf`` for an empty segment), and whether
+    the segment holds a NaN row: on the card ``scatter_reduce``'s
+    ``amax`` drops NaN, so the NaNs are counted beside it."""
+    idx = ids.reshape(ids.shape + (1,) * (data.ndim - 1)).expand_as(data)
     out = torch.full((num_segments,) + tuple(data.shape[1:]), -torch.inf,
                      dtype=data.dtype, device=data.device)
     out = out.scatter_reduce(0, idx, data, 'amax')
-    return torch.where(torch.isfinite(out), out,
+    with torch.no_grad():
+        nan = segment_sum(torch.isnan(data).to(data.dtype), ids,
+                          num_segments) > 0
+    return out, nan
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, empty_value: float = 0.0) -> torch.Tensor:
+    """Per-segment max; ``empty_value`` where a segment has no row or its
+    max is not finite (a NaN row makes it NaN), as the JAX package's."""
+    out, nan = _segment_amax(data, segment_ids.long(), num_segments)
+    return torch.where(torch.isfinite(out) & ~nan, out,
                        torch.full_like(out, empty_value))
 
 
@@ -68,13 +80,8 @@ def _max_select(data: torch.Tensor, seg: torch.Tensor, num_segments: int,
         v = None if valid is None else _expand_mask(valid, data.ndim)
         d = data if v is None else torch.where(
             v, data, torch.full_like(data, -torch.inf))
-        idx = seg.reshape(seg.shape + (1,) * (data.ndim - 1)).expand_as(data)
-        mx = torch.full((num_segments,) + tuple(data.shape[1:]), -torch.inf,
-                        dtype=data.dtype, device=data.device)
-        mx = mx.scatter_reduce(0, idx, d, 'amax')
         # the max of a segment with a valid NaN is NaN on every device
-        nan = segment_sum(torch.isnan(d).to(data.dtype), seg,
-                          num_segments) > 0
+        mx, nan = _segment_amax(d, seg, num_segments)
         mx = torch.where(torch.isfinite(mx) & (mx > NEG / 2) & ~nan, mx,
                          torch.full_like(mx, empty_value))
         sel = data >= mx[seg]
@@ -127,17 +134,18 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Numerically stable softmax within segments, for segment ids in any
-    order (GAT/AttentiveFP attention)."""
+    order, in plain torch: the segment max carries no gradient, and a max
+    that is not finite (a NaN logit makes it NaN) becomes 0, as in the JAX
+    package.  The COO attention branches take :func:`segment_softmax_sorted`
+    (P1) over the destination order instead (``ops/coo.py``)."""
     ids = segment_ids.long()
     if mask is not None:
         m = _expand_mask(mask, logits.ndim)
         logits = torch.where(m > 0, logits, torch.full_like(logits, NEG))
-    idx = ids.reshape(ids.shape + (1,) * (logits.ndim - 1)).expand_as(logits)
-    seg_max = torch.full((num_segments,) + tuple(logits.shape[1:]),
-                         -torch.inf, dtype=logits.dtype,
-                         device=logits.device)
-    seg_max = seg_max.scatter_reduce(0, idx, logits, 'amax')
-    seg_max = torch.where(torch.isfinite(seg_max), seg_max,
+    # no gradient through the max, as in JAX: the shift cancels
+    with torch.no_grad():
+        seg_max, nan = _segment_amax(logits, ids, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max) & ~nan, seg_max,
                           torch.zeros_like(seg_max))
     exp = torch.exp(logits - seg_max[ids])
     if mask is not None:

@@ -5,7 +5,8 @@ Counterparts of ``deepchem_tpu/trans/transformers.py``'s
 transformers that models use: ``MinMaxTransformer``,
 ``NormalizationTransformer``, ``ClippingTransformer``, ``LogTransformer``,
 ``BalancingTransformer``, ``DuplicateBalancingTransformer``,
-``CDFTransformer``, ``PowerTransformer`` and ``FlatteningTransformer``.
+``CDFTransformer``, ``PowerTransformer``, ``FlatteningTransformer`` and
+``IRVTransformer``.
 A transformer maps a dataset's arrays (``transform``) and undoes its map
 of the labels on a model's outputs (``untransform``), which
 ``TorchModel.predict`` and ``evaluate`` apply in reverse order.
@@ -344,3 +345,54 @@ class FlatteningTransformer(Transformer):
         y_out = np.repeat(y, lens, axis=0) if y is not None else None
         w_out = np.repeat(w, lens, axis=0) if w is not None else None
         return X_out, y_out, w_out, np.repeat(ids, lens, axis=0)
+
+
+class IRVTransformer(Transformer):
+    """Influence-relevance-voting features: for each sample and task, the
+    Tanimoto similarities of its ``K`` most similar samples of ``dataset``
+    that carry that task's label (weight not 0), then those samples'
+    labels, ``[n, n_tasks * 2K]`` float32.  A sample of ``dataset`` itself
+    (similarity 1 and the same bit count) is skipped; a sample with fewer
+    than ``K`` candidates repeats its most similar one."""
+
+    def __init__(self, K: int, n_tasks: int, dataset: NumpyDataset):
+        super().__init__(transform_X=True, dataset=dataset)
+        self.K = K
+        self.n_tasks = n_tasks
+        self.X_ref = np.asarray(dataset.X, dtype=np.float32)
+        self.y_ref = np.asarray(dataset.y)
+        self.w_ref = np.asarray(dataset.w)
+
+    @staticmethod
+    def matrix_mul(X1: np.ndarray, X2: np.ndarray,
+                   shard_size: int = 5000) -> np.ndarray:
+        """``X1 @ X2`` in float32, ``shard_size`` rows of ``X1`` at a
+        time."""
+        X1 = np.asarray(X1, dtype=np.float32)
+        X2 = np.asarray(X2, dtype=np.float32)
+        out = [X1[i:i + shard_size] @ X2
+               for i in range(0, len(X1), shard_size)]
+        return np.concatenate(out) if out else X1 @ X2
+
+    def transform_array(self, X, y, w, ids):
+        X = np.asarray(X, dtype=np.float32)
+        ref = self.X_ref
+        counts_ref = ref.sum(axis=1)
+        counts = X.sum(axis=1)
+        inter = self.matrix_mul(X, ref.T)
+        union = counts[:, None] + counts_ref[None, :] - inter
+        sim = np.where(union > 0, inter / np.maximum(union, 1e-9), 0.0)
+        n, K = len(X), self.K
+        feats = np.zeros((n, self.n_tasks * 2 * K), dtype=np.float32)
+        same = np.isclose(sim, 1.0) & (counts[:, None] == counts_ref[None, :])
+        for t in range(self.n_tasks):
+            s = sim.copy()
+            s[:, self.w_ref[:, t] == 0] = -1
+            order = np.argsort(-s, axis=1)[:, :K + 1]
+            base = t * 2 * K
+            for i in range(n):
+                picks = [j for j in order[i] if not same[i, j]][:K]
+                picks += [order[i][0]] * (K - len(picks))
+                feats[i, base:base + K] = sim[i, picks]
+                feats[i, base + K:base + 2 * K] = self.y_ref[picks, t]
+        return feats, y, w, ids

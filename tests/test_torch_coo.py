@@ -64,7 +64,8 @@ def batch(graphs):
 @pytest.mark.parametrize('which', ['gnn_modular', 'pna'])
 def test_packed_batch_matches_jax_and_ships_stable_csr(graphs, which):
     """The first six arrays equal the JAX model's (the edges in its order),
-    then the CSR: each order a stable argsort of the edge arrays."""
+    then the CSR's seven: each order a stable argsort of the edge
+    arrays."""
     X, X_ref = graphs
     ours, theirs = {
         'gnn_modular': (GNNModular(device='cpu', emb_dim=8, **BASE),
@@ -72,7 +73,7 @@ def test_packed_batch_matches_jax_and_ships_stable_csr(graphs, which):
         'pna': (PNAModel(device='cpu', hidden_dim=8, **BASE),
                 JaxPNAModel(hidden_dim=8, **BASE))}[which]
     a, b = ours._graph_inputs(X[:8]), theirs._graph_inputs(X_ref[:8])
-    assert len(a) == 12 and len(b) == 6
+    assert len(a) == 13 and len(b) == 6
     for i, (x, y) in enumerate(zip(a, b)):
         assert x.dtype == y.dtype, i
         np.testing.assert_array_equal(x, y, err_msg=str(i))
@@ -84,6 +85,7 @@ def test_packed_batch_matches_jax_and_ships_stable_csr(graphs, which):
     perm_d = np.argsort(edst, kind='stable')
     perm_s = np.argsort(esrc, kind='stable')
     np.testing.assert_array_equal(csr.perm_dst, perm_d)
+    np.testing.assert_array_equal(csr.perm_src, perm_s)
     np.testing.assert_array_equal(csr.src_by_dst, esrc[perm_d])
     np.testing.assert_array_equal(csr.dst_by_src, edst[perm_s])
     np.testing.assert_array_equal(csr.inv_dst[perm_d], np.arange(len(edst)))

@@ -21,8 +21,11 @@ against its resident run, a learning-rate schedule on the card
 against the CPU, P2 in bfloat16 bit for bit against its plain version
 (each segment's edges added in CSR order, every add rounded), the COO
 message passing (P2 forward and backward, K3 over edge destinations)
-against the plain versions at ghost and non-finite rows, and one step of
-GNNModular (each task), InfoGraph, InfoGraph* and PNA against the CPU.
+against the plain versions at ghost and non-finite rows, one step of
+GNNModular (each task), InfoGraph, InfoGraph* and PNA against the CPU,
+``segment_max`` of a ``[NaN, 1]`` segment, and one step of GraphConv,
+GCN, GAT, AttentiveFP, MPNN and DMPNN switched to their COO branches
+against the CPU, with their launches of P1, P2, P3 and K3.
 They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
@@ -1328,6 +1331,91 @@ def test_coo_models_training_step_matches_the_cpu(cuda, name):
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(counts(), before)] == (
         [6, 0, 6, 6] if name == 'pna' else [3, 2, 0, 0])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+
+
+@pytest.mark.cuda
+def test_segment_max_keeps_nan_on_the_card(cuda):
+    """A segment ``[NaN, 1]`` gives ``empty_value`` on the card, as on the
+    CPU and in the JAX package: ``scatter_reduce``'s ``amax`` drops the
+    NaN there, and the NaNs are counted beside it."""
+    from deepchem_tpu_torch.ops import segment_max, segment_softmax
+    x = torch.tensor([float('nan'), 1.0, 2.0, -3.0, 5.0])
+    ids = torch.tensor([0, 0, 1, 1, 3])
+    out = segment_max(x.to(cuda), ids.to(cuda), 4)
+    np.testing.assert_array_equal(out.cpu().numpy(), [0.0, 2.0, 0.0, 5.0])
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  segment_max(x, ids, 4).numpy())
+    y = segment_softmax(x.to(cuda), ids.to(cuda), 4)
+    assert torch.isnan(y[:2]).all() and torch.isfinite(y[2:]).all()
+
+
+# the COO branches of the table-path models, small
+BRANCH_MODELS = {
+    'graphconv': (GraphConvModel, dict(graph_conv_layers=(16, 16),
+                                       dense_layer_size=16,
+                                       mode='regression')),
+    'gcn': (GCNModel, dict(graph_conv_layers=(16, 16))),
+    'gat': (GATModel, dict(graph_attention_layers=(8, 8),
+                           n_attention_heads=2)),
+    'attentivefp': (AttentiveFPModel, dict(graph_feat_size=16)),
+    'mpnn': (None, dict(node_dim=16, T=2, M=2)),
+    'dmpnn': (DMPNNModel, dict(enc_hidden=16, ffn_hidden=16)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', sorted(BRANCH_MODELS))
+def test_coo_branches_training_step_matches_the_cpu(cuda, name):
+    """One step of a small model with its class switched to the COO branch,
+    on the card and on the CPU from the same seed: losses within 1e-5
+    relative and every gradient within 1e-5 of max(1, |g|); the card
+    launches P1, P2, P2's transpose, P3 and K3 (forward, backward) as
+    chip_smoke.py's phase 17 counts them."""
+    from deepchem_tpu_torch import MPNNModel
+    smiles = ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1',
+              'C', 'C[C@H](N)C(=O)O']
+    model, kw = BRANCH_MODELS[name]
+    model = model or MPNNModel
+    feat = {'graphconv': ConvMolFeaturizer(), 'dmpnn': DMPNNFeaturizer(),
+            'mpnn': MolGraphConvFeaturizer(use_edges=True)}.get(
+                name, MolGraphConvFeaturizer())
+    X = feat.featurize(smiles)
+    y = np.random.RandomState(0).randn(len(smiles), 2).astype(np.float32)
+    flags = {'uses_edge_table': False} if name in ('mpnn', 'dmpnn') else \
+        {'uses_neighbor_table': False, 'uses_rev_slot': False}
+    own = {k: model.__dict__[k] for k in flags if k in model.__dict__}
+
+    def counts():
+        return (csr_segment_softmax.launches,
+                fused_gather_segment_sum.launches,
+                fused_gather_segment_sum.backward_launches,
+                csr_segment_sum.launches, graph_max_pool.launches,
+                graph_max_pool.backward_launches)
+    try:
+        for k, v in flags.items():
+            setattr(model, k, v)
+        models = [model(n_tasks=2, batch_size=len(smiles), seed=1, device=d,
+                        **kw) for d in (cuda, 'cpu')]
+        before = counts()
+        losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+        torch.cuda.synchronize()
+    finally:
+        for k in flags:
+            if k in own:
+                setattr(model, k, own[k])
+            else:
+                delattr(model, k)
+    assert [a - b for a, b in zip(counts(), before)] == {
+        'graphconv': [0, 2, 3, 1, 3, 3], 'gcn': [0, 2, 1, 2, 0, 0],
+        'gat': [2, 2, 6, 4, 0, 0], 'attentivefp': [2, 2, 6, 3, 0, 0],
+        'mpnn': [2, 2, 2, 4, 0, 0], 'dmpnn': [0, 3, 2, 1, 0, 0]}[name]
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     cpu = dict(models[1].module.named_parameters())
     for key, p in models[0].module.named_parameters():

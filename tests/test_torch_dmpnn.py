@@ -77,10 +77,18 @@ def test_featurizer_matches_jax(graphs):
 
 
 def test_featurizer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match='morgan'):
-        DMPNNFeaturizer(features_generators=['morgan'])
+    """Explicit hydrogens are not ported and raise; the Morgan features
+    generator is, and gives the JAX package's global features."""
     with pytest.raises(NotImplementedError):
         DMPNNFeaturizer(is_adding_hs=True)
+    with pytest.raises(ValueError, match='rdkit_desc'):
+        DMPNNFeaturizer(features_generators=['rdkit_desc'])
+    ours = DMPNNFeaturizer(features_generators=['morgan']).featurize(SMILES)
+    ref = JaxDMPNNFeaturizer(features_generators=['morgan']).featurize(SMILES)
+    for smi, a, b in zip(SMILES, ours, ref, strict=True):
+        assert a.global_features.dtype == np.float32
+        np.testing.assert_array_equal(a.global_features, b.global_features,
+                                      err_msg=smi)
 
 
 def test_packed_batch_matches_jax(graphs):

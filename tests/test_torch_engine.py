@@ -123,6 +123,25 @@ def test_optimizer_updates_match_optax(name, scheduled):
                                    atol=1e-6, rtol=0, err_msg=k)
 
 
+def test_adamw_amsgrad_is_accepted_and_ignored():
+    """``AdamW(amsgrad=True)`` gives optax's ``adamw`` update, as the JAX
+    package's ignores the flag."""
+    rng = np.random.RandomState(1)
+    p0 = rng.randn(6, 4).astype(np.float32)
+    g = rng.randn(6, 4).astype(np.float32)
+    tx = jax_optimizers.AdamW(learning_rate=0.01, weight_decay=0.1,
+                              amsgrad=True)._create_optax_optimizer()
+    params = jnp.asarray(p0)
+    updates, _ = tx.update(jnp.asarray(g), tx.init(params), params)
+    want = np.asarray(optax.apply_updates(params, updates))
+    ours = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = optimizers.AdamW(learning_rate=0.01, weight_decay=0.1,
+                           amsgrad=True)._create_torch_optimizer([ours])
+    ours.grad = torch.from_numpy(g)
+    opt.step()
+    np.testing.assert_allclose(ours.detach().numpy(), want, atol=1e-6, rtol=0)
+
+
 def test_kfac_raises():
     with pytest.raises(NotImplementedError):
         optimizers.KFAC(learning_rate=0.01)
