@@ -11,7 +11,7 @@ Phases:
   2. build   -- compiles every kernel under deepchem_tpu_torch/csrc/, one
                 nvcc for each source, all at once, and prints ptxas's
                 report; ptxas must have serialised no wgmma (info C7512),
-                and K1-K3's kernels must spill nothing.
+                and K1-K4's and P2's kernels must spill nothing.
   3. kernel  -- each kernel against its plain PyTorch version on the card:
                 P1 csr_segment_softmax and P3 csr_segment_sum on the inputs
                 the model hands them, P2 fused_gather_segment_sum at the
@@ -58,14 +58,18 @@ Phases:
                 neighbour sum (F 75, batch 256, the ghost edges' long last
                 segment) and its neighbour max's source gather backward,
                 K3 at that neighbour max, P1 at GAT's [E, 8] edge logits
-                and P2 at DMPNN's [E, 300] edge sums (batch 100).
+                and P2 at DMPNN's [E, 300] edge sums (batch 100); P2
+                also on a hub node's 2000 in-edges (F 64) and on one
+                segment of 4096 edge rows (F 300), each split across its
+                block.
                 Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
-                µs a launch and the library call's device µs (profiler),
-                bound.  Then P1's backward against autograd through its
-                plain version, and P2's own path: one call per bench
-                shape, its launches counted.
+                µs a launch and the library call's device µs (profiler;
+                for P2 also the library's over the kernel's), bound.
+                Then P1's backward against autograd through its plain
+                version, and P2's own path: one call per bench shape, its
+                launches counted.
   4. serve   -- PagtnModel(n_tasks=12, mode='classification') at its
                 default widths, seeded random weights, answers requests of
                 1, 16 and 31 molecules with predict_on_batch; the outputs
@@ -350,6 +354,14 @@ INFOGRAPH_STAR = dict(n_tasks=1)
 P2_BENCH_SHAPES = [(2048, 4096, 64), (2048, 4096, 256),
                    (8192, 16384, 256), (8192, 16384, 512),
                    (16384, 32768, 512)]
+# P2's synthetic long segments: a hub node's in-edges (F 64), and one
+# segment of 4096 edge rows at F 300, longer than any model path's (DMPNN
+# COO's longest ghost range, recorded in training, is 1552 rows)
+P2_HUB_EDGES = 2000
+P2_LONG_EDGES = 4096
+# DMPNN COO's training epoch that phase 3 records P2 at, as
+# scripts/profile_torch_pagtn.py draws it: batches of 100 molecules
+FIT_DRAW_BATCHES = 20
 KERNEL_ATOL = 1e-6              # P1: same f32 inputs, another summation order
 SUM_RTOL = 1e-5                 # P3, P2: atol 1e-5 * max(1, max |out|)
 CPU_ATOL = 1e-4                 # whole model, f32, another summation order
@@ -426,7 +438,10 @@ def device_us(fn, kernel: str, bound_us: float = 0.0, calls: int = 20,
               tries: int = 5) -> float:
     """Device µs per launch of the kernel whose name holds ``kernel``, from
     ``torch.profiler`` over ``calls`` calls of ``fn``; each call must
-    launch it once.  The profiler has been seen to drop a kernel record
+    launch it once.  Each profiler session first runs one call outside
+    the timed window: a session's first launch waited about 0.6 ms for
+    the profiler (a 61 µs kernel then filled 0.65-0.70 of its window on
+    an H100).  The profiler has been seen to drop a kernel record
     of a run and to read a kernel at half its time (torch 2.11, CUDA
     12.8), so a run counts only if its mean is at least ``bound_us`` and
     it agrees with the card's clock where that can be read: where the
@@ -446,6 +461,8 @@ def device_us(fn, kernel: str, bound_us: float = 0.0, calls: int = 20,
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
             start.record()
             t0 = time.perf_counter()
             for _ in range(calls):
@@ -454,6 +471,7 @@ def device_us(fn, kernel: str, bound_us: float = 0.0, calls: int = 20,
             end.record()
             torch.cuda.synchronize()
         card_us = start.elapsed_time(end) * 1e3
+        # count and busy include the call before the window
         total, count, busy = 0.0, 0, 0.0
         for evt in prof.key_averages():
             if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -465,9 +483,9 @@ def device_us(fn, kernel: str, bound_us: float = 0.0, calls: int = 20,
         filled = (busy + (calls - count) * mean) / card_us
         runs.append((count, round(mean, 2), round(filled, 3),
                      round(host_us / card_us, 3)))
-        if 0 < count <= calls and mean >= bound_us \
+        if 0 < count <= calls + 1 and mean >= bound_us \
                 and (filled >= 0.7 if host_us < 0.5 * card_us
-                     else count == calls):
+                     else count == calls + 1):
             return mean
     check(False, f'{kernel}: no profile of {calls} calls counted (launches, '
           f'µs a launch, share of the card time filled, host time / card '
@@ -692,6 +710,7 @@ def gather_case(name, h, src, row_ptr):
     bound_ms, bound_by = bound(4 * rows * F + rest, used * F)
     res = {'kernel': 'fused_gather_segment_sum', 'case': name,
            'N_h': Nh, 'E': src.shape[0], 'F': F, 'N': N,
+           'longest_segment': int((row_ptr[1:] - row_ptr[:-1]).max()),
            'max_abs_err': err, 'tol': tol, 'plain_f32_err': plain_f32_err,
            'repeat_identical': torch.equal(out, again),
            'ms': time_ms(lambda: fused_gather_segment_sum(h, src, row_ptr)),
@@ -708,6 +727,7 @@ def gather_case(name, h, src, row_ptr):
            'bound_no_reuse_ms': bound(4 * used * F + rest, used * F)[0]}
     res['library_device_us'], res['library_kernels'] = device_us_all(
         lambda: library_neighbor_sum(h, src, row_ptr))
+    res['library_over_kernel'] = res['library_device_us'] / res['device_us']
     print(f'phase 3 kernel {json.dumps(res)}', flush=True)
     check(err <= tol, f'{name}: kernel error {err} > {tol}')
     check(lib_err <= tol, f'{name}: library error {lib_err} > {tol}')
@@ -1674,6 +1694,33 @@ def bench_graph(rng, n_nodes, n_edges, feat, dev):
     return [torch.from_numpy(a).to(dev) for a in (h, src[perm], row_ptr)]
 
 
+def p2_long_inputs(dev):
+    """P2's synthetic long-segment inputs, {name: (h, src, row_ptr)}, from
+    a generator of their own: ``p2_hub_2000_F64``, 2048 nodes with 0 to 3
+    in-edges each from random rows, but node 1000 with P2_HUB_EDGES;
+    ``p2_long_segment_4096_F300``, edge rows ``[E, 300]`` summed by
+    destination (each edge its own row, in a random order), 2047 nodes
+    with 0 to 2 edges and the last with P2_LONG_EDGES."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(17)
+    hub = rng.randint(0, 4, 2048)
+    hub[1000] = P2_HUB_EDGES
+    long_ = np.append(rng.randint(0, 3, 2047), P2_LONG_EDGES)
+    out = {}
+    for name, deg, F in (('p2_hub_2000_F64', hub, 64),
+                         ('p2_long_segment_4096_F300', long_, 300)):
+        row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+        E = int(row_ptr[-1])
+        rows = 2048 if F == 64 else E
+        src = (rng.randint(0, rows, E) if F == 64
+               else rng.permutation(E)).astype(np.int32)
+        h = rng.randn(rows, F).astype(np.float32)
+        out[name] = tuple(torch.from_numpy(a).to(dev)
+                          for a in (h, src, row_ptr))
+    return out
+
+
 def _counted():
     """Each kernel's launch counter: the wrapper and its attribute."""
     from deepchem_tpu_torch.ops import (csr_segment_softmax, csr_segment_sum,
@@ -1747,6 +1794,33 @@ def mpnn_data():
         np.resize(np.arange(len(smiles)), MPNN_MOLECULES))
     labels = np.random.RandomState(1).randn(MPNN_MOLECULES, 1)
     return X[order], labels.astype(np.float32)
+
+
+def batch_draw(n, batch, batches):
+    """``batches`` index arrays of ``batch`` of ``n`` molecules drawn with
+    replacement (RandomState(0)): the requests and the epoch of
+    scripts/profile_torch_pagtn.py."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, n, batch) for _ in range(batches)]
+
+
+def dmpnn_coo_fit_p2_inputs(dev):
+    """P2's arguments in one ``fit`` epoch of DMPNN on its COO branch over
+    FIT_DRAW_BATCHES batches of 100 molecules drawn from SMILES +
+    STEREO_SMILES (:func:`batch_draw`), each padded to the epoch's caps:
+    the shapes the training path hands P2, ghost range and all."""
+    import numpy as np
+    from deepchem_tpu_torch import DMPNNFeaturizer, DMPNNModel, NumpyDataset
+    from deepchem_tpu_torch.ops import csr_segment
+    X = DMPNNFeaturizer().featurize(SMILES + STEREO_SMILES)
+    idx = np.concatenate(batch_draw(len(X), 100, FIT_DRAW_BATCHES))
+    y = np.random.RandomState(0).randn(len(idx), 1).astype(np.float32)
+    with coo_branch(DMPNNModel):
+        model = DMPNNModel(**DMPNN, batch_size=100, device=dev, seed=0)
+        return recorded(csr_segment, '_gather_sum_forward',
+                        lambda: model.fit(NumpyDataset(X[idx], y),
+                                          nb_epoch=1))
 
 
 def table_data(featurizer, smiles):
@@ -2413,7 +2487,8 @@ def main() -> int:
     # ptxas reports a wgmma it had to serialise only as an info line
     check('C7512' not in build.build_log('flash_attention'),
           'ptxas serialised no wgmma of the bf16 flash kernels (C7512)')
-    for kname in ('nei_table', 'graph_pool', 'nei_gather'):
+    for kname in ('nei_table', 'graph_pool', 'nei_gather',
+                  'fused_gather_segment_sum'):
         spills = [int(n) for n in re.findall(
             r'(\d+) bytes spill (?:stores|loads)', build.build_log(kname))]
         check(spills and not any(spills),
@@ -2549,6 +2624,10 @@ def main() -> int:
     check(np.allclose(out[3], 2.0) and np.allclose(out[7], 1.0)
           and np.all(out[[0, 1, 2, 4, 5, 6] + list(range(8, 16))] == 0),
           'P2 sums two rows into node 3, one into 7, zeros elsewhere')
+    # P2 on long segments split across its block: a hub, and a ghost-like
+    # segment of P2_LONG_EDGES edge rows
+    p2_long_cases = [gather_case(k, *a)
+                     for k, a in p2_long_inputs(dev).items()]
 
     # P2's path: its entry point once at each bench shape
     p2_inputs = [bench_graph(rng, n, e, f, dev)
@@ -2860,6 +2939,17 @@ def main() -> int:
         dm_p2_in = recorded(csr_segment, '_gather_sum_forward',
                             lambda: dm_coo.predict_on_batch(dm_X[:B]))
     del gat_coo, dm_coo
+    # DMPNN COO in training: the epoch's caps leave ghost ranges far
+    # longer than a served batch's (the backward's are the forward's)
+    dm_fit_in = [a for a in dmpnn_coo_fit_p2_inputs(dev) if not a[3:]]
+    ghosts = [int(a[2][-1] - a[2][-2]) for a in dm_fit_in]
+    print(f'phase 3 DMPNN COO fit: P2 forward at '
+          f'{sorted({tuple(a[0].shape) for a in dm_fit_in})}, ghost ranges '
+          f'{min(ghosts)}-{max(ghosts)} rows', flush=True)
+    check({a[0].shape[1] for a in dm_fit_in} == {300},
+          "P2 at DMPNN's [E, 300] edge rows in training")
+    dm_fit_longest = dm_fit_in[ghosts.index(max(ghosts))][:3]
+    del dm_fit_in
     gc_bwd_in = [a for a in gc_train_in if a[3:] == ('backward_launches',)]
     check([a[0].shape[1] for a in gc_p2_in] == [75, 64]
           and len(gc_k3_in) == 2 and len(gc_bwd_in) == 3,
@@ -2874,6 +2964,7 @@ def main() -> int:
         gather_case('graphconv_coo_batch256_pool_max_backward',
                     *gc_bwd_in[-1][:3]),
         gather_case('dmpnn_coo_batch100_edge_sum', *dm_p2_in[0][:3]),
+        gather_case('dmpnn_coo_fit_batch100_edge_sum', *dm_fit_longest),
         softmax_case('gat_coo_batch100_layer0', *gat_p1_in[0])]
     gc_pool_cases = graph_max_cases(
         'graphconv_coo_batch256_neighbour_max', x, rp_, emask_sorted,
@@ -3688,7 +3779,7 @@ def main() -> int:
                coo_branches={c['case']: {k: c[k] for k in (
                    'E', 'H', 'N', 'ms', 'device_us', 'plain_ms', 'bound_ms',
                    'bound_by', 'library_ms', 'library_device_us',
-                   'max_abs_err') if k in c} for c in coo_branch_cases[3:]},
+                   'max_abs_err') if k in c} for c in coo_branch_cases[4:]},
                backward={'route': 'torch.autograd.Function: dx = y * (dy - '
                                   't[seg]), t from csr_segment_sum (cuda)',
                          'max_abs_err': max(c['max_abs_err']
@@ -3713,7 +3804,8 @@ def main() -> int:
     # P2: main case GNNModular's layer-1 sum at batch 100; its launches on
     # the COO models' forwards and (the transpose) backwards
     p2 = entry('fused_gather_segment_sum',
-               gather_cases + coo_cases + coo_branch_cases[:3],
+               gather_cases + p2_long_cases + coo_cases
+               + coo_branch_cases[:4],
                coo_cases[1],
                {'p2_bench_shapes': p2_path['fused_gather_segment_sum'],
                 **coo_paths('fused_gather_segment_sum'),
@@ -3725,9 +3817,10 @@ def main() -> int:
                replaces='deepchem_tpu/ops/pallas_segment.py:94',
                shapes={c['case']: {k: c[k] for k in (
                    'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
-                   'bound_by', 'library_ms', 'library_device_us')}
+                   'bound_by', 'library_ms', 'library_device_us',
+                   'library_over_kernel')}
                    for c in gather_cases[:len(P2_BENCH_SHAPES)]
-                   + coo_cases + coo_branch_cases[:3]},
+                   + p2_long_cases + coo_cases + coo_branch_cases[:4]},
                models={m: numbers for m, (_, _, _, numbers) in
                        (coo_runs | branch_runs).items()})
     # P2 in bfloat16: bench shapes only, as in the JAX package; main case

@@ -55,9 +55,13 @@ SHAPES = [(32, 12, 128, 64)] + [(65536 // s, 12, s, 64) for s in
 HOST_CALLS = 200
 
 
-def nvcc(sources: dict, out: Path = OUT) -> dict:
+FLASH_KERNELS = r'flash_\w+_kernelILi\d+(?:ELi\d+)*'
+
+
+def nvcc(sources: dict, out: Path = OUT, kernel: str = FLASH_KERNELS) -> dict:
     """Compile {name: .cu path} into <out>/<name>.so with the package's
-    flags, all at once; {name: ptxas summary of its flash kernels}."""
+    flags, all at once; {name: ptxas summary of the kernels whose mangled
+    names match ``kernel``}."""
     from deepchem_tpu_torch.kernels import build as kbuild
     out.mkdir(parents=True, exist_ok=True)
     procs = {n: subprocess.Popen(
@@ -69,14 +73,14 @@ def nvcc(sources: dict, out: Path = OUT) -> dict:
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f'nvcc failed for {n}:\n{log[-4000:]}')
-        regs = re.findall(r"(flash_\w+_kernelILi\d+(?:ELi\d+)*)\S*' for "
+        regs = re.findall(rf"({kernel})\S*' for "
                           r"'sm_90a'\n.*\n.* (\d+) bytes spill stores.*\n"
                           r".*Used (\d+) registers", log)
         report[n] = {
             'registers': {k: int(r) for k, _, r in regs},
             'spill_stores': {k: int(b) for k, b, _ in regs if int(b)},
             'serialised': sorted(set(re.findall(
-                r'C7512\) .*?(flash_\w+_kernelILi\d+)', log)))}
+                rf'C7512\) .*?({kernel})', log)))}
     return report
 
 

@@ -5,7 +5,8 @@ one CUDA card.
     python3 scripts/profile_torch_pagtn.py
         [--model pagtn|graphconv|mpnn|gcn|gat|attentivefp|dmpnn|pna|
                  gnn_regression|gnn_edge_pred|infograph_star]
-        [--mode serve|train|fit_on_device] [--batch N] [--requests 20]
+        [--mode serve|train|fit|fit_on_device] [--coo] [--batch N]
+        [--requests 20]
 
 Builds a model of ``chip_smoke.py`` with seeded weights and ``batch_size``
 set to ``--batch``: PagtnModel(n_tasks=12, mode='classification') at its
@@ -17,7 +18,9 @@ DMPNNModel at the JAX package's defaults (``chip_smoke.MPNN``, ``GCN``,
 serve, 100 to train by default), or the COO models of phase 16 (PNAModel,
 GNNModular as a regressor and on edge prediction, InfoGraphStarModel;
 ``chip_smoke.PNA``, ``GNN_REGRESSION``, ``GNN_EDGE_PRED``,
-``INFOGRAPH_STAR``), alike.  It runs ``--requests`` batches of
+``INFOGRAPH_STAR``), alike; with ``--coo`` GraphConv, MPNN, GCN, GAT,
+AttentiveFP or DMPNN on its COO branch (``chip_smoke.coo_branch``).  It
+runs ``--requests`` batches of
 ``--batch`` molecules drawn with replacement from the script's 48 (MPNN
 and DMPNN: and ``chip_smoke.STEREO_SMILES``), already featurized, with
 seeded 0/1 labels (the regression models: normal):
@@ -30,9 +33,11 @@ seeded 0/1 labels (the regression models: normal):
   ``TorchModel._train_step`` runs it.  Host clock, per step: packing (with
   the one-hot labels), copying to the card, forward and loss, backward,
   and the Adam update, each ended by a synchronise.
-- ``fit_on_device``: the epoch's ``--requests`` batches uploaded once
-  (``TorchModel.fit_on_device``), one warm-up epoch, then host ms a step
-  over 2 timed epochs with no synchronise between steps.
+- ``fit``, ``fit_on_device``: an epoch of the ``--requests`` batches
+  fitted by ``TorchModel.fit`` (packing each batch) or
+  ``TorchModel.fit_on_device`` (the batches uploaded once), one warm-up
+  epoch, then host ms a step over 2 timed epochs with no synchronise
+  between steps.
 - all: ``torch.profiler`` over the same batches without the extra
   synchronises: device time by kernel, and the device's busy share of the
   window (sum of kernel self times over the window's wall time;
@@ -88,21 +93,40 @@ def main() -> int:
                                         'pna', 'gnn_regression',
                                         'gnn_edge_pred', 'infograph_star'),
                     default='pagtn')
-    ap.add_argument('--mode', choices=('serve', 'train', 'fit_on_device'),
+    ap.add_argument('--mode', choices=('serve', 'train', 'fit',
+                                       'fit_on_device'),
                     default='serve')
+    ap.add_argument('--coo', action='store_true',
+                    help='the model on its COO branch')
     ap.add_argument('--batch', type=int, default=None)
     ap.add_argument('--requests', type=int, default=20)
     args = ap.parse_args()
 
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print('profile_torch_pagtn: no CUDA device', file=sys.stderr)
         return 1
+    from chip_smoke import coo_branch
+    from deepchem_tpu_torch import (AttentiveFPModel, DMPNNModel, GATModel,
+                                    GCNModel, GraphConvModel, MPNNModel)
+    if not args.coo:
+        return profile(args)
+    cls = {'graphconv': GraphConvModel, 'mpnn': MPNNModel,
+           'dmpnn': DMPNNModel, 'gcn': GCNModel, 'gat': GATModel,
+           'attentivefp': AttentiveFPModel}.get(args.model)
+    if cls is None:
+        ap.error(f'--coo: {args.model} has no COO branch to switch to')
+    with coo_branch(cls):
+        return profile(args)
+
+
+def profile(args) -> int:
+    import numpy as np
+    import torch
     from chip_smoke import (ATTENTIVEFP, DMPNN, GAT, GCN, GNN_EDGE_PRED,
                             GNN_REGRESSION, GRAPHCONV, INFOGRAPH_STAR, MPNN,
                             PNA, SMILES, STEREO_SMILES, _counted,
-                            launch_counts)
+                            batch_draw, launch_counts)
     from deepchem_tpu_torch import (AttentiveFPModel, ConvMolFeaturizer,
                                     DMPNNFeaturizer, DMPNNModel, GATModel,
                                     GCNModel, GNNModular, GraphConvModel,
@@ -145,9 +169,7 @@ def main() -> int:
         model = cls(**dict(config, batch_size=args.batch), seed=0)
         labels = np.random.RandomState(0).randn(len(X), 1)
     labels = labels.astype(np.float32)
-    rng = np.random.RandomState(0)
-    picks = [rng.randint(0, len(X), args.batch)
-             for _ in range(args.requests)]
+    picks = batch_draw(len(X), args.batch, args.requests)
     phases = (('pack', 'to_device', 'forward', 'to_host')
               if args.mode == 'serve' else
               ('pack', 'to_device', 'forward', 'backward', 'optimizer'))
@@ -195,19 +217,20 @@ def main() -> int:
         t.append(time.perf_counter())
         return t
 
-    if args.mode == 'fit_on_device':
+    if args.mode in ('fit', 'fit_on_device'):
         idx = np.concatenate(picks)
         epoch = NumpyDataset(X[idx], labels[idx], np.ones_like(labels[idx]))
-        model.fit_on_device(epoch, nb_epoch=1)   # uploads, warms up
+        fit = getattr(model, args.mode)
+        fit(epoch, nb_epoch=1)                   # uploads, warms up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.fit_on_device(epoch, nb_epoch=2)
+        fit(epoch, nb_epoch=2)
         torch.cuda.synchronize()
         clock = {'step': (time.perf_counter() - t0) * 1e3
                  / (2 * args.requests)}
 
         def run_epoch():
-            model.fit_on_device(epoch, nb_epoch=1)
+            fit(epoch, nb_epoch=1)
     else:
         run = request if args.mode == 'serve' else train_step
         for idx in picks[:3]:                        # warm-up
@@ -234,7 +257,7 @@ def main() -> int:
         * args.requests / 1e3
     result = {
         'device': torch.cuda.get_device_name(0), 'model': args.model,
-        'mode': args.mode,
+        'mode': args.mode, 'coo': args.coo,
         'batch': args.batch, 'requests': args.requests,
         'host_ms_per_request': clock,
         'profiled_wall_ms_per_request': wall_ms / args.requests,
@@ -249,7 +272,8 @@ def main() -> int:
     line = json.dumps(result)
     out = REPO / 'chiprun_out'
     out.mkdir(exist_ok=True)
-    (out / f'profile_{args.model}_{args.mode}.json').write_text(
+    coo = '_coo' if args.coo else ''
+    (out / f'profile_{args.model}{coo}_{args.mode}.json').write_text(
         line + '\n')
     print(line)
     if not kernels:

@@ -84,8 +84,9 @@ def test_fused_gather_segment_sum_matches_jax(n_nodes, n_edges, f, seed):
         out, csr_neighbor_sum_reference(*_t(h, src[perm], row_ptr)).numpy())
 
 
-# kSplitEdges in csrc/csr_segment_sum.cu: on the card a longer segment is
-# split across the kernel's block of 8 warps
+# kSplitEdges in csrc/csr_segment_sum.cu and csrc/fused_gather_segment_sum.cu
+# (P3 and P2): on the card a longer segment is split across the kernel's
+# block of 8 warps
 SPLIT_EDGES = 128
 
 
@@ -109,6 +110,36 @@ def test_csr_segment_sum_long_segments_match_jax(long_len, f):
                               len(lengths), block_nodes=8, interpret=True)
     np.testing.assert_allclose(out, np.asarray(ref), atol=ATOL)
     np.testing.assert_array_equal(out[14], 0.0)
+
+
+@pytest.mark.parametrize('long_len,f,ghost', [
+    (SPLIT_EDGES - 1, 32, False), (SPLIT_EDGES, 32, False),
+    (SPLIT_EDGES + 1, 32, False), (SPLIT_EDGES + 1, 1, False),
+    (SPLIT_EDGES + 1, 75, False), (SPLIT_EDGES - 1, 300, False),
+    (1536, 1, True), (1536, 32, True), (1536, 75, True)])
+def test_fused_gather_segment_sum_long_segments_match_jax(long_len, f,
+                                                          ghost):
+    """P2's plain version against the JAX Pallas kernel in interpret mode:
+    segments around the kernel's split threshold, two long ones sharing
+    the last block of 8 nodes beside short and empty ones; or a ghost-like
+    last segment of 1536 edges all from the last node, as the COO layout
+    points every ghost edge (ops/coo.py)."""
+    rng = np.random.RandomState(long_len + f)
+    n_nodes = 16
+    lengths = list(rng.randint(0, 6, 15)) + [long_len] if ghost else \
+        list(rng.randint(0, 6, 13)) + [long_len, 0, long_len + 3]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    h = rng.randn(n_nodes, f).astype(np.float32)
+    src = rng.randint(0, n_nodes - 1, int(row_ptr[-1])).astype(np.int32)
+    if ghost:
+        src[row_ptr[-2]:] = n_nodes - 1
+    out = fused_gather_segment_sum(*_t(h, src, row_ptr)).numpy()
+    ref = jax_fused_gather_segment_sum(
+        jnp.asarray(h), jnp.asarray(src), jnp.asarray(row_ptr), n_nodes,
+        block_nodes=8, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=ATOL)
+    if not ghost:
+        np.testing.assert_array_equal(out[14], 0.0)
 
 
 def test_empty_segments():

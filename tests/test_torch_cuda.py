@@ -103,8 +103,9 @@ def test_csr_segment_softmax_kernel_matches_plain_version(cuda, N, E, H):
         csr_segment_softmax_reference(logits, row_ptr).numpy(), atol=ATOL)
 
 
-# kSplitEdges in csrc/csr_segment_softmax.cu and csrc/csr_segment_sum.cu:
-# longer segments are split across the kernel's block of 8 warps
+# kSplitEdges in csrc/csr_segment_softmax.cu, csrc/csr_segment_sum.cu and
+# csrc/fused_gather_segment_sum.cu: longer segments are split across the
+# kernel's block of 8 warps
 SPLIT_EDGES = 128
 
 
@@ -268,6 +269,48 @@ def test_fused_gather_segment_sum_kernel_matches_plain_version(cuda, N, E,
     assert fused_gather_segment_sum.launches == before + 1
     assert torch.equal(out, fused_gather_segment_sum(h, src, row_ptr))
     _close(out, csr_neighbor_sum_reference(h, src, row_ptr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('F,aligned', [(1, True), (37, True), (64, True),
+                                       (75, True), (300, True), (512, True),
+                                       (600, True), (200, False),
+                                       (300, False), (512, False),
+                                       (700, False)])
+def test_fused_gather_segment_sum_long_segments_match_plain_version(
+        cuda, F, aligned):
+    """P2 (float32) at segments around its split threshold, several long
+    ones in one block, empty ones, a ghost-like segment of 1536 edges from
+    one row and one of 40k edges, with some src out of range (the kernel
+    clamps them to [0, N_h)); aligned, or a view 4 bytes off 16-byte
+    alignment (one float a lane): rows of up to 512 floats in one walk of
+    src, wider ones (600, 700) in passes.  Each sum within 1e-5 of the float64
+    plain version on the clamped src and bit for bit the same on a
+    repeat."""
+    S = SPLIT_EDGES
+    lengths = [0, 3, S - 1, S, S + 1, 5, S + 7, 2 * S, 1, 0, 8 * S + 3, 2,
+               0, 0, 1536, 2, 40000]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    E, Nh = int(row_ptr[-1]), 4096
+    rng = np.random.RandomState(F)
+    src = rng.randint(0, Nh, E).astype(np.int32)
+    src[row_ptr[14]:row_ptr[15]] = Nh - 1       # the ghost-like segment
+    src[::997] = Nh + 3                         # out of range: clamped
+    src[5::1009] = -2
+    flat = torch.from_numpy(rng.randn(Nh * F + 1).astype(np.float32)).to(
+        cuda)
+    h = (flat[:-1] if aligned else flat[1:]).view(Nh, F)
+    src_d = torch.from_numpy(src).to(cuda)
+    row_ptr = torch.from_numpy(row_ptr).to(cuda)
+    before = fused_gather_segment_sum.launches
+    out = fused_gather_segment_sum(h, src_d, row_ptr)
+    again = fused_gather_segment_sum(h, src_d, row_ptr)
+    torch.cuda.synchronize()
+    assert fused_gather_segment_sum.launches == before + 2
+    assert torch.equal(out, again)            # no atomics: bit for bit
+    _close(out.double(), csr_neighbor_sum_reference(
+        h.double(), src_d.clamp(0, Nh - 1), row_ptr))
+    assert torch.all(out[[0, 9, 12, 13]] == 0)
 
 
 @pytest.mark.cuda
