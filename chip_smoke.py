@@ -61,7 +61,9 @@ Phases:
                 and P2 at DMPNN's [E, 300] edge sums (batch 100); P2
                 also on a hub node's 2000 in-edges (F 64) and on one
                 segment of 4096 edge rows (F 300), each split across its
-                block.
+                block; and at the inputs phase 19's first DAG batch of
+                100 hands them: P2 at a level pass's [E, 30] message sum
+                and at its source gather's backward, P3 at the readout.
                 Per case:
                 max abs error, a bit-identical repeat, kernel, plain and
                 library times (host-clock ms a call), the kernel's device
@@ -230,7 +232,27 @@ Phases:
                 ScScore's hinge loss) over each SMILES's first copy
                 against the CPU from the same weights.  These models run
                 no kernel of their own.
- 19. kernels -- one JSON line with each kernel's numbers.
+ 19. weave, dag, dtnn -- WeaveModel at molnet/run_benchmark.py's
+                'weave' preset (12 classification tasks, n_graph_feat
+                128, n_hidden 50, 2 weave layers, batch 64, lr 0.0005) on
+                WeaveFeaturizer of phase 11's 768 molecules (batches of A
+                32 and 48: fit_on_device must refuse them, as the JAX
+                package's does, and trains on the 752 of at most 32
+                atoms; ROC-AUC over each SMILES's first copy); DAGModel at
+                the JAX package's defaults (max_atoms 50, n_graph_feat 30,
+                12 level passes, batch 100, one regression task) on
+                ConvMolFeaturizer + DAGTransformer of phase 13's 300
+                molecules, P2 12 a batch, 12 more in a step's backward,
+                P3 1; DTNNModel at its defaults (n_embedding 30, n_hidden
+                100, 2 steps, 100 distances, batch 100) on
+                CoulombMatrix(max_atoms=23) of the SMILES of at most 23
+                atoms embedded by ConformerGenerator(seed=0), repeated
+                to 300; MultitaskFitTransformRegressor ([1000], dropout
+                0) on CoulombFitTransformer of the same matrices.  Each
+                as phase 13 through model_phase, with the card's peak
+                memory; Weave, DTNN and the regressor launch no kernel of
+                the port's.
+ 20. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -362,6 +384,21 @@ P2_LONG_EDGES = 4096
 # DMPNN COO's training epoch that phase 3 records P2 at, as
 # scripts/profile_torch_pagtn.py draws it: batches of 100 molecules
 FIT_DRAW_BATCHES = 20
+# phase 19: Weave at molnet/run_benchmark.py's 'weave' preset on phase 11's
+# molecules; DAG at the JAX package's defaults on phase 13's; DTNN at its
+# defaults on CoulombMatrix(max_atoms=23), qm7's width, of the SMILES of at
+# most 23 atoms, and MultitaskFitTransformRegressor on CoulombFitTransformer
+# of the same matrices (dropout 0, so the card draws as the CPU does)
+WEAVE = dict(n_tasks=12, mode='classification', n_graph_feat=128,
+             n_hidden=50, n_weave=2, batch_size=64, learning_rate=0.0005)
+DAG = dict(n_tasks=1, mode='regression', max_atoms=50, n_graph_feat=30,
+           batch_size=100)
+DAG_LEVELS = 12                 # min(max_atoms, 12) passes, each P2 once
+DTNN = dict(n_tasks=1)
+QM7_ATOMS = 23
+COULOMB_MOLECULES = 300         # 3 batches of 100
+FIT_TRANSFORM = dict(n_tasks=1, n_features=[QM7_ATOMS, QM7_ATOMS],
+                     layer_sizes=[1000], dropouts=0.0, batch_size=100)
 KERNEL_ATOL = 1e-6              # P1: same f32 inputs, another summation order
 SUM_RTOL = 1e-5                 # P3, P2: atol 1e-5 * max(1, max |out|)
 CPU_ATOL = 1e-4                 # whole model, f32, another summation order
@@ -1836,6 +1873,64 @@ def table_data(featurizer, smiles):
     return X[order], labels.astype(np.float32)
 
 
+def weave_data():
+    """Phase 11's molecules (the 48 SMILES in graphconv_data's order and
+    labels) as WeaveFeaturizer graphs, the rows of each SMILES's first
+    copy (the scored set: a ranking score breaks ties of equal molecules by
+    the last bit, which differs between batches of A 32 and A 48), and the
+    molecules of at most 32 atoms (every batch packs to A 32: the set
+    ``fit_on_device`` can stack)."""
+    import numpy as np
+    from deepchem_tpu_torch import WeaveFeaturizer
+    X48 = WeaveFeaturizer().featurize(SMILES)
+    check(all(hasattr(g, 'pair_features') for g in X48),
+          'every molecule featurizes for Weave')
+    reps = GRAPHCONV_MOLECULES // len(SMILES)
+    order = np.random.RandomState(0).permutation(
+        np.tile(np.arange(len(SMILES)), reps))
+    labels = np.random.RandomState(1).randint(
+        0, 2, (len(order), WEAVE['n_tasks'])).astype(np.float32)
+    X = X48[order]
+    first = np.unique(order, return_index=True)[1]
+    small = np.array([g.num_nodes <= 32 for g in X])
+    return X, labels, first, (X[small], labels[small])
+
+
+def dag_data():
+    """Phase 13's molecules and labels as ConvMolFeaturizer graphs with
+    DAGTransformer(max_atoms=50)'s depth tables."""
+    from deepchem_tpu_torch import ConvMolFeaturizer, DAGTransformer
+    X, y = table_data(ConvMolFeaturizer(), SMILES)
+    X = DAGTransformer(max_atoms=DAG['max_atoms']).transform_array(
+        X, None, None, None)[0]
+    return X, y
+
+
+def coulomb_data():
+    """The SMILES of at most QM7_ATOMS heavy atoms, embedded in 3D by
+    ConformerGenerator(seed=0), as CoulombMatrix(max_atoms=QM7_ATOMS)
+    (timed a molecule), repeated and shuffled from a seed to
+    COULOMB_MOLECULES, with seeded normal labels."""
+    import numpy as np
+    from deepchem_tpu_torch import CoulombMatrix
+    from deepchem_tpu_torch.chem import mol_from_smiles
+    from deepchem_tpu_torch.utils.conformers import ConformerGenerator
+    mols = [m for m in map(mol_from_smiles, SMILES)
+            if m.num_atoms <= QM7_ATOMS]
+    gen = ConformerGenerator(seed=0)
+    t0 = time.perf_counter()
+    mols = [gen.generate_conformers(m) for m in mols]
+    X = CoulombMatrix(max_atoms=QM7_ATOMS).featurize(mols)
+    per_mol_ms = (time.perf_counter() - t0) * 1e3 / len(mols)
+    check(X.shape == (len(mols), QM7_ATOMS, QM7_ATOMS)
+          and bool(np.isfinite(X).all()),
+          'every molecule of at most 23 atoms has a Coulomb matrix')
+    order = np.random.RandomState(0).permutation(
+        np.resize(np.arange(len(mols)), COULOMB_MOLECULES))
+    labels = np.random.RandomState(1).randn(COULOMB_MOLECULES, 1)
+    return X[order], labels.astype(np.float32), len(mols), per_mol_ms
+
+
 def step1_grads(store):
     """A fit callback that keeps a copy of every gradient after step 1."""
     def grab(model, step):
@@ -2115,8 +2210,9 @@ def coo_branch(cls):
 
 
 def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
-                scored=True, out_tail=(1,), metrics=None):
-    """Phases 13, 14 and 16: serves, trains and scores one regression graph
+                scored=True, out_tail=(1,), metrics=None, on_device=None,
+                score_rows=None):
+    """Phases 13, 14, 16, 17 and 19: serves, trains and scores one
     model on the card, each held against the CPU: requests of REQUESTS
     molecules and the whole of ``X`` (CPU_ATOL), LATENCY_REQUESTS timed
     requests of 16 (median, p90), 3 ``fit`` epochs (the step time over the
@@ -2132,14 +2228,20 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
     then the card's busy µs and kernels of a request of 16 and of a
     training step.  ``make(device, seed, **kw)`` builds the model; a
     prediction is ``[n, *out_tail]``; ``metrics`` replaces the regression
-    scores (a classifier's ROC-AUC).  Returns the launches of the serve,
-    fit and fit_on_device runs and the numbers."""
+    scores (a classifier's ROC-AUC), computed over the rows
+    ``score_rows`` of ``X`` where given; ``fit_on_device`` trains on
+    ``on_device`` (``(X, y)``) where given.  The numbers include the
+    card's peak memory over the phase, and that peak less what was
+    allocated when it began.  Returns the launches of the
+    serve, fit and fit_on_device runs and the numbers."""
     import numpy as np
     import torch
     from deepchem_tpu_torch import (Metric, NumpyDataset, mae_score,
                                     pearson_r2_score, rms_score)
     head = f'phase {phase} {tag}'
     dev = torch.device('cuda', 0)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # by the phases before
     model = make(dev, 0)
     B = model.batch_size
     ds = NumpyDataset(X, y)
@@ -2206,9 +2308,11 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
           f'ms, p90 {p90:.3f} ms', flush=True)
 
     # training: fit, then fit_on_device, 3 epochs each
-    S = -(-len(X) // B)
     runs = {}
     for loop in ('fit', 'fit_on_device'):
+        data = ds if loop == 'fit' or on_device is None \
+            else NumpyDataset(*on_device)
+        S = -(-len(data) // B)
         trainer = make(dev, 1, log_frequency=S)
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -2216,10 +2320,10 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
 
         def train(epochs, m=trainer, out=losses):
             if loop == 'fit':
-                m.fit(ds, nb_epoch=epochs, checkpoint_interval=0,
+                m.fit(data, nb_epoch=epochs, checkpoint_interval=0,
                       all_losses=out)
             else:
-                m.fit_on_device(ds, nb_epoch=epochs, all_losses=out)
+                m.fit_on_device(data, nb_epoch=epochs, all_losses=out)
         train(1)                                  # packs, warms up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2231,12 +2335,13 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
         cpu_losses = []
         if loop == 'fit_on_device':
             cpu_t = make('cpu', 1, log_frequency=S)
-            cpu_t.fit_on_device(ds, nb_epoch=1, all_losses=cpu_losses)
-            cpu_t.fit_on_device(ds, nb_epoch=2, all_losses=cpu_losses)
+            cpu_t.fit_on_device(data, nb_epoch=1, all_losses=cpu_losses)
+            cpu_t.fit_on_device(data, nb_epoch=2, all_losses=cpu_losses)
         loss_err = max((abs(a - b) / max(1.0, abs(b))
                         for a, b in zip(losses, cpu_losses)), default=0.0)
         print(f'{head} train ({smi}): {loop}, {steps} steps of {B} '
-              f'molecules, {step_ms:.3f} ms a step over the last 2 epochs; '
+              f'molecules over {len(data)}, {step_ms:.3f} ms a step over '
+              f'the last 2 epochs; '
               f'loss per epoch {[round(v, 5) for v in losses]}'
               + (f', on the CPU {[round(v, 5) for v in cpu_losses]}'
                  if cpu_losses else '') + f'; launches {counts}',
@@ -2276,7 +2381,8 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
                 checkpoint_interval=0, all_losses=fixed)
     below = next((i + 1 for i, v in enumerate(fixed) if v < 0.9 * fixed[0]),
                  None)
-    print(f'{head} train: one fixed batch of {B}, lr 0.001: loss '
+    print(f'{head} train: one fixed batch of {B}, lr '
+          f'{overfit.optimizer.learning_rate}: loss '
           f'{fixed[0]:.5f} at step 1, {min(fixed):.5f} at best, below 0.9 '
           f'of the first at step {below}', flush=True)
     check(below is not None, f'{tag}: the loss falls below 0.9 of its first '
@@ -2291,9 +2397,11 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
     if scored:
         metrics = metrics or [Metric(pearson_r2_score), Metric(rms_score),
                               Metric(mae_score)]
-        scores = trainer.evaluate(ds, metrics)
+        scored_ds = ds if score_rows is None else NumpyDataset(
+            X[score_rows], y[score_rows])
+        scores = trainer.evaluate(scored_ds, metrics)
         eval_ms = (time.perf_counter() - t0) * 1e3
-        cpu_scores = cpu.evaluate(ds, metrics)
+        cpu_scores = cpu.evaluate(scored_ds, metrics)
         eval_err = max(abs(scores[k] - cpu_scores[k]) for k in cpu_scores)
     else:
         first = [next(m.default_generator(ds)) for m in (trainer, cpu)]
@@ -2323,7 +2431,10 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
                'request16_device_kernels': serve_kernels,
                'step_device_us': step_us, 'step_device_kernels': step_kernels,
                'max_request_err': worst, 'step1_grad_err': grad_err,
-               'eval_err': eval_err}
+               'eval_err': eval_err,
+               'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+               'peak_over_held_bytes': torch.cuda.max_memory_allocated()
+               - held}
     print(f'{head} card: {json.dumps(numbers)}', flush=True)
     return serve, runs['fit'][0], runs['fit_on_device'][0], numbers
 
@@ -2970,6 +3081,34 @@ def main() -> int:
         'graphconv_coo_batch256_neighbour_max', x, rp_, emask_sorted,
         torch.randn(rp_.shape[0] - 1, x.shape[1], generator=gen,
                     device=dev))
+
+    # P2 and P3 on DAG's path, at the inputs phase 19's first batch of 100
+    # hands them: a level pass's sum of the selected messages into their
+    # destinations ([E, 30] edge rows by the CSR by destination), the
+    # backward of its source gather (P2 over the CSR by source) and the
+    # sum readout of the roots (P3)
+    from deepchem_tpu_torch import DAGModel
+    dag_X, dag_y = dag_data()
+    dag_probe = DAGModel(**DAG, device=dev, seed=0)
+    dag_fwd_in = recorded(csr_segment, '_gather_sum_forward',
+                          lambda: dag_probe.predict_on_batch(dag_X[:B]))
+    dag_sum_in = recorded(csr_segment, '_segment_sum_forward',
+                          lambda: dag_probe.predict_on_batch(dag_X[:B]))
+    dag_train_in = recorded(
+        csr_segment, '_gather_sum_forward', lambda: dag_probe.fit_on_batch(
+            dag_X[:B], dag_y[:B], np.ones_like(dag_y[:B])))
+    del dag_probe
+    dag_bwd_in = [a for a in dag_train_in if a[3:] == ('backward_launches',)]
+    check(len(dag_fwd_in) == DAG_LEVELS and len(dag_bwd_in) == DAG_LEVELS
+          and {a[0].shape[1] for a in dag_fwd_in + dag_bwd_in} == {30}
+          and len(dag_sum_in) == 1,
+          'DAG: P2 at [E, 30] once a level pass, forward and backward; P3 '
+          'once for the readout')
+    dag_cases = [
+        gather_case('dag_batch100_level_sum', *dag_fwd_in[0][:3]),
+        gather_case('dag_batch100_source_gather_backward',
+                    *dag_bwd_in[0][:3])]
+    dag_sum_cases = [sum_case('dag_batch100_readout', *dag_sum_in[0])]
 
     # -- 4. serve ---------------------------------------------------------
     phase_start(4)
@@ -3747,8 +3886,74 @@ def main() -> int:
                     1, FP_BITS, device=d)), single, single_rms)):
         dense_runs[k] = dense_phase(k, make, data, score, fp_ms, smi)
 
-    # -- 19. kernels line -------------------------------------------------
+    # -- 19. Weave, DAG, DTNN and the fit-transform regressor ------------
     phase_start(19)
+    from deepchem_tpu_torch import DTNNModel, WeaveModel
+    from deepchem_tpu_torch.models import MultitaskFitTransformRegressor
+    from deepchem_tpu_torch.trans import CoulombFitTransformer
+    wv_X, wv_y, wv_first, wv_small = weave_data()
+
+    def wv_make(d, seed, **kw):
+        return WeaveModel(**dict(WEAVE, **kw), device=d, seed=seed)
+    # the whole set packs to A 32 and A 48, which fit_on_device cannot
+    # stack, as in the JAX package: it trains on the A 32 molecules
+    wv_probe = wv_make(dev, 0)
+    wv_sizes = sorted({b[0][0].shape[1] for b in wv_probe.default_generator(
+        NumpyDataset(wv_X, wv_y))})
+    try:
+        wv_probe.fit_on_device(NumpyDataset(wv_X, wv_y), nb_epoch=1)
+        refused = False
+    except ValueError:
+        refused = True
+    del wv_probe
+    print(f'phase 19 weave: batches of {WEAVE["batch_size"]} pack to A '
+          f'{wv_sizes}; fit_on_device over them refused: {refused}; it '
+          f'trains on the {len(wv_small[0])} molecules of at most 32 '
+          'atoms', flush=True)
+    check(wv_sizes == [32, 48] and refused,
+          'Weave: the 768 pack to A 32 and 48, and fit_on_device refuses '
+          'them')
+    new_runs = {}
+    t0 = time.perf_counter()
+    new_runs['weave'] = model_phase(
+        19, 'weave', wv_make, wv_X, wv_y, {}, {}, smi,
+        out_tail=(WEAVE['n_tasks'], 2),
+        metrics=[Metric(roc_auc_score, np.mean)], on_device=wv_small,
+        score_rows=wv_first)
+    print(f'phase 19 weave: {time.perf_counter() - t0:.1f} s', flush=True)
+    # DAG: P2 once a level pass and, in the backward, once for each
+    # pass's source gather; P3 once for the sum readout
+    per_batch = {'fused_gather_segment_sum': DAG_LEVELS,
+                 'csr_segment_sum': 1}
+    t0 = time.perf_counter()
+    new_runs['dag'] = model_phase(
+        19, 'dag', lambda d, seed, **kw: DAGModel(**DAG, device=d, seed=seed,
+                                                 **kw),
+        dag_X, dag_y, per_batch,
+        dict(per_batch, fused_gather_segment_sum_bwd=DAG_LEVELS), smi)
+    print(f'phase 19 dag: {time.perf_counter() - t0:.1f} s', flush=True)
+    cm_X, cm_y, cm_mols, cm_ms = coulomb_data()
+    print(f'phase 19 coulomb ({smi}): {cm_mols} molecules of at most '
+          f'{QM7_ATOMS} atoms embedded and featurized in {cm_ms:.3f} ms a '
+          f'molecule, repeated to {len(cm_X)}', flush=True)
+    t0 = time.perf_counter()
+    new_runs['dtnn'] = model_phase(
+        19, 'dtnn', lambda d, seed, **kw: DTNNModel(**DTNN, device=d,
+                                                   seed=seed, **kw),
+        cm_X, cm_y, {}, {}, smi)
+    print(f'phase 19 dtnn: {time.perf_counter() - t0:.1f} s', flush=True)
+    cft = CoulombFitTransformer(NumpyDataset(cm_X, cm_y))
+    t0 = time.perf_counter()
+    new_runs['fit_transform'] = model_phase(
+        19, 'fit_transform',
+        lambda d, seed, **kw: MultitaskFitTransformRegressor(
+            **FIT_TRANSFORM, fit_transformers=[cft], device=d, seed=seed,
+            **kw), cm_X, cm_y, {}, {}, smi)
+    print(f'phase 19 fit_transform: {time.perf_counter() - t0:.1f} s',
+          flush=True)
+
+    # -- 20. kernels line -------------------------------------------------
+    phase_start(20)
     def run_paths(runs, key):
         return {f'{m}_{run}': counts[key] for m, (srv, fit, dev_fit, _) in
                 runs.items() for run, counts in (
@@ -3789,7 +3994,7 @@ def main() -> int:
 
     def coo_paths(key):
         return run_paths(coo_runs, key)
-    p3 = entry('csr_segment_sum', sum_cases, sum_cases[0],
+    p3 = entry('csr_segment_sum', sum_cases + dag_sum_cases, sum_cases[0],
                {'serve': serve['csr_segment_sum'],
                 'train': train['csr_segment_sum'],
                 'graphconv_serve': gc_serve['csr_segment_sum'],
@@ -3799,13 +4004,18 @@ def main() -> int:
                 **table_paths('csr_segment_sum'),
                 'graphconv_engine': engine['csr_segment_sum'],
                 **coo_paths('csr_segment_sum'),
-                **run_paths(branch_runs, 'csr_segment_sum')},
-               replaces='deepchem_tpu/ops/pallas_segment.py:45')
+                **run_paths(branch_runs, 'csr_segment_sum'),
+                **run_paths(new_runs, 'csr_segment_sum')},
+               replaces='deepchem_tpu/ops/pallas_segment.py:45',
+               shapes={c['case']: {k: c[k] for k in (
+                   'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
+                   'bound_by', 'library_ms', 'library_device_us',
+                   'max_abs_err')} for c in dag_sum_cases})
     # P2: main case GNNModular's layer-1 sum at batch 100; its launches on
     # the COO models' forwards and (the transpose) backwards
     p2 = entry('fused_gather_segment_sum',
                gather_cases + p2_long_cases + coo_cases
-               + coo_branch_cases[:4],
+               + coo_branch_cases[:4] + dag_cases,
                coo_cases[1],
                {'p2_bench_shapes': p2_path['fused_gather_segment_sum'],
                 **coo_paths('fused_gather_segment_sum'),
@@ -3813,16 +4023,20 @@ def main() -> int:
                    coo_paths('fused_gather_segment_sum_bwd').items()},
                 **run_paths(branch_runs, 'fused_gather_segment_sum'),
                 **{f'{path}_backward': n for path, n in run_paths(
-                    branch_runs, 'fused_gather_segment_sum_bwd').items()}},
+                    branch_runs, 'fused_gather_segment_sum_bwd').items()},
+                **run_paths(new_runs, 'fused_gather_segment_sum'),
+                **{f'{path}_backward': n for path, n in run_paths(
+                    new_runs, 'fused_gather_segment_sum_bwd').items()}},
                replaces='deepchem_tpu/ops/pallas_segment.py:94',
                shapes={c['case']: {k: c[k] for k in (
                    'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
                    'bound_by', 'library_ms', 'library_device_us',
                    'library_over_kernel')}
                    for c in gather_cases[:len(P2_BENCH_SHAPES)]
-                   + p2_long_cases + coo_cases + coo_branch_cases[:4]},
+                   + p2_long_cases + coo_cases + coo_branch_cases[:4]
+                   + dag_cases},
                models={m: numbers for m, (_, _, _, numbers) in
-                       (coo_runs | branch_runs).items()})
+                       (coo_runs | branch_runs | new_runs).items()})
     # P2 in bfloat16: bench shapes only, as in the JAX package; main case
     # the widest
     p2_bf16 = entry('fused_gather_segment_sum_bf16', bf16_cases,

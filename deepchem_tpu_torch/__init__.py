@@ -7,25 +7,30 @@ the caller passes ``device='cpu'``.
 """
 
 from deepchem_tpu_torch.data import NumpyDataset
-from deepchem_tpu_torch.feat import (ConvMolFeaturizer, DMPNNFeaturizer,
-                                     MolGraphConvFeaturizer,
-                                     PagtnMolGraphFeaturizer, SmilesTokenizer)
+from deepchem_tpu_torch.feat import (ConvMolFeaturizer, CoulombMatrix,
+                                     DMPNNFeaturizer, MolGraphConvFeaturizer,
+                                     PagtnMolGraphFeaturizer, SmilesTokenizer,
+                                     WeaveFeaturizer)
 from deepchem_tpu_torch.metrics import (Metric, mae_score, pearson_r2_score,
                                         rms_score, roc_auc_score)
 from deepchem_tpu_torch.models import (AttentiveFPModel, BertEncoderMLM,
-                                       DMPNNModel, GATModel, GCNModel,
+                                       DAGModel, DAGTransformer, DMPNNModel,
+                                       DTNNModel, GATModel, GCNModel,
                                        GNNModular, GraphConvModel,
                                        InfoGraphModel, InfoGraphStarModel,
-                                       MPNNModel, PagtnModel, PNAModel)
+                                       MPNNModel, PagtnModel, PNAModel,
+                                       WeaveModel)
 from deepchem_tpu_torch.trans import NormalizationTransformer
 from deepchem_tpu_torch.utils.evaluate import Evaluator, GeneratorEvaluator
 
 __all__ = ['AttentiveFPModel', 'BertEncoderMLM', 'ConvMolFeaturizer',
-           'DMPNNFeaturizer', 'DMPNNModel', 'Evaluator', 'GATModel',
+           'CoulombMatrix', 'DAGModel', 'DAGTransformer', 'DMPNNFeaturizer',
+           'DMPNNModel', 'DTNNModel', 'Evaluator', 'GATModel',
            'GCNModel', 'GNNModular', 'GeneratorEvaluator',
            'GraphConvModel', 'InfoGraphModel', 'InfoGraphStarModel', 'Metric',
            'MolGraphConvFeaturizer', 'MPNNModel', 'NormalizationTransformer',
            'NumpyDataset', 'PNAModel', 'PagtnMolGraphFeaturizer',
            'PagtnModel',
-           'SmilesTokenizer', 'mae_score', 'pearson_r2_score', 'rms_score',
+           'SmilesTokenizer', 'WeaveFeaturizer', 'WeaveModel', 'mae_score',
+           'pearson_r2_score', 'rms_score',
            'roc_auc_score']

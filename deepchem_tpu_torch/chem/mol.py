@@ -12,7 +12,7 @@ from __future__ import annotations
 import math
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 PERIODIC_TABLE: Dict[str, int] = {
     'H': 1, 'He': 2, 'Li': 3, 'Be': 4, 'B': 5, 'C': 6, 'N': 7, 'O': 8,
@@ -161,6 +161,9 @@ class Molecule:
         self.bonds: List[Bond] = []
         self._adj: List[List[int]] = []      # atom idx -> list of bond indices
         self._ring_info: Optional[List[List[int]]] = None
+        #: 3D coordinates, one (x, y, z) an atom (an SDF's, or an
+        #: embedding's from ``utils/conformers.py``); None without them
+        self.conformer: Optional[List[Tuple[float, float, float]]] = None
 
     # -- construction ------------------------------------------------------
     def add_atom(self, atom: Atom) -> int:
@@ -192,6 +195,10 @@ class Molecule:
     @property
     def num_bonds(self) -> int:
         return len(self.bonds)
+
+    def neighbors(self, idx: int) -> List[int]:
+        """The atoms bonded to atom ``idx``, in bond order."""
+        return [self.bonds[bi].other(idx) for bi in self._adj[idx]]
 
     def atom_bonds(self, idx: int) -> List[Bond]:
         return [self.bonds[bi] for bi in self._adj[idx]]
@@ -448,6 +455,24 @@ class Molecule:
                     (pi_capable(self.atoms[b.a1]) and
                      pi_capable(self.atoms[b.a2])))
             object.__setattr__(b, '_conjugated', conj)
+
+    def subgraph(self, atom_indices: Sequence[int]) -> 'Molecule':
+        """The finalized molecule induced on ``atom_indices``, in their
+        order, with the bonds among them."""
+        keep = {a: i for i, a in enumerate(atom_indices)}
+        out = Molecule()
+        for a in atom_indices:
+            old = self.atoms[a]
+            out.add_atom(Atom(
+                atomic_num=old.atomic_num, formal_charge=old.formal_charge,
+                explicit_hs=old.explicit_hs, is_aromatic=old.is_aromatic,
+                isotope=old.isotope, chirality=old.chirality,
+                num_radical_electrons=old.num_radical_electrons))
+        for b in self.bonds:
+            if b.a1 in keep and b.a2 in keep:
+                out.add_bond(keep[b.a1], keep[b.a2], order=b.order,
+                             is_aromatic=b.is_aromatic)
+        return out.finalize()
 
     def __repr__(self) -> str:
         return f'<Molecule atoms={self.num_atoms} bonds={self.num_bonds}>'

@@ -287,3 +287,133 @@ class CircularFingerprint(MolecularFeaturizer):
             mol, self.radius, self.size, use_chirality=self.chiral,
             use_bond_types=self.bonds, use_features=self.features,
             counts=self.is_counts_based).astype(np.float64)
+
+
+class WeaveFeaturizer(MolecularFeaturizer):
+    """Weave featurizer: 75 atom features a row (:func:`atom_features_75_mol`)
+    and dense pair features, ``pair_features`` ``[n * n, 14]`` float32,
+    row ``i * n + j`` for the pair (i, j): the bond's type one-hot in
+    columns 0-3, both atoms in one ring in column 4, the graph distance 1
+    to 6 and 7 or more one-hot in columns 6-12 (none for a pair in two
+    fragments).  Columns 5 and 13 stay 0, as the JAX package leaves them.
+    Edges are both directions of each bond, in bond order.
+
+    ``graph_distance``, ``explicit_H`` and ``max_pair_distance`` are
+    accepted for DeepChem's signature and change nothing, as in the JAX
+    package; ``use_chirality`` adds three chirality columns."""
+
+    def __init__(self, graph_distance: bool = True, explicit_H: bool = False,
+                 use_chirality: bool = False,
+                 max_pair_distance: Optional[int] = None):
+        self.graph_distance = graph_distance
+        self.use_chirality = use_chirality
+        self.max_pair_distance = max_pair_distance
+
+    def _featurize(self, mol: Molecule) -> GraphData:
+        n = mol.num_atoms
+        feats = fu.atom_features_75_mol(mol,
+                                        use_chirality=self.use_chirality)
+        dist = np.full((n, n), 99, dtype=np.int32)
+        for i in range(n):
+            dist[i, i] = 0
+            dq = deque([i])
+            while dq:
+                u = dq.popleft()
+                for v in mol.neighbors(u):
+                    if dist[i, v] > dist[i, u] + 1:
+                        dist[i, v] = dist[i, u] + 1
+                        dq.append(v)
+        pair = np.zeros((n, n, 14), dtype=np.float32)
+        for b in mol.bonds:
+            bt = fu.get_bond_type_one_hot(b)
+            pair[b.a1, b.a2, 0:4] = bt
+            pair[b.a2, b.a1, 0:4] = bt
+        for r in mol.rings():
+            pair[np.ix_(r, r, [4])] = 1.0
+        for d in range(1, 8):
+            mask = (dist == d) if d < 7 else (dist >= 7) & (dist < 99)
+            pair[:, :, 5 + d][mask] = 1.0
+        src, dst = [], []
+        for b in mol.bonds:
+            src += [b.a1, b.a2]
+            dst += [b.a2, b.a1]
+        ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
+        return GraphData(feats, ei, pair_features=pair.reshape(n * n, 14))
+
+
+class CoulombMatrix(MolecularFeaturizer):
+    """The Coulomb matrix of a molecule's conformer, ``[max_atoms,
+    max_atoms]`` float64, zero-padded: ``z_i z_j / |r_i - r_j|`` off the
+    diagonal (0 where two atoms coincide), ``0.5 z_i^2.4`` on it, for the
+    atoms the molecule has (hydrogens only where they are explicit atoms).
+    A molecule without a conformer fails (an empty array, as every
+    featurizer's failure).
+
+    ``randomize`` gives ``n_samples`` matrices, rows and columns ordered
+    by ``argsort(row norms + N(0, 1) noise)`` from ``RandomState(seed)``,
+    drawn on in turn; ``upper_tri`` keeps each matrix's upper triangle,
+    diagonal included.  One sample comes back without its sample axis.
+    ``remove_hydrogens`` is accepted and changes nothing, as in the JAX
+    package."""
+
+    def __init__(self, max_atoms: int, remove_hydrogens: bool = False,
+                 randomize: bool = False, upper_tri: bool = False,
+                 n_samples: int = 1, seed: Optional[int] = None):
+        self.max_atoms = max_atoms
+        self.remove_hydrogens = remove_hydrogens
+        self.randomize = randomize
+        self.upper_tri = upper_tri
+        self.n_samples = n_samples
+        self.rng = np.random.RandomState(seed)
+
+    @staticmethod
+    def get_interatomic_distances(conf) -> np.ndarray:
+        """All-pairs distances of an ``(N, 3)`` array, a molecule's
+        conformer or an object with ``GetPositions()``."""
+        if hasattr(conf, 'GetPositions'):
+            xyz = np.asarray(conf.GetPositions(), dtype=np.float64)
+        elif getattr(conf, 'conformer', None) is not None:
+            xyz = np.asarray(conf.conformer, dtype=np.float64)
+        else:
+            xyz = np.asarray(conf, dtype=np.float64)
+        return np.linalg.norm(xyz[:, None, :] - xyz[None, :, :], axis=-1)
+
+    def coulomb_matrix(self, mol: Molecule) -> np.ndarray:
+        if mol.conformer is None:
+            raise ValueError('CoulombMatrix requires 3D coordinates')
+        xyz = np.asarray(mol.conformer, dtype=np.float64)
+        z = np.array([a.atomic_num for a in mol.atoms], dtype=np.float64)
+        n = len(z)
+        d = np.linalg.norm(xyz[:, None, :] - xyz[None, :, :], axis=-1)
+        with np.errstate(divide='ignore'):
+            m = np.outer(z, z) / np.where(d > 0, d, np.inf)
+        np.fill_diagonal(m, 0.5 * z ** 2.4)
+        pad = np.zeros((self.max_atoms, self.max_atoms))
+        pad[:n, :n] = m
+        return pad
+
+    def randomize_coulomb_matrix(self, m: np.ndarray) -> List[np.ndarray]:
+        out = []
+        row_norms = np.linalg.norm(m, axis=1)
+        for _ in range(self.n_samples):
+            e = self.rng.normal(size=row_norms.size)
+            p = np.argsort(row_norms + e)
+            out.append(m[p][:, p])
+        return out
+
+    def _featurize(self, mol: Molecule) -> np.ndarray:
+        m = self.coulomb_matrix(mol)
+        ms = self.randomize_coulomb_matrix(m) if self.randomize else [m]
+        if self.upper_tri:
+            ms = [mm[np.triu_indices_from(mm)] for mm in ms]
+        out = np.stack(ms)
+        return out[0] if out.shape[0] == 1 else out
+
+
+class CoulombMatrixEig(CoulombMatrix):
+    """The Coulomb matrix's eigenvalues, largest first, ``[max_atoms]``
+    float64."""
+
+    def _featurize(self, mol: Molecule) -> np.ndarray:
+        w, _ = np.linalg.eigh(self.coulomb_matrix(mol))
+        return w[::-1].astype(np.float64)

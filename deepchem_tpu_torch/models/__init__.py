@@ -3,6 +3,7 @@ from deepchem_tpu_torch.models.bert_encoder import (BertEncoderMLM,
                                                     mlm_loss)
 from deepchem_tpu_torch.models.convert import (encoder_params_from_flax,
                                                params_from_flax)
+from deepchem_tpu_torch.models.dag import DAGModel, DAGTransformer
 from deepchem_tpu_torch.models.dmpnn import DMPNNModel
 from deepchem_tpu_torch.models.fcnet import (MultitaskClassifier,
                                              MultitaskFitTransformRegressor,
@@ -11,11 +12,13 @@ from deepchem_tpu_torch.models.fcnet import (MultitaskClassifier,
                                              RobustMultitaskRegressor)
 from deepchem_tpu_torch.models.gnn_modular import GNNModular, ModularModel
 from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
+                                                    DTNNEmbedding, DTNNStep,
                                                     EdgeNetworkMPNN, GATLayer,
                                                     GCNLayer, GraphConv,
                                                     GraphGather, GRUCell,
                                                     LSTMCell, MaskedBatchNorm,
-                                                    SetGather, graph_pool_max)
+                                                    SetGather, WeaveGather,
+                                                    WeaveLayer, graph_pool_max)
 from deepchem_tpu_torch.models.graph_models import (AttentiveFPModel,
                                                     GATModel, GCNModel,
                                                     GraphConvModel,
@@ -44,10 +47,18 @@ from deepchem_tpu_torch.models.optimizers import (
     LambdaLRWithWarmup, LearningRateSchedule, LinearCosineDecay, Optimizer,
     PiecewiseConstantSchedule, PolynomialDecay, RMSProp, SparseAdam)
 from deepchem_tpu_torch.models.torch_model import TorchModel
+from deepchem_tpu_torch.models.weave_models import DTNNModel, WeaveModel
+
+# DeepChem's TensorGraph-era names
+WeaveTensorGraph = WeaveModel
+DTNNTensorGraph = DTNNModel
+DAGTensorGraph = DAGModel
 
 __all__ = ['AdaGrad', 'Adam', 'AdamW', 'AttentiveFPLayer',
            'AttentiveFPModel', 'BertEncoderMLM', 'BinaryCrossEntropy',
-           'CategoricalCrossEntropy', 'DMPNNModel', 'DeepGraphInfomaxLoss',
+           'CategoricalCrossEntropy', 'DAGModel', 'DAGTensorGraph',
+           'DAGTransformer', 'DMPNNModel', 'DTNNEmbedding', 'DTNNModel',
+           'DTNNStep', 'DTNNTensorGraph', 'DeepGraphInfomaxLoss',
            'EdgeNetworkMPNN', 'EdgePredictionLoss', 'ExponentialDecay',
            'GATLayer', 'GATModel', 'GCNLayer', 'GCNModel', 'GNNModular',
            'GRUCell', 'GlobalMutualInformationLoss', 'GradientDescent',
@@ -70,6 +81,7 @@ __all__ = ['AdaGrad', 'Adam', 'AdamW', 'AttentiveFPLayer',
            'ShannonEntropy', 'SigmoidCrossEntropy', 'SoftmaxCrossEntropy',
            'SparseAdam', 'SparseSoftmaxCrossEntropy', 'SquaredHingeLoss',
            'TorchModel', 'VAE_ELBO', 'VAE_KLDivergence',
-           'ValidationCallback', 'encoder_params_from_flax',
+           'ValidationCallback', 'WeaveGather', 'WeaveLayer', 'WeaveModel',
+           'WeaveTensorGraph', 'encoder_params_from_flax',
            'flash_or_xla_attention', 'graph_pool_max', 'mlm_loss',
            'params_from_flax']

@@ -2,7 +2,8 @@
 (the JAX package's ``jax_model._flatten_params``), into the port's
 modules: the PAGTN, GraphConv, GCN, GAT, AttentiveFP, MPNN, DMPNN,
 GNNModular, InfoGraph and PNA modules (their table and COO branches share
-one parameter tree), and the fingerprint models' (``_MLPTrunk_0/Dense_i``,
+one parameter tree), Weave's, DTNN's and DAG's, and the fingerprint
+models' (``_MLPTrunk_0/Dense_i``,
 ``output_head``, ``uncertainty_head``; the robust models' shared, bypass
 and head ``Dense_i``; the progressive columns' ``task{t}_dense{i}``,
 ``_alpha{i}``, ``_adapter{i}``, ``_lateral{i}``, ``_out``; IRV's ``W``,

@@ -1,10 +1,12 @@
 """Graph layers of GraphConvModel, MPNNModel, GCNModel, GATModel and
-AttentiveFPModel over the padded batch layout.
+AttentiveFPModel over the padded batch layout, and of WeaveModel and
+DTNNModel over dense per-molecule blocks.
 
 Counterparts of ``deepchem_tpu/models/graph_layers.py``'s
 ``MaskedBatchNorm``, ``GraphConv``, ``graph_pool_max``, ``GraphGather``,
-``GCNLayer``, ``GATLayer``, ``AttentiveFPLayer``, ``EdgeNetworkMPNN`` and
-``SetGather``, and of flax's ``Dense``, ``GRUCell`` and
+``GCNLayer``, ``GATLayer``, ``AttentiveFPLayer``, ``EdgeNetworkMPNN``,
+``SetGather``, ``WeaveLayer``, ``WeaveGather``, ``DTNNEmbedding`` and
+``DTNNStep`` (the last four on cuBLAS and elementwise ops), and of flax's ``Dense``, ``GRUCell`` and
 ``OptimizedLSTMCell`` as those layers use them.  On the table paths the
 aggregations are the kernels K1 (:func:`nei_sum`, :func:`nei_sum_edges`,
 :func:`take_src`'s backward, :func:`nei_gather`'s backward), K2
@@ -444,3 +446,139 @@ class SetGather(nn.Module):
             r = csr_segment_sum(h * a[:, None], row_ptr[:B + 1])
             q_star = torch.cat([q, r], dim=1)
         return q_star
+
+
+class WeaveLayer(nn.Module):
+    """Weave's atom and pair co-update on the dense grid: atoms ``[B, A,
+    F]``, pairs ``[B, A, A, P]``, ``pair_mask`` ``[B, A, A]``.
+
+    The atoms' update is ``relu(Dense([relu(Dense(a)) ; Σ_j relu(Dense(p_ij))
+    m_ij]))``; with ``update_pair`` the pairs' is ``relu(Dense([relu(Dense([a_i
+    ; a_j])) ; relu(Dense(p_ij))]))``, else the pairs pass through.  The
+    product of ``[a_i ; a_j]`` is taken as ``a W_i`` ``[B, A, 1, H]`` plus
+    ``a W_j`` ``[B, 1, A, H]``, the weight split over the two halves,
+    so no ``[B, A, A, 2F]`` tensor is made."""
+
+    def __init__(self, atom_features: int, pair_features: int,
+                 n_atom_out: int = 50, n_pair_out: int = 50,
+                 n_hidden: int = 50, update_pair: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.update_pair = update_pair
+        self.atom_hidden = dense(atom_features, n_hidden, generator)
+        self.pair_hidden = dense(pair_features, n_hidden, generator)
+        self.atom_out = dense(2 * n_hidden, n_atom_out, generator)
+        # flax creates the pair update's Dense_3-Dense_5 only when it runs
+        self.flax_scopes = {'Dense_0': 'atom_hidden', 'Dense_1': 'pair_hidden',
+                            'Dense_2': 'atom_out'}
+        if update_pair:
+            self.atom_pair = dense(2 * atom_features, n_hidden, generator)
+            self.pair_pair = dense(pair_features, n_hidden, generator)
+            self.pair_out = dense(2 * n_hidden, n_pair_out, generator)
+            self.flax_scopes.update({'Dense_3': 'atom_pair',
+                                     'Dense_4': 'pair_pair',
+                                     'Dense_5': 'pair_out'})
+
+    def forward(self, atoms: torch.Tensor, pairs: torch.Tensor,
+                pair_mask: torch.Tensor):
+        aa = F.relu(self.atom_hidden(atoms))
+        pa = F.relu(self.pair_hidden(pairs))
+        pa_sum = torch.sum(pa * pair_mask[..., None], dim=2)
+        a_out = F.relu(self.atom_out(torch.cat([aa, pa_sum], dim=-1)))
+        if not self.update_pair:
+            return a_out, pairs
+        w_i, w_j = self.atom_pair.weight.chunk(2, dim=1)
+        ap = F.relu(F.linear(atoms, w_i, self.atom_pair.bias)[:, :, None]
+                    + F.linear(atoms, w_j)[:, None])
+        pp = F.relu(self.pair_pair(pairs))
+        p_out = F.relu(self.pair_out(torch.cat([ap, pp], dim=-1)))
+        return a_out, p_out
+
+
+class WeaveGather(nn.Module):
+    """Weave's readout: atoms ``[B, A, F]`` summed over the atoms that
+    ``atom_mask`` ``[B, A]`` keeps.  With ``gaussian_expand`` each
+    feature first becomes its memberships in 11 Gaussians (fixed means
+    and deviations), normalised to sum to 1 (the divisor at least 1e-9),
+    so the sum is ``[B, 11 F]``, and ``tanh(Dense)`` takes it back to
+    ``[B, F]``."""
+
+    MEANS = (-1.645, -1.080, -0.739, -0.468, -0.228, 0.0, 0.228, 0.468,
+             0.739, 1.080, 1.645)
+    STDS = (0.283, 0.170, 0.134, 0.118, 0.114, 0.114, 0.114, 0.118,
+            0.134, 0.170, 0.283)
+    flax_scopes = {'Dense_0': 'dense'}
+
+    def __init__(self, features: int, gaussian_expand: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.gaussian_expand = gaussian_expand
+        self.register_buffer('means', torch.tensor(self.MEANS),
+                             persistent=False)
+        self.register_buffer('stds', torch.tensor(self.STDS),
+                             persistent=False)
+        self.dense = dense(len(self.MEANS) * features, features, generator) \
+            if gaussian_expand else None
+
+    def forward(self, atoms: torch.Tensor,
+                atom_mask: torch.Tensor) -> torch.Tensor:
+        x = atoms
+        if self.gaussian_expand:
+            d = (x[..., None] - self.means) / self.stds
+            membership = torch.exp(-0.5 * d * d)
+            membership = membership / torch.clamp_min(
+                membership.sum(-1, keepdim=True), 1e-9)
+            x = membership.reshape(x.shape[:-1] + (-1,))
+        out = torch.sum(x * atom_mask[..., None], dim=1)
+        if self.gaussian_expand:
+            out = torch.tanh(self.dense(out))
+        return out
+
+
+class DTNNEmbedding(nn.Module):
+    """An embedding of atomic numbers 0 to ``periodic_table_length - 1``,
+    initialised as flax's ``truncated_normal(1 / sqrt(n_embedding))``."""
+
+    flax_leaves = {'embeddings': 'embeddings'}
+
+    def __init__(self, n_embedding: int = 30,
+                 periodic_table_length: int = 83,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        std = 1.0 / math.sqrt(n_embedding)
+        self.embeddings = nn.Parameter(torch.empty(periodic_table_length,
+                                                   n_embedding))
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.embeddings, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+
+    def forward(self, atomic_numbers: torch.Tensor) -> torch.Tensor:
+        # index_select, not advanced indexing: its backward is an
+        # index_add_, not the sort-based kernel that took a third of
+        # DTNN's card time a step
+        rows = torch.index_select(self.embeddings, 0,
+                                  atomic_numbers.reshape(-1))
+        return rows.reshape(atomic_numbers.shape + (-1,))
+
+
+class DTNNStep(nn.Module):
+    """One DTNN interaction pass: ``emb + W_cf Σ_j tanh(W_fc(emb_j) *
+    W_df(d_ij)) m_j`` over atoms ``[B, A, E]``, distance features ``[B,
+    A, A, Dd]`` and the atom mask ``[B, A]``.  flax numbers the three
+    Dense scopes as they are built: ``W_cf``, ``W_df``, ``W_fc``."""
+
+    flax_scopes = {'Dense_0': 'W_cf', 'Dense_1': 'W_df', 'Dense_2': 'W_fc'}
+
+    def __init__(self, n_embedding: int = 30, n_distance: int = 100,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.W_cf = dense(n_embedding, n_embedding, generator, bias=False)
+        self.W_df = dense(n_distance, n_embedding, generator, bias=False)
+        self.W_fc = dense(n_embedding, n_embedding, generator)
+
+    def forward(self, atom_emb: torch.Tensor, dist_feats: torch.Tensor,
+                atom_mask: torch.Tensor) -> torch.Tensor:
+        a = self.W_fc(atom_emb)
+        d = self.W_df(dist_feats)
+        msg = torch.tanh(a[:, None] * d) * atom_mask[:, None, :, None]
+        return atom_emb + self.W_cf(torch.sum(msg, dim=2))

@@ -5,8 +5,8 @@ Counterparts of ``deepchem_tpu/trans/transformers.py``'s
 transformers that models use: ``MinMaxTransformer``,
 ``NormalizationTransformer``, ``ClippingTransformer``, ``LogTransformer``,
 ``BalancingTransformer``, ``DuplicateBalancingTransformer``,
-``CDFTransformer``, ``PowerTransformer``, ``FlatteningTransformer`` and
-``IRVTransformer``.
+``CDFTransformer``, ``PowerTransformer``, ``FlatteningTransformer``,
+``IRVTransformer`` and ``CoulombFitTransformer``.
 A transformer maps a dataset's arrays (``transform``) and undoes its map
 of the labels on a model's outputs (``untransform``), which
 ``TorchModel.predict`` and ``evaluate`` apply in reverse order.
@@ -396,3 +396,58 @@ class IRVTransformer(Transformer):
                 feats[i, base:base + K] = sim[i, picks]
                 feats[i, base + K:base + 2 * K] = self.y_ref[picks, t]
         return feats, y, w, ids
+
+
+class CoulombFitTransformer(Transformer):
+    """Coulomb matrices for a dense regressor: :meth:`realize` orders each
+    matrix's rows and columns by its row norms plus unit normal noise from
+    ``RandomState(random_seed)``, drawn on in turn (largest first), and
+    flattens it; :meth:`expand` binarizes every entry into ``tanh((x -
+    t) / step)`` for the thresholds ``t`` in ``arange(-1, 2, step)``
+    (step 1: three), the thresholds' blocks side by side; :meth:`normalize`
+    takes z-scores by the means and deviations of ``dataset``'s expanded
+    matrices (population; a deviation of 0 counts as 1).  ``X_transform``
+    is the three in turn; a 2-D ``X`` (already flat) skips
+    :meth:`realize`."""
+
+    def __init__(self, dataset: NumpyDataset, random_seed: int = 0):
+        super().__init__(transform_X=True, dataset=dataset)
+        self.rng = np.random.RandomState(random_seed)
+        X = np.asarray(dataset.X, dtype=float)
+        if X.ndim == 3:
+            X = X.reshape(len(X), -1)
+        self.step = 1.0
+        self.noise = 1.0
+        Xb = self._expand(X)
+        self.mean = Xb.mean(axis=0)
+        self.std = Xb.std(axis=0)
+        self.std = np.where(self.std != 0, self.std, 1.0)
+
+    def _expand(self, X: np.ndarray) -> np.ndarray:
+        return np.concatenate([np.tanh((X - t) / self.step)
+                               for t in np.arange(-1, 2, self.step)], axis=1)
+
+    def realize(self, X: np.ndarray) -> np.ndarray:
+        X = np.asarray(X, dtype=float)
+        if X.ndim != 3:
+            return X
+        n = X.shape[1]
+        out = []
+        for m in X:
+            row_norms = np.linalg.norm(m, axis=1)
+            e = self.rng.normal(size=n) * self.noise
+            p = np.argsort(-(row_norms + e))
+            out.append(m[p][:, p].reshape(-1))
+        return np.stack(out)
+
+    def normalize(self, X: np.ndarray) -> np.ndarray:
+        return (X - self.mean) / self.std
+
+    def expand(self, X: np.ndarray) -> np.ndarray:
+        return self._expand(np.asarray(X, dtype=float))
+
+    def X_transform(self, X: np.ndarray) -> np.ndarray:
+        return self.normalize(self._expand(self.realize(X)))
+
+    def transform_array(self, X, y, w, ids):
+        return self.X_transform(X), y, w, ids

@@ -4,7 +4,8 @@ one CUDA card.
 
     python3 scripts/profile_torch_pagtn.py
         [--model pagtn|graphconv|mpnn|gcn|gat|attentivefp|dmpnn|pna|
-                 gnn_regression|gnn_edge_pred|infograph_star]
+                 gnn_regression|gnn_edge_pred|infograph_star|weave|dtnn|
+                 dag]
         [--mode serve|train|fit|fit_on_device] [--coo] [--batch N]
         [--requests 20]
 
@@ -18,12 +19,17 @@ DMPNNModel at the JAX package's defaults (``chip_smoke.MPNN``, ``GCN``,
 serve, 100 to train by default), or the COO models of phase 16 (PNAModel,
 GNNModular as a regressor and on edge prediction, InfoGraphStarModel;
 ``chip_smoke.PNA``, ``GNN_REGRESSION``, ``GNN_EDGE_PRED``,
-``INFOGRAPH_STAR``), alike; with ``--coo`` GraphConv, MPNN, GCN, GAT,
+``INFOGRAPH_STAR``), alike, or phase 19's WeaveModel (``chip_smoke.WEAVE``,
+12 classification tasks; batch 16 to serve, 64 to train by default),
+DTNNModel (``chip_smoke.DTNN``, on ``chip_smoke.coulomb_data()``'s
+Coulomb matrices) or DAGModel (``chip_smoke.DAG``, on ConvMolFeaturizer
+and DAGTransformer graphs); with ``--coo`` GraphConv, MPNN, GCN, GAT,
 AttentiveFP or DMPNN on its COO branch (``chip_smoke.coo_branch``).  It
 runs ``--requests`` batches of
 ``--batch`` molecules drawn with replacement from the script's 48 (MPNN
-and DMPNN: and ``chip_smoke.STEREO_SMILES``), already featurized, with
-seeded 0/1 labels (the regression models: normal):
+and DMPNN: and ``chip_smoke.STEREO_SMILES``; DTNN: its 300 matrices),
+already featurized, with seeded 0/1 labels (the regression models:
+normal):
 
 - ``serve``: answers each batch as a request.  Host clock, per request
   (means, and the median and p90 of the totals):
@@ -91,7 +97,8 @@ def main() -> int:
     ap.add_argument('--model', choices=('pagtn', 'graphconv', 'mpnn', 'gcn',
                                         'gat', 'attentivefp', 'dmpnn',
                                         'pna', 'gnn_regression',
-                                        'gnn_edge_pred', 'infograph_star'),
+                                        'gnn_edge_pred', 'infograph_star',
+                                        'weave', 'dtnn', 'dag'),
                     default='pagtn')
     ap.add_argument('--mode', choices=('serve', 'train', 'fit',
                                        'fit_on_device'),
@@ -123,23 +130,26 @@ def main() -> int:
 def profile(args) -> int:
     import numpy as np
     import torch
-    from chip_smoke import (ATTENTIVEFP, DMPNN, GAT, GCN, GNN_EDGE_PRED,
-                            GNN_REGRESSION, GRAPHCONV, INFOGRAPH_STAR, MPNN,
-                            PNA, SMILES, STEREO_SMILES, _counted,
-                            batch_draw, launch_counts)
+    from chip_smoke import (ATTENTIVEFP, DAG, DMPNN, DTNN, GAT, GCN,
+                            GNN_EDGE_PRED, GNN_REGRESSION, GRAPHCONV,
+                            INFOGRAPH_STAR, MPNN, PNA, SMILES, STEREO_SMILES,
+                            WEAVE, _counted, batch_draw, coulomb_data,
+                            launch_counts)
     from deepchem_tpu_torch import (AttentiveFPModel, ConvMolFeaturizer,
-                                    DMPNNFeaturizer, DMPNNModel, GATModel,
-                                    GCNModel, GNNModular, GraphConvModel,
-                                    InfoGraphStarModel,
+                                    DAGModel, DAGTransformer,
+                                    DMPNNFeaturizer, DMPNNModel, DTNNModel,
+                                    GATModel, GCNModel, GNNModular,
+                                    GraphConvModel, InfoGraphStarModel,
                                     MolGraphConvFeaturizer, MPNNModel,
                                     NumpyDataset, PagtnModel,
-                                    PagtnMolGraphFeaturizer, PNAModel)
+                                    PagtnMolGraphFeaturizer, PNAModel,
+                                    WeaveFeaturizer, WeaveModel)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.batch is None:
-        args.batch = {'pagtn': 16, 'graphconv': 256}.get(args.model, 100) \
-            if args.mode != 'serve' else 16
+        args.batch = {'pagtn': 16, 'graphconv': 256, 'weave': 64}.get(
+            args.model, 100) if args.mode != 'serve' else 16
     labels = np.random.RandomState(0).randint(0, 2, (len(SMILES), 12))
     if args.model == 'pagtn':
         X = PagtnMolGraphFeaturizer().featurize(SMILES)
@@ -156,6 +166,18 @@ def profile(args) -> int:
         cls, config = ((DMPNNModel, DMPNN) if args.model == 'dmpnn'
                        else (MPNNModel, MPNN))
         model = cls(**dict(config, batch_size=args.batch), seed=0)
+        labels = np.random.RandomState(0).randn(len(X), 1)
+    elif args.model == 'weave':
+        X = WeaveFeaturizer().featurize(SMILES)
+        model = WeaveModel(**dict(WEAVE, batch_size=args.batch), seed=0)
+    elif args.model == 'dtnn':
+        X = coulomb_data()[0]
+        model = DTNNModel(**dict(DTNN, batch_size=args.batch), seed=0)
+        labels = np.random.RandomState(0).randn(len(X), 1)
+    elif args.model == 'dag':
+        X = DAGTransformer(max_atoms=DAG['max_atoms']).transform_array(
+            ConvMolFeaturizer().featurize(SMILES), None, None, None)[0]
+        model = DAGModel(**dict(DAG, batch_size=args.batch), seed=0)
         labels = np.random.RandomState(0).randn(len(X), 1)
     else:
         X = MolGraphConvFeaturizer().featurize(SMILES)
@@ -174,9 +196,13 @@ def profile(args) -> int:
               if args.mode == 'serve' else
               ('pack', 'to_device', 'forward', 'backward', 'optimizer'))
 
+    # a batch's arrays as the model packs them for a request
+    pack = getattr(model, '_graph_inputs', None) \
+        or getattr(model, '_weave_inputs', None) or (lambda X_b: [X_b])
+
     def request(idx, clock=None):
         t = [time.perf_counter()]
-        arrays = model._graph_inputs(X[idx])
+        arrays = pack(X[idx])
         t.append(time.perf_counter())
         inputs, _, _ = model._prepare_batch((arrays, [], []))
         t.append(time.perf_counter())

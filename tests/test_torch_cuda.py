@@ -25,7 +25,10 @@ against the plain versions at ghost and non-finite rows, one step of
 GNNModular (each task), InfoGraph, InfoGraph* and PNA against the CPU,
 ``segment_max`` of a ``[NaN, 1]`` segment, and one step of GraphConv,
 GCN, GAT, AttentiveFP, MPNN and DMPNN switched to their COO branches
-against the CPU, with their launches of P1, P2, P3 and K3.
+against the CPU, with their launches of P1, P2, P3 and K3; one step of
+DAGModel against the CPU with its launches of P2 (12 level passes, 12 in
+the backward) and P3, a DAG level pass (P2 both ways) against the plain
+versions, and one step of WeaveModel and DTNNModel against the CPU.
 They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
@@ -1459,6 +1462,128 @@ def test_coo_branches_training_step_matches_the_cpu(cuda, name):
         'graphconv': [0, 2, 3, 1, 3, 3], 'gcn': [0, 2, 1, 2, 0, 0],
         'gat': [2, 2, 6, 4, 0, 0], 'attentivefp': [2, 2, 6, 3, 0, 0],
         'mpnn': [2, 2, 2, 4, 0, 0], 'dmpnn': [0, 3, 2, 1, 0, 0]}[name]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+
+
+DAG_SMILES = ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1',
+              'C', 'C[C@H](N)C(=O)O', 'CCCCCCCCCCCCCCN']
+
+
+def _dag_graphs():
+    from deepchem_tpu_torch import DAGTransformer
+    X = ConvMolFeaturizer().featurize(DAG_SMILES)
+    return DAGTransformer(max_atoms=50).transform_array(X, None, None,
+                                                        None)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['regression', 'classification'])
+def test_dag_training_step_matches_the_cpu(cuda, mode):
+    """One step of a small DAGModel on the card and on the CPU from the
+    same seed: losses within 1e-5 relative and every gradient within 1e-5
+    of max(1, |g|); the card launches P2 once a level pass (12) and 12
+    times in the backward (each pass's source gather), P3 once."""
+    from deepchem_tpu_torch import DAGModel
+    X = _dag_graphs()
+    y = np.random.RandomState(0).randn(len(X), 2).astype(np.float32)
+    if mode == 'classification':
+        y = (y > 0).astype(np.float32)
+    models = [DAGModel(n_tasks=2, mode=mode, n_graph_feat=16,
+                       batch_size=len(X), seed=1, device=d)
+              for d in (cuda, 'cpu')]
+
+    def counts():
+        return (fused_gather_segment_sum.launches,
+                fused_gather_segment_sum.backward_launches,
+                csr_segment_sum.launches)
+    before = counts()
+    losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [12, 12, 1]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('F', [30, 7])
+def test_dag_level_pass_matches_plain_version(cuda, F):
+    """A level pass's sum of selected messages, ``dst_segment_sum`` of
+    ``gather_src(h) * sel`` over a packed DAG batch (ghost edges
+    included), and its gradient: the card's P2 both ways against the CPU's
+    plain versions within 1e-5 of max(1, |ref|); F 30 takes float4 rows,
+    F 7 one float a lane."""
+    from deepchem_tpu_torch import DAGModel
+    from deepchem_tpu_torch.ops import N_CSR, gather_src
+    model = DAGModel(n_tasks=1, batch_size=8, device='cpu')
+    arrays = model._graph_inputs(_dag_graphs())
+    rng = np.random.RandomState(F)
+    _, esrc, edst, _, _, emask = arrays[:6]
+    depth = arrays[6 + N_CSR]
+    sel = ((depth[edst] == 1) & (depth[esrc] == 2)).astype(np.float32) \
+        * emask
+    assert sel.sum() > 0
+    h = rng.randn(len(depth), F).astype(np.float32)
+    g = rng.randn(len(depth), F).astype(np.float32)
+    results = []
+    for dev in (cuda, torch.device('cpu')):
+        t = [torch.from_numpy(np.asarray(a)).to(dev) for a in arrays]
+        csr = CooCsr(*t[6:6 + N_CSR])
+        x = torch.from_numpy(h).to(dev).requires_grad_()
+        msgs = gather_src(x, t[1], csr) \
+            * torch.from_numpy(sel).to(dev)[:, None]
+        out = dst_segment_sum(msgs, t[2], csr)
+        out.backward(torch.from_numpy(g).to(dev))
+        results.append((out.detach().cpu(), x.grad.cpu()))
+    for a, b in zip(*results):
+        np.testing.assert_allclose(
+            a.numpy(), b.numpy(),
+            atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['weave', 'dtnn'])
+def test_dense_grid_models_training_step_matches_the_cpu(cuda, name):
+    """One step of a small WeaveModel or DTNNModel on the card and on the
+    CPU from the same seed: losses within 1e-5 relative, every gradient
+    within 1e-5 of max(1, |g|); neither launches a kernel of the
+    port's."""
+    from deepchem_tpu_torch import (CoulombMatrix, DTNNModel,
+                                    WeaveFeaturizer, WeaveModel)
+    from deepchem_tpu_torch.chem import mol_from_smiles
+    from deepchem_tpu_torch.utils.conformers import ConformerGenerator
+    if name == 'weave':
+        X = WeaveFeaturizer().featurize(DAG_SMILES)
+        y = np.random.RandomState(0).randint(0, 2, (len(X), 2)).astype(
+            np.float32)
+
+        def make(d):
+            return WeaveModel(n_tasks=2, n_hidden=16, n_graph_feat=24,
+                              batch_size=len(X), seed=1, device=d)
+    else:
+        gen = ConformerGenerator(seed=0)
+        X = CoulombMatrix(max_atoms=23).featurize(
+            [gen.generate_conformers(mol_from_smiles(s)) for s in DAG_SMILES])
+        y = np.random.RandomState(0).randn(len(X), 1).astype(np.float32)
+
+        def make(d):
+            return DTNNModel(n_tasks=1, batch_size=len(X), seed=1, device=d)
+    models = [make(d) for d in (cuda, 'cpu')]
+    before = (fused_gather_segment_sum.launches, csr_segment_sum.launches)
+    losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+    torch.cuda.synchronize()
+    assert (fused_gather_segment_sum.launches,
+            csr_segment_sum.launches) == before
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     cpu = dict(models[1].module.named_parameters())
     for key, p in models[0].module.named_parameters():
