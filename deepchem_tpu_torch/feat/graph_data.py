@@ -23,13 +23,16 @@ class GraphData:
     node_features: np.ndarray, shape (num_nodes, num_node_features)
     edge_index: np.ndarray of int, shape (2, num_edges)
     edge_features: optional np.ndarray, shape (num_edges, num_edge_features)
+    node_pos_features: optional np.ndarray, shape (num_nodes, 3): the atoms'
+    positions
 
     Any other keyword (``global_features``, say) is kept as an attribute of
     that name and listed in ``kwargs``.
     """
 
     def __init__(self, node_features: np.ndarray, edge_index: np.ndarray,
-                 edge_features: Optional[np.ndarray] = None, **kwargs):
+                 edge_features: Optional[np.ndarray] = None,
+                 node_pos_features: Optional[np.ndarray] = None, **kwargs):
         node_features = np.asarray(node_features)
         edge_index = np.asarray(edge_index, dtype=np.int64)
         if edge_index.ndim != 2 or edge_index.shape[0] != 2:
@@ -43,6 +46,7 @@ class GraphData:
         self.node_features = node_features
         self.edge_index = edge_index
         self.edge_features = edge_features
+        self.node_pos_features = node_pos_features
         self.kwargs = kwargs
         for k, v in kwargs.items():
             setattr(self, k, v)
@@ -87,11 +91,16 @@ class BatchGraphData(GraphData):
                 [g.edge_features for g in graph_list], axis=0)
         else:
             edge_features = None
+        if all(g.node_pos_features is not None for g in graph_list):
+            node_pos = np.concatenate(
+                [g.node_pos_features for g in graph_list], axis=0)
+        else:
+            node_pos = None
         self.graph_index = np.repeat(
             np.arange(len(graph_list)),
             [g.num_nodes for g in graph_list]).astype(np.int32)
         self.num_graphs = len(graph_list)
-        super().__init__(node_features, edge_index, edge_features)
+        super().__init__(node_features, edge_index, edge_features, node_pos)
 
     def pad(self, node_cap: int, edge_cap: int,
             num_graphs: Optional[int] = None) -> Dict[str, np.ndarray]:
@@ -102,7 +111,8 @@ class BatchGraphData(GraphData):
 def pad_graph_batch(batch: BatchGraphData, node_cap: int, edge_cap: int,
                     num_graphs: int) -> Dict[str, np.ndarray]:
     """Fixed-shape arrays + masks for one batch (ghost conventions in the
-    module docstring)."""
+    module docstring); positions, where every graph has them, padded with
+    zero rows."""
     n, e = batch.num_nodes, batch.num_edges
     if n > node_cap or e > edge_cap:
         raise ValueError(
@@ -126,6 +136,11 @@ def pad_graph_batch(batch: BatchGraphData, node_cap: int, edge_cap: int,
         ef = np.zeros((edge_cap, batch.num_edge_features), dtype=np.float32)
         ef[:e] = batch.edge_features
         out['edge_features'] = ef
+    if batch.node_pos_features is not None:
+        pos = np.zeros((node_cap, batch.node_pos_features.shape[1]),
+                       dtype=np.float32)
+        pos[:n] = batch.node_pos_features
+        out['node_pos_features'] = pos
     return out
 
 

@@ -10,6 +10,8 @@ from deepchem_tpu_torch.models.fcnet import (MultitaskClassifier,
                                              MultitaskRegressor,
                                              RobustMultitaskClassifier,
                                              RobustMultitaskRegressor)
+from deepchem_tpu_torch.models.gnn3d import (InfoMax3DModular, Net3DLayer,
+                                             fourier_encode_dist, ntxent_loss)
 from deepchem_tpu_torch.models.gnn_modular import GNNModular, ModularModel
 from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
                                                     DTNNEmbedding, DTNNStep,
@@ -37,6 +39,11 @@ from deepchem_tpu_torch.models.losses import (
     SquaredHingeLoss, VAE_ELBO, VAE_KLDivergence)
 from deepchem_tpu_torch.models.irv import (IRVClassifier,
                                            MultitaskIRVClassifier)
+from deepchem_tpu_torch.models.material_models import (CGCNNLayer,
+                                                       CGCNNModel,
+                                                       ElemNetModel,
+                                                       LCNNModel,
+                                                       MEGNetModel)
 from deepchem_tpu_torch.models.multitask import SingletaskToMultitask
 from deepchem_tpu_torch.models.pna import PNALayer, PNAModel
 from deepchem_tpu_torch.models.progressive import (
@@ -56,22 +63,25 @@ DAGTensorGraph = DAGModel
 
 __all__ = ['AdaGrad', 'Adam', 'AdamW', 'AttentiveFPLayer',
            'AttentiveFPModel', 'BertEncoderMLM', 'BinaryCrossEntropy',
-           'CategoricalCrossEntropy', 'DAGModel', 'DAGTensorGraph',
+           'CGCNNLayer', 'CGCNNModel', 'CategoricalCrossEntropy',
+           'DAGModel', 'DAGTensorGraph',
            'DAGTransformer', 'DMPNNModel', 'DTNNEmbedding', 'DTNNModel',
            'DTNNStep', 'DTNNTensorGraph', 'DeepGraphInfomaxLoss',
-           'EdgeNetworkMPNN', 'EdgePredictionLoss', 'ExponentialDecay',
+           'EdgeNetworkMPNN', 'EdgePredictionLoss', 'ElemNetModel',
+           'ExponentialDecay',
            'GATLayer', 'GATModel', 'GCNLayer', 'GCNModel', 'GNNModular',
            'GRUCell', 'GlobalMutualInformationLoss', 'GradientDescent',
            'GraphConv', 'GraphConvModel', 'GraphEdgeMaskingLoss',
            'GraphGather', 'GraphModel', 'GraphNodeMaskingLoss', 'HingeLoss',
-           'HuberLoss', 'IRVClassifier', 'InfoGraphModel',
+           'HuberLoss', 'IRVClassifier', 'InfoGraphModel', 'InfoMax3DModular',
            'InfoGraphStarModel', 'KFAC',
-           'L1Loss', 'L2Loss', 'LSTMCell', 'Lamb', 'LambdaLRWithWarmup',
+           'L1Loss', 'L2Loss', 'LCNNModel', 'LSTMCell', 'Lamb', 'LambdaLRWithWarmup',
            'LearningRateSchedule', 'LinearCosineDecay',
-           'LocalMutualInformationLoss', 'Loss', 'MPNNModel',
+           'LocalMutualInformationLoss', 'Loss', 'MEGNetModel', 'MPNNModel',
            'MaskedBatchNorm', 'Model', 'ModularModel',
            'MultitaskClassifier', 'MultitaskFitTransformRegressor',
-           'MultitaskIRVClassifier', 'MultitaskRegressor', 'Optimizer',
+           'MultitaskIRVClassifier', 'MultitaskRegressor', 'Net3DLayer',
+           'Optimizer',
            'PNALayer', 'PNAModel',
            'PagtnLayer', 'PagtnModel', 'PiecewiseConstantSchedule',
            'PoissonLoss', 'PolynomialDecay', 'ProgressiveMultitaskClassifier',
@@ -83,5 +93,5 @@ __all__ = ['AdaGrad', 'Adam', 'AdamW', 'AttentiveFPLayer',
            'TorchModel', 'VAE_ELBO', 'VAE_KLDivergence',
            'ValidationCallback', 'WeaveGather', 'WeaveLayer', 'WeaveModel',
            'WeaveTensorGraph', 'encoder_params_from_flax',
-           'flash_or_xla_attention', 'graph_pool_max', 'mlm_loss',
-           'params_from_flax']
+           'flash_or_xla_attention', 'fourier_encode_dist', 'graph_pool_max',
+           'mlm_loss', 'ntxent_loss', 'params_from_flax']

@@ -2,7 +2,9 @@
 (the JAX package's ``jax_model._flatten_params``), into the port's
 modules: the PAGTN, GraphConv, GCN, GAT, AttentiveFP, MPNN, DMPNN,
 GNNModular, InfoGraph and PNA modules (their table and COO branches share
-one parameter tree), Weave's, DTNN's and DAG's, and the fingerprint
+one parameter tree), Weave's, DTNN's and DAG's, the materials models'
+(CGCNN and LCNN, MEGNet, ElemNet), InfoMax3D's (``encoder2d`` and
+``encoder3d`` with their layers' scope paths), and the fingerprint
 models' (``_MLPTrunk_0/Dense_i``,
 ``output_head``, ``uncertainty_head``; the robust models' shared, bypass
 and head ``Dense_i``; the progressive columns' ``task{t}_dense{i}``,
@@ -70,6 +72,16 @@ _CELL_LEAVES = {
     'OptimizedLSTMCell': {'weight_ih': ('ii', 'if', 'ig', 'io'),
                           'weight_hh': ('hi', 'hf', 'hg', 'ho'),
                           'bias_hh': ('hi', 'hf', 'hg', 'ho')}}
+
+
+def layer_scopes(prefix: str, attr: str, n: int,
+                 scopes: Dict[str, str]) -> Dict[str, str]:
+    """flax scope paths -> attribute paths of ``n`` numbered layers
+    ``<prefix>_<i>`` kept in the module list ``attr``, with each layer's
+    own ``scopes`` under it: entries of a module's ``flax_scopes``."""
+    return {**{f'{prefix}_{i}': f'{attr}.{i}' for i in range(n)},
+            **{f'{prefix}_{i}/{k}': v for i in range(n)
+               for k, v in scopes.items()}}
 
 
 def _cell_state(prefix: str, kind: str, leaves: Dict, scopes: Dict[str, str]

@@ -54,8 +54,9 @@ class GraphModel(TorchModel):
     degrees (``uses_neighbor_table``), then each slot's reverse slot ``[N,
     max_neighbors]`` int8 (``uses_rev_slot``); each node's
     incoming-edge-id table and degrees, then with ``uses_edge_table =
-    'both'`` its outgoing ones (``uses_edge_table``); and the edge features
-    (``uses_edge_features``).  ``sorts_edges_by_dst`` sorts the edges by
+    'both'`` its outgoing ones (``uses_edge_table``); the edge features
+    (``uses_edge_features``); and the atoms' positions, zero on pad rows
+    (``uses_positions``).  ``sorts_edges_by_dst`` sorts the edges by
     destination, as the CSR segment softmax needs; every other COO op is
     edge-order invariant.
     """
@@ -80,6 +81,8 @@ class GraphModel(TorchModel):
     #: the table switches off they get the CSR in the tables' place
     has_coo_branch = False
     max_neighbors = 10
+    #: models that read the atoms' 3D positions get them ``[N, 3]`` last
+    uses_positions = False
     #: when set, every batch pads to these (node_cap, edge_cap): one
     #: bucket for a whole epoch (:meth:`_collect_uniform_batches`)
     _fixed_caps: Optional[Tuple[int, int]] = None
@@ -151,6 +154,11 @@ class GraphModel(TorchModel):
                 raise ValueError('this model needs a featurizer that emits '
                                  'edge features')
             inputs.append(d['edge_features'])
+        if self.uses_positions:
+            if 'node_pos_features' not in d:
+                raise ValueError('this model needs a featurizer that emits '
+                                 '3D positions (RDKitConformerFeaturizer)')
+            inputs.append(d['node_pos_features'])
         return inputs
 
     def _graph_inputs(self, X_b: np.ndarray) -> List[np.ndarray]:

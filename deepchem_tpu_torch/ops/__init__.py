@@ -5,7 +5,7 @@ from deepchem_tpu_torch.ops.csr_segment import (
 from deepchem_tpu_torch.ops.coo import (N_CSR, CooCsr, coo_csr, coo_degrees,
                                         dst_segment_max_sumgrad,
                                         dst_segment_softmax, dst_segment_sum,
-                                        gather_dst, gather_neighbors_max,
+                                        gather_dst, graph_edge_row_ptr, gather_neighbors_max,
                                         gather_neighbors_sum, gather_src,
                                         permute_rows)
 from deepchem_tpu_torch.ops.flash_attention import (
@@ -26,8 +26,9 @@ from deepchem_tpu_torch.ops.segment import (NEG, graph_max_pool, graph_pool,
 
 __all__ = ['CooCsr', 'NEG', 'N_CSR', 'build_neighbor_table',
            'build_rev_slot', 'coo_csr', 'coo_degrees',
-           'dst_segment_max_sumgrad', 'dst_segment_softmax',
-           'dst_segment_sum', 'gather_dst', 'gather_neighbors_max',
+           'dst_segment_max_sumgrad',
+           'dst_segment_softmax', 'dst_segment_sum', 'gather_dst',
+           'graph_edge_row_ptr', 'gather_neighbors_max',
            'gather_neighbors_sum', 'gather_src', 'permute_rows',
            'csr_neighbor_sum_reference',
            'csr_row_ptr', 'csr_segment_softmax',

@@ -230,6 +230,20 @@ def dst_segment_sum(data: torch.Tensor, edge_dst: torch.Tensor,
     return _DstSegmentSum.apply(data, edge_dst, c.perm_dst, c.row_ptr_dst)
 
 
+def graph_edge_row_ptr(csr: CooCsr,
+                       graph_row_ptr: torch.Tensor) -> torch.Tensor:
+    """The row pointer by graph over the real edges in destination order:
+    graph ``g``'s edges (those into its nodes) are positions
+    ``rp[g]:rp[g+1]`` of ``csr.perm_dst``'s order, ``graph_row_ptr`` being
+    the graphs' row pointer over the nodes (:func:`csr_row_ptr` of the
+    graph index), so ``rp[1:] - rp[:-1]`` counts each graph's edges with
+    no scatter.  Edges in destination order are grouped by graph because
+    the nodes are; the ghost edges (the last node's range) are left
+    out."""
+    rp, _ = _real_ranges(CooCsr(*csr).row_ptr_dst, True)
+    return rp.index_select(0, graph_row_ptr.long())
+
+
 class _PermuteRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, perm, inv):

@@ -28,7 +28,10 @@ GCN, GAT, AttentiveFP, MPNN and DMPNN switched to their COO branches
 against the CPU, with their launches of P1, P2, P3 and K3; one step of
 DAGModel against the CPU with its launches of P2 (12 level passes, 12 in
 the backward) and P3, a DAG level pass (P2 both ways) against the plain
-versions, and one step of WeaveModel and DTNNModel against the CPU.
+versions, one step of WeaveModel and DTNNModel against the CPU, one step
+of CGCNNModel and MEGNetModel against the CPU with their launches of P2
+and P3, and CGCNN's edge sum (P2) and MEGNet's edges-into-graphs sum (P3
+over the node sums) against the plain versions.
 They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
@@ -1591,3 +1594,106 @@ def test_dense_grid_models_training_step_matches_the_cpu(cuda, name):
         np.testing.assert_allclose(
             p.grad.cpu().numpy(), ref, err_msg=key,
             atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+
+
+def _crystals():
+    """Rock-salt NaCl (8 atoms), CsCl, bcc Fe and SrTiO3, and two random
+    cells, as structure dicts."""
+    fcc = [(0, 0, 0), (0, .5, .5), (.5, 0, .5), (.5, .5, 0)]
+    cells = [(5.64, ['Na'] * 4 + ['Cl'] * 4, fcc + [
+                  (.5, 0, 0), (0, .5, 0), (0, 0, .5), (.5, .5, .5)]),
+             (4.12, ['Cs', 'Cl'], [(0, 0, 0), (.5, .5, .5)]),
+             (2.87, ['Fe', 'Fe'], [(0, 0, 0), (.5, .5, .5)]),
+             (3.905, ['Sr', 'Ti', 'O', 'O', 'O'], [
+                 (0, 0, 0), (.5, .5, .5), (.5, .5, 0), (.5, 0, .5),
+                 (0, .5, .5)])]
+    out = [{'lattice': np.eye(3) * a, 'species': sp, 'frac_coords': fr}
+           for a, sp, fr in cells]
+    rng = np.random.RandomState(0)
+    out += [{'lattice': np.eye(3) * 4.5, 'frac_coords': rng.rand(n, 3),
+             'species': ['Mg', 'O', 'Na'][:n]} for n in (2, 3)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['cgcnn', 'megnet'])
+def test_materials_training_step_matches_the_cpu(cuda, name):
+    """One step of a small CGCNNModel or MEGNetModel on CGCNNFeaturizer
+    graphs, on the card and on the CPU from the same seed: losses within
+    1e-5 relative and every gradient within 1e-5 of max(1, |g|); CGCNN
+    launches P2 once a convolution and twice in its backward, P3 twice;
+    MEGNet P2 into the nodes once a block and twice in its backward, P3
+    three times a block (the graph mean of h, the edges into the graphs)
+    and twice for the readout."""
+    from deepchem_tpu_torch import CGCNNFeaturizer, CGCNNModel, MEGNetModel
+    X = CGCNNFeaturizer().featurize(_crystals())
+    y = np.random.RandomState(0).randn(len(X), 1).astype(np.float32)
+    if name == 'cgcnn':
+        models = [CGCNNModel(atom_fea_len=16, n_conv=2, h_fea_len=24,
+                             batch_size=len(X), seed=1, device=d)
+                  for d in (cuda, 'cpu')]
+        want = [2, 4, 2]
+    else:
+        models = [MEGNetModel(dim=16, n_blocks=2, batch_size=len(X), seed=1,
+                              device=d) for d in (cuda, 'cpu')]
+        want = [2, 4, 8]
+
+    def counts():
+        return (fused_gather_segment_sum.launches,
+                fused_gather_segment_sum.backward_launches,
+                csr_segment_sum.launches)
+    before = counts()
+    losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == want
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('F', [64, 7])
+def test_materials_edge_sums_match_plain_version(cuda, F):
+    """CGCNN's sum of edge rows into their destinations
+    (``dst_segment_sum``, P2 over the CSR by destination) and MEGNet's sum
+    of edge rows into their graphs (P3 over those node sums by graph) over
+    a packed crystal batch, ghost edges included, and their gradients:
+    the card against the CPU's plain versions within 1e-5 of max(1,
+    |ref|), one P2 and one P3 launch; F 64 takes float4 rows, F 7 one
+    float a lane."""
+    from deepchem_tpu_torch import CGCNNFeaturizer, CGCNNModel
+    from deepchem_tpu_torch.ops import N_CSR, csr_row_ptr
+    X = CGCNNFeaturizer().featurize(_crystals())
+    arrays = CGCNNModel(batch_size=8, device='cpu')._graph_inputs(X)
+    rng = np.random.RandomState(F)
+    N, E = len(arrays[0]), len(arrays[1])
+    e = rng.randn(E, F).astype(np.float32) * arrays[5][:, None]
+    g_nodes = rng.randn(N, F).astype(np.float32)
+    g_graphs = rng.randn(8 + 1, F).astype(np.float32)
+    results = []
+    for dev in (cuda, torch.device('cpu')):
+        t = [torch.from_numpy(np.asarray(a)).to(dev) for a in arrays]
+        csr = CooCsr(*t[6:6 + N_CSR])
+        x = torch.from_numpy(e).to(dev).requires_grad_()
+        before = (fused_gather_segment_sum.launches,
+                  csr_segment_sum.launches)
+        nodes = dst_segment_sum(x, t[2].long(), csr)
+        graphs = csr_segment_sum(nodes, csr_row_ptr(t[3], 8 + 1))
+        if dev.type == 'cuda':
+            assert (fused_gather_segment_sum.launches,
+                    csr_segment_sum.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+        torch.autograd.backward([nodes, graphs],
+                                [torch.from_numpy(g_nodes).to(dev),
+                                 torch.from_numpy(g_graphs).to(dev)])
+        results.append((nodes.detach().cpu(), graphs.detach().cpu(),
+                        x.grad.cpu()))
+    assert results[0][1].shape == (9, F)
+    for a, b in zip(*results):
+        np.testing.assert_allclose(
+            a.numpy(), b.numpy(),
+            atol=1e-5 * max(1.0, float(b.abs().max())))
