@@ -45,11 +45,18 @@ Phases:
                 plain version gives NaN; K4 forward and backward at C 1,
                 8, 64, 200 and 75 and off alignment, and K1 at F 30 and
                 300, at NaN, infinities and signed zeros, held the same
-                way.  P2 in bfloat16 at the same bench shapes, at F 37
-                and off 16-byte alignment, bit for bit against its plain
-                version (the float64 sums of the same inputs recorded),
-                with index_select and index_add_ in bfloat16 as the
-                library call, and its own path: one call per bench shape;
+                way.  P2 in bfloat16 at the same bench shapes, at F 37,
+                off 16-byte alignment, on the two long segments (a hub
+                of 2000 edges at F 64, 4096 edge rows at F 300) and at
+                NaN, infinities, subnormals, signed zeros and sums that
+                overflow, bit for bit against its plain version (NaN
+                bits too) and the same on a repeat (the float64 sums of
+                the same inputs recorded), with index_select and
+                index_add_ in bfloat16 as the library call, its bounds
+                (bytes, the launch floor at its grid and its first
+                design's, and the order chain: the longest segment times
+                one dependent add, timed on the card), and its own path:
+                one call per bench shape;
                 P2 (float32) at the inputs phase 16's first batch of 100
                 hands it (GNNModular's GCN layers at F 30 and 64 and their
                 backward's transpose, PNA's [E, 64] edge sums) and K3 at
@@ -277,8 +284,9 @@ Phases:
                 InfoMax3DModular (hidden 64, 3 layers, batch 32) on
                 RDKitConformerFeaturizer of the 48 SMILES shuffled to 320:
                 pretraining (its 2D and 3D embeddings answered, loss_func
-                scored), and a regressor loaded from a pretrained model by
-                load_from_pretrained.  Each as phase 13 through
+                scored), and a regressor loaded by load_from_pretrained
+                from a model pretrained on the CPU (the same weights on
+                every run).  Each as phase 13 through
                 model_phase, CGCNN's and LCNN's answers within 1e-4 of
                 max(1, |ref|) and scores within 1e-5 of max(1, |score|)
                 (CGCNN answers up to 74 at its initial weights; float32
@@ -524,12 +532,12 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f'check failed: {what}')
 
 
-def time_ms(fn, iters: int = 200) -> float:
+def time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     """Mean ms per call of ``fn``, from CUDA events around ``iters``
-    back-to-back calls after a warm-up.  Where a call's host work outlasts
-    its kernels, this is the host's cost per call."""
+    back-to-back calls after ``warmup`` calls.  Where a call's host work
+    outlasts its kernels, this is the host's cost per call."""
     import torch
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -851,11 +859,119 @@ def library_neighbor_sum_bf16(h, src, dst, num_nodes):
         0, dst, h.index_select(0, src))
 
 
-def gather_bf16_case(name, h, src, row_ptr):
+# the first design of P2's bfloat16 kernel, for its launch floor: 8 warps
+# a block, a group of the least power of two lanes >= a row's units (8
+# values where F % 8 == 0 and h and out are 16-byte aligned, else one) a
+# node, at most 32
+P2_BF16_PARENT_WARPS = 8
+
+
+def p2_bf16_parent_blocks(n_nodes: int, feat: int, aligned: bool = True
+                          ) -> int:
+    """Blocks of 256 threads that the first design of P2's bfloat16 kernel
+    took for N nodes of F features."""
+    units = feat // 8 if feat % 8 == 0 and aligned else feat
+    lanes = 1
+    while lanes < min(units, 32):
+        lanes *= 2
+    nodes = P2_BF16_PARENT_WARPS * (32 // lanes)
+    return (n_nodes + nodes - 1) // nodes
+
+
+def p2_bf16_floor_us(h, row_ptr) -> dict:
+    """The launch floor of P2's bfloat16 kernel at these inputs: device µs
+    of an empty kernel (``p2_empty_kernel``) at the grid and block that
+    ``fused_gather_segment_sum_bf16`` takes for them, and at the grid and
+    block of the kernel's first design; the floor is the smaller, so that
+    a larger grid cannot lower the bar."""
+    import torch
+    from deepchem_tpu_torch.kernels import build
+    N, F = row_ptr.shape[0] - 1, h.shape[1]
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    new_grid = build.c_entry('fused_gather_segment_sum',
+                             'fused_gather_segment_sum_bf16_empty', 2, 2)
+    any_grid = build.c_entry('fused_gather_segment_sum', 'p2_empty_launch',
+                             0, 2)
+    out = h.new_empty((N, F))
+    blocks = p2_bf16_parent_blocks(N, F, h.data_ptr() % 16 == 0
+                                   and out.data_ptr() % 16 == 0)
+
+    def empty_new():
+        check(new_grid(h.data_ptr(), out.data_ptr(), N, F, stream) == 0,
+              'the empty kernel launches at the bf16 grid')
+
+    def empty_parent():
+        check(any_grid(blocks, 32 * P2_BF16_PARENT_WARPS, stream) == 0,
+              'the empty kernel launches at the parent grid')
+    res = {'new_grid_us': device_us(empty_new, 'p2_empty_kernel'),
+           'parent_grid_us': device_us(empty_parent, 'p2_empty_kernel'),
+           'parent_blocks': blocks}
+    res['floor_us'] = min(res['new_grid_us'], res['parent_grid_us'])
+    return res
+
+
+def bf16_add_ns(dev, chain=None) -> dict:
+    """ns a dependent add of P2's bfloat16 kernel (its own add, through
+    ``p2_bf16_add_chain``, the package's or ``chain``): one thread adds 8
+    values in turn, over and over, on a word of two values (``pair``) and
+    on one value (``single``); CUDA events around chains of 8 * 4096 and
+    8 * 32768 adds, the best of 5 each, and the latency is their
+    difference over the adds between."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch.kernels import build
+    chain = chain or build.c_entry('fused_gather_segment_sum',
+                                   'p2_bf16_add_chain', 2, 2)
+    # words of +1 and of -1 in both halves, so the sums stay at 0 and 1
+    vals = torch.from_numpy(np.array([0x3f803f80, 0xbf80bf80] * 4,
+                                     np.uint32).view(np.int32)).to(dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    res = {}
+    for kind, pair in (('pair', 1), ('single', 0)):
+        best = {}
+        for steps in (1 << 12, 1 << 15):
+            check(chain(vals.data_ptr(), out.data_ptr(), steps, pair,
+                        stream) == 0, 'the add chain launches')
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                start.record()
+                chain(vals.data_ptr(), out.data_ptr(), steps, pair, stream)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            best[steps] = min(times)
+        res[kind] = (best[1 << 15] - best[1 << 12]) * 1e6 / (
+            8 * ((1 << 15) - (1 << 12)))
+    print(f'phase 3 bf16 add latency: {json.dumps(res)} ns', flush=True)
+    return res
+
+
+def bf16_same(a, b):
+    """(bits equal, NaN where NaN and every other bit equal) of two
+    bfloat16 tensors."""
+    import torch
+    ai, bi = a.view(torch.int16), b.view(torch.int16)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(ai, bi),
+            torch.equal(na, nb) and torch.equal(ai[~na], bi[~nb]))
+
+
+def gather_bf16_case(name, h, src, row_ptr, add_ns, plain_iters=200):
     """P2's bfloat16 kernel against its plain version on the card, bit for
     bit (both add each segment's edges in CSR order, every add rounded to
-    bfloat16), with times, bound and the library call; both also against
-    the float64 sum of the same bfloat16 inputs, recorded."""
+    bfloat16) and repeat-identical, with times, bounds and the library
+    call; both also against the float64 sum of the same bfloat16 inputs,
+    recorded.  Bounds: ``bound_ms`` from bytes (each input read once, the
+    output written once) and operations; the launch floor
+    (:func:`p2_bf16_floor_us`); the order chain, the longest segment
+    times one dependent add (``add_ns``, the faster of the two adds: a
+    lower bound on either path).  ``least_ms`` is the largest of the
+    three.  The plain version is timed over ``plain_iters`` calls (on
+    long segments its slot-by-slot loop is slow, and it runs once)."""
     import torch
     from deepchem_tpu_torch.ops.csr_segment import (
         csr_neighbor_sum_reference, fused_gather_segment_sum)
@@ -863,11 +979,15 @@ def gather_bf16_case(name, h, src, row_ptr):
     again = fused_gather_segment_sum(h, src, row_ptr)
     ref = csr_neighbor_sum_reference(h, src, row_ptr)
     torch.cuda.synchronize()
-    same = torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    same, same_but_nan = bf16_same(out, ref)
     f64 = csr_neighbor_sum_reference(h.double(), src, row_ptr)
+    # errors where the plain version and the float64 sum are finite (a
+    # bfloat16 sum overflows where the float64 one does not)
+    finite = torch.isfinite(ref) & torch.isfinite(f64)
     Nh, F = h.shape
     N = row_ptr.shape[0] - 1
     used = int(row_ptr[-1])
+    longest = int((row_ptr[1:] - row_ptr[:-1]).max()) if N else 0
     dst = torch.searchsorted(row_ptr[1:], torch.arange(
         used, dtype=torch.int32, device=h.device), right=True)
     lib_src = src[:used].long()
@@ -875,30 +995,75 @@ def gather_bf16_case(name, h, src, row_ptr):
     rows = src[:used].unique().numel()        # rows of h the sums read
     bound_ms, bound_by = bound(2 * rows * F + 4 * (used + N + 1)
                                + 2 * N * F, used * F)
+    floor = p2_bf16_floor_us(h, row_ptr)
+    order_ms = longest * min(add_ns.values()) * 1e-6
+    least_ms, least_by = max((bound_ms, bound_by),
+                             (floor['floor_us'] * 1e-3, 'launch floor'),
+                             (order_ms, 'order chain'))
     res = {'kernel': 'fused_gather_segment_sum_bf16', 'case': name,
            'N_h': Nh, 'E': src.shape[0], 'F': F, 'N': N,
-           'max_abs_err': max_err(out.float(), ref.float()),
-           'bits_equal': same, 'tol': 'bit for bit',
-           'err_f64': max_err(out.double(), f64),
-           'plain_err_f64': max_err(ref.double(), f64),
-           'repeat_identical': torch.equal(out, again),
+           'longest_segment': longest,
+           'max_abs_err': max_err(out[finite].float(), ref[finite].float()),
+           'bits_equal': same, 'nan_where_nan_rest_equal': same_but_nan,
+           'tol': 'bit for bit',
+           'err_f64': max_err(out.double()[finite], f64[finite]),
+           'plain_err_f64': max_err(ref.double()[finite], f64[finite]),
+           'repeat_identical': torch.equal(out.view(torch.int16),
+                                           again.view(torch.int16)),
            'ms': time_ms(lambda: fused_gather_segment_sum(h, src, row_ptr)),
            'device_us': device_us(
                lambda: fused_gather_segment_sum(h, src, row_ptr),
                'fused_gather_segment_sum_bf16_kernel', bound_ms * 1e3),
            'plain_ms': time_ms(
-               lambda: csr_neighbor_sum_reference(h, src, row_ptr)),
-           'library_err_f64': max_err(lib_out.double(), f64),
+               lambda: csr_neighbor_sum_reference(h, src, row_ptr),
+               iters=plain_iters, warmup=min(10, plain_iters - 1)),
+           'library_err_f64': max_err(
+               lib_out.double()[finite & torch.isfinite(lib_out)],
+               f64[finite & torch.isfinite(lib_out)]),
            'library_ms': time_ms(
                lambda: library_neighbor_sum_bf16(h, lib_src, dst, N)),
-           'bound_ms': bound_ms, 'bound_by': bound_by}
+           'bound_ms': bound_ms, 'bound_by': bound_by,
+           'launch_floor_ms': floor['floor_us'] * 1e-3,
+           'empty_new_grid_us': floor['new_grid_us'],
+           'empty_parent_grid_us': floor['parent_grid_us'],
+           'order_bound_ms': order_ms, 'least_ms': least_ms,
+           'least_by': least_by}
+    res['share_of_least'] = least_ms * 1e3 / res['device_us']
     res['library_device_us'], res['library_kernels'] = device_us_all(
         lambda: library_neighbor_sum_bf16(h, lib_src, dst, N))
     print(f'phase 3 kernel {json.dumps(res)}', flush=True)
     check(same, f'{name}: the bfloat16 kernel differs from its plain '
-          f'version by {res["max_abs_err"]}')
+          f'version (NaN where NaN, other bits equal: {same_but_nan})')
     check(res['repeat_identical'], f'{name}: a repeat differs')
     return res
+
+
+def p2_bf16_non_finite_inputs(dev, feat, aligned=True):
+    """P2's bfloat16 inputs at values that round, overflow and are not
+    finite, from a generator of their own: 512 nodes with 0 to 3 edges
+    from random rows, node 100 with 300 and the last with 1000 (long
+    segments, summed by the block); h drawn element by element from
+    ±inf, NaN, bfloat16 subnormals (±1e-40), ±0, ±3.3e38 (two of which
+    overflow to ±inf), 1 and 256 (256 + 1 rounds back to 256) and normal
+    values.  ``aligned=False`` puts h 2 bytes off 16-byte alignment."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(29)
+    deg = rng.randint(0, 4, 512)
+    deg[100], deg[-1] = 300, 1000
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    src = rng.randint(0, 512, int(row_ptr[-1])).astype(np.int32)
+    special = np.array([np.inf, -np.inf, np.nan, 1e-40, -1e-40, 0.0, -0.0,
+                        3.3e38, -3.3e38, 1.0, 256.0], np.float32)
+    pick = rng.randint(0, len(special), (512, feat))
+    h32 = np.where(rng.rand(512, feat) < 0.25, special[pick],
+                   rng.randn(512, feat).astype(np.float32) * 100)
+    h = torch.from_numpy(h32.astype(np.float32)).to(dev).to(torch.bfloat16)
+    if not aligned:
+        flat = torch.empty(h.numel() + 1, dtype=torch.bfloat16, device=dev)
+        flat[1:] = h.reshape(-1)
+        h = flat[1:].view(h.shape)
+    return h, torch.from_numpy(src).to(dev), torch.from_numpy(row_ptr).to(dev)
 
 
 def table_csr(table, deg):
@@ -2960,21 +3125,32 @@ def main() -> int:
               and bool(torch.isfinite(o).all()), 'P2 outputs finite')
     # P2 in bfloat16, as scripts/bench_pallas_csr.py runs it: each bench
     # shape, then the one-value-a-lane path (F 37, and F 64 off 16-byte
-    # alignment)
+    # alignment), the long segments of p2_long_inputs (summed by the block,
+    # bound by their order chain; the plain version's slot-by-slot loop
+    # runs once there) and values that are not finite, aligned and not
+    add_ns = bf16_add_ns(dev)
     bf16_inputs = [bench_graph(rng, n, e, f, dev)
                    for n, e, f in P2_BENCH_SHAPES]
     bf16_cases = [gather_bf16_case(f'bench_N{n}_E{e}_F{f}_bf16',
-                                   h.to(torch.bfloat16), src, rp_)
+                                   h.to(torch.bfloat16), src, rp_, add_ns)
                   for (n, e, f), (h, src, rp_) in zip(P2_BENCH_SHAPES,
                                                       bf16_inputs)]
     h, src, rp_ = bench_graph(rng, 2048, 4096, 37, dev)
     bf16_cases.append(gather_bf16_case('F37_bf16', h.to(torch.bfloat16),
-                                       src, rp_))
+                                       src, rp_, add_ns))
     h, src, rp_ = bench_graph(rng, 2048, 4096, 64, dev)
     flat = torch.empty(h.numel() + 1, dtype=torch.bfloat16, device=dev)
     flat[1:] = h.reshape(-1).to(torch.bfloat16)
     bf16_cases.append(gather_bf16_case('F64_unaligned_bf16',
-                                       flat[1:].view(h.shape), src, rp_))
+                                       flat[1:].view(h.shape), src, rp_,
+                                       add_ns))
+    bf16_cases += [gather_bf16_case(f'{k}_bf16', h.to(torch.bfloat16), src,
+                                    rp_, add_ns, plain_iters=1)
+                   for k, (h, src, rp_) in p2_long_inputs(dev).items()]
+    bf16_cases += [gather_bf16_case(
+        f'non_finite_F{f}{"" if aligned else "_unaligned"}_bf16',
+        *p2_bf16_non_finite_inputs(dev, f, aligned), add_ns, plain_iters=3)
+        for f, aligned in ((64, True), (64, False), (37, True))]
     torch.cuda.synchronize()
     reset_launch_counts()
     with torch.no_grad():
@@ -4313,8 +4489,14 @@ def main() -> int:
         im_y, per_batch, dict(per_batch, fused_gather_segment_sum_bwd=6,
                               graph_max_pool_bwd=6), smi, scored=False,
         loss_epochs=1)
-    pretrained = InfoMax3DModular(task='pretrain', **INFOMAX3D, device=dev,
-                                  seed=0)
+    # the regressor's encoder is pretrained on the CPU, so its weights are
+    # the same on every run: pretraining on the card (timed above) is not
+    # bit-reproducible, and from one such run's weights the regressor's
+    # step-1 gradients, held to the CPU's from the same weights, moved by
+    # 3.2e-5 of max(1, |g|) on an H100 (5e-8 in two other runs), as near
+    # a tie of PNA's max or min
+    pretrained = InfoMax3DModular(task='pretrain', **INFOMAX3D,
+                                  device='cpu', seed=0)
     pre_losses = []
     pretrained.fit(NumpyDataset(im_X, im_y), nb_epoch=1,
                    checkpoint_interval=0, all_losses=pre_losses)
@@ -4326,7 +4508,7 @@ def main() -> int:
         return m
     carried = im_make(dev, 0).module.state_dict()
     src = pretrained.module.state_dict()
-    same = all(torch.equal(v, src[k]) for k, v in carried.items()
+    same = all(torch.equal(v.cpu(), src[k]) for k, v in carried.items()
                if k.startswith('encoder2d.'))
     print(f'phase 20 infomax3d: pretrained 1 epoch (loss {pre_losses}), '
           f'its encoder2d carried into the regressor: {same}', flush=True)
@@ -4428,8 +4610,8 @@ def main() -> int:
                models={m: numbers for m, (_, _, _, numbers) in
                        (coo_runs | branch_runs | new_runs
                         | mat_runs).items()})
-    # P2 in bfloat16: bench shapes only, as in the JAX package; main case
-    # the widest
+    # P2 in bfloat16: the JAX package's bench shapes, the long segments
+    # and the non-finite inputs; main case the widest bench shape
     p2_bf16 = entry('fused_gather_segment_sum_bf16', bf16_cases,
                     bf16_cases[len(P2_BENCH_SHAPES) - 1],
                     {'p2_bench_shapes_bf16':
@@ -4438,10 +4620,13 @@ def main() -> int:
                            'fused_gather_segment_sum.cu',
                     replaces='deepchem_tpu/ops/pallas_segment.py:94 '
                              '(bfloat16 h)',
+                    add_ns=add_ns,
                     shapes={c['case']: {k: c[k] for k in (
-                        'N', 'E', 'F', 'ms', 'device_us', 'plain_ms',
-                        'bound_ms', 'bound_by', 'library_ms',
-                        'library_device_us', 'err_f64', 'library_err_f64')}
+                        'N', 'E', 'F', 'longest_segment', 'ms', 'device_us',
+                        'plain_ms', 'bound_ms', 'bound_by', 'launch_floor_ms',
+                        'order_bound_ms', 'least_ms', 'least_by',
+                        'share_of_least', 'library_ms', 'library_device_us',
+                        'err_f64', 'library_err_f64')}
                         for c in bf16_cases})
     # P4: the stock kernels, reached through bert_encoder.py:62; main case
     # the encoder's attention in bfloat16

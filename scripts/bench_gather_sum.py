@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Device and host time of P2 in float32, ``fused_gather_segment_sum``:
-the source as it is, other versions of it (a parent commit's) and
-variants of its tuning constants, in turns on one card, beside
-``torch.sparse.mm`` at the same inputs.
+"""Device and host time of P2, ``fused_gather_segment_sum``, in float32
+or bfloat16: the source as it is, other versions of it (a parent
+commit's) and variants of its tuning constants, in turns on one card,
+beside the library call at the same inputs.
 
-    python3 scripts/bench_gather_sum.py [--parent NAME=FILE ...]
+    python3 scripts/bench_gather_sum.py [--dtype f32|bf16]
+        [--parent NAME=FILE ...]
         [--variant NAME:kSplitEdges=64,kAheadOwn=0/2/2/2/2 ...]
-        [--calls 20]
+        [--calls 20] [--check-only] [--cases REGEX]
 
 Each version of ``deepchem_tpu_torch/csrc/fused_gather_segment_sum.cu``
 is compiled by nvcc with the package's flags into
@@ -36,6 +37,21 @@ calls, no synchronise); per case the library call's device µs
 The card's name and power limit come first, then each version's ptxas
 registers and spill bytes, a JSON line of means last; that line is also
 written to ``chiprun_out/bench_gather_sum.json``.
+
+``--dtype bf16`` does the same for the bfloat16 entry
+``fused_gather_segment_sum_bf16`` (``fused_gather_segment_sum_bf16_kernel``)
+at ``chip_smoke.py`` phase 3's bfloat16 cases: the five bench shapes, F 37,
+F 64 off 16-byte alignment, the two long segments and the non-finite
+inputs (``chip_smoke.p2_bf16_non_finite_inputs``).  Every version is held
+bit for bit against the plain version (``chip_smoke.bf16_same``; a
+version whose bits differ only at NaN is reported and still timed, one
+that differs elsewhere stops the run) and for a bit-identical repeat
+before it is timed; the library call is ``index_select`` then
+``index_add_`` in bfloat16.  For each version with a
+``p2_bf16_add_chain`` entry it also prints the latency of one dependent
+add (``chip_smoke.bf16_add_ns``).  ``--check-only`` builds,
+prints ptxas's report and the checks, and times nothing; ``--cases``
+keeps the cases whose names match a regular expression.
 """
 
 import argparse
@@ -54,6 +70,8 @@ CSRC = REPO / 'deepchem_tpu_torch' / 'csrc'
 OUT = REPO / 'build' / 'bench_gather_sum'
 HOST_CALLS = 200
 KERNEL = r'fused_gather_segment_sum_kernelI\w+?(?:Li\d+)?E'
+BF16_KERNEL = (r'fused_gather_segment_sum_bf16_kernelI(?:Li\d+E)+'
+               r'|fused_gather_segment_sum_bf16_kernelI\d+\w+?E')
 
 
 def model_cases(dev):
@@ -117,6 +135,32 @@ def cases(dev):
     return out
 
 
+def bf16_cases(dev):
+    """{name: (h, src, row_ptr)} at ``chip_smoke.py`` phase 3's bfloat16
+    inputs."""
+    import numpy as np
+    import torch
+    from chip_smoke import (P2_BENCH_SHAPES, bench_graph, p2_long_inputs,
+                            p2_bf16_non_finite_inputs)
+    rng = np.random.RandomState(0)
+    out = {}
+    for n, e, f in P2_BENCH_SHAPES:
+        h, src, rp = bench_graph(rng, n, e, f, dev)
+        out[f'bench_N{n}_E{e}_F{f}_bf16'] = (h.to(torch.bfloat16), src, rp)
+    h, src, rp = bench_graph(rng, 2048, 4096, 37, dev)
+    out['F37_bf16'] = (h.to(torch.bfloat16), src, rp)
+    h, src, rp = bench_graph(rng, 2048, 4096, 64, dev)
+    flat = torch.empty(h.numel() + 1, dtype=torch.bfloat16, device=dev)
+    flat[1:] = h.reshape(-1).to(torch.bfloat16)
+    out['F64_unaligned_bf16'] = (flat[1:].view(h.shape), src, rp)
+    for k, (h, src, rp) in p2_long_inputs(dev).items():
+        out[f'{k}_bf16'] = (h.to(torch.bfloat16), src, rp)
+    for f, aligned in ((64, True), (64, False), (37, True)):
+        out[f'non_finite_F{f}{"" if aligned else "_unaligned"}_bf16'] = \
+            p2_bf16_non_finite_inputs(dev, f, aligned)
+    return out
+
+
 def variant_source(base: str, spec: str) -> str:
     """``base`` with each ``constexpr int NAME = ...;`` of ``spec``
     (``NAME=VALUE,...``) set to VALUE; an array's VALUE is its entries
@@ -132,18 +176,47 @@ def variant_source(base: str, spec: str) -> str:
     return base
 
 
-def library_us(inputs: dict, calls: int) -> dict:
-    from chip_smoke import device_us_all, library_neighbor_sum
-    return {case: device_us_all(lambda: library_neighbor_sum(*a),
-                                calls=calls)[0]
-            for case, a in inputs.items()}
+def library_us(inputs: dict, calls: int, bf16: bool) -> dict:
+    import torch
+    from chip_smoke import (device_us_all, library_neighbor_sum,
+                            library_neighbor_sum_bf16)
+    out = {}
+    for case, (h, src, rp) in inputs.items():
+        if bf16:
+            used, N = int(rp[-1]), rp.shape[0] - 1
+            dst = torch.searchsorted(rp[1:], torch.arange(
+                used, dtype=torch.int32, device=h.device), right=True)
+            lib_src = src[:used].long()
+            out[case] = device_us_all(lambda: library_neighbor_sum_bf16(
+                h, lib_src, dst, N), calls=calls)[0]
+        else:
+            out[case] = device_us_all(
+                lambda: library_neighbor_sum(h, src, rp), calls=calls)[0]
+    return out
 
 
-def time_version(name: str, inputs: dict, calls: int) -> dict:
+def check_bf16(name, case, res, first, ref) -> dict:
+    """The bfloat16 checks of one version at one case; raises where bits
+    differ at anything but NaN, or a repeat differs."""
+    import torch
+    from chip_smoke import bf16_same
+    same, same_but_nan = bf16_same(first, ref)
+    repeat = torch.equal(first.view(torch.int16), res.view(torch.int16))
+    if not same_but_nan or not repeat:
+        raise RuntimeError(f'{name} {case}: bits equal {same}, NaN where '
+                           f'NaN and the rest equal {same_but_nan}, repeat '
+                           f'identical {repeat}')
+    return {'bits_equal': same, 'nan_where_nan_rest_equal': same_but_nan}
+
+
+def time_version(name: str, inputs: dict, calls: int, bf16: bool,
+                 timed: bool = True) -> dict:
     import torch
     from chip_smoke import device_us, sum_tol, time_ms
     from deepchem_tpu_torch.ops.csr_segment import csr_neighbor_sum_reference
-    fn = ctypes.CDLL(str(OUT / f'{name}.so')).fused_gather_segment_sum_f32
+    entry = 'fused_gather_segment_sum_bf16' if bf16 \
+        else 'fused_gather_segment_sum_f32'
+    fn = getattr(ctypes.CDLL(str(OUT / f'{name}.so')), entry)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -161,17 +234,41 @@ def time_version(name: str, inputs: dict, calls: int) -> dict:
         first = res.clone()
         run()
         torch.cuda.synchronize()
-        ref = csr_neighbor_sum_reference(h.double(), src, row_ptr)
-        err = (res.double() - ref).abs().max().item()
-        if err > sum_tol(ref) or not torch.equal(first, res):
-            raise RuntimeError(f'{name} {case}: error {err}, repeat '
-                               f'identical {torch.equal(first, res)}')
-        out[case] = {'device_us': profiled_us(
-                         device_us, run, 'fused_gather_segment_sum_kernel',
-                         calls),
-                     'event_us': time_ms(run, HOST_CALLS) * 1e3,
-                     'host_us': host_us(run, HOST_CALLS), 'max_abs_err': err}
+        if bf16:
+            out[case] = check_bf16(name, case, res, first,
+                                   csr_neighbor_sum_reference(h, src,
+                                                              row_ptr))
+        else:
+            ref = csr_neighbor_sum_reference(h.double(), src, row_ptr)
+            err = (res.double() - ref).abs().max().item()
+            if err > sum_tol(ref) or not torch.equal(first, res):
+                raise RuntimeError(f'{name} {case}: error {err}, repeat '
+                                   f'identical {torch.equal(first, res)}')
+            out[case] = {'max_abs_err': err}
+        if timed:
+            out[case].update({
+                'device_us': profiled_us(
+                    device_us, run, 'fused_gather_segment_sum_bf16_kernel'
+                    if bf16 else 'fused_gather_segment_sum_kernel', calls),
+                'event_us': time_ms(run, HOST_CALLS) * 1e3,
+                'host_us': host_us(run, HOST_CALLS)})
     return out
+
+
+def add_latency(name: str, dev):
+    """ns a dependent add of the version's own, or None where its library
+    has no ``p2_bf16_add_chain``."""
+    import torch
+    from chip_smoke import bf16_add_ns
+    lib = ctypes.CDLL(str(OUT / f'{name}.so'))
+    if not hasattr(lib, 'p2_bf16_add_chain'):
+        return None
+    chain = lib.p2_bf16_add_chain
+    chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    chain.restype = ctypes.c_int
+    torch.cuda.synchronize()
+    return bf16_add_ns(dev, chain)
 
 
 def mean(xs):
@@ -181,16 +278,22 @@ def mean(xs):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--dtype', choices=('f32', 'bf16'), default='f32')
     ap.add_argument('--parent', action='append', default=[],
                     help='NAME=FILE, another source with the same entry')
     ap.add_argument('--variant', action='append', default=[],
                     help='NAME:CONST=VALUE,... (constants of the source)')
     ap.add_argument('--calls', type=int, default=20)
+    ap.add_argument('--check-only', action='store_true',
+                    help='build, check and print ptxas; time nothing')
+    ap.add_argument('--cases', default='',
+                    help='only the cases whose names match this regex')
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print('bench_gather_sum: no CUDA device', file=sys.stderr)
         return 1
+    bf16 = args.dtype == 'bf16'
     OUT.mkdir(parents=True, exist_ok=True)
     base = (CSRC / 'fused_gather_segment_sum.cu').read_text()
     sources = {}
@@ -208,20 +311,33 @@ def main() -> int:
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    print(json.dumps({'ptxas': nvcc(paths, OUT, KERNEL)}), flush=True)
-    inputs = cases(torch.device('cuda', 0))
+    print(json.dumps({'ptxas': nvcc(paths, OUT,
+                                    BF16_KERNEL if bf16 else KERNEL)}),
+          flush=True)
+    dev = torch.device('cuda', 0)
+    inputs = {k: v for k, v in (bf16_cases(dev) if bf16
+                                else cases(dev)).items()
+              if re.search(args.cases, k)}
     print(json.dumps({'cases': {k: [list(h.shape), src.shape[0],
                                     rp.shape[0] - 1]
                                 for k, (h, src, rp) in inputs.items()}}),
           flush=True)
-    library = [library_us(inputs, args.calls)]
     names = list(sources)
+    if bf16:
+        print(json.dumps({'add_ns': {n: add_latency(n, dev)
+                                     for n in names}}), flush=True)
+    if args.check_only:
+        for n in names:
+            print(json.dumps({'version': n, 'checks': time_version(
+                n, inputs, args.calls, bf16, timed=False)}), flush=True)
+        return 0
+    library = [library_us(inputs, args.calls, bf16)]
     runs = {n: [] for n in names}
     for n in names + names[::-1]:
-        runs[n].append(time_version(n, inputs, args.calls))
+        runs[n].append(time_version(n, inputs, args.calls, bf16))
         print(json.dumps({'version': n, 'run': len(runs[n]),
                           'us': runs[n][-1]}), flush=True)
-    library.append(library_us(inputs, args.calls))
+    library.append(library_us(inputs, args.calls, bf16))
     line = json.dumps({
         'device': torch.cuda.get_device_name(0),
         'library_device_us': {c: sum(r[c] for r in library) / 2

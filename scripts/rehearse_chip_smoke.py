@@ -11,7 +11,8 @@ runs every phase of ``chip_smoke.py`` with:
 - the build skipped and ``nvidia-smi`` answered with a placeholder;
 - each kernel wrapper's plain path counted as one launch, so the launch
   checks run as they would on the card;
-- every timing taken over 1 call instead of 200, and no device time;
+- every timing taken over 1 call instead of 200, and no device time (nor
+  P2-bf16's launch floor or add latency);
 - P4 and the encoder cut to a size the CPU can hold (attention [2, 2,
   128, 64], crossover shapes of 2048 tokens up to S = 512, the float32
   forward's at S = 512 only, an encoder of
@@ -177,10 +178,14 @@ def main() -> int:
     smoke.__file__ = str(REPO / 'chip_smoke.py')
     exec(compile(source, smoke.__file__, 'exec'), smoke.__dict__)
     timed = smoke.time_ms
-    smoke.time_ms = lambda fn, iters=200: timed(fn, iters=1)
-    # no device here: no device times
-    smoke.device_us = lambda fn, kernel, bound_us=0.0, calls=20: \
-        float('nan')
+    smoke.time_ms = lambda fn, iters=200, warmup=10: timed(
+        fn, iters=1, warmup=min(warmup, 1))
+    # no device here: no device times, no launch floor, no add latency
+    nan = float('nan')
+    smoke.device_us = lambda fn, kernel, bound_us=0.0, calls=20: nan
+    smoke.p2_bf16_floor_us = lambda h, row_ptr: {
+        'new_grid_us': nan, 'parent_grid_us': nan, 'floor_us': nan}
+    smoke.bf16_add_ns = lambda dev: {'pair': nan, 'single': nan}
     smoke.device_us_all = lambda fn, calls=20: (float('nan'), 0.0)
     smoke.library_attention = lambda q, k, v, scale: \
         torch.nn.functional.scaled_dot_product_attention(q, k, v,

@@ -9,7 +9,8 @@ equal (no arithmetic); ``gather_neighbors_sum`` and the edge-destination
 ``segment_sum`` and ``segment_max_sumgrad``, forward and gradient, within
 1e-6 and, at ghost rows, non-finite rows and signed zeros, bit for bit
 (NaN where NaN, signs of zeros equal); P2's bfloat16 plain version bit
-for bit the JAX kernel run in interpret mode; ``GCNLayer``'s COO branch
+for bit the JAX kernel run in interpret mode (NaN where NaN at
+non-finite inputs, every other bit equal); ``GCNLayer``'s COO branch
 within 1e-5 and its gradients within 1e-5 of max(1, |ref|) (matmuls
 summed in another order).
 """
@@ -241,6 +242,81 @@ def test_p2_bf16_plain_version_is_the_jax_kernel_bit_for_bit(n, e, f):
         np.testing.assert_array_equal(
             out.view(torch.int16).numpy(),
             np.asarray(ref).view(np.int16))
+
+
+def _p2_bf16_jax_and_plain(h32, src, row_ptr):
+    """The JAX kernel (interpret mode) and the port's plain version on the
+    same bfloat16 inputs, as int16 bit patterns and NaN masks."""
+    n = row_ptr.shape[0] - 1
+    h = jnp.asarray(h32, jnp.bfloat16)
+    ref = np.asarray(jax_fused_gather_segment_sum(
+        h, jnp.asarray(src), jnp.asarray(row_ptr), n, interpret=True))
+    th = torch.from_numpy(np.array(h.astype(jnp.float32))).to(
+        torch.bfloat16)
+    out = fused_gather_segment_sum(th, torch.from_numpy(src),
+                                   torch.from_numpy(row_ptr))
+    assert out.dtype == torch.bfloat16
+    return (out.view(torch.int16).numpy(), torch.isnan(out).numpy(),
+            ref.view(np.int16), np.isnan(ref.astype(np.float32)))
+
+
+def test_p2_bf16_plain_version_is_the_jax_kernel_on_a_long_segment():
+    """A segment of 300 edges at F 5, longer than the card kernel's split
+    threshold (its block sums it by columns): the plain version adds its
+    edges in CSR order, each add rounded, and gives the JAX kernel's bits,
+    on uniform and on signed inputs.  16 nodes, a multiple of the JAX
+    kernel's block of 8."""
+    torch.set_num_threads(1)
+    rng = np.random.RandomState(300)
+    deg = rng.randint(0, 4, 16)
+    deg[5] = 300
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    src = rng.randint(0, 16, int(row_ptr[-1])).astype(np.int32)
+    for h32 in (rng.rand(16, 5), rng.randn(16, 5) * 100):
+        out, _, ref, _ = _p2_bf16_jax_and_plain(h32, src, row_ptr)
+        np.testing.assert_array_equal(out, ref)
+
+
+def test_p2_bf16_plain_version_is_the_jax_kernel_at_non_finite_values():
+    """P2 in bfloat16 at ±inf, NaN, bfloat16 subnormals (±1e-40), ±0,
+    ±3.3e38 (whose sums overflow to ±inf), 1 and 256 (256 + 1 rounds back
+    to 256), in short segments and in one of 200 edges: NaN where the JAX
+    kernel has NaN, and every other bit equal (the signs of zeros and of
+    infinities among them) wherever no subnormal is summed.  XLA's CPU
+    backend flushes subnormal operands to zero; the port keeps them, as
+    torch does on the CPU and the card: on the inputs with their
+    subnormals flushed to signed zeros, the plain version gives the JAX
+    kernel's bits everywhere."""
+    torch.set_num_threads(1)
+    rng = np.random.RandomState(29)
+    deg = rng.randint(0, 4, 24)
+    deg[9] = 200
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    src = rng.randint(0, 24, int(row_ptr[-1])).astype(np.int32)
+    special = np.array([np.inf, -np.inf, np.nan, 1e-40, -1e-40, 0.0, -0.0,
+                        3.3e38, -3.3e38, 1.0, 256.0], np.float32)
+    h32 = np.where(rng.rand(24, 8) < 0.25,
+                   special[rng.randint(0, len(special), (24, 8))],
+                   rng.randn(24, 8).astype(np.float32) * 100)
+    h32 = np.asarray(jnp.asarray(h32, jnp.bfloat16).astype(jnp.float32))
+    sub = np.isfinite(h32) & (h32 != 0) & (np.abs(h32) < 2.0 ** -126)
+    assert sub.any()
+    # columns of each segment that sum a subnormal
+    seg = np.repeat(np.arange(24), np.diff(row_ptr))
+    touched = np.zeros((24, 8), bool)
+    np.logical_or.at(touched, seg, sub[src])
+    out, out_nan, ref, ref_nan = _p2_bf16_jax_and_plain(h32, src, row_ptr)
+    assert ref_nan.any() and np.isinf(np.where(
+        ref_nan, 0, ref.view(np.uint16).astype(np.uint32) << 16).view(
+        np.float32)).any()
+    np.testing.assert_array_equal(out_nan, ref_nan)
+    keep = ~out_nan & ~touched
+    np.testing.assert_array_equal(out[keep], ref[keep])
+    flushed = np.where(sub, np.copysign(0.0, h32), h32)
+    out, out_nan, ref, ref_nan = _p2_bf16_jax_and_plain(flushed, src,
+                                                        row_ptr)
+    np.testing.assert_array_equal(out_nan, ref_nan)
+    np.testing.assert_array_equal(out[~out_nan], ref[~ref_nan])
 
 
 def test_p2_bf16_plain_version_orders_adds_and_keeps_non_finite():

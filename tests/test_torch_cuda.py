@@ -1248,26 +1248,65 @@ def test_schedule_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(out_g, out_c, rtol=1e-5)
 
 
-# scripts/bench_pallas_csr.py:76-78, then the one-value-a-lane path
+# scripts/bench_pallas_csr.py:76-78, then the one-value-a-lane path, units
+# of two values (F 30), then rows of 512 and 1024 values on small graphs (a
+# lane holds 2 and 4 units of 8 values)
 P2_BF16_SHAPES = [(2048, 4096, 64), (2048, 4096, 256), (8192, 16384, 256),
                   (8192, 16384, 512), (16384, 32768, 512), (64, 300, 37),
-                  (64, 200, 5)]
+                  (64, 200, 5), (64, 300, 30), (256, 600, 512),
+                  (128, 300, 1024)]
+# (kind, nodes, edges or the long segment's edges, F): 'long', one segment
+# longer than SPLIT_EDGES (summed by the block by columns) among short
+# ones; 'tail', the last half of the nodes with no edges and edges past
+# row_ptr[N]; 'non_finite', the values of
+# test_torch_coo.py's non-finite test, with two long segments
+P2_BF16_CASES = ([('bench', n, e, f) for n, e, f in P2_BF16_SHAPES]
+                 + [('long', 512, 2000, 64), ('long', 512, 4096, 300),
+                    ('tail', 256, 600, 64), ('non_finite', 512, 1000, 64),
+                    ('non_finite', 512, 1000, 37)])
+P2_BF16_SPECIAL = np.array([np.inf, -np.inf, np.nan, 1e-40, -1e-40, 0.0,
+                            -0.0, 3.3e38, -3.3e38, 1.0, 256.0], np.float32)
+
+
+def _p2_bf16_inputs(kind, N, E, F, rng):
+    """(row_ptr, src, [h values as float32 arrays]) of one case."""
+    if kind in ('bench', 'tail'):
+        perm, row_ptr = edges_to_csr(rng.randint(0, N, E), N)
+        src = rng.randint(0, N, E).astype(np.int32)[perm]
+        if kind == 'tail':
+            row_ptr[N // 2:] = row_ptr[N // 2]
+        return row_ptr, src, [rng.rand(N, F), rng.randn(N, F) * 100]
+    deg = rng.randint(0, 4, N)
+    deg[N // 3] = E
+    if kind == 'non_finite':
+        deg[-1] = 300
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    src = rng.randint(0, N, int(row_ptr[-1])).astype(np.int32)
+    if kind == 'long':
+        return row_ptr, src, [rng.rand(N, F), rng.randn(N, F) * 100]
+    pick = P2_BF16_SPECIAL[rng.randint(0, len(P2_BF16_SPECIAL), (N, F))]
+    return row_ptr, src, [np.where(rng.rand(N, F) < 0.25, pick,
+                                   rng.randn(N, F) * 100)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('aligned', [True, False])
-@pytest.mark.parametrize('N,E,F', P2_BF16_SHAPES)
+@pytest.mark.parametrize('kind,N,E,F', P2_BF16_CASES)
 def test_fused_gather_segment_sum_bf16_kernel_is_its_plain_version(
-        cuda, N, E, F, aligned):
+        cuda, kind, N, E, F, aligned):
     """P2 in bfloat16 adds each segment's edges in CSR order, rounding every
     add to bfloat16, as its plain version (and the JAX kernel) does: bit
-    for bit, on uniform and on signed inputs, aligned or 2 bytes off."""
+    for bit and the same on a repeat, aligned or 2 bytes off, on uniform
+    and signed inputs at the bench's shapes and at rows of 512 and 1024
+    values (more than one unit a lane), on segments long enough to be
+    summed by the block by columns (F 64 and 300), with an empty tail of
+    nodes, and at ±inf, NaN, subnormals, ±0 and sums that overflow."""
     rng = np.random.RandomState(N + E + F)
-    perm, row_ptr = edges_to_csr(rng.randint(0, N, E), N)
-    src = torch.from_numpy(rng.randint(0, N, E).astype(np.int32)[perm])
-    src, row_ptr = src.to(cuda), torch.from_numpy(row_ptr).to(cuda)
-    for values in (rng.rand(N, F), rng.randn(N, F) * 100):
-        h = torch.from_numpy(values.astype(np.float32)).to(cuda).to(
+    row_ptr, src, values = _p2_bf16_inputs(kind, N, E, F, rng)
+    src = torch.from_numpy(src).to(cuda)
+    row_ptr = torch.from_numpy(row_ptr).to(cuda)
+    for v in values:
+        h = torch.from_numpy(v.astype(np.float32)).to(cuda).to(
             torch.bfloat16)
         if not aligned:
             flat = torch.empty(N * F + 1, dtype=torch.bfloat16, device=cuda)
@@ -1275,11 +1314,13 @@ def test_fused_gather_segment_sum_bf16_kernel_is_its_plain_version(
             h = flat[1:].view(N, F)
         before = fused_gather_segment_sum.bf16_launches
         out = fused_gather_segment_sum(h, src, row_ptr)
+        again = fused_gather_segment_sum(h, src, row_ptr)
         torch.cuda.synchronize()
-        assert fused_gather_segment_sum.bf16_launches == before + 1
+        assert fused_gather_segment_sum.bf16_launches == before + 2
         assert out.dtype == torch.bfloat16
         ref = csr_neighbor_sum_reference(h, src, row_ptr)
         assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+        assert torch.equal(out.view(torch.int16), again.view(torch.int16))
 
 
 def _coo_batch(cuda):
