@@ -301,8 +301,40 @@ Phases:
                 third by up to 4.9e-4 and 3.4e-4), the launches a batch and a step
                 asserted: CGCNN P2 3 + 6 in the backward, P3 2; LCNN P2 2
                 + 4, P3 2; MEGNet P2 1 + 2, P3 5; InfoMax3D pretraining P2
-                9 + 6, K3 6 + 6, P3 3; its regressor P2 6, K3 6 + 6, P3 2.
- 21. kernels -- one JSON line with each kernel's numbers.
+                9 + 15, K3 6 + 6, P3 3; its regressor P2 6 + 9, K3 6 + 6,
+                P3 2.  MEGNet and InfoMax3D (both tasks) also fit twice
+                from one seed, 2 steps each: every gradient and weight the
+                same bits (as PNA and GNNModular's edge prediction in phase
+                16, DMPNN in 14, MPNN in 12 and on its COO branch in 17,
+                DTNN in 19: the gathers whose backward was index_add_ with
+                float atomics have a fixed-order one).
+ 21. mxmnet, atomic conv, few-shot, egnn -- MXMNetModel at the JAX
+                package's defaults (dim 64, 3 layers, batch 32) on
+                MXMNetFeaturizer() of the 48 SMILES in 3D, shuffled to 320
+                with seeded labels; AtomicConvModel at its defaults
+                (fragments of 70, 634 and 701 atoms, 12 neighbours, batch
+                24) on 72 complexes the script writes as PDB text from
+                seeded coordinates (a ligand of 40-70 heavy atoms in a
+                pocket of 560-630), through AtomicConvFeaturizer(): each
+                through model_phase, with the same-bits check; MXMNet's
+                launches a batch P2 6, P3 1, a step P2 6 + 12, P3 1;
+                AtomicConv's none (its radial product is a batched GEMM).
+                SupportGraphClassifier (siamese, attn, res) at the JAX
+                package's defaults (n_pos 1, n_neg 9, n_test 16, n_feat 64,
+                layers 64 and 64, depth 3) on the 48 SMILES shuffled to
+                192 with seeded labels for 4 tasks: requests of 1, 16 and
+                31 on a support set against the CPU, 100 timed requests of
+                16, 3 epochs of 16 episodes against the CPU's losses,
+                launches a request and an episode (P2 2 and P3 2 an
+                encoding, P2 1 more in an episode's backward each), step-1
+                gradients, a fixed episode that overfits, two runs of 2
+                episodes from one seed the same bits, evaluate's ROC-AUC
+                against the CPU.  EGNNLayer (hidden 64, coordinates
+                updated, binned edge lengths as edge inputs) on 32
+                EquivariantGraphFeaturizer graphs: outputs and every
+                gradient against the CPU, P2 3 forward + 4 in the
+                backward, the same bits on a repeat.
+ 22. kernels -- one JSON line with each kernel's numbers.
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -478,6 +510,26 @@ INFOMAX3D = dict(hidden_dim=64, num_layers=3, batch_size=32)
 MEGNET_OVERFIT_STEPS = 100
 CRYSTAL_COUNT = 320             # 10 batches of 32
 CONFORMER_MOLECULES = 320       # the 48 SMILES shuffled: 10 batches of 32
+# phase 21: mxmnet.py:124-137 MXMNetModel (dim 64, 3 layers, batch 32) on
+# MXMNetFeaturizer() (radius 5, 16 neighbours); atomic_conv.py:186-230
+# AtomicConvModel (fragments of 70, 634 and 701 atoms, 12 neighbours,
+# layers 32, 32, 16, batch 24) on AtomicConvFeaturizer() complexes;
+# low_data.py:156-161 SupportGraphClassifier at its defaults on
+# MolGraphConvFeaturizer graphs; graph_layers.py:398 EGNNLayer at hidden 64
+MXMNET = dict(n_tasks=1)
+MXMNET_MOLECULES = 320          # the 48 SMILES shuffled: 10 batches of 32
+ATOMIC_CONV = dict(n_tasks=1)
+ATOMIC_COMPLEXES = 72           # 3 batches of 24
+LIGAND_ATOMS = (40, 71)         # heavy atoms, drawn in [40, 70]
+POCKET_ATOMS = (560, 631)
+FEWSHOT = dict(n_pos=1, n_neg=9, n_test=16, n_feat=64, layer_sizes=(64, 64),
+               max_depth=3)
+FEWSHOT_MOLECULES = 192
+FEWSHOT_TASKS = 4
+FEWSHOT_EPISODES = 16           # an epoch: 4 a task
+FEWSHOT_OVERFIT_STEPS = 50
+EGNN_HIDDEN = 64
+EGNN_GRAPHS = 32
 KERNEL_ATOL = 1e-6              # P1: same f32 inputs, another summation order
 SUM_RTOL = 1e-5                 # P3, P2: atol 1e-5 * max(1, max |out|)
 CPU_ATOL = 1e-4                 # whole model, f32, another summation order
@@ -499,6 +551,9 @@ FLASH_MAIN = (32, 12, 128, 64)  # the encoder's attention, [B, H, S, D]
 CROSSOVER_TOKENS = 65536
 CROSSOVER_S = (128, 256, 512, 1024, 2048, 4096)
 F32_CROSSOVER_S = (512, 4096)   # P4 in f32 at these too
+# timed calls a crossover case (a quarter from S 2048), halved from 200
+# to make room for phase 21
+CROSSOVER_ITERS = 100
 PLAIN_ROWS_FROM_S = 2048        # from here the plain version takes 2 rows
 # P4 against the plain version in float32 from the same inputs, scaled by
 # max(1, |ref|): forward, then gradients; bfloat16 rounds p, ds and outputs
@@ -2282,6 +2337,421 @@ def materials_data():
     return out
 
 
+# elements of the written complexes (all in AtomicConvModel's types but Se,
+# which is read as -1), carbon most often
+COMPLEX_ELEMENTS = ['C'] * 6 + ['N', 'N', 'O', 'O', 'S', 'P', 'Cl', 'Zn',
+                                'Se']
+
+
+def complex_pdb(rng, n, radius, record):
+    """``n`` atoms as PDB records, uniform in a ball of ``radius`` Å about
+    the origin, elements drawn from COMPLEX_ELEMENTS."""
+    import numpy as np
+    xyz = rng.randn(n, 3)
+    xyz *= (radius * rng.rand(n, 1) ** (1 / 3)
+            / np.linalg.norm(xyz, axis=1, keepdims=True))
+    elems = [COMPLEX_ELEMENTS[k]
+             for k in rng.randint(0, len(COMPLEX_ELEMENTS), n)]
+    return [f'{record:<6}{i + 1:5d} {e.upper():<4} LIG A   1    '
+            f'{x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00          {e:>2}\n'
+            for i, ((x, y, z), e) in enumerate(zip(xyz, elems))]
+
+
+def slice21_data():
+    """Phase 21's inputs: the 48 SMILES as MXMNetFeaturizer graphs,
+    shuffled to MXMNET_MOLECULES with seeded labels; ATOMIC_COMPLEXES
+    complexes written as PDB text (a ligand of LIGAND_ATOMS heavy atoms in
+    a 6 Å ball, a pocket of POCKET_ATOMS in a 14 Å ball about it) and
+    featurized by AtomicConvFeaturizer(), seeded labels; the 48 SMILES as
+    MolGraphConvFeaturizer graphs shuffled to FEWSHOT_MOLECULES with
+    seeded 0/1 labels for FEWSHOT_TASKS tasks; the first EGNN_GRAPHS as
+    EquivariantGraphFeaturizer graphs.  Each featurizer timed a
+    molecule or complex."""
+    import numpy as np
+    from deepchem_tpu_torch import (AtomicConvFeaturizer,
+                                    EquivariantGraphFeaturizer,
+                                    MolGraphConvFeaturizer, MXMNetFeaturizer)
+    out, ms = {}, {}
+    t0 = time.perf_counter()
+    X = MXMNetFeaturizer().featurize(SMILES)
+    ms['mxmnet'] = (time.perf_counter() - t0) * 1e3 / len(SMILES)
+    check(all(g.node_pos_features.shape == (g.num_nodes, 3) for g in X),
+          'every molecule embeds in 3D for MXMNet')
+    order = np.random.RandomState(0).permutation(
+        np.resize(np.arange(len(SMILES)), MXMNET_MOLECULES))
+    out['mxmnet'] = X[order]
+    out['mxmnet_y'] = np.random.RandomState(1).randn(
+        len(SMILES), 1).astype(np.float32)[order]
+    rng = np.random.RandomState(0)
+    pairs = [(complex_pdb(rng, rng.randint(*LIGAND_ATOMS), 6.0, 'HETATM'),
+              complex_pdb(rng, rng.randint(*POCKET_ATOMS), 14.0, 'ATOM'))
+             for _ in range(ATOMIC_COMPLEXES)]
+    feat = AtomicConvFeaturizer()
+    t0 = time.perf_counter()
+    C = feat.featurize(pairs)
+    ms['atomic_conv'] = (time.perf_counter() - t0) * 1e3 / len(pairs)
+    check(len(C) == ATOMIC_COMPLEXES and max(len(c[6]) for c in C) <= 701,
+          'every complex featurizes, none above the model\'s 701 atoms')
+    out['complexes'] = C
+    out['complex_atoms'] = [(len(c[0]), len(c[3])) for c in C]
+    out['complexes_y'] = np.random.RandomState(1).randn(
+        len(C), 1).astype(np.float32)
+    G = MolGraphConvFeaturizer().featurize(SMILES)
+    order = np.random.RandomState(2).permutation(
+        np.resize(np.arange(len(SMILES)), FEWSHOT_MOLECULES))
+    out['fewshot'] = G[order]
+    out['fewshot_y'] = (np.random.RandomState(3).rand(
+        FEWSHOT_MOLECULES, FEWSHOT_TASKS) < 0.35).astype(np.float32)
+    t0 = time.perf_counter()
+    out['egnn'] = EquivariantGraphFeaturizer().featurize(
+        SMILES[:EGNN_GRAPHS])
+    ms['egnn'] = (time.perf_counter() - t0) * 1e3 / EGNN_GRAPHS
+    out['featurize_ms'] = ms
+    return out
+
+
+def zero_counts():
+    return {k: 0 for k in launch_counts()}
+
+
+def fewshot_phase(kind, X, y, smi):
+    """Phase 21: SupportGraphClassifier(model=kind) at FEWSHOT on the card
+    against the same on the CPU: a support set of task 0 answers requests
+    of REQUESTS molecules (CPU_ATOL; P2 2 and P3 2 an encoding, each chunk
+    of n_test queries encoded with the support), LATENCY_REQUESTS timed
+    requests of 16, 3 epochs of FEWSHOT_EPISODES episodes (the losses
+    within CPU_ATOL relative of the CPU's from the same weights and seed;
+    an episode encodes twice and adds P2 once an encoding in the
+    backward), step-1 gradients (GRAD_ATOL of max(1, |g|)), a fixed
+    episode that overfits, two runs of 2 episodes from one seed the same
+    bits, and evaluate's ROC-AUC (EVAL_ATOL).  Returns the launches of the
+    requests and the episodes and the numbers, as model_phase."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch import (NumpyDataset, SupportGraphClassifier,
+                                    roc_auc_score)
+    from deepchem_tpu_torch.data import EpisodeGenerator, get_task_support
+    head = f'phase 21 fewshot_{kind}'
+    dev = torch.device('cuda', 0)
+    ds = NumpyDataset(X, y)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    def make(device, seed):
+        return SupportGraphClassifier(model=kind, device=device, seed=seed,
+                                      **FEWSHOT)
+    model, cpu = make(dev, 0), make('cpu', 0)
+    model.fit(ds, nb_epochs=1, n_episodes_per_epoch=FEWSHOT_TASKS)
+    cpu._caps = model._caps
+    cpu.fit(ds, nb_epochs=1, n_episodes_per_epoch=FEWSHOT_TASKS)
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                model.module.state_dict().items()})
+    support = get_task_support(ds, 1, FEWSHOT['n_pos'], FEWSHOT['n_neg'], 0,
+                               np.random.RandomState(1))[0]
+
+    def answer(m, Xs):
+        return m.predict_on_support(support, NumpyDataset(Xs))
+    answer(model, X[:16])                                 # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs, request_ms, start = [], [], 0
+    for n in REQUESTS:
+        t0 = time.perf_counter()
+        outs.append(answer(model, X[start:start + n]))
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        start += n
+    serve = launch_counts()
+    worst, start = 0.0, 0
+    for n, out in zip(REQUESTS, outs):
+        ref = answer(cpu, X[start:start + n])
+        check(out.shape == ref.shape == (n,) and bool(np.isfinite(out).all())
+              and bool(((out >= 0) & (out <= 1)).all()),
+              f'fewshot {kind} request of {n}: [n] probabilities, finite')
+        worst = max(worst, float(np.abs(out - ref).max()))
+        start += n
+    n_test = FEWSHOT['n_test']
+    # each chunk of n_test queries is answered with the support encoded
+    # beside it: two encodings a chunk
+    encodings = sum(2 * -(-n // n_test) for n in REQUESTS)
+    print(f'{head} serve ({smi}): requests {list(REQUESTS)} molecules on a '
+          f'support of {len(support)}, ms per request '
+          f'{[round(t, 3) for t in request_ms]}; max abs diff against the '
+          f'CPU {worst:.3g}; launches {serve}', flush=True)
+    check(worst <= CPU_ATOL, f'fewshot {kind} card vs CPU {worst}')
+    for k, v in serve.items():
+        want = {'fused_gather_segment_sum': 2, 'csr_segment_sum': 2}.get(
+            k, 0) * encodings
+        check(v == want, f'fewshot {kind} serve: {k} launched {v} times, '
+              f'not {want}')
+    latency = []
+    for i in range(LATENCY_REQUESTS):
+        lo = (16 * i) % (len(X) - 16)
+        t0 = time.perf_counter()
+        answer(model, X[lo:lo + 16])
+        latency.append((time.perf_counter() - t0) * 1e3)
+    p50, p90 = (float(v) for v in np.percentile(latency, [50, 90]))
+    print(f'{head} serve: {LATENCY_REQUESTS} requests of 16 molecules: '
+          f'median {p50:.3f} ms, p90 {p90:.3f} ms', flush=True)
+
+    # episodes: 3 epochs, card and CPU from the same weights, optimizer
+    # state and seed (each built, and the card warmed up, by a first fit)
+    trainer, cpu_trainer = make(dev, 1), make('cpu', 1)
+    for t in (trainer, cpu_trainer):
+        t._caps = model._caps
+        t.fit(ds, nb_epochs=1, n_episodes_per_epoch=FEWSHOT_TASKS)
+        t.rng = np.random.RandomState(5)
+    cpu_trainer.module.load_state_dict(
+        {k: v.cpu() for k, v in trainer.module.state_dict().items()})
+    cpu_trainer._opt.load_state_dict(trainer._opt.state_dict())
+    losses = [[], []]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for t, out in ((trainer, losses[0]), (cpu_trainer, losses[1])):
+        for _ in range(3):
+            out.append(t.fit(ds, nb_epochs=1,
+                             n_episodes_per_epoch=FEWSHOT_EPISODES,
+                             log_every=0))
+        if t is trainer:
+            torch.cuda.synchronize()
+            episode_ms = (time.perf_counter() - t0) * 1e3 / (
+                3 * FEWSHOT_EPISODES)
+            fit = launch_counts()
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(*losses))
+    print(f'{head} train ({smi}): 3 epochs of {FEWSHOT_EPISODES} episodes '
+          f'({FEWSHOT["n_pos"]} + {FEWSHOT["n_neg"]} support, {n_test} '
+          f'queries), {episode_ms:.3f} ms an episode; last losses '
+          f'{[round(v, 5) for v in losses[0]]}, on the CPU '
+          f'{[round(v, 5) for v in losses[1]]}; launches {fit}', flush=True)
+    check(all(np.isfinite(losses[0])) and loss_err <= CPU_ATOL,
+          f'fewshot {kind}: losses {loss_err} of max(1, |loss|) from the '
+          'CPU\'s')
+    per_episode = {'fused_gather_segment_sum': 4,
+                   'fused_gather_segment_sum_bwd': 2, 'csr_segment_sum': 4}
+    for k, v in fit.items():
+        want = per_episode.get(k, 0) * 3 * FEWSHOT_EPISODES
+        check(v == want, f'fewshot {kind} fit: {k} launched {v} times, '
+              f'not {want}')
+
+    # step-1 gradients from the same weights; a fixed episode overfits
+    episode = next(EpisodeGenerator(ds, FEWSHOT['n_pos'], FEWSHOT['n_neg'],
+                                    n_test, 1, np.random.RandomState(7)))
+    packed = model._pack_episode(*episode[1:])
+    grads = []
+    for m in (model, cpu):
+        ep = m._to_device(packed)
+        m.module.train()
+        m.module.zero_grad()
+        m.loss(m.module(*ep[:3]), *ep[3:]).backward()
+        grads.append({n: p.grad.detach().cpu().clone()
+                      for n, p in m.module.named_parameters()})
+    grad_err = max(scaled_err(grads[0][n], g) for n, g in grads[1].items())
+    zero = [n for n, g in grads[0].items() if not g.abs().max() > 0]
+    print(f'{head} train: step-1 gradients, card against CPU, max abs diff '
+          f'over max(1, |g|) {grad_err:.3g} over {len(grads[1])} '
+          f'parameters; zero gradients: {zero}', flush=True)
+    check(grad_err <= GRAD_ATOL and not zero,
+          f'fewshot {kind} step-1 gradients {grad_err}, zero {zero}')
+    overfit = make(dev, 2)
+    overfit._caps = model._caps
+    ep = overfit._to_device(packed)
+    overfit._build(ep)
+    fixed = [float(overfit._step(ep)) for _ in range(FEWSHOT_OVERFIT_STEPS)]
+    below = next((i + 1 for i, v in enumerate(fixed) if v < 0.9 * fixed[0]),
+                 None)
+    print(f'{head} train: one fixed episode, lr '
+          f'{overfit.optimizer.learning_rate}: loss {fixed[0]:.5f} at step '
+          f'1, {min(fixed):.5f} at best, below 0.9 of the first at step '
+          f'{below}', flush=True)
+    check(below is not None, f'fewshot {kind}: a fixed episode overfits')
+    del overfit
+
+    # two runs of 2 episodes from one seed: the same bits
+    runs = []
+    for _ in range(2):
+        m = make(dev, 0)
+        m._caps = model._caps
+        store = []
+        for _, s_ds, q_ds in EpisodeGenerator(
+                ds, FEWSHOT['n_pos'], FEWSHOT['n_neg'], n_test, 1,
+                np.random.RandomState(8)):
+            ep = m._to_device(m._pack_episode(s_ds, q_ds))
+            if m.module is None:
+                m._build(ep)
+            m._step(ep)
+            store.append({n: p.grad.detach().clone()
+                          for n, p in m.module.named_parameters()})
+            if len(store) == 2:
+                break
+        store.append({n: p.detach().clone()
+                      for n, p in m.module.named_parameters()})
+        runs.append(store)
+    differ = sorted({n for a, b in zip(*runs) for n, t in a.items()
+                     if not torch.equal(t.view(torch.int32),
+                                        b[n].view(torch.int32))})
+    print(f'{head} train: two runs of 2 episodes from seed 0 on the card, '
+          f'every gradient and weight the same bits: {not differ}; '
+          f'differing: {differ}', flush=True)
+    check(not differ, f'fewshot {kind}: two runs from one seed differ in '
+          f'{differ}')
+
+    # evaluate: per-task ROC-AUC over 10 sampled supports
+    cpu.module.load_state_dict({k: v.cpu() for k, v in
+                                trainer.module.state_dict().items()})
+    trainer.rng, cpu.rng = (np.random.RandomState(9) for _ in range(2))
+    t0 = time.perf_counter()
+    means, stds = trainer.evaluate(ds, roc_auc_score, n_trials=10)
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    cpu_means, _ = cpu.evaluate(ds, roc_auc_score, n_trials=10)
+    eval_err = max(abs(means[t] - cpu_means[t]) for t in cpu_means)
+    print(f'{head} evaluate ({smi}): ROC-AUC by task {json.dumps(means)} '
+          f'(std {json.dumps(stds)}) on the card in {eval_ms:.3f} ms, '
+          f'{json.dumps(cpu_means)} on the CPU', flush=True)
+    check(set(means) == set(cpu_means) and means and eval_err <= EVAL_ATOL,
+          f'fewshot {kind} evaluate within {EVAL_ATOL} of the CPU '
+          f'({eval_err})')
+    serve_us, serve_kernels = device_us_all(lambda: answer(model, X[:16]))
+    step_us, step_kernels = device_us_all(
+        lambda: trainer._step(trainer._to_device(packed)))
+    numbers = {'request16_median_ms': p50, 'request16_p90_ms': p90,
+               'episode_ms': episode_ms, 'request16_device_us': serve_us,
+               'request16_device_kernels': serve_kernels,
+               'step_device_us': step_us, 'step_device_kernels': step_kernels,
+               'max_request_err': worst, 'step1_grad_err': grad_err,
+               'eval_err': eval_err, 'same_bits_checked': True,
+               'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+               'peak_over_held_bytes': torch.cuda.max_memory_allocated()
+               - held}
+    print(f'{head} card: {json.dumps(numbers)}', flush=True)
+    return serve, fit, zero_counts(), numbers
+
+
+def egnn_phase(graphs, smi):
+    """Phase 21: EGNNLayer(EGNN_HIDDEN, EGNN_HIDDEN, coordinates updated,
+    the binned edge lengths as edge inputs) on ``graphs`` packed into one
+    batch with its CSR, seeded features: the card's outputs within
+    CPU_ATOL and every gradient (features, coordinates, edge inputs,
+    weights) within GRAD_ATOL of max(1, |ref|) of the CPU's from the same
+    weights, P2 3 a forward and 4 in its backward, the same bits on a
+    repeat, host ms and device µs a forward and backward."""
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch.feat import BatchGraphData, bucket_caps
+    from deepchem_tpu_torch.models import EGNNLayer
+    from deepchem_tpu_torch.ops import CooCsr, coo_csr
+    dev = torch.device('cuda', 0)
+    batch = BatchGraphData(list(graphs))
+    node_cap, edge_cap = bucket_caps(batch.num_nodes + 1, batch.num_edges)
+    d = batch.pad(node_cap, edge_cap, num_graphs=len(graphs))
+    ef = np.zeros((edge_cap, 5), np.float32)
+    ef[:batch.num_edges] = np.concatenate([g.edge_weights for g in graphs])
+    src, dst = d['edge_index']
+    rng = np.random.RandomState(0)
+    h = rng.randn(node_cap, EGNN_HIDDEN).astype(np.float32)
+    gh = rng.randn(node_cap, EGNN_HIDDEN).astype(np.float32)
+    gx = rng.randn(node_cap, 3).astype(np.float32)
+    layer = EGNNLayer(EGNN_HIDDEN, EGNN_HIDDEN, edge_features=5,
+                      generator=torch.Generator().manual_seed(0))
+    cpu_layer = EGNNLayer(EGNN_HIDDEN, EGNN_HIDDEN, edge_features=5)
+    cpu_layer.load_state_dict(layer.state_dict())
+    layer = layer.to(dev)
+
+    def run(lay, device, backward=True):
+        def t(a, grad=False):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device).requires_grad_(grad)
+        ins = [t(h, True), t(d['node_pos_features'], True)]
+        e = t(ef, True)
+        csr = CooCsr(*(t(a) for a in coo_csr(src, dst, node_cap)))
+        lay.zero_grad()
+        out_h, out_x = lay(*ins, t(src).long(), t(dst).long(),
+                           t(d['edge_mask']), csr, ef=e)
+        if not backward:
+            return out_h, out_x
+        ((out_h * t(gh)).sum() + (out_x * t(gx)).sum()).backward()
+        grads = {'h': ins[0].grad, 'x': ins[1].grad, 'ef': e.grad,
+                 **{n: p.grad for n, p in lay.named_parameters()}}
+        return ({k: v.detach().cpu() for k, v in (('h', out_h),
+                                                  ('x', out_x))},
+                {k: v.detach().cpu() for k, v in grads.items()})
+    run(layer, dev)                                       # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        run(layer, dev, backward=False)
+    serve = launch_counts()
+    reset_launch_counts()
+    outs, grads = run(layer, dev)
+    step = launch_counts()
+    outs2, grads2 = run(layer, dev)
+    ref_outs, ref_grads = run(cpu_layer, 'cpu')
+    out_err = max(scaled_err(outs[k], ref_outs[k]) for k in outs)
+    grad_err = max(scaled_err(grads[k], ref_grads[k]) for k in ref_grads)
+    same = all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+               for a, b in ((outs, outs2), (grads, grads2)) for k in a)
+    moved = float((outs['x'] - torch.from_numpy(
+        d['node_pos_features'])).abs().max())
+    ms = time_ms(lambda: run(layer, dev), iters=50)
+    us, kernels = device_us_all(lambda: run(layer, dev))
+    print(f'phase 21 egnn ({smi}): {len(graphs)} graphs, {batch.num_nodes} '
+          f'atoms, {batch.num_edges} edges padded to [{node_cap}, '
+          f'{edge_cap}], hidden {EGNN_HIDDEN}: card against CPU, outputs '
+          f'{out_err:.3g}, gradients of h, x, the edge inputs and '
+          f'{len(grads) - 3} weights {grad_err:.3g} of max(1, |ref|); '
+          f'coordinates moved up to {moved:.3g}; the same bits on a repeat: '
+          f'{same}; launches forward {serve}, forward and backward {step}; '
+          f'{ms:.4f} ms and {us} device µs ({kernels} kernels) a forward '
+          f'and backward', flush=True)
+    check(out_err <= CPU_ATOL and grad_err <= GRAD_ATOL and same,
+          f'EGNN: outputs {out_err}, gradients {grad_err}, same bits {same}')
+    for counts, want in ((serve, {'fused_gather_segment_sum': 3}),
+                         (step, {'fused_gather_segment_sum': 3,
+                                 'fused_gather_segment_sum_bwd': 4})):
+        for k, v in counts.items():
+            check(v == want.get(k, 0), f'EGNN: {k} launched {v} times, not '
+                  f'{want.get(k, 0)}')
+    numbers = {'forward_backward_ms': ms, 'forward_backward_device_us': us,
+               'device_kernels': kernels, 'max_out_err': out_err,
+               'max_grad_err': grad_err, 'same_bits_checked': True}
+    return serve, step, zero_counts(), numbers
+
+
+def fit_bits(make, X, y, dev, steps=2):
+    """Two fresh models from seed 0 ``fit`` the same first ``steps``
+    batches (``deterministic=True``) on ``dev``: the names of the
+    parameters whose gradient after any step, or whose weight after the
+    last, differs in any bit between the two runs (``[]``: the step is
+    bit-reproducible), and the parameter count."""
+    import torch
+    from deepchem_tpu_torch import NumpyDataset
+    runs = []
+    for _ in range(2):
+        model = make(dev, 0, log_frequency=1)
+        grads = []
+
+        def grab(m, step, out=grads):
+            out.append({n: p.grad.detach().clone()
+                        for n, p in m.module.named_parameters()
+                        if p.grad is not None})
+        B = model.batch_size
+        model.fit(NumpyDataset(X[:steps * B], y[:steps * B]), nb_epoch=1,
+                  checkpoint_interval=0, deterministic=True, callbacks=grab)
+        weights = {n: p.detach().clone()
+                   for n, p in model.module.named_parameters()}
+        runs.append((grads, weights))
+        del model
+    (ga, wa), (gb, wb) = runs
+    differ = set()
+    check(len(ga) == len(gb) == steps, f'{steps} steps in each fit')
+    for a, b in zip(ga, gb):
+        differ |= {n for n, g in a.items() if not torch.equal(
+            g.view(torch.int32), b[n].view(torch.int32))}
+    differ |= {n for n, w in wa.items() if not torch.equal(
+        w.view(torch.int32), wb[n].view(torch.int32))}
+    return sorted(differ), len(wa)
+
+
 def step1_grads(store):
     """A fit callback that keeps a copy of every gradient after step 1."""
     def grab(model, step):
@@ -2563,7 +3033,7 @@ def coo_branch(cls):
 def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
                 scored=True, out_tail=(1,), metrics=None, on_device=None,
                 score_rows=None, scaled=False, overfit_steps=50,
-                loss_epochs=3):
+                loss_epochs=3, same_bits=False):
     """Phases 13, 14, 16, 17 and 19: serves, trains and scores one
     model on the card, each held against the CPU: requests of REQUESTS
     molecules and the whole of ``X`` (CPU_ATOL), LATENCY_REQUESTS timed
@@ -2588,7 +3058,8 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
     tens to hundreds, where float32's rounding alone is about 1e-4 of an
     answer at its initial weights);
     the fixed batch gets ``overfit_steps`` steps to fall below 0.9 of its
-    first loss; the first ``loss_epochs`` of fit_on_device's 3 epoch
+    first loss; with ``same_bits`` two ``fit``s of 2 steps from one seed
+    must give the same bits (:func:`fit_bits`); the first ``loss_epochs`` of fit_on_device's 3 epoch
     losses are held to the CPU's (a training run that a 1e-7 change of
     its weights moves by more than CPU_ATOL by its third epoch cannot be
     held to the CPU's there: scripts/materials_float32_drift.py).  The numbers include the
@@ -2739,6 +3210,13 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
           f'{GRAD_ATOL} of max(1, |g|)')
     check(not zero, f'{tag}: every parameter gets a gradient; zero: {zero}')
     del grads
+    if same_bits:
+        differ, n_params = fit_bits(make, X, y, dev)
+        print(f'{head} train: two fits of 2 steps from seed 0 on the card, '
+              f'every gradient and weight of {n_params} parameters the same '
+              f'bits: {not differ}; differing: {differ}', flush=True)
+        check(not differ, f'{tag}: two fits from one seed differ in '
+              f'{differ}')
     overfit = make(dev, 2, log_frequency=1)
     fixed = []
     overfit.fit(NumpyDataset(X[:B], y[:B]), nb_epoch=overfit_steps,
@@ -2798,7 +3276,7 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
                'request16_device_kernels': serve_kernels,
                'step_device_us': step_us, 'step_device_kernels': step_kernels,
                'max_request_err': worst, 'step1_grad_err': grad_err,
-               'eval_err': eval_err,
+               'eval_err': eval_err, 'same_bits_checked': same_bits,
                'peak_memory_bytes': torch.cuda.max_memory_allocated(),
                'peak_over_held_bytes': torch.cuda.max_memory_allocated()
                - held}
@@ -3683,12 +4161,14 @@ def main() -> int:
     for shape in crossover:
         flash_cases.append(flash_case(
             f'crossover_S{shape[2]}', shape, torch.bfloat16, dev,
-            iters=200 if shape[2] <= 1024 else 50))
+            iters=CROSSOVER_ITERS if shape[2] <= 1024
+            else CROSSOVER_ITERS // 4))
     # P4 in f32 (3xTF32 on the tensor cores) where it meets SDPA's
     for S in F32_CROSSOVER_S:
         flash_cases.append(flash_case(
             f'crossover_S{S}_f32', (CROSSOVER_TOKENS // S, 12, S, 64),
-            torch.float32, dev, iters=200 if S <= 1024 else 50))
+            torch.float32, dev, iters=CROSSOVER_ITERS if S <= 1024
+            else CROSSOVER_ITERS // 4))
     # P4's own path: forward and backward once per crossover shape
     gen = torch.Generator(dev).manual_seed(1)
     torch.cuda.synchronize()
@@ -4107,8 +4587,11 @@ def main() -> int:
           and bool(np.all(np.isfinite(epoch_losses))),
           f'{3 * S} steps, 3 finite epoch losses')
     # a step: the forward's launches, K1 again in each take_src's
-    # backward, P3 again in each P1's backward (P3's own is a gather)
-    per_step = dict(per_batch, take_src_bwd=T, csr_segment_sum=2 * M)
+    # backward, P3 again in each P1's backward (P3's own is a gather) and
+    # in each set2set round's gather of the graphs' queries for their
+    # nodes (gather_graph_rows: index_add_'s float atomics made the step
+    # differ run to run)
+    per_step = dict(per_batch, take_src_bwd=T, csr_segment_sum=3 * M)
     for k, v in mp_train.items():
         want = per_step.get(k, 0) * mp_steps
         check(v == want, f'MPNN train: {k} launched {v} times, not {want}')
@@ -4132,6 +4615,13 @@ def main() -> int:
           f'> {GRAD_ATOL} of max(1, |g|)')
     check(not zero, f'every parameter gets a gradient; zero: {zero}')
     del grads
+    differ, n_params = fit_bits(
+        lambda d, seed, **kw: MPNNModel(**MPNN, device=d, seed=seed, **kw),
+        mp_X, mp_ds.y, dev)
+    print(f'phase 12 mpnn train: two fits of 2 steps from seed 0 on the '
+          f'card, every gradient and weight of {n_params} parameters the '
+          f'same bits: {not differ}; differing: {differ}', flush=True)
+    check(not differ, f'MPNN: two fits from one seed differ in {differ}')
     overfit = MPNNModel(**MPNN, device=dev, seed=2, log_frequency=1)
     fixed = []
     overfit.fit(NumpyDataset(mp_X[:B], mp_ds.y[:B]), nb_epoch=50,
@@ -4183,10 +4673,14 @@ def main() -> int:
     # -- 14. DMPNN at the JAX package's defaults --------------------------
     phase_start(14)
     # K1 once a round and once after, P3 once; nei_sum_edges' backward is
-    # a gather
+    # a gather; a step adds K1 in the backward of each round's gather of
+    # the node sums by source (take_src over the outgoing table e_table ^
+    # 1: index_select's index_add_ differed run to run)
     per_batch = {'nei_sum_edges': 3, 'csr_segment_sum': 1}
     table_runs['dmpnn'] = model_phase(14, 'dmpnn', dm_make, dm_X, dm_y,
-                                      per_batch, per_batch, smi)
+                                      per_batch,
+                                      dict(per_batch, take_src_bwd=2), smi,
+                                      same_bits=True)
     del dm_model
 
     # -- 15. the engine on GraphConv at bench.py's width ------------------
@@ -4200,21 +4694,27 @@ def main() -> int:
     # PNA layer (max, min); P3 twice for a mean readout (PNA, GNNModular's
     # regressor), once for InfoGraph*'s sum; a step adds P2's transpose in
     # the GCN layers after the first (which reads the atoms) and K3's
-    # backward
+    # backward; also P2 in the backward of each gather of node
+    # rows by an edge's end (PNA 3 a layer: h by source and destination,
+    # the mean by destination; edge prediction 2: h by source and by
+    # destination), where index_select's index_add_ differed run to run
     gcn = {'fused_gather_segment_sum': 3}
     coo_runs = {}
     for k, per_batch, per_step, scored in (
             ('pna', {'fused_gather_segment_sum': 6, 'graph_max_pool_fwd': 6,
-                     'csr_segment_sum': 2}, {'graph_max_pool_bwd': 6}, True),
+                     'csr_segment_sum': 2},
+             {'graph_max_pool_bwd': 6, 'fused_gather_segment_sum_bwd': 9},
+             True),
             ('gnn_regression', dict(gcn, csr_segment_sum=2),
              {'fused_gather_segment_sum_bwd': 2}, True),
-            ('gnn_edge_pred', gcn, {'fused_gather_segment_sum_bwd': 2},
+            ('gnn_edge_pred', gcn, {'fused_gather_segment_sum_bwd': 4},
              False),
             ('infograph_star', dict(gcn, csr_segment_sum=1),
              {'fused_gather_segment_sum_bwd': 2}, True)):
         coo_runs[k] = model_phase(16, k, coo_makers[k], gnn_X, gnn_y,
                                   per_batch, dict(per_batch, **per_step),
-                                  smi, scored)
+                                  smi, scored,
+                                  same_bits=k in ('pna', 'gnn_edge_pred'))
 
     # -- 17. the COO branches -------------------------------------------
     phase_start(17)
@@ -4257,7 +4757,8 @@ def main() -> int:
                                            **kw), mp_X, mp_y,
              {'fused_gather_segment_sum': 3, 'csr_segment_softmax': 6,
               'csr_segment_sum': 6},
-             {'fused_gather_segment_sum_bwd': 3, 'csr_segment_sum': 12}, {}),
+             {'fused_gather_segment_sum_bwd': 3, 'csr_segment_sum': 18},
+             {'same_bits': True}),
             ('dmpnn', DMPNNModel, dm_make, dm_X, dm_y,
              {'fused_gather_segment_sum': 3, 'csr_segment_sum': 1},
              {'fused_gather_segment_sum_bwd': 2}, {})):
@@ -4379,10 +4880,14 @@ def main() -> int:
           f'{QM7_ATOMS} atoms embedded and featurized in {cm_ms:.3f} ms a '
           f'molecule, repeated to {len(cm_X)}', flush=True)
     t0 = time.perf_counter()
+    # DTNN: a step sums each element's embedding rows by P2 over a CSR of
+    # the atoms by atomic number (gather_table_rows: index_add_'s float
+    # atomics differed run to run)
     new_runs['dtnn'] = model_phase(
         19, 'dtnn', lambda d, seed, **kw: DTNNModel(**DTNN, device=d,
                                                    seed=seed, **kw),
-        cm_X, cm_y, {}, {}, smi)
+        cm_X, cm_y, {}, {'fused_gather_segment_sum_bwd': 1}, smi,
+        same_bits=True)
     print(f'phase 19 dtnn: {time.perf_counter() - t0:.1f} s', flush=True)
     cft = CoulombFitTransformer(NumpyDataset(cm_X, cm_y))
     t0 = time.perf_counter()
@@ -4440,7 +4945,7 @@ def main() -> int:
     timed_phase('megnet', lambda d, seed, **kw: MEGNetModel(
         **MEGNET, device=d, seed=seed, **kw), mat['cgcnn'], mat_y,
         per_batch, dict(per_batch, fused_gather_segment_sum_bwd=2), smi,
-        overfit_steps=MEGNET_OVERFIT_STEPS, metrics=rms_mae)
+        overfit_steps=MEGNET_OVERFIT_STEPS, metrics=rms_mae, same_bits=True)
     # ElemNet's and InfoMax3D pretraining's runs are chaotic by their third
     # epoch: a 1e-7 change of the weights moves its loss by up to 4.9e-4
     # and 3.4e-4 (scripts/materials_float32_drift.py, the CPU, 4 seeds;
@@ -4479,16 +4984,18 @@ def main() -> int:
           'ElemNet: dropout 0.2 only in training, finite losses')
     del drop, plain
     # InfoMax3D pretraining: the 2D encoder's PNA layers P2 2 and K3 2
-    # each, its mean readout P3 2; the 3D encoder's layers P2 1 each (2
-    # more in the backward), its sum readout P3 1
+    # each (3 more P2 in the backward: the gathers of h by source and
+    # destination and of the mean by destination), its mean
+    # readout P3 2; the 3D encoder's layers P2 1 each (2 more in the
+    # backward), its sum readout P3 1
     im_X, im_y = mat['conformer'], mat['conformer_y']
     per_batch = {'fused_gather_segment_sum': 9, 'graph_max_pool_fwd': 6,
                  'csr_segment_sum': 3}
     timed_phase('infomax3d_pretrain', lambda d, seed, **kw: InfoMax3DModular(
         task='pretrain', **INFOMAX3D, device=d, seed=seed, **kw), im_X,
-        im_y, per_batch, dict(per_batch, fused_gather_segment_sum_bwd=6,
+        im_y, per_batch, dict(per_batch, fused_gather_segment_sum_bwd=15,
                               graph_max_pool_bwd=6), smi, scored=False,
-        loss_epochs=1)
+        loss_epochs=1, same_bits=True)
     # the regressor's encoder is pretrained on the CPU, so its weights are
     # the same on every run: pretraining on the card (timed above) is not
     # bit-reproducible, and from one such run's weights the regressor's
@@ -4517,10 +5024,53 @@ def main() -> int:
     per_batch = {'fused_gather_segment_sum': 6, 'graph_max_pool_fwd': 6,
                  'csr_segment_sum': 2}
     timed_phase('infomax3d_regression', im_make, im_X, im_y, per_batch,
-                dict(per_batch, graph_max_pool_bwd=6), smi)
+                dict(per_batch, graph_max_pool_bwd=6,
+                     fused_gather_segment_sum_bwd=9), smi, same_bits=True)
 
-    # -- 21. kernels line -------------------------------------------------
+    # -- 21. MXMNet, AtomicConv, the few-shot classifier, EGNN --------------
     phase_start(21)
+    from deepchem_tpu_torch import AtomicConvModel, MXMNetModel
+    s21 = slice21_data()
+    lig = [a for a, _ in s21['complex_atoms']]
+    pocket = [b for _, b in s21['complex_atoms']]
+    print(f'phase 21 data ({smi}): the 48 SMILES embedded for MXMNet and '
+          f'shuffled to {MXMNET_MOLECULES}; {ATOMIC_COMPLEXES} complexes '
+          f'written as PDB text, ligands of {min(lig)}-{max(lig)} and '
+          f'pockets of {min(pocket)}-{max(pocket)} heavy atoms; '
+          f'{FEWSHOT_MOLECULES} molecules with labels for {FEWSHOT_TASKS} '
+          f'tasks; featurize ms a molecule or complex '
+          f'{json.dumps(s21["featurize_ms"])}', flush=True)
+    slice_runs = {}
+
+    def slice_phase(tag, run, *args, **kwargs):
+        t0 = time.perf_counter()
+        slice_runs[tag] = run(*args, **kwargs)
+        print(f'phase 21 {tag}: {time.perf_counter() - t0:.1f} s',
+              flush=True)
+    # MXMNet: each plex's message sum P2 (2 plexes, 3 layers), its
+    # gathers of h by source and destination P2 in the backward, the sum
+    # readout P3
+    per_batch = {'fused_gather_segment_sum': 6, 'csr_segment_sum': 1}
+    slice_phase('mxmnet', model_phase, 21, 'mxmnet',
+                lambda d, seed, **kw: MXMNetModel(**MXMNET, device=d,
+                                                  seed=seed, **kw),
+                s21['mxmnet'], s21['mxmnet_y'], per_batch,
+                dict(per_batch, fused_gather_segment_sum_bwd=12), smi,
+                same_bits=True)
+    # AtomicConv: no kernel of the port's; its radial product is cuBLAS
+    slice_phase('atomic_conv', model_phase, 21, 'atomic_conv',
+                lambda d, seed, **kw: AtomicConvModel(**ATOMIC_CONV,
+                                                      device=d, seed=seed,
+                                                      **kw),
+                s21['complexes'], s21['complexes_y'], {}, {}, smi,
+                same_bits=True)
+    for kind in ('siamese', 'attn', 'res'):
+        slice_phase(f'fewshot_{kind}', fewshot_phase, kind, s21['fewshot'],
+                    s21['fewshot_y'], smi)
+    slice_phase('egnn', egnn_phase, s21['egnn'], smi)
+
+    # -- 22. kernels line -------------------------------------------------
+    phase_start(22)
     def run_paths(runs, key):
         return {f'{m}_{run}': counts[key] for m, (srv, fit, dev_fit, _) in
                 runs.items() for run, counts in (
@@ -4574,7 +5124,8 @@ def main() -> int:
                 **coo_paths('csr_segment_sum'),
                 **run_paths(branch_runs, 'csr_segment_sum'),
                 **run_paths(new_runs, 'csr_segment_sum'),
-                **run_paths(mat_runs, 'csr_segment_sum')},
+                **run_paths(mat_runs, 'csr_segment_sum'),
+                **run_paths(slice_runs, 'csr_segment_sum')},
                replaces='deepchem_tpu/ops/pallas_segment.py:45',
                shapes={c['case']: {k: c[k] for k in (
                    'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
@@ -4598,7 +5149,10 @@ def main() -> int:
                     new_runs, 'fused_gather_segment_sum_bwd').items()},
                 **run_paths(mat_runs, 'fused_gather_segment_sum'),
                 **{f'{path}_backward': n for path, n in run_paths(
-                    mat_runs, 'fused_gather_segment_sum_bwd').items()}},
+                    mat_runs, 'fused_gather_segment_sum_bwd').items()},
+                **run_paths(slice_runs, 'fused_gather_segment_sum'),
+                **{f'{path}_backward': n for path, n in run_paths(
+                    slice_runs, 'fused_gather_segment_sum_bwd').items()}},
                replaces='deepchem_tpu/ops/pallas_segment.py:94',
                shapes={c['case']: {k: c[k] for k in (
                    'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
@@ -4608,8 +5162,8 @@ def main() -> int:
                    + p2_long_cases + coo_cases + coo_branch_cases[:4]
                    + dag_cases + mat_cases},
                models={m: numbers for m, (_, _, _, numbers) in
-                       (coo_runs | branch_runs | new_runs
-                        | mat_runs).items()})
+                       (coo_runs | branch_runs | new_runs | mat_runs
+                        | slice_runs).items()})
     # P2 in bfloat16: the JAX package's bench shapes, the long segments
     # and the non-finite inputs; main case the widest bench shape
     p2_bf16 = entry('fused_gather_segment_sum_bf16', bf16_cases,

@@ -1,6 +1,6 @@
 from deepchem_tpu_torch.feat.base import Featurizer, MolecularFeaturizer
-from deepchem_tpu_torch.feat.conformer_featurizers import \
-    RDKitConformerFeaturizer
+from deepchem_tpu_torch.feat.conformer_featurizers import (
+    EquivariantGraphFeaturizer, MXMNetFeaturizer, RDKitConformerFeaturizer)
 from deepchem_tpu_torch.feat.crystal_featurizers import (CGCNNFeaturizer,
                                                          LCNNFeaturizer)
 from deepchem_tpu_torch.feat.graph_data import (BatchGraphData, GraphData,
@@ -22,4 +22,5 @@ __all__ = ['Featurizer', 'MolecularFeaturizer', 'GraphData', 'BatchGraphData',
            'BasicSmilesTokenizer', 'SmilesTokenizer', 'CGCNNFeaturizer',
            'LCNNFeaturizer', 'ElementPropertyFingerprint',
            'ElemNetFeaturizer', 'SineCoulombMatrix',
-           'RDKitConformerFeaturizer']
+           'RDKitConformerFeaturizer', 'EquivariantGraphFeaturizer',
+           'MXMNetFeaturizer']

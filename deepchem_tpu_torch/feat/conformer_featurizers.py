@@ -1,16 +1,18 @@
-"""Conformer graphs: a molecule's MolGraphConv graph with 3D positions.
+"""Conformer graphs: a molecule's graph with 3D positions.
 
 Counterparts of ``deepchem_tpu/feat/conformer_featurizers.py``'s
-``_positions`` and ``RDKitConformerFeaturizer``: the graph is
-:class:`MolGraphConvFeaturizer` with bond features (30 atom and 11 bond
-features), the positions the molecule's conformer where it has one, else
-the port's own distance-geometry embedding
+``_positions``, ``RDKitConformerFeaturizer`` and
+``EquivariantGraphFeaturizer``, and of ``deepchem_tpu/models/mxmnet.py``'s
+``MXMNetFeaturizer``.  The conformer graph is :class:`MolGraphConvFeaturizer`
+with bond features (30 atom and 11 bond features); the positions are the
+molecule's conformer where it has one, else the port's own
+distance-geometry embedding
 (:func:`~deepchem_tpu_torch.utils.conformers.embed_molecule_3d`).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -109,3 +111,103 @@ class RDKitConformerFeaturizer(MolecularFeaturizer):
             pos = np.concatenate([pos] * self.num_conformers, axis=0)
         return GraphData(graph.node_features, graph.edge_index,
                          graph.edge_features, node_pos_features=pos)
+
+
+# the elements of EquivariantGraphFeaturizer's one-hot: H C N O F S Cl
+_EQ_ATOMS = [1, 6, 7, 8, 9, 16, 17]
+
+
+class EquivariantGraphFeaturizer(MolecularFeaturizer):
+    """SE(3)-equivariant model inputs: each atom's one-hot over C, N, O, F,
+    S and Cl and its atomic number (7 features), the bonds both ways (or,
+    with ``fully_connected``, every ordered pair of distinct atoms), each
+    edge's displacement ``pos[dst] - pos[src]`` as its features, the
+    positions, and ``edge_weights``: each edge's length one-hot over the
+    bins of ``weight_bins`` (``np.digitize``; default 1, 2, 3, 4 Å, so 5
+    bins).  ``embeded`` is kept, as in the JAX package, and unused."""
+
+    def __init__(self, fully_connected: bool = False,
+                 weight_bins: Optional[List[float]] = None,
+                 embeded: bool = False):
+        self.fully_connected = fully_connected
+        self.embeded = embeded
+        self.weight_bins = (list(weight_bins) if weight_bins is not None
+                            else [1.0, 2.0, 3.0, 4.0])
+
+    def _node_features(self, mol: Molecule) -> np.ndarray:
+        return np.asarray(
+            [[float(a.atomic_num == z) for z in _EQ_ATOMS[1:]]
+             + [float(a.atomic_num)] for a in mol.atoms], dtype=np.float32)
+
+    def _discretize(self, dists: np.ndarray) -> np.ndarray:
+        bins = np.digitize(dists, self.weight_bins)
+        out = np.zeros((len(dists), len(self.weight_bins) + 1),
+                       dtype=np.float32)
+        out[np.arange(len(dists)), bins] = 1.0
+        return out
+
+    def _featurize(self, mol: Molecule) -> GraphData:
+        pos = _positions(mol)
+        src: List[int] = []
+        dst: List[int] = []
+        if self.fully_connected:
+            n = mol.num_atoms
+            for i in range(n):
+                for j in range(n):
+                    if i != j:
+                        src.append(i)
+                        dst.append(j)
+        else:
+            for b in mol.bonds:
+                src += [b.a1, b.a2]
+                dst += [b.a2, b.a1]
+        src_a = np.asarray(src, dtype=np.int64)
+        dst_a = np.asarray(dst, dtype=np.int64)
+        disp = pos[dst_a] - pos[src_a] if len(src_a) else \
+            np.zeros((0, 3), dtype=np.float32)
+        dists = np.linalg.norm(disp, axis=-1) if len(src_a) else \
+            np.zeros(0, dtype=np.float32)
+        return GraphData(self._node_features(mol),
+                         np.stack([src_a, dst_a]),
+                         edge_features=disp.astype(np.float32),
+                         node_pos_features=pos,
+                         edge_weights=self._discretize(dists))
+
+
+class MXMNetFeaturizer(MolecularFeaturizer):
+    """MXMNet's inputs: each atom's atomic number one-hot over 0-9
+    (clipped), the bonds both ways (the local graph), the positions
+    (float32), and ``global_edges`` ``[2, E_g]``: for each atom ``i``, up
+    to ``max_neighbors`` nearest other atoms ``j`` within ``radius``
+    (``j -> i``), nearest first by numpy's default ``argsort`` of the
+    distances, so tied distances pick the JAX package's neighbours.  The
+    distances are taken at the conformer's precision (the embedding's
+    float64 where the molecule has no conformer)."""
+
+    def __init__(self, radius: float = 5.0, max_neighbors: int = 16):
+        self.radius = radius
+        self.max_neighbors = max_neighbors
+
+    def _featurize(self, mol: Molecule) -> GraphData:
+        if mol.conformer is None:
+            coords = embed_molecule_3d(mol)
+        else:
+            coords = np.asarray(mol.conformer, dtype=np.float32)
+        z = np.array([a.atomic_num for a in mol.atoms], dtype=np.int32)
+        nf = np.eye(10, dtype=np.float32)[np.clip(z, 0, 9)]
+        src, dst = [], []
+        for b in mol.bonds:
+            src += [b.a1, b.a2]
+            dst += [b.a2, b.a1]
+        ei = np.array([src, dst], dtype=np.int64).reshape(2, -1)
+        d = np.linalg.norm(coords[:, None] - coords[None, :], axis=-1)
+        np.fill_diagonal(d, np.inf)
+        gsrc, gdst = [], []
+        for i in range(len(z)):
+            for j in np.argsort(d[i])[:self.max_neighbors]:
+                if d[i, j] <= self.radius:
+                    gsrc.append(j)
+                    gdst.append(i)
+        return GraphData(nf, ei, node_pos_features=coords.astype(np.float32),
+                         global_edges=np.array([gsrc, gdst],
+                                               dtype=np.int64).reshape(2, -1))

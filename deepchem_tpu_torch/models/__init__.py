@@ -15,7 +15,8 @@ from deepchem_tpu_torch.models.gnn3d import (InfoMax3DModular, Net3DLayer,
 from deepchem_tpu_torch.models.gnn_modular import GNNModular, ModularModel
 from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
                                                     DTNNEmbedding, DTNNStep,
-                                                    EdgeNetworkMPNN, GATLayer,
+                                                    EdgeNetworkMPNN,
+                                                    EGNNLayer, GATLayer,
                                                     GCNLayer, GraphConv,
                                                     GraphGather, GRUCell,
                                                     LSTMCell, MaskedBatchNorm,
@@ -28,8 +29,16 @@ from deepchem_tpu_torch.models.graph_models import (AttentiveFPModel,
                                                     PagtnLayer, PagtnModel)
 from deepchem_tpu_torch.models.infograph import (InfoGraphModel,
                                                  InfoGraphStarModel)
+from deepchem_tpu_torch.models.atomic_conv import (
+    AtomicConvFeaturizer, AtomicConvModel, AtomicConvolution,
+    ComplexNeighborListFragmentAtomicCoordinates, ani_symmetry_features,
+    compute_neighbor_list, neighbor_dict, pdb_atoms)
 from deepchem_tpu_torch.models.base import Model
 from deepchem_tpu_torch.models.callbacks import ValidationCallback
+from deepchem_tpu_torch.models.low_data import (AttnLSTMEmbedding,
+                                                IterRefLSTMEmbedding,
+                                                SupportGraphClassifier,
+                                                cosine_dist)
 from deepchem_tpu_torch.models.losses import (
     BinaryCrossEntropy, CategoricalCrossEntropy, DeepGraphInfomaxLoss,
     EdgePredictionLoss, GlobalMutualInformationLoss, GraphEdgeMaskingLoss,
@@ -45,6 +54,7 @@ from deepchem_tpu_torch.models.material_models import (CGCNNLayer,
                                                        LCNNModel,
                                                        MEGNetModel)
 from deepchem_tpu_torch.models.multitask import SingletaskToMultitask
+from deepchem_tpu_torch.models.mxmnet import MXMNetModel, PlexLayer
 from deepchem_tpu_torch.models.pna import PNALayer, PNAModel
 from deepchem_tpu_torch.models.progressive import (
     ProgressiveMultitaskClassifier, ProgressiveMultitaskRegressor)
@@ -61,37 +71,45 @@ WeaveTensorGraph = WeaveModel
 DTNNTensorGraph = DTNNModel
 DAGTensorGraph = DAGModel
 
-__all__ = ['AdaGrad', 'Adam', 'AdamW', 'AttentiveFPLayer',
-           'AttentiveFPModel', 'BertEncoderMLM', 'BinaryCrossEntropy',
+__all__ = ['AdaGrad', 'Adam', 'AdamW', 'AtomicConvFeaturizer',
+           'AtomicConvModel', 'AtomicConvolution', 'AttentiveFPLayer',
+           'AttentiveFPModel', 'AttnLSTMEmbedding', 'BertEncoderMLM',
+           'BinaryCrossEntropy',
            'CGCNNLayer', 'CGCNNModel', 'CategoricalCrossEntropy',
+           'ComplexNeighborListFragmentAtomicCoordinates',
            'DAGModel', 'DAGTensorGraph',
            'DAGTransformer', 'DMPNNModel', 'DTNNEmbedding', 'DTNNModel',
            'DTNNStep', 'DTNNTensorGraph', 'DeepGraphInfomaxLoss',
-           'EdgeNetworkMPNN', 'EdgePredictionLoss', 'ElemNetModel',
+           'EdgeNetworkMPNN', 'EdgePredictionLoss', 'EGNNLayer',
+           'ElemNetModel',
            'ExponentialDecay',
            'GATLayer', 'GATModel', 'GCNLayer', 'GCNModel', 'GNNModular',
            'GRUCell', 'GlobalMutualInformationLoss', 'GradientDescent',
            'GraphConv', 'GraphConvModel', 'GraphEdgeMaskingLoss',
            'GraphGather', 'GraphModel', 'GraphNodeMaskingLoss', 'HingeLoss',
            'HuberLoss', 'IRVClassifier', 'InfoGraphModel', 'InfoMax3DModular',
-           'InfoGraphStarModel', 'KFAC',
+           'InfoGraphStarModel', 'IterRefLSTMEmbedding', 'KFAC',
            'L1Loss', 'L2Loss', 'LCNNModel', 'LSTMCell', 'Lamb', 'LambdaLRWithWarmup',
            'LearningRateSchedule', 'LinearCosineDecay',
            'LocalMutualInformationLoss', 'Loss', 'MEGNetModel', 'MPNNModel',
-           'MaskedBatchNorm', 'Model', 'ModularModel',
+           'MaskedBatchNorm', 'Model', 'ModularModel', 'MXMNetModel',
            'MultitaskClassifier', 'MultitaskFitTransformRegressor',
            'MultitaskIRVClassifier', 'MultitaskRegressor', 'Net3DLayer',
            'Optimizer',
-           'PNALayer', 'PNAModel',
+           'PNALayer', 'PNAModel', 'PlexLayer',
            'PagtnLayer', 'PagtnModel', 'PiecewiseConstantSchedule',
            'PoissonLoss', 'PolynomialDecay', 'ProgressiveMultitaskClassifier',
            'ProgressiveMultitaskRegressor', 'RMSProp',
            'RobustMultitaskClassifier', 'RobustMultitaskRegressor',
            'ScScoreModel', 'SetGather', 'SingletaskToMultitask',
            'ShannonEntropy', 'SigmoidCrossEntropy', 'SoftmaxCrossEntropy',
+           'SupportGraphClassifier',
            'SparseAdam', 'SparseSoftmaxCrossEntropy', 'SquaredHingeLoss',
            'TorchModel', 'VAE_ELBO', 'VAE_KLDivergence',
            'ValidationCallback', 'WeaveGather', 'WeaveLayer', 'WeaveModel',
-           'WeaveTensorGraph', 'encoder_params_from_flax',
+           'WeaveTensorGraph', 'ani_symmetry_features',
+           'compute_neighbor_list', 'cosine_dist',
+           'encoder_params_from_flax',
            'flash_or_xla_attention', 'fourier_encode_dist', 'graph_pool_max',
-           'mlm_loss', 'ntxent_loss', 'params_from_flax']
+           'mlm_loss', 'neighbor_dict', 'ntxent_loss', 'params_from_flax',
+           'pdb_atoms']

@@ -61,17 +61,23 @@ def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES,
 
 
 # flax's recurrent cells: a Dense (kernel [in, out], bias) per gate, under
-# the cell's scope -> the port's cells (graph_layers.GRUCell, LSTMCell),
-# which stack the gates' weights [out, in]: torch leaf -> the flax gates
-_CELL = re.compile(r'(params/(?:.+/)?(GRUCell|OptimizedLSTMCell)_\d+)/'
-                   r'(\w+)/(kernel|bias)$')
+# the cell's scope (``GRUCell_<i>``, ``OptimizedLSTMCell_<i>``,
+# ``LSTMCell_<i>`` or a name of the module's, such as ``support_lstm``),
+# told apart by their gates -> the port's cells (graph_layers.GRUCell,
+# LSTMCell), which stack the gates' weights [out, in]: torch leaf -> the
+# flax gates.  Both flax LSTM cells have the bias on the hidden side only.
+_GRU_GATES = ('ir', 'iz', 'in', 'hr', 'hz', 'hn')
+_LSTM_GATES = ('ii', 'if', 'ig', 'io', 'hi', 'hf', 'hg', 'ho')
+_CELL = re.compile(r'(params/(?:.+/)?[^/]+)/('
+                   + '|'.join(_GRU_GATES + _LSTM_GATES)
+                   + r')/(kernel|bias)$')
 _CELL_LEAVES = {
     'GRUCell': {'weight_ih': ('ir', 'iz', 'in'),
                 'bias_ih': ('ir', 'iz', 'in'),
                 'weight_hh': ('hr', 'hz', 'hn'), 'bias_hn': ('hn',)},
-    'OptimizedLSTMCell': {'weight_ih': ('ii', 'if', 'ig', 'io'),
-                          'weight_hh': ('hi', 'hf', 'hg', 'ho'),
-                          'bias_hh': ('hi', 'hf', 'hg', 'ho')}}
+    'LSTMCell': {'weight_ih': ('ii', 'if', 'ig', 'io'),
+                 'weight_hh': ('hi', 'hf', 'hg', 'ho'),
+                 'bias_hh': ('hi', 'hf', 'hg', 'ho')}}
 
 
 def layer_scopes(prefix: str, attr: str, n: int,
@@ -115,12 +121,13 @@ def flax_state(flat: Dict[str, np.ndarray],
     for key, value in flat.items():
         m = _CELL.match(key)
         if m:
-            cells.setdefault((m.group(1), m.group(2)), {})[
-                (m.group(3), m.group(4))] = value
+            cells.setdefault(m.group(1), {})[(m.group(2), m.group(3))] = value
         else:
             state[_torch_name(key, scopes, leaves)] = _tensor(key, value)
-    for (prefix, kind), leaves in cells.items():
-        state.update(_cell_state(prefix, kind, leaves, scopes))
+    for prefix, gates in cells.items():
+        kind = 'GRUCell' if {g for g, _ in gates} <= set(_GRU_GATES) \
+            else 'LSTMCell'
+        state.update(_cell_state(prefix, kind, gates, scopes))
     return state
 
 
@@ -143,9 +150,10 @@ def params_from_flax(flat: Dict[str, np.ndarray], module: nn.Module) -> None:
     ``a_dst`` keep their names and shapes.  A ``GRUCell``'s gates become
     :class:`GRUCell`'s ``weight_ih`` (ir, iz, in), ``bias_ih``,
     ``weight_hh`` (hr, hz, hn) and ``bias_hn``; an ``OptimizedLSTMCell``'s
-    :class:`LSTMCell`'s ``weight_ih`` (ii, if, ig, io), ``weight_hh`` and
-    ``bias_hh`` (hi, hf, hg, ho).  Raises on a missing or extra key and on
-    a shape that differs."""
+    or an ``LSTMCell``'s (numbered, or named by the module, as
+    ``support_lstm``) :class:`LSTMCell`'s ``weight_ih`` (ii, if, ig, io),
+    ``weight_hh`` and ``bias_hh`` (hi, hf, hg, ho).  Raises on a missing
+    or extra key and on a shape that differs."""
     _load(flax_state(flat, module), module)
 
 

@@ -27,7 +27,7 @@ from deepchem_tpu_torch.models.graph_models import (GraphModel,
 from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.ops import (N_CSR, CooCsr, dst_segment_sum,
                                     gather_src, graph_pool, nei_sum_edges,
-                                    permute_rows)
+                                    permute_rows, take_src)
 
 
 class _DMPNNModule(_SeededDropout):
@@ -35,7 +35,9 @@ class _DMPNNModule(_SeededDropout):
     ReLU(W_i [x_src ; e])``; ``depth - 1`` rounds of ``h = ReLU(h0 + W_h
     (in[src(e)] - h[e ^ 1]))``, where ``in`` sums each node's incoming
     edge states (:func:`nei_sum_edges`, K1 over the incoming-edge-id
-    table); node states ``ReLU(W_o [x ; in])``; a sum readout (P3);
+    table), gathered by source with :func:`take_src` (K1 in its backward,
+    over the outgoing-edge table ``e_table ^ 1``), the reverse edges'
+    rows a permutation (a gather both ways); node states ``ReLU(W_o [x ; in])``; a sum readout (P3);
     ``ffn_layers`` dense layers with ReLU; the task heads.  Dropout after
     each round and each FFN layer.  Parameters are initialised as flax
     initialises the JAX module, from ``generator``."""
@@ -71,8 +73,7 @@ class _DMPNNModule(_SeededDropout):
             f'Dense_{3 + ffn_layers}': 'head'}
 
     def forward(self, nf, esrc, edst, gidx, nmask, emask, *rest):
-        # index_select, whose backward is index_add_, not advanced
-        # indexing, whose backward sorts the indices
+        # the atoms need no gradient: a plain gather
         esrc = esrc.long()
         ef = rest[-1]
         E = ef.shape[0]
@@ -91,12 +92,16 @@ class _DMPNNModule(_SeededDropout):
                     - permute_rows(x, rev, rev)
         else:
             e_table, e_deg = rest[:2]
+            # each node's outgoing edges are the reverses of its incoming
+            # ones (pad entries 0 become 1, read times 0)
+            o_table = torch.bitwise_xor(e_table, 1)
 
             def edge_to_node(x):
                 return nei_sum_edges(x, e_table, e_deg, edst, emask)
 
             def message(node_in, x):
-                return node_in.index_select(0, esrc) - x.index_select(0, rev)
+                return take_src(node_in, esrc, o_table, e_deg) \
+                    - permute_rows(x, rev, rev)
         h = h0
         for _ in range(self.depth - 1):
             h = self._dropout(F.relu(h0 + self.W_h(message(edge_to_node(h),

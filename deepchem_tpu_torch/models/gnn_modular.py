@@ -24,7 +24,9 @@ from deepchem_tpu_torch.models.graph_models import (GraphModel,
                                                     _gnn_loss_outputs, _heads)
 from deepchem_tpu_torch.models.losses import SigmoidCrossEntropy
 from deepchem_tpu_torch.models.optimizers import Optimizer
-from deepchem_tpu_torch.ops import CooCsr, graph_pool, node_degrees
+from deepchem_tpu_torch.ops import (CooCsr, csr_row_ptr, gather_dst,
+                                    gather_graph_rows, gather_src, graph_pool,
+                                    node_degrees)
 
 
 class ModularModel:
@@ -169,23 +171,28 @@ class _GNNModularModule(nn.Module):
         for name in self.encoders:
             h = getattr(self, name)(h, None, deg, coo)
         if self.task == 'edge_pred':
-            hs = h.index_select(0, esrc)
-            pos = torch.sum(hs * h.index_select(0, edst), dim=1)
-            neg_dst = torch.roll(edst, 7)
-            neg = torch.sum(hs * h.index_select(0, neg_dst), dim=1)
+            # P2 in the gathers' backward; the negative destinations are
+            # roll(edst, 7), so their rows are roll(h[edst], 7)
+            hs = gather_src(h, esrc, coo[3])
+            hd = gather_dst(h, edst, coo[3])
+            pos = torch.sum(hs * hd, dim=1)
+            neg = torch.sum(hs * torch.roll(hd, 7, dims=0), dim=1)
             return pos, neg, emask
         if self.task == 'mask_nodes':
             return (self.node_decoder(h),)
         g = graph_pool(h, gidx, self.num_graphs, nmask, 'mean')
         if self.task == 'infomax':
             summary = torch.sigmoid(self.infomax_head(g))
+            # each node's graph's row (the ghost slot's 0), P3 over the
+            # graphs in the backward
             graph = gidx.long().clamp_max(self.num_graphs)
+            rp = csr_row_ptr(graph, self.num_graphs + 1)
             zero = summary.new_zeros((1, self.emb_dim))
-            pos = torch.sum(h * torch.cat([summary, zero]).index_select(
-                0, graph), dim=1)
+            pos = torch.sum(h * gather_graph_rows(
+                torch.cat([summary, zero]), graph, rp), dim=1)
             shifted = torch.roll(summary, 1, dims=0)
-            neg = torch.sum(h * torch.cat([shifted, zero]).index_select(
-                0, graph), dim=1)
+            neg = torch.sum(h * gather_graph_rows(
+                torch.cat([shifted, zero]), graph, rp), dim=1)
             return pos, neg, nmask
         return _heads(g, self.head, self.n_tasks, self.n_classes, self.mode)
 

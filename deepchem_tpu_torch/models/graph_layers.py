@@ -42,18 +42,20 @@ from deepchem_tpu_torch.ops.csr_segment import csr_row_ptr, csr_segment_sum
 from deepchem_tpu_torch.ops.nei_table import (nei_gather, nei_max_incl_self,
                                               nei_sum, nei_sum_edges,
                                               slot_mask, take_src)
-from deepchem_tpu_torch.ops.segment import (NEG, graph_pool,
+from deepchem_tpu_torch.ops.segment import (NEG, gather_graph_rows,
+                                            gather_table_rows, graph_pool,
                                             segment_softmax_sorted)
 
 
 def lecun_normal_(t: torch.Tensor,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  scale: float = 1.0) -> torch.Tensor:
     """Fill a weight ``[out, in]`` as flax's ``lecun_normal`` fills its
     kernel: a normal truncated at two standard deviations with variance
-    ``1 / in``."""
+    ``1 / in``; with ``scale``, flax's ``variance_scaling(scale, 'fan_in',
+    'truncated_normal')`` (variance ``scale / in``)."""
     # std of the truncated normal is 0.8796 of its parent's; flax rescales
-    std = (1.0 / t.shape[1]) ** 0.5 / .87962566103423978
+    std = (scale / t.shape[1]) ** 0.5 / .87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
                                      generator=generator)
@@ -412,9 +414,11 @@ class EdgeNetworkMPNN(nn.Module):
 class SetGather(nn.Module):
     """set2set readout: ``n_steps`` rounds of an LSTM over ``q* = [q ;
     r]``, each node's attention to its graph's query ``q`` (a softmax
-    over the graph's valid nodes, P1) and the attention-weighted sum of
-    the graph's nodes ``r`` (P3).  Returns ``[num_graphs, 2 * node_dim]``.
-    ``graph_index`` must be non-decreasing, the ghost graph
+    over the graph's valid nodes, P1; the query gathered for each node by
+    :func:`gather_graph_rows`, P3 in the backward) and the
+    attention-weighted sum of the graph's nodes ``r`` (P3).  Returns
+    ``[num_graphs, 2 * node_dim]``.  ``graph_index`` must be
+    non-decreasing, the ghost graph
     ``num_graphs`` last, as the packer lays it out."""
 
     #: flax scope -> attribute (models/convert.py)
@@ -438,7 +442,8 @@ class SetGather(nn.Module):
         for _ in range(self.n_steps):
             carry, q = self.lstm(carry, q_star)
             # the ghost graph's query is 0
-            q_nodes = F.pad(q, (0, 0, 0, 1)).index_select(0, graph)
+            q_nodes = gather_graph_rows(F.pad(q, (0, 0, 0, 1)), graph,
+                                        row_ptr)
             a = segment_softmax_sorted((hq * q_nodes).sum(dim=1), graph_index,
                                        B + 1, mask=node_mask,
                                        row_ptr=row_ptr)
@@ -537,7 +542,9 @@ class WeaveGather(nn.Module):
 
 class DTNNEmbedding(nn.Module):
     """An embedding of atomic numbers 0 to ``periodic_table_length - 1``,
-    initialised as flax's ``truncated_normal(1 / sqrt(n_embedding))``."""
+    initialised as flax's ``truncated_normal(1 / sqrt(n_embedding))``;
+    its gradient is :func:`gather_table_rows`' (P2 over the lookups by
+    atomic number)."""
 
     flax_leaves = {'embeddings': 'embeddings'}
 
@@ -553,12 +560,10 @@ class DTNNEmbedding(nn.Module):
                                   b=2 * std, generator=generator)
 
     def forward(self, atomic_numbers: torch.Tensor) -> torch.Tensor:
-        # index_select, not advanced indexing: its backward is an
-        # index_add_, not the sort-based kernel that took a third of
-        # DTNN's card time a step
-        rows = torch.index_select(self.embeddings, 0,
-                                  atomic_numbers.reshape(-1))
-        return rows.reshape(atomic_numbers.shape + (-1,))
+        # the backward sums each element's rows by P2 in a fixed order,
+        # not by index_add_'s float atomics nor by the sort-based kernel
+        # of advanced indexing (a third of DTNN's card time a step)
+        return gather_table_rows(self.embeddings, atomic_numbers)
 
 
 class DTNNStep(nn.Module):
@@ -582,3 +587,61 @@ class DTNNStep(nn.Module):
         d = self.W_df(dist_feats)
         msg = torch.tanh(a[:, None] * d) * atom_mask[:, None, :, None]
         return atom_emb + self.W_cf(torch.sum(msg, dim=2))
+
+
+class EGNNLayer(nn.Module):
+    """An E(n)-equivariant graph layer (Satorras et al. 2021) on the padded
+    COO batch: messages ``m_ij = silu(Dense(silu(Dense([h_i ; h_j ; |x_i
+    - x_j|^2 ; e_ij]))))`` times the edge mask over the edges ``j -> i``,
+    ``h_i' = h_i + Dense(silu(Dense([h_i ; Σ_j m_ij])))``, and with
+    ``update_coords`` ``x_i' = x_i + Σ_j (x_j - x_i) w(m_ij) / max(deg_i,
+    1)`` (``w`` a bias-free ``Dense`` of ``m`` drawn at variance ``1e-3 /
+    hidden_dim``; ``deg`` the masked in-degree).  Its three sums over the
+    destinations (the messages, the degrees, the coordinate update) are P2
+    (:func:`dst_segment_sum`), its gathers of ``h`` and ``x`` by an edge's
+    ends :func:`gather_src` and :func:`gather_dst` (P2 in the backward).
+    Takes ``(h, x, esrc, edst, emask, csr, ef=None)`` and returns ``(h',
+    x')``.  flax builds each MLP's outer layer first: ``Dense_0`` and
+    ``Dense_1`` are the message MLP's outer and inner layers,
+    ``Dense_2`` and ``Dense_3`` the update's, ``Dense_4`` the coordinate
+    weight."""
+
+    flax_scopes = {'Dense_0': 'msg.second', 'Dense_1': 'msg.first',
+                   'Dense_2': 'update.second', 'Dense_3': 'update.first',
+                   'Dense_4': 'coord'}
+
+    def __init__(self, in_features: int, hidden_dim: int,
+                 update_coords: bool = True, edge_features: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.update_coords = update_coords
+        self.msg = nn.ModuleDict({
+            'first': dense(2 * in_features + 1 + edge_features, hidden_dim,
+                           generator),
+            'second': dense(hidden_dim, hidden_dim, generator)})
+        self.update = nn.ModuleDict({
+            'first': dense(in_features + hidden_dim, hidden_dim, generator),
+            'second': dense(hidden_dim, in_features, generator)})
+        if update_coords:
+            self.coord = nn.Linear(hidden_dim, 1, bias=False)
+            lecun_normal_(self.coord.weight, generator, scale=1e-3)
+
+    def forward(self, h, x, esrc, edst, emask, csr, ef=None):
+        diff = gather_dst(x, edst, csr) - gather_src(x, esrc, csr)
+        d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
+        z = [gather_dst(h, edst, csr), gather_src(h, esrc, csr), d2]
+        if ef is not None:
+            z.append(ef)
+        m = F.silu(self.msg['second'](F.silu(self.msg['first'](
+            torch.cat(z, dim=-1)))))
+        m = m * emask[:, None]
+        agg = dst_segment_sum(m, edst, csr)
+        h_new = h + self.update['second'](F.silu(self.update['first'](
+            torch.cat([h, agg], dim=-1))))
+        if not self.update_coords:
+            return h_new, x
+        w = self.coord(m)
+        deg = dst_segment_sum(emask[:, None], edst, csr)
+        dx = dst_segment_sum(-diff * w, edst, csr) / torch.clamp_min(
+            deg, 1.0)
+        return h_new, x + dx

@@ -33,7 +33,7 @@ from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.models.torch_model import TorchModel
 from deepchem_tpu_torch.ops import (N_CSR, CooCsr, coo_degrees, csr_row_ptr,
                                     csr_segment_sum, dst_segment_sum,
-                                    gather_dst, gather_src,
+                                    gather_dst, gather_graph_rows, gather_src,
                                     graph_edge_row_ptr, graph_pool)
 
 
@@ -175,7 +175,9 @@ class _MEGNetBlock(nn.Module):
     u]``, each through a two-layer softplus MLP.  The edges' sum into
     their nodes is P2; the sum of a graph's edges is P3 over its nodes'
     sums (the JAX package's ``segment_sum`` by each edge's graph, added in
-    another order).  flax builds each MLP's
+    another order); ``u`` reaches the nodes by :func:`gather_graph_rows`
+    and the edges by :func:`gather_dst` of that, so its gradient is P3
+    over P2, in a fixed order.  flax builds each MLP's
     outer layer first: ``Dense_0``/``Dense_1`` are the edge update's outer
     and inner layers, ``Dense_2``/``Dense_3`` the node update's,
     ``Dense_4``/``Dense_5`` the global one's."""
@@ -191,14 +193,16 @@ class _MEGNetBlock(nn.Module):
         self.node = _mlp2(3 * dim, dim, generator)
         self.state = _mlp2(3 * dim, dim, generator)
 
-    def forward(self, h, e, u, esrc, edst, gidx, egidx, nmask, emask,
+    def forward(self, h, e, u, esrc, edst, gidx, nmask, emask,
                 num_graphs, csr, graph_rp, in_deg, edge_counts):
+        # u by each node's graph (P3 over graph_rp in the backward), then
+        # by each edge's destination (P2): u[graph of dst(e)]
+        u_nodes = gather_graph_rows(u, gidx, graph_rp)
         ze = torch.cat([gather_src(h, esrc, csr), gather_dst(h, edst, csr),
-                        e, u.index_select(0, egidx)], dim=1)
+                        e, gather_dst(u_nodes, edst, csr)], dim=1)
         e_new = _run_mlp2(self.edge, ze) * emask[:, None]
         into_nodes = dst_segment_sum(e_new, edst, csr)
-        zn = torch.cat([h, into_nodes / in_deg[:, None],
-                        u.index_select(0, gidx)], dim=1)
+        zn = torch.cat([h, into_nodes / in_deg[:, None], u_nodes], dim=1)
         h_new = _run_mlp2(self.node, zn) * nmask[:, None]
         # the ghost slot's row too: u keeps num_graphs + 1 rows
         h_mean = graph_pool(h_new, gidx, num_graphs + 1, nmask, 'mean')
@@ -241,7 +245,6 @@ class _MEGNetModule(nn.Module):
     def forward(self, nf, esrc, edst, gidx, nmask, emask, *rest):
         csr, ef = CooCsr(*rest[:N_CSR]), rest[N_CSR]
         esrc, edst, gidx = esrc.long(), edst.long(), gidx.long()
-        egidx = gidx.index_select(0, edst)
         # graph g's nodes are rows graph_rp[g]:graph_rp[g+1], the ghost
         # slot's last
         graph_rp = csr_row_ptr(gidx, self.num_graphs + 1)
@@ -253,7 +256,7 @@ class _MEGNetModule(nn.Module):
         e = F.softplus(self.embed_edges(ef))
         u = nf.new_zeros((self.num_graphs + 1, self.dim))
         for block in self.blocks:
-            h, e, u = block(h, e, u, esrc, edst, gidx, egidx, nmask, emask,
+            h, e, u = block(h, e, u, esrc, edst, gidx, nmask, emask,
                             self.num_graphs, csr, graph_rp, in_deg,
                             edge_counts)
         g = torch.cat([graph_pool(h, gidx, self.num_graphs, nmask, 'mean'),

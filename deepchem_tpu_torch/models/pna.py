@@ -6,7 +6,9 @@ Counterparts of ``deepchem_tpu/models/pna.py``'s aggregators, scalers,
 ``PNALayer``, ``_PNAModule`` and ``PNAModel``.  The aggregations run over
 the batch's CSR of its edges by destination: the sums on P2
 (:func:`dst_segment_sum`), the max and min on K3
-(:func:`dst_segment_max_sumgrad`); the readout is a mean on P3.  Each
+(:func:`dst_segment_max_sumgrad`), the gathers of node rows by an edge's
+source or destination :func:`gather_src` and :func:`gather_dst` (P2 in
+the backward: no float atomics); the readout is a mean on P3.  Each
 aggregator takes ``(msgs, edst, n, emask, csr)``: the JAX package's
 arguments and the batch's :class:`CooCsr`.  The variance (std, var) is
 taken in two passes, where the JAX package takes ``E[x^2] - E[x]^2``: the
@@ -26,7 +28,8 @@ from deepchem_tpu_torch.models.graph_models import (GraphModel,
                                                     _gnn_loss_outputs, _heads)
 from deepchem_tpu_torch.models.optimizers import Optimizer
 from deepchem_tpu_torch.ops import (CooCsr, dst_segment_max_sumgrad,
-                                    dst_segment_sum, graph_pool, node_degrees)
+                                    dst_segment_sum, gather_dst, gather_src,
+                                    graph_pool, node_degrees)
 from deepchem_tpu_torch.ops.segment import segment_sum
 
 
@@ -44,7 +47,7 @@ def _variance(msgs, edst, n, emask, csr, mean=None):
     gradient against float64, the two passes 1e-7."""
     if mean is None:
         mean = aggregate_mean(msgs, edst, n, emask, csr)
-    dev = (msgs - mean.index_select(0, edst.long())) * emask[:, None]
+    dev = (msgs - gather_dst(mean, edst, csr)) * emask[:, None]
     return dst_segment_sum(torch.square(dev), edst, csr) / _counts(
         edst, n, emask)
 
@@ -85,7 +88,7 @@ def aggregate_moment(msgs, edst, n, emask, csr, moment: int = 3):
     """The standardised ``moment``-th moment: ``sign(m) |m + 1e-10|^(1 /
     moment)`` of the masked mean of ``(msgs - mean[edst])^moment``."""
     mean = aggregate_mean(msgs, edst, n, emask, csr)
-    dev = msgs - mean.index_select(0, edst.long()) * emask[:, None]
+    dev = msgs - gather_dst(mean, edst, csr) * emask[:, None]
     m_n = aggregate_mean(dev ** moment, edst, n, emask, csr)
     return torch.sign(m_n) * torch.abs(m_n + 1e-10) ** (1.0 / moment)
 
@@ -130,7 +133,7 @@ class PNALayer(nn.Module):
 
     def forward(self, h, esrc, edst, emask, deg, csr):
         n = h.shape[0]
-        z = torch.cat([h.index_select(0, esrc), h.index_select(0, edst)],
+        z = torch.cat([gather_src(h, esrc, csr), gather_dst(h, edst, csr)],
                       dim=1)
         msgs = F.relu(self.msg(z))
         degf = deg.to(h.dtype)

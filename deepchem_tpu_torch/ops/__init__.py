@@ -17,7 +17,9 @@ from deepchem_tpu_torch.ops.nei_table import (build_neighbor_table,
                                               build_rev_slot, nei_gather,
                                               nei_max_incl_self, nei_sum,
                                               nei_sum_edges, take_src)
-from deepchem_tpu_torch.ops.segment import (NEG, graph_max_pool, graph_pool,
+from deepchem_tpu_torch.ops.segment import (NEG, gather_graph_rows,
+                                            gather_table_rows,
+                                            graph_max_pool, graph_pool,
                                             node_degrees, segment_max,
                                             segment_max_sumgrad, segment_mean,
                                             segment_softmax,
@@ -38,6 +40,7 @@ __all__ = ['CooCsr', 'NEG', 'N_CSR', 'build_neighbor_table',
            'flash_attention_bwd_dkv_reference', 'flash_attention_bwd_dq',
            'flash_attention_bwd_dq_reference', 'flash_attention_forward',
            'flash_attention_reference', 'fused_gather_segment_sum',
+           'gather_graph_rows', 'gather_table_rows',
            'graph_max_pool', 'graph_pool', 'nei_gather', 'nei_max_incl_self',
            'nei_sum',
            'nei_sum_edges', 'node_degrees', 'segment_max',

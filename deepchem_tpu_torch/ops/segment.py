@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from deepchem_tpu_torch.kernels import build
+from deepchem_tpu_torch.ops import csr_segment
 from deepchem_tpu_torch.ops.csr_segment import (csr_row_ptr,
                                                 csr_segment_softmax,
                                                 csr_segment_sum)
@@ -374,3 +375,73 @@ def graph_pool(node_feats: torch.Tensor, graph_index: torch.Tensor,
         counts = csr_segment_sum(ones[:, None].contiguous(), row_ptr)
         out = out / torch.clamp_min(counts, 1.0)
     return out
+
+
+# ---------------------------------------------------- gathers by segment
+
+class _GatherSegmentRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, segment_ids, row_ptr):
+        ctx.save_for_backward(row_ptr)
+        ctx.shape = x.shape
+        return x.index_select(0, segment_ids.long())
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        row_ptr, = ctx.saved_tensors
+        shape = ctx.shape
+        dx = csr_segment._segment_sum_forward(
+            g.reshape(g.shape[0], -1).contiguous(), row_ptr)
+        return dx.reshape(shape), None, None
+
+
+def gather_graph_rows(x: torch.Tensor, segment_ids: torch.Tensor,
+                      row_ptr: torch.Tensor) -> torch.Tensor:
+    """``x[segment_ids]`` for non-decreasing ``segment_ids`` (a row of
+    ``x`` a graph, gathered for each of the graph's nodes, the nodes
+    graph-contiguous), ``row_ptr`` ``[len(x) + 1]`` their
+    :func:`csr_row_ptr`.  The gradient ``dx[g] = Σ_{segment(i) = g} g[i]``
+    is P3 (:func:`csr_segment_sum`) over ``row_ptr``, counted in
+    ``csr_segment_sum.launches``: each row has one writer and a fixed
+    order, where ``index_select``'s backward, ``index_add_``, adds with
+    float atomics on the card."""
+    return _GatherSegmentRows.apply(x, segment_ids, row_ptr)
+
+
+class _GatherTableRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        if table.ndim != 2:
+            raise ValueError('gather_table_rows: the table must be [R, F]')
+        flat = ids.reshape(-1).long()
+        ctx.save_for_backward(flat)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, flat).reshape(
+            tuple(ids.shape) + tuple(table.shape[1:]))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        flat, = ctx.saved_tensors
+        # the CSR of the lookups by row of the table, built on the device:
+        # a stable sort keeps each row's lookups in their order
+        order = torch.argsort(flat, stable=True).to(torch.int32)
+        counts = torch.bincount(flat, minlength=ctx.rows)
+        row_ptr = F.pad(torch.cumsum(counts, 0), (1, 0)).to(torch.int32)
+        g2 = g.reshape(flat.shape[0], -1).contiguous()
+        return csr_segment._gather_sum_forward(g2, order, row_ptr,
+                                               'backward_launches'), None
+
+
+def gather_table_rows(table: torch.Tensor, ids: torch.Tensor
+                      ) -> torch.Tensor:
+    """``table[ids]`` for a small table ``[R, F]`` (an embedding by atomic
+    number) and ids of any shape: ``[*ids.shape, F]``.  The gradient, each
+    table row the sum of the cotangents of its lookups, is P2
+    (:func:`fused_gather_segment_sum`) over a CSR of the lookups by row,
+    built on the device (a stable sort and a count), counted in
+    ``fused_gather_segment_sum.backward_launches``: a fixed order, where
+    ``index_select``'s backward adds thousands of rows into a few with
+    float atomics on the card."""
+    return _GatherTableRows.apply(table, ids)

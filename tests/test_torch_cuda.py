@@ -31,7 +31,13 @@ the backward) and P3, a DAG level pass (P2 both ways) against the plain
 versions, one step of WeaveModel and DTNNModel against the CPU, one step
 of CGCNNModel and MEGNetModel against the CPU with their launches of P2
 and P3, and CGCNN's edge sum (P2) and MEGNet's edges-into-graphs sum (P3
-over the node sums) against the plain versions.
+over the node sums) against the plain versions; two fits of 2 steps from
+one seed the same bits for each model whose backward had float atomics
+(PNA, InfoMax3D pretraining, GNNModular's edge prediction and infomax,
+DMPNN, DTNN, MPNN, MEGNet) and for MXMNet and AtomicConv; one step of
+MXMNetModel and AtomicConvModel, one episode of SupportGraphClassifier
+(siamese, attn, res) and EGNNLayer's forward and backward against the
+CPU, with their launches of P2 and P3.
 They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
@@ -1401,7 +1407,10 @@ def test_coo_models_training_step_matches_the_cpu(cuda, name):
     PNA on the card and on the CPU from the same seed: losses within 1e-5
     relative and every parameter's gradient within 1e-5 of max(1, |g|);
     the card launches P2 three times a forward (GCN layers) and twice in
-    the backward, or PNA's P2 6 and K3 6 and 6 in its backward."""
+    the backward (edge prediction 4: its gathers of h by source and by
+    destination add one each), or PNA's P2 6 and K3 6 and 6 in its
+    backward, and P2 9 in its backward (each layer's gathers of h by
+    source and destination and of the mean by destination)."""
     smiles = ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1',
               'C', 'C[C@H](N)C(=O)O']
     model, kw = COO_MODELS[name]
@@ -1420,7 +1429,8 @@ def test_coo_models_training_step_matches_the_cpu(cuda, name):
     losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(counts(), before)] == (
-        [6, 0, 6, 6] if name == 'pna' else [3, 2, 0, 0])
+        [6, 9, 6, 6] if name == 'pna' else
+        [3, 4, 0, 0] if name == 'gnn_edge_pred' else [3, 2, 0, 0])
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     cpu = dict(models[1].module.named_parameters())
     for key, p in models[0].module.named_parameters():
@@ -1505,7 +1515,7 @@ def test_coo_branches_training_step_matches_the_cpu(cuda, name):
     assert [a - b for a, b in zip(counts(), before)] == {
         'graphconv': [0, 2, 3, 1, 3, 3], 'gcn': [0, 2, 1, 2, 0, 0],
         'gat': [2, 2, 6, 4, 0, 0], 'attentivefp': [2, 2, 6, 3, 0, 0],
-        'mpnn': [2, 2, 2, 4, 0, 0], 'dmpnn': [0, 3, 2, 1, 0, 0]}[name]
+        'mpnn': [2, 2, 2, 6, 0, 0], 'dmpnn': [0, 3, 2, 1, 0, 0]}[name]
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     cpu = dict(models[1].module.named_parameters())
     for key, p in models[0].module.named_parameters():
@@ -1600,8 +1610,9 @@ def test_dag_level_pass_matches_plain_version(cuda, F):
 def test_dense_grid_models_training_step_matches_the_cpu(cuda, name):
     """One step of a small WeaveModel or DTNNModel on the card and on the
     CPU from the same seed: losses within 1e-5 relative, every gradient
-    within 1e-5 of max(1, |g|); neither launches a kernel of the
-    port's."""
+    within 1e-5 of max(1, |g|); Weave launches no kernel of the port's,
+    DTNN P2 once in its backward (the embedding's rows summed by atomic
+    number)."""
     from deepchem_tpu_torch import (CoulombMatrix, DTNNModel,
                                     WeaveFeaturizer, WeaveModel)
     from deepchem_tpu_torch.chem import mol_from_smiles
@@ -1623,11 +1634,16 @@ def test_dense_grid_models_training_step_matches_the_cpu(cuda, name):
         def make(d):
             return DTNNModel(n_tasks=1, batch_size=len(X), seed=1, device=d)
     models = [make(d) for d in (cuda, 'cpu')]
-    before = (fused_gather_segment_sum.launches, csr_segment_sum.launches)
+
+    def counts():
+        return (fused_gather_segment_sum.launches,
+                fused_gather_segment_sum.backward_launches,
+                csr_segment_sum.launches)
+    before = counts()
     losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
     torch.cuda.synchronize()
-    assert (fused_gather_segment_sum.launches,
-            csr_segment_sum.launches) == before
+    assert [a - b for a, b in zip(counts(), before)] == (
+        [0, 1, 0] if name == 'dtnn' else [0, 0, 0])
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     cpu = dict(models[1].module.named_parameters())
     for key, p in models[0].module.named_parameters():
@@ -1665,7 +1681,9 @@ def test_materials_training_step_matches_the_cpu(cuda, name):
     launches P2 once a convolution and twice in its backward, P3 twice;
     MEGNet P2 into the nodes once a block and twice in its backward, P3
     three times a block (the graph mean of h, the edges into the graphs)
-    and twice for the readout."""
+    and twice for the readout, and from the second block, whose state u
+    needs a gradient, P2 and P3 once more in the backward (u by each
+    edge's destination, by each node's graph)."""
     from deepchem_tpu_torch import CGCNNFeaturizer, CGCNNModel, MEGNetModel
     X = CGCNNFeaturizer().featurize(_crystals())
     y = np.random.RandomState(0).randn(len(X), 1).astype(np.float32)
@@ -1677,7 +1695,7 @@ def test_materials_training_step_matches_the_cpu(cuda, name):
     else:
         models = [MEGNetModel(dim=16, n_blocks=2, batch_size=len(X), seed=1,
                               device=d) for d in (cuda, 'cpu')]
-        want = [2, 4, 8]
+        want = [2, 5, 9]
 
     def counts():
         return (fused_gather_segment_sum.launches,
@@ -1738,3 +1756,262 @@ def test_materials_edge_sums_match_plain_version(cuda, F):
         np.testing.assert_allclose(
             a.numpy(), b.numpy(),
             atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+REPRO_SMILES = ['CCO', 'c1ccccc1O', 'CC(=O)Oc1ccccc1C(=O)O', 'N#Cc1ccncc1',
+                'C[C@H](N)C(=O)O', 'c1ccsc1', 'FC(F)(F)c1ccc(Cl)cc1Br',
+                'CC#N', 'C1CCCCC1', 'C[N+](C)(C)CC(=O)[O-]', 'OCC(O)CO',
+                'CCCCCCCC']
+
+
+def _complexes(n, seed=0):
+    """``n`` small complexes as (coordinates, atomic numbers) pairs: a
+    ligand of 6-8 atoms in a pocket of 14-19."""
+    from deepchem_tpu_torch import AtomicConvFeaturizer
+    rng = np.random.RandomState(seed)
+    z = np.array([6, 7, 8, 16, 6, 6, 30, 53])
+
+    def frag(k, spread):
+        return ((rng.rand(k, 3) * spread).astype(np.float32),
+                z[rng.randint(0, len(z), k)])
+    return AtomicConvFeaturizer(
+        frag1_num_atoms=8, frag2_num_atoms=20, complex_num_atoms=28,
+        max_num_neighbors=4).featurize(
+            [(frag(rng.randint(6, 9), 4.0), frag(rng.randint(14, 20), 8.0))
+             for _ in range(n)])
+
+
+ATOMIC_SMALL = dict(frag1_num_atoms=8, frag2_num_atoms=20,
+                    complex_num_atoms=28, max_num_neighbors=4,
+                    layer_sizes=(8, 4))
+
+
+def _repro_case(name):
+    """(make(device, seed), X, y) of a small model, batches of 6."""
+    from deepchem_tpu_torch import (AtomicConvModel, CGCNNFeaturizer,
+                                    CoulombMatrix, DTNNModel,
+                                    InfoMax3DModular, MEGNetModel, MPNNModel,
+                                    MXMNetFeaturizer, MXMNetModel,
+                                    RDKitConformerFeaturizer)
+    from deepchem_tpu_torch.chem import mol_from_smiles
+    from deepchem_tpu_torch.utils.conformers import ConformerGenerator
+    y = np.random.RandomState(0).randn(12, 1).astype(np.float32)
+    if name == 'atomic_conv':
+        return (lambda d, s: AtomicConvModel(batch_size=6, seed=s, device=d,
+                                             **ATOMIC_SMALL),
+                _complexes(12), y)
+    if name == 'megnet':
+        X = CGCNNFeaturizer().featurize(_crystals() * 2)
+        return (lambda d, s: MEGNetModel(dim=16, n_blocks=2, batch_size=6,
+                                         seed=s, device=d), X, y)
+    if name == 'dtnn':
+        gen = ConformerGenerator(seed=0)
+        X = CoulombMatrix(max_atoms=23).featurize(
+            [gen.generate_conformers(mol_from_smiles(s))
+             for s in REPRO_SMILES])
+        return (lambda d, s: DTNNModel(n_tasks=1, batch_size=6, seed=s,
+                                       device=d), X, y)
+    feat, make = {
+        'pna': (MolGraphConvFeaturizer(), lambda d, s: PNAModel(
+            hidden_dim=16, batch_size=6, seed=s, device=d)),
+        'gnn_edge_pred': (MolGraphConvFeaturizer(), lambda d, s: GNNModular(
+            task='edge_pred', emb_dim=16, batch_size=6, seed=s, device=d)),
+        'gnn_infomax': (MolGraphConvFeaturizer(), lambda d, s: GNNModular(
+            task='infomax', emb_dim=16, batch_size=6, seed=s, device=d)),
+        'dmpnn': (DMPNNFeaturizer(), lambda d, s: DMPNNModel(
+            n_tasks=1, enc_hidden=16, ffn_hidden=16, batch_size=6, seed=s,
+            device=d)),
+        'mpnn': (MolGraphConvFeaturizer(use_edges=True),
+                 lambda d, s: MPNNModel(n_tasks=1, node_dim=16, T=2, M=2,
+                                        batch_size=6, seed=s, device=d)),
+        'infomax3d_pretrain': (RDKitConformerFeaturizer(),
+                               lambda d, s: InfoMax3DModular(
+                                   hidden_dim=16, num_layers=2,
+                                   batch_size=6, seed=s, device=d)),
+        'mxmnet': (MXMNetFeaturizer(), lambda d, s: MXMNetModel(
+            dim=16, n_layers=2, batch_size=6, seed=s, device=d))}[name]
+    return make, feat.featurize(REPRO_SMILES), y
+
+
+REPRO_MODELS = ['atomic_conv', 'dmpnn', 'dtnn', 'gnn_edge_pred',
+                'gnn_infomax', 'infomax3d_pretrain', 'megnet', 'mpnn',
+                'mxmnet', 'pna']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', REPRO_MODELS)
+def test_training_is_bit_reproducible_on_the_card(cuda, name):
+    """Two fits of 2 steps from one seed on the card: every gradient after
+    each step and every weight after the last the same bits.  The models
+    whose backward held an ``index_add_`` with float atomics (PNA and
+    InfoMax3D's gathers by an edge's end, GNNModular's loss gathers,
+    DMPNN's gather by source, DTNN's embedding, MPNN's set2set query
+    gather, MEGNet's state gathers) have a fixed-order one: P2, P3 or
+    K1."""
+    from deepchem_tpu_torch import NumpyDataset
+    make, X, y = _repro_case(name)
+    runs = []
+    for _ in range(2):
+        model = make(cuda, 0)
+        grads = []
+        model.fit(NumpyDataset(X, y), nb_epoch=1, checkpoint_interval=0,
+                  deterministic=True, callbacks=lambda m, step: grads.append(
+                      {n: p.grad.detach().clone()
+                       for n, p in m.module.named_parameters()
+                       if p.grad is not None}))
+        runs.append((grads, {n: p.detach().clone()
+                             for n, p in model.module.named_parameters()}))
+    assert len(runs[0][0]) == len(runs[1][0]) == 2
+    for a, b in zip(runs[0][0] + [runs[0][1]], runs[1][0] + [runs[1][1]]):
+        assert set(a) == set(b)
+        for n, t in a.items():
+            assert torch.equal(t.view(torch.int32),
+                               b[n].view(torch.int32)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['mxmnet', 'atomic_conv'])
+def test_slice_21_models_training_step_matches_the_cpu(cuda, name):
+    """One step of a small MXMNetModel or AtomicConvModel on the card and
+    on the CPU from the same seed: losses within 1e-5 relative and every
+    gradient within 1e-5 of max(1, |g|), predictions within 1e-4;
+    MXMNet launches P2 once a plex (2 a layer) and twice in each plex's
+    backward, P3 once; AtomicConv none of the port's kernels."""
+    make, X, y = _repro_case(name)
+    X, y = X[:6], y[:6]
+    models = [make(d, 1) for d in (cuda, 'cpu')]
+
+    def counts():
+        return (fused_gather_segment_sum.launches,
+                fused_gather_segment_sum.backward_launches,
+                csr_segment_sum.launches)
+    before = counts()
+    losses = [m.fit_on_batch(X, y, np.ones_like(y)) for m in models]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == (
+        [4, 8, 1] if name == 'mxmnet' else [0, 0, 0])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+    preds = [m.predict_on_batch(X) for m in models]
+    assert np.isfinite(preds[0]).all()
+    np.testing.assert_allclose(preds[0], preds[1], atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['siamese', 'attn', 'res'])
+def test_few_shot_episode_matches_the_cpu(cuda, kind):
+    """One episode of a small SupportGraphClassifier on the card and on the
+    CPU from the same weights: probabilities within 1e-5, the loss within
+    1e-5 relative, every gradient within 1e-5 of max(1, |g|); P2 twice an
+    encoding (support and queries) and once more in its backward, P3
+    twice an encoding; two runs the same bits."""
+    from deepchem_tpu_torch import NumpyDataset, SupportGraphClassifier
+    from deepchem_tpu_torch.data import EpisodeGenerator
+    X = MolGraphConvFeaturizer().featurize(REPRO_SMILES)
+    y = (np.random.RandomState(1).rand(len(X), 2) < 0.4).astype(np.float32)
+    y[:2] = [[1, 1], [0, 0]]
+    ds = NumpyDataset(X, y)
+    kw = dict(model=kind, n_pos=1, n_neg=3, n_test=4, n_feat=8,
+              layer_sizes=(8, 8), max_depth=2)
+    models = [SupportGraphClassifier(device=d, **kw) for d in (cuda, 'cpu')]
+    _, support, batch = next(EpisodeGenerator(ds, 1, 3, 4, 1,
+                                              np.random.RandomState(2)))
+    packed = None
+    for m in models:
+        m._caps = m._dataset_caps(ds)
+        packed = m._pack_episode(support, batch)
+        m._build(m._to_device(packed))
+    models[1].module.load_state_dict(
+        {k: v.cpu() for k, v in models[0].module.state_dict().items()})
+
+    def counts():
+        return (fused_gather_segment_sum.launches,
+                fused_gather_segment_sum.backward_launches,
+                csr_segment_sum.launches)
+    results = []
+    for i, m in enumerate(models + models[:1]):
+        ep = m._to_device(packed)
+        m.module.zero_grad()
+        before = counts()
+        p = m.module(*ep[:3])
+        loss = m.loss(p, *ep[3:])
+        loss.backward()
+        torch.cuda.synchronize()
+        if i == 0:
+            assert [a - b for a, b in zip(counts(), before)] == [4, 2, 4]
+        results.append((p.detach().cpu(), loss.item(),
+                        {n: q.grad.detach().cpu()
+                         for n, q in m.module.named_parameters()}))
+    (p0, l0, g0), (p1, l1, g1), (p2, l2, g2) = results
+    np.testing.assert_allclose(p0.numpy(), p1.numpy(), atol=1e-5)
+    np.testing.assert_allclose(l0, l1, rtol=1e-5)
+    for key, ref in g1.items():
+        np.testing.assert_allclose(
+            g0[key].numpy(), ref.numpy(), err_msg=key,
+            atol=1e-5 * max(1.0, float(ref.abs().max())))
+        assert torch.equal(g0[key].view(torch.int32),
+                           g2[key].view(torch.int32)), key
+    assert torch.equal(p0, p2) and l0 == l2
+
+
+@pytest.mark.cuda
+def test_egnn_layer_matches_the_cpu(cuda):
+    """EGNNLayer (hidden 16, coordinates updated, binned lengths as edge
+    inputs) on a batch of conformer graphs: outputs and the gradients of
+    h, x, the edge inputs and every weight within 1e-5 of max(1, |ref|)
+    of the CPU's; P2 3 forward and 4 in the backward; a repeat the same
+    bits."""
+    from deepchem_tpu_torch import EquivariantGraphFeaturizer
+    from deepchem_tpu_torch.feat import BatchGraphData
+    from deepchem_tpu_torch.models import EGNNLayer
+    from deepchem_tpu_torch.ops import coo_csr
+    graphs = EquivariantGraphFeaturizer().featurize(REPRO_SMILES)
+    batch = BatchGraphData(list(graphs))
+    d = batch.pad(128, 256, num_graphs=len(graphs))
+    ef = np.zeros((256, 5), np.float32)
+    ef[:batch.num_edges] = np.concatenate([g.edge_weights for g in graphs])
+    rng = np.random.RandomState(0)
+    h = rng.randn(128, 16).astype(np.float32)
+    gh, gx = rng.randn(128, 16).astype(np.float32), rng.randn(128, 3).astype(
+        np.float32)
+    src, dst = d['edge_index']
+    layer = EGNNLayer(16, 16, edge_features=5,
+                      generator=torch.Generator().manual_seed(0))
+    layers = {'cpu': layer, 'cuda': EGNNLayer(16, 16, edge_features=5)}
+    layers['cuda'].load_state_dict(layer.state_dict())
+    layers['cuda'] = layers['cuda'].to(cuda)
+
+    def run(dev):
+        def t(a, grad=False):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                dev).requires_grad_(grad)
+        lay = layers['cpu' if dev == 'cpu' else 'cuda']
+        lay.zero_grad()
+        th, tx, te = t(h, True), t(d['node_pos_features'], True), t(ef, True)
+        out_h, out_x = lay(th, tx, t(src).long(), t(dst).long(),
+                           t(d['edge_mask']), CooCsr(*(
+                               t(a) for a in coo_csr(src, dst, 128))), ef=te)
+        ((out_h * t(gh)).sum() + (out_x * t(gx)).sum()).backward()
+        return {'h': out_h, 'x': out_x, 'gh': th.grad, 'gx': tx.grad,
+                'gef': te.grad, **{n: p.grad for n, p in
+                                   lay.named_parameters()}}
+    before = (fused_gather_segment_sum.launches,
+              fused_gather_segment_sum.backward_launches)
+    got = {k: v.detach().cpu() for k, v in run(cuda).items()}
+    torch.cuda.synchronize()
+    assert (fused_gather_segment_sum.launches - before[0],
+            fused_gather_segment_sum.backward_launches - before[1]) == (3, 4)
+    again = {k: v.detach().cpu() for k, v in run(cuda).items()}
+    ref = run('cpu')
+    for k, r in ref.items():
+        r = r.detach()
+        np.testing.assert_allclose(
+            got[k].numpy(), r.numpy(), err_msg=k,
+            atol=1e-5 * max(1.0, float(r.abs().max())))
+        assert torch.equal(got[k].view(torch.int32),
+                           again[k].view(torch.int32)), k

@@ -177,7 +177,8 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     files = sorted((REPO / 'deepchem_tpu_torch').rglob('*.py'))
     files += [REPO / 'chip_smoke.py'] + [
-        REPO / 'scripts' / f for f in ('profile_torch_encoder.py',
+        REPO / 'scripts' / f for f in ('card_determinism.py',
+                                       'profile_torch_encoder.py',
                                        'profile_torch_pagtn.py',
                                        'rehearse_chip_smoke.py')]
     assert len(files) > 15
