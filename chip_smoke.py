@@ -334,7 +334,61 @@ Phases:
                 EquivariantGraphFeaturizer graphs: outputs and every
                 gradient against the CPU, P2 3 forward + 4 in the
                 backward, the same bits on a repeat.
- 22. kernels -- one JSON line with each kernel's numbers.
+ 22. grover, mat -- first the kernels at the shapes of GroverModel's
+                flat batch of 256 (below) against their plain versions
+                with their bounds and library calls: K1 (the grouped atom
+                sum [24 N, 1024] through its offset table, the grouped
+                bond sum from [24 E, 1024], the K = 9 to-bond sum), P2 in
+                the gathers' backward (the grouped b2a and b2revb gathers,
+                the bonds' destinations, the two to-bond slot sums) and
+                P3 in the atom and bond readouts.  Then GroverModel at
+                scripts/bench_grover_mfu.py:177's 'large' (hidden 1024, 8
+                heads, 2 MT blocks, depth 3, batch 256), seeded random
+                weights, on GroverFeaturizer of the 48
+                SMILES (both vocabularies built over them) shuffled to 768
+                with seeded 0/1 labels for 12 tasks: pretraining and
+                finetuning (12 classification tasks, ROC-AUC over each
+                SMILES's first copy), each in the flat and the packed
+                layout, through model_phase: requests of 1, 16 and 31
+                and the first 32 of the whole set against a CPU model of
+                batch 32 (the CPU follows GROVER-large on small inputs;
+                a packed request packs a block a molecule), 100 timed
+                requests of 16, 2 fit and 2 fit_on_device epochs at batch
+                256 on the card (the step time over the second) with the
+                launches a batch and a step asserted (flat: K1 in the
+                four custom-VJP sums, 3 nei_sum_sym, 2 nei_sum_sym_g, 3
+                nei_sum_bonds, 2 nei_sum_bonds_g a batch, and
+                pretraining's 2 to-bond slot sums; a step adds the
+                symmetric sums' backward, 3 + 2, and the MPN's forward
+                again for each remat level, 'both' at this size: + 4 and
+                + 4 of each pair; P2 in the gathers' backward, 8 a step,
+                14 pretraining; P3 3 a batch, 6 pretraining; packed: none
+                of the port's kernels), 2 steps at batch 8 by fit on both
+                devices and fit_on_device on the card against the CPU's
+                losses, the card's step-1 gradients of those fits against
+                the CPU's (float32 both) within 5e-3 of max(1, |g|)
+                (float32 alone puts each up to 2.23e-3 from float64 at
+                this width, scripts/grover_float32_drift.py; the faults
+                planted by scripts/grover_grad_controls.py move them by
+                more), evaluate's ROC-AUC against the CPU's from the
+                trained weights (the share of pairs the probabilities'
+                difference can swap allowed, that difference within
+                1e-4 and the share within 1e-3), two fits of 2 steps at
+                batch 256 the same bits, the card's peak memory; models
+                after the first of a task and seed are built on the meta
+                device and load its weights; flat pretraining's step-1
+                gradients at batch 256 under remat 'both' against 'qkv'
+                (the level of the checks at batch 8) within 1e-5 of
+                max(1, |g|); then MATModel at the published MAT width
+                (dim 1024, 8 layers, 16 heads, lambda 0.33 each, batch
+                32, 12 classification tasks) on MATFeaturizer of the 48
+                SMILES shuffled to 192, through model_phase as GROVER (3
+                epochs, a fixed batch of 8 that overfits, no kernel of
+                the port's), with the same-bits check and its step-1
+                gradients within 1e-5 of the CPU's.
+ 23. kernels -- the script's wall, then one JSON line with each kernel's
+                numbers (K1, P2 and P3 on GROVER's paths: their launches
+                in each phase 22 run, their shapes).
 The last line is the JSON device record.  Any failed check exits non-zero.
 """
 
@@ -419,6 +473,12 @@ EVAL_ATOL = 1e-6                # evaluate's regression scores, card vs CPU
 # epochs by 1.08e-6 from its float64 value, and its answers at the initial
 # weights by 1.27e-4 (scripts/materials_float32_drift.py, on the CPU)
 EVAL_SCALED_RTOL = 1e-5
+# a classifier's ROC-AUC on the card may differ from the CPU's by the
+# share of (positive, negative) pairs that the answers' own difference can
+# swap (auc_tie_slack), that difference being within CPU_ATOL; never more
+# than this (about twice the largest share seen, 4.38e-4: MAT on an
+# H100, chip_smoke.py's own run)
+AUC_SLACK_MAX = 1e-3
 # graph_models.py:526-612 and dmpnn.py:94-121: GCN (layers 64, 64,
 # predictor 128), GAT (layers 8, 8 of 8 heads, predictor 128), AttentiveFP
 # (2 layers of 200) and DMPNN (hidden 300, depth 3, FFN 300 x 3) at the JAX
@@ -530,10 +590,43 @@ FEWSHOT_EPISODES = 16           # an epoch: 4 a task
 FEWSHOT_OVERFIT_STEPS = 50
 EGNN_HIDDEN = 64
 EGNN_GRAPHS = 32
+# phase 22: scripts/bench_grover_mfu.py:177 'large', the JAX package's
+# stand-in for GROVER-large (hidden 1024, 8 heads, 2 MT blocks, depth 3,
+# batch 256), pretraining with both vocabularies and finetuning on 12
+# classification tasks, each in both batch layouts; mat.py MATModel at the
+# published MAT width (model dim 1024, 8 layers, 16 heads, lambda_attention
+# = lambda_distance = 0.33), batch 32, 12 classification tasks
+GROVER = dict(hidden_size=1024, num_heads=8, num_mt_block=2, depth=3,
+              batch_size=256)
+GROVER_TASKS = 12
+GROVER_MOLECULES = 768          # the 48 SMILES 16 times: 3 batches of 256
+# the CPU follows GROVER-large on small inputs (model_phase's cpu_cut):
+# requests against a CPU model of batch 32, training at batch 8
+GROVER_CPU_CUT = (32, 8)
+GROVER_CUT_QUANTUM = 64         # the flat layout's quanta at those batches
+GROVER_PROFILE_CALLS = 1        # calls a profiler window (a step is ~1 s)
+MAT = dict(dim=1024, n_layers=8, n_heads=16, lambda_attention=0.33,
+           lambda_distance=0.33, batch_size=32, n_tasks=12,
+           mode='classification')
+MAT_MOLECULES = 192             # the 48 SMILES 4 times: 6 batches of 32
+MAT_CPU_CUT = (32, 8)           # as GROVER's: 18 CPU steps took 60 s
+MAT_PROFILE_CALLS = 2           # 20 a window took 47 s on an H100
 KERNEL_ATOL = 1e-6              # P1: same f32 inputs, another summation order
 SUM_RTOL = 1e-5                 # P3, P2: atol 1e-5 * max(1, max |out|)
 CPU_ATOL = 1e-4                 # whole model, f32, another summation order
 GRAD_ATOL = 1e-5                # step-1 gradients, card against the CPU
+# GROVER at hidden 1024 (batch 8, 3 seeds, both layouts and tasks): float32
+# alone puts its step-1 gradients up to 1.34e-3 of max(1, |g64|) from
+# float64 on the CPU and 2.23e-3 on the card (the grouped MPN's W_h and
+# the edge attention's value and out biases; scripts/grover_float32_drift.py,
+# H100), so the card's and the CPU's may lie 3.6e-3 apart: phase 22 holds
+# GROVER's step-1 gradients, card against CPU, within this.  Faults
+# planted in the backward of the flat layout's sums and gathers on real
+# rows move them by 0.060 to 0.84 (scripts/grover_grad_controls.py, CPU,
+# seeds 1 and 2); a fault confined to the ghost row moves no parameter's
+# gradient, and the attention biases (4 of pretraining's 98 parameters,
+# 12-13 of finetuning's 72) have gradients below this limit throughout
+GROVER_GRAD_ATOL = 5e-3
 TRAIN_RTOL = 1e-4               # 12-step loss trajectory, card against CPU
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM published peaks
 F32_OPS_PER_S = 67e12           # FMA units
@@ -552,8 +645,8 @@ CROSSOVER_TOKENS = 65536
 CROSSOVER_S = (128, 256, 512, 1024, 2048, 4096)
 F32_CROSSOVER_S = (512, 4096)   # P4 in f32 at these too
 # timed calls a crossover case (a quarter from S 2048), halved from 200
-# to make room for phase 21
-CROSSOVER_ITERS = 100
+# to make room for phase 21 and again for phase 22
+CROSSOVER_ITERS = 25
 PLAIN_ROWS_FROM_S = 2048        # from here the plain version takes 2 rows
 # P4 against the plain version in float32 from the same inputs, scaled by
 # max(1, |ref|): forward, then gradients; bfloat16 rounds p, ds and outputs
@@ -572,6 +665,7 @@ STAT_RTOL = 1e-5
 
 
 _PHASE = [None, 0.0]          # the phase running and when it started
+_START = time.perf_counter()  # the script's start, for its wall
 
 
 def phase_start(n: int) -> None:
@@ -663,16 +757,17 @@ def device_us(fn, kernel: str, bound_us: float = 0.0, calls: int = 20,
           f'time): {runs}; bound {bound_us:.3f} µs')
 
 
-def device_us_all(fn, calls: int = 20, tries: int = 2, most: int = 5):
+def device_us_all(fn, calls: int = 20, tries: int = 1, most: int = 5):
     """Device µs a call of ``fn`` over every CUDA kernel (and memset or
     copy) it launches, and the kernels a call, from ``torch.profiler``
     windows of ``calls`` calls.  Per kernel name: its mean time a record,
     times its launches a call (its records over ``calls``, rounded; the
     most of ``tries`` windows).  The profiler can drop a record or two of
     a window (see :func:`device_us`), which moves a mean little and the
-    rounded count not at all, and has been seen to record no device
-    event in two windows running (torch 2.11, CUDA 12.8): while it has
-    recorded none it profiles again, up to ``most`` windows."""
+    rounded count not at all, so one window is enough; it has been seen
+    to record no device event in two windows running (torch 2.11, CUDA
+    12.8): while it has recorded none it profiles again, up to ``most``
+    windows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2059,6 +2154,7 @@ def _counted():
                                         graph_max_pool, nei_gather,
                                         nei_max_incl_self, nei_sum,
                                         nei_sum_edges, take_src)
+    from deepchem_tpu_torch.models import grover
     return {'csr_segment_softmax': (csr_segment_softmax, 'launches'),
             'csr_segment_sum': (csr_segment_sum, 'launches'),
             'fused_gather_segment_sum': (fused_gather_segment_sum,
@@ -2079,7 +2175,16 @@ def _counted():
             'nei_max_fwd': (nei_max_incl_self, 'launches'),
             'nei_max_bwd': (nei_max_incl_self, 'backward_launches'),
             'graph_max_pool_fwd': (graph_max_pool, 'launches'),
-            'graph_max_pool_bwd': (graph_max_pool, 'backward_launches')}
+            'graph_max_pool_bwd': (graph_max_pool, 'backward_launches'),
+            'grover_nei_sum_sym': (grover.nei_sum_sym, 'launches'),
+            'grover_nei_sum_sym_bwd': (grover.nei_sum_sym,
+                                       'backward_launches'),
+            'grover_nei_sum_sym_g': (grover.nei_sum_sym_g, 'launches'),
+            'grover_nei_sum_sym_g_bwd': (grover.nei_sum_sym_g,
+                                         'backward_launches'),
+            'grover_nei_sum_bonds': (grover.nei_sum_bonds, 'launches'),
+            'grover_nei_sum_bonds_g': (grover.nei_sum_bonds_g, 'launches'),
+            'grover_slot_sum': (grover.slot_sum, 'launches')}
 
 
 def launch_counts():
@@ -2408,6 +2513,268 @@ def slice21_data():
     ms['egnn'] = (time.perf_counter() - t0) * 1e3 / EGNN_GRAPHS
     out['featurize_ms'] = ms
     return out
+
+
+def grover_data():
+    """Phase 22's molecules: the 48 SMILES with both GROVER vocabularies
+    built over them, featurized by GroverFeaturizer and repeated and
+    shuffled from a seed to GROVER_MOLECULES with seeded 0/1 labels for
+    GROVER_TASKS tasks, and by MATFeaturizer shuffled to MAT_MOLECULES
+    with their own labels; each set's rows of each SMILES's first copy
+    (the scored rows) and featurize ms a molecule."""
+    import numpy as np
+    from deepchem_tpu_torch.chem import mol_from_smiles
+    from deepchem_tpu_torch.models import (GroverAtomVocabularyBuilder,
+                                           GroverBondVocabularyBuilder,
+                                           GroverFeaturizer, MATFeaturizer)
+    mols = [mol_from_smiles(s) for s in SMILES]
+    av, bv = GroverAtomVocabularyBuilder(), GroverBondVocabularyBuilder()
+    av.build(mols)
+    bv.build(mols)
+    out = {'av': av, 'bv': bv, 'featurize_ms': {}}
+    for key, feat, n, seed in (
+            ('grover', GroverFeaturizer(atom_vocab=av, bond_vocab=bv),
+             GROVER_MOLECULES, 0),
+            ('mat', MATFeaturizer(), MAT_MOLECULES, 1)):
+        t0 = time.perf_counter()
+        X48 = feat.featurize(SMILES)
+        out['featurize_ms'][key] = (time.perf_counter() - t0) * 1e3 / 48
+        order = np.random.RandomState(seed).permutation(
+            np.resize(np.arange(len(SMILES)), n))
+        out[key] = X48[order]
+        out[f'{key}_y'] = np.random.RandomState(seed + 5).randint(
+            0, 2, (n, GROVER_TASKS)).astype(np.float32)
+        out[f'{key}_first'] = np.array([list(order).index(i)
+                                        for i in range(len(SMILES))])
+    return out
+
+
+_WEIGHTS = {}
+
+
+def seeded_model(cls, cfg, key, device, seed, **kw):
+    """``cls(**cfg, **kw)`` on ``device`` with the weights seed ``seed``
+    draws.  The draws of a wide model's weights (GROVER's 186M, MAT's
+    67M) take seconds on the host, and neither the layout, the batch nor
+    the device moves them: they are drawn once a ``key`` and seed, and
+    each later model is built on the meta device, drawing nothing, and
+    loads a copy."""
+    import torch
+    kw = {**cfg, **kw}
+    if (key, seed) not in _WEIGHTS:
+        model = cls(**kw, device=device, seed=seed)
+        _WEIGHTS[key, seed] = {k: v.detach().cpu().clone() for k, v in
+                               model.module.state_dict().items()}
+        return model
+    with torch.device('meta'):
+        model = cls(**kw, device=device, seed=seed)
+    model.module.load_state_dict(_WEIGHTS[key, seed])
+    return model
+
+
+def grover_launches(X, pretrain, packed):
+    """The launches a forward batch and a training step of GROVER at
+    phase 22's width over ``X``'s training batches.  Flat: K1 in the
+    custom-VJP sums, each MT block's first aggregation (nei_sum_sym,
+    nei_sum_bonds) and its grouped later ones (their ``_g`` twins), the
+    to-atom sums, and pretraining's two to-bond slot sums; in a step the
+    symmetric sums' backward (K1) and again the MPN's forward for each
+    level ``remat`` recomputes (at this size 'both': 2), each gather's
+    backward P2, the mean readouts P3 (means, and the atom or bond
+    counts once).  Packed: incidence matmuls, none of the port's
+    kernels."""
+    from deepchem_tpu_torch.models import GroverModel
+    from deepchem_tpu_torch.models.grover import remat_mode
+    if packed:
+        return {}, {}, remat_mode('auto', True, 1, GROVER['hidden_size'])
+    probe = GroverModel(hidden_size=8, num_heads=1, depth=2,
+                        batch_size=GROVER['batch_size'], packed=False,
+                        device='cpu')
+    from deepchem_tpu_torch import NumpyDataset
+    caps = probe._collect_uniform_batches(NumpyDataset(X))[0][0][0].shape
+    mode = remat_mode('auto', False, caps[0], GROVER['hidden_size'])
+    r = {'none': 0, 'qkv': 1, 'block': 1, 'both': 2}[mode]
+    blocks, later = GROVER['num_mt_block'], GROVER['depth'] - 2
+    per_batch = {'grover_nei_sum_sym': 1 + blocks,
+                 'grover_nei_sum_sym_g': blocks * later,
+                 'grover_nei_sum_bonds': 1 + blocks,
+                 'grover_nei_sum_bonds_g': blocks * later,
+                 'csr_segment_sum': 6 if pretrain else 3}
+    if pretrain:
+        per_batch['grover_slot_sum'] = 2
+    per_step = dict(
+        per_batch,
+        grover_nei_sum_sym=1 + blocks + blocks * r,
+        grover_nei_sum_sym_g=blocks * later * (1 + r),
+        grover_nei_sum_bonds=1 + blocks + blocks * r,
+        grover_nei_sum_bonds_g=blocks * later * (1 + r),
+        grover_nei_sum_sym_bwd=1 + blocks,
+        grover_nei_sum_sym_g_bwd=blocks * later,
+        fused_gather_segment_sum_bwd=blocks * 2 * (1 + later)
+        + (6 if pretrain else 0))
+    return per_batch, per_step, mode
+
+
+def grover_kernel_cases(X, dev):
+    """The port's kernels at the shapes GROVER's flat layout hands them in
+    phase 22's first batch of 256 (G = 3 * 8 heads, H 1024), random rows
+    through the batch's own tables and CSRs, each against its plain
+    version: K1 over every slot (the grouped atom sum ``[G N, H]``
+    through the offset table ``a2a + g N``, the grouped incoming-bond
+    sum from ``[G E, H]``, the K = 9 to-bond sum from ``[N, H]``); P2 in
+    the gathers' backward (the grouped ``b2a`` gather's ``[G E, H]`` into
+    ``[G N, H]``, the grouped ``b2revb`` gather's, where row 0 collects
+    the ghost's and every pad slot's cotangent, the bonds' destinations',
+    and the two to-bond slot sums' ``[E, H]`` into atoms and bonds); P3
+    in the mean readouts over each molecule's real atoms and bonds (and
+    the atom count, F 1).  Returns the K1, P2 and P3 cases."""
+    import torch
+    from deepchem_tpu_torch.models import GroverModel
+    from deepchem_tpu_torch.models.grover import FlatGraph, _full_deg
+    probe = GroverModel(hidden_size=8, num_heads=1, depth=2,
+                        batch_size=GROVER['batch_size'], packed=False,
+                        device=dev)
+    arrs = [torch.from_numpy(a).to(dev) for a in probe._graph_inputs(
+        X[:GROVER['batch_size']])]
+    G, H = 3 * GROVER['num_heads'], GROVER['hidden_size']
+    graph = FlatGraph(arrs[2], arrs[3], arrs[4], arrs[5], arrs[10:], G)
+    nmask = arrs[7]
+    N, E = arrs[0].shape[0], arrs[1].shape[0]
+    gen = torch.Generator(dev).manual_seed(22)
+
+    def rows(n, f=H):
+        return torch.randn(n, f, generator=gen, device=dev)
+    k1, p2, p3 = [], [], []
+    for name, n, table in (('grover_sym_g', G * N, graph.a2a_g),
+                           ('grover_bonds_g', G * E, graph.a2b_g),
+                           ('grover_to_bond_k9', N, graph.alfb)):
+        k1.append(nei_sum_case(name, rows(n), table.contiguous(),
+                               _full_deg(table)))
+    for name, n, csr in (
+            ('grover_b2a_g_backward', G * E, graph.b2a_csr_g),
+            ('grover_b2revb_g_backward', G * E, graph.revb_csr_g),
+            ('grover_rev_dst_backward', E, graph.dst_csr),
+            ('grover_to_bond_atoms_backward', E, graph.alfb_csr),
+            ('grover_to_bond_bonds_backward', E, graph.blfb_csr)):
+        p2.append(gather_case(name, rows(n), *csr))
+    for name, msgs, ptr in (
+            ('grover_atom_readout', rows(N - 1), graph.node_ptr),
+            ('grover_bond_readout', rows(E - 1), graph.edge_ptr),
+            ('grover_atom_count', nmask[1:, None].contiguous(),
+             graph.node_ptr)):
+        p3.append(sum_case(name, msgs, ptr))
+    torch.cuda.empty_cache()
+    return k1, p2, p3
+
+
+def remat_grads(tag, make, X, y, dev, smi):
+    """GROVER's step-1 gradients at batch 256 on the card, from one seed:
+    remat 'both' (the level 'auto' picks at this size) against 'qkv' (the
+    level of the card-against-CPU checks at their small batches).
+    Checked within GRAD_ATOL of max(1, |g|); the bits are reported."""
+    import torch
+    from deepchem_tpu_torch import NumpyDataset
+    grads, modes, peaks = [], ('both', 'qkv'), []
+    for remat in modes:
+        torch.cuda.reset_peak_memory_stats()
+        m = make(dev, 0, log_frequency=1, remat=remat)
+        B = m.batch_size
+        grads.append({})
+        m.fit(NumpyDataset(X[:B], y[:B]), nb_epoch=1, checkpoint_interval=0,
+              deterministic=True, callbacks=step1_grads(grads[-1]))
+        peaks.append(torch.cuda.max_memory_allocated())
+        del m
+    a, b = grads
+    check(set(a) == set(b), f'{tag}: the same parameters get a gradient '
+          'at both remat levels')
+    err = max(scaled_err(a[n], g) for n, g in b.items())
+    same = all(torch.equal(a[n], g) for n, g in b.items())
+    print(f'phase 22 {tag} train ({smi}): step-1 gradients at batch '
+          f'{GROVER["batch_size"]}, remat {modes[0]} against {modes[1]}: '
+          f'max abs diff over max(1, |g|) {err:.3g} over {len(b)} '
+          f'parameters, the same bits: {same}; peak memory bytes {peaks}',
+          flush=True)
+    check(err <= GRAD_ATOL, f'{tag}: remat both against qkv {err} > '
+          f'{GRAD_ATOL}')
+    return {'remat': modes, 'max_grad_err': err, 'same_bits': same,
+            'peak_memory_bytes': peaks}
+
+
+def grover_mat_phase(dev, smi):
+    """Phase 22: the kernels at the shapes of GROVER's flat batch of 256;
+    GROVER at GROVER's width in both layouts, pretraining and finetuning
+    (and flat pretraining's remat levels), and MAT at its published
+    width, each through ``model_phase``.  Returns the runs, the K1, P2
+    and P3 cases and the remat comparison."""
+    import numpy as np
+    from deepchem_tpu_torch import (GroverModel, MATModel, Metric,
+                                    roc_auc_score)
+    gd = grover_data()
+    print(f'phase 22 data ({smi}): the 48 SMILES with GROVER vocabularies '
+          f'of {gd["av"].size} atom and {gd["bv"].size} bond contexts, '
+          f'shuffled to {GROVER_MOLECULES}; for MAT to {MAT_MOLECULES}; '
+          f'{GROVER_TASKS} seeded 0/1 tasks; featurize ms a molecule '
+          f'{json.dumps(gd["featurize_ms"])}', flush=True)
+    g_runs = {}
+
+    def timed22(tag, *args, **kwargs):
+        t0 = time.perf_counter()
+        g_runs[tag] = model_phase(22, tag, *args, **kwargs)
+        print(f'phase 22 {tag}: {time.perf_counter() - t0:.1f} s',
+              flush=True)
+    t0 = time.perf_counter()
+    cases = grover_kernel_cases(gd['grover'], dev)
+    print(f'phase 22 kernels at GROVER\'s shapes: '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    auc = [Metric(roc_auc_score, np.mean)]
+    for packed in (False, True):
+        for pretrain in (True, False):
+            tag = (f'grover_{"packed" if packed else "flat"}_'
+                   f'{"pretrain" if pretrain else "finetune"}')
+            task = dict(task='pretraining', atom_vocab=gd['av'],
+                        bond_vocab=gd['bv']) if pretrain else dict(
+                task='finetuning', mode='classification',
+                n_tasks=GROVER_TASKS)
+
+            def make(d, seed, task=task, packed=packed, **kw):
+                m = seeded_model(GroverModel, GROVER, task['task'], d, seed,
+                                 packed=packed, **task, **kw)
+                if m.batch_size < GROVER['batch_size']:
+                    # the card-against-CPU checks' small batches: the
+                    # flat layout pads to finer quanta (padding changes
+                    # no answer, only the host's work)
+                    m.node_quantum = m.edge_quantum = GROVER_CUT_QUANTUM
+                return m
+            per_batch, per_step, remat = grover_launches(gd['grover'],
+                                                         pretrain, packed)
+            print(f'phase 22 {tag}: remat at batch '
+                  f'{GROVER["batch_size"]} {remat}; launches a batch '
+                  f'{per_batch}, a step {per_step}', flush=True)
+            timed22(tag, make, gd['grover'], gd['grover_y'], per_batch,
+                    per_step, smi, scored=not pretrain,
+                    out_tail=(GROVER_TASKS, 2), metrics=auc,
+                    score_rows=gd['grover_first'], same_bits=True,
+                    cpu_cut=GROVER_CPU_CUT,
+                    profile_calls=GROVER_PROFILE_CALLS,
+                    idle=() if pretrain else ('encoder.ffn_bond_from',
+                                              'encoder.bond_from'),
+                    grad_atol=GROVER_GRAD_ATOL, timed_epochs=1,
+                    overfit_steps=0, tie_slack=not pretrain)
+            if not packed and pretrain:
+                t0 = time.perf_counter()
+                remat = remat_grads(tag, make, gd['grover'], gd['grover_y'],
+                                    dev, smi)
+                print(f'phase 22 {tag} remat: '
+                      f'{time.perf_counter() - t0:.1f} s', flush=True)
+    timed22('mat', lambda d, seed, **kw: seeded_model(MATModel, MAT, 'mat',
+                                                      d, seed, **kw),
+            gd['mat'], gd['mat_y'], {}, {}, smi,
+            out_tail=(GROVER_TASKS, 2), metrics=auc,
+            score_rows=gd['mat_first'], same_bits=True,
+            cpu_cut=MAT_CPU_CUT, tie_slack=True,
+            profile_calls=MAT_PROFILE_CALLS)
+    _WEIGHTS.clear()
+    return g_runs, cases, remat
 
 
 def zero_counts():
@@ -2757,7 +3124,8 @@ def step1_grads(store):
     def grab(model, step):
         if step == 1:
             store.update({n: p.grad.detach().cpu().clone()
-                          for n, p in model.module.named_parameters()})
+                          for n, p in model.module.named_parameters()
+                          if p.grad is not None})
     return grab
 
 
@@ -3030,15 +3398,71 @@ def coo_branch(cls):
                 delattr(cls, k)
 
 
+def auc_tie_slack(y, card, cpu):
+    """How far the mean ROC-AUC over tasks can move between a classifier's
+    answers on the card and on the CPU that differ by at most ``d`` (the
+    largest difference of a class-1 probability): a task's (positive,
+    negative) pair whose CPU probabilities lie within ``2 d`` can rank the
+    other way on the card, each worth ``1 / (P N)`` of its AUC.  Returns
+    the mean over the tasks with both classes of that share of pairs, and
+    ``d``."""
+    import numpy as np
+    p_card, p_cpu = card[..., 1], cpu[..., 1]
+    d = float(np.abs(p_card - p_cpu).max())
+    shares = []
+    for t in range(y.shape[1]):
+        pos, neg = p_cpu[y[:, t] == 1, t], p_cpu[y[:, t] == 0, t]
+        if len(pos) and len(neg):
+            close = np.abs(pos[:, None] - neg[None, :]) <= 2 * d
+            shares.append(float(close.mean()))
+    return (float(np.mean(shares)) if shares else 0.0), d
+
+
+def cut_training(tag, make, X, y, dev, tb, smi):
+    """``model_phase``'s card-against-CPU training checks at batch ``tb``
+    (its ``cpu_cut``): from seed 1, 2 epochs of one batch ``X[:tb]`` by
+    ``fit`` (a loss a step) on the card and on the CPU, and by
+    ``fit_on_device`` on the card (a loss an epoch: the same two steps);
+    each card loss within CPU_ATOL of max(1, |loss|) of the CPU's.
+    Returns the step-1 gradients of the ``fit`` runs (card, CPU) and the
+    largest loss difference."""
+    import numpy as np
+    from deepchem_tpu_torch import NumpyDataset
+    data = NumpyDataset(X[:tb], y[:tb])
+    grads, losses = [{}, {}], [[], [], []]
+    for i, device in enumerate((dev, 'cpu')):
+        m = make(device, 1, log_frequency=1, batch_size=tb)
+        m.fit(data, nb_epoch=2, checkpoint_interval=0, deterministic=True,
+              all_losses=losses[i], callbacks=step1_grads(grads[i]))
+    make(dev, 1, batch_size=tb).fit_on_device(data, nb_epoch=2,
+                                              all_losses=losses[2])
+    err = max(abs(a - b) / max(1.0, abs(b)) for card in (losses[0],
+                                                         losses[2])
+              for a, b in zip(card, losses[1]))
+    print(f'{tag} train ({smi}): at batch {tb}, 2 steps, card fit '
+          f'{[round(v, 6) for v in losses[0]]}, fit_on_device '
+          f'{[round(v, 6) for v in losses[2]]}, CPU fit '
+          f'{[round(v, 6) for v in losses[1]]}, max diff over max(1, '
+          f'|loss|) {err:.3g}', flush=True)
+    check(all(len(v) == 2 for v in losses)
+          and bool(np.all(np.isfinite(losses))) and err <= CPU_ATOL,
+          f'{tag}: the card\'s losses at batch {tb} within {CPU_ATOL} of '
+          f'the CPU\'s ({err})')
+    return grads, err
+
+
 def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
                 scored=True, out_tail=(1,), metrics=None, on_device=None,
                 score_rows=None, scaled=False, overfit_steps=50,
-                loss_epochs=3, same_bits=False):
+                loss_epochs=3, same_bits=False, cpu_cut=None,
+                profile_calls=20, idle=(), grad_atol=GRAD_ATOL,
+                timed_epochs=2, tie_slack=False):
     """Phases 13, 14, 16, 17 and 19: serves, trains and scores one
     model on the card, each held against the CPU: requests of REQUESTS
     molecules and the whole of ``X`` (CPU_ATOL), LATENCY_REQUESTS timed
     requests of 16 (median, p90), 3 ``fit`` epochs (the step time over the
-    last 2) and 3 ``fit_on_device`` epochs against the same on the CPU
+    last 2, or over ``timed_epochs`` after the first) and 3
+    ``fit_on_device`` epochs against the same on the CPU
     (per-epoch losses within CPU_ATOL relative; the step time over the
     last 2), the kernel
     launches of a forward batch (``per_batch``) and of a step
@@ -3062,7 +3486,19 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
     must give the same bits (:func:`fit_bits`); the first ``loss_epochs`` of fit_on_device's 3 epoch
     losses are held to the CPU's (a training run that a 1e-7 change of
     its weights moves by more than CPU_ATOL by its third epoch cannot be
-    held to the CPU's there: scripts/materials_float32_drift.py).  The numbers include the
+    held to the CPU's there: scripts/materials_float32_drift.py).  With
+    ``cpu_cut`` ``(sb, tb)`` (a model too wide for the host to follow at
+    its batch) the card runs everything at the model's batch, and the CPU
+    follows on small inputs: the requests against a CPU model of batch
+    ``sb`` (its answers per molecule do not depend on the batch; the
+    card's leading rows are compared where a pretraining output has more),
+    the whole set's first ``sb`` predictions, 2 steps at batch ``tb`` from
+    one seed (:func:`cut_training`; their step-1 gradients are the ones
+    held), the fixed batch at ``tb``, and the score against a CPU model of
+    batch ``sb`` with the trained weights (a pretraining task's
+    ``loss_func`` on its first batch of ``sb`` on both devices).  The
+    card's busy time is profiled over ``profile_calls`` calls a window.
+    The numbers include the
     card's peak memory over the phase, and that peak less what was
     allocated when it began.  Returns the launches of the
     serve, fit and fit_on_device runs and the numbers."""
@@ -3070,8 +3506,16 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
     import torch
     from deepchem_tpu_torch import (Metric, NumpyDataset, mae_score,
                                     pearson_r2_score, rms_score)
+    from deepchem_tpu_torch.utils.evaluate import _score
     head = f'phase {phase} {tag}'
     dev = torch.device('cuda', 0)
+    clock = [time.perf_counter()]
+    sections = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        sections[name] = round(now - clock[0], 2)
+        clock[0] = now
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()      # by the phases before
     model = make(dev, 0)
@@ -3096,17 +3540,22 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
         request_ms.append((time.perf_counter() - t0) * 1e3)
         start += n
     serve = launch_counts()
-    cpu = make('cpu', 0)
+    sb, tb = cpu_cut or (None, None)
+    cpu = make('cpu', 0) if sb is None else make('cpu', 0, batch_size=sb)
     cpu.module.load_state_dict(
         {k: v.cpu() for k, v in model.module.state_dict().items()})
     def diff(a, b):
         scale = max(1.0, float(np.abs(b).max())) if scaled else 1.0
+        if sb is not None:              # a batch of sb: the leading rows
+            a = a[:len(b)]
         return float(np.abs(a - b).max()) / scale
     worst, start = 0.0, 0
     for n, out in zip(REQUESTS, outs):
         ref = answer(cpu, X[start:start + n])
         check(len(out) == len(ref) and all(
-            a.shape == b.shape and bool(np.isfinite(a).all())
+            (a.shape == b.shape if sb is None else
+             a.shape[1:] == b.shape[1:] and len(a) >= len(b))
+            and bool(np.isfinite(a).all())
             for a, b in zip(out, ref)), f'{tag} request of {n}: finite, '
               'the CPU run\'s shapes')
         check(not scored or out[0].shape == (n,) + tuple(out_tail),
@@ -3124,7 +3573,12 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
     t0 = time.perf_counter()
     every = answer(model, X)
     predict_ms = (time.perf_counter() - t0) * 1e3
-    predict_err = max(diff(a, b) for a, b in zip(every, answer(cpu, X)))
+    if sb is None:
+        predict_err = max(diff(a, b) for a, b in zip(every, answer(cpu, X)))
+    elif scored:
+        predict_err = diff(every[0][:sb], answer(cpu, X[:sb])[0])
+    else:                   # the requests held every pretraining output
+        predict_err = 0.0
     check(all(bool(np.isfinite(a).all()) for a in every)
           and predict_err <= CPU_ATOL,
           f'{tag} predict over {len(X)}: finite, within {CPU_ATOL} of the '
@@ -3141,6 +3595,7 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
           f'{LATENCY_REQUESTS} requests of 16 molecules: median {p50:.3f} '
           f'ms, p90 {p90:.3f} ms', flush=True)
 
+    lap('serve')
     # training: fit, then fit_on_device, 3 epochs each
     runs = {}
     for loop in ('fit', 'fit_on_device'):
@@ -3161,13 +3616,13 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
         train(1)                                  # packs, warms up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        train(2)
+        train(timed_epochs)
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / (2 * S)
+        step_ms = (time.perf_counter() - t0) * 1e3 / (timed_epochs * S)
         counts = launch_counts()
         steps = trainer.get_global_step()
         cpu_losses = []
-        if loop == 'fit_on_device':
+        if loop == 'fit_on_device' and sb is None:
             cpu_t = make('cpu', 1, log_frequency=S)
             cpu_t.fit_on_device(data, nb_epoch=1, all_losses=cpu_losses)
             cpu_t.fit_on_device(data, nb_epoch=2, all_losses=cpu_losses)
@@ -3175,14 +3630,16 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
             losses[:loss_epochs], cpu_losses[:loss_epochs])), default=0.0)
         print(f'{head} train ({smi}): {loop}, {steps} steps of {B} '
               f'molecules over {len(data)}, {step_ms:.3f} ms a step over '
-              f'the last 2 epochs; '
+              f'the last {timed_epochs} epoch(s); '
               f'loss per epoch {[round(v, 5) for v in losses]}'
               + (f', on the CPU {[round(v, 5) for v in cpu_losses]}'
                  if cpu_losses else '') + f'; launches {counts}',
               flush=True)
-        check(steps == 3 * S and len(losses) == 3
+        epochs = 1 + timed_epochs
+        check(steps == epochs * S and len(losses) == epochs
               and bool(np.all(np.isfinite(losses))),
-              f'{tag} {loop}: {3 * S} steps, 3 finite epoch losses')
+              f'{tag} {loop}: {epochs * S} steps, {epochs} finite epoch '
+              'losses')
         check(loss_err <= CPU_ATOL, f'{tag} {loop}: epoch losses '
               f'{loss_err} of max(1, |loss|) from the CPU\'s (first '
               f'{loss_epochs})')
@@ -3192,24 +3649,37 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
                   f'{tag} {loop}: {k} launched {v} times, not {want}')
         runs[loop] = (counts, step_ms, trainer)
 
+    lap('train')
     # step-1 gradients, card against CPU, from the same weights
     grads = []
-    for device in (dev, 'cpu'):
+    if sb is not None:
+        grads, cut_err = cut_training(tag, make, X, y, dev, tb, smi)
+    for device in (dev, 'cpu') if sb is None else ():
         m = make(device, 0, log_frequency=1)
         m.module.load_state_dict({k: v.to(device) for k, v in
                                   model.module.state_dict().items()})
         grads.append({})
         m.fit(NumpyDataset(X[:B], y[:B]), nb_epoch=1, checkpoint_interval=0,
               callbacks=step1_grads(grads[-1]))
+    check(set(grads[0]) == set(grads[1]), f'{tag}: the card and the CPU '
+          'give the same parameters a gradient')
+    names = [n for n, _ in model.module.named_parameters()]
+    without = sorted(set(names) - set(grads[0]))
+    check(without == sorted(n for n in names
+                            if any(n.startswith(p) for p in idle)),
+          f'{tag}: the parameters with no gradient are the idle ones: '
+          f'{without}')
     grad_err = max(scaled_err(grads[0][n], g) for n, g in grads[1].items())
     zero = [n for n, g in grads[0].items() if not g.abs().max() > 0]
     print(f'{head} train: step-1 gradients, card against CPU, max abs '
           f'diff over max(1, |g|) {grad_err:.3g} over {len(grads[1])} '
-          f'parameters; zero gradients: {zero}', flush=True)
-    check(grad_err <= GRAD_ATOL, f'{tag} step-1 gradients {grad_err} > '
-          f'{GRAD_ATOL} of max(1, |g|)')
+          f'parameters; zero gradients: {zero}; none (idle): '
+          f'{len(without)}', flush=True)
+    check(grad_err <= grad_atol, f'{tag} step-1 gradients {grad_err} > '
+          f'{grad_atol} of max(1, |g|)')
     check(not zero, f'{tag}: every parameter gets a gradient; zero: {zero}')
     del grads
+    lap('grads')
     if same_bits:
         differ, n_params = fit_bits(make, X, y, dev)
         print(f'{head} train: two fits of 2 steps from seed 0 on the card, '
@@ -3217,20 +3687,24 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
               f'bits: {not differ}; differing: {differ}', flush=True)
         check(not differ, f'{tag}: two fits from one seed differ in '
               f'{differ}')
-    overfit = make(dev, 2, log_frequency=1)
-    fixed = []
-    overfit.fit(NumpyDataset(X[:B], y[:B]), nb_epoch=overfit_steps,
-                checkpoint_interval=0, all_losses=fixed)
-    below = next((i + 1 for i, v in enumerate(fixed) if v < 0.9 * fixed[0]),
-                 None)
-    print(f'{head} train: one fixed batch of {B}, lr '
-          f'{overfit.optimizer.learning_rate}: loss '
-          f'{fixed[0]:.5f} at step 1, {min(fixed):.5f} at best, below 0.9 '
-          f'of the first at step {below}', flush=True)
-    check(below is not None, f'{tag}: the loss falls below 0.9 of its first '
-          f'value within {overfit_steps} steps')
-    del overfit
-
+    lap('same_bits')
+    if overfit_steps:
+        overfit = make(dev, 2, log_frequency=1) if sb is None \
+            else make(dev, 2, log_frequency=1, batch_size=tb)
+        fixed = []
+        OB = overfit.batch_size
+        overfit.fit(NumpyDataset(X[:OB], y[:OB]), nb_epoch=overfit_steps,
+                    checkpoint_interval=0, all_losses=fixed)
+        below = next((i + 1 for i, v in enumerate(fixed)
+                      if v < 0.9 * fixed[0]), None)
+        print(f'{head} train: one fixed batch of {OB}, lr '
+              f'{overfit.optimizer.learning_rate}: loss '
+              f'{fixed[0]:.5f} at step 1, {min(fixed):.5f} at best, below '
+              f'0.9 of the first at step {below}', flush=True)
+        check(below is not None, f'{tag}: the loss falls below 0.9 of its '
+              f'first value within {overfit_steps} steps')
+        del overfit
+    lap('overfit')
     # scoring
     trainer = runs['fit'][2]
     cpu.module.load_state_dict(
@@ -3243,32 +3717,56 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
             X[score_rows], y[score_rows])
         scores = trainer.evaluate(scored_ds, metrics)
         eval_ms = (time.perf_counter() - t0) * 1e3
-        cpu_scores = cpu.evaluate(scored_ds, metrics)
+        if tie_slack:           # the CPU's predictions, scored as evaluate
+            cpu_pred = cpu.predict(scored_ds)
+            cpu_scores = _score(metrics, scored_ds.y, cpu_pred, scored_ds.w,
+                                False, n_classes=2, use_sample_weights=False)
+            slack, tie_d = auc_tie_slack(
+                scored_ds.y, trainer.predict(scored_ds), cpu_pred)
+            # the slack grows with the answers' difference: that is held
+            # to the answers' own limit first, and the slack capped
+            check(tie_d <= CPU_ATOL, f'{tag}: the trained model\'s '
+                  f'probabilities on the card {tie_d} from the CPU\'s > '
+                  f'{CPU_ATOL}')
+            check(slack <= AUC_SLACK_MAX, f'{tag}: ROC-AUC tie slack '
+                  f'{slack} > {AUC_SLACK_MAX}')
+        else:
+            cpu_scores = cpu.evaluate(scored_ds, metrics)
         eval_err = max(abs(scores[k] - cpu_scores[k])
                        / (max(1.0, abs(cpu_scores[k])) if scaled else 1.0)
                        for k in cpu_scores)
     else:
-        first = [next(m.default_generator(ds)) for m in (trainer, cpu)]
+        card = trainer
+        if sb is not None:      # the first batch of sb on both devices
+            card = make(dev, 0, batch_size=sb)
+            card.module.load_state_dict(trainer.module.state_dict())
+        first = [next(m.default_generator(ds)) for m in (card, cpu)]
         scores, cpu_scores = ({'loss_func': m.loss_func(
-            *m._prepare_batch(b)).item()} for m, b in zip((trainer, cpu),
+            *m._prepare_batch(b)).item()} for m, b in zip((card, cpu),
                                                           first))
         eval_ms = (time.perf_counter() - t0) * 1e3
         eval_err = abs(scores['loss_func'] - cpu_scores['loss_func']) / max(
             1.0, abs(cpu_scores['loss_func']))
     eval_tol = EVAL_SCALED_RTOL if scaled else EVAL_ATOL
+    if scored and tie_slack:
+        eval_tol += slack
     print(f'{head} evaluate ({smi}): {json.dumps(scores)} on the card in '
-          f'{eval_ms:.3f} ms, {json.dumps(cpu_scores)} on the CPU',
+          f'{eval_ms:.3f} ms, {json.dumps(cpu_scores)} on the CPU'
+          + (f'; ROC-AUC tie slack {slack:.3g} from probabilities '
+             f'{tie_d:.3g} apart' if scored and tie_slack else ''),
           flush=True)
     check(set(scores) == set(cpu_scores) and eval_err <= eval_tol
           and all(np.isfinite(v) for v in scores.values()),
           f'{tag} score finite and within {eval_tol} of the CPU '
           f'({eval_err})')
 
+    lap('score')
     # the card's busy time: every kernel, memset and copy of a call
-    serve_us, serve_kernels = device_us_all(lambda: answer(model, X[:16]))
+    serve_us, serve_kernels = device_us_all(lambda: answer(model, X[:16]),
+                                            calls=profile_calls)
     w = np.ones_like(y[:B])
     step_us, step_kernels = device_us_all(
-        lambda: trainer.fit_on_batch(X[:B], y[:B], w))
+        lambda: trainer.fit_on_batch(X[:B], y[:B], w), calls=profile_calls)
     numbers = {'request16_median_ms': p50, 'request16_p90_ms': p90,
                'fit_step_ms': runs['fit'][1],
                'fit_on_device_step_ms': runs['fit_on_device'][1],
@@ -3277,6 +3775,9 @@ def model_phase(phase, tag, make, X, y, per_batch, per_step, smi,
                'step_device_us': step_us, 'step_device_kernels': step_kernels,
                'max_request_err': worst, 'step1_grad_err': grad_err,
                'eval_err': eval_err, 'same_bits_checked': same_bits,
+               'cpu_cut': cpu_cut,
+               'cut_loss_err': cut_err if sb is not None else None,
+               'seconds': (lap('profile'), sections)[1],
                'peak_memory_bytes': torch.cuda.max_memory_allocated(),
                'peak_over_held_bytes': torch.cuda.max_memory_allocated()
                - held}
@@ -5069,8 +5570,15 @@ def main() -> int:
                     s21['fewshot_y'], smi)
     slice_phase('egnn', egnn_phase, s21['egnn'], smi)
 
-    # -- 22. kernels line -------------------------------------------------
+    # -- 22. grover, mat -------------------------------------------------
     phase_start(22)
+    g_runs, (grover_k1, grover_p2, grover_p3), grover_remat = \
+        grover_mat_phase(dev, smi)
+
+    # -- 23. kernels line -------------------------------------------------
+    phase_start(23)
+    print(f'chip_smoke wall: {time.perf_counter() - _START:.1f} s of its '
+          f'1200', flush=True)
     def run_paths(runs, key):
         return {f'{m}_{run}': counts[key] for m, (srv, fit, dev_fit, _) in
                 runs.items() for run, counts in (
@@ -5111,7 +5619,8 @@ def main() -> int:
 
     def coo_paths(key):
         return run_paths(coo_runs, key)
-    p3 = entry('csr_segment_sum', sum_cases + dag_sum_cases + mat_sum_cases,
+    p3 = entry('csr_segment_sum',
+               sum_cases + dag_sum_cases + mat_sum_cases + grover_p3,
                sum_cases[0],
                {'serve': serve['csr_segment_sum'],
                 'train': train['csr_segment_sum'],
@@ -5125,17 +5634,19 @@ def main() -> int:
                 **run_paths(branch_runs, 'csr_segment_sum'),
                 **run_paths(new_runs, 'csr_segment_sum'),
                 **run_paths(mat_runs, 'csr_segment_sum'),
-                **run_paths(slice_runs, 'csr_segment_sum')},
+                **run_paths(slice_runs, 'csr_segment_sum'),
+                **run_paths(g_runs, 'csr_segment_sum')},
                replaces='deepchem_tpu/ops/pallas_segment.py:45',
                shapes={c['case']: {k: c[k] for k in (
                    'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
                    'bound_by', 'library_ms', 'library_device_us',
-                   'max_abs_err')} for c in dag_sum_cases + mat_sum_cases})
+                   'max_abs_err')}
+                   for c in dag_sum_cases + mat_sum_cases + grover_p3})
     # P2: main case GNNModular's layer-1 sum at batch 100; its launches on
     # the COO models' forwards and (the transpose) backwards
     p2 = entry('fused_gather_segment_sum',
                gather_cases + p2_long_cases + coo_cases
-               + coo_branch_cases[:4] + dag_cases + mat_cases,
+               + coo_branch_cases[:4] + dag_cases + mat_cases + grover_p2,
                coo_cases[1],
                {'p2_bench_shapes': p2_path['fused_gather_segment_sum'],
                 **coo_paths('fused_gather_segment_sum'),
@@ -5152,7 +5663,9 @@ def main() -> int:
                     mat_runs, 'fused_gather_segment_sum_bwd').items()},
                 **run_paths(slice_runs, 'fused_gather_segment_sum'),
                 **{f'{path}_backward': n for path, n in run_paths(
-                    slice_runs, 'fused_gather_segment_sum_bwd').items()}},
+                    slice_runs, 'fused_gather_segment_sum_bwd').items()},
+                **{f'{path}_backward': n for path, n in run_paths(
+                    g_runs, 'fused_gather_segment_sum_bwd').items()}},
                replaces='deepchem_tpu/ops/pallas_segment.py:94',
                shapes={c['case']: {k: c[k] for k in (
                    'N', 'E', 'F', 'ms', 'device_us', 'plain_ms', 'bound_ms',
@@ -5160,7 +5673,7 @@ def main() -> int:
                    'library_over_kernel')}
                    for c in gather_cases[:len(P2_BENCH_SHAPES)]
                    + p2_long_cases + coo_cases + coo_branch_cases[:4]
-                   + dag_cases + mat_cases},
+                   + dag_cases + mat_cases + grover_p2},
                models={m: numbers for m, (_, _, _, numbers) in
                        (coo_runs | branch_runs | new_runs | mat_runs
                         | slice_runs).items()})
@@ -5216,7 +5729,12 @@ def main() -> int:
     k1_keys = ('N', 'R', 'F', 'slots', 'ms', 'device_us', 'plain_ms',
                'bound_ms', 'bound_by', 'library_ms', 'library_device_us',
                'max_abs_err')
-    k1 = entry('nei_sum', nei_cases + new_k1_cases, nei_cases[0],
+    grover_k1_keys = ('grover_nei_sum_sym', 'grover_nei_sum_sym_bwd',
+                      'grover_nei_sum_sym_g', 'grover_nei_sum_sym_g_bwd',
+                      'grover_nei_sum_bonds', 'grover_nei_sum_bonds_g',
+                      'grover_slot_sum')
+    k1 = entry('nei_sum', nei_cases + new_k1_cases + grover_k1,
+               nei_cases[0],
                {'graphconv_serve': gc_serve['nei_sum'],
                 'graphconv_train': gc_train['nei_sum']
                 + gc_train['nei_sum_bwd'],
@@ -5232,15 +5750,27 @@ def main() -> int:
                 **{f'{path}_nei_sum_edges': n
                    for path, n in table_paths('nei_sum_edges').items()},
                 **{f'{path}_nei_gather_bwd': n
-                   for path, n in table_paths('nei_gather_bwd').items()}},
+                   for path, n in table_paths('nei_gather_bwd').items()},
+                **{f'{path}_{key[len("grover_"):]}': n for key in
+                   grover_k1_keys for path, n in run_paths(
+                       g_runs, key).items()}},
                source='deepchem_tpu_torch/csrc/nei_table.cu',
                replaces=f'deepchem_tpu/ops/nei_table.py:85 (nei_sum and '
                         f'its backward, _slot_sum :75; also nei_sum_edges '
                         f':214, take_src\'s backward :258 and '
-                        f'_nei_gather_bwd :194; {xla_op})',
+                        f'_nei_gather_bwd :194; {xla_op}); '
+                        f'deepchem_tpu/models/grover.py:270-403 '
+                        f'(_nei_sum_sym, _nei_sum_bonds and their grouped '
+                        f'twins, every slot summed; custom VJPs, no Pallas '
+                        f'kernel)',
                mpnn={k: mp_nei_cases[0][k] for k in k1_keys},
                gcn={k: new_k1_cases[0][k] for k in k1_keys},
-               dmpnn={k: new_k1_cases[-1][k] for k in k1_keys})
+               dmpnn={k: new_k1_cases[-1][k] for k in k1_keys},
+               grover={c['case']: {k: c[k] for k in k1_keys}
+                       for c in grover_k1},
+               models={m: numbers for m, (_, _, _, numbers) in
+                       g_runs.items()},
+               grover_remat=grover_remat)
     # K4: main case AttentiveFP's C 200; its backward is K1's kernel
     k4_fwd = [c[0] for c in k4_cases]
     k4_bwd = [c[1] for c in k4_cases]
@@ -5304,6 +5834,7 @@ def main() -> int:
         | {k: v for k, v in e.items() if k in (
             'device_us', 'launches_by_path', 'backward', 'library_device_us',
             'backward_device_us', 'float32', 'mpnn', 'gcn', 'dmpnn', 'pna',
+            'grover',
             'shapes', 'models', 'coo_branches')}
         for e in (p1, p3, p2, p2_bf16) + p4 + (k1,) + k2 + k3 + (k4,)]}),
         flush=True)

@@ -26,9 +26,11 @@ from deepchem_tpu_torch.models import (AtomicConvFeaturizer,
                                        CGCNNModel, DAGModel, DAGTransformer,
                                        DMPNNModel, DTNNModel, ElemNetModel,
                                        GATModel, GCNModel, GNNModular,
-                                       GraphConvModel, InfoGraphModel,
+                                       GraphConvModel, GroverFeaturizer,
+                                       GroverModel, InfoGraphModel,
                                        InfoGraphStarModel, InfoMax3DModular,
-                                       LCNNModel, MEGNetModel, MPNNModel,
+                                       LCNNModel, MATFeaturizer, MATModel,
+                                       MEGNetModel, MPNNModel,
                                        MXMNetModel, PagtnModel, PNAModel,
                                        SupportGraphClassifier, WeaveModel)
 from deepchem_tpu_torch.trans import NormalizationTransformer
@@ -41,9 +43,11 @@ __all__ = ['AtomicConvFeaturizer', 'AtomicConvModel', 'AttentiveFPModel',
            'ElemNetFeaturizer', 'ElemNetModel', 'ElementPropertyFingerprint',
            'EquivariantGraphFeaturizer',
            'Evaluator', 'GATModel', 'GCNModel', 'GNNModular',
-           'GeneratorEvaluator', 'GraphConvModel', 'InfoGraphModel',
+           'GeneratorEvaluator', 'GraphConvModel', 'GroverFeaturizer',
+           'GroverModel', 'InfoGraphModel',
            'InfoGraphStarModel', 'InfoMax3DModular', 'LCNNFeaturizer',
-           'LCNNModel', 'MEGNetModel', 'Metric', 'MolGraphConvFeaturizer',
+           'LCNNModel', 'MATFeaturizer', 'MATModel', 'MEGNetModel',
+           'Metric', 'MolGraphConvFeaturizer',
            'MPNNModel', 'MXMNetFeaturizer', 'MXMNetModel',
            'NormalizationTransformer', 'NumpyDataset',
            'PNAModel', 'PagtnMolGraphFeaturizer', 'PagtnModel',

@@ -2,7 +2,11 @@ from deepchem_tpu_torch.models.bert_encoder import (BertEncoderMLM,
                                                     flash_or_xla_attention,
                                                     mlm_loss)
 from deepchem_tpu_torch.models.convert import (encoder_params_from_flax,
+                                               grover_params_from_flax,
                                                params_from_flax)
+from deepchem_tpu_torch.models.grover import (GroverAtomVocabularyBuilder,
+                                              GroverBondVocabularyBuilder,
+                                              GroverFeaturizer, GroverModel)
 from deepchem_tpu_torch.models.dag import DAGModel, DAGTransformer
 from deepchem_tpu_torch.models.dmpnn import DMPNNModel
 from deepchem_tpu_torch.models.fcnet import (MultitaskClassifier,
@@ -39,11 +43,14 @@ from deepchem_tpu_torch.models.low_data import (AttnLSTMEmbedding,
                                                 IterRefLSTMEmbedding,
                                                 SupportGraphClassifier,
                                                 cosine_dist)
+from deepchem_tpu_torch.models.attention_layers import (
+    GroverReadout, ScaledDotProductAttention, SelfAttention)
 from deepchem_tpu_torch.models.losses import (
     BinaryCrossEntropy, CategoricalCrossEntropy, DeepGraphInfomaxLoss,
     EdgePredictionLoss, GlobalMutualInformationLoss, GraphEdgeMaskingLoss,
-    GraphNodeMaskingLoss, HingeLoss, HuberLoss, L1Loss, L2Loss,
-    LocalMutualInformationLoss, Loss, PoissonLoss, ShannonEntropy,
+    GraphNodeMaskingLoss, GroverPretrainLoss, HingeLoss, HuberLoss, L1Loss,
+    L2Loss, LocalMutualInformationLoss, Loss, NTXentMultiplePositives,
+    PoissonLoss, ShannonEntropy,
     SigmoidCrossEntropy, SoftmaxCrossEntropy, SparseSoftmaxCrossEntropy,
     SquaredHingeLoss, VAE_ELBO, VAE_KLDivergence)
 from deepchem_tpu_torch.models.irv import (IRVClassifier,
@@ -54,6 +61,8 @@ from deepchem_tpu_torch.models.material_models import (CGCNNLayer,
                                                        LCNNModel,
                                                        MEGNetModel)
 from deepchem_tpu_torch.models.multitask import SingletaskToMultitask
+from deepchem_tpu_torch.models.mat import (MATEncoding, MATFeaturizer,
+                                          MATModel, ScaleNorm)
 from deepchem_tpu_torch.models.mxmnet import MXMNetModel, PlexLayer
 from deepchem_tpu_torch.models.pna import PNALayer, PNAModel
 from deepchem_tpu_torch.models.progressive import (
@@ -86,6 +95,11 @@ __all__ = ['AdaGrad', 'Adam', 'AdamW', 'AtomicConvFeaturizer',
            'GATLayer', 'GATModel', 'GCNLayer', 'GCNModel', 'GNNModular',
            'GRUCell', 'GlobalMutualInformationLoss', 'GradientDescent',
            'GraphConv', 'GraphConvModel', 'GraphEdgeMaskingLoss',
+           'GroverAtomVocabularyBuilder', 'GroverBondVocabularyBuilder',
+           'GroverFeaturizer', 'GroverModel', 'GroverPretrainLoss',
+           'GroverReadout', 'MATEncoding', 'MATFeaturizer', 'MATModel',
+           'NTXentMultiplePositives', 'ScaleNorm',
+           'ScaledDotProductAttention', 'SelfAttention',
            'GraphGather', 'GraphModel', 'GraphNodeMaskingLoss', 'HingeLoss',
            'HuberLoss', 'IRVClassifier', 'InfoGraphModel', 'InfoMax3DModular',
            'InfoGraphStarModel', 'IterRefLSTMEmbedding', 'KFAC',
@@ -111,5 +125,6 @@ __all__ = ['AdaGrad', 'Adam', 'AdamW', 'AtomicConvFeaturizer',
            'compute_neighbor_list', 'cosine_dist',
            'encoder_params_from_flax',
            'flash_or_xla_attention', 'fourier_encode_dist', 'graph_pool_max',
+           'grover_params_from_flax',
            'mlm_loss', 'neighbor_dict', 'ntxent_loss', 'params_from_flax',
            'pdb_atoms']

@@ -9,9 +9,11 @@ models' (``_MLPTrunk_0/Dense_i``,
 ``output_head``, ``uncertainty_head``; the robust models' shared, bypass
 and head ``Dense_i``; the progressive columns' ``task{t}_dense{i}``,
 ``_alpha{i}``, ``_adapter{i}``, ``_lateral{i}``, ``_out``; IRV's ``W``,
-``b``, ``b2``; ScScore's net) through :func:`params_from_flax`, each
-module naming its scopes in ``flax_scopes`` and any leaf of its own in
-``flax_leaves``; and the encoder (:func:`encoder_params_from_flax`)."""
+``b``, ``b2``; ScScore's net) and MAT's through :func:`params_from_flax`,
+each module naming its scopes in ``flax_scopes`` and any leaf of its own
+in ``flax_leaves``; the encoder (:func:`encoder_params_from_flax`); and
+GROVER's, whose modules keep the flax scope names
+(:func:`grover_params_from_flax`)."""
 
 from __future__ import annotations
 
@@ -188,6 +190,40 @@ def encoder_params_from_flax(flat: Dict[str, np.ndarray],
     and on a shape that differs."""
     _load({_encoder_name(key): _tensor(key, value)
            for key, value in flat.items()}, module)
+
+
+def grover_state(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``flat`` (GROVER's parameters, or gradients of them) as the port's
+    GROVER module state: each scope path becomes the attribute path of
+    the same names; a ``Dense`` or ``DenseGeneral`` kernel ``[in,
+    *features]`` the ``nn.Linear`` weight ``[prod(features), in]`` and its
+    bias flat; a ``LayerNorm`` ``scale`` its ``weight``; the grouped MPN's
+    ``W_h`` ``[G, H, H]`` and ``b_h`` ``[G, 1, H]`` as they are."""
+    state = {}
+    for key, value in flat.items():
+        parts = key.split('/')
+        leaf = parts[-1]
+        if len(parts) < 3 or parts[0] != 'params' \
+                or leaf not in ('kernel', 'bias', 'scale', 'W_h', 'b_h'):
+            raise KeyError(f'not a GROVER parameter: {key!r}')
+        a = np.array(value, dtype=np.float32)
+        if leaf == 'kernel':
+            a, leaf = a.reshape(a.shape[0], -1).T.copy(), 'weight'
+        elif leaf == 'bias':
+            a = a.reshape(-1)
+        elif leaf == 'scale':
+            leaf = 'weight'
+        state['.'.join(parts[1:-1] + [leaf])] = torch.from_numpy(a)
+    return state
+
+
+def grover_params_from_flax(flat: Dict[str, np.ndarray],
+                            module: nn.Module) -> None:
+    """Copy the flattened parameters of the JAX package's GROVER module
+    (pretraining or finetuning, either layout: one tree serves both) into
+    the port's, in place (:func:`grover_state`).  Raises on a missing or
+    extra key and on a shape that differs."""
+    _load(grover_state(flat), module)
 
 
 def _load(state: Dict[str, torch.Tensor], module: nn.Module) -> None:

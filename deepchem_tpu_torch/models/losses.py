@@ -4,7 +4,8 @@ the engine weights and averages (``TorchModel._compute_loss``), and the
 graph self-supervised losses of the pretraining models (InfoGraph's
 mutual information, edge prediction, node and edge masking, Deep Graph
 Infomax), each called with its own arguments and returning a scalar.
-The other model-specific losses wait for their models."""
+GROVER's pretraining loss and the NT-Xent loss with multiple
+positives.  The other model-specific losses wait for their models."""
 
 from __future__ import annotations
 
@@ -182,6 +183,50 @@ class ShannonEntropy(Loss):
                           dim=-1) / math.log(2.0)
 
 
+class GroverPretrainLoss(Loss):
+    """The mean of the atom-vocabulary and bond-vocabulary cross entropies
+    (integer labels) plus the mean of the functional groups' sigmoid cross
+    entropy."""
+
+    def __call__(self, atom_vocab_logits, bond_vocab_logits, fg_logits,
+                 atom_vocab_labels, bond_vocab_labels, fg_labels):
+        av = SparseSoftmaxCrossEntropy()(atom_vocab_logits,
+                                         atom_vocab_labels).mean()
+        bv = SparseSoftmaxCrossEntropy()(bond_vocab_logits,
+                                         bond_vocab_labels).mean()
+        fg = SigmoidCrossEntropy()(fg_logits, fg_labels).mean()
+        return av + bv + fg
+
+    def _compute(self, output, labels):
+        raise NotImplementedError('call with the three logits and their '
+                                  'labels')
+
+
+class NTXentMultiplePositives(Loss):
+    """NT-Xent: rows of ``z1`` and ``z2`` normalised (norm plus 1e-8), the
+    cosine similarities of all ``2n`` over ``temperature`` with each
+    row's own taken out (-1e9), and the mean cross entropy of each row's
+    pair in the other view."""
+
+    def __init__(self, temperature: float = 0.5):
+        self.temperature = temperature
+
+    def __call__(self, z1, z2):
+        z1 = z1 / (torch.linalg.norm(z1, dim=-1, keepdim=True) + 1e-8)
+        z2 = z2 / (torch.linalg.norm(z2, dim=-1, keepdim=True) + 1e-8)
+        n = z1.shape[0]
+        z = torch.cat([z1, z2], dim=0)
+        eye = torch.eye(2 * n, dtype=z.dtype, device=z.device)
+        sim = z @ z.T / self.temperature - 1e9 * eye
+        idx = torch.arange(n, device=z.device)
+        pos = torch.cat([idx + n, idx])
+        logp = torch.log_softmax(sim, dim=-1)
+        return -torch.gather(logp, 1, pos[:, None]).mean()
+
+    def _compute(self, output, labels):
+        return self.__call__(output, labels)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no linear cut-off."""
     return torch.logaddexp(x, torch.zeros_like(x))
@@ -266,6 +311,12 @@ def _maximum(x: torch.Tensor, v: float) -> torch.Tensor:
     """``max(x, v)`` whose gradient splits evenly where ``x == v``, as
     ``jnp.maximum``'s does."""
     return torch.maximum(x, x.new_tensor(v))
+
+
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` whose gradient at 0 is 1, as ``jnp.abs``'s is (torch's is
+    0)."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

@@ -81,7 +81,9 @@ class TorchModel(Model):
         aligned with ``output_types``.  Given as a function, the network is
         built by it from a generator seeded with ``seed``, and
         :meth:`reinitialize` can draw it again.  Its parameters are moved
-        to ``device``.
+        to ``device``.  Built under ``torch.device('meta')``, it draws
+        nothing and is allocated empty on ``device``, for the caller to
+        load its weights (``model.module.load_state_dict``).
     loss: Loss or callable, optional
         a :class:`Loss`, applied as the weighted mean of its per-sample
         values over the first 'loss' output (or the first output), or a
@@ -138,6 +140,8 @@ class TorchModel(Model):
         if not isinstance(module, nn.Module):
             self._module_factory = module
             module = module(self._param_generator)
+        if any(p.is_meta for p in module.parameters()):
+            module = module.to_empty(device=self.device)
         self.module = self.model = module.to(self.device).eval()
         self._loss = loss
         self.regularization_loss = regularization_loss

@@ -182,6 +182,18 @@ class _GatherRows(torch.autograd.Function):
         return dx.reshape(ctx.shape), None, None, None
 
 
+def gather_rows(x: torch.Tensor, index: torch.Tensor, order: torch.Tensor,
+                row_ptr: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` for any ``index`` ``[E]`` into the rows of ``x``, with
+    the CSR of ``index`` by value: ``order`` ``[E]`` the positions in a
+    stable sort by value, ``row_ptr`` ``[len(x) + 1]`` (``edges_to_csr``
+    of ``index``).  The gradient ``dx[n] = Σ_{index[p] = n} g[p]`` is P2
+    over that CSR, counted in
+    ``fused_gather_segment_sum.backward_launches``: a row that many
+    positions name (a ghost row) still sums in a fixed order."""
+    return _GatherRows.apply(x, index, order, row_ptr)
+
+
 def gather_src(x: torch.Tensor, edge_src: torch.Tensor,
                csr: CooCsr) -> torch.Tensor:
     """``x[edge_src]``: each edge's source row (``jnp.take(x, edge_src)``),

@@ -19,7 +19,11 @@ routes ``index_add_`` to a sorted, fixed-order sum).  ``--swap NAME`` puts
 one of the repaired gathers back to ``index_select`` for a run of its
 own over the models it reaches (:func:`_swaps`), so a model that is the same bit for bit with the
 repair and differs with that one gather swapped back shows where its
-difference came from.  The models' data are ``chip_smoke.py``'s.
+difference came from (``grover_gathers`` puts GROVER's flat gathers on
+``index_select``, as the JAX package's ``jnp.take`` would run).  The
+models' data and sizes are ``chip_smoke.py``'s; GROVER (pretraining, at
+its phase 22 width) in both layouts, ``grover_flat`` and
+``grover_packed``.
 
 Prints one JSON line a run and, last, a JSON summary:
 ``{"runs": [{"model", "mode", "swap", "same_bits", "differing", ...}]}``.
@@ -45,13 +49,21 @@ def _table_rows(table, ids):
         tuple(ids.shape) + (-1,))
 
 
+def _rows_g(x, idx, *_):
+    """``x[:, idx]`` by ``index_select``: ``index_add_`` backward."""
+    return x.index_select(1, idx.long())
+
+
 def _swaps():
     """NAME -> (the patches: module, attribute and the plain
-    ``index_select`` route that stood there before the repair; the models
-    it reaches)."""
+    ``index_select`` route that stood there before the repair, or that
+    the JAX package's gathers would take; the models it reaches)."""
     from deepchem_tpu_torch.models import (dmpnn, gnn_modular, graph_layers,
-                                           material_models, pna)
+                                           grover, material_models, pna)
     return {
+        'grover_gathers': ([(grover, 'gather_rows', _rows),
+                            (grover, 'gather_rows_g', _rows_g)],
+                           ['grover_flat']),
         'pna_src': ([(pna, 'gather_src', _rows)],
                     ['pna', 'infomax3d_pretrain']),
         'pna_dst': ([(pna, 'gather_dst', _rows)],
@@ -76,7 +88,8 @@ def _data():
     import chip_smoke as cs
     from deepchem_tpu_torch import (AtomicConvModel, DMPNNFeaturizer,
                                     DMPNNModel, DTNNModel, GNNModular,
-                                    InfoMax3DModular, MEGNetModel, MPNNModel,
+                                    GroverModel, InfoMax3DModular,
+                                    MEGNetModel, MPNNModel,
                                     MolGraphConvFeaturizer, MXMNetModel,
                                     PNAModel)
     gnn_X, gnn_y = cs.table_data(MolGraphConvFeaturizer(), cs.SMILES)
@@ -86,7 +99,15 @@ def _data():
     mat = cs.materials_data()
     cm_X, cm_y = cs.coulomb_data()[:2]
     s21 = cs.slice21_data()
+    gd = cs.grover_data()
+
+    def grover(packed):
+        return (lambda d, s: GroverModel(
+            **cs.GROVER, task='pretraining', atom_vocab=gd['av'],
+            bond_vocab=gd['bv'], packed=packed, device=d, seed=s),
+            gd['grover'], gd['grover_y'])
     out = {
+        'grover_flat': grover(False), 'grover_packed': grover(True),
         'pna': (lambda d, s: PNAModel(**cs.PNA, device=d, seed=s),
                 gnn_X, gnn_y),
         'infomax3d_pretrain': (lambda d, s: InfoMax3DModular(

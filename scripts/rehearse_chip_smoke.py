@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rehearse ``chip_smoke.py`` on the CPU, at full size, before a chip run.
 
-    python3 scripts/rehearse_chip_smoke.py
+    python3 scripts/rehearse_chip_smoke.py [--phase 22]
 
 A machine without a card cannot build or launch the CUDA kernels, so this
 runs every phase of ``chip_smoke.py`` with:
@@ -18,13 +18,20 @@ runs every phase of ``chip_smoke.py`` with:
   forward's at S = 512 only, an encoder of
   hidden 64 and 2 layers trained at lr 1e-2), phase 15's engine to 1024
   molecules (256 to validate every 2 steps), chunks of 1 batch and 3
-  dropout masks, and
+  dropout masks, GROVER to hidden 32, 2 heads and batch 32 over 96
+  molecules and MAT to dim 32, 2 layers and 4 heads over 64, and
   SDPA without a chosen backend;
 - the card's memory counters read as 0.
 
-It finds wrong paths, shapes, counts and control flow.  Its times are the
+With ``--phase 22`` it runs phase 22 (GROVER and MAT) alone.  It finds
+wrong paths, shapes, counts and control flow.  Its times are the
 CPU's and mean nothing for the card; its errors are 0 because both sides
-of each comparison are the plain version.  Exits with chip_smoke's code.
+of each comparison are the plain version, but for the P2 and P3 cases,
+which hold the plain version in float32 against float64: at GROVER's
+flat batch the to-bond sums' backward sums every pad slot into row 0, a
+segment of thousands of rows, which the float32 plain version adds one
+by one and can carry past SUM_RTOL (the card's kernel splits such a
+segment and stays within half of it).  Exits with chip_smoke's code.
 """
 
 import importlib
@@ -200,6 +207,14 @@ def main() -> int:
     smoke.ENGINE_MOLECULES, smoke.ENGINE_VALID = 1024, 256
     smoke.ENGINE_CHUNK, smoke.UNCERTAINTY_MASKS = 1, 3
     smoke.ENGINE_INTERVAL = 2
+    smoke.GROVER = dict(smoke.GROVER, hidden_size=32, num_heads=2,
+                        batch_size=32)
+    smoke.GROVER_MOLECULES = 96
+    smoke.MAT = dict(smoke.MAT, dim=32, n_layers=2, n_heads=4)
+    smoke.MAT_MOLECULES = 64
+    if sys.argv[1:] == ['--phase', '22']:
+        smoke.grover_mat_phase(torch.device('cpu'), 'cpu rehearsal')
+        return 0
     return smoke.main()
 
 

@@ -37,7 +37,11 @@ one seed the same bits for each model whose backward had float atomics
 DMPNN, DTNN, MPNN, MEGNet) and for MXMNet and AtomicConv; one step of
 MXMNetModel and AtomicConvModel, one episode of SupportGraphClassifier
 (siamese, attn, res) and EGNNLayer's forward and backward against the
-CPU, with their launches of P2 and P3.
+CPU, with their launches of P2 and P3; one step of GROVER (both layouts,
+pretraining and finetuning) and MAT against the CPU with GROVER's
+launches of K1, P2 and P3, GROVER's custom-VJP sums (K1, the grouped
+ones through an offset table), to-bond slot sums and gathers (P2
+backward) against the CPU, and a flat GROVER's two fits the same bits.
 They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
@@ -1829,13 +1833,49 @@ def _repro_case(name):
                                    hidden_dim=16, num_layers=2,
                                    batch_size=6, seed=s, device=d)),
         'mxmnet': (MXMNetFeaturizer(), lambda d, s: MXMNetModel(
-            dim=16, n_layers=2, batch_size=6, seed=s, device=d))}[name]
+            dim=16, n_layers=2, batch_size=6, seed=s, device=d))}.get(
+                name, (None, None))
+    if feat is None:                         # GROVER and MAT
+        return _slice_22_case(name)
     return make, feat.featurize(REPRO_SMILES), y
 
 
+def _slice_22_case(name):
+    """(make(device, seed), X, y) of a small GROVER (``grover_<layout>_
+    <task>``: hidden 16, 2 MT blocks of 2 heads, depth 3) or MAT (dim 16,
+    2 layers of 2 heads), batches of 6, 12 molecules with 0/1 labels for
+    2 tasks."""
+    from deepchem_tpu_torch import GroverModel, MATFeaturizer, MATModel
+    from deepchem_tpu_torch.chem import mol_from_smiles
+    from deepchem_tpu_torch.models import (GroverAtomVocabularyBuilder,
+                                           GroverBondVocabularyBuilder,
+                                           GroverFeaturizer)
+    y = (np.random.RandomState(0).rand(12, 2) > 0.5).astype(np.float32)
+    if name == 'mat':
+        return (lambda d, s: MATModel(dim=16, n_layers=2, n_heads=2,
+                                      n_tasks=2, mode='classification',
+                                      batch_size=6, seed=s, device=d),
+                MATFeaturizer().featurize(REPRO_SMILES), y)
+    mols = [mol_from_smiles(s) for s in REPRO_SMILES]
+    av, bv = GroverAtomVocabularyBuilder(), GroverBondVocabularyBuilder()
+    av.build(mols)
+    bv.build(mols)
+    _, layout, task = name.split('_')
+    kw = dict(task='pretraining', atom_vocab=av, bond_vocab=bv) \
+        if task == 'pretrain' else dict(task='finetuning', n_tasks=2,
+                                        mode='classification')
+    return (lambda d, s: GroverModel(
+        hidden_size=16, num_heads=2, num_mt_block=2, depth=3, batch_size=6,
+        packed=layout == 'packed', seed=s, device=d, **kw),
+        GroverFeaturizer(atom_vocab=av, bond_vocab=bv).featurize(
+            REPRO_SMILES), y)
+
+
+SLICE_22_MODELS = ['grover_flat_pretrain', 'grover_flat_finetune',
+                   'grover_packed_pretrain', 'grover_packed_finetune', 'mat']
 REPRO_MODELS = ['atomic_conv', 'dmpnn', 'dtnn', 'gnn_edge_pred',
-                'gnn_infomax', 'infomax3d_pretrain', 'megnet', 'mpnn',
-                'mxmnet', 'pna']
+                'gnn_infomax', 'grover_flat_pretrain', 'infomax3d_pretrain',
+                'megnet', 'mpnn', 'mxmnet', 'pna']
 
 
 @pytest.mark.cuda
@@ -2015,3 +2055,107 @@ def test_egnn_layer_matches_the_cpu(cuda):
             atol=1e-5 * max(1.0, float(r.abs().max())))
         assert torch.equal(got[k].view(torch.int32),
                            again[k].view(torch.int32)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', SLICE_22_MODELS)
+def test_slice_22_models_training_step_matches_the_cpu(cuda, name):
+    """One step of a small GROVER (each layout and task) or MAT on the card
+    and on the CPU from the same seed: losses within 1e-5 relative, every
+    gradient within 1e-5 of max(1, |g|) (a finetuned GROVER's to-bond
+    outputs get none on either device), predictions within 1e-4.  The
+    flat GROVER launches K1 in its custom-VJP sums (at this size the MPN
+    encoders are recomputed once in the backward: 'qkv'), P2 in each
+    gather's backward and P3 in its readouts; the packed one and MAT none
+    of the port's kernels."""
+    from deepchem_tpu_torch.models import grover
+    make, X, y = _repro_case(name)
+    X, y = X[:6], y[:6]
+    models = [make(d, 1) for d in (cuda, 'cpu')]
+    counters = [(grover.nei_sum_sym, 'launches'),
+                (grover.nei_sum_sym, 'backward_launches'),
+                (grover.nei_sum_sym_g, 'launches'),
+                (grover.nei_sum_bonds, 'launches'),
+                (grover.nei_sum_bonds_g, 'launches'),
+                (grover.slot_sum, 'launches'),
+                (fused_gather_segment_sum, 'backward_launches'),
+                (csr_segment_sum, 'launches')]
+
+    def counts():
+        return [getattr(f, a) for f, a in counters]
+    before = counts()
+    w = np.ones((6,) if name.endswith('pretrain') else y.shape, np.float32)
+    losses = [m.fit_on_batch(X, y, w) for m in models]
+    torch.cuda.synchronize()
+    pretrain = name.endswith('pretrain')
+    want = [5, 3, 4, 5, 4, 2, 14, 6] if pretrain else \
+        [5, 3, 4, 5, 4, 0, 8, 3]
+    assert [a - b for a, b in zip(counts(), before)] == (
+        want if name.startswith('grover_flat') else [0] * 8)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        assert (p.grad is None) == (cpu[key].grad is None), key
+        if p.grad is None:
+            assert key.startswith(('encoder.ffn_bond_from',
+                                   'encoder.bond_from')), key
+            continue
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+    if pretrain:
+        return
+    preds = [m.predict_on_batch(X) for m in models]
+    assert np.isfinite(preds[0]).all()
+    np.testing.assert_allclose(preds[0], preds[1], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_grover_k1_sums_and_gathers_match_plain_versions(cuda):
+    """The four custom-VJP sums (the grouped ones one K1 launch over ``[G N,
+    H]`` through the offset table), the to-bond slot sums and the gathers
+    of a flat GROVER batch, forward and backward, on the card against the
+    same on the CPU: K1 bit for bit (every slot summed in slot order on
+    both), the P2 backwards within 1e-5 of max(1, |ref|) (another
+    order)."""
+    from deepchem_tpu_torch.models import grover as G
+    make, X, _ = _repro_case('grover_flat_pretrain')
+    arrs = make('cpu', 0)._graph_inputs(X)
+    rng = np.random.RandomState(5)
+    H, Gn = 12, 6
+    graphs = {}
+    for dev in (cuda, torch.device('cpu')):
+        t = [torch.from_numpy(a).to(dev) for a in arrs]
+        graphs[dev.type] = G.FlatGraph(t[2], t[3], t[4], t[5], t[10:], Gn)
+    N, E = arrs[5].shape[0], arrs[3].shape[0]
+    cases = [
+        (lambda g, x: G.nei_sum_sym(x, g.a2a), (N, H), True),
+        (lambda g, x: G.nei_sum_sym_g(x, g.a2a, g.a2a_g), (Gn, N, H), True),
+        (lambda g, x: G.nei_sum_bonds(x, g.a2b, g.rev_dst), (E, H), True),
+        (lambda g, x: G.nei_sum_bonds_g(x, g.a2b, g.rev_dst, g.a2b_g),
+         (Gn, E, H), True),
+        (lambda g, x: G.slot_sum(x, g.alfb, *g.alfb_csr), (N, H), False),
+        (lambda g, x: G.slot_sum(x, g.blfb, *g.blfb_csr), (E, H), False),
+        (lambda g, x: G.gather_rows(x, g.b2revb, *g.revb_csr), (E, H),
+         False),
+        (lambda g, x: G.gather_rows_g(x, g.b2a, g.b2a_csr_g), (Gn, N, H),
+         False)]
+    for fn, shape, exact in cases:
+        x = rng.randn(*shape).astype(np.float32)
+        outs, grads = [], []
+        for dev in (cuda, torch.device('cpu')):
+            xt = torch.from_numpy(x).to(dev).requires_grad_()
+            out = fn(graphs[dev.type], xt)
+            g = torch.from_numpy(np.random.RandomState(6).randn(
+                *out.shape).astype(np.float32)).to(dev)
+            out.backward(g)
+            outs.append(out.detach().cpu())
+            grads.append(xt.grad.cpu())
+        assert torch.equal(outs[0], outs[1])
+        if exact:
+            assert torch.equal(grads[0], grads[1])
+        else:
+            torch.testing.assert_close(
+                grads[0], grads[1], rtol=0,
+                atol=1e-5 * max(1.0, float(grads[1].abs().max())))

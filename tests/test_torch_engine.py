@@ -315,6 +315,24 @@ def test_reinitialize_draws_a_fresh_model(graphs):
     assert a == b
 
 
+def test_a_model_built_on_the_meta_device_takes_loaded_weights(graphs):
+    """Built under ``torch.device('meta')`` a model draws nothing and is
+    allocated on its device; with a seeded model's weights loaded it
+    trains as that model does, bit for bit."""
+    ds, _ = _data(graphs)
+    model = GraphConvModel(device='cpu', seed=4, **SMALL)
+    with torch.device('meta'):
+        empty = GraphConvModel(device='cpu', seed=4, **SMALL)
+    assert all(p.device.type == 'cpu' for p in empty.module.parameters())
+    empty.module.load_state_dict(model.module.state_dict())
+    a = model.fit(ds, nb_epoch=2, checkpoint_interval=0)
+    b = empty.fit(ds, nb_epoch=2, checkpoint_interval=0)
+    assert a == b
+    for (name, x), y in zip(model.module.state_dict().items(),
+                            empty.module.state_dict().values()):
+        assert torch.equal(x, y), name
+
+
 class _MaskedGraphConv(JaxGraphConvModel):
     """The JAX model training only the parameters under ``train_scopes``:
     the JAX package's ``fit`` takes ``variables`` but trains every
