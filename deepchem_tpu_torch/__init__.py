@@ -32,11 +32,18 @@ from deepchem_tpu_torch.models import (AtomicConvFeaturizer,
                                        LCNNModel, MATFeaturizer, MATModel,
                                        MEGNetModel, MPNNModel,
                                        MXMNetModel, PagtnModel, PNAModel,
-                                       SupportGraphClassifier, WeaveModel)
+                                       SupportGraphClassifier, WeaveModel,
+                                       AspuruGuzikAutoEncoder, ChemCeption,
+                                       CNN, InceptionV3Model, OneFormer,
+                                       SeqToSeq, Smiles2Vec, TextCNNModel,
+                                       UNetModel)
 from deepchem_tpu_torch.trans import NormalizationTransformer
 from deepchem_tpu_torch.utils.evaluate import Evaluator, GeneratorEvaluator
 
-__all__ = ['AtomicConvFeaturizer', 'AtomicConvModel', 'AttentiveFPModel',
+__all__ = ['AspuruGuzikAutoEncoder', 'CNN', 'ChemCeption',
+           'InceptionV3Model', 'OneFormer', 'SeqToSeq', 'Smiles2Vec',
+           'TextCNNModel', 'UNetModel',
+           'AtomicConvFeaturizer', 'AtomicConvModel', 'AttentiveFPModel',
            'BertEncoderMLM', 'CGCNNFeaturizer',
            'CGCNNModel', 'ConvMolFeaturizer', 'CoulombMatrix', 'DAGModel',
            'DAGTransformer', 'DMPNNFeaturizer', 'DMPNNModel', 'DTNNModel',

@@ -200,6 +200,26 @@ class Molecule:
         """The atoms bonded to atom ``idx``, in bond order."""
         return [self.bonds[bi].other(idx) for bi in self._adj[idx]]
 
+    def components(self) -> List[List[int]]:
+        """The connected components, each its atoms' indices sorted, in
+        the order of their lowest atom."""
+        seen = [False] * self.num_atoms
+        comps = []
+        for start in range(self.num_atoms):
+            if seen[start]:
+                continue
+            stack, comp = [start], []
+            seen[start] = True
+            while stack:
+                u = stack.pop()
+                comp.append(u)
+                for v in self.neighbors(u):
+                    if not seen[v]:
+                        seen[v] = True
+                        stack.append(v)
+            comps.append(sorted(comp))
+        return comps
+
     def atom_bonds(self, idx: int) -> List[Bond]:
         return [self.bonds[bi] for bi in self._adj[idx]]
 

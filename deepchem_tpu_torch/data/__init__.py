@@ -1,4 +1,5 @@
-from deepchem_tpu_torch.data.datasets import NumpyDataset, pad_batch
+from deepchem_tpu_torch.data.datasets import (ImageDataset, NumpyDataset,
+                                              pad_batch)
 from deepchem_tpu_torch.data.supports import (EpisodeGenerator,
                                               SupportGenerator,
                                               get_single_task_test,
@@ -6,6 +7,6 @@ from deepchem_tpu_torch.data.supports import (EpisodeGenerator,
                                               get_task_support,
                                               remove_dead_examples)
 
-__all__ = ['EpisodeGenerator', 'NumpyDataset', 'SupportGenerator',
+__all__ = ['EpisodeGenerator', 'ImageDataset', 'NumpyDataset', 'SupportGenerator',
            'get_single_task_test', 'get_task_dataset', 'get_task_support',
            'pad_batch', 'remove_dead_examples']

@@ -130,3 +130,36 @@ class NumpyDataset:
             out += [means, np.sqrt(np.maximum(sumsq / len(arr) - means ** 2,
                                               0))]
         return tuple(out)
+
+
+class ImageDataset(NumpyDataset):
+    """A dataset whose X (and perhaps y) are images, given as arrays.
+    With no labels, ``y`` is zeros ``(n, 1)``; ``w`` is ones of ``y``'s
+    shape; the ids default to ``0 .. n - 1``.  Image files (a list of
+    paths) need an image decoder, which the port does not carry: they
+    raise ``NotImplementedError`` (``ROADMAP.md`` §1 item 2)."""
+
+    def __init__(self, X, y, w=None, ids=None) -> None:
+        for arr in (X, y):
+            if arr is not None and not (isinstance(arr, np.ndarray)
+                                        and arr.dtype != object):
+                raise NotImplementedError(
+                    'ImageDataset from image files needs an image decoder, '
+                    'which the port does not carry (ROADMAP.md section 1 '
+                    'item 2); give the images as arrays')
+        n = len(X)
+        self._X = X
+        self._y = np.zeros((n, 1), dtype=np.float32) if y is None \
+            else np.asarray(y)
+        self._w = np.ones(self._y.shape, dtype=np.float32) if w is None \
+            else np.asarray(w)
+        self._ids = np.asarray(np.arange(n) if ids is None else ids,
+                               dtype=object)
+
+    def get_shape(self):
+        return self._X.shape, self._y.shape, self._w.shape, self._ids.shape
+
+    def select(self, indices) -> 'ImageDataset':
+        indices = np.asarray(indices)
+        return ImageDataset(self._X[indices], self._y[indices],
+                            self._w[indices], self._ids[indices])

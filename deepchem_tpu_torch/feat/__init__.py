@@ -7,10 +7,12 @@ from deepchem_tpu_torch.feat.graph_data import (BatchGraphData, GraphData,
                                                 bucket_caps, pad_graph_batch)
 from deepchem_tpu_torch.feat.molecule_featurizers import (
     CircularFingerprint, ConvMolFeaturizer, CoulombMatrix, CoulombMatrixEig,
-    DMPNNFeaturizer, MolGraphConvFeaturizer, PagtnMolGraphFeaturizer,
-    WeaveFeaturizer)
+    DMPNNFeaturizer, MolGraphConvFeaturizer, OneHotFeaturizer,
+    PagtnMolGraphFeaturizer, SmilesToImage, SmilesToSeq, WeaveFeaturizer,
+    create_char_to_idx)
 from deepchem_tpu_torch.feat.material_featurizers import (
-    ElementPropertyFingerprint, ElemNetFeaturizer, SineCoulombMatrix)
+    ElementPropertyFingerprint, ElemNetFeaturizer, PositionFrequencyMatrix,
+    SineCoulombMatrix, SparseMatrixOneHotFeaturizer)
 from deepchem_tpu_torch.feat.tokenizers import (BasicSmilesTokenizer,
                                                 SmilesTokenizer)
 
@@ -23,4 +25,6 @@ __all__ = ['Featurizer', 'MolecularFeaturizer', 'GraphData', 'BatchGraphData',
            'LCNNFeaturizer', 'ElementPropertyFingerprint',
            'ElemNetFeaturizer', 'SineCoulombMatrix',
            'RDKitConformerFeaturizer', 'EquivariantGraphFeaturizer',
-           'MXMNetFeaturizer']
+           'MXMNetFeaturizer', 'OneHotFeaturizer', 'SmilesToSeq',
+           'SmilesToImage', 'create_char_to_idx', 'PositionFrequencyMatrix',
+           'SparseMatrixOneHotFeaturizer']

@@ -158,3 +158,47 @@ class SineCoulombMatrix(Featurizer):
             w, _ = np.linalg.eigh(m)
             return w[::-1].astype(np.float64)
         return m
+
+
+class PositionFrequencyMatrix(Featurizer):
+    """A set of aligned sequences (or one) as the count of each character
+    of ``charset`` at each of the first ``max_length`` positions,
+    ``[len(charset), max_length]`` float64."""
+
+    def __init__(self, charset=('A', 'C', 'G', 'T', 'N'),
+                 max_length: int = 100):
+        self.charset = list(charset)
+        self.max_length = max_length
+
+    def _featurize(self, datapoint) -> np.ndarray:
+        seqs = [datapoint] if isinstance(datapoint, str) else list(datapoint)
+        out = np.zeros((len(self.charset), self.max_length))
+        for seq in seqs:
+            for i, c in enumerate(str(seq)[:self.max_length]):
+                if c in self.charset:
+                    out[self.charset.index(c), i] += 1
+        return out
+
+
+class SparseMatrixOneHotFeaturizer(Featurizer):
+    """A sequence as a scipy ``csr_matrix`` ``[len, len(charset)]`` of
+    one-hot rows; a character not in ``charset`` takes its last entry."""
+
+    def __init__(self, charset=None):
+        default = ['A', 'C', 'D', 'E', 'F', 'G', 'H', 'I', 'K', 'L', 'M',
+                   'N', 'P', 'Q', 'R', 'S', 'T', 'V', 'W', 'Y', 'X', 'Z',
+                   'B', 'U', 'O']
+        self.charset = list(charset) if charset is not None else default
+
+    def _featurize(self, datapoint: str):
+        from scipy.sparse import csr_matrix
+        seq = str(datapoint)
+        cols = np.array([self.charset.index(c) if c in self.charset
+                         else len(self.charset) - 1 for c in seq])
+        return csr_matrix((np.ones(len(seq)), (np.arange(len(seq)), cols)),
+                          shape=(len(seq), len(self.charset)))
+
+    def untransform(self, matrix) -> str:
+        dense = np.asarray(matrix.todense()) \
+            if hasattr(matrix, 'todense') else np.asarray(matrix)
+        return ''.join(self.charset[int(i)] for i in dense.argmax(axis=1))

@@ -1,17 +1,20 @@
-"""Molecule featurizers: graphs for the graph models and circular
-fingerprints for the dense ones."""
+"""Molecule featurizers: graphs for the graph models, circular
+fingerprints for the dense ones, and SMILES as one-hot characters, token
+sequences and images for the sequence and image models."""
 
 from __future__ import annotations
 
+import math
 from collections import deque
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from deepchem_tpu_torch.chem import (Molecule, morgan_fingerprint,
+from deepchem_tpu_torch.chem import (Molecule, mol_from_smiles,
+                                     morgan_fingerprint,
                                      sparse_morgan_fingerprint)
 from deepchem_tpu_torch.feat import feature_utils as fu
-from deepchem_tpu_torch.feat.base import MolecularFeaturizer
+from deepchem_tpu_torch.feat.base import Featurizer, MolecularFeaturizer
 from deepchem_tpu_torch.feat.graph_data import GraphData
 
 
@@ -417,3 +420,150 @@ class CoulombMatrixEig(CoulombMatrix):
     def _featurize(self, mol: Molecule) -> np.ndarray:
         w, _ = np.linalg.eigh(self.coulomb_matrix(mol))
         return w[::-1].astype(np.float64)
+
+
+class OneHotFeaturizer(Featurizer):
+    """A SMILES (any string) as one-hot characters ``[max_length,
+    len(charset) + 1]`` (the last column: a character not in ``charset``,
+    the space that pads included), cut or space-padded to ``max_length``
+    (as long as the string with ``max_length`` None)."""
+
+    CHARSET = ['#', ')', '(', '+', '-', '/', '1', '3', '2', '5', '4', '7',
+               '6', '8', '=', '@', 'C', 'B', 'F', 'I', 'H', 'O', 'N', 'S',
+               '[', ']', '\\', 'c', 'l', 'o', 'n', 'p', 's', 'r']
+
+    def __init__(self, charset: Optional[Sequence[str]] = None,
+                 max_length: Optional[int] = 100):
+        self.charset = list(charset) if charset is not None else \
+            list(self.CHARSET)
+        self.max_length = max_length
+
+    def _featurize(self, datapoint: str) -> np.ndarray:
+        s = self.pad_string(datapoint)
+        out = np.zeros((len(s), len(self.charset) + 1), dtype=np.float32)
+        for i, ch in enumerate(s):
+            j = self.charset.index(ch) if ch in self.charset else -1
+            out[i, j] = 1.0
+        return out
+
+    def pad_smile(self, smiles: str) -> str:
+        """``smiles`` space-padded (and cut) to the featurizer's length."""
+        return self.pad_string(smiles)
+
+    def pad_string(self, string: str) -> str:
+        if self.max_length is None:
+            return string
+        return string[:self.max_length].ljust(self.max_length)
+
+    def untransform(self, one_hot: np.ndarray) -> str:
+        """The string of a one-hot array, unknown characters and the
+        padding's spaces dropped."""
+        return ''.join(self.charset[i] for i in np.argmax(one_hot, axis=1)
+                       if i < len(self.charset)).strip()
+
+
+class SmilesToSeq(Featurizer):
+    """A SMILES as token indices: ``pad_len`` pad tokens, one index a
+    character (``'<unk>'``'s, else the pad's, for one not in
+    ``char_to_idx``), ``pad_len`` pads, cut or padded to ``max_len + 2 *
+    pad_len``; int32."""
+
+    def __init__(self, char_to_idx: Dict[str, int], max_len: int = 250,
+                 pad_len: int = 10):
+        self.char_to_idx = dict(char_to_idx)
+        self.idx_to_char = {v: k for k, v in char_to_idx.items()}
+        self.max_len = max_len
+        self.pad_len = pad_len
+
+    def _tokens(self):
+        pad = self.char_to_idx.get('<pad>', 0)
+        return pad, self.char_to_idx.get('<unk>', pad)
+
+    def _featurize(self, datapoint: str) -> np.ndarray:
+        pad, unk = self._tokens()
+        seq = [pad] * self.pad_len + [self.char_to_idx.get(c, unk)
+                                      for c in datapoint] \
+            + [pad] * self.pad_len
+        total = self.max_len + 2 * self.pad_len
+        seq = seq[:total] + [pad] * max(0, total - len(seq))
+        return np.array(seq, dtype=np.int32)
+
+    def to_seq(self, smile_chars: Sequence[str]) -> np.ndarray:
+        """Characters -> their indices."""
+        _, unk = self._tokens()
+        return np.array([self.char_to_idx.get(c, unk) for c in smile_chars])
+
+    def remove_pad(self, characters: Sequence[str]) -> List[str]:
+        """The characters without the pad margins and pad tokens."""
+        characters = list(characters)[
+            self.pad_len:len(characters) - self.pad_len]
+        return [c for c in characters if c != '<pad>']
+
+    def smiles_from_seq(self, seq: Sequence[int]) -> str:
+        return ''.join(self.remove_pad(
+            [self.idx_to_char[int(i)] for i in seq]))
+
+
+def create_char_to_idx(smiles_list: Sequence[str],
+                       max_len: int = 250) -> Dict[str, int]:
+    """:class:`SmilesToSeq`'s vocabulary: ``'<pad>'`` 0, ``'<unk>'`` 1,
+    then the characters of the SMILES of at most ``max_len``, sorted."""
+    chars = set()
+    for s in smiles_list:
+        if len(s) <= max_len:
+            chars.update(s)
+    vocab = {'<pad>': 0, '<unk>': 1}
+    for c in sorted(chars):
+        vocab[c] = len(vocab)
+    return vocab
+
+
+class SmilesToImage(Featurizer):
+    """A molecule drawn on an ``img_size`` square, one channel
+    ``[img_size, img_size, 1]``: each atom's pixel of :func:`_layout_2d`'s
+    layout, scaled to fill the image, holds its atomic number / 10."""
+
+    def __init__(self, img_size: int = 80, res: float = 0.5,
+                 max_len: int = 250, img_spec: str = 'std'):
+        self.img_size = img_size
+        self.res = res
+        self.max_len = max_len
+        self.img_spec = img_spec
+
+    def _prepare(self, point):
+        return mol_from_smiles(point) if isinstance(point, str) else point
+
+    def _featurize(self, mol: Molecule) -> np.ndarray:
+        coords = _layout_2d(mol)
+        n = self.img_size
+        img = np.zeros((n, n, 1), dtype=np.float32)
+        scale = (n / 2 - 2) / max(
+            1e-6, np.abs(coords).max() if len(coords) else 1.0)
+        for a, (x, y) in zip(mol.atoms, coords):
+            px = np.clip(int(n / 2 + x * scale), 0, n - 1)
+            py = np.clip(int(n / 2 + y * scale), 0, n - 1)
+            img[py, px, 0] = a.atomic_num / 10.0
+        return img
+
+
+def _layout_2d(mol: Molecule) -> np.ndarray:
+    """A deterministic 2-D layout: each component's first atom at the
+    origin, then breadth first, the unplaced neighbours of atom ``u`` at
+    unit distance on angles ``2 pi (t + 0.5) / k + 0.7 u``."""
+    n = mol.num_atoms
+    coords = np.zeros((n, 2))
+    placed = [False] * n
+    for comp in mol.components():
+        root = comp[0]
+        placed[root] = True
+        dq = deque([root])
+        while dq:
+            u = dq.popleft()
+            nbrs = [v for v in mol.neighbors(u) if not placed[v]]
+            k = len(nbrs)
+            for t, v in enumerate(nbrs):
+                ang = 2 * math.pi * (t + 0.5) / max(k, 1) + 0.7 * u
+                coords[v] = coords[u] + [math.cos(ang), math.sin(ang)]
+                placed[v] = True
+                dq.append(v)
+    return coords

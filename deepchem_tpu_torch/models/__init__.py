@@ -7,6 +7,10 @@ from deepchem_tpu_torch.models.convert import (encoder_params_from_flax,
 from deepchem_tpu_torch.models.grover import (GroverAtomVocabularyBuilder,
                                               GroverBondVocabularyBuilder,
                                               GroverFeaturizer, GroverModel)
+from deepchem_tpu_torch.models.chemnet import (ChemCeption, ChemCeptionModel,
+                                               Smiles2Vec, Smiles2VecModel)
+from deepchem_tpu_torch.models.cnn import CNN, CNNModel
+from deepchem_tpu_torch.models.conv_layers import Conv, ConvTranspose
 from deepchem_tpu_torch.models.dag import DAGModel, DAGTransformer
 from deepchem_tpu_torch.models.dmpnn import DMPNNModel
 from deepchem_tpu_torch.models.fcnet import (MultitaskClassifier,
@@ -22,7 +26,7 @@ from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
                                                     EdgeNetworkMPNN,
                                                     EGNNLayer, GATLayer,
                                                     GCNLayer, GraphConv,
-                                                    GraphGather, GRUCell,
+                                                    GraphGather, GRU, GRUCell,
                                                     LSTMCell, MaskedBatchNorm,
                                                     SetGather, WeaveGather,
                                                     WeaveLayer, graph_pool_max)
@@ -67,7 +71,12 @@ from deepchem_tpu_torch.models.mxmnet import MXMNetModel, PlexLayer
 from deepchem_tpu_torch.models.pna import PNALayer, PNAModel
 from deepchem_tpu_torch.models.progressive import (
     ProgressiveMultitaskClassifier, ProgressiveMultitaskRegressor)
+from deepchem_tpu_torch.models.oneformer import OneFormer
 from deepchem_tpu_torch.models.scscore import ScScoreModel
+from deepchem_tpu_torch.models.seqtoseq import (AspuruGuzikAutoEncoder,
+                                                SeqToSeq, SeqToSeqModel)
+from deepchem_tpu_torch.models.text_cnn import TextCNNModel
+from deepchem_tpu_torch.models.unet import InceptionV3Model, UNetModel
 from deepchem_tpu_torch.models.optimizers import (
     KFAC, AdaGrad, Adam, AdamW, ExponentialDecay, GradientDescent, Lamb,
     LambdaLRWithWarmup, LearningRateSchedule, LinearCosineDecay, Optimizer,
@@ -80,7 +89,11 @@ WeaveTensorGraph = WeaveModel
 DTNNTensorGraph = DTNNModel
 DAGTensorGraph = DAGModel
 
-__all__ = ['AdaGrad', 'Adam', 'AdamW', 'AtomicConvFeaturizer',
+__all__ = ['AdaGrad', 'Adam', 'AdamW', 'AspuruGuzikAutoEncoder',
+           'AtomicConvFeaturizer', 'CNN', 'CNNModel', 'ChemCeption',
+           'ChemCeptionModel', 'Conv', 'ConvTranspose', 'GRU',
+           'InceptionV3Model', 'OneFormer', 'SeqToSeq', 'SeqToSeqModel',
+           'Smiles2Vec', 'Smiles2VecModel', 'TextCNNModel', 'UNetModel',
            'AtomicConvModel', 'AtomicConvolution', 'AttentiveFPLayer',
            'AttentiveFPModel', 'AttnLSTMEmbedding', 'BertEncoderMLM',
            'BinaryCrossEntropy',

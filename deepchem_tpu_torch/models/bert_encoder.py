@@ -70,12 +70,14 @@ def _linear(layer: nn.Linear, x: torch.Tensor,
                     layer.bias.to(dtype))
 
 
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=float32)`` on ``x`` cast to float32, the
-    result cast back to ``dtype``."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(dtype)
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype,
+                ln_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=ln_dtype)`` on ``x`` cast to ``ln_dtype``,
+    the result cast back to ``dtype``: flax takes the statistics and the
+    normalisation in float32 whatever ``ln_dtype`` is, and rounds the
+    result to ``ln_dtype``."""
+    return F.layer_norm(x.to(ln_dtype).float(), ln.normalized_shape,
+                        ln.weight, ln.bias, ln.eps).to(ln_dtype).to(dtype)
 
 
 def _dropout(x: torch.Tensor, rate: float,
@@ -95,9 +97,11 @@ class _EncoderLayer(nn.Module):
 
     def __init__(self, hidden: int, heads: int, intermediate: int,
                  dropout: float, dtype: torch.dtype,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 ln_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads, self.dropout, self.dtype = heads, dropout, dtype
+        self.ln_dtype = ln_dtype
         self.qkv = dense(hidden, 3 * hidden, generator)
         self.out = dense(hidden, hidden, generator)
         self.ln_att = nn.LayerNorm(hidden, eps=LN_EPS)
@@ -119,10 +123,10 @@ class _EncoderLayer(nn.Module):
         att = flash_or_xla_attention(q, k, v, mask)
         att = _linear(self.out, att.reshape(B, S, hidden), dt)
         att = _dropout(att, self.dropout, gen)
-        x = _layer_norm(self.ln_att, x + att, dt)
+        x = _layer_norm(self.ln_att, x + att, dt, self.ln_dtype)
         h = F.gelu(_linear(self.mlp_in, x, dt), approximate='tanh')
         h = _dropout(_linear(self.mlp_out, h, dt), self.dropout, gen)
-        return _layer_norm(self.ln_mlp, x + h, dt)
+        return _layer_norm(self.ln_mlp, x + h, dt, self.ln_dtype)
 
 
 class BertEncoderMLM(nn.Module):
@@ -143,13 +147,17 @@ class BertEncoderMLM(nn.Module):
     seeded from a sequence started at ``seed``, not from the global RNG.
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``) instead of keeping its activations.
+    ``ln_dtype`` is the type the layers' LayerNorms take their input in
+    and round their output to (their statistics stay float32, as flax's);
+    the embedding's and the head's LayerNorms stay float32.
     """
 
     def __init__(self, vocab_size: int, hidden: int = 768, layers: int = 12,
                  heads: int = 12, intermediate: int = 3072,
                  max_positions: int = 130, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0,
+                 ln_dtype: torch.dtype = torch.float32):
         super().__init__()
         if hidden % heads:
             raise ValueError(f'hidden {hidden} is not a multiple of heads '
@@ -166,8 +174,8 @@ class BertEncoderMLM(nn.Module):
                 emb.weight.normal_(0.0, hidden ** -0.5, generator=gen)
         self.ln_emb = nn.LayerNorm(hidden, eps=LN_EPS)
         self.layers = nn.ModuleList(
-            _EncoderLayer(hidden, heads, intermediate, dropout, dtype, gen)
-            for _ in range(layers))
+            _EncoderLayer(hidden, heads, intermediate, dropout, dtype, gen,
+                          ln_dtype) for _ in range(layers))
         self.head_dense = dense(hidden, hidden, gen)
         self.head_ln = nn.LayerNorm(hidden, eps=LN_EPS)
         self.head_bias = nn.Parameter(torch.zeros(vocab_size))

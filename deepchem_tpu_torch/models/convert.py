@@ -9,7 +9,12 @@ models' (``_MLPTrunk_0/Dense_i``,
 ``output_head``, ``uncertainty_head``; the robust models' shared, bypass
 and head ``Dense_i``; the progressive columns' ``task{t}_dense{i}``,
 ``_alpha{i}``, ``_adapter{i}``, ``_lateral{i}``, ``_out``; IRV's ``W``,
-``b``, ``b2``; ScScore's net) and MAT's through :func:`params_from_flax`,
+``b``, ``b2``; ScScore's net), MAT's, and the sequence and image models'
+(TextCNN, Smiles2Vec, ChemCeption, SeqToSeq, CNN, UNet, InceptionV3,
+OneFormer: ``nn.Embed``, convolutions, transposed convolutions, GRU
+cells, LayerNorms and ``DenseGeneral`` attention, each layer that keeps
+another layout than ``nn.Linear`` converting its own leaves through its
+``flax_tensor``) through :func:`params_from_flax`,
 each module naming its scopes in ``flax_scopes`` and any leaf of its own
 in ``flax_leaves``; the encoder (:func:`encoder_params_from_flax`); and
 GROVER's, whose modules keep the flax scope names
@@ -36,7 +41,7 @@ _LISTS = [(re.compile(_LAYER + r'_(\d+)$'), 'layers'),
 # per-degree weights, MaskedBatchNorm's scale, GATLayer's attention vectors
 _LEAVES = {'kernel': 'weight', 'bias': 'bias', 'W_self': 'W_self',
            'W_nbr': 'W_nbr', 'b': 'b', 'scale': 'scale', 'a_src': 'a_src',
-           'a_dst': 'a_dst'}
+           'a_dst': 'a_dst', 'embedding': 'weight'}
 
 
 def _torch_name(key: str, scopes: Dict[str, str] = _SCOPES,
@@ -125,12 +130,28 @@ def flax_state(flat: Dict[str, np.ndarray],
         if m:
             cells.setdefault(m.group(1), {})[(m.group(2), m.group(3))] = value
         else:
-            state[_torch_name(key, scopes, leaves)] = _tensor(key, value)
+            name = _torch_name(key, scopes, leaves)
+            state[name] = _layer_tensor(module, name, key, value)
     for prefix, gates in cells.items():
         kind = 'GRUCell' if {g for g, _ in gates} <= set(_GRU_GATES) \
             else 'LSTMCell'
         state.update(_cell_state(prefix, kind, gates, scopes))
     return state
+
+
+def _layer_tensor(module: nn.Module, name: str, key: str,
+                  value) -> torch.Tensor:
+    """The tensor ``name`` of ``module`` from the flax leaf ``key``: by
+    the layout conversion of the layer that owns it where that layer has
+    one (``flax_tensor``: a convolution's, a transposed convolution's, a
+    ``DenseGeneral``'s), else :func:`_tensor`."""
+    owner, _, leaf = name.rpartition('.')
+    try:
+        layer = module.get_submodule(owner)
+    except AttributeError:          # no such layer: _load names the key
+        layer = None
+    convert = getattr(layer, 'flax_tensor', None)
+    return convert(leaf, value) if convert else _tensor(key, value)
 
 
 def _tensor(key: str, value) -> torch.Tensor:

@@ -49,13 +49,16 @@ from deepchem_tpu_torch.ops.segment import (NEG, gather_graph_rows,
 
 def lecun_normal_(t: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
-                  scale: float = 1.0) -> torch.Tensor:
+                  scale: float = 1.0,
+                  fan_in: Optional[int] = None) -> torch.Tensor:
     """Fill a weight ``[out, in]`` as flax's ``lecun_normal`` fills its
     kernel: a normal truncated at two standard deviations with variance
-    ``1 / in``; with ``scale``, flax's ``variance_scaling(scale, 'fan_in',
+    ``1 / in`` (or ``1 / fan_in``; a convolution's is ``in * prod(k)``);
+    with ``scale``, flax's ``variance_scaling(scale, 'fan_in',
     'truncated_normal')`` (variance ``scale / in``)."""
     # std of the truncated normal is 0.8796 of its parent's; flax rescales
-    std = (scale / t.shape[1]) ** 0.5 / .87962566103423978
+    fan_in = t.shape[1] if fan_in is None else fan_in
+    std = (scale / fan_in) ** 0.5 / .87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
                                      generator=generator)
@@ -114,6 +117,46 @@ class GRUCell(nn.Module):
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * (h_n + self.bias_hn))
         return (1.0 - z) * n + z * h
+
+
+class GRU(nn.Module):
+    """flax's ``nn.RNN(GRUCell)`` over ``[B, T, F]`` from a zero carry:
+    ``num_layers`` stacked, each with a reversed pass beside it
+    (``reverse=True, keep_order=True``) when ``bidirectional``; returns
+    the top layer's outputs ``[B, T, D * features]``.
+
+    The whole stack is one ``torch.gru`` call (cuDNN on the card: a
+    stepped :class:`GRUCell` would launch a few kernels a step, thousands a
+    forward at 270 tokens).  Its parameters are :class:`GRUCell`'s, one
+    cell a layer and direction in flax's order (``cells``): flax's cell has
+    no r and z biases on the hidden side, and torch's GRU does.  Each call
+    builds ``bias_hh`` as zeros for those halves and ``bias_hn`` for the
+    third, so the halves are no parameters: the parameter count is flax's,
+    no optimizer moves them, and the state dict carries across both ways
+    unchanged.  The zeros cost one small concatenation a cell a call."""
+
+    def __init__(self, in_features: int, features: int,
+                 num_layers: int = 1, bidirectional: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.features, self.num_layers = features, num_layers
+        self.bidirectional = bidirectional
+        dirs = 2 if bidirectional else 1
+        self.cells = nn.ModuleList(
+            GRUCell(in_features if layer == 0 else dirs * features,
+                    features, generator)
+            for layer in range(num_layers) for _ in range(dirs))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        zeros = x.new_zeros(2 * self.features)
+        flat = []
+        for c in self.cells:
+            flat += [c.weight_ih, c.weight_hh, c.bias_ih,
+                     torch.cat([zeros, c.bias_hn])]
+        h0 = x.new_zeros(len(self.cells), x.shape[0], self.features)
+        out, _ = torch.gru(x, h0, flat, True, self.num_layers, 0.0,
+                           self.training, self.bidirectional, True)
+        return out
 
 
 class LSTMCell(nn.Module):

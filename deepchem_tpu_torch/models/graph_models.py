@@ -321,6 +321,25 @@ class _SeededDropout(nn.Module):
         return h * keep / (1 - rate)
 
 
+class _HostSeededDropout(_SeededDropout):
+    """A :class:`_SeededDropout` whose masks are drawn on the host, from a
+    CPU ``torch.Generator`` seeded with ``dropout_seed``, and copied to the
+    input's device: a model on the card draws the masks the same model
+    draws on the CPU, so its training can be held to the CPU's."""
+
+    def _dropout(self, h: torch.Tensor,
+                 rate: Optional[float] = None) -> torch.Tensor:
+        rate = self.dropout if rate is None else rate
+        if not self.training or rate == 0:
+            return h
+        if self._dropout_generator is None:
+            self._dropout_generator = torch.Generator().manual_seed(
+                self.dropout_seed)
+        keep = torch.empty(h.shape).bernoulli_(
+            1 - rate, generator=self._dropout_generator).to(torch.bool)
+        return h * keep.to(h.device, non_blocking=True) / (1 - rate)
+
+
 class _PagtnModule(_SeededDropout):
     """The PAGTN network: embedding, ``num_layers`` PAGTN layers with a
     residual to the embedding, a projection of ``[h ; node features]``,

@@ -53,6 +53,19 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     return torch.device(device)
 
 
+def cudnn_float32():
+    """cuDNN in float32 arithmetic (no TF32) with deterministic algorithms
+    and no autotuning while the block runs, forward and backward: the JAX
+    package convolves and runs its recurrences in float32, and two runs
+    from one seed must give the same bits.  The engine runs every forward
+    and training step under it; modules without cuDNN ops (the graph
+    models' products are cuBLAS GEMMs and the port's kernels) are
+    untouched by it."""
+    return torch.backends.cudnn.flags(
+        enabled=torch.backends.cudnn.enabled, benchmark=False,
+        deterministic=True, allow_tf32=False)
+
+
 def _to_list(x) -> List:
     if isinstance(x, (list, tuple)):
         return list(x)
@@ -209,7 +222,7 @@ class TorchModel(Model):
     # -- forward and loss --------------------------------------------------
     def _forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Prediction forward: no gradient; the caller sets the mode."""
-        with torch.no_grad():
+        with torch.no_grad(), cudnn_float32():
             out = self.module(*inputs)
         return list(out) if isinstance(out, (list, tuple)) else [out]
 
@@ -265,22 +278,24 @@ class TorchModel(Model):
             raise ValueError('this model was built without a loss')
         if not self._built:
             self.build(inputs)
-        self.module.train()
-        opt = self._optimizer_for(variables)
-        opt.zero_grad(set_to_none=True)
-        out = self.module(*inputs)
-        outputs = list(out) if isinstance(out, (list, tuple)) else [out]
-        value = self._compute_loss(outputs, labels, weights, loss)
-        if self.regularization_loss is not None:
-            value = value + self.regularization_loss(self.module)
-        if variables is None:
-            value.backward()
-        else:
-            grads = torch.autograd.grad(value, opt.params, allow_unused=True)
-            for p, g in zip(opt.params, grads):
-                p.grad = g
-        self._transform_gradients()
-        opt.step()
+        with cudnn_float32():
+            self.module.train()
+            opt = self._optimizer_for(variables)
+            opt.zero_grad(set_to_none=True)
+            out = self.module(*inputs)
+            outputs = list(out) if isinstance(out, (list, tuple)) else [out]
+            value = self._compute_loss(outputs, labels, weights, loss)
+            if self.regularization_loss is not None:
+                value = value + self.regularization_loss(self.module)
+            if variables is None:
+                value.backward()
+            else:
+                grads = torch.autograd.grad(value, opt.params,
+                                            allow_unused=True)
+                for p, g in zip(opt.params, grads):
+                    p.grad = g
+            self._transform_gradients()
+            opt.step()
         self._global_step += 1
         return value.detach()
 
@@ -864,7 +879,8 @@ class TorchModel(Model):
                 outs = [outs[i] for i in pred]
             return tuple(o[0] for o in outs)
         self.module.eval()
-        jac = torch.autograd.functional.jacobian(fwd, x)
+        with cudnn_float32():
+            jac = torch.autograd.functional.jacobian(fwd, x)
         jac = [j.cpu().numpy() for j in jac]
         return jac[0] if len(jac) == 1 else jac
 

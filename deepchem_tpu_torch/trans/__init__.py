@@ -1,13 +1,17 @@
 from deepchem_tpu_torch.trans.transformers import (
     BalancingTransformer, CDFTransformer, ClippingTransformer,
-    CoulombFitTransformer,
-    DuplicateBalancingTransformer, FlatteningTransformer, IRVTransformer,
+    CoulombFitTransformer, DataTransforms,
+    DuplicateBalancingTransformer, FeaturizationTransformer,
+    FlatteningTransformer, ImageTransformer, IRVTransformer,
     LogTransformer,
     MinMaxTransformer, NormalizationTransformer, PowerTransformer,
-    Transformer, undo_grad_transforms, undo_transforms)
+    RxnSplitTransformer, Transformer, pil_resize, undo_grad_transforms,
+    undo_transforms)
 
 __all__ = ['BalancingTransformer', 'CDFTransformer', 'ClippingTransformer',
-           'CoulombFitTransformer',
+           'CoulombFitTransformer', 'DataTransforms',
+           'FeaturizationTransformer', 'ImageTransformer',
+           'RxnSplitTransformer', 'pil_resize',
            'DuplicateBalancingTransformer', 'FlatteningTransformer',
            'IRVTransformer',
            'LogTransformer', 'MinMaxTransformer', 'NormalizationTransformer',

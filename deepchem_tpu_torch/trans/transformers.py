@@ -6,7 +6,10 @@ transformers that models use: ``MinMaxTransformer``,
 ``NormalizationTransformer``, ``ClippingTransformer``, ``LogTransformer``,
 ``BalancingTransformer``, ``DuplicateBalancingTransformer``,
 ``CDFTransformer``, ``PowerTransformer``, ``FlatteningTransformer``,
-``IRVTransformer`` and ``CoulombFitTransformer``.
+``IRVTransformer`` and ``CoulombFitTransformer``; and
+``FeaturizationTransformer``, ``RxnSplitTransformer``,
+``ImageTransformer`` and ``DataTransforms`` for the sequence and image
+models, whose resize reproduces Pillow's in numpy (:func:`pil_resize`).
 A transformer maps a dataset's arrays (``transform``) and undoes its map
 of the labels on a model's outputs (``untransform``), which
 ``TorchModel.predict`` and ``evaluate`` apply in reverse order.
@@ -14,6 +17,7 @@ of the labels on a model's outputs (``untransform``), which
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -451,3 +455,222 @@ class CoulombFitTransformer(Transformer):
 
     def transform_array(self, X, y, w, ids):
         return self.X_transform(X), y, w, ids
+
+
+class FeaturizationTransformer(Transformer):
+    """X (raw datapoints, such as SMILES) featurized by ``featurizer``."""
+
+    def __init__(self, dataset: Optional[NumpyDataset] = None,
+                 featurizer=None):
+        super().__init__(transform_X=True, dataset=dataset)
+        if featurizer is None:
+            raise ValueError('featurizer required')
+        self.featurizer = featurizer
+
+    def transform_array(self, X, y, w, ids):
+        return self.featurizer.featurize(list(X)), y, w, ids
+
+
+class RxnSplitTransformer(Transformer):
+    """Reaction SMILES ``reactants>reagents>products`` split into rows of
+    ``[source, product]``: the source ``reactants>reagents`` with
+    ``sep_reagent``, else ``reactants.reagents>`` (``reactants>`` with no
+    reagents)."""
+
+    def __init__(self, sep_reagent: bool = True,
+                 dataset: Optional[NumpyDataset] = None):
+        super().__init__(transform_X=True, dataset=dataset)
+        self.sep_reagent = sep_reagent
+
+    def transform_array(self, X, y, w, ids):
+        out = []
+        for rxn in X:
+            reactant, reagent, product = (str(rxn).split('>')
+                                          + ['', '', ''])[:3]
+            if self.sep_reagent:
+                source = f'{reactant}>{reagent}'
+            else:
+                source = (f'{reactant}.{reagent}' if reagent
+                          else reactant) + '>'
+            out.append([source, product])
+        return np.asarray(out), y, w, ids
+
+
+# Pillow's resampling of 8-bit images: coefficients in fixed point of 22
+# fraction bits (32 - 8 - 2), rounding from half of the last one
+_PRECISION_BITS = 22
+
+
+def _bicubic(x: float) -> float:
+    """Pillow's bicubic filter (Keys, a = -0.5), support 2."""
+    x = abs(x)
+    if x < 1.0:
+        return (1.5 * x - 2.5) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * -0.5
+    return 0.0
+
+
+def _resample_coefficients(in_size: int, out_size: int):
+    """Pillow's ``precompute_coeffs`` for the whole input: each output
+    pixel's first input pixel and its filter weights, normalised to sum
+    to 1, in float64 ``[out_size, taps]`` (zero past a pixel's own
+    count)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    taps = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, dtype=np.int64)
+    kk = np.zeros((out_size, taps))
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        ss = 1.0 / filterscale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        k = [_bicubic((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in k:
+            ww += v
+        first[xx] = xmin
+        kk[xx, :xmax] = [v / ww if ww != 0.0 else v for v in k]
+    return first, kk
+
+
+def _resample_axis(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's two-pass resample along ``axis``: uint8 in
+    fixed point (each weight rounded away from 0 to 22 fraction bits, the
+    sum started at half of the last bit, clipped to 0..255), float32 in
+    float64 sums stored as float32; each output the taps summed in
+    order."""
+    first, kk = _resample_coefficients(a.shape[axis], out_size)
+    a = np.moveaxis(a, axis, 0)
+    eight_bit = a.dtype == np.uint8
+    if eight_bit:
+        scaled = kk * (1 << _PRECISION_BITS)
+        kk = np.where(scaled < 0, np.trunc(scaled - 0.5),
+                      np.trunc(scaled + 0.5)).astype(np.int64)
+        src = a.astype(np.int64)
+        acc = np.full((out_size,) + a.shape[1:], 1 << (_PRECISION_BITS - 1),
+                      dtype=np.int64)
+    else:
+        src = a.astype(np.float64)
+        acc = np.zeros((out_size,) + a.shape[1:])
+    shape = (out_size,) + (1,) * (a.ndim - 1)
+    for t in range(kk.shape[1]):
+        rows = np.minimum(first + t, len(a) - 1)    # weight 0 past the end
+        acc = acc + src[rows] * kk[:, t].reshape(shape)
+    if eight_bit:
+        out = np.where(acc >= (1 << _PRECISION_BITS << 8), 255,
+                       np.where(acc <= 0, 0, acc >> _PRECISION_BITS)
+                       ).astype(np.uint8)
+    else:
+        out = acc.astype(np.float32)
+    return np.moveaxis(out, 0, axis)
+
+
+def pil_resize(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``np.asarray(PIL.Image.fromarray(image).resize(size))`` without
+    Pillow: its default bicubic filter, antialiased on a downscale (the
+    filter widened by the scale), horizontal pass first, for uint8 ``L``
+    (``[H, W]``) and ``RGB`` (``[H, W, 3]``) images and float ``F`` ones
+    (``[H, W]``, computed in float32 as Pillow stores them).  ``size`` is
+    ``(width, height)``."""
+    a = np.asarray(image)
+    if a.dtype == np.uint8 and (a.ndim == 2 or (a.ndim == 3
+                                                and a.shape[2] == 3)):
+        pass
+    elif a.ndim == 2 and a.dtype.kind == 'f':
+        a = a.astype(np.float32)
+    else:
+        raise NotImplementedError(
+            f'images of {a.dtype} {a.shape}: resized for uint8 L and RGB '
+            'and float L images only')
+    width, height = size
+    if width != a.shape[1]:
+        a = _resample_axis(a, width, 1)
+    if height != a.shape[0]:
+        a = _resample_axis(a, height, 0)
+    return np.array(a)
+
+
+class ImageTransformer(Transformer):
+    """Each image of X resized to ``size`` ``(width, height)`` as Pillow's
+    ``Image.resize`` does (:func:`pil_resize`)."""
+
+    def __init__(self, size: Tuple[int, int],
+                 dataset: Optional[NumpyDataset] = None):
+        super().__init__(transform_X=True, dataset=dataset)
+        self.size = size
+
+    def transform_array(self, X, y, w, ids):
+        return np.stack([pil_resize(x, self.size) for x in X]), y, w, ids
+
+
+class DataTransforms:
+    """Augmentations of one image ``[H, W]`` or ``[H, W, C]``."""
+
+    def __init__(self, Image: np.ndarray):
+        self.Image = np.asarray(Image)
+
+    def scale(self, h: int, w: int) -> np.ndarray:
+        """The image resized to ``h x w`` (:func:`pil_resize`)."""
+        return pil_resize(self.Image, (w, h))
+
+    def center_crop(self, x_crop: int, y_crop: int) -> np.ndarray:
+        """The ``y_crop x x_crop`` region around the image's centre."""
+        y, x = self.Image.shape[0], self.Image.shape[1]
+        x_start = x // 2 - (x_crop // 2)
+        y_start = y // 2 - (y_crop // 2)
+        return self.Image[y_start:y_start + y_crop,
+                          x_start:x_start + x_crop]
+
+    def flip(self, direction: str = 'lr') -> np.ndarray:
+        if direction == 'lr':
+            return np.fliplr(self.Image)
+        if direction == 'ud':
+            return np.flipud(self.Image)
+        raise ValueError('direction must be "lr" or "ud"')
+
+    def rotate(self, angle: float = 0) -> np.ndarray:
+        """Rotated by the whole quarter turns in ``angle`` degrees."""
+        return np.rot90(self.Image, int(angle // 90) % 4)
+
+    def crop(self, left: int, top: int, x_crop_size: int,
+             y_crop_size: int) -> np.ndarray:
+        return self.Image[top:top + y_crop_size, left:left + x_crop_size]
+
+    def convert2gray(self) -> np.ndarray:
+        return np.dot(self.Image[..., :3], [0.2989, 0.5870, 0.1140])
+
+    def shift(self, width: int, height: int, mode='constant') -> np.ndarray:
+        """Moved ``width`` right and ``height`` down, zeros shifted in."""
+        out = np.zeros_like(self.Image)
+        h, w = self.Image.shape[:2]
+        ws, hs = int(width), int(height)
+        out[max(0, hs):min(h, h + hs), max(0, ws):min(w, w + ws)] = \
+            self.Image[max(0, -hs):min(h, h - hs),
+                       max(0, -ws):min(w, w - ws)]
+        return out
+
+    def gaussian_blur(self, sigma: float = 1.0) -> np.ndarray:
+        from scipy.ndimage import gaussian_filter
+        return gaussian_filter(self.Image, sigma)
+
+    def salt_pepper_noise(self, prob: float = 0.05, salt: float = 255,
+                          pepper: float = 0):
+        """Pixels set to ``pepper`` or ``salt`` with probability ``prob /
+        2`` each (``RandomState(0)``)."""
+        rng = np.random.RandomState(0)
+        out = self.Image.copy()
+        mask = rng.rand(*self.Image.shape[:2])
+        out[mask < prob / 2] = pepper
+        out[mask > 1 - prob / 2] = salt
+        return out
+
+    def gaussian_noise(self, mean: float = 0, std: float = 25.5):
+        rng = np.random.RandomState(0)
+        return self.Image + rng.normal(mean, std, self.Image.shape)
+
+    def median_filter(self, size: int):
+        from scipy.ndimage import median_filter
+        return median_filter(self.Image, size)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rehearse ``chip_smoke.py`` on the CPU, at full size, before a chip run.
 
-    python3 scripts/rehearse_chip_smoke.py [--phase 22]
+    python3 scripts/rehearse_chip_smoke.py [--phase 22 | --phase 23]
 
 A machine without a card cannot build or launch the CUDA kernels, so this
 runs every phase of ``chip_smoke.py`` with:
@@ -19,11 +19,13 @@ runs every phase of ``chip_smoke.py`` with:
   hidden 64 and 2 layers trained at lr 1e-2), phase 15's engine to 1024
   molecules (256 to validate every 2 steps), chunks of 1 batch and 3
   dropout masks, GROVER to hidden 32, 2 heads and batch 32 over 96
-  molecules and MAT to dim 32, 2 layers and 4 heads over 64, and
-  SDPA without a chosen backend;
+  molecules and MAT to dim 32, 2 layers and 4 heads over 64, phase 23's
+  models to a few filters and GRUs of 8-16 over 48-96 molecules and
+  images of 32-75 pixels, and SDPA without a chosen backend;
 - the card's memory counters read as 0.
 
-With ``--phase 22`` it runs phase 22 (GROVER and MAT) alone.  It finds
+With ``--phase 22`` it runs phase 22 (GROVER and MAT) alone, with
+``--phase 23`` phase 23 (the sequence and image models).  It finds
 wrong paths, shapes, counts and control flow.  Its times are the
 CPU's and mean nothing for the card; its errors are 0 because both sides
 of each comparison are the plain version, but for the P2 and P3 cases,
@@ -193,7 +195,8 @@ def main() -> int:
     smoke.p2_bf16_floor_us = lambda h, row_ptr: {
         'new_grid_us': nan, 'parent_grid_us': nan, 'floor_us': nan}
     smoke.bf16_add_ns = lambda dev: {'pair': nan, 'single': nan}
-    smoke.device_us_all = lambda fn, calls=20: (float('nan'), 0.0)
+    smoke.device_us_all = lambda fn, calls=20, top=0: (
+        (float('nan'), 0.0) + (([],) if top else ()))
     smoke.library_attention = lambda q, k, v, scale: \
         torch.nn.functional.scaled_dot_product_attention(q, k, v,
                                                          scale=scale)
@@ -212,6 +215,22 @@ def main() -> int:
     smoke.GROVER_MOLECULES = 96
     smoke.MAT = dict(smoke.MAT, dim=32, n_layers=2, n_heads=4)
     smoke.MAT_MOLECULES = 64
+    smoke.SEQ_MOLECULES = 240
+    smoke.TEXTCNN = dict(smoke.TEXTCNN, n_embedding=8,
+                         kernel_sizes=(1, 2, 5), num_filters=(4, 6, 4))
+    smoke.SMILES2VEC = dict(smoke.SMILES2VEC, embedding_dim=8, filters=8,
+                            rnn_sizes=(8, 16))
+    smoke.SMILES2VEC_SEQ = dict(max_len=40, pad_len=2)
+    smoke.CHEMCEPTION = dict(smoke.CHEMCEPTION, img_size=32, base_filters=4)
+    smoke.AUTOENCODER = dict(max_output_length=20, embedding_dimension=16,
+                             encoder_layers=2, decoder_layers=2)
+    smoke.CNN_1D = dict(smoke.CNN_1D, layer_filters=(16,), dense_layer_size=64)
+    smoke.UNET_SIZE, smoke.INCEPTION_SIZE, smoke.ONEFORMER_SIZE = 32, 75, 64
+    smoke.ONEFORMER = dict(smoke.ONEFORMER, image_size=(64, 64), hidden=32,
+                           dec_layers=2)
+    if sys.argv[1:] == ['--phase', '23']:
+        smoke.seq_image_phase(torch.device('cpu'), 'cpu rehearsal')
+        return 0
     if sys.argv[1:] == ['--phase', '22']:
         smoke.grover_mat_phase(torch.device('cpu'), 'cpu rehearsal')
         return 0

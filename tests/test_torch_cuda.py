@@ -41,7 +41,11 @@ CPU, with their launches of P2 and P3; one step of GROVER (both layouts,
 pretraining and finetuning) and MAT against the CPU with GROVER's
 launches of K1, P2 and P3, GROVER's custom-VJP sums (K1, the grouped
 ones through an offset table), to-bond slot sums and gathers (P2
-backward) against the CPU, and a flat GROVER's two fits the same bits.
+backward) against the CPU, and a flat GROVER's two fits the same bits;
+one step of TextCNN, Smiles2Vec, ChemCeption, the Aspuru-Guzik
+autoencoder, CNN, UNet, InceptionV3 and OneFormer (cuDNN convolutions and
+GRUs, float32, deterministic algorithms) against the CPU with no launch of
+the port's kernels, and two fits of each the same bits.
 They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
@@ -1792,6 +1796,8 @@ ATOMIC_SMALL = dict(frag1_num_atoms=8, frag2_num_atoms=20,
 
 def _repro_case(name):
     """(make(device, seed), X, y) of a small model, batches of 6."""
+    if name in SLICE_23_MODELS:
+        return _slice_23_case(name)
     from deepchem_tpu_torch import (AtomicConvModel, CGCNNFeaturizer,
                                     CoulombMatrix, DTNNModel,
                                     InfoMax3DModular, MEGNetModel, MPNNModel,
@@ -1840,6 +1846,83 @@ def _repro_case(name):
     return make, feat.featurize(REPRO_SMILES), y
 
 
+def _slice_23_case(name):
+    """(make(device, seed), X, y) of a small sequence or image model
+    (a few filters, GRUs of 8, 16-32 pixel images), batches of 6 of 12
+    samples; dropout on where the model has it (its masks are drawn on
+    the host, so the card draws the CPU's)."""
+    from deepchem_tpu_torch import (CNN, AspuruGuzikAutoEncoder, ChemCeption,
+                                    InceptionV3Model, OneFormer, Smiles2Vec,
+                                    TextCNNModel, UNetModel)
+    from deepchem_tpu_torch.feat import (OneHotFeaturizer, SmilesToImage,
+                                         SmilesToSeq, create_char_to_idx)
+    rng = np.random.RandomState(0)
+    y = (rng.rand(12, 2) > 0.5).astype(np.float32)
+    smiles = np.array(REPRO_SMILES, dtype=object)
+    if name == 'textcnn':
+        chars = sorted(set(''.join(REPRO_SMILES)))
+        vocab = {'<pad>': 0, **{c: i + 1 for i, c in enumerate(chars)}}
+        return (lambda d, s: TextCNNModel(
+            2, vocab, 40, n_embedding=8, kernel_sizes=(1, 2, 5),
+            num_filters=(4, 6, 4), batch_size=6, seed=s, device=d),
+            smiles, y)
+    if name == 'smiles2vec':
+        vocab = create_char_to_idx(REPRO_SMILES)
+        return (lambda d, s: Smiles2Vec(
+            vocab, n_tasks=2, embedding_dim=8, filters=8, rnn_sizes=(8, 8),
+            batch_size=6, seed=s, device=d),
+            SmilesToSeq(vocab, max_len=30, pad_len=2).featurize(
+                REPRO_SMILES), y * 3 - 1)
+    if name == 'chemception':
+        return (lambda d, s: ChemCeption(
+            base_filters=4, n_tasks=2, mode='classification', batch_size=6,
+            seed=s, device=d),
+            SmilesToImage(img_size=32).featurize(REPRO_SMILES), y)
+    if name == 'autoencoder':
+        tokens = sorted(set(''.join(REPRO_SMILES)))
+        model = AspuruGuzikAutoEncoder(tokens=tokens, max_output_length=24,
+                                       embedding_dimension=8,
+                                       encoder_layers=2, decoder_layers=2,
+                                       batch_size=6, device='cpu')
+        X = np.stack([model._encode_input(t, 24) for t in REPRO_SMILES])
+        Y = np.stack([model._encode_output(t) for t in REPRO_SMILES])
+        return (lambda d, s: AspuruGuzikAutoEncoder(
+            tokens=tokens, max_output_length=24, embedding_dimension=8,
+            encoder_layers=2, decoder_layers=2, annealing_start_step=0,
+            annealing_final_step=1, batch_size=6, seed=s, device=d), X, Y)
+    if name == 'cnn':
+        return (lambda d, s: CNN(
+            2, 35, 1, layer_filters=(8, 8), kernel_size=3,
+            dense_layer_size=16, batch_size=6, residual=True, seed=s,
+            device=d),
+            OneHotFeaturizer(max_length=24).featurize(REPRO_SMILES), y)
+    if name == 'unet':
+        return (lambda d, s: UNetModel(in_channels=3, batch_size=6, seed=s,
+                                       device=d),
+                rng.rand(12, 16, 16, 3).astype(np.float32),
+                (rng.rand(12, 16, 16, 1) > 0.5).astype(np.float32))
+    if name == 'inception':
+        return (lambda d, s: InceptionV3Model(n_tasks=2, batch_size=6,
+                                              seed=s, device=d),
+                rng.rand(12, 32, 32, 3).astype(np.float32), y)
+    return (lambda d, s: OneFormer(hidden=16, dec_layers=2, num_queries=4,
+                                   image_size=(32, 32), batch_size=6,
+                                   seed=s, device=d),
+            (rng.rand(12, 32, 32, 3) * 255).astype(np.float32),
+            rng.randint(0, 2, (12, 32, 32)))
+
+
+SLICE_23_MODELS = ['textcnn', 'smiles2vec', 'chemception', 'autoencoder',
+                   'cnn', 'unet', 'inception', 'oneformer']
+
+
+def _repro_dataset(X, y):
+    """``NumpyDataset(X, y)``, its ids the SMILES where ``X`` holds them
+    (TextCNN reads its SMILES from the ids)."""
+    from deepchem_tpu_torch import NumpyDataset
+    return NumpyDataset(X, y, ids=X if X.dtype == object else None)
+
+
 def _slice_22_case(name):
     """(make(device, seed), X, y) of a small GROVER (``grover_<layout>_
     <task>``: hidden 16, 2 MT blocks of 2 heads, depth 3) or MAT (dim 16,
@@ -1875,7 +1958,7 @@ SLICE_22_MODELS = ['grover_flat_pretrain', 'grover_flat_finetune',
                    'grover_packed_pretrain', 'grover_packed_finetune', 'mat']
 REPRO_MODELS = ['atomic_conv', 'dmpnn', 'dtnn', 'gnn_edge_pred',
                 'gnn_infomax', 'grover_flat_pretrain', 'infomax3d_pretrain',
-                'megnet', 'mpnn', 'mxmnet', 'pna']
+                'megnet', 'mpnn', 'mxmnet', 'pna'] + SLICE_23_MODELS
 
 
 @pytest.mark.cuda
@@ -1888,13 +1971,12 @@ def test_training_is_bit_reproducible_on_the_card(cuda, name):
     DMPNN's gather by source, DTNN's embedding, MPNN's set2set query
     gather, MEGNet's state gathers) have a fixed-order one: P2, P3 or
     K1."""
-    from deepchem_tpu_torch import NumpyDataset
     make, X, y = _repro_case(name)
     runs = []
     for _ in range(2):
         model = make(cuda, 0)
         grads = []
-        model.fit(NumpyDataset(X, y), nb_epoch=1, checkpoint_interval=0,
+        model.fit(_repro_dataset(X, y), nb_epoch=1, checkpoint_interval=0,
                   deterministic=True, callbacks=lambda m, step: grads.append(
                       {n: p.grad.detach().clone()
                        for n, p in m.module.named_parameters()
@@ -2106,6 +2188,42 @@ def test_slice_22_models_training_step_matches_the_cpu(cuda, name):
             atol=1e-5 * max(1.0, float(np.abs(ref).max())))
     if pretrain:
         return
+    preds = [m.predict_on_batch(X) for m in models]
+    assert np.isfinite(preds[0]).all()
+    np.testing.assert_allclose(preds[0], preds[1], atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', SLICE_23_MODELS)
+def test_slice_23_models_training_step_matches_the_cpu(cuda, name):
+    """One step of a small sequence or image model on the card and on the
+    CPU from the same seed (dropout's masks and the autoencoder's draws
+    made on the host: the same on both): losses within 1e-5 relative,
+    every gradient within 1e-5 of max(1, |g|), predictions within 1e-4;
+    of the port's kernels only P2 launches, once a step in TextCNN's and
+    Smiles2Vec's backward (their embeddings' gradient)."""
+    make, X, y = _repro_case(name)
+    X, y = X[:6], y[:6]
+    models = [make(d, 1) for d in (cuda, 'cpu')]
+
+    def counts():
+        return (fused_gather_segment_sum.launches,
+                fused_gather_segment_sum.backward_launches,
+                csr_segment_sum.launches, csr_segment_softmax.launches)
+    before = counts()
+    losses = [m.fit(_repro_dataset(X, y), nb_epoch=1, checkpoint_interval=0)
+              for m in models]
+    torch.cuda.synchronize()
+    embeds = name in ('textcnn', 'smiles2vec')
+    assert [a - b for a, b in zip(counts(), before)] == [0, int(embeds),
+                                                         0, 0]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    cpu = dict(models[1].module.named_parameters())
+    for key, p in models[0].module.named_parameters():
+        ref = cpu[key].grad.numpy()
+        np.testing.assert_allclose(
+            p.grad.cpu().numpy(), ref, err_msg=key,
+            atol=1e-5 * max(1.0, float(np.abs(ref).max())))
     preds = [m.predict_on_batch(X) for m in models]
     assert np.isfinite(preds[0]).all()
     np.testing.assert_allclose(preds[0], preds[1], atol=1e-4)
