@@ -418,7 +418,31 @@ Phases:
                 x 3, batch 2 (its masks and class logits held against the
                 CPU, scored by its loss on a batch), then its
                 full-resolution label maps against the CPU's.
- 24. kernels -- the script's wall, then one JSON line with each kernel's
+ 24. molnet  -- bench.py's main path through the port's own entry
+                points: a Tox21-shaped tox21.csv.gz written in a temporary
+                data dir (the 48 SMILES cycled to Tox21's 8014 rows, 3
+                rows that do not parse, seeded 0/1 labels with a fifth of
+                the cells empty and some 'NA'), loaded with
+                load_tox21(featurizer='graphconv', splitter='random',
+                splitter_seed=123) into DiskDatasets (12 tasks, splits of
+                6411/801/802 as bench.py's, w 0 exactly at the empty and
+                NA cells, balancing weights within 1e-12 of the
+                transformer recomputed on train's arrays), reloaded from
+                its cache bit for bit, run again step by step for the
+                seconds of reading, featurizing, writing shards,
+                splitting and transforming; GraphConvModel at bench.py's
+                width trained 3 epochs with fit_on_device from the train
+                DiskDataset (launches a step as phase 11, epoch losses and
+                weights bit for bit a NumpyDataset's run of the same
+                arrays; fit's step-1 gradients within 1e-5 of the CPU's,
+                its first 12 losses and the 3 epochs' printed beside the
+                CPU's), evaluate's
+                valid ROC-AUC through the loader's transformers against
+                the CPU (1e-6); a ScaffoldSplitter split of the whole set,
+                one run_benchmark row (fit_on_device and
+                evaluate_on_device, 2 epochs at bench.py's width) and a
+                GridHyperparamOpt over two learning rates at 1 epoch.
+ 25. kernels -- the script's wall, then one JSON line with each kernel's
                 numbers (K1, P2 and P3 on GROVER's paths: their launches
                 in each phase 22 run, their shapes).
 The last line is the JSON device record.  Any failed check exits non-zero.
@@ -683,6 +707,28 @@ INCEPTION_GRAD_ATOL_OF = {'blocks.1.convs.5.bias': 1.5e-5}
 # UNet's fixed batch of 2 fell below 0.9 of its first loss at step 2 on
 # an H100, where a step at that batch takes about 0.5 s
 UNET_OVERFIT_STEPS = 10
+# phase 24: bench.py's main path through the port's own entry points:
+# load_tox21(featurizer='graphconv', splitter='random', splitter_seed=123)
+# on a Tox21-shaped tox21.csv.gz written in a temporary data dir, then
+# GraphConvModel at bench.py's width from the train DiskDataset
+TOX21_ROWS = 8014               # Tox21's molecules (bench.py:7-8)
+TOX21_SPLIT = (6411, 801, 802)  # bench.py's random split of 8014
+TOX21_BAD = {100: 'C1CC', 4000: 'not_a_smiles', 8000: 'CC(('}   # rows
+#                                 (before which) that do not parse
+TOX21_EMPTY, TOX21_NA = 0.2, 0.01   # shares of label cells empty, 'NA'
+MOLNET_EPOCHS = 3
+# the card's training is held against the CPU's by its step-1 gradients
+# (GRAD_ATOL, as phase 11); its losses are recorded, not held: GraphConv's
+# trajectory at this batch amplifies float32 rounding about 1e4 times in
+# 20 steps (weights 1 ulp apart on the CPU: within 1.4e-6 of max(1,
+# |loss|) through step 10, up to 1.18e-3 by step 26;
+# scripts/graphconv_trajectory_drift.py),
+# and the card's own rounding parts it from the CPU's from step 5 (2.55e-5
+# there, 1.77e-3 at step 10; the 3 epochs' losses 2.85e-4 apart; an H100
+# at 700 W)
+MOLNET_TRAJECTORY = 12          # fit steps whose losses are recorded
+MOLNET_SEARCH_RATES = [0.002, 0.0005]
+BALANCE_ATOL = 1e-12            # weights recomputed on the train arrays
 KERNEL_ATOL = 1e-6              # P1: same f32 inputs, another summation order
 SUM_RTOL = 1e-5                 # P3, P2: atol 1e-5 * max(1, max |out|)
 SPIN_CYCLES = int(1e7)          # about 6 ms of the card's clock: device_us's
@@ -3161,6 +3207,300 @@ def seq_image_phase(dev, smi):
           'where the labels are apart')
     _WEIGHTS.clear()
     return runs, cases
+
+
+def write_tox21(path, rows, seed=24):
+    """A Tox21-shaped ``tox21.csv.gz``: the 12 task columns, ``mol_id``
+    and ``smiles``; the 48 SMILES cycled to ``rows`` rows with TOX21_BAD's
+    rows, which do not parse, put in before the rows they name; seeded 0/1
+    labels with TOX21_EMPTY of the cells empty and TOX21_NA written 'NA'.
+    Returns the weights the loader must give the rows that parse, in file
+    order (0 at an empty or NA cell)."""
+    import gzip
+    import numpy as np
+    from deepchem_tpu_torch.molnet.load_function import TOX21_TASKS
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 2, (rows, len(TOX21_TASKS))).astype(str)
+    r = rng.uniform(size=labels.shape)
+    labels[r < TOX21_EMPTY + TOX21_NA] = 'NA'
+    labels[r < TOX21_EMPTY] = ''
+    lines = [','.join(TOX21_TASKS + ['mol_id', 'smiles'])]
+    for i in range(rows):
+        if i in TOX21_BAD:
+            lines.append(','.join(['1'] * len(TOX21_TASKS)
+                                  + [f'TOX-BAD{i}', TOX21_BAD[i]]))
+        lines.append(','.join(list(labels[i]) + [f'TOX{20000 + i}',
+                                                 SMILES[i % len(SMILES)]]))
+    with gzip.open(path, 'wt') as f:
+        f.write('\n'.join(lines) + '\n')
+    return (labels != '') & (labels != 'NA')
+
+
+def same_graphs(a, b) -> bool:
+    """Two object arrays of GraphData with equal arrays, bit for bit."""
+    return len(a) == len(b) and all(
+        g.node_features.tobytes() == h.node_features.tobytes()
+        and g.edge_index.tobytes() == h.edge_index.tobytes()
+        for g, h in zip(a, b))
+
+
+def same_split(a, b) -> bool:
+    """Two datasets with the same X, y, w and ids, bit for bit."""
+    return same_graphs(a.X, b.X) and all(
+        getattr(a, k).dtype == getattr(b, k).dtype
+        and getattr(a, k).tobytes() == getattr(b, k).tobytes()
+        for k in ('y', 'w')) and list(a.ids) == list(b.ids)
+
+
+def stop_after(n):
+    """A fit callback that ends the run after step ``n``."""
+    def stop(model, step):
+        if step >= n:
+            raise StopIteration
+    return stop
+
+
+def molnet_phase(dev, smi):
+    """Phase 24: the data layer and the MoleculeNet harness on bench.py's
+    main path.  Writes a Tox21-shaped file of TOX21_ROWS molecules, loads
+    it with ``load_tox21`` (checks the tasks, the split sizes, w at every
+    empty cell and the balancing weights), reloads it from the cache (bit
+    for bit), runs the pipeline again step by step for its seconds, trains
+    GraphConvModel at bench.py's width with ``fit_on_device`` from the
+    train DiskDataset (launches a step as phase 11, epoch losses bit for
+    bit a NumpyDataset's run, and beside the CPU's; ``fit``'s step-1
+    gradients within GRAD_ATOL of the CPU's), scores it
+    through the loader's transformers (ROC-AUC within ROC_ATOL of the
+    CPU's), then a scaffold split of the whole set, one ``run_benchmark``
+    row and a grid search over two learning rates.  Returns the kernels'
+    launches over the fit_on_device run."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from deepchem_tpu_torch import GraphConvModel, Metric, roc_auc_score
+    from deepchem_tpu_torch.data import CSVLoader, DiskDataset, NumpyDataset
+    from deepchem_tpu_torch.feat import ConvMolFeaturizer
+    from deepchem_tpu_torch.feat.base import Featurizer
+    from deepchem_tpu_torch.hyper import GridHyperparamOpt
+    from deepchem_tpu_torch.molnet import load_tox21
+    from deepchem_tpu_torch.molnet.load_function import TOX21_TASKS
+    from deepchem_tpu_torch.molnet.run_benchmark import run_benchmark
+    from deepchem_tpu_torch.splits import RandomSplitter, ScaffoldSplitter
+    from deepchem_tpu_torch.trans import BalancingTransformer
+    head = 'phase 24 molnet'
+    work = tempfile.mkdtemp(prefix='chip-smoke-molnet-')
+    try:
+        data_dir, save_dir = (os.path.join(work, d) for d in ('data',
+                                                             'save'))
+        os.makedirs(data_dir)
+        n = TOX21_ROWS
+        want_w = write_tox21(os.path.join(data_dir, 'tox21.csv.gz'), n)
+        print(f'{head} data: tox21.csv.gz of {n + len(TOX21_BAD)} rows '
+              f'({len(TOX21_BAD)} that do not parse), '
+              f'{int((~want_w).sum())} of {want_w.size} label cells empty '
+              f'or NA', flush=True)
+
+        # load, as bench.py:52-53 does
+        pools = Featurizer.pool_runs
+        t0 = time.perf_counter()
+        tasks, (train, valid, test), transformers = load_tox21(
+            featurizer='graphconv', splitter='random', splitter_seed=123,
+            reload=False, data_dir=data_dir, save_dir=save_dir)
+        load_s = time.perf_counter() - t0
+        pool_ran = Featurizer.pool_runs > pools
+        sizes = (len(train), len(valid), len(test))
+        want_sizes = (int(0.8 * n), int(0.9 * n) - int(0.8 * n),
+                      n - int(0.9 * n))
+        print(f'{head} load ({smi}): load_tox21 in {load_s:.3f} s, '
+              f'{len(tasks)} tasks, splits {sizes}, the featurizer pool '
+              f'{"ran" if pool_ran else "did not run"} (n_jobs '
+              f'{os.cpu_count()})', flush=True)
+        check(list(tasks) == TOX21_TASKS, 'the 12 Tox21 tasks')
+        check(sizes == want_sizes and (n != 8014 or sizes == TOX21_SPLIT),
+              f'splits {sizes}, not {want_sizes} of {n} molecules')
+        check(all(isinstance(d, DiskDataset) for d in (train, valid, test)),
+              'the splits are DiskDatasets')
+        perm = np.random.RandomState(123).permutation(n)
+        got_w = np.concatenate([d.w for d in (train, valid, test)])
+        check(np.array_equal(got_w != 0, want_w[perm]),
+              'w is 0 exactly at the empty and NA cells')
+        # the balancing transformer recomputed on train's own arrays
+        raw_w = want_w[perm][:sizes[0]].astype(np.float64)
+        again = BalancingTransformer(dataset=NumpyDataset(
+            np.zeros(sizes[0]), train.y, raw_w))
+        bal_err = max(abs(again.weights[t][c] - transformers[0].weights[t][c])
+                      for t in range(len(tasks)) for c in again.weights[t])
+        bal_err = max(bal_err, float(np.abs(again.transform_array(
+            None, train.y, raw_w, None)[2] - train.w).max()))
+        print(f'{head} load: balancing weights and w against the '
+              f'transformer recomputed on train\'s arrays, max abs diff '
+              f'{bal_err:.3g}', flush=True)
+        check(bal_err <= BALANCE_ATOL, f'balancing {bal_err} > '
+              f'{BALANCE_ATOL}')
+
+        # reload from the cache: the same arrays, bit for bit
+        t0 = time.perf_counter()
+        _, cached, cached_t = load_tox21(
+            featurizer='graphconv', splitter='random', splitter_seed=123,
+            reload=True, data_dir=data_dir, save_dir=save_dir)
+        reload_s = time.perf_counter() - t0
+        same = all(same_split(a, b) for a, b in zip((train, valid, test),
+                                                     cached))
+        print(f'{head} reload: {reload_s:.3f} s, the same X, y, w and ids '
+              f'bit for bit: {same}', flush=True)
+        check(same and cached_t[0].weights == transformers[0].weights,
+              'reload returns the same splits and transformer')
+
+        # the same pipeline step by step, for its seconds
+        loader = CSVLoader(TOX21_TASKS, ConvMolFeaturizer(),
+                           feature_field='smiles')
+        t0 = time.perf_counter()
+        full = loader.create_dataset(os.path.join(data_dir, 'tox21.csv.gz'),
+                                     data_dir=os.path.join(work, 'full'))
+        t1 = time.perf_counter()
+        parts = RandomSplitter().train_valid_test_split(full, seed=123)
+        t2 = time.perf_counter()
+        bal = BalancingTransformer(dataset=parts[0])
+        parts = [bal.transform(d) for d in parts]
+        t3 = time.perf_counter()
+        seconds = {'read': loader.seconds['read'],
+                   'featurize': loader.seconds['featurize'],
+                   'write_shards': loader.seconds['write'],
+                   'create_dataset': t1 - t0, 'split': t2 - t1,
+                   'transform': t3 - t2}
+        print(f'{head} load seconds ({smi}): '
+              f'{json.dumps({k: round(v, 3) for k, v in seconds.items()})}'
+              f'; {n / seconds["featurize"]:.0f} molecules a second '
+              f'featurized', flush=True)
+        check(all(same_split(a, b) for a, b in zip(parts, (train, valid,
+                                                           test))),
+              'the step-by-step pipeline gives load_tox21\'s splits')
+
+        # training: fit_on_device from the train DiskDataset
+        B = GRAPHCONV['batch_size']
+        S = -(-sizes[0] // B)
+        flat = NumpyDataset(train.X, train.y, train.w, train.ids)
+        runs = {}
+        for tag, ds, device in (('disk', train, dev), ('numpy', flat, dev),
+                                ('cpu', flat, 'cpu')):
+            model = GraphConvModel(**GRAPHCONV, device=device, seed=1)
+            if device != 'cpu':
+                torch.cuda.synchronize()
+                reset_launch_counts()
+            losses = []
+            t0 = time.perf_counter()
+            model.fit_on_device(ds, nb_epoch=MOLNET_EPOCHS, seed=0,
+                                all_losses=losses)
+            if device != 'cpu':
+                torch.cuda.synchronize()
+            runs[tag] = (model, losses, launch_counts(),
+                         time.perf_counter() - t0)
+        trainer, losses, counts, fit_s = runs['disk']
+        steps = trainer.get_global_step()
+        cpu_err = max(abs(a - b) / max(1.0, abs(b))
+                      for a, b in zip(losses, runs['cpu'][1]))
+        print(f'{head} train ({smi}): fit_on_device from the train '
+              f'DiskDataset, {steps} steps of {B} in {fit_s:.3f} s (packing '
+              f'included); loss per epoch {losses}, from a NumpyDataset '
+              f'{runs["numpy"][1]}, on the CPU {runs["cpu"][1]} (max '
+              f'{cpu_err:.3g} of max(1, |loss|)); launches {counts}',
+              flush=True)
+        check(steps == MOLNET_EPOCHS * S and len(losses) == MOLNET_EPOCHS
+              and bool(np.all(np.isfinite(losses))),
+              f'{MOLNET_EPOCHS * S} steps, {MOLNET_EPOCHS} finite losses')
+        check(losses == runs['numpy'][1], 'the DiskDataset\'s epoch losses '
+              'bit for bit the NumpyDataset\'s')
+        check(all(torch.equal(a, b) for a, b in zip(
+            trainer.module.state_dict().values(),
+            runs['numpy'][0].module.state_dict().values())),
+            'the DiskDataset\'s weights bit for bit the NumpyDataset\'s')
+        # the card against the CPU from the same weights and batches:
+        # fit's step-1 gradients held (as phase 11's), its first
+        # MOLNET_TRAJECTORY steps' losses recorded
+        steps_of, grads = {}, {}
+        for device in (dev, 'cpu'):
+            model = GraphConvModel(**GRAPHCONV, device=device, seed=1,
+                                   log_frequency=1)
+            steps_of[device], grads[device] = [], {}
+            model.fit(train, nb_epoch=1, deterministic=True,
+                      checkpoint_interval=0,
+                      callbacks=[step1_grads(grads[device]),
+                                 stop_after(MOLNET_TRAJECTORY)],
+                      all_losses=steps_of[device])
+        grad_err = max((grads[dev][k] - g).abs().max().item()
+                       for k, g in grads['cpu'].items())
+        step_err = [abs(a - b) / max(1.0, abs(b))
+                    for a, b in zip(steps_of[dev], steps_of['cpu'])]
+        print(f'{head} train ({smi}): fit from the train DiskDataset, '
+              f'card against CPU: step-1 gradients max abs diff '
+              f'{grad_err:.3g} over {len(grads["cpu"])} parameters; the '
+              f'first {MOLNET_TRAJECTORY} steps\' losses, of max(1, |loss|) '
+              f'a step: {[float(f"{e:.3g}") for e in step_err]}', flush=True)
+        check(len(grads['cpu']) == len(grads[dev]) and grad_err <= GRAD_ATOL,
+              f'step-1 gradients {grad_err} > {GRAD_ATOL}')
+        per_step = {'nei_sum': 2, 'nei_max_fwd': 2, 'graph_max_pool_fwd': 1,
+                    'csr_segment_sum': 1, 'nei_sum_bwd': 1, 'nei_max_bwd': 2,
+                    'graph_max_pool_bwd': 1}
+        for k, v in counts.items():
+            check(v == per_step.get(k, 0) * steps, f'{head}: {k} launched '
+                  f'{v} times, not {per_step.get(k, 0) * steps}')
+
+        # scoring through the loader's transformers, card against CPU
+        metric = Metric(roc_auc_score, np.mean)
+        cpu_model = runs['cpu'][0]
+        cpu_model.module.load_state_dict(
+            {k: v.cpu() for k, v in trainer.module.state_dict().items()})
+        auc = trainer.evaluate(valid, [metric],
+                               transformers)['roc_auc_score']
+        cpu_auc = cpu_model.evaluate(valid, [metric],
+                                     transformers)['roc_auc_score']
+        print(f'{head} evaluate ({smi}): valid ROC-AUC {auc:.6f} on the '
+              f'card, {cpu_auc:.6f} on the CPU from its weights', flush=True)
+        check(bool(np.isfinite(auc)) and abs(auc - cpu_auc) <= ROC_ATOL,
+              f'ROC-AUC {auc} within {ROC_ATOL} of the CPU\'s {cpu_auc}')
+        del runs, cpu_model, trainer
+
+        # a scaffold split, a benchmark row, a grid search
+        t0 = time.perf_counter()
+        scaffold = ScaffoldSplitter().split(full)
+        scaffold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = run_benchmark(
+            ['tox21'], 'graphconv', device=dev, data_dir=data_dir,
+            save_dir=save_dir, out_path=work,
+            hyper_parameters={'batch_size': B, 'n_filters': 64,
+                              'n_fully_connected_nodes': 128,
+                              'learning_rate': GRAPHCONV['learning_rate'],
+                              'nb_epoch': 2})
+        bench_s = time.perf_counter() - t0
+
+        def build(**params):
+            return GraphConvModel(**dict(GRAPHCONV, **params), device=dev)
+        t0 = time.perf_counter()
+        best, best_params, scores = GridHyperparamOpt(
+            build).hyperparam_search(
+            {'learning_rate': MOLNET_SEARCH_RATES}, train, valid, metric,
+            transformers, nb_epoch=1)
+        search_s = time.perf_counter() - t0
+        print(f'{head} harness ({smi}): scaffold split '
+              f'{[len(x) for x in scaffold]} in {scaffold_s:.3f} s; '
+              f'run_benchmark row {json.dumps(rows)} in {bench_s:.3f} s; '
+              f'grid search {json.dumps(scores)}, best {best_params}, in '
+              f'{search_s:.3f} s', flush=True)
+        check(sum(map(len, scaffold)) == n and len(scaffold[0]) > 0,
+              'the scaffold split covers the set')
+        check(len(rows) == 1 and 0 <= rows[0]['valid_score'] <= 1
+              and 0 <= rows[0]['train_score'] <= 1,
+              'one run_benchmark row with scores in [0, 1]')
+        check(len(scores) == len(MOLNET_SEARCH_RATES)
+              and best_params['learning_rate'] in MOLNET_SEARCH_RATES
+              and all(np.isfinite(v) for v in scores.values()),
+              'the grid search scores both rates')
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def zero_counts():
@@ -6011,8 +6351,12 @@ def main() -> int:
     phase_start(23)
     seq_runs, seq_p2 = seq_image_phase(dev, smi)
 
-    # -- 24. kernels line -------------------------------------------------
+    # -- 24. the data layer and the MoleculeNet harness -----------------
     phase_start(24)
+    molnet = molnet_phase(dev, smi)
+
+    # -- 25. kernels line -------------------------------------------------
+    phase_start(25)
     print(f'chip_smoke wall: {time.perf_counter() - _START:.1f} s of its '
           f'1200', flush=True)
     print(f'device_us readings from windows with records missing: '
@@ -6068,6 +6412,7 @@ def main() -> int:
                 'mpnn_train': mp_train['csr_segment_sum'],
                 **table_paths('csr_segment_sum'),
                 'graphconv_engine': engine['csr_segment_sum'],
+                'molnet_fit_on_device': molnet['csr_segment_sum'],
                 **coo_paths('csr_segment_sum'),
                 **run_paths(branch_runs, 'csr_segment_sum'),
                 **run_paths(new_runs, 'csr_segment_sum'),
@@ -6161,7 +6506,8 @@ def main() -> int:
     def gc_paths(key):
         return {'graphconv_serve': gc_serve[key],
                 'graphconv_train': gc_train[key],
-                'graphconv_engine': engine[key]}
+                'graphconv_engine': engine[key],
+                'molnet_fit_on_device': molnet[key]}
     xla_op = 'a custom-VJP XLA op, no Pallas kernel'
     fwd_max = [c[0] for c in max_cases]
     bwd_max = [c[1] for c in max_cases]
@@ -6181,6 +6527,8 @@ def main() -> int:
                 + gc_train['nei_sum_bwd'],
                 'graphconv_engine': engine['nei_sum']
                 + engine['nei_sum_bwd'],
+                'molnet_fit_on_device': molnet['nei_sum']
+                + molnet['nei_sum_bwd'],
                 'mpnn_serve': mp_serve['nei_sum_edges'],
                 'mpnn_train': mp_train['nei_sum_edges']
                 + mp_train['take_src_bwd'],

@@ -1,10 +1,11 @@
 """Self-contained molecular graph model (no RDKit dependency).
 
 Atoms, bonds, implicit-hydrogen/valence perception, ring perception,
-aromaticity, hybridization and conjugation: the substrate the PAGTN
-featurizer reads.  The port's own copy of ``deepchem_tpu/chem/mol.py``,
-trimmed to what featurization needs; perception rules are unchanged, so
-both packages featurize a SMILES string to the same arrays.
+aromaticity, hybridization and conjugation: the substrate the
+featurizers, the canonical SMILES writer and the splitters read.  The
+port's own copy of ``deepchem_tpu/chem/mol.py``, trimmed to what they
+need; perception rules are unchanged, so both packages featurize a SMILES
+string to the same arrays and write it back to the same string.
 """
 
 from __future__ import annotations
@@ -83,6 +84,10 @@ class Atom:
     isotope: int = 0
     chirality: str = CHI_NONE
     num_radical_electrons: int = 0
+    #: a chiral atom's neighbours in the order its SMILES wrote them (atom
+    #: indices, 'H' for a bracket hydrogen): the canonical writer derives
+    #: @ or @@ for its own order from it
+    chiral_order: Optional[List] = None
     # Filled in by Molecule.finalize():
     implicit_hs: int = 0
     degree: int = 0                # heavy-atom degree (explicit connections)
@@ -483,16 +488,31 @@ class Molecule:
         out = Molecule()
         for a in atom_indices:
             old = self.atoms[a]
-            out.add_atom(Atom(
+            atom = Atom(
                 atomic_num=old.atomic_num, formal_charge=old.formal_charge,
                 explicit_hs=old.explicit_hs, is_aromatic=old.is_aromatic,
                 isotope=old.isotope, chirality=old.chirality,
-                num_radical_electrons=old.num_radical_electrons))
+                num_radical_electrons=old.num_radical_electrons)
+            if old.chiral_order is not None:
+                if all(x == 'H' or x in keep for x in old.chiral_order):
+                    atom.chiral_order = ['H' if x == 'H' else keep[x]
+                                         for x in old.chiral_order]
+                else:
+                    # a neighbour that fixed the parity was cut away
+                    atom.chirality = CHI_NONE
+            out.add_atom(atom)
         for b in self.bonds:
             if b.a1 in keep and b.a2 in keep:
                 out.add_bond(keep[b.a1], keep[b.a2], order=b.order,
                              is_aromatic=b.is_aromatic)
         return out.finalize()
+
+    def total_num_hs(self) -> int:
+        return sum(a.total_hs for a in self.atoms)
+
+    def molecular_weight(self) -> float:
+        """The atoms' masses plus 1.008 a hydrogen."""
+        return sum(a.mass for a in self.atoms) + 1.008 * self.total_num_hs()
 
     def __repr__(self) -> str:
         return f'<Molecule atoms={self.num_atoms} bonds={self.num_bonds}>'

@@ -149,7 +149,12 @@ def _parse(smiles: str) -> Molecule:
     pending_bond: Optional[float] = None
     pending_aromatic_bond = False
     pending_dir = ''
-    ring_bonds = {}    # ring-closure number -> (atom_idx, order|None, dir)
+    # each atom's neighbours in written order, for tetrahedral chirality: a
+    # ring-closure digit holds a slot filled when the ring closes, 'H' the
+    # bracket hydrogen
+    nbr_order: dict = {}
+    ring_bonds = {}    # ring-closure number -> (atom_idx, order|None, dir,
+    #                    slot)
     i = 0
     n = len(smiles)
     while i < n:
@@ -189,7 +194,7 @@ def _parse(smiles: str) -> Molecule:
             if cur is None:
                 raise SmilesParseError('ring closure with no atom')
             if num in ring_bonds:
-                other, order0, dir0 = ring_bonds.pop(num)
+                other, order0, dir0, slot = ring_bonds.pop(num)
                 pending = pending_bond if pending_bond is not None else order0
                 order, arom = _bond_order(mol, cur, other, pending,
                                           pending_aromatic_bond)
@@ -198,8 +203,12 @@ def _parse(smiles: str) -> Molecule:
                 sdir = _FLIP[pending_dir] if pending_dir else dir0
                 mol.add_bond(other, cur, order=order, is_aromatic=arom,
                              stereo_dir=sdir)
+                slot[0] = cur
+                nbr_order.setdefault(cur, []).append([other])
             else:
-                ring_bonds[num] = (cur, pending_bond, pending_dir)
+                slot = [None]
+                ring_bonds[num] = (cur, pending_bond, pending_dir, slot)
+                nbr_order.setdefault(cur, []).append(slot)
             pending_bond = None
             pending_aromatic_bond = False
             pending_dir = ''
@@ -222,6 +231,12 @@ def _parse(smiles: str) -> Molecule:
             raise SmilesParseError(f'unexpected char {c!r} at {i}')
         idx = mol.add_atom(atom)
         cur = prev_atom[-1]
+        slots = nbr_order.setdefault(idx, [])
+        if cur is not None:
+            slots.append([cur])
+            nbr_order.setdefault(cur, []).append([idx])
+        if atom.chirality and atom.explicit_hs and atom.explicit_hs > 0:
+            slots.append(['H'])
         if cur is not None:
             order, arom = _bond_order(mol, cur, idx, pending_bond,
                                       pending_aromatic_bond)
@@ -235,6 +250,9 @@ def _parse(smiles: str) -> Molecule:
         raise SmilesParseError('unbalanced parens at end')
     if ring_bonds:
         raise SmilesParseError(f'unclosed ring bonds: {sorted(ring_bonds)}')
+    for idx, slots in nbr_order.items():
+        if mol.atoms[idx].chirality:
+            mol.atoms[idx].chiral_order = [s[0] for s in slots]
     out = mol.finalize()
     _perceive_double_bond_stereo(out)
     return out

@@ -1,4 +1,6 @@
-from deepchem_tpu_torch.feat.base import Featurizer, MolecularFeaturizer
+from deepchem_tpu_torch.feat.base import (Featurizer, MolecularFeaturizer,
+                                         RawFeaturizer,
+                                         UserDefinedFeaturizer)
 from deepchem_tpu_torch.feat.conformer_featurizers import (
     EquivariantGraphFeaturizer, MXMNetFeaturizer, RDKitConformerFeaturizer)
 from deepchem_tpu_torch.feat.crystal_featurizers import (CGCNNFeaturizer,
@@ -16,7 +18,8 @@ from deepchem_tpu_torch.feat.material_featurizers import (
 from deepchem_tpu_torch.feat.tokenizers import (BasicSmilesTokenizer,
                                                 SmilesTokenizer)
 
-__all__ = ['Featurizer', 'MolecularFeaturizer', 'GraphData', 'BatchGraphData',
+__all__ = ['Featurizer', 'MolecularFeaturizer', 'RawFeaturizer',
+           'UserDefinedFeaturizer', 'GraphData', 'BatchGraphData',
            'pad_graph_batch', 'bucket_caps', 'CircularFingerprint',
            'ConvMolFeaturizer', 'CoulombMatrix', 'CoulombMatrixEig',
            'DMPNNFeaturizer', 'MolGraphConvFeaturizer',

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepchem_tpu_torch.data import NumpyDataset, pad_batch
+from deepchem_tpu_torch.data import Dataset, pad_batch
 from deepchem_tpu_torch.feat.graph_data import BatchGraphData, bucket_caps
 from deepchem_tpu_torch.metrics import to_one_hot
 from deepchem_tpu_torch.models.graph_layers import (AttentiveFPLayer,
@@ -173,7 +173,7 @@ class GraphModel(TorchModel):
                                              self.edge_quantum)
         return self._pack_one(graphs, node_cap, edge_cap, self.batch_size)
 
-    def _collect_uniform_batches(self, dataset: NumpyDataset,
+    def _collect_uniform_batches(self, dataset: Dataset,
                                  deterministic: bool = True,
                                  mode: str = 'fit') -> List:
         """One epoch of host batches padded to one (node_cap, edge_cap)
@@ -211,7 +211,7 @@ class GraphModel(TorchModel):
     def get_task_type(self) -> str:
         return self.mode
 
-    def default_generator(self, dataset: NumpyDataset, epochs: int = 1,
+    def default_generator(self, dataset: Dataset, epochs: int = 1,
                           mode: str = 'fit', deterministic: bool = True,
                           pad_batches: bool = True):
         """Padded graph batches.  A short last batch keeps ``batch_size``

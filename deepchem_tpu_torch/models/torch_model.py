@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepchem_tpu_torch.data import NumpyDataset
+from deepchem_tpu_torch.data import Dataset, NumpyDataset
 from deepchem_tpu_torch.models.base import Model
 from deepchem_tpu_torch.models.losses import Loss
 from deepchem_tpu_torch.models.optimizers import (Adam,
@@ -303,7 +303,7 @@ class TorchModel(Model):
         """Hook between a step's backward and its optimizer update, on the
         gradients in each ``param.grad``; nothing by default."""
 
-    def _collect_uniform_batches(self, dataset: NumpyDataset,
+    def _collect_uniform_batches(self, dataset: Dataset,
                                  deterministic: bool = True,
                                  mode: str = 'fit') -> List[Tuple]:
         """One epoch of host batches in dataset order, the short last one
@@ -320,16 +320,21 @@ class TorchModel(Model):
         packed again when it changes."""
         return None
 
-    def _cached(self, cache: Optional[dict], dataset: NumpyDataset) -> bool:
+    def _cached(self, cache: Optional[dict], dataset: Dataset) -> bool:
+        """Whether ``cache`` holds batches of ``dataset`` as it is now (a
+        ``DiskDataset`` changed in place raises its ``_version``) in the
+        model's batch layout."""
         return cache is not None and cache['dataset'] is dataset \
+            and cache['version'] == getattr(dataset, '_version', 0) \
             and cache['layout'] == self._batch_layout()
 
-    def _fit_batches(self, dataset: NumpyDataset) -> List[Tuple]:
+    def _fit_batches(self, dataset: Dataset) -> List[Tuple]:
         """:meth:`_collect_uniform_batches` of ``dataset``, kept for the
         next call on the same dataset (by identity) and batch layout."""
         if not self._cached(self._fit_cache, dataset):
             self._fit_cache = {'dataset': dataset, 'dev': None,
                                'stack': None,
+                               'version': getattr(dataset, '_version', 0),
                                'layout': self._batch_layout(),
                                'host': self._collect_uniform_batches(
                                    dataset)}
@@ -349,20 +354,20 @@ class TorchModel(Model):
         return tuple([self._tensor(a) for a in arrays]
                      for arrays in self._stack(batches))
 
-    def _host_stack(self, dataset: NumpyDataset) -> Tuple[List, List, List]:
+    def _host_stack(self, dataset: Dataset) -> Tuple[List, List, List]:
         """The fit batches of ``dataset`` stacked on the host, once."""
         batches = self._fit_batches(dataset)
         if self._fit_cache['stack'] is None:
             self._fit_cache['stack'] = self._stack(batches)
         return self._fit_cache['stack']
 
-    def _epoch_bytes(self, dataset: NumpyDataset) -> int:
+    def _epoch_bytes(self, dataset: Dataset) -> int:
         """Bytes of the fit batches of ``dataset`` as the device holds
         them."""
         return sum(a.nbytes for part in self._host_stack(dataset)
                    for a in part)
 
-    def _resident_batches(self, dataset: NumpyDataset
+    def _resident_batches(self, dataset: Dataset
                           ) -> Tuple[List, List, List]:
         """The fit batches of ``dataset`` on the device, uploaded once."""
         stack = self._host_stack(dataset)
@@ -379,7 +384,7 @@ class TorchModel(Model):
             all_losses.append(mean)
         return mean
 
-    def fit(self, dataset: NumpyDataset, nb_epoch: int = 10,
+    def fit(self, dataset: Dataset, nb_epoch: int = 10,
             max_checkpoints_to_keep: int = 5,
             checkpoint_interval: int = 1000,
             deterministic: bool = False, restore: bool = False,
@@ -443,7 +448,7 @@ class TorchModel(Model):
             self.save_checkpoint(max_checkpoints_to_keep)
         return last_avg
 
-    def fit_on_device(self, dataset: NumpyDataset, nb_epoch: int = 10,
+    def fit_on_device(self, dataset: Dataset, nb_epoch: int = 10,
                       seed: int = 0,
                       all_losses: Optional[List[float]] = None) -> float:
         """Train on batches held on the device.  The steps run in the order
@@ -708,7 +713,7 @@ class TorchModel(Model):
         self._global_step = int(data['global_step'])
 
     # -- batching ----------------------------------------------------------
-    def default_generator(self, dataset: NumpyDataset, epochs: int = 1,
+    def default_generator(self, dataset: Dataset, epochs: int = 1,
                           mode: str = 'fit', deterministic: bool = True,
                           pad_batches: bool = True
                           ) -> Iterable[Tuple[List, List, List]]:
@@ -822,7 +827,7 @@ class TorchModel(Model):
     def predict_on_batch(self, X, transformers: Sequence = ()) -> np.ndarray:
         return self.predict(NumpyDataset(X, None, None), transformers)
 
-    def predict(self, dataset: NumpyDataset, transformers: Sequence = (),
+    def predict(self, dataset: Dataset, transformers: Sequence = (),
                 output_types: Optional[Sequence[str]] = None) -> np.ndarray:
         """Outputs for every sample of ``dataset``, batch by batch."""
         out = self.predict_on_generator(
@@ -831,11 +836,11 @@ class TorchModel(Model):
             transformers, output_types)
         return _trim_to(out, len(dataset))
 
-    def predict_embedding(self, dataset: NumpyDataset) -> np.ndarray:
+    def predict_embedding(self, dataset: Dataset) -> np.ndarray:
         """The 'embedding' outputs for every sample of ``dataset``."""
         return self.predict(dataset, output_types=['embedding'])
 
-    def predict_uncertainty(self, dataset: NumpyDataset, masks: int = 50
+    def predict_uncertainty(self, dataset: Dataset, masks: int = 50
                             ) -> Tuple[np.ndarray, np.ndarray]:
         """Monte Carlo dropout: ``masks`` passes over ``dataset`` with
         dropout on; returns the mean prediction and its standard
@@ -884,7 +889,7 @@ class TorchModel(Model):
         jac = [j.cpu().numpy() for j in jac]
         return jac[0] if len(jac) == 1 else jac
 
-    def predict_on_device(self, dataset: NumpyDataset,
+    def predict_on_device(self, dataset: Dataset,
                           transformers: Sequence = (),
                           output_types: Optional[Sequence[str]] = None):
         """:meth:`predict` over batches uploaded once: the fit batches when
@@ -907,6 +912,7 @@ class TorchModel(Model):
                                                           mode='predict')
                 self._predict_cache = {
                     'dataset': dataset, 'layout': self._batch_layout(),
+                    'version': getattr(dataset, '_version', 0),
                     'dev': self._upload(collected)[0] if collected else []}
             d_in = self._predict_cache['dev']
             if not d_in:
@@ -925,7 +931,7 @@ class TorchModel(Model):
                                   ).compute_model_performance(
             metrics, per_task_metrics)
 
-    def evaluate_on_device(self, dataset: NumpyDataset, metrics,
+    def evaluate_on_device(self, dataset: Dataset, metrics,
                            transformers: Sequence = (),
                            per_task_metrics: bool = False,
                            use_sample_weights: bool = False,

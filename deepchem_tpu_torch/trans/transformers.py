@@ -22,7 +22,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from deepchem_tpu_torch.data import NumpyDataset
+from deepchem_tpu_torch.data import Dataset, DiskDataset
 
 
 def undo_transforms(y: np.ndarray,
@@ -49,7 +49,7 @@ class Transformer:
 
     def __init__(self, transform_X: bool = False, transform_y: bool = False,
                  transform_w: bool = False, transform_ids: bool = False,
-                 dataset: Optional[NumpyDataset] = None):
+                 dataset: Optional[Dataset] = None):
         self.transform_X = transform_X
         self.transform_y = transform_y
         self.transform_w = transform_w
@@ -66,7 +66,13 @@ class Transformer:
     def untransform_grad(self, grad, tasks):
         raise NotImplementedError('Cannot untransform gradients')
 
-    def transform(self, dataset: NumpyDataset) -> NumpyDataset:
+    def transform(self, dataset: Dataset, parallel: bool = False,
+                  out_dir: Optional[str] = None, **kwargs) -> Dataset:
+        """``dataset`` through :meth:`transform_array`: a ``DiskDataset``
+        shard by shard into ``out_dir`` (default a new temporary folder),
+        any other dataset in memory."""
+        if isinstance(dataset, DiskDataset):
+            return dataset.transform(self, out_dir=out_dir)
         return dataset.transform(self)
 
     def transform_on_array(self, X, y, w, ids):
@@ -83,7 +89,7 @@ class NormalizationTransformer(Transformer):
 
     def __init__(self, transform_X: bool = False, transform_y: bool = False,
                  transform_w: bool = False,
-                 dataset: Optional[NumpyDataset] = None,
+                 dataset: Optional[Dataset] = None,
                  move_mean: bool = True):
         super().__init__(transform_X=transform_X, transform_y=transform_y,
                          transform_w=transform_w, dataset=dataset)
@@ -120,7 +126,7 @@ class MinMaxTransformer(Transformer):
     maximum (a constant column is only shifted)."""
 
     def __init__(self, transform_X: bool = False, transform_y: bool = False,
-                 dataset: Optional[NumpyDataset] = None):
+                 dataset: Optional[Dataset] = None):
         super().__init__(transform_X=transform_X, transform_y=transform_y,
                          dataset=dataset)
         if dataset is None:
@@ -151,7 +157,7 @@ class ClippingTransformer(Transformer):
     """Clip X to ``[-x_max, x_max]`` and y to ``[-y_max, y_max]``."""
 
     def __init__(self, transform_X: bool = False, transform_y: bool = False,
-                 dataset: Optional[NumpyDataset] = None,
+                 dataset: Optional[Dataset] = None,
                  x_max: float = 5.0, y_max: float = 500.0):
         super().__init__(transform_X=transform_X, transform_y=transform_y,
                          dataset=dataset)
@@ -173,7 +179,7 @@ class LogTransformer(Transformer):
     def __init__(self, transform_X: bool = False, transform_y: bool = False,
                  features: Optional[Sequence[int]] = None,
                  tasks: Optional[Sequence] = None,
-                 dataset: Optional[NumpyDataset] = None):
+                 dataset: Optional[Dataset] = None):
         super().__init__(transform_X=transform_X, transform_y=transform_y,
                          dataset=dataset)
         self.features = features
@@ -209,7 +215,7 @@ class BalancingTransformer(Transformer):
     in each task: a class's weights are scaled by ``total / (n_classes *
     count)`` over the samples of nonzero weight."""
 
-    def __init__(self, dataset: NumpyDataset):
+    def __init__(self, dataset: Dataset):
         super().__init__(transform_w=True, dataset=dataset)
         y, w = np.asarray(dataset.y), np.asarray(dataset.w)
         if y.ndim == 1:
@@ -243,7 +249,7 @@ class DuplicateBalancingTransformer(Transformer):
     """Repeat each sample of a single task ``round(max_count / count)``
     times, ``count`` its class's number of samples of nonzero weight."""
 
-    def __init__(self, dataset: NumpyDataset):
+    def __init__(self, dataset: Dataset):
         super().__init__(transform_X=True, transform_y=True,
                          transform_w=True, transform_ids=True,
                          dataset=dataset)
@@ -271,7 +277,7 @@ class CDFTransformer(Transformer):
     quantile."""
 
     def __init__(self, transform_X: bool = False, transform_y: bool = False,
-                 dataset: Optional[NumpyDataset] = None, bins: int = 2):
+                 dataset: Optional[Dataset] = None, bins: int = 2):
         super().__init__(transform_X=transform_X, transform_y=transform_y,
                          dataset=dataset)
         self.bins = bins
@@ -315,7 +321,7 @@ class PowerTransformer(Transformer):
     the untransform keeps the first block."""
 
     def __init__(self, transform_X: bool = False, transform_y: bool = False,
-                 dataset: Optional[NumpyDataset] = None,
+                 dataset: Optional[Dataset] = None,
                  powers: Sequence[int] = (1,)):
         super().__init__(transform_X=transform_X, transform_y=transform_y,
                          dataset=dataset)
@@ -338,7 +344,7 @@ class FlatteningTransformer(Transformer):
     """Each sample's ragged features laid end to end, its y, w and id
     repeated once a feature."""
 
-    def __init__(self, dataset: Optional[NumpyDataset] = None):
+    def __init__(self, dataset: Optional[Dataset] = None):
         super().__init__(transform_X=True, transform_y=True,
                          transform_w=True, transform_ids=True,
                          dataset=dataset)
@@ -359,7 +365,7 @@ class IRVTransformer(Transformer):
     (similarity 1 and the same bit count) is skipped; a sample with fewer
     than ``K`` candidates repeats its most similar one."""
 
-    def __init__(self, K: int, n_tasks: int, dataset: NumpyDataset):
+    def __init__(self, K: int, n_tasks: int, dataset: Dataset):
         super().__init__(transform_X=True, dataset=dataset)
         self.K = K
         self.n_tasks = n_tasks
@@ -414,7 +420,7 @@ class CoulombFitTransformer(Transformer):
     is the three in turn; a 2-D ``X`` (already flat) skips
     :meth:`realize`."""
 
-    def __init__(self, dataset: NumpyDataset, random_seed: int = 0):
+    def __init__(self, dataset: Dataset, random_seed: int = 0):
         super().__init__(transform_X=True, dataset=dataset)
         self.rng = np.random.RandomState(random_seed)
         X = np.asarray(dataset.X, dtype=float)
@@ -460,7 +466,7 @@ class CoulombFitTransformer(Transformer):
 class FeaturizationTransformer(Transformer):
     """X (raw datapoints, such as SMILES) featurized by ``featurizer``."""
 
-    def __init__(self, dataset: Optional[NumpyDataset] = None,
+    def __init__(self, dataset: Optional[Dataset] = None,
                  featurizer=None):
         super().__init__(transform_X=True, dataset=dataset)
         if featurizer is None:
@@ -478,7 +484,7 @@ class RxnSplitTransformer(Transformer):
     reagents)."""
 
     def __init__(self, sep_reagent: bool = True,
-                 dataset: Optional[NumpyDataset] = None):
+                 dataset: Optional[Dataset] = None):
         super().__init__(transform_X=True, dataset=dataset)
         self.sep_reagent = sep_reagent
 
@@ -598,7 +604,7 @@ class ImageTransformer(Transformer):
     ``Image.resize`` does (:func:`pil_resize`)."""
 
     def __init__(self, size: Tuple[int, int],
-                 dataset: Optional[NumpyDataset] = None):
+                 dataset: Optional[Dataset] = None):
         super().__init__(transform_X=True, dataset=dataset)
         self.size = size
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rehearse ``chip_smoke.py`` on the CPU, at full size, before a chip run.
 
-    python3 scripts/rehearse_chip_smoke.py [--phase 22 | --phase 23]
+    python3 scripts/rehearse_chip_smoke.py [--phase 22 | 23 | 24]
 
 A machine without a card cannot build or launch the CUDA kernels, so this
 runs every phase of ``chip_smoke.py`` with:
@@ -25,7 +25,9 @@ runs every phase of ``chip_smoke.py`` with:
 - the card's memory counters read as 0.
 
 With ``--phase 22`` it runs phase 22 (GROVER and MAT) alone, with
-``--phase 23`` phase 23 (the sequence and image models).  It finds
+``--phase 23`` phase 23 (the sequence and image models), with ``--phase
+24`` phase 24 (the data layer and the MoleculeNet harness, at full size:
+about 50 s on 8 CPU cores, the scaffold split of 8014 ids the longest).  It finds
 wrong paths, shapes, counts and control flow.  Its times are the
 CPU's and mean nothing for the card; its errors are 0 because both sides
 of each comparison are the plain version, but for the P2 and P3 cases,
@@ -228,6 +230,9 @@ def main() -> int:
     smoke.UNET_SIZE, smoke.INCEPTION_SIZE, smoke.ONEFORMER_SIZE = 32, 75, 64
     smoke.ONEFORMER = dict(smoke.ONEFORMER, image_size=(64, 64), hidden=32,
                            dec_layers=2)
+    if sys.argv[1:] == ['--phase', '24']:
+        smoke.molnet_phase(torch.device('cpu'), 'cpu rehearsal')
+        return 0
     if sys.argv[1:] == ['--phase', '23']:
         smoke.seq_image_phase(torch.device('cpu'), 'cpu rehearsal')
         return 0

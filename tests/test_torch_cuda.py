@@ -45,7 +45,9 @@ backward) against the CPU, and a flat GROVER's two fits the same bits;
 one step of TextCNN, Smiles2Vec, ChemCeption, the Aspuru-Guzik
 autoencoder, CNN, UNet, InceptionV3 and OneFormer (cuDNN convolutions and
 GRUs, float32, deterministic algorithms) against the CPU with no launch of
-the port's kernels, and two fits of each the same bits.
+the port's kernels, and two fits of each the same bits; GraphConv's
+fit_on_device from a DiskDataset bit for bit its run from a NumpyDataset
+of the same arrays.
 They skip where
 there is no GPU.  This file imports no JAX, so it runs where JAX is not
 installed:
@@ -1234,6 +1236,38 @@ def test_streaming_fit_on_device_equals_resident(cuda, chunk):
     for (name, a), b in zip(resident.module.state_dict().items(),
                             streamed.module.state_dict().values()):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_fit_on_device_from_a_disk_dataset_equals_its_arrays(cuda, tmp_path):
+    """fit_on_device from a DiskDataset of several shards (batches across
+    shard boundaries) equals the run from a NumpyDataset of its arrays
+    bit for bit: every epoch's loss and every parameter; evaluate too."""
+    from deepchem_tpu_torch import Metric, NumpyDataset, roc_auc_score
+    from deepchem_tpu_torch.data import DiskDataset
+    arrays = _graphconv_data(30)
+    disk = DiskDataset.create_dataset(
+        ((arrays.X[i:i + 7], arrays.y[i:i + 7], arrays.w[i:i + 7],
+          arrays.ids[i:i + 7]) for i in range(0, 30, 7)),
+        data_dir=str(tmp_path / 'd'), tasks=['a', 'b', 'c'])
+    assert disk.get_number_shards() == 5
+    flat = NumpyDataset(disk.X, disk.y, disk.w, disk.ids)
+    kw = dict(n_tasks=3, batch_size=4, graph_conv_layers=[16, 16],
+              dense_layer_size=32, seed=1, device=cuda)
+    runs, models = [], []
+    for ds in (disk, flat):
+        model = GraphConvModel(**kw)
+        out = []
+        model.fit_on_device(ds, nb_epoch=3, seed=2, all_losses=out)
+        runs.append(out)
+        models.append(model)
+    assert runs[0] == runs[1]
+    for (name, a), b in zip(models[0].module.state_dict().items(),
+                            models[1].module.state_dict().values()):
+        assert torch.equal(a, b), name
+    metric = Metric(roc_auc_score, np.mean)
+    assert models[0].evaluate(disk, [metric]) == \
+        models[1].evaluate(flat, [metric])
 
 
 @pytest.mark.cuda
